@@ -1,0 +1,39 @@
+"""libgooey_tpu_torch: the PyTorch/CUDA port of libgooey_tpu.
+
+The JAX package ``libgooey_tpu`` is the reference; this package mirrors its
+layout module for module (``core/``, ``ops/``, ``effects/``,
+``instruments/``, ``engine/``) so each counterpart sits at the same relative
+path.  It imports ``torch`` and numpy and never ``jax``.
+
+Idiom:
+
+* plain functions on tensors, with the device taken from the inputs or named
+  explicitly; state is ``NamedTuple``s of tensors with the JAX field names;
+* voices stay the batch axis and every public function keeps the JAX
+  package's ``[V, B]`` layout;
+* PyTorch runs eagerly, so ``jit`` has no counterpart and ``lax.scan`` over
+  blocks is a Python loop;
+* every recurrence that the JAX package runs as a Pallas bank kernel is a
+  CUDA kernel written by hand (``csrc/bank_kernels.cu``, bound in
+  ``ops/bank_kernels.py``).  A CUDA tensor launches the kernel or raises; a
+  CPU tensor takes the kernel's plain PyTorch version.
+
+What is ported so far is the kick-bank slice of the engine's main path; the
+rest raises ``NotImplementedError`` and is queued in ROADMAP.md.
+"""
+
+__version__ = "0.1.0"
+
+from libgooey_tpu_torch.core.constants import DEFAULT_BLOCK_SIZE, DEFAULT_SAMPLE_RATE
+
+__all__ = [
+    "DEFAULT_SAMPLE_RATE",
+    "DEFAULT_BLOCK_SIZE",
+]
+
+
+def not_ported(what: str) -> NotImplementedError:
+    """The error raised by every entry point the port does not cover yet."""
+    return NotImplementedError(
+        f"{what} is not ported to libgooey_tpu_torch yet; see ROADMAP.md "
+        "(Queue A for modules, Queue B for kernels)")

@@ -1,0 +1,48 @@
+"""Time-based ADSR envelopes (port of libgooey_tpu/core/envelope.py).
+
+Amplitude is a closed-form function of seconds-since-trigger
+(src/envelope.rs:154-210), evaluated over the whole ``[V, B]`` block.
+"Linear" is the power curve with exponent 1.0.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class ADSR(NamedTuple):
+    """ADSR configuration as broadcastable tensors (or Python floats)."""
+
+    attack: torch.Tensor
+    decay: torch.Tensor
+    sustain: torch.Tensor
+    release: torch.Tensor
+    attack_curve: torch.Tensor  # power-curve exponent, 1.0 == linear
+    decay_curve: torch.Tensor
+
+
+def apply_curve(progress: torch.Tensor, c) -> torch.Tensor:
+    """EnvelopeCurve::apply — ``progress ** clamp(c, 0.1, 10)``."""
+    if isinstance(c, torch.Tensor):
+        c = torch.clamp(c, 0.1, 10.0)
+    else:
+        c = float(np.clip(np.float32(c), np.float32(0.1), np.float32(10.0)))
+    return torch.pow(torch.clamp(progress, min=0.0), c)
+
+
+def amplitude(env: ADSR, elapsed: torch.Tensor) -> torch.Tensor:
+    """Envelope amplitude for ``elapsed`` seconds since trigger, un-released
+    (the drum path: a sustain-0 envelope is 0 after attack + decay; the
+    manual-release branch is not ported yet).  Negative elapsed yields 0."""
+    a, d, s = env.attack, env.decay, env.sustain
+    attack_amp = apply_curve(elapsed / a, env.attack_curve)
+    decay_prog = apply_curve((elapsed - a) / d, env.decay_curve)
+    decay_amp = 1.0 - (1.0 - s) * decay_prog
+
+    in_attack = elapsed < a
+    in_decay = elapsed < a + d
+    held = torch.where(in_attack, attack_amp, torch.where(in_decay, decay_amp, s))
+    return torch.where(elapsed >= 0.0, held, 0.0)

@@ -1,0 +1,439 @@
+// Voice-bank recurrence kernels for Hopper (sm_90a): the five Pallas bank
+// kernels that the kick bank runs on the engine's main path.
+//
+//   affine1_bank     <- libgooey_tpu/ops/pallas_fx.py:affine1_bank (_affine1_bank_kernel)
+//   pink_bank        <- libgooey_tpu/ops/pallas_fx.py:pink_bank (_pink_bank_kernel)
+//   svf_bank         <- libgooey_tpu/ops/pallas_fx.py:svf_bank (_svf_bank_kernel)
+//   env_follow_bank  <- libgooey_tpu/ops/pallas_fx.py:env_follow_bank (_env_bank_kernel)
+//   fbws_bank        <- libgooey_tpu/ops/pallas_fx.py:fbws_bank (_fbws_bank_kernel)
+//
+// Design, shared by all five: each is a per-voice recurrence stepping
+// through the B samples of a block, so one thread owns one voice and walks
+// its row sample by sample with the carried state in registers.  Arrays are
+// the port's logical [V, B] layout, row-major: thread v reads x[v*B + n].
+// A warp therefore touches 32 cache lines per sample, but each line holds
+// the next 31 samples of that voice and stays in L1 (a 128-thread block
+// keeps 16 KB per streamed array resident), so every byte crosses DRAM once.
+// Per-voice state arrays ([S, V]) are read and written coalesced.
+//
+// What bounds them on the card: at V = 4,096 a launch is 32 blocks of 128
+// threads, so 32 of the 132 SMs hold one block each and the rest idle.  The
+// four small kernels are latency-bound on their serial B-step chain; the
+// fbws chain is 32 dependent allpass sections plus four tanhf per base
+// sample.  Filling the card (more voices per launch, or splitting each
+// voice's block across threads with a two-pass scan for the linear
+// recurrences) is the first thing to improve.
+//
+// Numerics: every step keeps the Pallas body's op order, and the build
+// passes -fmad=false so that a*b + c rounds twice, exactly as the plain
+// PyTorch versions in ops/bank_kernels.py do.  The kernels then agree with
+// their plain versions to the last bit except where tanhf differs.
+//
+// Each C entry launches on the caller's stream and returns
+// cudaGetLastError(); nothing allocates or synchronizes here.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+inline dim3 grid_for(int V) { return dim3((V + kThreads - 1) / kThreads); }
+
+// --- 1. affine1_bank: y[n] = max(a[n], b[n]*y[n-1] + c[n]) ------------------
+
+__global__ void affine1_bank_kernel(const float* __restrict__ a,
+                                    const float* __restrict__ b,
+                                    const float* __restrict__ c,
+                                    const float* __restrict__ y0,
+                                    float* __restrict__ y,
+                                    float* __restrict__ y_last, int V, int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  const size_t row = static_cast<size_t>(v) * B;
+  float yv = y0[v];
+  for (int n = 0; n < B; ++n) {
+    yv = fmaxf(a[row + n], b[row + n] * yv + c[row + n]);
+    y[row + n] = yv;
+  }
+  y_last[v] = yv;
+}
+
+// --- 2. pink_bank: Kellet 3-pole pink filter + direct term -----------------
+
+struct PinkCoefs {
+  float pole[3];
+  float gain[3];
+  float direct;
+  float outg;
+};
+
+__global__ void pink_bank_kernel(const float* __restrict__ w,
+                                 const uint8_t* __restrict__ reset,
+                                 const float* __restrict__ fstate,
+                                 float* __restrict__ pink,
+                                 float* __restrict__ fstate_out, PinkCoefs k,
+                                 int V, int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  const size_t row = static_cast<size_t>(v) * B;
+  float y0 = fstate[3 * v + 0];
+  float y1 = fstate[3 * v + 1];
+  float y2 = fstate[3 * v + 2];
+  for (int n = 0; n < B; ++n) {
+    const float wn = w[row + n];
+    const bool rst = reset != nullptr && reset[row + n] != 0;
+    // a trigger reset zeroes the incoming state (ops/noise.py pink_block)
+    y0 = (rst ? 0.0f : k.pole[0] * y0) + k.gain[0] * wn;
+    y1 = (rst ? 0.0f : k.pole[1] * y1) + k.gain[1] * wn;
+    y2 = (rst ? 0.0f : k.pole[2] * y2) + k.gain[2] * wn;
+    pink[row + n] = (y0 + y1 + y2 + k.direct * wn) * k.outg;
+  }
+  fstate_out[3 * v + 0] = y0;
+  fstate_out[3 * v + 1] = y1;
+  fstate_out[3 * v + 2] = y2;
+}
+
+// --- 3. svf_bank: TPT (Simper) SVF with per-sample g, h and reset ----------
+
+__global__ void svf_bank_kernel(const float* __restrict__ x,
+                                const float* __restrict__ g,
+                                const float* __restrict__ h,
+                                const uint8_t* __restrict__ reset,
+                                const float* __restrict__ ic1_in,
+                                const float* __restrict__ ic2_in,
+                                float* __restrict__ v1_out,
+                                float* __restrict__ v2_out,
+                                float* __restrict__ ic1_out,
+                                float* __restrict__ ic2_out, int V, int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  const size_t row = static_cast<size_t>(v) * B;
+  float ic1 = ic1_in[v];
+  float ic2 = ic2_in[v];
+  for (int n = 0; n < B; ++n) {
+    if (reset != nullptr && reset[row + n] != 0) {
+      ic1 = 0.0f;
+      ic2 = 0.0f;
+    }
+    const float gn = g[row + n];
+    const float v1 = (gn * (x[row + n] - ic2) + ic1) * h[row + n];
+    const float v2 = ic2 + gn * v1;
+    v1_out[row + n] = v1;
+    v2_out[row + n] = v2;
+    ic1 = 2.0f * v1 - ic1;
+    ic2 = 2.0f * v2 - ic2;
+  }
+  ic1_out[v] = ic1;
+  ic2_out[v] = ic2;
+}
+
+// --- 4. env_follow_bank: attack/release follower with freeze ---------------
+
+__global__ void env_follow_bank_kernel(const float* __restrict__ rect,
+                                       const uint8_t* __restrict__ freeze,
+                                       const float* __restrict__ env0,
+                                       float* __restrict__ env_out,
+                                       float* __restrict__ env_last, float att,
+                                       float rel, int V, int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  const size_t row = static_cast<size_t>(v) * B;
+  float env = env0[v];
+  for (int n = 0; n < B; ++n) {
+    const float r = rect[row + n];
+    const float c = r > env ? att : rel;
+    float nv = env + (1.0f - c) * (r - env);
+    if (fabsf(nv) < 1e-15f) nv = 0.0f;
+    if (freeze[row + n] == 0) env = nv;  // frozen samples hold the state
+    env_out[row + n] = env;
+  }
+  env_last[v] = env;
+}
+
+// --- 5. fbws_bank: zero-feedback feedback waveshaper at 4x -----------------
+
+// Phase-split half-band coefficients (ops/oversample.py STAGE1/STAGE2 cast
+// once to float32): stage 1 has 4 + 4 sections, stage 2 has 2 + 2.
+struct FbwsCoefs {
+  float c1_0[4];
+  float c1_1[4];
+  float c2_0[2];
+  float c2_1[2];
+};
+
+// Carried state, one voice, in registers (names follow the packed layout of
+// ops/bank_kernels.py FBWS_CORE_LAYOUT: u/d = up/down, 1/2 = stage,
+// y/x = section output/input memories, trailing 0/1 = polyphase branch).
+struct FbwsState {
+  float u1y0[4], u1x0[4], u1y1[4], u1x1[4];
+  float u2y0[2], u2x0[2], u2y1[2], u2x1[2];
+  float d2y0[2], d2x0[2], d2y1[2], d2x1[2], d2x1d;
+  float d1y0[4], d1x0[4], d1y1[4], d1x1[4], d1x1d;
+  float dcx, dcy;
+};
+
+constexpr float kDcCoeff = 0.995f;
+
+// One sample through a chain of first-order allpasses: y = a*(x - y1) + x1.
+template <int N>
+__device__ __forceinline__ float ap_chain(float u, float (&ys)[N], float (&xs)[N],
+                                          const float (&a)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float y = a[j] * (u - ys[j]) + xs[j];
+    xs[j] = u;
+    ys[j] = y;
+    u = y;
+  }
+  return u;
+}
+
+// Stage-1 upsample of one base sample, then the first 2x subsample through
+// stage 2, tanh and the stage-2 downsampler.  Returns (odd stage-1 output,
+// first 2x-rate decimated sample).
+__device__ __forceinline__ void fbws_phase_a(FbwsState& s, const FbwsCoefs& k,
+                                             float u, float& o1, float& d0) {
+  const float e1 = ap_chain(u, s.u1y0, s.u1x0, k.c1_0);
+  o1 = ap_chain(u, s.u1y1, s.u1x1, k.c1_1);
+  const float s0 = ap_chain(e1, s.u2y0, s.u2x0, k.c2_0);
+  const float s1 = ap_chain(e1, s.u2y1, s.u2x1, k.c2_1);
+  const float t0 = tanhf(s0);
+  const float t1 = tanhf(s1);
+  const float a0 = ap_chain(t0, s.d2y0, s.d2x0, k.c2_0);
+  const float a1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
+  d0 = 0.5f * (a0 + a1);
+  s.d2x1d = t1;
+}
+
+// Second 2x subsample, stage-1 downsample, then the bypass-gated DC blocker.
+// Returns the dc output of this base sample.
+__device__ __forceinline__ float fbws_phase_b(FbwsState& s, const FbwsCoefs& k,
+                                              float o1, float d0, float cs) {
+  const float s2 = ap_chain(o1, s.u2y0, s.u2x0, k.c2_0);
+  const float s3 = ap_chain(o1, s.u2y1, s.u2x1, k.c2_1);
+  const float t2 = tanhf(s2);
+  const float t3 = tanhf(s3);
+  const float b0 = ap_chain(t2, s.d2y0, s.d2x0, k.c2_0);
+  const float b1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
+  const float d1 = 0.5f * (b0 + b1);
+  s.d2x1d = t3;
+  const float e0 = ap_chain(d0, s.d1y0, s.d1x0, k.c1_0);
+  const float e1 = ap_chain(s.d1x1d, s.d1y1, s.d1x1, k.c1_1);
+  const float y = 0.5f * (e0 + e1);
+  s.d1x1d = d1;
+
+  // cs < 0 marks a bypassed sample: DC state frozen, dc output 0
+  const bool byp = cs < 0.0f;
+  const float compensated = y * fmaxf(cs, 0.0f);
+  const float x1_prev = s.dcx;
+  const float y1_new = kDcCoeff * s.dcy + (compensated - x1_prev);
+  if (!byp) {
+    s.dcx = compensated;
+    s.dcy = y1_new;
+  }
+  return byp ? 0.0f : s.dcy;
+}
+
+template <int N>
+__device__ __forceinline__ void load_rows(float (&dst)[N], const float* st, int& k,
+                                          int v, int V) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) dst[j] = st[static_cast<size_t>(k + j) * V + v];
+  k += N;
+}
+
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&src)[N], float* st, int& k,
+                                           int v, int V) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) st[static_cast<size_t>(k + j) * V + v] = src[j];
+  k += N;
+}
+
+__device__ __forceinline__ void load_row(float& dst, const float* st, int& k, int v,
+                                         int V) {
+  dst = st[static_cast<size_t>(k) * V + v];
+  k += 1;
+}
+
+__device__ __forceinline__ void store_row(float src, float* st, int& k, int v, int V) {
+  st[static_cast<size_t>(k) * V + v] = src;
+  k += 1;
+}
+
+// Second-to-last captures (HalfbandState.*y2 / *x2) of one half-band stage.
+template <int N>
+struct Caps {
+  float y0[N], x0[N], y1[N], x1[N];
+};
+
+template <int N>
+__device__ __forceinline__ void capture(Caps<N>& c, const float (&y0)[N],
+                                        const float (&x0)[N], const float (&y1)[N],
+                                        const float (&x1)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c.y0[j] = y0[j];
+    c.x0[j] = x0[j];
+    c.y1[j] = y1[j];
+    c.x1[j] = x1[j];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_caps(const Caps<N>& c, float* st, int& k, int v,
+                                           int V) {
+  store_rows(c.y0, st, k, v, V);
+  store_rows(c.x0, st, k, v, V);
+  store_rows(c.y1, st, k, v, V);
+  store_rows(c.x1, st, k, v, V);
+}
+
+__global__ void fbws_bank_kernel(const float* __restrict__ u,
+                                 const float* __restrict__ cs,
+                                 const float* __restrict__ st_in,
+                                 float* __restrict__ dc_out,
+                                 float* __restrict__ st_out, FbwsCoefs k, int V,
+                                 int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  const size_t row = static_cast<size_t>(v) * B;
+
+  // packed input layout: 52 rows (ops/bank_kernels.py FBWS_CORE_LAYOUT)
+  FbwsState s;
+  int r = 0;
+  load_rows(s.u1y0, st_in, r, v, V);
+  load_rows(s.u1x0, st_in, r, v, V);
+  load_rows(s.u1y1, st_in, r, v, V);
+  load_rows(s.u1x1, st_in, r, v, V);
+  load_rows(s.u2y0, st_in, r, v, V);
+  load_rows(s.u2x0, st_in, r, v, V);
+  load_rows(s.u2y1, st_in, r, v, V);
+  load_rows(s.u2x1, st_in, r, v, V);
+  load_rows(s.d2y0, st_in, r, v, V);
+  load_rows(s.d2x0, st_in, r, v, V);
+  load_rows(s.d2y1, st_in, r, v, V);
+  load_rows(s.d2x1, st_in, r, v, V);
+  load_row(s.d2x1d, st_in, r, v, V);
+  load_rows(s.d1y0, st_in, r, v, V);
+  load_rows(s.d1x0, st_in, r, v, V);
+  load_rows(s.d1y1, st_in, r, v, V);
+  load_rows(s.d1x1, st_in, r, v, V);
+  load_row(s.d1x1d, st_in, r, v, V);
+  load_row(s.dcx, st_in, r, v, V);
+  load_row(s.dcy, st_in, r, v, V);
+
+  float o1, d0;
+  for (int n = 0; n < B - 1; ++n) {
+    fbws_phase_a(s, k, u[row + n], o1, d0);
+    dc_out[row + n] = fbws_phase_b(s, k, o1, d0, cs[row + n]);
+  }
+
+  // Final step with second-to-last captures: stage-1 memories hold the
+  // step-(B-2) section IO before it; stage-2 memories hold 2x-rate index
+  // 2B-2 after its first subsample (pallas_fx.py:1697-1713).
+  Caps<4> cu1, cd1;
+  Caps<2> cu2, cd2;
+  capture(cu1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
+  capture(cd1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
+  fbws_phase_a(s, k, u[row + B - 1], o1, d0);
+  capture(cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
+  capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
+  dc_out[row + B - 1] = fbws_phase_b(s, k, o1, d0, cs[row + B - 1]);
+
+  // packed output layout: the 52 core rows, then 48 capture rows
+  r = 0;
+  store_rows(s.u1y0, st_out, r, v, V);
+  store_rows(s.u1x0, st_out, r, v, V);
+  store_rows(s.u1y1, st_out, r, v, V);
+  store_rows(s.u1x1, st_out, r, v, V);
+  store_rows(s.u2y0, st_out, r, v, V);
+  store_rows(s.u2x0, st_out, r, v, V);
+  store_rows(s.u2y1, st_out, r, v, V);
+  store_rows(s.u2x1, st_out, r, v, V);
+  store_rows(s.d2y0, st_out, r, v, V);
+  store_rows(s.d2x0, st_out, r, v, V);
+  store_rows(s.d2y1, st_out, r, v, V);
+  store_rows(s.d2x1, st_out, r, v, V);
+  store_row(s.d2x1d, st_out, r, v, V);
+  store_rows(s.d1y0, st_out, r, v, V);
+  store_rows(s.d1x0, st_out, r, v, V);
+  store_rows(s.d1y1, st_out, r, v, V);
+  store_rows(s.d1x1, st_out, r, v, V);
+  store_row(s.d1x1d, st_out, r, v, V);
+  store_row(s.dcx, st_out, r, v, V);
+  store_row(s.dcy, st_out, r, v, V);
+  store_caps(cu1, st_out, r, v, V);
+  store_caps(cu2, st_out, r, v, V);
+  store_caps(cd2, st_out, r, v, V);
+  store_caps(cd1, st_out, r, v, V);
+}
+
+inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+}  // namespace
+
+extern "C" {
+
+int affine1_bank_launch(const float* a, const float* b, const float* c,
+                        const float* y0, float* y, float* y_last, int V, int B,
+                        void* stream) {
+  affine1_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
+      a, b, c, y0, y, y_last, V, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pink_bank_launch(const float* w, const uint8_t* reset, const float* fstate,
+                     float* pink, float* fstate_out, const float* coefs, int V,
+                     int B, void* stream) {
+  // coefs (host): pole[3], gain[3], direct, outg
+  PinkCoefs k;
+  for (int i = 0; i < 3; ++i) {
+    k.pole[i] = coefs[i];
+    k.gain[i] = coefs[3 + i];
+  }
+  k.direct = coefs[6];
+  k.outg = coefs[7];
+  pink_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
+      w, reset, fstate, pink, fstate_out, k, V, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int svf_bank_launch(const float* x, const float* g, const float* h,
+                    const uint8_t* reset, const float* ic1, const float* ic2,
+                    float* v1, float* v2, float* ic1_out, float* ic2_out, int V,
+                    int B, void* stream) {
+  svf_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
+      x, g, h, reset, ic1, ic2, v1, v2, ic1_out, ic2_out, V, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int env_follow_bank_launch(const float* rect, const uint8_t* freeze,
+                           const float* env0, float* env, float* env_last,
+                           float att, float rel, int V, int B, void* stream) {
+  env_follow_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
+      rect, freeze, env0, env, env_last, att, rel, V, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fbws_bank_launch(const float* u, const float* cs, const float* st_in,
+                     float* dc, float* st_out, const float* coefs, int V, int B,
+                     void* stream) {
+  // coefs (host): c1_0[4], c1_1[4], c2_0[2], c2_1[2]
+  FbwsCoefs k;
+  for (int i = 0; i < 4; ++i) {
+    k.c1_0[i] = coefs[i];
+    k.c1_1[i] = coefs[4 + i];
+  }
+  for (int i = 0; i < 2; ++i) {
+    k.c2_0[i] = coefs[8 + i];
+    k.c2_1[i] = coefs[10 + i];
+  }
+  fbws_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
+      u, cs, st_in, dc, st_out, k, V, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

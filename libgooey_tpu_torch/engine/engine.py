@@ -1,0 +1,401 @@
+"""The engine: named instruments, sequencers, master bus
+(port of the kick slice of libgooey_tpu/engine/engine.py).
+
+Behavioral reference: src/engine/mod.rs.  Instruments of one family live in
+one voice bank (``[V, ...]`` state); a named instrument is a voice slot.  The
+host side runs sequencers and trigger queues in exact arithmetic, stages
+parameter targets, and drives one block step
+
+    _render_all(state, events) -> (state', stereo[2, B], mono[B])
+
+Ported so far: the ``kick`` family, the per-family pan/gain mix with its
+pan-settled branch, the master gain and the pinned soft limiter — the
+Engine's default bus (``fx_order=()``).  Global effects, LFO routes and the
+other families raise ``NotImplementedError`` (ROADMAP.md Queue A).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from libgooey_tpu_torch import not_ported
+from libgooey_tpu_torch.core import dsp
+from libgooey_tpu_torch.core.constants import (
+    DEFAULT_BLOCK_SIZE,
+    DEFAULT_SAMPLE_RATE,
+    SMOOTHER_SETTLE_EPS,
+)
+from libgooey_tpu_torch.core.smoother import (
+    SmootherBank,
+    smooth_block,
+    smooth_block_lazy,
+    smoothing_coeff,
+)
+from libgooey_tpu_torch.effects import limiter
+from libgooey_tpu_torch.engine.sequencer import Sequencer
+from libgooey_tpu_torch.instruments import kick
+
+#: Instrument family registry: kind -> module (``init_state``,
+#: ``render_block``, PARAM_NAMES / PARAM_INDEX / PRESETS).
+FAMILIES = {
+    "kick": kick,
+}
+
+#: Families of the JAX package that the port does not have yet.
+_NOT_PORTED_FAMILIES = ("snare", "hihat", "hihat2", "tom", "tom2", "bass", "poly")
+
+#: Per-family extra static kwargs for render_block (the JAX defaults).
+FAMILY_STATIC = {
+    "kick": dict(max_harmonics=128, feedback_path=False),
+    "snare": dict(max_harmonics=192),
+    "hihat": dict(),
+    "hihat2": dict(),
+    "tom": dict(max_harmonics=128),
+    "tom2": dict(),
+    "bass": dict(),
+}
+
+
+def _pack_triggers(pend: dict, V: int, B: int):
+    """Pack per-voice trigger lists into event arrays.
+
+    ``pend`` maps voice index -> list of ``(offset, velocity)``.  Returns
+    ``(offs, vels)`` shaped ``[V]`` when no voice has more than one trigger
+    this block, else ``[V, K]`` slot arrays with offsets ascending per voice
+    and empty slots filled with ``B`` (= no trigger)."""
+    K = max((len(v) for v in pend.values()), default=1) or 1
+    if K == 1:
+        offs = np.full(V, B, np.int32)
+        vels = np.zeros(V, np.float32)
+        for flat, lst in pend.items():
+            offs[flat], vels[flat] = lst[0]
+        return offs, vels
+    offs = np.full((V, K), B, np.int32)
+    vels = np.zeros((V, K), np.float32)
+    for flat, lst in pend.items():
+        # stable sort: same-offset triggers keep arrival order (last wins)
+        for k, (off, vel) in enumerate(sorted(lst, key=lambda t: t[0])):
+            offs[flat, k], vels[flat, k] = off, vel
+    return offs, vels
+
+
+def _render_all(
+    state: dict,
+    events: dict,
+    *,
+    kinds: Tuple[str, ...],
+    sample_rate: float,
+    block_size: int,
+    smooth_coeff: float,
+    limiter_threshold: float,
+    family_static=(),
+    lfo_routes: Tuple = (),
+    fx_order: Tuple[str, ...] = (),
+):
+    """One block over every instrument bank + mix + master + limiter.
+
+    ``events`` holds ``<kind>_off`` / ``<kind>_vel`` trigger arrays and the
+    scalar ``block_start`` (numpy or tensors).  Returns
+    ``(new_state, stereo[2, B], mono[B])``."""
+    if lfo_routes:
+        raise not_ported("LFO routes")
+    if fx_order:
+        raise not_ported(f"global effects {tuple(fx_order)}")
+    static = {k: dict(v) for k, v in family_static}
+    new_state = dict(state)
+    dev = state["pan"].current.device
+
+    voice_outs = []
+    for kind in kinds:
+        if kind not in FAMILIES:
+            raise not_ported(f"instrument family {kind!r}")
+        bank_state, out = FAMILIES[kind].render_block(
+            state[kind],
+            events[kind + "_off"],
+            events[kind + "_vel"],
+            events["block_start"],
+            sample_rate=sample_rate,
+            block_size=block_size,
+            smooth_coeff=smooth_coeff,
+            **static.get(kind, {}),
+        )
+        new_state[kind] = bank_state
+        voice_outs.append(out)
+
+    pan_bank, pan_slice = smooth_block_lazy(state["pan"], smooth_coeff, block_size)
+    gain_bank, gain_slice = smooth_block_lazy(state["gain"], smooth_coeff, block_size)
+
+    # Per-family accumulation.  Once the pan smoother has settled (the snap
+    # makes the trajectory EXACTLY its target all block), the per-lane [V]
+    # gains give the same values as the per-sample [V, B] ones; both
+    # branches are evaluated and the choice is made on the device.
+    zeros = torch.zeros(block_size, dtype=torch.float32, device=dev)
+    mix_traj = [zeros, zeros, zeros]   # L, R, mono with per-sample pan
+    mix_const = [zeros, zeros]         # L, R with settled pan
+    idx = 0
+    for out in voice_outs:
+        V = out.shape[0]
+        shaped = out * gain_slice(idx, idx + V)
+        gl, gr = dsp.pan_gains(pan_slice(idx, idx + V))
+        glv, grv = dsp.pan_gains(state["pan"].target[idx:idx + V])
+        mix_traj[0] = mix_traj[0] + torch.sum(shaped * gl, dim=0)
+        mix_traj[1] = mix_traj[1] + torch.sum(shaped * gr, dim=0)
+        mix_traj[2] = mix_traj[2] + torch.sum(shaped, dim=0)
+        mix_const[0] = mix_const[0] + torch.sum(shaped * glv[:, None], dim=0)
+        mix_const[1] = mix_const[1] + torch.sum(shaped * grv[:, None], dim=0)
+        idx += V
+    q = float(np.float32(1.0) - np.float32(smooth_coeff))
+    pan_settled = torch.all(
+        ((state["pan"].current - state["pan"].target) * q).abs() < SMOOTHER_SETTLE_EPS)
+    mix = torch.stack([torch.where(pan_settled, mix_const[0], mix_traj[0]),
+                       torch.where(pan_settled, mix_const[1], mix_traj[1])], dim=0)
+    mono_sum = mix_traj[2]
+
+    master_bank, master_traj = smooth_block(state["master"], smooth_coeff, block_size)
+    bus = mix * master_traj[None, :]
+    mono = mono_sum * master_traj
+
+    out = limiter.soft_limit(bus, limiter_threshold)
+    mono = limiter.soft_limit(mono, limiter_threshold)
+
+    new_state["pan"] = pan_bank
+    new_state["gain"] = gain_bank
+    new_state["master"] = master_bank
+    return new_state, out, mono
+
+
+def _events_to(events: dict, device) -> dict:
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                               device=device)
+            for k, v in events.items()}
+
+
+def render_many(state: dict, events_stacked: dict, **static):
+    """Render N blocks, one ``_render_all`` per block (the counterpart of the
+    JAX package's ``lax.scan`` over blocks).
+
+    ``events_stacked`` carries a leading block axis on every event array; it
+    is moved to the state's device once, up front.  Returns
+    ``(final_state, stereo[N, 2, B])``."""
+    dev = state["pan"].current.device
+    ev = _events_to(events_stacked, dev)
+    n_blocks = ev["block_start"].shape[0]
+    outs = []
+    for i in range(n_blocks):
+        state, out, _mono = _render_all(state, {k: v[i] for k, v in ev.items()}, **static)
+        outs.append(out)
+    return state, torch.stack(outs, dim=0)
+
+
+class Engine:
+    """Host control plane over the device-resident render step.
+
+    Mirrors the reference Engine API (src/engine/mod.rs:84-127): named
+    instruments, ``add_sequencer``, ``trigger``, master gain, per-instrument
+    pan/gain — each named instrument occupying one voice lane of its
+    family's bank, on ``device``.
+    """
+
+    def __init__(
+        self,
+        sample_rate: float = DEFAULT_SAMPLE_RATE,
+        block_size: int = DEFAULT_BLOCK_SIZE,
+        family_static: Optional[dict] = None,
+        *,
+        device,
+    ):
+        self.device = torch.device(device)
+        self.sample_rate = float(sample_rate)
+        self.block_size = int(block_size)
+        self.smooth_coeff = smoothing_coeff(self.sample_rate)
+        self.limiter_threshold = 1.0
+        self.family_static = {**FAMILY_STATIC, **(family_static or {})}
+
+        # host mirrors
+        self._names: Dict[str, Tuple[str, int]] = {}   # name -> (kind, slot)
+        self._targets: Dict[str, List[np.ndarray]] = {k: [] for k in FAMILIES}
+        self._dirty: Dict[str, bool] = {k: False for k in FAMILIES}
+        self._pan: List[float] = []
+        self._gain: List[float] = []
+        self._mix_dirty = False
+        self._master_target = 0.25   # engine/mod.rs default master gain
+        self._master_dirty = False
+
+        self.sequencers: List[Sequencer] = []
+        self._trigger_queue: List = []
+        self.sample_count = 0
+        self._state: Optional[dict] = None  # built lazily at first render
+
+    # --- instrument management ------------------------------------------------
+
+    def add_instrument(self, name: str, kind: str, config=None) -> int:
+        if self._state is not None:
+            raise RuntimeError("add instruments before the first render")
+        if kind in _NOT_PORTED_FAMILIES:
+            raise not_ported(f"instrument family {kind!r}")
+        if kind not in FAMILIES:
+            raise KeyError(f"unknown instrument family {kind!r}")
+        mod = FAMILIES[kind]
+        cfg = config if config is not None else mod.PRESETS["default"]()
+        slot = len(self._targets[kind])
+        self._targets[kind].append(cfg.as_array())
+        self._names[name] = (kind, slot)
+        # mixer strip slot (global voice order: family order, then slot)
+        self._pan.append(0.5)
+        self._gain.append(1.0)
+        return slot
+
+    def add_kick(self, name: str, config=None) -> int:
+        return self.add_instrument(name, "kick", config)
+
+    def instrument_kinds(self) -> Tuple[str, ...]:
+        return tuple(k for k in FAMILIES if self._targets[k])
+
+    def _global_voice_index(self, name: str) -> int:
+        kind, slot = self._names[name]
+        idx = 0
+        for k in FAMILIES:
+            if k == kind:
+                return idx + slot
+            idx += len(self._targets[k])
+        raise KeyError(name)
+
+    # --- parameters -------------------------------------------------------------
+
+    def set_param(self, name: str, param: str, value: float):
+        """Smoothed normalized param target (the *_PARAM_* setter family)."""
+        kind, slot = self._names[name]
+        self._targets[kind][slot][FAMILIES[kind].PARAM_INDEX[param]] = value
+        self._dirty[kind] = True
+        if self._state is not None:
+            self._stage_kind(kind)
+
+    def set_pan(self, name: str, pan: float):
+        self._pan[self._global_voice_index(name)] = float(np.clip(pan, 0.0, 1.0))
+        self._mix_dirty = True
+
+    def set_gain(self, name: str, gain: float):
+        self._gain[self._global_voice_index(name)] = max(float(gain), 0.0)
+        self._mix_dirty = True
+
+    def set_master_gain(self, gain: float):
+        self._master_target = float(gain)
+        self._master_dirty = True
+
+    # --- control ------------------------------------------------------------------
+
+    def add_sequencer(self, seq: Sequencer):
+        if seq.name not in self._names:
+            raise KeyError(f"sequencer targets unknown instrument {seq.name!r}")
+        self.sequencers.append(seq)
+
+    def new_sequencer(self, name: str, bpm: float, steps: int = 16) -> Sequencer:
+        seq = Sequencer(bpm, self.sample_rate, steps, name)
+        self.add_sequencer(seq)
+        return seq
+
+    def trigger(self, name: str, velocity: float = 0.5, offset: int = 0):
+        """Queue a trigger for the next block at in-block ``offset``."""
+        self._trigger_queue.append((self._names[name], float(velocity), int(offset)))
+
+    # --- device state ---------------------------------------------------------------
+
+    def _build_state(self):
+        state = {}
+        for kind in self.instrument_kinds():
+            targets = np.stack(self._targets[kind])
+            state[kind] = FAMILIES[kind].init_state(
+                len(self._targets[kind]), targets=targets, device=self.device)
+        state["pan"] = SmootherBank.init(np.asarray(self._pan, np.float32), self.device)
+        state["gain"] = SmootherBank.init(np.asarray(self._gain, np.float32), self.device)
+        state["master"] = SmootherBank.init(np.float32(self._master_target), self.device)
+        self._state = state
+
+    def _stage_kind(self, kind: str):
+        if not self._dirty[kind] or self._state is None:
+            return
+        st = self._state[kind]
+        self._state[kind] = st._replace(
+            params=st.params.with_targets(np.stack(self._targets[kind])))
+        self._dirty[kind] = False
+
+    def _stage(self):
+        if self._state is None:
+            self._build_state()
+        for kind in self.instrument_kinds():
+            self._stage_kind(kind)
+        if self._mix_dirty:
+            self._state["pan"] = self._state["pan"].with_targets(self._pan)
+            self._state["gain"] = self._state["gain"].with_targets(self._gain)
+            self._mix_dirty = False
+        if self._master_dirty:
+            self._state["master"] = self._state["master"].with_targets(
+                np.float32(self._master_target))
+            self._master_dirty = False
+
+    def _collect_events(self) -> dict:
+        """This block's trigger lists (manual queue + sequencers), packed
+        into numpy event arrays with exact in-block offsets."""
+        B = self.block_size
+        kinds = self.instrument_kinds()
+        pend = {k: {} for k in kinds}          # kind -> {slot: [(off, vel)]}
+        for (kind, slot), velocity, offset in self._trigger_queue:
+            pend[kind].setdefault(slot, []).append((offset, velocity))
+        self._trigger_queue.clear()
+        for seq in self.sequencers:
+            kind, slot = self._names[seq.name]
+            for trig in seq.tick_block(B):
+                pend[kind].setdefault(slot, []).append((int(trig.offset), float(trig.velocity)))
+        events = {"block_start": np.int32(self.sample_count)}
+        for k in kinds:
+            offs, vels = _pack_triggers(pend[k], len(self._targets[k]), B)
+            events[k + "_off"] = offs
+            events[k + "_vel"] = vels
+        return events
+
+    def _static_key(self):
+        return tuple(
+            (k, tuple(sorted(self.family_static.get(k, {}).items())))
+            for k in self.instrument_kinds()
+        )
+
+    # --- rendering ------------------------------------------------------------------
+
+    def render_block(self):
+        """Render one block -> ``(stereo[2, B], mono[B])`` tensors on the device."""
+        self._stage()
+        events = self._collect_events()
+        self._state, out, mono = _render_all(
+            self._state,
+            events,
+            kinds=self.instrument_kinds(),
+            sample_rate=self.sample_rate,
+            block_size=self.block_size,
+            smooth_coeff=self.smooth_coeff,
+            limiter_threshold=self.limiter_threshold,
+            family_static=self._static_key(),
+        )
+        self.sample_count += self.block_size
+        return out, mono
+
+    def render(self, num_samples: int) -> np.ndarray:
+        blocks = []
+        rendered = 0
+        while rendered < num_samples:
+            out, _ = self.render_block()
+            blocks.append(out)
+            rendered += self.block_size
+        return torch.cat(blocks, dim=1)[:, :num_samples].cpu().numpy()
+
+    def render_mono(self, num_samples: int) -> np.ndarray:
+        """Mono (unpanned sum) — the reference's bounce path (mod.rs:400-415)."""
+        blocks = []
+        rendered = 0
+        while rendered < num_samples:
+            _, mono = self.render_block()
+            blocks.append(mono)
+            rendered += self.block_size
+        return torch.cat(blocks)[:num_samples].cpu().numpy()

@@ -1,0 +1,131 @@
+"""Shared per-block trigger/latch machinery for batched instruments
+(port of libgooey_tpu/instruments/common.py:33-178).
+
+``VoiceBlock`` holds one block's context for a V-voice bank:
+
+* closed-form smoothed-parameter trajectories with the reference's settle
+  snap (smoother.rs:120-137);
+* the value a trigger reads = smoother state after ``offset`` ticks;
+* per-sample latched values via ``after`` masks, and elapsed-time arrays
+  from a carried last-trigger sample index.
+
+``trig_offset`` is ``[V]`` (one trigger slot, ``block_size`` = none) or
+``[V, K]`` slot arrays with offsets ascending per voice; each sample sees the
+snapshot of the most recent trigger at or before it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from libgooey_tpu_torch.core.smoother import SmootherBank, settle_snap
+
+NEVER = np.int32(-(2**30))  # "never triggered" sentinel
+
+
+class VoiceBlock:
+    """Per-block context for a V-voice instrument bank."""
+
+    def __init__(self, bank: SmootherBank, trig_offset, block_start,
+                 block_size: int, smooth_coeff: float, param_index: dict,
+                 overrides=None):
+        if overrides:
+            from libgooey_tpu_torch import not_ported
+
+            raise not_ported("LFO-modulated parameter overrides")
+        dev = bank.current.device
+        self.bank = bank
+        self.B = block_size
+        self.q = np.float32(1.0 - smooth_coeff)
+        self.param_index = param_index
+        self.powers = torch.pow(
+            float(self.q), torch.arange(1, block_size + 1, dtype=torch.float32, device=dev))
+
+        self.n_local = torch.arange(block_size, dtype=torch.int32, device=dev)
+        off = torch.as_tensor(trig_offset, device=dev).to(torch.int32)
+        #: single-trigger mode: snapshots stay [V]-shaped
+        self.legacy = off.dim() == 1
+        if self.legacy:
+            off = off[:, None]
+        self.trig_offset = off                                   # [V, K]
+        self.K = off.shape[1]
+        self.block_start = torch.as_tensor(block_start, device=dev).to(torch.int32)
+        self.trig_global = self.block_start + off                # [V, K]
+        self.has_trig_k = off < block_size                       # [V, K]
+        n = self.n_local[None, :]
+        # per-slot masks [V, K, B]; `after`/`at_trig` collapse over K
+        self.after_k = (n[:, None, :] >= off[:, :, None]) & self.has_trig_k[:, :, None]
+        self.after = torch.any(self.after_k, dim=1)              # [V, B]
+        self.at_trig = torch.any(
+            (n[:, None, :] == off[:, :, None]) & self.has_trig_k[:, :, None], dim=1)
+
+    def _as_vk(self, new):
+        return new[:, None] if new.dim() == 1 else new
+
+    def ptraj(self, name: str) -> torch.Tensor:
+        """Smoothed per-sample trajectory of one param, ``[V, B]``."""
+        idx = self.param_index[name]
+        tgt = self.bank.target[:, idx, None]
+        delta = (self.bank.current[:, idx] - self.bank.target[:, idx])[:, None]
+        return tgt + settle_snap(delta * self.powers)
+
+    def value_at_trigger(self, name: str) -> torch.Tensor:
+        """Smoothed value as read by each trigger slot: ``[V]`` in
+        single-trigger mode, ``[V, K]`` otherwise."""
+        idx = self.param_index[name]
+        tgt = self.bank.target[:, idx, None]                     # [V, 1]
+        delta = self.bank.current[:, idx, None] - tgt
+        decayed = delta * torch.pow(
+            float(self.q), torch.clamp(self.trig_offset, 0, self.B).to(torch.float32))
+        out = tgt + settle_snap(decayed)
+        return out[:, 0] if self.legacy else out
+
+    def eff(self, new, old) -> torch.Tensor:
+        """Per-sample latched value ``[V, B]``: each trigger's snapshot applies
+        from its offset; the most recent trigger wins (slots ascending)."""
+        new = self._as_vk(new)
+        out = torch.broadcast_to(old[:, None], self.after.shape)
+        for k in range(self.K):
+            out = torch.where(self.after_k[:, k, :], new[:, k, None], out)
+        return out
+
+    def latch(self, new, old) -> torch.Tensor:
+        """End-of-block latched state ``[V]``: the LAST trigger's value."""
+        new = self._as_vk(new)
+        out = old
+        for k in range(self.K):
+            out = torch.where(self.has_trig_k[:, k], new[:, k].to(out.dtype), out)
+        return out
+
+    def trig_eff(self, prev_trig_sample) -> torch.Tensor:
+        """Per-sample global index of the governing trigger ``[V, B]``."""
+        out = torch.broadcast_to(prev_trig_sample[:, None], self.after.shape)
+        for k in range(self.K):
+            out = torch.where(self.after_k[:, k, :], self.trig_global[:, k, None], out)
+        return out
+
+    def elapsed(self, prev_trig_sample, sample_rate: float):
+        """``(trig_eff, elapsed_i[V,B] int32, idx_f[V,B] f32, elapsed_s[V,B] s)``."""
+        trig_eff = self.trig_eff(prev_trig_sample)
+        n_global = self.block_start + self.n_local
+        elapsed_i = n_global[None, :] - trig_eff
+        idx_f = elapsed_i.to(torch.float32)
+        return trig_eff, elapsed_i, idx_f, idx_f * float(np.float32(1.0 / sample_rate))
+
+    def advance_bank(self) -> SmootherBank:
+        """Smoother state at the end of the block (closed form + settle)."""
+        delta = self.bank.current - self.bank.target
+        decayed = delta * float(self.q ** np.float32(self.B))
+        new_current = self.bank.target + settle_snap(decayed)
+        return SmootherBank(current=new_current, target=self.bank.target)
+
+
+def phase_mod_env(elapsed, active_mask):
+    """DS-style PhaseModulator envelope (fm_snap.rs:102-169): 1 ms rise
+    ``p^0.3``, 5 ms fall ``1 - p^0.4``, zero outside [0, 6 ms], gated by
+    ``active_mask`` (armed at trigger when amount > 0.001)."""
+    rise = torch.pow(torch.clamp(elapsed / 0.001, min=0.0), 0.3)
+    fall = 1.0 - torch.pow(torch.clamp((elapsed - 0.001) / 0.005, min=0.0), 0.4)
+    env = torch.where(elapsed < 0.001, rise, fall)
+    return torch.where((elapsed >= 0.0) & (elapsed <= 0.006) & active_mask, env, 0.0)

@@ -1,0 +1,478 @@
+"""The five voice-bank kernels of the kick path, each beside its plain version.
+
+Counterparts of the ``libgooey_tpu/ops/pallas_fx.py`` bank functions:
+
+=================  ==========================================  =====================
+wrapper            replaces (wrapper line, body)               callers in the port
+=================  ==========================================  =====================
+affine1_bank       pallas_fx.py:2275, _affine1_bank_kernel     ops/scan.linrec1
+pink_bank          pallas_fx.py:2003, _pink_bank_kernel        ops/noise.pink_block
+svf_bank           pallas_fx.py:1499, _svf_bank_kernel         ops/filters.svf_tpt_block
+env_follow_bank    pallas_fx.py:1396, _env_bank_kernel         feedback_waveshaper._env_follow
+fbws_bank          pallas_fx.py:1769, _fbws_bank_kernel        feedback_waveshaper.process_block
+=================  ==========================================  =====================
+
+Dispatch, with no fallback: a CUDA tensor launches the hand-written kernel
+(``csrc/bank_kernels.cu``, built at first use by ``ops/_build.py``) or
+raises; a CPU tensor takes the ``*_plain`` version, a sample-sequential
+PyTorch loop in the Pallas body's op order.  Every wrapper counts its kernel
+launches in a plain int attribute (``affine1_bank.launches``).
+
+All arrays are float32 in the JAX package's ``[V, B]`` layout; masks are
+bool ``[V, B]``.  What bounds each kernel on the card and what its design does
+about it is in the header of ``csrc/bank_kernels.cu``: one thread per voice
+walks the block with its state in registers; at V = 4,096 that fills 32 of
+the 132 SMs, the first thing to improve.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from libgooey_tpu_torch.ops import _build
+from libgooey_tpu_torch.ops.oversample import STAGE1, STAGE2, HalfbandState, _split
+
+KERNELS = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "fbws_bank")
+
+#: Source of each kernel and the TPU kernel it replaces (file:line of the
+#: wrapper that reaches ``pl.pallas_call``).
+SOURCE = "libgooey_tpu_torch/csrc/bank_kernels.cu"
+REPLACES = {
+    "affine1_bank": "libgooey_tpu/ops/pallas_fx.py:2275",
+    "pink_bank": "libgooey_tpu/ops/pallas_fx.py:2003",
+    "svf_bank": "libgooey_tpu/ops/pallas_fx.py:1499",
+    "env_follow_bank": "libgooey_tpu/ops/pallas_fx.py:1396",
+    "fbws_bank": "libgooey_tpu/ops/pallas_fx.py:1769",
+}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts():
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
+
+
+# --- dispatch and launch helpers ----------------------------------------------
+
+
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for tensors on {t.device}")
+
+
+def _check(name: str, device, specs):
+    """Validate ``(label, tensor, dtype, shape)`` specs for a launch; a
+    ``None`` tensor is an absent optional input."""
+    for label, t, dtype, shape in specs:
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {label} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {label} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _host_floats(values):
+    """A float32 host array for a C entry's coefficient pointer."""
+    arr = (ctypes.c_float * len(values))(*values)
+    return arr, ctypes.cast(arr, ctypes.c_void_p)
+
+
+def _launch(name: str, device, entry: str, *args):
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def _empty(shape, like: torch.Tensor):
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def _vb(name, x):
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{name}: expected a non-empty [V, B] tensor, got {tuple(x.shape)}")
+    return x.shape
+
+
+_F32 = torch.float32
+
+
+# --- 1. affine1_bank ------------------------------------------------------------
+
+
+def affine1_bank_plain(a, b, c, y0):
+    """Plain version: ``y[n] = max(a[n], b[n]*y[n-1] + c[n])``."""
+    aT, bT, cT = a.t(), b.t(), c.t()
+    y = y0
+    ys = []
+    for n in range(aT.shape[0]):
+        y = torch.maximum(aT[n], bT[n] * y + cT[n])
+        ys.append(y)
+    return torch.stack(ys, dim=1), y
+
+
+def affine1_bank(a, b, c, y0):
+    """Voice-bank ``y[n] = max(a[n], b[n]*y[n-1] + c[n])`` over ``[V, B]``.
+
+    Pass ``a = -3e38`` for a plain first-order recurrence.
+    Returns ``(y [V, B], y_last [V])``."""
+    if not _on_cuda("affine1_bank", b):
+        return affine1_bank_plain(a, b, c, y0)
+    V, B = _vb("affine1_bank", b)
+    _check("affine1_bank", b.device, [
+        ("a", a, _F32, (V, B)), ("b", b, _F32, (V, B)), ("c", c, _F32, (V, B)),
+        ("y0", y0, _F32, (V,))])
+    y, y_last = _empty((V, B), b), _empty((V,), b)
+    _launch("affine1_bank", b.device, "affine1_bank_launch",
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), y0.data_ptr(),
+            y.data_ptr(), y_last.data_ptr(), V, B)
+    affine1_bank.launches += 1
+    return y, y_last
+
+
+affine1_bank.launches = 0
+
+
+# --- 2. pink_bank ---------------------------------------------------------------
+
+
+def pink_bank_plain(w, reset, fstate, *, poles, gains, direct, outg):
+    """Plain version: three one-poles (zeroed at resets) plus the direct term."""
+    wT = w.t()
+    rT = None if reset is None else reset.t()
+    ys = [fstate[:, i] for i in range(3)]
+    outs = []
+    for n in range(wT.shape[0]):
+        wn = wT[n]
+        for i in range(3):
+            fb = poles[i] * ys[i]
+            if rT is not None:
+                fb = torch.where(rT[n], 0.0, fb)
+            ys[i] = fb + gains[i] * wn
+        outs.append((ys[0] + ys[1] + ys[2] + direct * wn) * outg)
+    return torch.stack(outs, dim=1), torch.stack(ys, dim=1)
+
+
+def pink_bank(w, reset, fstate, *, poles, gains, direct, outg):
+    """Voice-bank Kellet pink-noise filter block.
+
+    ``w``: [V, B] white input; ``reset``: [V, B] bool trigger mask or None;
+    ``fstate``: [V, 3] carried one-pole states; ``poles``/``gains``:
+    3-tuples from ``noise.coefficients``.  Returns ``(pink [V, B], fstate' [V, 3])``."""
+    if not _on_cuda("pink_bank", w):
+        return pink_bank_plain(w, reset, fstate, poles=poles, gains=gains,
+                               direct=direct, outg=outg)
+    V, B = _vb("pink_bank", w)
+    _check("pink_bank", w.device, [
+        ("w", w, _F32, (V, B)), ("reset", reset, torch.bool, (V, B)),
+        ("fstate", fstate, _F32, (V, 3))])
+    pink, fout = _empty((V, B), w), _empty((V, 3), w)
+    keep, coefs = _host_floats([*poles, *gains, direct, outg])
+    _launch("pink_bank", w.device, "pink_bank_launch",
+            w.data_ptr(), _ptr(reset), fstate.data_ptr(), pink.data_ptr(),
+            fout.data_ptr(), coefs, V, B)
+    del keep
+    pink_bank.launches += 1
+    return pink, fout
+
+
+pink_bank.launches = 0
+
+
+# --- 3. svf_bank ----------------------------------------------------------------
+
+
+def svf_bank_plain(x, g, h, reset, ic1, ic2):
+    """Plain version of the TPT SVF step (pallas_fx.py:1477-1490 op order)."""
+    xT, gT, hT = x.t(), g.t(), h.t()
+    rT = None if reset is None else reset.t()
+    v1s, v2s = [], []
+    for n in range(xT.shape[0]):
+        if rT is not None:
+            ic1 = torch.where(rT[n], 0.0, ic1)
+            ic2 = torch.where(rT[n], 0.0, ic2)
+        v1 = (gT[n] * (xT[n] - ic2) + ic1) * hT[n]
+        v2 = ic2 + gT[n] * v1
+        v1s.append(v1)
+        v2s.append(v2)
+        ic1 = 2.0 * v1 - ic1
+        ic2 = 2.0 * v2 - ic2
+    return torch.stack(v1s, dim=1), torch.stack(v2s, dim=1), ic1, ic2
+
+
+def svf_bank(x, g, h, reset, ic1, ic2):
+    """Voice-bank TPT SVF block.
+
+    ``x``/``g``/``h``: [V, B] input and per-sample coefficients;
+    ``reset``: [V, B] bool or None; ``ic1``/``ic2``: [V] carried state.
+    Returns ``(v1 [V, B], v2 [V, B], ic1' [V], ic2' [V])`` with the
+    pre-update band/low taps."""
+    if not _on_cuda("svf_bank", x):
+        return svf_bank_plain(x, g, h, reset, ic1, ic2)
+    V, B = _vb("svf_bank", x)
+    _check("svf_bank", x.device, [
+        ("x", x, _F32, (V, B)), ("g", g, _F32, (V, B)), ("h", h, _F32, (V, B)),
+        ("reset", reset, torch.bool, (V, B)),
+        ("ic1", ic1, _F32, (V,)), ("ic2", ic2, _F32, (V,))])
+    v1, v2 = _empty((V, B), x), _empty((V, B), x)
+    ic1o, ic2o = _empty((V,), x), _empty((V,), x)
+    _launch("svf_bank", x.device, "svf_bank_launch",
+            x.data_ptr(), g.data_ptr(), h.data_ptr(), _ptr(reset),
+            ic1.data_ptr(), ic2.data_ptr(), v1.data_ptr(), v2.data_ptr(),
+            ic1o.data_ptr(), ic2o.data_ptr(), V, B)
+    svf_bank.launches += 1
+    return v1, v2, ic1o, ic2o
+
+
+svf_bank.launches = 0
+
+
+# --- 4. env_follow_bank ---------------------------------------------------------
+
+
+def env_follow_bank_plain(rect, freeze, env0, *, att, rel):
+    """Plain version: ``env += (1-c)(rect - env)``, c = att if rect > env
+    else rel, flush below 1e-15, state held where ``freeze``."""
+    rT, fT = rect.t(), freeze.t()
+    env = env0
+    outs = []
+    for n in range(rT.shape[0]):
+        r = rT[n]
+        c = torch.where(r > env, float(np.float32(att)), float(np.float32(rel)))
+        new = env + (1.0 - c) * (r - env)
+        new = torch.where(new.abs() < 1e-15, 0.0, new)
+        env = torch.where(fT[n], env, new)
+        outs.append(env)
+    return torch.stack(outs, dim=1), env
+
+
+def env_follow_bank(rect, freeze, env0, *, att, rel):
+    """Voice-bank attack/release envelope follower.
+
+    ``rect``: [V, B] rectified input; ``freeze``: [V, B] bool bypass mask;
+    ``env0``: [V]; ``att``/``rel``: scalar retention factors.
+    Returns ``(env [V, B], env_last [V])``."""
+    if not _on_cuda("env_follow_bank", rect):
+        return env_follow_bank_plain(rect, freeze, env0, att=att, rel=rel)
+    V, B = _vb("env_follow_bank", rect)
+    _check("env_follow_bank", rect.device, [
+        ("rect", rect, _F32, (V, B)), ("freeze", freeze, torch.bool, (V, B)),
+        ("env0", env0, _F32, (V,))])
+    env, env_last = _empty((V, B), rect), _empty((V,), rect)
+    _launch("env_follow_bank", rect.device, "env_follow_bank_launch",
+            rect.data_ptr(), freeze.data_ptr(), env0.data_ptr(),
+            env.data_ptr(), env_last.data_ptr(), float(att), float(rel), V, B)
+    env_follow_bank.launches += 1
+    return env, env_last
+
+
+env_follow_bank.launches = 0
+
+
+# --- 5. fbws_bank ---------------------------------------------------------------
+
+#: (name, rows) of the packed ``[S, V]`` state, kernel I/O order (the
+#: layout of pallas_fx.py:1572-1599).  u/d = up/down, 1/2 = half-band
+#: stage, y/x = section output/input memories, trailing 0/1 = polyphase
+#: branch; *x1d = the down-samplers' odd-phase input delay; dc = DC blocker.
+FBWS_CORE_LAYOUT = (
+    ("u1y0", 4), ("u1x0", 4), ("u1y1", 4), ("u1x1", 4),
+    ("u2y0", 2), ("u2x0", 2), ("u2y1", 2), ("u2x1", 2),
+    ("d2y0", 2), ("d2x0", 2), ("d2y1", 2), ("d2x1", 2), ("d2x1d", 1),
+    ("d1y0", 4), ("d1x0", 4), ("d1y1", 4), ("d1x1", 4), ("d1x1d", 1),
+    ("dcx", 1), ("dcy", 1),
+)
+#: second-to-last section outputs/inputs (HalfbandState.*y2/*x2), appended
+#: to the OUTPUT state only.
+FBWS_Y2_LAYOUT = (
+    ("u1y2_0", 4), ("u1x2_0", 4), ("u1y2_1", 4), ("u1x2_1", 4),
+    ("u2y2_0", 2), ("u2x2_0", 2), ("u2y2_1", 2), ("u2x2_1", 2),
+    ("d2y2_0", 2), ("d2x2_0", 2), ("d2y2_1", 2), ("d2x2_1", 2),
+    ("d1y2_0", 4), ("d1x2_0", 4), ("d1y2_1", 4), ("d1x2_1", 4),
+)
+
+
+def _layout_index(layout):
+    idx, k = {}, 0
+    for name, n in layout:
+        idx[name] = (k, n)
+        k += n
+    return idx, k
+
+
+FBWS_IN_IDX, FBWS_S_IN = _layout_index(FBWS_CORE_LAYOUT)
+FBWS_OUT_IDX, FBWS_S_OUT = _layout_index(FBWS_CORE_LAYOUT + FBWS_Y2_LAYOUT)
+
+#: phase-split half-band coefficients, cast once to float32
+_C1_0, _C1_1 = (tuple(float(np.float32(c)) for c in p) for p in _split(STAGE1))
+_C2_0, _C2_1 = (tuple(float(np.float32(c)) for c in p) for p in _split(STAGE2))
+_FBWS_COEFS = _C1_0 + _C1_1 + _C2_0 + _C2_1
+_DC = 0.995
+
+
+def _ap_chain_seq(u, ys, xs, coefs):
+    """One sample through a chain of allpasses ``y = a*(x - y1) + x1``."""
+    ys, xs = list(ys), list(xs)
+    for j, a in enumerate(coefs):
+        y = a * (u - ys[j]) + xs[j]
+        xs[j] = u
+        ys[j] = y
+        u = y
+    return u, ys, xs
+
+
+def fbws_bank_plain(u, comp_signed, packed):
+    """Plain version of the fused zero-feedback waveshaper (pallas_fx.py:1611-1713):
+    4x polyphase up, tanh, down, signed makeup gain, gated DC blocker."""
+    uT, cT = u.t(), comp_signed.t()
+    B = uT.shape[0]
+
+    def ld(name):
+        k, n = FBWS_IN_IDX[name]
+        return packed[k] if n == 1 else [packed[k + j] for j in range(n)]
+
+    c = {name: ld(name) for name, _ in FBWS_CORE_LAYOUT}
+
+    def phase_a(c, un):
+        e1, c["u1y0"], c["u1x0"] = _ap_chain_seq(un, c["u1y0"], c["u1x0"], _C1_0)
+        o1, c["u1y1"], c["u1x1"] = _ap_chain_seq(un, c["u1y1"], c["u1x1"], _C1_1)
+        s0, c["u2y0"], c["u2x0"] = _ap_chain_seq(e1, c["u2y0"], c["u2x0"], _C2_0)
+        s1, c["u2y1"], c["u2x1"] = _ap_chain_seq(e1, c["u2y1"], c["u2x1"], _C2_1)
+        t0, t1 = torch.tanh(s0), torch.tanh(s1)
+        a0, c["d2y0"], c["d2x0"] = _ap_chain_seq(t0, c["d2y0"], c["d2x0"], _C2_0)
+        a1, c["d2y1"], c["d2x1"] = _ap_chain_seq(c["d2x1d"], c["d2y1"], c["d2x1"], _C2_1)
+        c["d2x1d"] = t1
+        return o1, 0.5 * (a0 + a1)
+
+    def phase_b(c, o1, d0, cs):
+        s2, c["u2y0"], c["u2x0"] = _ap_chain_seq(o1, c["u2y0"], c["u2x0"], _C2_0)
+        s3, c["u2y1"], c["u2x1"] = _ap_chain_seq(o1, c["u2y1"], c["u2x1"], _C2_1)
+        t2, t3 = torch.tanh(s2), torch.tanh(s3)
+        b0, c["d2y0"], c["d2x0"] = _ap_chain_seq(t2, c["d2y0"], c["d2x0"], _C2_0)
+        b1, c["d2y1"], c["d2x1"] = _ap_chain_seq(c["d2x1d"], c["d2y1"], c["d2x1"], _C2_1)
+        d1 = 0.5 * (b0 + b1)
+        c["d2x1d"] = t3
+        e0, c["d1y0"], c["d1x0"] = _ap_chain_seq(d0, c["d1y0"], c["d1x0"], _C1_0)
+        e1, c["d1y1"], c["d1x1"] = _ap_chain_seq(c["d1x1d"], c["d1y1"], c["d1x1"], _C1_1)
+        y = 0.5 * (e0 + e1)
+        c["d1x1d"] = d1
+        byp = cs < 0.0
+        compensated = y * torch.clamp(cs, min=0.0)
+        x1_prev = c["dcx"]
+        c["dcx"] = torch.where(byp, x1_prev, compensated)
+        y1_new = _DC * c["dcy"] + (compensated - x1_prev)
+        c["dcy"] = torch.where(byp, c["dcy"], y1_new)
+        return torch.where(byp, 0.0, c["dcy"])
+
+    dcs = []
+    for n in range(B - 1):
+        o1, d0 = phase_a(c, uT[n])
+        dcs.append(phase_b(c, o1, d0, cT[n]))
+    # final step with second-to-last captures (pallas_fx.py:1697-1713)
+    caps = {}
+    for tag in ("u1", "d1"):
+        for st, cap in (("y0", "y2_0"), ("x0", "x2_0"), ("y1", "y2_1"), ("x1", "x2_1")):
+            caps[tag + cap] = list(c[tag + st])
+    o1, d0 = phase_a(c, uT[B - 1])
+    for tag in ("u2", "d2"):
+        for st, cap in (("y0", "y2_0"), ("x0", "x2_0"), ("y1", "y2_1"), ("x1", "x2_1")):
+            caps[tag + cap] = list(c[tag + st])
+    dcs.append(phase_b(c, o1, d0, cT[B - 1]))
+
+    vals = {**c, **caps}
+    rows = []
+    for name, n in FBWS_CORE_LAYOUT + FBWS_Y2_LAYOUT:
+        rows += [vals[name]] if n == 1 else list(vals[name])
+    return torch.stack(dcs, dim=1), torch.stack(rows, dim=0)
+
+
+def fbws_bank(u, comp_signed, packed):
+    """Fused voice-bank feedback-waveshaper fast path.
+
+    ``u``: [V, B] pre-driven input (drive*x); ``comp_signed``: [V, B]
+    makeup gain with bypass as sign (< 0 => bypassed sample); ``packed``:
+    [52, V] from :func:`pack_fbws_bank`.  Returns ``(dc [V, B],
+    new_packed [100, V])`` for :func:`unpack_fbws_bank`."""
+    if not _on_cuda("fbws_bank", u):
+        return fbws_bank_plain(u, comp_signed, packed)
+    V, B = _vb("fbws_bank", u)
+    _check("fbws_bank", u.device, [
+        ("u", u, _F32, (V, B)), ("comp_signed", comp_signed, _F32, (V, B)),
+        ("packed", packed, _F32, (FBWS_S_IN, V))])
+    dc, nst = _empty((V, B), u), _empty((FBWS_S_OUT, V), u)
+    keep, coefs = _host_floats(_FBWS_COEFS)
+    _launch("fbws_bank", u.device, "fbws_bank_launch",
+            u.data_ptr(), comp_signed.data_ptr(), packed.data_ptr(),
+            dc.data_ptr(), nst.data_ptr(), coefs, V, B)
+    del keep
+    fbws_bank.launches += 1
+    return dc, nst
+
+
+fbws_bank.launches = 0
+
+#: the wrappers by name, for the launch counts
+_WRAPPERS = {name: globals()[name] for name in KERNELS}
+
+
+def pack_fbws_bank(state) -> torch.Tensor:
+    """FBShaperState ([V]-shaped slices) -> packed ``[52, V]``."""
+    o = state.ovs
+    rows = []
+    for hb in (o.up1, o.up2):
+        rows += [hb.ap0.t(), hb.ap0x.t(), hb.ap1.t(), hb.ap1x.t()]
+    for hb in (o.down2, o.down1):
+        rows += [hb.ap0.t(), hb.ap0x.t(), hb.ap1.t(), hb.ap1x.t(), hb.x1[None]]
+    rows += [state.dc_x1[None], state.dc_y1[None]]
+    return torch.cat(rows, dim=0).contiguous()
+
+
+def unpack_fbws_bank(nst, state):
+    """Packed ``[100, V]`` -> ``(new OversamplerState, dc_x1, dc_y1)``.
+
+    The up-samplers' ``x1`` fields are untouched by the chain and come from
+    ``state``."""
+
+    def g(name):
+        k, n = FBWS_OUT_IDX[name]
+        return nst[k] if n == 1 else nst[k:k + n].t()
+
+    def hb(tag, x1):
+        return HalfbandState(
+            ap0=g(f"{tag}y0"), ap0x=g(f"{tag}x0"),
+            ap1=g(f"{tag}y1"), ap1x=g(f"{tag}x1"), x1=x1,
+            ap0y2=g(f"{tag}y2_0"), ap0x2=g(f"{tag}x2_0"),
+            ap1y2=g(f"{tag}y2_1"), ap1x2=g(f"{tag}x2_1"))
+
+    o = state.ovs
+    ovs_new = type(o)(
+        up1=hb("u1", o.up1.x1),
+        up2=hb("u2", o.up2.x1),
+        down2=hb("d2", g("d2x1d")),
+        down1=hb("d1", g("d1x1d")),
+    )
+    return ovs_new, g("dcx"), g("dcy")

@@ -1,0 +1,227 @@
+"""The port's bank kernels (plain versions, on the CPU) against the JAX
+package's Pallas wrappers run in interpret mode, and the port modules that
+call them against the JAX package's modules.
+
+The same numpy inputs feed both packages.  Tolerances: the plain versions
+keep the Pallas bodies' per-sample op order, so the four small recurrences
+agree to ~1e-7 (bound 1e-6; XLA:CPU may contract a multiply-add into an FMA
+where PyTorch rounds twice).  The fused waveshaper chain runs 32 allpass
+sections and 4 tanh per sample (bound 1e-5 on the output and every carried
+state field).  V = 130 crosses a 128-lane group of the TPU layout.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from libgooey_tpu.effects import feedback_waveshaper as jfw
+from libgooey_tpu.ops import filters as jfilters
+from libgooey_tpu.ops import noise as jnoise
+from libgooey_tpu.ops import pallas_fx
+from libgooey_tpu.ops import scan as jscan
+
+from libgooey_tpu_torch import interop
+from libgooey_tpu_torch.effects import feedback_waveshaper as tfw
+from libgooey_tpu_torch.ops import bank_kernels as bk
+from libgooey_tpu_torch.ops import filters as tfilters
+from libgooey_tpu_torch.ops import noise as tnoise
+from libgooey_tpu_torch.ops import scan as tscan
+
+SR = 44100.0
+V, B = 130, 128
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def err(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def tree_err(ja, tb) -> float:
+    """Worst leaf error between a JAX state tree and a port state tree."""
+    la = jax.tree_util.tree_leaves(ja)
+    lb = jax.tree_util.tree_leaves(tuple(interop.to_numpy(tb)))
+    assert len(la) == len(lb)
+    return max(err(a, b) for a, b in zip(la, lb))
+
+
+@pytest.mark.parametrize("mode", ["linear", "max_affine"])
+def test_affine1_bank_matches_jax(mode):
+    rs = np.random.RandomState(17)
+    if mode == "linear":
+        a = np.full((V, B), -3.0e38, np.float32)
+        b = rs.uniform(0.9, 1.0, (V, B)).astype(np.float32)
+        c = (0.02 * rs.randn(V, B)).astype(np.float32)
+    else:  # hihat2-style instant-up / smoothed-down tracker
+        a = np.abs(rs.randn(V, B)).astype(np.float32)
+        b = np.full((V, B), 0.96, np.float32)
+        c = (np.float32(0.04) * a).astype(np.float32)
+    y0 = (0.1 * rs.randn(V)).astype(np.float32)
+    yj, ylj = pallas_fx.affine1_bank(a, b, c, y0, interpret=True)
+    yt, ylt = bk.affine1_bank(T(a), T(b), T(c), T(y0))
+    assert err(yj, yt) <= 1e-6
+    assert err(ylj, ylt) <= 1e-6
+
+
+def test_pink_bank_matches_jax():
+    rs = np.random.RandomState(21)
+    poles, gains = jnoise.coefficients(SR)
+    kw = dict(poles=tuple(map(float, poles)), gains=tuple(map(float, gains)),
+              direct=float(jnoise.DIRECT_GAIN), outg=float(jnoise.OUTPUT_GAIN))
+    w = rs.uniform(-1, 1, (V, B)).astype(np.float32)
+    reset = rs.rand(V, B) < 0.01
+    fstate = (0.3 * rs.randn(V, 3)).astype(np.float32)
+    pj, fj = pallas_fx.pink_bank(w, reset, fstate, interpret=True, **kw)
+    pt, ft = bk.pink_bank(T(w), T(reset), T(fstate), **kw)
+    assert err(pj, pt) <= 1e-6
+    assert err(fj, ft) <= 1e-6
+
+
+def test_svf_bank_matches_jax():
+    rs = np.random.RandomState(12)
+    x = rs.randn(V, B).astype(np.float32)
+    g, h = jfilters.svf_coeffs(jnp.asarray((200 + 8000 * rs.rand(V, B)).astype(np.float32)),
+                               0.9, SR)
+    g, h = np.asarray(g), np.asarray(h)
+    reset = rs.rand(V, B) < 0.01
+    ic1 = (0.1 * rs.randn(V)).astype(np.float32)
+    ic2 = (0.1 * rs.randn(V)).astype(np.float32)
+    want = pallas_fx.svf_bank(x, g, h, reset, ic1, ic2, interpret=True)
+    got = bk.svf_bank(T(x), T(g), T(h), T(reset), T(ic1), T(ic2))
+    for name, a, b in zip(("v1", "v2", "ic1", "ic2"), want, got):
+        assert err(a, b) <= 1e-6, name
+
+
+def test_env_follow_bank_matches_jax():
+    rs = np.random.RandomState(11)
+    att, rel = jfw.env_coeffs(SR)
+    rect = np.abs(rs.randn(V, B)).astype(np.float32)
+    freeze = rs.rand(V, B) < 0.1
+    env0 = np.abs(rs.randn(V)).astype(np.float32)
+    ej, elj = pallas_fx.env_follow_bank(rect, freeze.astype(np.float32), env0,
+                                        att=att, rel=rel, interpret=True)
+    et, elt = bk.env_follow_bank(T(rect), T(freeze), T(env0), att=att, rel=rel)
+    assert err(ej, et) <= 1e-6
+    assert err(elj, elt) <= 1e-6
+
+
+def test_fbws_bank_matches_jax_over_blocks():
+    """Two blocks threaded through each package's pack/unpack: the dc output
+    and every unpacked state field, including the ``*y2``/``*x2`` captures."""
+    rs = np.random.RandomState(5)
+    jst = jfw.FBShaperState.init((V,))
+    tst = tfw.FBShaperState.init((V,), "cpu")
+    for _ in range(2):
+        u = ((0.5 + 3.0 * rs.rand(V, B)) * 0.5 * rs.randn(V, B)).astype(np.float32)
+        cs = np.where(rs.rand(V, B) < 0.05, -1.0,
+                      0.2 + 2.8 * rs.rand(V, B)).astype(np.float32)
+        dj, nj = pallas_fx.fbws_bank(u, cs, pallas_fx.pack_fbws_bank(jst), interpret=True)
+        dt, nt = bk.fbws_bank(T(u), T(cs), bk.pack_fbws_bank(tst))
+        assert tuple(nt.shape) == (bk.FBWS_S_OUT, V) == tuple(nj.shape)
+        assert err(dj, dt) <= 1e-5
+        ovj, xj, yj = pallas_fx.unpack_fbws_bank(nj, jst)
+        jst = jst._replace(ovs=ovj, dc_x1=xj, dc_y1=yj)
+        ovt, xt, yt = bk.unpack_fbws_bank(nt, tst)
+        tst = tst._replace(ovs=ovt, dc_x1=xt, dc_y1=yt)
+        for hb in ("up1", "up2", "down2", "down1"):
+            for f in jst.ovs.up1._fields:
+                a = getattr(getattr(jst.ovs, hb), f)
+                b = getattr(getattr(tst.ovs, hb), f)
+                assert err(a, b) <= 1e-5, f"{hb}.{f}"
+        assert err(jst.dc_x1, tst.dc_x1) <= 1e-5
+        assert err(jst.dc_y1, tst.dc_y1) <= 1e-5
+
+
+# --- the port modules that call the kernels, against the JAX modules ---------
+# (JAX's CPU path here is its associative-scan formulation: reassociation
+# differs from the sequential bank by ~1e-7, bound 1e-6 / 1e-5.)
+
+V2 = 8
+
+
+def test_linrec1_matches_jax():
+    rs = np.random.RandomState(3)
+    a = rs.uniform(0.9, 1.0, (V2, B)).astype(np.float32)
+    b = (0.02 * rs.randn(V2, B)).astype(np.float32)
+    y0 = (0.1 * rs.randn(V2)).astype(np.float32)
+    assert err(jscan.linrec1(a, b, y0), tscan.linrec1(T(a), T(b), T(y0))) <= 1e-6
+
+
+def test_pink_block_matches_jax():
+    rs = np.random.RandomState(4)
+    counters = np.cumsum(rs.randint(1, 3, (V2, 2 * B)), -1).astype(np.int32)
+    reset = rs.rand(V2, 2 * B) < 0.01
+    sj = jnoise.PinkState.init((V2,))
+    st = tnoise.PinkState.init((V2,), "cpu")
+    for i in range(2):
+        sl = slice(i * B, (i + 1) * B)
+        sj, pj = jnoise.pink_block(sj, counters[:, sl], SR, reset=reset[:, sl])
+        st, pt = tnoise.pink_block(st, T(counters[:, sl]), SR, reset=T(reset[:, sl]))
+        assert err(pj, pt) <= 1e-6
+        assert err(sj.fstate, st.fstate) <= 1e-5
+
+
+def test_resonant_filters_match_jax():
+    rs = np.random.RandomState(6)
+    x = (0.3 * rs.randn(V2, B)).astype(np.float32)
+    cut = (100 + 5000 * rs.rand(V2, B)).astype(np.float32)
+    q = (0.5 + 4.0 * rs.rand(V2, B)).astype(np.float32)
+    reset = rs.rand(V2, B) < 0.02
+    sj, oj = jfilters.resonant_lowpass_block(jfilters.SVFState.init((V2,)), x, cut, q, SR,
+                                             reset=reset)
+    st, ot = tfilters.resonant_lowpass_block(tfilters.SVFState.init((V2,), "cpu"), T(x),
+                                             T(cut), T(q), SR, reset=T(reset))
+    assert err(oj, ot) <= 1e-6
+    assert max(err(sj.ic1, st.ic1), err(sj.ic2, st.ic2)) <= 1e-6
+    sj, oj = jfilters.resonant_highpass_block(jfilters.OnePoleState.init((V2,)), x, 8000.0,
+                                              4.0, SR, reset=reset)
+    st, ot = tfilters.resonant_highpass_block(tfilters.OnePoleState.init((V2,), "cpu"), T(x),
+                                              8000.0, 4.0, SR, reset=T(reset))
+    assert err(oj, ot) <= 1e-6
+    assert err(sj.y, st.y) <= 1e-6
+
+
+def test_feedback_waveshaper_matches_jax():
+    """The zero-feedback 4x path over 3 blocks, drive crossing the bypass
+    threshold; JAX runs its XLA scan formulation here."""
+    rs = np.random.RandomState(7)
+    jst = jfw.FBShaperState.init((V2,))
+    tst = tfw.FBShaperState.init((V2,), "cpu")
+    for _ in range(3):
+        x = (0.5 * rs.randn(V2, B)).astype(np.float32)
+        d = (0.5 + 3.0 * rs.rand(V2, B)).astype(np.float32)
+        f = (0.1 + 0.5 * rs.rand(V2, B)).astype(np.float32)
+        jst, oj = jfw.process_block(jst, jnp.asarray(x), jnp.asarray(d),
+                                    jnp.zeros((V2, B), jnp.float32), jnp.asarray(f),
+                                    jnp.float32(1.0), SR, feedback_path=False, os_mode=4)
+        tst, ot = tfw.process_block(tst, T(x), T(d), torch.zeros(V2, B), T(f), 1.0, SR,
+                                    feedback_path=False, os_mode=4)
+        assert err(oj, ot) <= 1e-5
+        assert tree_err(jst, tst) <= 1e-5
+
+
+# --- dispatch -----------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    bk.reset_launch_counts()
+    rs = np.random.RandomState(0)
+    a = T(np.full((4, 16), -3.0e38, np.float32))
+    b = T(rs.rand(4, 16).astype(np.float32))
+    y, yl = bk.affine1_bank(a, b, b, torch.zeros(4))
+    ref, _ = bk.affine1_bank_plain(a, b, b, torch.zeros(4))
+    assert torch.equal(y, ref) and torch.equal(yl, y[:, -1])
+    assert all(n == 0 for n in bk.launch_counts().values())
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    x = torch.empty(4, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        bk.affine1_bank(x, x, x, torch.empty(4, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        bk.fbws_bank(x, x, torch.empty(bk.FBWS_S_IN, 4, device="meta"))

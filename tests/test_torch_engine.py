@@ -1,0 +1,140 @@
+"""The port's Engine API, kick voice and host logic against the JAX package
+and the per-sample kick oracle (all on the CPU)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from libgooey_tpu.engine.engine import Engine as JEngine
+from libgooey_tpu.engine.sequencer import Sequencer as JSequencer
+from libgooey_tpu.instruments import kick as jkick
+
+from libgooey_tpu_torch import interop
+from libgooey_tpu_torch.core.smoother import smoothing_coeff
+from libgooey_tpu_torch.engine.engine import Engine as TEngine
+from libgooey_tpu_torch.engine.sequencer import Sequencer as TSequencer
+from libgooey_tpu_torch.instruments import kick as tkick
+from libgooey_tpu_torch.ops import osc
+
+from kick_oracle import KickOracle
+
+SR = 44100.0
+B = 128
+KICK_STATIC = {"kick": {"max_harmonics": 0, "feedback_path": False}}
+
+
+def _drive(eng, n_blocks):
+    """Three sequenced kicks with mixer moves, a manual trigger and a
+    parameter change mid-render; returns (stereo, mono) numpy blocks."""
+    names = ("a", "b", "c")
+    presets = ("tight", "punch", "dirt")
+    for i, (name, p) in enumerate(zip(names, presets)):
+        mod = jkick if isinstance(eng, JEngine) else tkick
+        eng.add_kick(name, mod.PRESETS[p]())
+        seq = eng.new_sequencer(name, 140.0 + 20.0 * i)
+        seq.set_pattern([(s + i) % 3 == 0 for s in range(16)])
+        seq.start()
+    eng.set_pan("a", 0.1)
+    eng.set_gain("c", 0.5)
+    eng.set_master_gain(0.6)
+    outs, monos = [], []
+    for blk in range(n_blocks):
+        if blk == 1:
+            eng.trigger("b", 0.9, offset=77)
+        if blk == 2:
+            eng.set_param("a", "frequency", 0.6)
+        out, mono = eng.render_block()
+        outs.append(np.asarray(out))
+        monos.append(np.asarray(mono))
+    return np.stack(outs), np.stack(monos)
+
+
+def test_engine_api_matches_jax_engine():
+    want, want_mono = _drive(JEngine(SR, B, family_static=KICK_STATIC), 4)
+    got, got_mono = _drive(TEngine(SR, B, family_static=KICK_STATIC, device="cpu"), 4)
+    assert np.abs(want).max() > 1e-3
+    assert np.abs(got - want).max() <= 1e-4
+    assert np.abs(got_mono - want_mono).max() <= 1e-4
+
+
+def test_engine_render_concatenates_blocks():
+    def run(method):
+        eng = TEngine(SR, B, family_static=KICK_STATIC, device="cpu")
+        eng.add_kick("k")
+        eng.trigger("k", 1.0)
+        return getattr(eng, method)(300)
+
+    out, mono = run("render"), run("render_mono")
+    assert out.shape == (2, 300) and np.isfinite(out).all() and np.abs(out).max() > 1e-3
+    # a centred voice: each channel is the mono sum times cos(pi/4)
+    assert mono.shape == (300,)
+    np.testing.assert_allclose(out[0], np.tanh(np.arctanh(mono) * np.cos(np.pi / 4)),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("preset", ["tight", "punch"])
+def test_kick_voice_matches_oracle(preset):
+    """One voice against tests/kick_oracle.py (per-sample float32 reference),
+    the -80 dBFS bar of tests/test_kick.py; the punch preset runs the
+    additive triangle's plain version."""
+    cfg = tkick.PRESETS[preset]()
+    n, trig, vel = 2000, 37, 0.8
+    st = tkick.init_state(1, cfg, device="cpu")
+    got = []
+    for start in range(0, n, B):
+        off = np.full(1, B, np.int32)
+        v = np.zeros(1, np.float32)
+        if start <= trig < start + B:
+            off[0], v[0] = trig - start, vel
+        st, y = tkick.render_block(st, off, v, np.int32(start), sample_rate=SR, block_size=B,
+                                   smooth_coeff=smoothing_coeff(SR), max_harmonics=128,
+                                   feedback_path=False)
+        got.append(y[0].numpy())
+    got = np.concatenate(got)[:n]
+    oracle = KickOracle({k: getattr(cfg, k) for k in tkick.PARAM_NAMES}, SR)
+    want = np.zeros(n, np.float32)
+    for i in range(n):
+        if i == trig:
+            oracle.trigger(i, vel)
+        want[i] = oracle.tick(i)
+    assert np.abs(got - want).max() < 1e-4
+
+
+def test_sequencer_copy_matches_jax_sequencer():
+    rs = np.random.RandomState(2)
+    for bpm, swing in ((120.0, 0.5), (97.3, 0.66), (174.0, 0.2)):
+        a, b = JSequencer(bpm, SR, 16), TSequencer(bpm, SR, 16)
+        pattern = list(rs.rand(16) < 0.6)
+        for s in (a, b):
+            s.set_pattern(pattern)
+            s.set_swing(swing)
+            s.start()
+        for _ in range(40):
+            ta, tb = a.tick_block(B), b.tick_block(B)
+            assert [dataclasses.astuple(t) for t in ta] == [dataclasses.astuple(t) for t in tb]
+
+
+def test_interop_round_trip():
+    st = tkick.init_state(5, tkick.KickConfig.dirt(), device="cpu")
+    st = st._replace(velocity=torch.linspace(0.1, 0.9, 5))
+    back = interop.kick_state_from_numpy(interop.to_numpy(st), "cpu")
+    for a, b in zip(torch.utils._pytree.tree_leaves(st), torch.utils._pytree.tree_leaves(back)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_unported_parts_raise_with_a_pointer():
+    eng = TEngine(SR, B, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.add_instrument("s", "snare")
+    with pytest.raises(KeyError):
+        eng.add_instrument("x", "theremin")
+    idx = torch.empty(2, 8, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        osc.triangle_additive(idx, idx, SR, 16)
+    st = tkick.init_state(2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkick.render_block(st, np.zeros(2, np.int32), np.ones(2, np.float32), 0,
+                           sample_rate=SR, block_size=B, smooth_coeff=smoothing_coeff(SR),
+                           max_harmonics=0, feedback_path=True)

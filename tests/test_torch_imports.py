@@ -1,0 +1,44 @@
+"""The port imports torch and numpy only: never JAX, never the JAX package.
+
+Each check runs in a fresh interpreter, since this test process has JAX
+loaded (tests/conftest.py)."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code: str, **kw):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import libgooey_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'libgooey_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'libgooey_tpu' or k.startswith('libgooey_tpu.'))\n"
+        "assert len(mods) >= 20, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No CUDA card: exit non-zero and print no result line."""
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
