@@ -36,6 +36,12 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _MASK32
 
 
+def add_mul32(x: torch.Tensor, y: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x + y * c) mod 2^32`` for uint32 patterns held in int64 (hihat2's
+    salted counter ``n + salt * 0x9E3779B9``)."""
+    return (_u32(x) + _mul32(_u32(y), c)) & _MASK32
+
+
 def mix32(x) -> torch.Tensor:
     """A murmur3-style 32-bit finalizer: bijective avalanche mix."""
     x = _u32(x)

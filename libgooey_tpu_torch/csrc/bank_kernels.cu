@@ -1,13 +1,15 @@
-// Voice-bank recurrence kernels for Hopper (sm_90a): the five Pallas bank
-// kernels that the kick bank runs on the engine's main path.
+// Voice-bank recurrence kernels for Hopper (sm_90a): the seven Pallas bank
+// kernels that the five-family kit runs on the engine's main path.
 //
 //   affine1_bank     <- libgooey_tpu/ops/pallas_fx.py:affine1_bank (_affine1_bank_kernel)
 //   pink_bank        <- libgooey_tpu/ops/pallas_fx.py:pink_bank (_pink_bank_kernel)
 //   svf_bank         <- libgooey_tpu/ops/pallas_fx.py:svf_bank (_svf_bank_kernel)
 //   env_follow_bank  <- libgooey_tpu/ops/pallas_fx.py:env_follow_bank (_env_bank_kernel)
 //   fbws_bank        <- libgooey_tpu/ops/pallas_fx.py:fbws_bank (_fbws_bank_kernel)
+//   ws4_bank         <- libgooey_tpu/ops/pallas_fx.py:ws4_bank (_ws4_bank_kernel)
+//   linrec2_bank     <- libgooey_tpu/ops/pallas_fx.py:linrec2_bank (_linrec2_bank_kernel)
 //
-// Design, shared by all five: each is a per-voice recurrence stepping
+// Design, shared by all seven: each is a per-row recurrence stepping
 // through the B samples of a block, so one thread owns one voice and walks
 // its row sample by sample with the carried state in registers.  Arrays are
 // the port's logical [V, B] layout, row-major: thread v reads x[v*B + n].
@@ -17,12 +19,13 @@
 // Per-voice state arrays ([S, V]) are read and written coalesced.
 //
 // What bounds them on the card: at V = 4,096 a launch is 32 blocks of 128
-// threads, so 32 of the 132 SMs hold one block each and the rest idle.  The
-// four small kernels are latency-bound on their serial B-step chain; the
-// fbws chain is 32 dependent allpass sections plus four tanhf per base
-// sample.  Filling the card (more voices per launch, or splitting each
-// voice's block across threads with a two-pass scan for the linear
-// recurrences) is the first thing to improve.
+// threads, so 32 of the 132 SMs hold one block each and the rest idle (the
+// kit's banks are smaller still: 1,024 snare rows fill 8 SMs, the 2,560
+// membrane rows of linrec2_bank 20).  The small kernels are latency-bound
+// on their serial B-step chain; the fbws and ws4 chains are 32 dependent
+// allpass sections plus four tanhf per base sample.  Filling the card (more
+// rows per launch, or splitting each row's block across threads with a
+// two-pass scan for the linear recurrences) is the first thing to improve.
 //
 // Numerics: every step keeps the Pallas body's op order, and the build
 // passes -fmad=false so that a*b + c rounds twice, exactly as the plain
@@ -190,31 +193,46 @@ __device__ __forceinline__ float ap_chain(float u, float (&ys)[N], float (&xs)[N
   return u;
 }
 
+// The memoryless nonlinearity evaluated at each 4x subsample: the kick's
+// plain tanh (fbws) or the waveshaper's tanh(v*d)*comp with the enclosing
+// engine sample's drive and makeup gain (ws4).
+struct TanhShaper {
+  __device__ __forceinline__ float operator()(float s) const { return tanhf(s); }
+};
+
+struct DriveShaper {
+  float d, cp;
+  __device__ __forceinline__ float operator()(float s) const { return tanhf(s * d) * cp; }
+};
+
 // Stage-1 upsample of one base sample, then the first 2x subsample through
-// stage 2, tanh and the stage-2 downsampler.  Returns (odd stage-1 output,
-// first 2x-rate decimated sample).
-__device__ __forceinline__ void fbws_phase_a(FbwsState& s, const FbwsCoefs& k,
-                                             float u, float& o1, float& d0) {
+// stage 2, the shaper and the stage-2 downsampler.  Returns (odd stage-1
+// output, first 2x-rate decimated sample).
+template <class Shaper>
+__device__ __forceinline__ void ovs4_phase_a(FbwsState& s, const FbwsCoefs& k,
+                                             const Shaper& shape, float u, float& o1,
+                                             float& d0) {
   const float e1 = ap_chain(u, s.u1y0, s.u1x0, k.c1_0);
   o1 = ap_chain(u, s.u1y1, s.u1x1, k.c1_1);
   const float s0 = ap_chain(e1, s.u2y0, s.u2x0, k.c2_0);
   const float s1 = ap_chain(e1, s.u2y1, s.u2x1, k.c2_1);
-  const float t0 = tanhf(s0);
-  const float t1 = tanhf(s1);
+  const float t0 = shape(s0);
+  const float t1 = shape(s1);
   const float a0 = ap_chain(t0, s.d2y0, s.d2x0, k.c2_0);
   const float a1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
   d0 = 0.5f * (a0 + a1);
   s.d2x1d = t1;
 }
 
-// Second 2x subsample, stage-1 downsample, then the bypass-gated DC blocker.
-// Returns the dc output of this base sample.
-__device__ __forceinline__ float fbws_phase_b(FbwsState& s, const FbwsCoefs& k,
-                                              float o1, float d0, float cs) {
+// Second 2x subsample and the stage-1 downsample.  Returns the base-rate
+// output of the 4x chain.
+template <class Shaper>
+__device__ __forceinline__ float ovs4_phase_b(FbwsState& s, const FbwsCoefs& k,
+                                              const Shaper& shape, float o1, float d0) {
   const float s2 = ap_chain(o1, s.u2y0, s.u2x0, k.c2_0);
   const float s3 = ap_chain(o1, s.u2y1, s.u2x1, k.c2_1);
-  const float t2 = tanhf(s2);
-  const float t3 = tanhf(s3);
+  const float t2 = shape(s2);
+  const float t3 = shape(s3);
   const float b0 = ap_chain(t2, s.d2y0, s.d2x0, k.c2_0);
   const float b1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
   const float d1 = 0.5f * (b0 + b1);
@@ -223,7 +241,11 @@ __device__ __forceinline__ float fbws_phase_b(FbwsState& s, const FbwsCoefs& k,
   const float e1 = ap_chain(s.d1x1d, s.d1y1, s.d1x1, k.c1_1);
   const float y = 0.5f * (e0 + e1);
   s.d1x1d = d1;
+  return y;
+}
 
+// The bypass-gated DC blocker of fbws.  Returns the dc output.
+__device__ __forceinline__ float fbws_dc(FbwsState& s, float y, float cs) {
   // cs < 0 marks a bypassed sample: DC state frozen, dc output 0
   const bool byp = cs < 0.0f;
   const float compensated = y * fmaxf(cs, 0.0f);
@@ -291,6 +313,62 @@ __device__ __forceinline__ void store_caps(const Caps<N>& c, float* st, int& k, 
   store_rows(c.x1, st, k, v, V);
 }
 
+// packed input layout: 52 rows (ops/bank_kernels.py FBWS_CORE_LAYOUT)
+__device__ __forceinline__ void load_state(FbwsState& s, const float* st, int v, int V) {
+  int r = 0;
+  load_rows(s.u1y0, st, r, v, V);
+  load_rows(s.u1x0, st, r, v, V);
+  load_rows(s.u1y1, st, r, v, V);
+  load_rows(s.u1x1, st, r, v, V);
+  load_rows(s.u2y0, st, r, v, V);
+  load_rows(s.u2x0, st, r, v, V);
+  load_rows(s.u2y1, st, r, v, V);
+  load_rows(s.u2x1, st, r, v, V);
+  load_rows(s.d2y0, st, r, v, V);
+  load_rows(s.d2x0, st, r, v, V);
+  load_rows(s.d2y1, st, r, v, V);
+  load_rows(s.d2x1, st, r, v, V);
+  load_row(s.d2x1d, st, r, v, V);
+  load_rows(s.d1y0, st, r, v, V);
+  load_rows(s.d1x0, st, r, v, V);
+  load_rows(s.d1y1, st, r, v, V);
+  load_rows(s.d1x1, st, r, v, V);
+  load_row(s.d1x1d, st, r, v, V);
+  load_row(s.dcx, st, r, v, V);
+  load_row(s.dcy, st, r, v, V);
+}
+
+// packed output layout: the 52 core rows, then 48 capture rows
+__device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& cu1,
+                                            const Caps<2>& cu2, const Caps<2>& cd2,
+                                            const Caps<4>& cd1, float* st, int v, int V) {
+  int r = 0;
+  store_rows(s.u1y0, st, r, v, V);
+  store_rows(s.u1x0, st, r, v, V);
+  store_rows(s.u1y1, st, r, v, V);
+  store_rows(s.u1x1, st, r, v, V);
+  store_rows(s.u2y0, st, r, v, V);
+  store_rows(s.u2x0, st, r, v, V);
+  store_rows(s.u2y1, st, r, v, V);
+  store_rows(s.u2x1, st, r, v, V);
+  store_rows(s.d2y0, st, r, v, V);
+  store_rows(s.d2x0, st, r, v, V);
+  store_rows(s.d2y1, st, r, v, V);
+  store_rows(s.d2x1, st, r, v, V);
+  store_row(s.d2x1d, st, r, v, V);
+  store_rows(s.d1y0, st, r, v, V);
+  store_rows(s.d1x0, st, r, v, V);
+  store_rows(s.d1y1, st, r, v, V);
+  store_rows(s.d1x1, st, r, v, V);
+  store_row(s.d1x1d, st, r, v, V);
+  store_row(s.dcx, st, r, v, V);
+  store_row(s.dcy, st, r, v, V);
+  store_caps(cu1, st, r, v, V);
+  store_caps(cu2, st, r, v, V);
+  store_caps(cd2, st, r, v, V);
+  store_caps(cd1, st, r, v, V);
+}
+
 __global__ void fbws_bank_kernel(const float* __restrict__ u,
                                  const float* __restrict__ cs,
                                  const float* __restrict__ st_in,
@@ -300,35 +378,15 @@ __global__ void fbws_bank_kernel(const float* __restrict__ u,
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
   const size_t row = static_cast<size_t>(v) * B;
+  const TanhShaper shape{};
 
-  // packed input layout: 52 rows (ops/bank_kernels.py FBWS_CORE_LAYOUT)
   FbwsState s;
-  int r = 0;
-  load_rows(s.u1y0, st_in, r, v, V);
-  load_rows(s.u1x0, st_in, r, v, V);
-  load_rows(s.u1y1, st_in, r, v, V);
-  load_rows(s.u1x1, st_in, r, v, V);
-  load_rows(s.u2y0, st_in, r, v, V);
-  load_rows(s.u2x0, st_in, r, v, V);
-  load_rows(s.u2y1, st_in, r, v, V);
-  load_rows(s.u2x1, st_in, r, v, V);
-  load_rows(s.d2y0, st_in, r, v, V);
-  load_rows(s.d2x0, st_in, r, v, V);
-  load_rows(s.d2y1, st_in, r, v, V);
-  load_rows(s.d2x1, st_in, r, v, V);
-  load_row(s.d2x1d, st_in, r, v, V);
-  load_rows(s.d1y0, st_in, r, v, V);
-  load_rows(s.d1x0, st_in, r, v, V);
-  load_rows(s.d1y1, st_in, r, v, V);
-  load_rows(s.d1x1, st_in, r, v, V);
-  load_row(s.d1x1d, st_in, r, v, V);
-  load_row(s.dcx, st_in, r, v, V);
-  load_row(s.dcy, st_in, r, v, V);
+  load_state(s, st_in, v, V);
 
   float o1, d0;
   for (int n = 0; n < B - 1; ++n) {
-    fbws_phase_a(s, k, u[row + n], o1, d0);
-    dc_out[row + n] = fbws_phase_b(s, k, o1, d0, cs[row + n]);
+    ovs4_phase_a(s, k, shape, u[row + n], o1, d0);
+    dc_out[row + n] = fbws_dc(s, ovs4_phase_b(s, k, shape, o1, d0), cs[row + n]);
   }
 
   // Final step with second-to-last captures: stage-1 memories hold the
@@ -338,40 +396,115 @@ __global__ void fbws_bank_kernel(const float* __restrict__ u,
   Caps<2> cu2, cd2;
   capture(cu1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
   capture(cd1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
-  fbws_phase_a(s, k, u[row + B - 1], o1, d0);
+  ovs4_phase_a(s, k, shape, u[row + B - 1], o1, d0);
   capture(cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
   capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
-  dc_out[row + B - 1] = fbws_phase_b(s, k, o1, d0, cs[row + B - 1]);
+  dc_out[row + B - 1] =
+      fbws_dc(s, ovs4_phase_b(s, k, shape, o1, d0), cs[row + B - 1]);
 
-  // packed output layout: the 52 core rows, then 48 capture rows
-  r = 0;
-  store_rows(s.u1y0, st_out, r, v, V);
-  store_rows(s.u1x0, st_out, r, v, V);
-  store_rows(s.u1y1, st_out, r, v, V);
-  store_rows(s.u1x1, st_out, r, v, V);
-  store_rows(s.u2y0, st_out, r, v, V);
-  store_rows(s.u2x0, st_out, r, v, V);
-  store_rows(s.u2y1, st_out, r, v, V);
-  store_rows(s.u2x1, st_out, r, v, V);
-  store_rows(s.d2y0, st_out, r, v, V);
-  store_rows(s.d2x0, st_out, r, v, V);
-  store_rows(s.d2y1, st_out, r, v, V);
-  store_rows(s.d2x1, st_out, r, v, V);
-  store_row(s.d2x1d, st_out, r, v, V);
-  store_rows(s.d1y0, st_out, r, v, V);
-  store_rows(s.d1x0, st_out, r, v, V);
-  store_rows(s.d1y1, st_out, r, v, V);
-  store_rows(s.d1x1, st_out, r, v, V);
-  store_row(s.d1x1d, st_out, r, v, V);
-  store_row(s.dcx, st_out, r, v, V);
-  store_row(s.dcy, st_out, r, v, V);
-  store_caps(cu1, st_out, r, v, V);
-  store_caps(cu2, st_out, r, v, V);
-  store_caps(cd2, st_out, r, v, V);
-  store_caps(cd1, st_out, r, v, V);
+  store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
+}
+
+// --- 6. ws4_bank: the plain waveshaper tanh(v*d)*comp at 4x ----------------
+//
+// The fbws chain with the waveshaper's nonlinearity and no DC blocker: the
+// packed DC rows pass through unchanged, the oversampler history advances
+// at every sample (the caller applies the bypass select and the
+// block-granular freeze, as on the TPU).  d and comp are per engine sample
+// and held across its four subsamples.
+
+__global__ void ws4_bank_kernel(const float* __restrict__ x,
+                                const float* __restrict__ d,
+                                const float* __restrict__ cp,
+                                const float* __restrict__ st_in,
+                                float* __restrict__ y_out,
+                                float* __restrict__ st_out, FbwsCoefs k, int V,
+                                int B) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  const size_t row = static_cast<size_t>(v) * B;
+
+  FbwsState s;
+  load_state(s, st_in, v, V);
+
+  float o1, d0;
+  for (int n = 0; n < B - 1; ++n) {
+    const DriveShaper shape{d[row + n], cp[row + n]};
+    ovs4_phase_a(s, k, shape, x[row + n], o1, d0);
+    y_out[row + n] = ovs4_phase_b(s, k, shape, o1, d0);
+  }
+
+  // final step with the second-to-last captures, as in fbws_bank_kernel
+  Caps<4> cu1, cd1;
+  Caps<2> cu2, cd2;
+  capture(cu1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
+  capture(cd1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
+  const DriveShaper shape{d[row + B - 1], cp[row + B - 1]};
+  ovs4_phase_a(s, k, shape, x[row + B - 1], o1, d0);
+  capture(cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
+  capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
+  y_out[row + B - 1] = ovs4_phase_b(s, k, shape, o1, d0);
+
+  store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
+}
+
+// --- 7. linrec2_bank: s[n] = A[n] s[n-1] + b[n], 2-vector state -------------
+//
+// The biquads, the 2x-iterated Chamberlin and the membrane bands (R = V*5
+// rows).  Both updates read the old state, in the Pallas body's order
+// (a11*s1 + a12*s2) + b1, with the first multiply-add fused as XLA fuses it
+// (fma(a11, s1, a12*s2) + b1, bit-exact against the JAX wrapper on the CPU;
+// rounded twice it drifts by ~2e-5 of the signal in a high-Q band).  The
+// explicit fmaf is kept by the -fmad=false build, which only stops the
+// compiler from contracting on its own.  High-Q resonators ring across
+// blocks, so the order is kept exactly.  Returns the post-update
+// trajectories.
+
+__global__ void linrec2_bank_kernel(const float* __restrict__ a11,
+                                    const float* __restrict__ a12,
+                                    const float* __restrict__ a21,
+                                    const float* __restrict__ a22,
+                                    const float* __restrict__ b1,
+                                    const float* __restrict__ b2,
+                                    const float* __restrict__ s1_0,
+                                    const float* __restrict__ s2_0,
+                                    float* __restrict__ s1_out,
+                                    float* __restrict__ s2_out,
+                                    float* __restrict__ s1_last,
+                                    float* __restrict__ s2_last, int R, int B) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const size_t row = static_cast<size_t>(r) * B;
+  float s1 = s1_0[r];
+  float s2 = s2_0[r];
+  for (int n = 0; n < B; ++n) {
+    const size_t i = row + n;
+    const float n1 = fmaf(a11[i], s1, a12[i] * s2) + b1[i];
+    const float n2 = fmaf(a21[i], s1, a22[i] * s2) + b2[i];
+    s1 = n1;
+    s2 = n2;
+    s1_out[i] = s1;
+    s2_out[i] = s2;
+  }
+  s1_last[r] = s1;
+  s2_last[r] = s2;
 }
 
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+// coefs (host): c1_0[4], c1_1[4], c2_0[2], c2_1[2]
+inline FbwsCoefs fbws_coefs(const float* coefs) {
+  FbwsCoefs k;
+  for (int i = 0; i < 4; ++i) {
+    k.c1_0[i] = coefs[i];
+    k.c1_1[i] = coefs[4 + i];
+  }
+  for (int i = 0; i < 2; ++i) {
+    k.c2_0[i] = coefs[8 + i];
+    k.c2_1[i] = coefs[10 + i];
+  }
+  return k;
+}
 
 }  // namespace
 
@@ -421,18 +554,25 @@ int env_follow_bank_launch(const float* rect, const uint8_t* freeze,
 int fbws_bank_launch(const float* u, const float* cs, const float* st_in,
                      float* dc, float* st_out, const float* coefs, int V, int B,
                      void* stream) {
-  // coefs (host): c1_0[4], c1_1[4], c2_0[2], c2_1[2]
-  FbwsCoefs k;
-  for (int i = 0; i < 4; ++i) {
-    k.c1_0[i] = coefs[i];
-    k.c1_1[i] = coefs[4 + i];
-  }
-  for (int i = 0; i < 2; ++i) {
-    k.c2_0[i] = coefs[8 + i];
-    k.c2_1[i] = coefs[10 + i];
-  }
   fbws_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
-      u, cs, st_in, dc, st_out, k, V, B);
+      u, cs, st_in, dc, st_out, fbws_coefs(coefs), V, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ws4_bank_launch(const float* x, const float* d, const float* cp,
+                    const float* st_in, float* y, float* st_out, const float* coefs,
+                    int V, int B, void* stream) {
+  ws4_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
+      x, d, cp, st_in, y, st_out, fbws_coefs(coefs), V, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int linrec2_bank_launch(const float* a11, const float* a12, const float* a21,
+                        const float* a22, const float* b1, const float* b2,
+                        const float* s1_0, const float* s2_0, float* s1, float* s2,
+                        float* s1_last, float* s2_last, int R, int B, void* stream) {
+  linrec2_bank_kernel<<<grid_for(R), kThreads, 0, as_stream(stream)>>>(
+      a11, a12, a21, a22, b1, b2, s1_0, s2_0, s1, s2, s1_last, s2_last, R, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,3 +1,3 @@
-from libgooey_tpu_torch.effects import feedback_waveshaper, freeze, limiter
+from libgooey_tpu_torch.effects import feedback_waveshaper, freeze, limiter, waveshaper
 
-__all__ = ["feedback_waveshaper", "freeze", "limiter"]
+__all__ = ["feedback_waveshaper", "freeze", "limiter", "waveshaper"]

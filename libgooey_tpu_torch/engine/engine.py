@@ -1,5 +1,5 @@
 """The engine: named instruments, sequencers, master bus
-(port of the kick slice of libgooey_tpu/engine/engine.py).
+(port of the voice-bank half of libgooey_tpu/engine/engine.py).
 
 Behavioral reference: src/engine/mod.rs.  Instruments of one family live in
 one voice bank (``[V, ...]`` state); a named instrument is a voice slot.  The
@@ -8,10 +8,11 @@ parameter targets, and drives one block step
 
     _render_all(state, events) -> (state', stereo[2, B], mono[B])
 
-Ported so far: the ``kick`` family, the per-family pan/gain mix with its
-pan-settled branch, the master gain and the pinned soft limiter — the
-Engine's default bus (``fx_order=()``).  Global effects, LFO routes and the
-other families raise ``NotImplementedError`` (ROADMAP.md Queue A).
+Ported so far: the five families of the headline kit (kick, snare, hihat2,
+tom2, bass), the per-family pan/gain mix with its pan-settled branch, the
+master gain and the pinned soft limiter: the Engine's default bus
+(``fx_order=()``).  Global effects, LFO routes and the hihat, tom and poly
+families raise ``NotImplementedError`` (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -36,16 +37,22 @@ from libgooey_tpu_torch.core.smoother import (
 )
 from libgooey_tpu_torch.effects import limiter
 from libgooey_tpu_torch.engine.sequencer import Sequencer
-from libgooey_tpu_torch.instruments import kick
+from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
 
 #: Instrument family registry: kind -> module (``init_state``,
-#: ``render_block``, PARAM_NAMES / PARAM_INDEX / PRESETS).
+#: ``render_block``, PARAM_NAMES / PARAM_INDEX / PRESETS), in the JAX
+#: package's order (engine.py:87-95): the global voice index that pan/gain
+#: read is family order, then slot.
 FAMILIES = {
     "kick": kick,
+    "snare": snare,
+    "hihat2": hihat2,
+    "tom2": tom2,
+    "bass": bass,
 }
 
 #: Families of the JAX package that the port does not have yet.
-_NOT_PORTED_FAMILIES = ("snare", "hihat", "hihat2", "tom", "tom2", "bass", "poly")
+_NOT_PORTED_FAMILIES = ("hihat", "tom", "poly")
 
 #: Per-family extra static kwargs for render_block (the JAX defaults).
 FAMILY_STATIC = {
@@ -59,27 +66,34 @@ FAMILY_STATIC = {
 }
 
 
+def midi_to_freq(note: int) -> float:
+    """A4 = 440 Hz equal temperament (libgooey_tpu/music/__init__.py:71-73)."""
+    return 440.0 * 2.0 ** ((note - 69) / 12.0)
+
+
 def _pack_triggers(pend: dict, V: int, B: int):
     """Pack per-voice trigger lists into event arrays.
 
-    ``pend`` maps voice index -> list of ``(offset, velocity)``.  Returns
-    ``(offs, vels)`` shaped ``[V]`` when no voice has more than one trigger
-    this block, else ``[V, K]`` slot arrays with offsets ascending per voice
-    and empty slots filled with ``B`` (= no trigger)."""
+    ``pend`` maps voice index -> list of ``(offset, velocity, freq)``.
+    Returns ``(offs, vels, freqs)`` shaped ``[V]`` when no voice has more
+    than one trigger this block, else ``[V, K]`` slot arrays with offsets
+    ascending per voice and empty slots filled with ``B`` (= no trigger)."""
     K = max((len(v) for v in pend.values()), default=1) or 1
     if K == 1:
         offs = np.full(V, B, np.int32)
         vels = np.zeros(V, np.float32)
+        freqs = np.zeros(V, np.float32)
         for flat, lst in pend.items():
-            offs[flat], vels[flat] = lst[0]
-        return offs, vels
+            offs[flat], vels[flat], freqs[flat] = lst[0]
+        return offs, vels, freqs
     offs = np.full((V, K), B, np.int32)
     vels = np.zeros((V, K), np.float32)
+    freqs = np.zeros((V, K), np.float32)
     for flat, lst in pend.items():
         # stable sort: same-offset triggers keep arrival order (last wins)
-        for k, (off, vel) in enumerate(sorted(lst, key=lambda t: t[0])):
-            offs[flat, k], vels[flat, k] = off, vel
-    return offs, vels
+        for k, (off, vel, freq) in enumerate(sorted(lst, key=lambda t: t[0])):
+            offs[flat, k], vels[flat, k], freqs[flat, k] = off, vel, freq
+    return offs, vels, freqs
 
 
 def _render_all(
@@ -97,8 +111,9 @@ def _render_all(
 ):
     """One block over every instrument bank + mix + master + limiter.
 
-    ``events`` holds ``<kind>_off`` / ``<kind>_vel`` trigger arrays and the
-    scalar ``block_start`` (numpy or tensors).  Returns
+    ``events`` holds ``<kind>_off`` / ``<kind>_vel`` trigger arrays, the
+    scalar ``block_start`` (numpy or tensors) and optionally ``bass_freq``
+    (per-trigger note frequencies, 0 = the param's).  Returns
     ``(new_state, stereo[2, B], mono[B])``."""
     if lfo_routes:
         raise not_ported("LFO routes")
@@ -112,6 +127,9 @@ def _render_all(
     for kind in kinds:
         if kind not in FAMILIES:
             raise not_ported(f"instrument family {kind!r}")
+        extra = {}
+        if kind == "bass" and "bass_freq" in events:
+            extra["note_freq"] = events["bass_freq"]
         bank_state, out = FAMILIES[kind].render_block(
             state[kind],
             events[kind + "_off"],
@@ -120,6 +138,7 @@ def _render_all(
             sample_rate=sample_rate,
             block_size=block_size,
             smooth_coeff=smooth_coeff,
+            **extra,
             **static.get(kind, {}),
         )
         new_state[kind] = bank_state
@@ -217,6 +236,7 @@ class Engine:
         # host mirrors
         self._names: Dict[str, Tuple[str, int]] = {}   # name -> (kind, slot)
         self._targets: Dict[str, List[np.ndarray]] = {k: [] for k in FAMILIES}
+        self._configs: Dict[str, List[object]] = {k: [] for k in FAMILIES}
         self._dirty: Dict[str, bool] = {k: False for k in FAMILIES}
         self._pan: List[float] = []
         self._gain: List[float] = []
@@ -242,6 +262,7 @@ class Engine:
         cfg = config if config is not None else mod.PRESETS["default"]()
         slot = len(self._targets[kind])
         self._targets[kind].append(cfg.as_array())
+        self._configs[kind].append(cfg)
         self._names[name] = (kind, slot)
         # mixer strip slot (global voice order: family order, then slot)
         self._pan.append(0.5)
@@ -309,17 +330,33 @@ class Engine:
             targets = np.stack(self._targets[kind])
             state[kind] = FAMILIES[kind].init_state(
                 len(self._targets[kind]), targets=targets, device=self.device)
+            # non-smoothed static per-voice fields from the configs
+            cfgs = self._configs[kind]
+            if kind == "snare":
+                state[kind] = state[kind]._replace(filter_type=self._ints(
+                    [c.filter_type for c in cfgs]))
+            if kind == "hihat2":
+                state[kind] = state[kind]._replace(
+                    noise_color=self._ints([c.noise_color for c in cfgs]),
+                    filter_slope=self._ints([c.filter_slope for c in cfgs]))
         state["pan"] = SmootherBank.init(np.asarray(self._pan, np.float32), self.device)
         state["gain"] = SmootherBank.init(np.asarray(self._gain, np.float32), self.device)
         state["master"] = SmootherBank.init(np.float32(self._master_target), self.device)
         self._state = state
 
+    def _ints(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int32), device=self.device)
+
     def _stage_kind(self, kind: str):
         if not self._dirty[kind] or self._state is None:
             return
         st = self._state[kind]
-        self._state[kind] = st._replace(
-            params=st.params.with_targets(np.stack(self._targets[kind])))
+        targets = np.stack(self._targets[kind])
+        if isinstance(st.params, SmootherBank):
+            params = st.params.with_targets(targets)
+        else:  # tom2: plain params
+            params = torch.as_tensor(targets.astype(np.float32), device=self.device)
+        self._state[kind] = st._replace(params=params)
         self._dirty[kind] = False
 
     def _stage(self):
@@ -341,19 +378,29 @@ class Engine:
         into numpy event arrays with exact in-block offsets."""
         B = self.block_size
         kinds = self.instrument_kinds()
-        pend = {k: {} for k in kinds}          # kind -> {slot: [(off, vel)]}
+        pend = {k: {} for k in kinds}          # kind -> {slot: [(off, vel, freq)]}
+
+        def add(kind, slot, off, vel, freq=0.0):
+            pend[kind].setdefault(slot, []).append((int(off), float(vel), float(freq)))
+
         for (kind, slot), velocity, offset in self._trigger_queue:
-            pend[kind].setdefault(slot, []).append((offset, velocity))
+            add(kind, slot, offset, velocity)
         self._trigger_queue.clear()
         for seq in self.sequencers:
             kind, slot = self._names[seq.name]
             for trig in seq.tick_block(B):
-                pend[kind].setdefault(slot, []).append((int(trig.offset), float(trig.velocity)))
+                if kind == "bass" and trig.note is not None:
+                    # a step's note override sets the trigger frequency
+                    add(kind, slot, trig.offset, trig.velocity, midi_to_freq(trig.note))
+                else:
+                    add(kind, slot, trig.offset, trig.velocity)
         events = {"block_start": np.int32(self.sample_count)}
         for k in kinds:
-            offs, vels = _pack_triggers(pend[k], len(self._targets[k]), B)
+            offs, vels, freqs = _pack_triggers(pend[k], len(self._targets[k]), B)
             events[k + "_off"] = offs
             events[k + "_vel"] = vels
+            if k == "bass":
+                events["bass_freq"] = freqs
         return events
 
     def _static_key(self):

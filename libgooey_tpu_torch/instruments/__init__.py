@@ -1,3 +1,3 @@
-from libgooey_tpu_torch.instruments import common, kick
+from libgooey_tpu_torch.instruments import bass, common, hihat2, kick, snare, tom2
 
-__all__ = ["common", "kick"]
+__all__ = ["bass", "common", "hihat2", "kick", "snare", "tom2"]

@@ -1,5 +1,5 @@
 """Shared per-block trigger/latch machinery for batched instruments
-(port of libgooey_tpu/instruments/common.py:33-178).
+(port of libgooey_tpu/instruments/common.py:33-226).
 
 ``VoiceBlock`` holds one block's context for a V-voice bank:
 
@@ -12,6 +12,12 @@
 ``trig_offset`` is ``[V]`` (one trigger slot, ``block_size`` = none) or
 ``[V, K]`` slot arrays with offsets ascending per voice; each sample sees the
 snapshot of the most recent trigger at or before it.
+
+``use_ws_bank`` (common.py:212-226) has no counterpart: on the TPU it sends
+wide banks to the fused ``ws4_bank`` kernel and small ones to the XLA
+oversampler, while the port's snare and bass always take ``ws4_bank``
+through ``effects/waveshaper.process_bank`` (its plain version on the CPU),
+which raises for ``os_mode != 4``.
 """
 
 from __future__ import annotations

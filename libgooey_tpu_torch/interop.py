@@ -4,8 +4,11 @@
 ``np.asarray`` accepts) into the port's state on ``device``, field by field:
 the port's state tuples keep the JAX field names and nesting, so both
 packages compute the same thing from the same state.  ``to_numpy`` goes the
-other way.  Events need no conversion: they are numpy dicts with the JAX
-keys (``kick_off``, ``kick_vel``, ``block_start``) that both packages take.
+other way; a leaf whose numpy dtype differs from its tensor's (hihat2's
+``voice_salt``: uint32 in the JAX package, int64 here) is named in its
+tuple's ``NUMPY_DTYPES``.  Events need no conversion: they are numpy dicts
+with the JAX keys (``kick_off``, ``kick_vel``, ``bass_freq``,
+``block_start``) that both packages take.
 """
 
 from __future__ import annotations
@@ -14,7 +17,10 @@ import numpy as np
 import torch
 
 from libgooey_tpu_torch.core.smoother import SmootherBank
-from libgooey_tpu_torch.instruments import kick
+from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
+
+#: the ported families' modules (``init_state`` builds the template)
+_FAMILIES = {"kick": kick, "snare": snare, "hihat2": hihat2, "tom2": tom2, "bass": bass}
 
 
 def from_numpy(template, src, device):
@@ -29,10 +35,16 @@ def from_numpy(template, src, device):
                             for f, t in zip(template._fields, template)))
 
 
+def family_state_from_numpy(kind: str, src, device):
+    """A JAX bank state of family ``kind`` (or a tree with the same fields)
+    -> the port's state of that family."""
+    V = np.asarray(src.trig_sample).shape[0]
+    return from_numpy(_FAMILIES[kind].init_state(V, device="cpu"), src, device)
+
+
 def kick_state_from_numpy(src, device) -> kick.KickState:
     """A JAX ``KickState`` (or a tree with the same fields) -> port ``KickState``."""
-    V = np.asarray(src.trig_sample).shape[0]
-    return from_numpy(kick.init_state(V, device="cpu"), src, device)
+    return family_state_from_numpy("kick", src, device)
 
 
 def smoother_from_numpy(src, device) -> SmootherBank:
@@ -42,12 +54,12 @@ def smoother_from_numpy(src, device) -> SmootherBank:
 
 
 def engine_state_from_numpy(src: dict, device) -> dict:
-    """A JAX engine state dict (``kick``, ``pan``, ``gain``, ``master``) ->
-    the port's engine state dict."""
+    """A JAX engine state dict (family banks, ``pan``, ``gain``,
+    ``master``) -> the port's engine state dict."""
     out = {}
     for key, val in src.items():
-        if key == "kick":
-            out[key] = kick_state_from_numpy(val, device)
+        if key in _FAMILIES:
+            out[key] = family_state_from_numpy(key, val, device)
         elif key in ("pan", "gain", "master"):
             out[key] = smoother_from_numpy(val, device)
         else:
@@ -65,7 +77,9 @@ def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_numpy(v) for v in tree))
+        dtypes = getattr(type(tree), "NUMPY_DTYPES", {})
+        return type(tree)(*(to_numpy(v) if f not in dtypes else to_numpy(v).astype(dtypes[f])
+                            for f, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds).
-The library lands in ``libgooey_tpu_torch/_build/`` (ignored by git) under a
-name keyed by the sources' hash, so an edited source rebuilds and a
-finished build is reused.  Nothing here runs at import time.
+Each ``csrc/*.cu`` compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, into an object; one more ``nvcc`` links the objects into
+a shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds).  The library lands in ``libgooey_tpu_torch/_build/``
+(ignored by git) under a name keyed by the sources' hash, so an edited
+source rebuilds and a finished build is reused.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ NVCC_FLAGS = (
     # keep a*b + c as two roundings, like the plain PyTorch versions
     "-fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,6 +44,9 @@ SIGNATURES = {
     "svf_bank_launch": [_P] * 10 + [_I, _I, _P],
     "env_follow_bank_launch": [_P] * 5 + [_F, _F, _I, _I, _P],
     "fbws_bank_launch": [_P] * 6 + [_I, _I, _P],
+    "ws4_bank_launch": [_P] * 7 + [_I, _I, _P],
+    "linrec2_bank_launch": [_P] * 12 + [_I, _I, _P],
+    "triangle_additive_bank_launch": [_P] * 3 + [_F, _F, _I, _I, _I, _P],
 }
 
 
@@ -74,22 +79,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgooey_bank_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; returns ``[(cmd, returncode, output)]``."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    results = []
+    for cmd, p in procs:
+        text = p.communicate()[0]
+        results.append((cmd, p.returncode, text))
+    return results
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
 
-    The compiler's report (``-Xptxas -v``: registers, spills) is kept in
+    One ``nvcc`` per source runs in parallel, then one links.  The
+    compiler's report (``-Xptxas -v``: registers, spills) is kept in
     ``_build/nvcc.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc, tag = find_nvcc(), f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(_sources(), objs)])
+    tmp = out.with_suffix(f".{tag}.so")
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+                              *map(str, objs)]])
+    (BUILD_DIR / "nvcc.log").write_text(
+        "".join(" ".join(cmd) + "\n" + text for cmd, _, text in results))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, rc, text) for cmd, rc, text in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        cmd, rc, text = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     os.replace(tmp, out)
     return out
 

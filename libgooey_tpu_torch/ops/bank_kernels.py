@@ -1,33 +1,40 @@
-"""The five voice-bank kernels of the kick path, each beside its plain version.
+"""The eight kernels of the five-family kit, each beside its plain version.
 
-Counterparts of the ``libgooey_tpu/ops/pallas_fx.py`` bank functions:
+Counterparts of the JAX package's Pallas wrappers:
 
-=================  ==========================================  =====================
-wrapper            replaces (wrapper line, body)               callers in the port
-=================  ==========================================  =====================
-affine1_bank       pallas_fx.py:2275, _affine1_bank_kernel     ops/scan.linrec1
-pink_bank          pallas_fx.py:2003, _pink_bank_kernel        ops/noise.pink_block
-svf_bank           pallas_fx.py:1499, _svf_bank_kernel         ops/filters.svf_tpt_block
-env_follow_bank    pallas_fx.py:1396, _env_bank_kernel         feedback_waveshaper._env_follow
-fbws_bank          pallas_fx.py:1769, _fbws_bank_kernel        feedback_waveshaper.process_block
-=================  ==========================================  =====================
+======================  ==============================================  ==========================
+wrapper                 replaces (wrapper line, body)                   callers in the port
+======================  ==============================================  ==========================
+affine1_bank            pallas_fx.py:2275, _affine1_bank_kernel         ops/scan (linrec1, maxlin,
+                                                                        cumsum_bank)
+pink_bank               pallas_fx.py:2003, _pink_bank_kernel            ops/noise.pink_block
+svf_bank                pallas_fx.py:1499, _svf_bank_kernel             ops/filters.svf_tpt_block
+env_follow_bank         pallas_fx.py:1396, _env_bank_kernel             feedback_waveshaper
+fbws_bank               pallas_fx.py:1769, _fbws_bank_kernel            feedback_waveshaper
+ws4_bank                pallas_fx.py:1921, _ws4_bank_kernel             effects/waveshaper
+linrec2_bank            pallas_fx.py:2201, _linrec2_bank_kernel         ops/scan.linrec2
+triangle_additive_bank  pallas_voice.py:127, _tri_bank_kernel           ops/osc.triangle_additive
+======================  ==============================================  ==========================
 
 Dispatch, with no fallback: a CUDA tensor launches the hand-written kernel
-(``csrc/bank_kernels.cu``, built at first use by ``ops/_build.py``) or
-raises; a CPU tensor takes the ``*_plain`` version, a sample-sequential
-PyTorch loop in the Pallas body's op order.  Every wrapper counts its kernel
-launches in a plain int attribute (``affine1_bank.launches``).
+(``csrc/*.cu``, built at first use by ``ops/_build.py``) or raises; a CPU
+tensor takes the ``*_plain`` version, a sample-sequential PyTorch loop in
+the Pallas body's op order (an elementwise pass for the triangle).  Every
+wrapper counts its kernel launches in a plain int attribute
+(``affine1_bank.launches``); a wrapper and its plain version take the same
+arguments.
 
 All arrays are float32 in the JAX package's ``[V, B]`` layout; masks are
 bool ``[V, B]``.  What bounds each kernel on the card and what its design does
-about it is in the header of ``csrc/bank_kernels.cu``: one thread per voice
-walks the block with its state in registers; at V = 4,096 that fills 32 of
-the 132 SMs, the first thing to improve.
+about it is in the header of its CUDA source: the recurrences run one thread
+per row with the state in registers, which at the kit's bank sizes fills
+8-32 of the 132 SMs, the first thing to improve.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -35,17 +42,23 @@ import torch
 from libgooey_tpu_torch.ops import _build
 from libgooey_tpu_torch.ops.oversample import STAGE1, STAGE2, HalfbandState, _split
 
-KERNELS = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "fbws_bank")
+KERNELS = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "fbws_bank",
+           "ws4_bank", "linrec2_bank", "triangle_additive_bank")
 
 #: Source of each kernel and the TPU kernel it replaces (file:line of the
 #: wrapper that reaches ``pl.pallas_call``).
-SOURCE = "libgooey_tpu_torch/csrc/bank_kernels.cu"
+_BANK_SRC = "libgooey_tpu_torch/csrc/bank_kernels.cu"
+SOURCES = {name: _BANK_SRC for name in KERNELS}
+SOURCES["triangle_additive_bank"] = "libgooey_tpu_torch/csrc/osc_kernels.cu"
 REPLACES = {
     "affine1_bank": "libgooey_tpu/ops/pallas_fx.py:2275",
     "pink_bank": "libgooey_tpu/ops/pallas_fx.py:2003",
     "svf_bank": "libgooey_tpu/ops/pallas_fx.py:1499",
     "env_follow_bank": "libgooey_tpu/ops/pallas_fx.py:1396",
     "fbws_bank": "libgooey_tpu/ops/pallas_fx.py:1769",
+    "ws4_bank": "libgooey_tpu/ops/pallas_fx.py:1921",
+    "linrec2_bank": "libgooey_tpu/ops/pallas_fx.py:2201",
+    "triangle_additive_bank": "libgooey_tpu/ops/pallas_voice.py:127",
 }
 
 
@@ -345,10 +358,11 @@ def _ap_chain_seq(u, ys, xs, coefs):
     return u, ys, xs
 
 
-def fbws_bank_plain(u, comp_signed, packed):
-    """Plain version of the fused zero-feedback waveshaper (pallas_fx.py:1611-1713):
-    4x polyphase up, tanh, down, signed makeup gain, gated DC blocker."""
-    uT, cT = u.t(), comp_signed.t()
+def _ovs4_plain(uT, packed, shaper, finish):
+    """The sample loop shared by the fbws and ws4 plain versions: 4x
+    polyphase up, ``shaper(n, s)`` at each 2x/4x subsample of base sample
+    ``n``, down; ``finish(c, n, y)`` turns the chain's base-rate output into
+    the kernel's output.  Returns ``(out [V, B], packed' [100, V])``."""
     B = uT.shape[0]
 
     def ld(name):
@@ -357,29 +371,59 @@ def fbws_bank_plain(u, comp_signed, packed):
 
     c = {name: ld(name) for name, _ in FBWS_CORE_LAYOUT}
 
-    def phase_a(c, un):
-        e1, c["u1y0"], c["u1x0"] = _ap_chain_seq(un, c["u1y0"], c["u1x0"], _C1_0)
-        o1, c["u1y1"], c["u1x1"] = _ap_chain_seq(un, c["u1y1"], c["u1x1"], _C1_1)
+    def phase_a(c, n):
+        e1, c["u1y0"], c["u1x0"] = _ap_chain_seq(uT[n], c["u1y0"], c["u1x0"], _C1_0)
+        o1, c["u1y1"], c["u1x1"] = _ap_chain_seq(uT[n], c["u1y1"], c["u1x1"], _C1_1)
         s0, c["u2y0"], c["u2x0"] = _ap_chain_seq(e1, c["u2y0"], c["u2x0"], _C2_0)
         s1, c["u2y1"], c["u2x1"] = _ap_chain_seq(e1, c["u2y1"], c["u2x1"], _C2_1)
-        t0, t1 = torch.tanh(s0), torch.tanh(s1)
+        t0, t1 = shaper(n, s0), shaper(n, s1)
         a0, c["d2y0"], c["d2x0"] = _ap_chain_seq(t0, c["d2y0"], c["d2x0"], _C2_0)
         a1, c["d2y1"], c["d2x1"] = _ap_chain_seq(c["d2x1d"], c["d2y1"], c["d2x1"], _C2_1)
         c["d2x1d"] = t1
         return o1, 0.5 * (a0 + a1)
 
-    def phase_b(c, o1, d0, cs):
+    def phase_b(c, n, o1, d0):
         s2, c["u2y0"], c["u2x0"] = _ap_chain_seq(o1, c["u2y0"], c["u2x0"], _C2_0)
         s3, c["u2y1"], c["u2x1"] = _ap_chain_seq(o1, c["u2y1"], c["u2x1"], _C2_1)
-        t2, t3 = torch.tanh(s2), torch.tanh(s3)
+        t2, t3 = shaper(n, s2), shaper(n, s3)
         b0, c["d2y0"], c["d2x0"] = _ap_chain_seq(t2, c["d2y0"], c["d2x0"], _C2_0)
         b1, c["d2y1"], c["d2x1"] = _ap_chain_seq(c["d2x1d"], c["d2y1"], c["d2x1"], _C2_1)
         d1 = 0.5 * (b0 + b1)
         c["d2x1d"] = t3
         e0, c["d1y0"], c["d1x0"] = _ap_chain_seq(d0, c["d1y0"], c["d1x0"], _C1_0)
         e1, c["d1y1"], c["d1x1"] = _ap_chain_seq(c["d1x1d"], c["d1y1"], c["d1x1"], _C1_1)
-        y = 0.5 * (e0 + e1)
         c["d1x1d"] = d1
+        return finish(c, n, 0.5 * (e0 + e1))
+
+    outs = []
+    for n in range(B - 1):
+        o1, d0 = phase_a(c, n)
+        outs.append(phase_b(c, n, o1, d0))
+    # final step with second-to-last captures (pallas_fx.py:1697-1713)
+    caps = {}
+    for tag in ("u1", "d1"):
+        for st, cap in (("y0", "y2_0"), ("x0", "x2_0"), ("y1", "y2_1"), ("x1", "x2_1")):
+            caps[tag + cap] = list(c[tag + st])
+    o1, d0 = phase_a(c, B - 1)
+    for tag in ("u2", "d2"):
+        for st, cap in (("y0", "y2_0"), ("x0", "x2_0"), ("y1", "y2_1"), ("x1", "x2_1")):
+            caps[tag + cap] = list(c[tag + st])
+    outs.append(phase_b(c, B - 1, o1, d0))
+
+    vals = {**c, **caps}
+    rows = []
+    for name, n in FBWS_CORE_LAYOUT + FBWS_Y2_LAYOUT:
+        rows += [vals[name]] if n == 1 else list(vals[name])
+    return torch.stack(outs, dim=1), torch.stack(rows, dim=0)
+
+
+def fbws_bank_plain(u, comp_signed, packed):
+    """Plain version of the fused zero-feedback waveshaper (pallas_fx.py:1611-1713):
+    4x polyphase up, tanh, down, signed makeup gain, gated DC blocker."""
+    cT = comp_signed.t()
+
+    def dc_block(c, n, y):
+        cs = cT[n]
         byp = cs < 0.0
         compensated = y * torch.clamp(cs, min=0.0)
         x1_prev = c["dcx"]
@@ -388,26 +432,7 @@ def fbws_bank_plain(u, comp_signed, packed):
         c["dcy"] = torch.where(byp, c["dcy"], y1_new)
         return torch.where(byp, 0.0, c["dcy"])
 
-    dcs = []
-    for n in range(B - 1):
-        o1, d0 = phase_a(c, uT[n])
-        dcs.append(phase_b(c, o1, d0, cT[n]))
-    # final step with second-to-last captures (pallas_fx.py:1697-1713)
-    caps = {}
-    for tag in ("u1", "d1"):
-        for st, cap in (("y0", "y2_0"), ("x0", "x2_0"), ("y1", "y2_1"), ("x1", "x2_1")):
-            caps[tag + cap] = list(c[tag + st])
-    o1, d0 = phase_a(c, uT[B - 1])
-    for tag in ("u2", "d2"):
-        for st, cap in (("y0", "y2_0"), ("x0", "x2_0"), ("y1", "y2_1"), ("x1", "x2_1")):
-            caps[tag + cap] = list(c[tag + st])
-    dcs.append(phase_b(c, o1, d0, cT[B - 1]))
-
-    vals = {**c, **caps}
-    rows = []
-    for name, n in FBWS_CORE_LAYOUT + FBWS_Y2_LAYOUT:
-        rows += [vals[name]] if n == 1 else list(vals[name])
-    return torch.stack(dcs, dim=1), torch.stack(rows, dim=0)
+    return _ovs4_plain(u.t(), packed, lambda n, s: torch.tanh(s), dc_block)
 
 
 def fbws_bank(u, comp_signed, packed):
@@ -434,6 +459,162 @@ def fbws_bank(u, comp_signed, packed):
 
 
 fbws_bank.launches = 0
+
+
+# --- 6. ws4_bank ----------------------------------------------------------------
+
+
+_TANH_HALF = float(torch.tanh(torch.tensor(0.5, dtype=torch.float32)))
+
+
+def _ws4_gain(drive):
+    """``(d, comp)``: the drive floored at 1 + 1e-6 and the makeup gain
+    ``tanh(0.5) / tanh(0.5 d)`` (pallas_fx.py:1936-1937), computed once for
+    the kernel and the plain version alike."""
+    d = torch.clamp(drive, min=1.0 + 1e-6)
+    # a true division: a Python scalar over a tensor would multiply by the
+    # reciprocal and round twice
+    comp = torch.full_like(d, _TANH_HALF) / torch.tanh(0.5 * d)
+    return d, comp
+
+
+def ws4_bank_plain(x, drive, packed):
+    """Plain version of the 4x waveshaper (pallas_fx.py:1805-1898): the fbws
+    chain with ``tanh(v*d)*comp`` held across the four subsamples of each
+    engine sample and the packed DC rows passed through."""
+    d, comp = _ws4_gain(drive)
+    dT, cT = d.t(), comp.t()
+    return _ovs4_plain(x.t(), packed, lambda n, s: torch.tanh(s * dT[n]) * cT[n],
+                       lambda c, n, y: y)
+
+
+def ws4_bank(x, drive, packed):
+    """Fused voice-bank plain waveshaper at 4x (waveshaper.rs semantics,
+    mix == 1).
+
+    ``x``: [V, B] undriven input; ``drive``: [V, B] raw drive trajectory;
+    ``packed``: [52, V] from :func:`pack_ws4_bank`.  Returns ``(sat [V, B],
+    new_packed [100, V])`` for :func:`unpack_ws4_bank`; the caller applies
+    the bypass select and the block-granular freeze."""
+    if not _on_cuda("ws4_bank", x):
+        return ws4_bank_plain(x, drive, packed)
+    V, B = _vb("ws4_bank", x)
+    _check("ws4_bank", x.device, [
+        ("x", x, _F32, (V, B)), ("drive", drive, _F32, (V, B)),
+        ("packed", packed, _F32, (FBWS_S_IN, V))])
+    d, comp = _ws4_gain(drive)
+    y, nst = _empty((V, B), x), _empty((FBWS_S_OUT, V), x)
+    keep, coefs = _host_floats(_FBWS_COEFS)
+    _launch("ws4_bank", x.device, "ws4_bank_launch",
+            x.data_ptr(), d.data_ptr(), comp.data_ptr(), packed.data_ptr(),
+            y.data_ptr(), nst.data_ptr(), coefs, V, B)
+    del keep
+    ws4_bank.launches += 1
+    return y, nst
+
+
+ws4_bank.launches = 0
+
+
+# --- 7. linrec2_bank ------------------------------------------------------------
+
+
+def _fma(a, b, c):
+    """``a*b + c`` rounded once to float32, like C's ``fmaf``: the float32
+    product is exact in float64 and the float64 sum rounds once more."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def linrec2_bank_plain(a11, a12, a21, a22, b1, b2, s1_0, s2_0):
+    """Plain version: ``s1' = (a11*s1 + a12*s2) + b1``, ``s2' = (a21*s1 +
+    a22*s2) + b2``, both from the old state (pallas_fx.py:2188-2189), with
+    the first multiply-add fused as XLA fuses it (see the kernel's note)."""
+    A11, A12, A21, A22, B1, B2 = (t.t() for t in (a11, a12, a21, a22, b1, b2))
+    s1, s2 = s1_0, s2_0
+    s1s, s2s = [], []
+    for n in range(A11.shape[0]):
+        n1 = _fma(A11[n], s1, A12[n] * s2) + B1[n]
+        n2 = _fma(A21[n], s1, A22[n] * s2) + B2[n]
+        s1, s2 = n1, n2
+        s1s.append(s1)
+        s2s.append(s2)
+    return torch.stack(s1s, dim=1), torch.stack(s2s, dim=1), s1, s2
+
+
+def linrec2_bank(a11, a12, a21, a22, b1, b2, s1_0, s2_0):
+    """Row-bank 2-state recurrence ``s[n] = A[n] s[n-1] + b[n]`` over [R, B].
+
+    Coefficients are [R, B] (already broadcast); ``s1_0``/``s2_0`` are [R]
+    carried state.  Returns ``(s1 [R, B], s2 [R, B], s1' [R], s2' [R])``
+    with s1/s2 the post-update trajectories."""
+    if not _on_cuda("linrec2_bank", a11):
+        return linrec2_bank_plain(a11, a12, a21, a22, b1, b2, s1_0, s2_0)
+    R, B = _vb("linrec2_bank", a11)
+    coefs = (("a11", a11), ("a12", a12), ("a21", a21), ("a22", a22), ("b1", b1), ("b2", b2))
+    _check("linrec2_bank", a11.device,
+           [(label, t, _F32, (R, B)) for label, t in coefs]
+           + [("s1_0", s1_0, _F32, (R,)), ("s2_0", s2_0, _F32, (R,))])
+    s1, s2 = _empty((R, B), a11), _empty((R, B), a11)
+    s1l, s2l = _empty((R,), a11), _empty((R,), a11)
+    _launch("linrec2_bank", a11.device, "linrec2_bank_launch",
+            *(t.data_ptr() for _, t in coefs), s1_0.data_ptr(), s2_0.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), s1l.data_ptr(), s2l.data_ptr(), R, B)
+    linrec2_bank.launches += 1
+    return s1, s2, s1l, s2l
+
+
+linrec2_bank.launches = 0
+
+
+# --- 8. triangle_additive_bank --------------------------------------------------
+
+TWO_PI = float(2.0 * np.pi)
+
+
+def triangle_additive_bank_plain(idx, freq, sample_rate: float, max_harmonics: int):
+    """Plain version of the additive odd-harmonic triangle (osc.py:130-157),
+    in its op order: ``sin(h*theta)`` by the Chebyshev recurrence
+    ``sin((h+2)t) = 2cos(2t) sin(ht) - sin((h-2)t)``."""
+    theta = idx * freq * (TWO_PI / sample_rate)
+    # divisions by a device scalar, not a Python one: true divisions as in
+    # the kernel and the JAX package
+    nyquist = torch.full((), sample_rate / 2.0, dtype=torch.float32, device=idx.device)
+    sin1 = torch.sin(theta)
+    cos2x2 = 2.0 * torch.cos(2.0 * theta)
+    max_h = torch.floor(nyquist / torch.clamp(freq, min=1e-6))
+    prev, curr, acc = -sin1, sin1, torch.zeros_like(sin1)
+    for k in range((max_harmonics + 1) // 2):
+        h = 2.0 * k + 1.0
+        hfreq = freq * h
+        ratio = hfreq / nyquist
+        t = (ratio - 0.75) * 4.0
+        taper = torch.where(ratio > 0.75, 1.0 - t * t, 1.0)
+        gain = taper / torch.full((), h * h, dtype=torch.float32, device=idx.device)
+        active = (h <= max_h) & (hfreq <= nyquist)
+        acc = acc + torch.where(active, gain * curr, 0.0)
+        prev, curr = curr, cos2x2 * curr - prev
+    return acc
+
+
+def triangle_additive_bank(idx, freq, sample_rate: float, max_harmonics: int):
+    """Voice-bank additive triangle over [V, B]: ``idx`` samples since the
+    trigger (float), ``freq`` Hz per sample; ``max_harmonics`` bounds the
+    odd harmonics summed.  Returns ``[V, B]``."""
+    if not _on_cuda("triangle_additive_bank", idx):
+        return triangle_additive_bank_plain(idx, freq, sample_rate, max_harmonics)
+    V, B = _vb("triangle_additive_bank", idx)
+    _check("triangle_additive_bank", idx.device, [
+        ("idx", idx, _F32, (V, B)), ("freq", freq, _F32, (V, B))])
+    out = _empty((V, B), idx)
+    _launch("triangle_additive_bank", idx.device, "triangle_additive_bank_launch",
+            idx.data_ptr(), freq.data_ptr(), out.data_ptr(),
+            float(np.float32(TWO_PI / sample_rate)), float(np.float32(sample_rate / 2.0)),
+            (int(max_harmonics) + 1) // 2, V, B)
+    triangle_additive_bank.launches += 1
+    return out
+
+
+triangle_additive_bank.launches = 0
 
 #: the wrappers by name, for the launch counts
 _WRAPPERS = {name: globals()[name] for name in KERNELS}
@@ -476,3 +657,17 @@ def unpack_fbws_bank(nst, state):
         down1=hb("d1", g("d1x1d")),
     )
     return ovs_new, g("dcx"), g("dcy")
+
+
+def pack_ws4_bank(ovs) -> torch.Tensor:
+    """``[V]``-batched OversamplerState -> packed ``[52, V]`` for
+    :func:`ws4_bank`: the fbws layout with zero DC rows (the waveshaper has
+    no DC blocker)."""
+    z = torch.zeros_like(ovs.up1.x1)
+    return pack_fbws_bank(SimpleNamespace(ovs=ovs, dc_x1=z, dc_y1=z))
+
+
+def unpack_ws4_bank(nst, ovs):
+    """Packed ``[100, V]`` -> the new OversamplerState (DC rows discarded)."""
+    new_ovs, _dcx, _dcy = unpack_fbws_bank(nst, SimpleNamespace(ovs=ovs))
+    return new_ovs

@@ -1,7 +1,9 @@
 """Time-based oscillators over ``[V, B]`` blocks (port of libgooey_tpu/ops/osc.py).
 
 Each waveform is a pure function of ``(sample_index_since_trigger, freq[n])``
-(src/gen/oscillator.rs:242-255): no phase integration.
+(src/gen/oscillator.rs:242-255): no phase integration.  The additive
+triangle runs in the ``triangle_additive_bank`` kernel.  Not ported (no
+caller yet): ``ring_mod`` and the naive saw/square/triangle.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from libgooey_tpu_torch.core import rng
+from libgooey_tpu_torch.ops import bank_kernels
 
 TWO_PI = float(2.0 * np.pi)
 
@@ -24,33 +27,49 @@ def noise(sample_index, seed=rng.DEFAULT_SEED):
     return rng.white_from_sample_index(torch.floor(sample_index).to(torch.int32), seed)
 
 
+def poly_blep(t, dt):
+    """2-sample polynomial step correction (src/gen/polyblep.rs:8-20)."""
+    dt = torch.clamp(dt, min=1e-12)
+    early = t / dt
+    late = (t - 1.0) / dt
+    return torch.where(
+        t < dt,
+        2.0 * early - early * early - 1.0,
+        torch.where(t > 1.0 - dt, late * late + 2.0 * late + 1.0, 0.0),
+    )
+
+
+def _phase(sample_index, freq, sample_rate):
+    """Phase in [0,1) and per-sample increment (oscillator.rs:153-157)."""
+    inc = freq / sample_rate
+    return torch.remainder(sample_index * inc, 1.0), inc
+
+
+def saw_blep(sample_index, freq, sample_rate):
+    """Band-limited saw: naive ramp minus one blep (polyblep.rs:25-29)."""
+    phase, inc = _phase(sample_index, freq, sample_rate)
+    return (2.0 * phase - 1.0) - poly_blep(phase, inc)
+
+
+def square_blep(sample_index, freq, sample_rate):
+    """Band-limited square: bleps at both edges (polyblep.rs:34-40)."""
+    phase, inc = _phase(sample_index, freq, sample_rate)
+    naive = torch.where(phase < 0.5, 1.0, -1.0)
+    return naive + poly_blep(phase, inc) - poly_blep(torch.remainder(phase + 0.5, 1.0), inc)
+
+
 def triangle_additive(sample_index, freq, sample_rate, max_harmonics: int):
     """The reference's band-limited "triangle": an additive odd-harmonic sum
     with a quadratic Gibbs taper over the top 25% of the band and harmonics
     capped at Nyquist (oscillator.rs:106-131), via the Chebyshev recurrence
     ``sin((i+2)t) = 2cos(2t) sin(it) - sin((i-2)t)``.
 
-    This is the plain version and runs on the CPU only.  Its kernel,
-    ``triangle_additive_bank``, is not ported yet, so a CUDA tensor raises
-    (the kick slice runs ``max_harmonics=0`` and never calls this)."""
-    if sample_index.device.type != "cpu":
-        from libgooey_tpu_torch import not_ported
-
-        raise not_ported("osc.triangle_additive on CUDA (kernel triangle_additive_bank)")
-    theta = sample_index * freq * (TWO_PI / sample_rate)
-    nyquist = sample_rate / 2.0
-    sin1 = torch.sin(theta)
-    cos2x2 = 2.0 * torch.cos(2.0 * theta)
-    max_i = torch.floor(nyquist / torch.clamp(freq, min=1e-6))
-    prev, curr, acc = -sin1, sin1, torch.zeros_like(sin1)
-    for k in range((max_harmonics + 1) // 2):
-        i = 2.0 * k + 1.0
-        hfreq = freq * i
-        ratio = hfreq / nyquist
-        t = (ratio - 0.75) * 4.0
-        taper = torch.where(ratio > 0.75, 1.0 - t * t, 1.0)
-        gain = taper / (i * i)
-        active = (i <= max_i) & (hfreq <= nyquist)
-        acc = acc + torch.where(active, gain * curr, 0.0)
-        prev, curr = curr, cos2x2 * curr - prev
-    return acc
+    Runs in ``bank_kernels.triangle_additive_bank`` over the broadcast
+    ``[..., B]`` block with leading axes flattened into rows: the CUDA
+    kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    idx, f = torch.broadcast_tensors(sample_index, freq)
+    B = idx.shape[-1]
+    out = bank_kernels.triangle_additive_bank(
+        idx.reshape(-1, B).contiguous(), f.reshape(-1, B).contiguous(),
+        sample_rate, max_harmonics)
+    return out.reshape(idx.shape)

@@ -1,5 +1,6 @@
 """The port's Engine API, kick voice and host logic against the JAX package
-and the per-sample kick oracle (all on the CPU)."""
+and the per-sample kick oracle (all on the CPU).  Engine comparisons hold
+the stereo and mono output to 1e-4."""
 
 import dataclasses
 
@@ -7,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from libgooey_tpu.engine.engine import FAMILIES as JFAMILIES
 from libgooey_tpu.engine.engine import Engine as JEngine
 from libgooey_tpu.engine.sequencer import Sequencer as JSequencer
 from libgooey_tpu.instruments import kick as jkick
 
 from libgooey_tpu_torch import interop
 from libgooey_tpu_torch.core.smoother import smoothing_coeff
+from libgooey_tpu_torch.engine.engine import FAMILIES as TFAMILIES
 from libgooey_tpu_torch.engine.engine import Engine as TEngine
 from libgooey_tpu_torch.engine.sequencer import Sequencer as TSequencer
 from libgooey_tpu_torch.instruments import kick as tkick
@@ -57,6 +60,55 @@ def test_engine_api_matches_jax_engine():
     assert np.abs(want).max() > 1e-3
     assert np.abs(got - want).max() <= 1e-4
     assert np.abs(got_mono - want_mono).max() <= 1e-4
+
+
+def _drive_kit(eng, n_blocks):
+    """One sequenced instrument of each family with the Engine's default
+    statics (kick and snare additive triangles at 128 and 192 harmonics),
+    the bass sequencer carrying a note on one step and a mixer move; returns
+    (stereo, mono) numpy blocks."""
+    jax_side = isinstance(eng, JEngine)
+    for i, kind in enumerate(("kick", "snare", "hihat2", "tom2", "bass")):
+        mod = (JFAMILIES if jax_side else TFAMILIES)[kind]
+        preset = sorted(k for k in mod.PRESETS if k != "default")[1]
+        eng.add_instrument(kind, kind, mod.PRESETS[preset]())
+        seq = eng.new_sequencer(kind, 480.0 + 60.0 * i)
+        seq.set_pattern([True] * 16)
+        if kind == "bass":
+            seq.set_step_note(0, 45)
+            seq.set_step_note(2, 52)
+        seq.start()
+    eng.set_pan("snare", 0.9)
+    eng.set_gain("tom2", 0.5)
+    outs, monos = [], []
+    for blk in range(n_blocks):
+        if blk == 1:
+            eng.trigger("hihat2", 0.8, offset=50)
+            eng.trigger("snare", 1.0, offset=100)
+        out, mono = eng.render_block()
+        outs.append(np.asarray(out))
+        monos.append(np.asarray(mono))
+    return np.stack(outs), np.stack(monos)
+
+
+def test_engine_five_families_match_jax_engine():
+    want, want_mono = _drive_kit(JEngine(SR, B), 4)
+    got, got_mono = _drive_kit(TEngine(SR, B, device="cpu"), 4)
+    assert np.abs(want).max() > 1e-3
+    assert np.abs(got - want).max() <= 1e-4
+    assert np.abs(got_mono - want_mono).max() <= 1e-4
+
+
+def test_sequencer_note_reaches_the_bass_frequency():
+    eng = TEngine(SR, B, device="cpu")
+    eng.add_instrument("b", "bass")
+    seq = eng.new_sequencer("b", 120.0)
+    seq.set_pattern([True] + [False] * 15)
+    seq.set_step_note(0, 57)
+    seq.start()
+    eng.render_block()
+    freq = float(eng._state["bass"].trig_freq[0])
+    assert abs(freq - 220.0) < 1e-3
 
 
 def test_engine_render_concatenates_blocks():
@@ -126,12 +178,15 @@ def test_interop_round_trip():
 
 def test_unported_parts_raise_with_a_pointer():
     eng = TEngine(SR, B, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.add_instrument("s", "snare")
+    for kind in ("hihat", "tom", "poly"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.add_instrument(kind, kind)
     with pytest.raises(KeyError):
         eng.add_instrument("x", "theremin")
+    # the additive triangle now has a kernel: a tensor on neither CUDA nor
+    # the CPU raises instead of falling back
     idx = torch.empty(2, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no kernel"):
         osc.triangle_additive(idx, idx, SR, 16)
     st = tkick.init_state(2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -137,8 +137,9 @@ def test_multi_trigger_blocks_match_jax():
 
 
 def test_slice_goes_through_every_bank_wrapper(monkeypatch):
-    """Each of the five bank wrappers is on the slice's path (on the CPU they
-    run their plain versions; on CUDA the same calls launch the kernels)."""
+    """Each of the kick's five bank wrappers is on the slice's path (on the
+    CPU they run their plain versions; on CUDA the same calls launch the
+    kernels); the kit's other three are not, at ``max_harmonics=0``."""
     calls = {n: 0 for n in bank_kernels.KERNELS}
     for n in bank_kernels.KERNELS:
         fn = getattr(bank_kernels, n)
@@ -154,7 +155,8 @@ def test_slice_goes_through_every_bank_wrapper(monkeypatch):
               "block_start": np.zeros(1, np.int32)}
     tengine.render_many(state, events, **STATIC)
     assert calls == {"affine1_bank": 2, "pink_bank": 1, "svf_bank": 1,
-                     "env_follow_bank": 1, "fbws_bank": 1}
+                     "env_follow_bank": 1, "fbws_bank": 1, "ws4_bank": 0,
+                     "linrec2_bank": 0, "triangle_additive_bank": 0}
 
 
 @pytest.mark.parametrize("kw", [dict(fx_order=("saturation",)),
