@@ -10,33 +10,49 @@ Phases (any failure exits non-zero):
 1. device: require a CUDA card; print its name and power limit (nvidia-smi);
 2. build: compile the kernels (libgooey_tpu_torch/csrc, one nvcc per source
    in parallel);
-3. kernels: each of the eight kernels against its plain PyTorch version on
-   the card, at the main path's shapes (B = 512; V = 4,096 for the kick's
-   five, V = 1,024 for ws4 and the triangle, R = 2,560 membrane rows for
-   linrec2), inputs from a numpy seed; also the counter hash, bit for bit
-   against the CPU;
+3. kernels: each of the thirteen kernels against its plain PyTorch version
+   on the card, at the main path's shapes (B = 512; V = 4,096 for the
+   kick's five, V = 1,024 for ws4 and the triangle, R = 2,560 membrane rows
+   for linrec2, the stereo bus [2, B] for the four bus kernels and for
+   ``bus_chain`` running the four in one launch, which must also equal the
+   four kernels in turn bit for bit), inputs from a numpy seed; with each
+   kernel's time, its plain version's and its bound (the larger of bytes
+   over 3.35 TB/s and operations over 67 TFLOP/s); also the counter hash,
+   bit for bit against the CPU;
 4. the kick slice through ``render_many``: 4,096 kick voices, tight preset,
    ``max_harmonics=0, feedback_path=False``, the default bus (mix, master,
    soft limiter), 64 blocks of 512 at 44.1 kHz with sequenced staggered
    triggers; checks the output, the launch counts, and the first 2 blocks
    against the same render with every kernel swapped for its plain version;
    reports the aggregate real-time factor (voices x audio seconds / wall s)
-   from the median of 5 timed renders;
+   from the median of 3 timed renders;
 5. the five-family kit through ``render_many`` (the voice half of
    ``bench_configs.build_full_kit``, with the default bus): kick, snare and
    hihat2 at 1,024 voices, tom2 and bass at 512, default presets, kick
    ``max_harmonics=0, feedback_path=False``, snare ``max_harmonics=64``,
    the kit's sequenced traffic, 64 blocks; the same checks with all eight
-   kernels, ms/block, aggregate RTF and launches per kernel per block;
-6. the ``Engine`` API with its default statics (kick and snare additive
+   bank kernels, median of 3 renders;
+6. full_kit_4096_bus4: the same kit with the first four effects of
+   ``build_full_kit``'s global bus (saturation, lowpass, tilt, delay; fresh
+   effect states, ``FX_DEFAULT_TARGETS`` every block), median of 5 renders;
+   the eight bank kernels launched and the bus as one ``bus_chain`` launch
+   a block, as the engine runs a run of effects; then again with the tilt
+   at [0.3, 0.4] (the default knob 0.5 is passthrough), so the SVF runs;
+   then that render with ``fuse_bus=False`` (median of 3), each bus kernel
+   once a block.  The kernel-vs-plain comparison of each runs its 2 blocks
+   with a 0.005 s delay, so the second block reads the ring the first wrote;
+7. the ``Engine`` API with its default statics (kick and snare additive
    triangles at 128 and 192 harmonics): 16 named kicks and one sequenced
-   instrument of each other family, 1 s.
+   instrument of each other family, through saturation, lowpass, tilt
+   [0.3, 0.4] and delay [0.015, 0.5, 0.4, 6000] added with
+   ``add_global_effect``, 1 s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
-JSON summary (launches from the kit's run).  ``--profile PATH`` also writes
-torch.profiler tables of 4 steady-state blocks of the kick slice and of the
-kit to PATH.
+JSON summary (launches from the first full_kit_4096_bus4 run, and the four
+per-effect bus kernels' from the ``fuse_bus=False`` run).  ``--profile
+PATH`` also writes torch.profiler tables of 4 steady-state blocks of the
+kick slice, the kit and the three kit-with-bus renders to PATH.
 """
 
 from __future__ import annotations
@@ -57,13 +73,37 @@ V = 4096
 KIT = {"kick": 1024, "snare": 1024, "hihat2": 1024, "tom2": 512, "bass": 512}
 N_BLOCKS = 64
 N_COMPARE = 2
-#: timed repeats of the 64-block render (the host clock is shared and noisy)
+#: timed repeats of the 64-block render (the host clock is shared and noisy):
+#: the bus phase's; the kick and kit phases before it take 3
 N_REPEATS = 5
+N_REPEATS_EARLIER = 3
 SEED = 0
+#: the bus of full_kit_4096_bus4: the first four effects of build_full_kit's
+FX_ORDER = ("saturation", "lowpass", "tilt", "delay")
 
-#: kernel vs plain version: tanhf and the order of a few roundings differ
+#: kernel vs plain version: tanhf/expf/tanf and the order of a few roundings
+#: differ.  State is compared relative to its magnitude where that exceeds 1
+#: (the delay's cutoff smoother holds Hz).
 OUT_TOL = 1e-5
 STATE_TOL = 1e-4
+
+#: the card's published peaks (H100 SXM, dense, at 700 W): device memory
+#: bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+#: arithmetic operations per row-sample, read off each kernel's body (add,
+#: subtract, multiply, divide, min/max: 1 each; a fused multiply-add 2; a
+#: transcendental 1; compares, selects and loads not counted)
+OPS_PER_ROW_SAMPLE = {
+    "affine1_bank": 3, "pink_bank": 14, "svf_bank": 10, "env_follow_bank": 4,
+    # 32 allpass sections x 3, three half-sums, the shaper at 4 subsamples
+    "fbws_bank": 111, "ws4_bank": 114, "linrec2_bank": 8,
+    # 32 odd harmonics x ~11 (frequency, taper, gain, accumulate, recurrence)
+    "triangle_additive_bank": 364,
+    # 4 trajectories, the 4x chain, 4 atan shapers, DC blocker, mix
+    "saturation_block": 226, "lowpass_block": 12, "tilt_block": 54, "delay_block": 43,
+}
 #: the 2-block render with kernels vs with plain versions, on the card
 RENDER_TOL = 1e-4
 
@@ -108,14 +148,22 @@ def max_err(a, b) -> float:
 # --- phase 3: kernels against their plain versions ---------------------------
 
 
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def kernel_cases(dev):
-    """(name, shape label, kernel call, plain call, n_outputs) at the main
-    path's shapes."""
+    """(name, shape label, args, kwargs, n_outputs) at the main path's
+    shapes; a kernel may have more than one case."""
     import torch
 
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.effects import delay
     from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
+    from libgooey_tpu_torch.effects import saturation
     from libgooey_tpu_torch.ops import bank_kernels as bk
-    from libgooey_tpu_torch.ops import filters, noise
+    from libgooey_tpu_torch.ops import bus_kernels as bus
+    from libgooey_tpu_torch.ops import filters, noise, ringbuf
 
     rs = np.random.RandomState(SEED)
 
@@ -128,95 +176,168 @@ def kernel_cases(dev):
     kick_shape = f"V={V}, B={B}"
     cases = []
     # 1. affine1 as linrec1 uses it: no floor, one-pole coefficients with resets
-    a = t(np.full((V, B), -3.0e38, np.float32))
-    bcoef = t(np.where(rs.rand(V, B) < 0.002, 0.0, 0.9 + 0.0999 * rs.rand(V, B)))
-    c = t(0.01 * rs.randn(V, B))
-    y0 = t(0.1 * rs.randn(V))
-    cases.append(("affine1_bank", kick_shape, lambda: bk.affine1_bank(a, bcoef, c, y0),
-                  lambda: bk.affine1_bank_plain(a, bcoef, c, y0), 1))
+    cases.append(("affine1_bank", kick_shape, (
+        t(np.full((V, B), -3.0e38, np.float32)),
+        t(np.where(rs.rand(V, B) < 0.002, 0.0, 0.9 + 0.0999 * rs.rand(V, B))),
+        t(0.01 * rs.randn(V, B)), t(0.1 * rs.randn(V))), {}, 1))
     # 2. pink over hashed white noise with trigger resets
     poles, gains = noise.coefficients(SR)
     kw = dict(poles=tuple(map(float, poles)), gains=tuple(map(float, gains)),
               direct=float(noise.DIRECT_GAIN), outg=float(noise.OUTPUT_GAIN))
-    w = t(rs.uniform(-1, 1, (V, B)))
-    rst = mask(0.002)
-    fst = t(0.1 * rs.randn(V, 3))
-    cases.append(("pink_bank", kick_shape, lambda: bk.pink_bank(w, rst, fst, **kw),
-                  lambda: bk.pink_bank_plain(w, rst, fst, **kw), 1))
+    cases.append(("pink_bank", kick_shape, (
+        t(rs.uniform(-1, 1, (V, B))), mask(0.002), t(0.1 * rs.randn(V, 3))), kw, 1))
     # 3. TPT SVF with per-sample cutoff sweeps
     x = t(0.3 * rs.randn(V, B))
     g, h = filters.svf_coeffs(t(20.0 + 9000.0 * rs.rand(V, B)), 0.9, SR)
-    g, h = g.contiguous(), h.contiguous()
-    rst2 = mask(0.002)
-    ic1, ic2 = t(0.1 * rs.randn(V)), t(0.1 * rs.randn(V))
-    cases.append(("svf_bank", kick_shape, lambda: bk.svf_bank(x, g, h, rst2, ic1, ic2),
-                  lambda: bk.svf_bank_plain(x, g, h, rst2, ic1, ic2), 2))
+    cases.append(("svf_bank", kick_shape, (
+        x, g.contiguous(), h.contiguous(), mask(0.002), t(0.1 * rs.randn(V)),
+        t(0.1 * rs.randn(V))), {}, 2))
     # 4. envelope follower with bypass freezes
     att, rel = fbws.env_coeffs(SR)
-    rect = t(np.abs(0.5 * rs.randn(V, B)))
-    frz = mask(0.1)
-    env0 = t(np.abs(0.1 * rs.randn(V)))
-    cases.append(("env_follow_bank", kick_shape,
-                  lambda: bk.env_follow_bank(rect, frz, env0, att=att, rel=rel),
-                  lambda: bk.env_follow_bank_plain(rect, frz, env0, att=att, rel=rel), 1))
+    cases.append(("env_follow_bank", kick_shape, (
+        t(np.abs(0.5 * rs.randn(V, B))), mask(0.1), t(np.abs(0.1 * rs.randn(V)))),
+        dict(att=att, rel=rel), 1))
     # 5. the 4x waveshaper chain: kick-range drive, makeup gain, some bypass
-    u = t((1.0 + 40.0 * rs.rand(V, 1) ** 3) * 0.3 * rs.randn(V, B))
-    cs = t(np.where(rs.rand(V, B) < 0.05, -1.0, 0.2 + 2.8 * rs.rand(V, B)))
-    packed = t(0.1 * rs.randn(bk.FBWS_S_IN, V))
-    cases.append(("fbws_bank", kick_shape, lambda: bk.fbws_bank(u, cs, packed),
-                  lambda: bk.fbws_bank_plain(u, cs, packed), 1))
+    cases.append(("fbws_bank", kick_shape, (
+        t((1.0 + 40.0 * rs.rand(V, 1) ** 3) * 0.3 * rs.randn(V, B)),
+        t(np.where(rs.rand(V, B) < 0.05, -1.0, 0.2 + 2.8 * rs.rand(V, B))),
+        t(0.1 * rs.randn(bk.FBWS_S_IN, V))), {}, 1))
     # 6. the snare/bass overdrive: drive 1-10 per voice, some rows bypassed
     Vs = KIT["snare"]
-    xw = t(0.5 * rs.randn(Vs, B))
-    drive = t(np.where(rs.rand(Vs, 1) < 0.1, 1.0, 1.0 + 9.0 * rs.rand(Vs, 1)) * np.ones(B))
-    packed_w = t(0.05 * rs.randn(bk.FBWS_S_IN, Vs))
-    cases.append(("ws4_bank", f"V={Vs}, B={B}", lambda: bk.ws4_bank(xw, drive, packed_w),
-                  lambda: bk.ws4_bank_plain(xw, drive, packed_w), 1))
+    cases.append(("ws4_bank", f"V={Vs}, B={B}", (
+        t(0.5 * rs.randn(Vs, B)),
+        t(np.where(rs.rand(Vs, 1) < 0.1, 1.0, 1.0 + 9.0 * rs.rand(Vs, 1)) * np.ones(B)),
+        t(0.05 * rs.randn(bk.FBWS_S_IN, Vs))), {}, 1))
     # 7. the membrane: tom2's 512 voices x 5 high-Q band-pass rows, resets
     R = 5 * KIT["tom2"]
     wr = 2 * np.pi * rs.uniform(160.0, 330.0, (R, 1)) / SR
     alpha = np.sin(wr) / (2 * rs.uniform(1.0, 7.5, (R, 1)))
     keep = np.where(rs.rand(R, B) < 0.002, 0.0, 1.0)
-    l2 = [t(2 * np.cos(wr) / (1 + alpha) * keep), t(-(1 - alpha) / (1 + alpha) * keep),
-          t(keep), t(np.zeros((R, B))), t(0.002 * rs.randn(R, B)), t(np.zeros((R, B))),
-          t(0.01 * rs.randn(R)), t(0.01 * rs.randn(R))]
-    cases.append(("linrec2_bank", f"R={R}, B={B}", lambda: bk.linrec2_bank(*l2),
-                  lambda: bk.linrec2_bank_plain(*l2), 2))
+    cases.append(("linrec2_bank", f"R={R}, B={B}", (
+        t(2 * np.cos(wr) / (1 + alpha) * keep), t(-(1 - alpha) / (1 + alpha) * keep),
+        t(keep), t(np.zeros((R, B))), t(0.002 * rs.randn(R, B)), t(np.zeros((R, B))),
+        t(0.01 * rs.randn(R)), t(0.01 * rs.randn(R))), {}, 2))
     # 8. the snare's tonal triangle: up to 2 s after the trigger, 40-2,000 Hz
-    idx = t(rs.randint(0, 2 * int(SR), (Vs, 1)) + np.arange(B)[None, :])
-    freq = t(rs.uniform(40.0, 2000.0, (Vs, B)))
-    cases.append(("triangle_additive_bank", f"V={Vs}, B={B}, 64 harmonics",
-                  lambda: (bk.triangle_additive_bank(idx, freq, SR, 64),),
-                  lambda: (bk.triangle_additive_bank_plain(idx, freq, SR, 64),), 1))
+    cases.append(("triangle_additive_bank", f"V={Vs}, B={B}, 64 harmonics", (
+        t(rs.randint(0, 2 * int(SR), (Vs, 1)) + np.arange(B)[None, :]),
+        t(rs.uniform(40.0, 2000.0, (Vs, B)))), dict(sample_rate=SR, max_harmonics=64), 1))
+
+    # the bus: one stereo block [2, B]
+    bus_shape = f"[2, {B}]"
+    coeff = smoothing_coeff(SR, 30.0)
+    xb = t(rs.uniform(-0.9, 0.9, (2, B)))
+    # 9. saturation: drive and warmth moving; the left mix falls under the
+    #    bypass gate mid-block, the right one fades from 0.6
+    sat = saturation.init_state(SR, device=dev)
+    cases.append(("saturation_block", bus_shape, (
+        xb, t([[0.6, 0.5, 1.2e-4], [0.6, 0.5, 0.6]]), t([[0.2, 0.9, 0.0]] * 2),
+        bus.pack_saturation(sat.ovs, sat.dc)), dict(coeff=coeff), 1))
+    # 10. lowpass: cutoff sweeping 2-12 kHz at resonance 0.8 (the effect's maps)
+    cut = np.minimum(np.linspace(2000.0, 12000.0, B), 0.4 * SR)[None, :].repeat(2, 0)
+    ratio = np.minimum(cut / 5000.0, 1.0)
+    cases.append(("lowpass_block", bus_shape, (
+        xb, t(np.clip(1.0 - np.exp(-2.0 * np.pi * cut / SR), 0.0, 0.9)),
+        t(0.8 * (1.0 - ratio * ratio * 0.7) * 3.5), t(0.1 * rs.randn(2, 2))), {}, 1))
+    # 11. tilt: the knob sweeping towards 0.75 at rising resonance, the left
+    #     channel across the center
+    cases.append(("tilt_block", bus_shape, (
+        xb, t([[0.45, 0.3], [0.25, 0.3]]), t([[0.75, 0.6]] * 2), t(0.05 * rs.randn(2, 2))),
+        dict(coeff=coeff, sample_rate=SR), 1))
+    # 12. delay: a 0.015 s tap gathered from a filled ring, feedback, mix and
+    #     cutoff moving; both ping-pong settings
+    ring = ringbuf.Ring(buf=t(rs.uniform(-0.5, 0.5, (2, delay.ring_length(SR)))),
+                        pos=torch.tensor(98765, device=dev))
+    tap = ringbuf.read_frac(ring, t(np.full((2, B), 0.015 * SR)))
+    dl = (xb, tap, t([[0.6, 0.8, 4000.0]] * 2), t([[0.5, 0.4, 6000.0]] * 2),
+          t(0.1 * rs.randn(2, 2)))
+    for pingpong in (False, True):
+        cases.append(("delay_block", f"{bus_shape}, pingpong={pingpong}", dl,
+                      dict(coeff=coeff, sample_rate=SR, pingpong=pingpong), 2))
+    # 13. the four as one run in the kit's order, each on the signal the one
+    #     before it left (the delay without ping-pong, as the engine runs it)
+    phases = [bus.Phase(name, args[1:], kw) for name, _, args, kw, _ in cases[-5:-1]]
+    cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER)}", (xb, phases), {}, 1))
     return cases
+
+
+def nbytes(obj) -> int:
+    """Bytes of every tensor in ``obj``, through tuples and lists (a
+    ``bus_chain`` phase is a tuple of its name, arguments and keywords)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(nbytes(a) for a in obj)
+    return 0
+
+
+def bound_ms(name, args, outs):
+    """The least time the card could take: each input read once and each
+    output written once at 3.35 TB/s, or the body's operations at 67
+    TFLOP/s, whichever is larger (``bus_chain``: the sum of its phases'
+    operations).  Returns ``(ms, "bytes"|"operations")``."""
+    rows, b = args[0].shape
+    ops = (sum(OPS_PER_ROW_SAMPLE[ph.name] for ph in args[1]) if name == "bus_chain"
+           else OPS_PER_ROW_SAMPLE[name])
+    t_bytes = (nbytes(args) + nbytes(outs)) / PEAK_BYTES_S
+    t_ops = ops * rows * b / PEAK_F32_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(a, b) -> float:
+    """Worst ``|a-b| / max(1, |b|)``."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return max((rel_err(x, y) for x, y in zip(a, b)), default=0.0)
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
 
 
 def phase_kernels(dev):
     import torch
 
-    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import kernels
 
     results = {}
-    for name, shape, kern, plain, n_out in kernel_cases(dev):
-        got = kern()
+    for name, shape, args, kw, n_out in kernel_cases(dev):
+        mod = kernels.module_of(name)
+        kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        got = as_tuple(kern(*args, **kw))
         torch.cuda.synchronize()
-        want = plain()
+        want = as_tuple(plain(*args, **kw))
         torch.cuda.synchronize()
         out_err = max_err(got[:n_out], want[:n_out])
-        state_err = max_err(got[n_out:], want[n_out:]) if len(got) > n_out else 0.0
+        state_err = rel_err(got[n_out:], want[n_out:])
         for _ in range(3):
-            kern()
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 1)
+            kern(*args, **kw)
+        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
+        bms, bound_by = bound_ms(name, args, got)
         print(f"kernel {name}: out err {out_err:.3e} (tol {OUT_TOL:g}), state err "
               f"{state_err:.3e} (tol {STATE_TOL:g}); {ms * 1e3:.1f} us/call vs plain "
-              f"{plain_ms * 1e3:.1f} us/call at {shape}")
+              f"{plain_ms * 1e3:.1f} us/call, bound {bms * 1e3:.4f} us ({bound_by}) at {shape}")
         check(np.isfinite(out_err) and out_err <= OUT_TOL, f"{name}: output error {out_err}")
         check(np.isfinite(state_err) and state_err <= STATE_TOL,
               f"{name}: state error {state_err}")
-        results[name] = dict(name=name, route="cuda", source=bk.SOURCES[name],
-                             replaces=bk.REPLACES[name],
-                             max_abs_err=max(out_err, state_err), ms=ms, plain_ms=plain_ms)
+        if name == "bus_chain":   # one launch gives what the four kernels give in turn
+            y, outs = args[0], []
+            for ph in args[1]:
+                y, aux = mod.run_phase(y, ph)
+                outs.append(aux)
+            same = max_err((y, outs), got) == 0.0
+            print(f"kernel bus_chain: equal to its phases' own kernels in turn: {same}")
+            check(same, "bus_chain differs from its phases' own kernels")
+        err = max(out_err, state_err)
+        if name in results:   # a second case of one kernel: keep the first's times
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            continue
+        # no single PyTorch call computes any of these recurrences
+        results[name] = dict(name=name, route="cuda", source=mod.SOURCES[name],
+                             replaces=mod.REPLACES[name], launches=0, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
+                             library_ms=None)
     return results
 
 
@@ -312,44 +433,66 @@ def kit_inputs(dev, n_blocks):
     return state, events, static
 
 
+def bus_inputs(dev, n_blocks, tilt=None, delay_time=None):
+    """full_kit_4096_bus4: the kit of :func:`kit_inputs` with the first four
+    effects of build_full_kit's bus in its order, fresh effect states and
+    ``FX_DEFAULT_TARGETS`` staged every block (``tilt`` overrides the
+    tilt's targets, ``delay_time`` the delay's initial and target time)."""
+    from libgooey_tpu_torch.engine import engine
+
+    state, events, static = kit_inputs(dev, n_blocks)
+    over = {"tilt": tilt}
+    if delay_time is not None:
+        over["delay"] = [delay_time, *engine.FX_DEFAULT_TARGETS["delay"][1:]]
+    for name in FX_ORDER:
+        targets = over.get(name) or engine.FX_DEFAULT_TARGETS[name]
+        init = (delay_time,) if name == "delay" and delay_time is not None else ()
+        state["fx_" + name] = engine.FX_MODULES[name].init_state(SR, *init, device=dev)
+        events["fx_" + name] = np.tile(np.asarray(targets, np.float32), (n_blocks, 1))
+    return state, events, dict(static, fx_order=FX_ORDER)
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Swap every bank kernel for its plain version (comparison runs only)."""
-    from libgooey_tpu_torch.ops import bank_kernels as bk
+    """Swap every kernel wrapper for its plain version (comparison runs only)."""
+    from libgooey_tpu_torch.ops import kernels
 
-    saved = {n: getattr(bk, n) for n in bk.KERNELS}
-    for n in bk.KERNELS:
-        setattr(bk, n, getattr(bk, n + "_plain"))
+    saved = {n: getattr(kernels.module_of(n), n) for n in kernels.KERNELS}
+    for n in saved:
+        setattr(kernels.module_of(n), n, getattr(kernels.module_of(n), n + "_plain"))
     try:
         yield
     finally:
         for n, fn in saved.items():
-            setattr(bk, n, fn)
+            setattr(kernels.module_of(n), n, fn)
 
 
-def drive_path(label, dev, card, state, events, static, n_voices, kernels, prof_file=None):
+def drive_path(label, card, state, events, static, n_voices, path_kernels, repeats,
+               prof_file=None, compare=None):
     """Render one path: warm up, then with every launch count at 0 time
-    ``N_REPEATS`` renders of ``N_BLOCKS`` and read the counts after the
-    first; check the output, that each of ``kernels`` launched, and the
-    first blocks against the all-plain render.  Returns the counts."""
+    ``repeats`` renders of ``N_BLOCKS`` and read the counts after the
+    first; check the output, that each of ``path_kernels`` launched, and the
+    first blocks against the all-plain render (``compare``: the state and
+    events of that comparison, else the path's own first blocks).  Returns
+    the counts."""
     import torch
 
     from libgooey_tpu_torch.engine import engine
-    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import kernels
 
-    head = {k: v[:N_COMPARE] for k, v in events.items()}
+    head_state, head = compare or (state, {k: v[:N_COMPARE] for k, v in events.items()})
 
     # warm-up (first launches, allocator) on the first blocks
-    _, out_k = engine.render_many(state, head, **static)
+    _, out_k = engine.render_many(head_state, head, **static)
     torch.cuda.synchronize()
 
-    bk.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     _, out = engine.render_many(state, events, **static)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    counts = bk.launch_counts()
-    for _ in range(N_REPEATS - 1):
+    counts = kernels.launch_counts()
+    for _ in range(repeats - 1):
         t0 = time.perf_counter()
         engine.render_many(state, events, **static)
         torch.cuda.synchronize()
@@ -360,10 +503,11 @@ def drive_path(label, dev, card, state, events, static, n_voices, kernels, prof_
     check(bool(torch.isfinite(out).all()), f"{label} output is not finite")
     check(tuple(out.shape) == (N_BLOCKS, 2, B), f"{label} output shape {tuple(out.shape)}")
     check(peak > 1e-3, f"{label} output is silent (peak {peak})")
-    check(all(counts[n] > 0 for n in kernels), f"{label}: a kernel never launched: {counts}")
+    check(all(counts[n] > 0 for n in path_kernels),
+          f"{label}: a kernel never launched: {counts}")
     audio_s = N_BLOCKS * B / SR
     rtf = n_voices * audio_s / wall
-    print(f"{label}: {n_voices} voices x {N_BLOCKS} blocks, median of {N_REPEATS} renders "
+    print(f"{label}: {n_voices} voices x {N_BLOCKS} blocks, median of {repeats} renders "
           f"{wall:.4f} s ({wall / N_BLOCKS * 1e3:.3f} ms/block; min "
           f"{min(walls) / N_BLOCKS * 1e3:.3f}, max {max(walls) / N_BLOCKS * 1e3:.3f}), "
           f"peak {peak:.4f}; aggregate RTF {rtf:.1f} on {card}")
@@ -372,7 +516,7 @@ def drive_path(label, dev, card, state, events, static, n_voices, kernels, prof_
           f"{json.dumps({n: c / N_BLOCKS for n, c in counts.items()})}")
 
     with plain_versions():
-        _, out_p = engine.render_many(state, head, **static)
+        _, out_p = engine.render_many(head_state, head, **static)
     torch.cuda.synchronize()
     err = max_err(out_k, out_p)
     print(f"{label}: first {N_COMPARE} blocks, kernels vs plain versions: max err "
@@ -403,29 +547,67 @@ def drive_path(label, dev, card, state, events, static, n_voices, kernels, prof_
 
 def phase_slice(dev, card, prof_file=None):
     state, events, static = slice_inputs(dev, N_BLOCKS)
-    return drive_path("kick slice", dev, card, state, events, static, V,
+    return drive_path("kick slice", card, state, events, static, V,
                       ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank",
-                       "fbws_bank"), prof_file)
+                       "fbws_bank"), N_REPEATS_EARLIER, prof_file)
 
 
 def phase_kit(dev, card, prof_file=None):
     from libgooey_tpu_torch.ops import bank_kernels as bk
 
     state, events, static = kit_inputs(dev, N_BLOCKS)
-    return drive_path("kit", dev, card, state, events, static, sum(KIT.values()),
-                      bk.KERNELS, prof_file)
+    return drive_path("kit", card, state, events, static, sum(KIT.values()),
+                      bk.KERNELS, N_REPEATS_EARLIER, prof_file)
 
 
-# --- phase 6: the Engine API -------------------------------------------------
+#: the bus's per-effect kernels; a run of two or more effects takes bus_chain
+BUS_SINGLES = ("saturation_block", "lowpass_block", "tilt_block", "delay_block")
+#: the delay time of the bus renders' kernel-vs-plain comparison: shorter
+#: than a block, so the second block reads what the first wrote
+COMPARE_DELAY_S = 0.005
+
+
+def phase_bus(dev, card, prof_file=None):
+    """full_kit_4096_bus4 with the default targets (the tilt passthrough),
+    then with the tilt at [0.3, 0.4]: the bus as one ``bus_chain`` launch a
+    block, as the engine runs it; then the tilt render again with
+    ``fuse_bus=False``, each effect through its own kernel (the path of a
+    lone effect).  Returns the first run's counts, with the per-effect
+    kernels' from the last."""
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    runs = (("full_kit_4096_bus4", None, True, N_REPEATS),
+            ("full_kit_4096_bus4, tilt [0.3, 0.4]", [0.3, 0.4], True, N_REPEATS),
+            ("full_kit_4096_bus4, tilt [0.3, 0.4], fuse_bus=False", [0.3, 0.4], False,
+             N_REPEATS_EARLIER))
+    counts = None
+    for label, tilt, fuse, repeats in runs:
+        state, events, static = bus_inputs(dev, N_BLOCKS, tilt)
+        static = dict(static, fuse_bus=fuse)
+        compare = bus_inputs(dev, N_COMPARE, tilt, COMPARE_DELAY_S)[:2]
+        bus_kernels = ("bus_chain",) if fuse else BUS_SINGLES
+        idle = BUS_SINGLES if fuse else ("bus_chain",)
+        c = drive_path(label, card, state, events, static, sum(KIT.values()),
+                       bk.KERNELS + bus_kernels, repeats, prof_file, compare)
+        check(all(c[n] == N_BLOCKS for n in bus_kernels) and all(c[n] == 0 for n in idle),
+              f"{label}: a bus kernel did not launch once per block: {c}")
+        if counts is None:
+            counts = c
+    counts.update((n, c[n]) for n in BUS_SINGLES)
+    return counts
+
+
+# --- phase 7: the Engine API -------------------------------------------------
 
 
 def phase_engine(dev):
     """The Engine with its default statics: 16 sequenced kicks (additive
     triangle at 128 harmonics) and one sequenced instrument of each other
-    family, the bass with a note on one step."""
+    family, the bass with a note on one step, through the four ported global
+    effects."""
     from libgooey_tpu_torch.engine.engine import FAMILIES, Engine
     from libgooey_tpu_torch.instruments import kick
-    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import kernels
 
     eng = Engine(SR, B, device=dev)
     presets = ("tight", "punch", "loose", "dirt")
@@ -444,18 +626,25 @@ def phase_engine(dev):
             seq.set_step_note(1, 40)
         seq.start()
     eng.set_master_gain(0.5)
-    bk.reset_launch_counts()
+    eng.add_global_effect("saturation")
+    eng.add_global_effect("lowpass")
+    eng.add_global_effect("tilt", [0.3, 0.4])
+    eng.add_global_effect("delay", [0.015, 0.5, 0.4, 6000.0])
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = eng.render(int(SR))
     wall = time.perf_counter() - t0
-    counts = bk.launch_counts()
+    counts = kernels.launch_counts()
     peak = float(np.abs(out).max())
     check(out.shape == (2, int(SR)), f"engine output shape {out.shape}")
     check(bool(np.isfinite(out).all()), "engine output is not finite")
     check(peak > 1e-3, f"engine output is silent (peak {peak})")
-    check(all(n > 0 for n in counts.values()), f"engine: a kernel never launched: {counts}")
-    print(f"engine: {len(names)} sequenced instruments of 5 families, 1 s rendered in "
-          f"{wall:.3f} s, peak {peak:.4f}; launches {json.dumps(counts)}")
+    check(all(n > 0 for k, n in counts.items() if k not in BUS_SINGLES)
+          and counts["bus_chain"] == -(-out.shape[1] // B),
+          f"engine: a kernel never launched, or the bus not once a block: {counts}")
+    print(f"engine: {len(names)} sequenced instruments of 5 families through "
+          f"{'/'.join(eng.fx_order)}, 1 s rendered in {wall:.3f} s, peak {peak:.4f}; "
+          f"launches {json.dumps(counts)}")
 
 
 def main(argv=None) -> int:
@@ -485,7 +674,8 @@ def main(argv=None) -> int:
         phase_rng(dev)
         with (open(args.profile, "w") if args.profile else contextlib.nullcontext()) as prof:
             phase_slice(dev, card, prof)
-            counts = phase_kit(dev, card, prof)
+            phase_kit(dev, card, prof)
+            counts = phase_bus(dev, card, prof)
         if args.profile:
             print(f"profile written to {args.profile}")
         phase_engine(dev)

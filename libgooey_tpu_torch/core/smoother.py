@@ -12,6 +12,7 @@ Every expression keeps the JAX package's float32 op order.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +44,27 @@ class SmootherBank(NamedTuple):
         """Stage new targets (host update between blocks)."""
         t = torch.as_tensor(np.array(targets, np.float32), device=self.current.device)
         return SmootherBank(current=self.current, target=t)
+
+
+def broadcast_targets(targets, shape, device) -> torch.Tensor:
+    """Staged targets as a contiguous float32 ``shape`` tensor on ``device``
+    (the bus effects' ``broadcast_to(asarray(targets), (2, P))``).  A tensor
+    already on the device is not copied from the host."""
+    t = torch.as_tensor(targets, dtype=torch.float32, device=device)
+    return t.expand(shape).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def pow_table(q: float, block: int, device) -> torch.Tensor:
+    """``q^(k+1)``, k = 0..block-1, each correctly rounded to float32 from
+    float64 (numpy, on the host, once per ``(q, block, device)``).  This is
+    what XLA's float32 ``power`` gives on the CPU (PyTorch's differs by an
+    ulp at some k).  The bus delay reads its ring at ``time * sr``, where
+    an ulp of the time trajectory moves the tap by ~1e-4 samples, so it takes
+    its powers from here."""
+    n = np.arange(1, block + 1, dtype=np.float64)
+    return torch.as_tensor((np.float64(np.float32(q)) ** n).astype(np.float32),
+                           device=device)
 
 
 def _q(coeff) -> float:

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ovs4.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -156,42 +158,9 @@ __global__ void env_follow_bank_kernel(const float* __restrict__ rect,
 }
 
 // --- 5. fbws_bank: zero-feedback feedback waveshaper at 4x -----------------
-
-// Phase-split half-band coefficients (ops/oversample.py STAGE1/STAGE2 cast
-// once to float32): stage 1 has 4 + 4 sections, stage 2 has 2 + 2.
-struct FbwsCoefs {
-  float c1_0[4];
-  float c1_1[4];
-  float c2_0[2];
-  float c2_1[2];
-};
-
-// Carried state, one voice, in registers (names follow the packed layout of
-// ops/bank_kernels.py FBWS_CORE_LAYOUT: u/d = up/down, 1/2 = stage,
-// y/x = section output/input memories, trailing 0/1 = polyphase branch).
-struct FbwsState {
-  float u1y0[4], u1x0[4], u1y1[4], u1x1[4];
-  float u2y0[2], u2x0[2], u2y1[2], u2x1[2];
-  float d2y0[2], d2x0[2], d2y1[2], d2x1[2], d2x1d;
-  float d1y0[4], d1x0[4], d1y1[4], d1x1[4], d1x1d;
-  float dcx, dcy;
-};
-
-constexpr float kDcCoeff = 0.995f;
-
-// One sample through a chain of first-order allpasses: y = a*(x - y1) + x1.
-template <int N>
-__device__ __forceinline__ float ap_chain(float u, float (&ys)[N], float (&xs)[N],
-                                          const float (&a)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float y = a[j] * (u - ys[j]) + xs[j];
-    xs[j] = u;
-    ys[j] = y;
-    u = y;
-  }
-  return u;
-}
+//
+// The 4x chain of ovs4.cuh around tanh, then the signed makeup gain and the
+// bypass-gated DC blocker.
 
 // The memoryless nonlinearity evaluated at each 4x subsample: the kick's
 // plain tanh (fbws) or the waveshaper's tanh(v*d)*comp with the enclosing
@@ -205,170 +174,6 @@ struct DriveShaper {
   __device__ __forceinline__ float operator()(float s) const { return tanhf(s * d) * cp; }
 };
 
-// Stage-1 upsample of one base sample, then the first 2x subsample through
-// stage 2, the shaper and the stage-2 downsampler.  Returns (odd stage-1
-// output, first 2x-rate decimated sample).
-template <class Shaper>
-__device__ __forceinline__ void ovs4_phase_a(FbwsState& s, const FbwsCoefs& k,
-                                             const Shaper& shape, float u, float& o1,
-                                             float& d0) {
-  const float e1 = ap_chain(u, s.u1y0, s.u1x0, k.c1_0);
-  o1 = ap_chain(u, s.u1y1, s.u1x1, k.c1_1);
-  const float s0 = ap_chain(e1, s.u2y0, s.u2x0, k.c2_0);
-  const float s1 = ap_chain(e1, s.u2y1, s.u2x1, k.c2_1);
-  const float t0 = shape(s0);
-  const float t1 = shape(s1);
-  const float a0 = ap_chain(t0, s.d2y0, s.d2x0, k.c2_0);
-  const float a1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
-  d0 = 0.5f * (a0 + a1);
-  s.d2x1d = t1;
-}
-
-// Second 2x subsample and the stage-1 downsample.  Returns the base-rate
-// output of the 4x chain.
-template <class Shaper>
-__device__ __forceinline__ float ovs4_phase_b(FbwsState& s, const FbwsCoefs& k,
-                                              const Shaper& shape, float o1, float d0) {
-  const float s2 = ap_chain(o1, s.u2y0, s.u2x0, k.c2_0);
-  const float s3 = ap_chain(o1, s.u2y1, s.u2x1, k.c2_1);
-  const float t2 = shape(s2);
-  const float t3 = shape(s3);
-  const float b0 = ap_chain(t2, s.d2y0, s.d2x0, k.c2_0);
-  const float b1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
-  const float d1 = 0.5f * (b0 + b1);
-  s.d2x1d = t3;
-  const float e0 = ap_chain(d0, s.d1y0, s.d1x0, k.c1_0);
-  const float e1 = ap_chain(s.d1x1d, s.d1y1, s.d1x1, k.c1_1);
-  const float y = 0.5f * (e0 + e1);
-  s.d1x1d = d1;
-  return y;
-}
-
-// The bypass-gated DC blocker of fbws.  Returns the dc output.
-__device__ __forceinline__ float fbws_dc(FbwsState& s, float y, float cs) {
-  // cs < 0 marks a bypassed sample: DC state frozen, dc output 0
-  const bool byp = cs < 0.0f;
-  const float compensated = y * fmaxf(cs, 0.0f);
-  const float x1_prev = s.dcx;
-  const float y1_new = kDcCoeff * s.dcy + (compensated - x1_prev);
-  if (!byp) {
-    s.dcx = compensated;
-    s.dcy = y1_new;
-  }
-  return byp ? 0.0f : s.dcy;
-}
-
-template <int N>
-__device__ __forceinline__ void load_rows(float (&dst)[N], const float* st, int& k,
-                                          int v, int V) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) dst[j] = st[static_cast<size_t>(k + j) * V + v];
-  k += N;
-}
-
-template <int N>
-__device__ __forceinline__ void store_rows(const float (&src)[N], float* st, int& k,
-                                           int v, int V) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) st[static_cast<size_t>(k + j) * V + v] = src[j];
-  k += N;
-}
-
-__device__ __forceinline__ void load_row(float& dst, const float* st, int& k, int v,
-                                         int V) {
-  dst = st[static_cast<size_t>(k) * V + v];
-  k += 1;
-}
-
-__device__ __forceinline__ void store_row(float src, float* st, int& k, int v, int V) {
-  st[static_cast<size_t>(k) * V + v] = src;
-  k += 1;
-}
-
-// Second-to-last captures (HalfbandState.*y2 / *x2) of one half-band stage.
-template <int N>
-struct Caps {
-  float y0[N], x0[N], y1[N], x1[N];
-};
-
-template <int N>
-__device__ __forceinline__ void capture(Caps<N>& c, const float (&y0)[N],
-                                        const float (&x0)[N], const float (&y1)[N],
-                                        const float (&x1)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    c.y0[j] = y0[j];
-    c.x0[j] = x0[j];
-    c.y1[j] = y1[j];
-    c.x1[j] = x1[j];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_caps(const Caps<N>& c, float* st, int& k, int v,
-                                           int V) {
-  store_rows(c.y0, st, k, v, V);
-  store_rows(c.x0, st, k, v, V);
-  store_rows(c.y1, st, k, v, V);
-  store_rows(c.x1, st, k, v, V);
-}
-
-// packed input layout: 52 rows (ops/bank_kernels.py FBWS_CORE_LAYOUT)
-__device__ __forceinline__ void load_state(FbwsState& s, const float* st, int v, int V) {
-  int r = 0;
-  load_rows(s.u1y0, st, r, v, V);
-  load_rows(s.u1x0, st, r, v, V);
-  load_rows(s.u1y1, st, r, v, V);
-  load_rows(s.u1x1, st, r, v, V);
-  load_rows(s.u2y0, st, r, v, V);
-  load_rows(s.u2x0, st, r, v, V);
-  load_rows(s.u2y1, st, r, v, V);
-  load_rows(s.u2x1, st, r, v, V);
-  load_rows(s.d2y0, st, r, v, V);
-  load_rows(s.d2x0, st, r, v, V);
-  load_rows(s.d2y1, st, r, v, V);
-  load_rows(s.d2x1, st, r, v, V);
-  load_row(s.d2x1d, st, r, v, V);
-  load_rows(s.d1y0, st, r, v, V);
-  load_rows(s.d1x0, st, r, v, V);
-  load_rows(s.d1y1, st, r, v, V);
-  load_rows(s.d1x1, st, r, v, V);
-  load_row(s.d1x1d, st, r, v, V);
-  load_row(s.dcx, st, r, v, V);
-  load_row(s.dcy, st, r, v, V);
-}
-
-// packed output layout: the 52 core rows, then 48 capture rows
-__device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& cu1,
-                                            const Caps<2>& cu2, const Caps<2>& cd2,
-                                            const Caps<4>& cd1, float* st, int v, int V) {
-  int r = 0;
-  store_rows(s.u1y0, st, r, v, V);
-  store_rows(s.u1x0, st, r, v, V);
-  store_rows(s.u1y1, st, r, v, V);
-  store_rows(s.u1x1, st, r, v, V);
-  store_rows(s.u2y0, st, r, v, V);
-  store_rows(s.u2x0, st, r, v, V);
-  store_rows(s.u2y1, st, r, v, V);
-  store_rows(s.u2x1, st, r, v, V);
-  store_rows(s.d2y0, st, r, v, V);
-  store_rows(s.d2x0, st, r, v, V);
-  store_rows(s.d2y1, st, r, v, V);
-  store_rows(s.d2x1, st, r, v, V);
-  store_row(s.d2x1d, st, r, v, V);
-  store_rows(s.d1y0, st, r, v, V);
-  store_rows(s.d1x0, st, r, v, V);
-  store_rows(s.d1y1, st, r, v, V);
-  store_rows(s.d1x1, st, r, v, V);
-  store_row(s.d1x1d, st, r, v, V);
-  store_row(s.dcx, st, r, v, V);
-  store_row(s.dcy, st, r, v, V);
-  store_caps(cu1, st, r, v, V);
-  store_caps(cu2, st, r, v, V);
-  store_caps(cd2, st, r, v, V);
-  store_caps(cd1, st, r, v, V);
-}
-
 __global__ void fbws_bank_kernel(const float* __restrict__ u,
                                  const float* __restrict__ cs,
                                  const float* __restrict__ st_in,
@@ -378,31 +183,13 @@ __global__ void fbws_bank_kernel(const float* __restrict__ u,
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
   const size_t row = static_cast<size_t>(v) * B;
-  const TanhShaper shape{};
 
   FbwsState s;
   load_state(s, st_in, v, V);
-
-  float o1, d0;
-  for (int n = 0; n < B - 1; ++n) {
-    ovs4_phase_a(s, k, shape, u[row + n], o1, d0);
-    dc_out[row + n] = fbws_dc(s, ovs4_phase_b(s, k, shape, o1, d0), cs[row + n]);
-  }
-
-  // Final step with second-to-last captures: stage-1 memories hold the
-  // step-(B-2) section IO before it; stage-2 memories hold 2x-rate index
-  // 2B-2 after its first subsample (pallas_fx.py:1697-1713).
-  Caps<4> cu1, cd1;
-  Caps<2> cu2, cd2;
-  capture(cu1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
-  capture(cd1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
-  ovs4_phase_a(s, k, shape, u[row + B - 1], o1, d0);
-  capture(cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
-  capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
-  dc_out[row + B - 1] =
-      fbws_dc(s, ovs4_phase_b(s, k, shape, o1, d0), cs[row + B - 1]);
-
-  store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
+  ovs4_row(
+      s, k, B, [&](int n) { return u[row + n]; }, [](int) { return TanhShaper{}; },
+      [&](int n, float y) { dc_out[row + n] = gated_dc(s, y, cs[row + n]); }, st_out, v,
+      V);
 }
 
 // --- 6. ws4_bank: the plain waveshaper tanh(v*d)*comp at 4x ----------------
@@ -426,26 +213,10 @@ __global__ void ws4_bank_kernel(const float* __restrict__ x,
 
   FbwsState s;
   load_state(s, st_in, v, V);
-
-  float o1, d0;
-  for (int n = 0; n < B - 1; ++n) {
-    const DriveShaper shape{d[row + n], cp[row + n]};
-    ovs4_phase_a(s, k, shape, x[row + n], o1, d0);
-    y_out[row + n] = ovs4_phase_b(s, k, shape, o1, d0);
-  }
-
-  // final step with the second-to-last captures, as in fbws_bank_kernel
-  Caps<4> cu1, cd1;
-  Caps<2> cu2, cd2;
-  capture(cu1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
-  capture(cd1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
-  const DriveShaper shape{d[row + B - 1], cp[row + B - 1]};
-  ovs4_phase_a(s, k, shape, x[row + B - 1], o1, d0);
-  capture(cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
-  capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
-  y_out[row + B - 1] = ovs4_phase_b(s, k, shape, o1, d0);
-
-  store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
+  ovs4_row(
+      s, k, B, [&](int n) { return x[row + n]; },
+      [&](int n) { return DriveShaper{d[row + n], cp[row + n]}; },
+      [&](int n, float y) { y_out[row + n] = y; }, st_out, v, V);
 }
 
 // --- 7. linrec2_bank: s[n] = A[n] s[n-1] + b[n], 2-vector state -------------
@@ -488,22 +259,6 @@ __global__ void linrec2_bank_kernel(const float* __restrict__ a11,
   }
   s1_last[r] = s1;
   s2_last[r] = s2;
-}
-
-inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
-
-// coefs (host): c1_0[4], c1_1[4], c2_0[2], c2_1[2]
-inline FbwsCoefs fbws_coefs(const float* coefs) {
-  FbwsCoefs k;
-  for (int i = 0; i < 4; ++i) {
-    k.c1_0[i] = coefs[i];
-    k.c1_1[i] = coefs[4 + i];
-  }
-  for (int i = 0; i < 2; ++i) {
-    k.c2_0[i] = coefs[8 + i];
-    k.c2_1[i] = coefs[10 + i];
-  }
-  return k;
 }
 
 }  // namespace

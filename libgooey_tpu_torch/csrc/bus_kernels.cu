@@ -1,0 +1,430 @@
+// Stereo bus-effect kernels for Hopper (sm_90a): the first four effects of
+// the kit's global bus, one kernel each, and a run of them in one launch.
+//
+//   saturation_block <- libgooey_tpu/ops/pallas_fx.py:saturation_block (_sat4_kernel)
+//   lowpass_block    <- libgooey_tpu/ops/pallas_fx.py:lowpass_block (_lowpass_kernel)
+//   tilt_block       <- libgooey_tpu/ops/pallas_fx.py:tilt_block (_tilt_kernel)
+//   delay_block      <- libgooey_tpu/ops/pallas_fx.py:delay_block (_delay_kernel)
+//   bus_chain        <- libgooey_tpu/ops/pallas_chain.py:chain_fused
+//
+// Design: the bus is one stereo [2, B] signal, and every effect is a
+// recurrence through the block's B samples.  So each kernel is one block
+// of two threads, one per channel.  The carried state lives in registers,
+// the smoothed parameter trajectories are computed in the loop (closed form
+// with the settle snap, as the Pallas bodies do), and each effect's block is
+// a __device__ row function over one channel.  The channels meet only in
+// the delay's ping-pong write (each channel's write takes the other
+// channel's filtered tap at the same sample): the delay stages its filtered
+// taps in shared memory and writes after a __syncthreads.
+//
+// bus_chain runs a list of such phases in order, threading the signal
+// through its output in place (every row function reads sample n before it
+// writes it), as chain_fused threads it through one VMEM ref.  It calls the
+// same row functions as the per-effect kernels, so a run gives bit for bit
+// what the per-effect kernels give one after the other, with one launch in
+// place of one per effect.  The glue around each effect (trajectories of
+// the delay time, the ring gather and scatter, state packing, freezes)
+// stays in PyTorch before and after the launch, as it stays in XLA around
+// chain_fused.
+//
+// What bounds them on the card: a few KB move per call and a few hundred
+// thousand operations are done, so the card's bound is well under a
+// microsecond; the time is the serial B-step chain of one thread (the
+// saturation's 4x allpass chain and its four atan evaluations per sample
+// the longest).  One SM of 132 is busy.
+//
+// Numerics: the Pallas bodies solve the linear recurrences (the tilt's SVF,
+// the delay's two-pole, the DC blocker) with log-depth scans; these kernels
+// and their plain versions (ops/bus_kernels.py) step them sample by sample
+// in the same per-sample op order, so the two differ at float-noise level.
+// Built with -fmad=false, as bank_kernels.cu: a kernel and its plain
+// version then differ only where expf/tanf/tanhf differ from PyTorch's.
+//
+// Each C entry launches on the caller's stream and returns
+// cudaGetLastError(); nothing allocates or synchronizes here.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ovs4.cuh"
+
+namespace {
+
+constexpr float kSettle = 1e-4f;   // smoother settle snap (smoother.rs:131)
+constexpr float kDenormal = 1e-15f;
+
+// Closed-form one-pole smoother trajectory at block sample n:
+// tgt + snap((cur - tgt) * q^(n+1)), with q^(n+1) = exp(log(q) * (n+1)) as
+// the Pallas bodies compute it (_traj, pallas_fx.py:365-373).
+__device__ __forceinline__ float traj(float cur, float tgt, float logq, int n) {
+  const float d = (cur - tgt) * expf(logq * static_cast<float>(n + 1));
+  return tgt + (fabsf(d) < kSettle ? 0.0f : d);
+}
+
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+// One effect's block as the kernels take it (ops/bus_kernels.py _SLOTS):
+//
+//   op          in[0..3]                 out[0..1]         f[0..5]          flag
+//   saturation  cur, tgt, packed state   state             logq
+//   lowpass     g, fb, stages            stages
+//   tilt        cur, tgt, ic             state             logq, lp_log,
+//                                                          hp_log, max_cut,
+//                                                          pi, 1/sr
+//   delay       tap, cur, tgt, z         write, state      logq, -2pi/sr    ping-pong
+enum Op : int { kSaturation = 0, kLowpass = 1, kTilt = 2, kDelay = 3 };
+
+struct Phase {
+  int op;
+  int flag;
+  const float* in[4];
+  float* out[2];
+  float f[6];
+};
+
+constexpr int kMaxPhases = 8;
+
+struct Chain {
+  int n;
+  Phase ph[kMaxPhases];
+};
+
+// --- 1. saturation: the tube saturation at 4x --------------------------------
+
+// Branchless Cephes atanf (pallas_fx.py:350-362), the same polynomial as the
+// plain version and the TPU kernel; ~1e-7 from libm.
+__device__ __forceinline__ float atan_cephes(float x) {
+  const float ax = fabsf(x);
+  const bool big = ax > 2.414213562373095f;    // tan(3pi/8)
+  const bool mid = ax > 0.41421356237309503f;  // tan(pi/8)
+  const float z = big ? -1.0f / fmaxf(ax, 1e-30f) : (mid ? (ax - 1.0f) / (ax + 1.0f) : ax);
+  const float zz = z * z;
+  const float p =
+      ((((8.05374449538e-2f * zz - 1.38776856032e-1f) * zz + 1.99777106478e-1f) * zz -
+        3.33329491539e-1f) *
+       zz) *
+          z +
+      z;
+  const float y = big ? p + 1.5707963267948966f : (mid ? p + 0.7853981633974483f : p);
+  return sign_of(x) * y;
+}
+
+// The tube curve (saturation.rs:106-125) with the engine sample's drive and
+// bias held across its four subsamples.
+struct SatShaper {
+  float drive, bias;
+  __device__ __forceinline__ float operator()(float v) const {
+    const float driven = v * drive;
+    const float biased = driven + bias * fabsf(driven);
+    const float soft = atan_cephes(biased) * 0.6366197723675814f;  // 2/pi
+    return soft + soft * soft * sign_of(soft) * 0.15f * bias;
+  }
+};
+
+// Smoother rows (drive, warmth, mix) appended to the packed output state.
+constexpr int kFbwsRowsOut = 100;
+
+// Channel c of the saturation block (_sat4_kernel): smoothed drive, warmth
+// and mix, the 4x chain around the tube curve, the bypass-gated DC blocker
+// (_dc_block), the mix and the finite select.
+__device__ void saturation_row(const Phase& p, const FbwsCoefs& k, int c, const float* x,
+                               float* y, int B) {
+  const float* cur = p.in[0];
+  const float* tgt = p.in[1];
+  float* st_out = p.out[0];
+  const float logq = p.f[0];
+  const size_t row = static_cast<size_t>(c) * B;
+  const float cd = cur[3 * c + 0], cw = cur[3 * c + 1], cm = cur[3 * c + 2];
+  const float td = tgt[3 * c + 0], tw = tgt[3 * c + 1], tm = tgt[3 * c + 2];
+
+  FbwsState s;
+  load_state(s, p.in[2], c, 2);
+  ovs4_row(
+      s, k, B, [&](int n) { return x[row + n]; },
+      [&](int n) {
+        return SatShaper{1.0f + traj(cd, td, logq, n) * 7.0f, traj(cw, tw, logq, n) * 0.4f};
+      },
+      [&](int n, float v) {
+        const float mix = traj(cm, tm, logq, n);
+        const bool byp = mix < 1e-4f;
+        const float v1 = gated_dc(s, v, byp ? -1.0f : 1.0f);
+        const float xn = x[row + n];
+        const float o = byp ? xn : xn * (1.0f - mix) + v1 * mix;
+        y[row + n] = isfinite(o) ? o : 0.0f;
+      },
+      st_out, c, 2);
+  st_out[(kFbwsRowsOut + 0) * 2 + c] = traj(cd, td, logq, B - 1);
+  st_out[(kFbwsRowsOut + 1) * 2 + c] = traj(cw, tw, logq, B - 1);
+  st_out[(kFbwsRowsOut + 2) * 2 + c] = traj(cm, tm, logq, B - 1);
+}
+
+// --- 2. lowpass: Moog-style 2-pole LP with tanh'd resonance ------------------
+
+// One sample of the nonlinear recurrence (lowpass_filter.rs); returns the
+// raw stage-2 value, whose tanh is the effect's output.
+__device__ __forceinline__ float lowpass_step(float& s1, float& s2, float xn, float gn,
+                                              float fbn) {
+  const float infb = xn - tanhf(s2 * fbn) * fminf(fbn, 1.0f);
+  s1 = s1 + gn * (infb - s1);
+  s2 = s2 + gn * (s1 - s2);
+  if (fabsf(s1) < kDenormal) s1 = 0.0f;
+  if (fabsf(s2) < kDenormal) s2 = 0.0f;
+  if (s2 != s2) {  // a NaN resets the filter (the output tanh of +-inf is finite)
+    s1 = 0.0f;
+    s2 = 0.0f;
+  }
+  return s2;
+}
+
+__device__ void lowpass_row(const Phase& p, int c, const float* x, float* y, int B) {
+  const float* g = p.in[0];
+  const float* fb = p.in[1];
+  const size_t row = static_cast<size_t>(c) * B;
+  float s1 = p.in[2][2 * c], s2 = p.in[2][2 * c + 1];
+  for (int n = 0; n < B; ++n) {
+    const size_t i = row + n;
+    y[i] = tanhf(lowpass_step(s1, s2, x[i], g[i], fb[i]));
+  }
+  p.out[0][2 * c] = s1;
+  p.out[0][2 * c + 1] = s2;
+}
+
+// --- 3. tilt: one-knob LP<->HP sweep through a TPT SVF -----------------------
+
+struct TiltConsts {
+  float logq;      // log(1 - coeff), float32
+  float lp_log;    // log(20000/80)
+  float hp_log;    // log(8000/20)
+  float max_cut;   // 0.45 sr
+  float pi;
+  float inv_sr;
+};
+
+// One sample of the tilt filter (tilt_filter.rs:99-125) at knob/res values
+// ``knob``/``res``: the frequency maps, the SVF coefficients, the SVF step
+// with its pre-update taps, and the crossfade.  Returns the output sample.
+__device__ __forceinline__ float tilt_step(float& ic1, float& ic2, float xn, float knob,
+                                           float res, const TiltConsts& t) {
+  const float lp_mix = 1.0f - knob * 2.0f;
+  const float lp_freq = 80.0f * expf(t.lp_log * (knob * 2.0f));
+  const float hp_mix = (knob - 0.5f) * 2.0f;
+  const float hp_freq = 20.0f * expf(t.hp_log * ((knob - 0.5f) * 2.0f));
+  const bool use_lp = knob < 0.5f;
+  const float mix = use_lp ? lp_mix : hp_mix;
+  const float freq = use_lp ? lp_freq : hp_freq;
+  const float q = 0.5f + res * 8.0f;
+  const bool passthrough = mix < 0.001f;
+  const float cutoff = fminf(fmaxf(freq, 20.0f), t.max_cut);
+  const float g = tanf(t.pi * cutoff * t.inv_sr);
+  const float r = 1.0f / fmaxf(q, 0.5f);
+  const float h = 1.0f / (1.0f + r * g + g * g);
+  const float v1 = (g * (xn - ic2) + ic1) * h;
+  const float v2 = ic2 + g * v1;
+  ic1 = 2.0f * v1 - ic1;
+  ic2 = 2.0f * v2 - ic2;
+  const float wet = use_lp ? v2 : xn - (r * v1 + v2);
+  float o = passthrough ? xn : xn * (1.0f - mix) + wet * mix;
+  o = isfinite(o) ? o : 0.0f;
+  return fabsf(o) < kDenormal ? 0.0f : o;
+}
+
+__device__ void tilt_row(const Phase& p, int c, const float* x, float* y, int B) {
+  const TiltConsts t{p.f[0], p.f[1], p.f[2], p.f[3], p.f[4], p.f[5]};
+  const float* cur = p.in[0];
+  const float* tgt = p.in[1];
+  float* st_out = p.out[0];
+  const size_t row = static_cast<size_t>(c) * B;
+  const float ck = cur[2 * c], cr = cur[2 * c + 1];
+  const float tk = tgt[2 * c], tr = tgt[2 * c + 1];
+  float ic1 = p.in[2][2 * c], ic2 = p.in[2][2 * c + 1];
+  for (int n = 0; n < B; ++n) {
+    y[row + n] = tilt_step(ic1, ic2, x[row + n], traj(ck, tk, t.logq, n),
+                           traj(cr, tr, t.logq, n), t);
+  }
+  st_out[4 * c + 0] = ic1;
+  st_out[4 * c + 1] = ic2;
+  st_out[4 * c + 2] = traj(ck, tk, t.logq, B - 1);
+  st_out[4 * c + 3] = traj(cr, tr, t.logq, B - 1);
+}
+
+// --- 4. delay: the delay's post-read filter, feedback write and mix ----------
+
+constexpr float kDelayRes = 0.3f;  // FILTER_RESONANCE (delay.rs)
+
+// One sample of the darkening two-pole low-pass on the gathered tap
+// (delay.rs:370-384), in the affine form the Pallas body scans:
+// z' = A z + b with the old state on both rows.  Returns the filtered tap.
+__device__ __forceinline__ float delay_filter_step(float& z1, float& z2, float tap,
+                                                   float cut, float gk) {
+  const float g = 1.0f - expf(gk * cut);
+  const float a11 = 1.0f - g + g * kDelayRes;
+  const float a12 = -g * kDelayRes;
+  const float b1 = g * tap;
+  const float a21 = g * a11;
+  const float a22 = (1.0f - g) + g * a12;
+  const float b2 = g * b1;
+  const float n1 = a11 * z1 + a12 * z2 + b1;
+  const float n2 = a21 * z1 + a22 * z2 + b2;
+  z1 = n1;
+  z2 = n2;
+  return n2;
+}
+
+// The ring write: inject + tap*feedback, zeroed if not finite or denormal.
+__device__ __forceinline__ float delay_write(float inject, float tap, float fb) {
+  const float w = inject + tap * fb;
+  return (isfinite(w) && fabsf(w) > kDenormal) ? w : 0.0f;
+}
+
+// Channel c of the delay block.  ``stage`` ([2, B] shared) holds both
+// channels' filtered taps, so called by both threads of the block.
+__device__ void delay_row(const Phase& p, int c, const float* x, float* y, float* stage,
+                          int B) {
+  const float* tap = p.in[0];
+  const float* cur = p.in[1];
+  const float* tgt = p.in[2];
+  float* write = p.out[0];
+  float* st_out = p.out[1];
+  const float logq = p.f[0], gk = p.f[1];
+  const bool pingpong = p.flag != 0;
+  const size_t row = static_cast<size_t>(c) * B;
+  const float cf = cur[3 * c + 0], cm = cur[3 * c + 1], cc = cur[3 * c + 2];
+  const float tf = tgt[3 * c + 0], tm = tgt[3 * c + 1], tc = tgt[3 * c + 2];
+  float z1 = p.in[3][2 * c], z2 = p.in[3][2 * c + 1];
+  __syncthreads();  // the stage is free (a chain may hold an earlier delay)
+  for (int n = 0; n < B; ++n) {
+    const float mix = traj(cm, tm, logq, n);
+    const float filt = delay_filter_step(z1, z2, tap[row + n], traj(cc, tc, logq, n), gk);
+    const float xn = x[row + n];
+    stage[row + n] = filt;
+    // the injection; with ping-pong the dry signal feeds the left channel
+    // only (delay.rs:460-491)
+    write[row + n] = (pingpong && c == 1) ? 0.0f : xn;
+    const float o = xn * (1.0f - mix) + filt * mix;
+    y[row + n] = isfinite(o) ? o : xn;
+  }
+  __syncthreads();
+  // with ping-pong each channel's write takes the other channel's filtered
+  // tap at the same sample
+  const size_t tap_row = static_cast<size_t>(pingpong ? 1 - c : c) * B;
+  for (int n = 0; n < B; ++n) {
+    write[row + n] = delay_write(write[row + n], stage[tap_row + n], traj(cf, tf, logq, n));
+  }
+  st_out[5 * c + 0] = z1;
+  st_out[5 * c + 1] = z2;
+  st_out[5 * c + 2] = traj(cf, tf, logq, B - 1);
+  st_out[5 * c + 3] = traj(cm, tm, logq, B - 1);
+  st_out[5 * c + 4] = traj(cc, tc, logq, B - 1);
+}
+
+// --- the kernels -----------------------------------------------------------------
+
+__device__ __forceinline__ void run_phase(const Phase& p, const FbwsCoefs& k, int c,
+                                          const float* x, float* y, float* stage, int B) {
+  switch (p.op) {
+    case kSaturation:
+      saturation_row(p, k, c, x, y, B);
+      break;
+    case kLowpass:
+      lowpass_row(p, c, x, y, B);
+      break;
+    case kTilt:
+      tilt_row(p, c, x, y, B);
+      break;
+    case kDelay:
+      delay_row(p, c, x, y, stage, B);
+      break;
+  }
+}
+
+// One thread per channel; blockDim.x is 2 in every launch below.
+__global__ void saturation_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k,
+                                        int B) {
+  saturation_row(p, k, threadIdx.x, x, y, B);
+}
+
+__global__ void lowpass_block_kernel(const float* x, float* y, Phase p, int B) {
+  lowpass_row(p, threadIdx.x, x, y, B);
+}
+
+__global__ void tilt_block_kernel(const float* x, float* y, Phase p, int B) {
+  tilt_row(p, threadIdx.x, x, y, B);
+}
+
+__global__ void delay_block_kernel(const float* x, float* y, Phase p, int B) {
+  extern __shared__ float stage[];
+  delay_row(p, threadIdx.x, x, y, stage, B);
+}
+
+// A run of effects: x is copied to y, then every phase rewrites y in place.
+__global__ void bus_chain_kernel(const float* x, float* y, Chain ch, FbwsCoefs k, int B) {
+  extern __shared__ float stage[];
+  const int c = threadIdx.x;
+  const size_t row = static_cast<size_t>(c) * B;
+  for (int n = 0; n < B; ++n) y[row + n] = x[row + n];
+  for (int i = 0; i < ch.n; ++i) run_phase(ch.ph[i], k, c, y, y, stage, B);
+}
+
+// ops: (op, flag) per phase; ptrs: in[0..3], out[0..1] per phase; f: 6 per phase
+Phase make_phase(const int* ops, void* const* ptrs, const float* f) {
+  Phase p{};
+  p.op = ops[0];
+  p.flag = ops[1];
+  for (int j = 0; j < 4; ++j) p.in[j] = static_cast<const float*>(ptrs[j]);
+  for (int j = 0; j < 2; ++j) p.out[j] = static_cast<float*>(ptrs[4 + j]);
+  for (int j = 0; j < 6; ++j) p.f[j] = f[j];
+  return p;
+}
+
+size_t stage_bytes(int B) { return 2 * static_cast<size_t>(B) * sizeof(float); }
+
+}  // namespace
+
+extern "C" {
+
+// One effect's block through its own kernel.
+int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs,
+                     const float* f, const float* coefs, int B, void* stream) {
+  const Phase p = make_phase(ops, ptrs, f);
+  const cudaStream_t s = as_stream(stream);
+  switch (p.op) {
+    case kSaturation:
+      saturation_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
+      break;
+    case kLowpass:
+      lowpass_block_kernel<<<1, 2, 0, s>>>(x, y, p, B);
+      break;
+    case kTilt:
+      tilt_block_kernel<<<1, 2, 0, s>>>(x, y, p, B);
+      break;
+    case kDelay:
+      delay_block_kernel<<<1, 2, stage_bytes(B), s>>>(x, y, p, B);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n effects' blocks, in order, in one launch.
+int bus_chain_launch(const float* x, float* y, int n, const int* ops, void* const* ptrs,
+                     const float* f, const float* coefs, int B, void* stream) {
+  if (n < 1 || n > kMaxPhases) return static_cast<int>(cudaErrorInvalidValue);
+  Chain ch{};
+  ch.n = n;
+  bool delay = false;
+  for (int i = 0; i < n; ++i) {
+    ch.ph[i] = make_phase(ops + 2 * i, ptrs + 6 * i, f + 6 * i);
+    if (ch.ph[i].op < kSaturation || ch.ph[i].op > kDelay) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    delay = delay || ch.ph[i].op == kDelay;
+  }
+  bus_chain_kernel<<<1, 2, delay ? stage_bytes(B) : 0, as_stream(stream)>>>(
+      x, y, ch, fbws_coefs(coefs), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

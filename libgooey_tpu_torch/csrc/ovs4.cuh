@@ -1,0 +1,265 @@
+// The 4x polyphase half-band chain shared by the kernels that shape a signal
+// at four times the engine rate: fbws_bank and ws4_bank (bank_kernels.cu)
+// and saturation_block (bus_kernels.cu).
+//
+// One thread owns one row (a voice, or a channel of the stereo bus) and
+// steps its base-rate samples through stage-1 up, stage-2 up, the
+// nonlinearity at each 4x subsample, stage-2 down and stage-1 down, with
+// every allpass memory in registers.  The packed state is the port's
+// [S, V] layout (ops/bank_kernels.py FBWS_CORE_LAYOUT in, + FBWS_Y2_LAYOUT
+// out): row-major by field, one column per row of the signal.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// Phase-split half-band coefficients (ops/oversample.py STAGE1/STAGE2 cast
+// once to float32): stage 1 has 4 + 4 sections, stage 2 has 2 + 2.
+struct FbwsCoefs {
+  float c1_0[4];
+  float c1_1[4];
+  float c2_0[2];
+  float c2_1[2];
+};
+
+// Carried state, one row, in registers (names follow the packed layout of
+// ops/bank_kernels.py FBWS_CORE_LAYOUT: u/d = up/down, 1/2 = stage,
+// y/x = section output/input memories, trailing 0/1 = polyphase branch).
+struct FbwsState {
+  float u1y0[4], u1x0[4], u1y1[4], u1x1[4];
+  float u2y0[2], u2x0[2], u2y1[2], u2x1[2];
+  float d2y0[2], d2x0[2], d2y1[2], d2x1[2], d2x1d;
+  float d1y0[4], d1x0[4], d1y1[4], d1x1[4], d1x1d;
+  float dcx, dcy;
+};
+
+constexpr float kDcCoeff = 0.995f;
+
+// One sample through a chain of first-order allpasses: y = a*(x - y1) + x1.
+template <int N>
+__device__ __forceinline__ float ap_chain(float u, float (&ys)[N], float (&xs)[N],
+                                          const float (&a)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float y = a[j] * (u - ys[j]) + xs[j];
+    xs[j] = u;
+    ys[j] = y;
+    u = y;
+  }
+  return u;
+}
+
+// Stage-1 upsample of one base sample, then the first 2x subsample through
+// stage 2, the shaper and the stage-2 downsampler.  Returns (odd stage-1
+// output, first 2x-rate decimated sample).
+template <class Shaper>
+__device__ __forceinline__ void ovs4_phase_a(FbwsState& s, const FbwsCoefs& k,
+                                             const Shaper& shape, float u, float& o1,
+                                             float& d0) {
+  const float e1 = ap_chain(u, s.u1y0, s.u1x0, k.c1_0);
+  o1 = ap_chain(u, s.u1y1, s.u1x1, k.c1_1);
+  const float s0 = ap_chain(e1, s.u2y0, s.u2x0, k.c2_0);
+  const float s1 = ap_chain(e1, s.u2y1, s.u2x1, k.c2_1);
+  const float t0 = shape(s0);
+  const float t1 = shape(s1);
+  const float a0 = ap_chain(t0, s.d2y0, s.d2x0, k.c2_0);
+  const float a1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
+  d0 = 0.5f * (a0 + a1);
+  s.d2x1d = t1;
+}
+
+// Second 2x subsample and the stage-1 downsample.  Returns the base-rate
+// output of the 4x chain.
+template <class Shaper>
+__device__ __forceinline__ float ovs4_phase_b(FbwsState& s, const FbwsCoefs& k,
+                                              const Shaper& shape, float o1, float d0) {
+  const float s2 = ap_chain(o1, s.u2y0, s.u2x0, k.c2_0);
+  const float s3 = ap_chain(o1, s.u2y1, s.u2x1, k.c2_1);
+  const float t2 = shape(s2);
+  const float t3 = shape(s3);
+  const float b0 = ap_chain(t2, s.d2y0, s.d2x0, k.c2_0);
+  const float b1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
+  const float d1 = 0.5f * (b0 + b1);
+  s.d2x1d = t3;
+  const float e0 = ap_chain(d0, s.d1y0, s.d1x0, k.c1_0);
+  const float e1 = ap_chain(s.d1x1d, s.d1y1, s.d1x1, k.c1_1);
+  const float y = 0.5f * (e0 + e1);
+  s.d1x1d = d1;
+  return y;
+}
+
+// The bypass-gated DC blocker (the kick's fbws, the bus saturation).
+// cs < 0 marks a bypassed sample: DC state frozen, output 0; otherwise the
+// input is y * cs.  Returns the DC-blocked output.
+__device__ __forceinline__ float gated_dc(FbwsState& s, float y, float cs) {
+  const bool byp = cs < 0.0f;
+  const float compensated = y * fmaxf(cs, 0.0f);
+  const float x1_prev = s.dcx;
+  const float y1_new = kDcCoeff * s.dcy + (compensated - x1_prev);
+  if (!byp) {
+    s.dcx = compensated;
+    s.dcy = y1_new;
+  }
+  return byp ? 0.0f : s.dcy;
+}
+
+template <int N>
+__device__ __forceinline__ void load_rows(float (&dst)[N], const float* st, int& k,
+                                          int v, int V) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) dst[j] = st[static_cast<size_t>(k + j) * V + v];
+  k += N;
+}
+
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&src)[N], float* st, int& k,
+                                           int v, int V) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) st[static_cast<size_t>(k + j) * V + v] = src[j];
+  k += N;
+}
+
+__device__ __forceinline__ void load_row(float& dst, const float* st, int& k, int v,
+                                         int V) {
+  dst = st[static_cast<size_t>(k) * V + v];
+  k += 1;
+}
+
+__device__ __forceinline__ void store_row(float src, float* st, int& k, int v, int V) {
+  st[static_cast<size_t>(k) * V + v] = src;
+  k += 1;
+}
+
+// Second-to-last captures (HalfbandState.*y2 / *x2) of one half-band stage.
+template <int N>
+struct Caps {
+  float y0[N], x0[N], y1[N], x1[N];
+};
+
+template <int N>
+__device__ __forceinline__ void capture(Caps<N>& c, const float (&y0)[N],
+                                        const float (&x0)[N], const float (&y1)[N],
+                                        const float (&x1)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c.y0[j] = y0[j];
+    c.x0[j] = x0[j];
+    c.y1[j] = y1[j];
+    c.x1[j] = x1[j];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_caps(const Caps<N>& c, float* st, int& k, int v,
+                                           int V) {
+  store_rows(c.y0, st, k, v, V);
+  store_rows(c.x0, st, k, v, V);
+  store_rows(c.y1, st, k, v, V);
+  store_rows(c.x1, st, k, v, V);
+}
+
+// packed input layout: 52 rows (ops/bank_kernels.py FBWS_CORE_LAYOUT)
+__device__ __forceinline__ void load_state(FbwsState& s, const float* st, int v, int V) {
+  int r = 0;
+  load_rows(s.u1y0, st, r, v, V);
+  load_rows(s.u1x0, st, r, v, V);
+  load_rows(s.u1y1, st, r, v, V);
+  load_rows(s.u1x1, st, r, v, V);
+  load_rows(s.u2y0, st, r, v, V);
+  load_rows(s.u2x0, st, r, v, V);
+  load_rows(s.u2y1, st, r, v, V);
+  load_rows(s.u2x1, st, r, v, V);
+  load_rows(s.d2y0, st, r, v, V);
+  load_rows(s.d2x0, st, r, v, V);
+  load_rows(s.d2y1, st, r, v, V);
+  load_rows(s.d2x1, st, r, v, V);
+  load_row(s.d2x1d, st, r, v, V);
+  load_rows(s.d1y0, st, r, v, V);
+  load_rows(s.d1x0, st, r, v, V);
+  load_rows(s.d1y1, st, r, v, V);
+  load_rows(s.d1x1, st, r, v, V);
+  load_row(s.d1x1d, st, r, v, V);
+  load_row(s.dcx, st, r, v, V);
+  load_row(s.dcy, st, r, v, V);
+}
+
+// packed output layout: the 52 core rows, then 48 capture rows
+__device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& cu1,
+                                            const Caps<2>& cu2, const Caps<2>& cd2,
+                                            const Caps<4>& cd1, float* st, int v, int V) {
+  int r = 0;
+  store_rows(s.u1y0, st, r, v, V);
+  store_rows(s.u1x0, st, r, v, V);
+  store_rows(s.u1y1, st, r, v, V);
+  store_rows(s.u1x1, st, r, v, V);
+  store_rows(s.u2y0, st, r, v, V);
+  store_rows(s.u2x0, st, r, v, V);
+  store_rows(s.u2y1, st, r, v, V);
+  store_rows(s.u2x1, st, r, v, V);
+  store_rows(s.d2y0, st, r, v, V);
+  store_rows(s.d2x0, st, r, v, V);
+  store_rows(s.d2y1, st, r, v, V);
+  store_rows(s.d2x1, st, r, v, V);
+  store_row(s.d2x1d, st, r, v, V);
+  store_rows(s.d1y0, st, r, v, V);
+  store_rows(s.d1x0, st, r, v, V);
+  store_rows(s.d1y1, st, r, v, V);
+  store_rows(s.d1x1, st, r, v, V);
+  store_row(s.d1x1d, st, r, v, V);
+  store_row(s.dcx, st, r, v, V);
+  store_row(s.dcy, st, r, v, V);
+  store_caps(cu1, st, r, v, V);
+  store_caps(cu2, st, r, v, V);
+  store_caps(cd2, st, r, v, V);
+  store_caps(cd1, st, r, v, V);
+}
+
+// One row's block through the 4x chain.  ``input(n)`` is base sample n,
+// ``shaper_at(n)`` the nonlinearity held across its four subsamples and
+// ``finish(n, y)`` consumes the chain's base-rate output.  The last sample
+// is peeled to take the second-to-last captures: stage-1 memories hold the
+// step-(B-2) section IO before it, stage-2 memories hold 2x-rate index
+// 2B-2 after its first subsample (pallas_fx.py:1697-1713).  The state
+// (with the captures) is stored to ``st_out`` column v of V.
+template <class Input, class ShaperAt, class Finish>
+__device__ __forceinline__ void ovs4_row(FbwsState& s, const FbwsCoefs& k, int B,
+                                         const Input& input, const ShaperAt& shaper_at,
+                                         const Finish& finish, float* st_out, int v,
+                                         int V) {
+  float o1, d0;
+  for (int n = 0; n < B - 1; ++n) {
+    const auto shape = shaper_at(n);
+    ovs4_phase_a(s, k, shape, input(n), o1, d0);
+    finish(n, ovs4_phase_b(s, k, shape, o1, d0));
+  }
+  Caps<4> cu1, cd1;
+  Caps<2> cu2, cd2;
+  capture(cu1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
+  capture(cd1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
+  const auto shape = shaper_at(B - 1);
+  ovs4_phase_a(s, k, shape, input(B - 1), o1, d0);
+  capture(cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
+  capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
+  finish(B - 1, ovs4_phase_b(s, k, shape, o1, d0));
+  store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
+}
+
+// coefs (host): c1_0[4], c1_1[4], c2_0[2], c2_1[2]
+inline FbwsCoefs fbws_coefs(const float* coefs) {
+  FbwsCoefs k;
+  for (int i = 0; i < 4; ++i) {
+    k.c1_0[i] = coefs[i];
+    k.c1_1[i] = coefs[4 + i];
+  }
+  for (int i = 0; i < 2; ++i) {
+    k.c2_0[i] = coefs[8 + i];
+    k.c2_1[i] = coefs[10 + i];
+  }
+  return k;
+}
+
+inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+}  // namespace

@@ -10,9 +10,10 @@ parameter targets, and drives one block step
 
 Ported so far: the five families of the headline kit (kick, snare, hihat2,
 tom2, bass), the per-family pan/gain mix with its pan-settled branch, the
-master gain and the pinned soft limiter: the Engine's default bus
-(``fx_order=()``).  Global effects, LFO routes and the hihat, tom and poly
-families raise ``NotImplementedError`` (ROADMAP.md Queue A).
+master gain, a global bus of saturation, lowpass, tilt and delay in any
+order (a run of them in one kernel launch), and the pinned soft limiter.
+The compressor, spring and plate, the sidechain, LFO routes and the hihat,
+tom and poly families raise ``NotImplementedError`` (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -35,7 +36,12 @@ from libgooey_tpu_torch.core.smoother import (
     smooth_block_lazy,
     smoothing_coeff,
 )
+from libgooey_tpu_torch.effects import chain as fx_chain
+from libgooey_tpu_torch.effects import delay as fx_delay
 from libgooey_tpu_torch.effects import limiter
+from libgooey_tpu_torch.effects import lowpass as fx_lowpass
+from libgooey_tpu_torch.effects import saturation as fx_saturation
+from libgooey_tpu_torch.effects import tilt as fx_tilt
 from libgooey_tpu_torch.engine.sequencer import Sequencer
 from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
 
@@ -53,6 +59,29 @@ FAMILIES = {
 
 #: Families of the JAX package that the port does not have yet.
 _NOT_PORTED_FAMILIES = ("hihat", "tom", "poly")
+
+#: Global-FX registry: name -> module (``init_state``, ``process_block``).
+#: The JAX package's order is the default FFI effect order (saturation, LP,
+#: tilt, delay, compressor, spring, plate; SoftLimiter pinned last).
+FX_MODULES = {
+    "saturation": fx_saturation,
+    "lowpass": fx_lowpass,
+    "tilt": fx_tilt,
+    "delay": fx_delay,
+}
+
+#: Global effects of the JAX package that the port does not have yet.
+_NOT_PORTED_FX = ("compressor", "spring", "plate")
+
+FX_DEFAULT_TARGETS = {
+    "saturation": [0.3, 0.3, 1.0],
+    "lowpass": [8000.0, 0.2],
+    "tilt": [0.5, 0.0],
+    "delay": [0.5, 0.3, 0.3, 8000.0],
+    "compressor": [-20.0, 4.0, 10.0, 100.0, 1.0],
+    "spring": [0.5, 0.3, 0.5],
+    "plate": [0.5, 0.3, 0.5, 0.0, 1.0, 0.5],
+}
 
 #: Per-family extra static kwargs for render_block (the JAX defaults).
 FAMILY_STATIC = {
@@ -108,17 +137,23 @@ def _render_all(
     family_static=(),
     lfo_routes: Tuple = (),
     fx_order: Tuple[str, ...] = (),
+    fuse_bus: bool = True,
 ):
-    """One block over every instrument bank + mix + master + limiter.
+    """One block over every instrument bank + mix + master + global bus +
+    limiter.
 
     ``events`` holds ``<kind>_off`` / ``<kind>_vel`` trigger arrays, the
-    scalar ``block_start`` (numpy or tensors) and optionally ``bass_freq``
-    (per-trigger note frequencies, 0 = the param's).  Returns
-    ``(new_state, stereo[2, B], mono[B])``."""
+    scalar ``block_start`` (numpy or tensors), optionally ``bass_freq``
+    (per-trigger note frequencies, 0 = the param's) and ``fx_<name>``
+    staged targets for each effect of ``fx_order``.  ``fuse_bus=False``
+    runs every effect through its own kernel, even in a run of two or more
+    (the JAX package's ``LIBGOOEY_CHAIN_FUSE=off``, mixer/chain.py).
+    Returns ``(new_state, stereo[2, B], mono[B])``."""
     if lfo_routes:
         raise not_ported("LFO routes")
-    if fx_order:
-        raise not_ported(f"global effects {tuple(fx_order)}")
+    for fx_name in fx_order:
+        if fx_name not in FX_MODULES:
+            raise not_ported(f"global effect {fx_name!r}")
     static = {k: dict(v) for k, v in family_static}
     new_state = dict(state)
     dev = state["pan"].current.device
@@ -176,6 +211,20 @@ def _render_all(
     master_bank, master_traj = smooth_block(state["master"], smooth_coeff, block_size)
     bus = mix * master_traj[None, :]
     mono = mono_sum * master_traj
+
+    # global FX chain, user-ordered: a run of two or more effects is one
+    # bus_chain launch, as the JAX package merges it on the TPU
+    # (engine.py:436-473); every ported effect can join a run, so the run is
+    # the whole chain.  A lone effect launches its own kernel.
+    if fuse_bus and len(fx_order) >= 2:
+        fx_states, bus = fx_chain.process_run(
+            [FX_MODULES[n] for n in fx_order], [state["fx_" + n] for n in fx_order], bus,
+            [events["fx_" + n] for n in fx_order], sample_rate=sample_rate)
+        new_state.update(("fx_" + n, st) for n, st in zip(fx_order, fx_states))
+    else:
+        for fx_name in fx_order:
+            new_state["fx_" + fx_name], bus = FX_MODULES[fx_name].process_block(
+                state["fx_" + fx_name], bus, events["fx_" + fx_name], sample_rate=sample_rate)
 
     out = limiter.soft_limit(bus, limiter_threshold)
     mono = limiter.soft_limit(mono, limiter_threshold)
@@ -248,6 +297,10 @@ class Engine:
         self._trigger_queue: List = []
         self.sample_count = 0
         self._state: Optional[dict] = None  # built lazily at first render
+
+        # global FX chain: ordered names + staged targets; limiter pinned last
+        self.fx_order: List[str] = []
+        self.fx_targets: Dict[str, np.ndarray] = {}
 
     # --- instrument management ------------------------------------------------
 
@@ -322,6 +375,47 @@ class Engine:
         """Queue a trigger for the next block at in-block ``offset``."""
         self._trigger_queue.append((self._names[name], float(velocity), int(offset)))
 
+    # --- global FX chain ----------------------------------------------------------
+
+    def add_global_effect(self, name: str, targets=None):
+        """Append a global effect (reorderable; SoftLimiter stays pinned last).
+        The JAX Engine's extra keyword options are stored there and never
+        read, so the port takes none."""
+        if name in _NOT_PORTED_FX:
+            raise not_ported(f"global effect {name!r}")
+        if name not in FX_MODULES:
+            raise KeyError(name)
+        if name not in self.fx_order:
+            self.fx_order.append(name)
+        self.fx_targets[name] = np.asarray(
+            targets if targets is not None else FX_DEFAULT_TARGETS[name], np.float32)
+        if self._state is not None and "fx_" + name not in self._state:
+            self._state["fx_" + name] = FX_MODULES[name].init_state(
+                self.sample_rate, device=self.device)
+
+    def remove_global_effect(self, name: str):
+        if name in self.fx_order:
+            self.fx_order.remove(name)
+
+    def set_effect_order(self, order: List[str]):
+        """Reorder the chain (ffi effect_order; limiter pinned last); names
+        never added are dropped."""
+        unknown = [n for n in order if n not in FX_MODULES and n not in _NOT_PORTED_FX]
+        if unknown:
+            raise KeyError(f"unknown global effects {unknown}")
+        self.fx_order = [n for n in order if n in self.fx_targets]
+
+    def set_effect_param(self, name: str, index: int, value: float):
+        self.fx_targets[name][index] = value
+
+    def get_effect_param(self, name: str, index: int) -> float:
+        return float(self.fx_targets[name][index])
+
+    def set_sidechain_source(self, name: Optional[str]):
+        """Compressor detector keyed from an instrument (the compressor is
+        not ported yet)."""
+        raise not_ported("the compressor sidechain")
+
     # --- device state ---------------------------------------------------------------
 
     def _build_state(self):
@@ -342,6 +436,9 @@ class Engine:
         state["pan"] = SmootherBank.init(np.asarray(self._pan, np.float32), self.device)
         state["gain"] = SmootherBank.init(np.asarray(self._gain, np.float32), self.device)
         state["master"] = SmootherBank.init(np.float32(self._master_target), self.device)
+        for name in self.fx_order:
+            state["fx_" + name] = FX_MODULES[name].init_state(self.sample_rate,
+                                                             device=self.device)
         self._state = state
 
     def _ints(self, values) -> torch.Tensor:
@@ -401,6 +498,8 @@ class Engine:
             events[k + "_vel"] = vels
             if k == "bass":
                 events["bass_freq"] = freqs
+        for name in self.fx_order:
+            events["fx_" + name] = np.asarray(self.fx_targets[name])
         return events
 
     def _static_key(self):
@@ -424,6 +523,7 @@ class Engine:
             smooth_coeff=self.smooth_coeff,
             limiter_threshold=self.limiter_threshold,
             family_static=self._static_key(),
+            fx_order=tuple(self.fx_order),
         )
         self.sample_count += self.block_size
         return out, mono

@@ -6,9 +6,10 @@ the port's state tuples keep the JAX field names and nesting, so both
 packages compute the same thing from the same state.  ``to_numpy`` goes the
 other way; a leaf whose numpy dtype differs from its tensor's (hihat2's
 ``voice_salt``: uint32 in the JAX package, int64 here) is named in its
-tuple's ``NUMPY_DTYPES``.  Events need no conversion: they are numpy dicts
-with the JAX keys (``kick_off``, ``kick_vel``, ``bass_freq``,
-``block_start``) that both packages take.
+tuple's ``NUMPY_DTYPES`` (and ``Ring.pos``: int32 there, int64 here).  Events
+need no conversion: they are numpy dicts with the JAX keys (``kick_off``,
+``kick_vel``, ``bass_freq``, ``block_start``, ``fx_<name>``) that both
+packages take.
 """
 
 from __future__ import annotations
@@ -17,10 +18,14 @@ import numpy as np
 import torch
 
 from libgooey_tpu_torch.core.smoother import SmootherBank
+from libgooey_tpu_torch.effects import delay, lowpass, saturation, tilt
 from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
+from libgooey_tpu_torch.ops import ringbuf
 
 #: the ported families' modules (``init_state`` builds the template)
 _FAMILIES = {"kick": kick, "snare": snare, "hihat2": hihat2, "tom2": tom2, "bass": bass}
+#: the ported global effects' modules, likewise
+_FX = {"saturation": saturation, "lowpass": lowpass, "tilt": tilt, "delay": delay}
 
 
 def from_numpy(template, src, device):
@@ -47,6 +52,18 @@ def kick_state_from_numpy(src, device) -> kick.KickState:
     return family_state_from_numpy("kick", src, device)
 
 
+def fx_state_from_numpy(name: str, src, device):
+    """A JAX global-effect state (``saturation``, ``lowpass``, ``tilt`` or
+    ``delay``; or a tree with the same fields) -> the port's state of that
+    effect.  The delay's ring keeps the length it has in ``src``."""
+    if name == "delay":
+        L = np.asarray(src.ring.buf).shape[-1]
+        template = delay.init_state(44100.0)._replace(ring=ringbuf.Ring.init(L, batch=(2,)))
+    else:
+        template = _FX[name].init_state(44100.0)
+    return from_numpy(template, src, device)
+
+
 def smoother_from_numpy(src, device) -> SmootherBank:
     return SmootherBank(
         current=torch.as_tensor(np.array(src.current, np.float32), device=device),
@@ -55,11 +72,13 @@ def smoother_from_numpy(src, device) -> SmootherBank:
 
 def engine_state_from_numpy(src: dict, device) -> dict:
     """A JAX engine state dict (family banks, ``pan``, ``gain``,
-    ``master``) -> the port's engine state dict."""
+    ``master``, ``fx_<name>``) -> the port's engine state dict."""
     out = {}
     for key, val in src.items():
         if key in _FAMILIES:
             out[key] = family_state_from_numpy(key, val, device)
+        elif key.startswith("fx_") and key[3:] in _FX:
+            out[key] = fx_state_from_numpy(key[3:], val, device)
         elif key in ("pan", "gain", "master"):
             out[key] = smoother_from_numpy(val, device)
         else:

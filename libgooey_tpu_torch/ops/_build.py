@@ -1,7 +1,8 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
 Each ``csrc/*.cu`` compiles with its own ``nvcc`` for ``sm_90a``, all
-started together, into an object; one more ``nvcc`` links the objects into
+started together, into an object (``csrc/*.cuh`` holds code that several
+sources include); one more ``nvcc`` links the objects into
 a shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds).  The library lands in ``libgooey_tpu_torch/_build/``
 (ignored by git) under a name keyed by the sources' hash, so an edited
@@ -47,6 +48,10 @@ SIGNATURES = {
     "ws4_bank_launch": [_P] * 7 + [_I, _I, _P],
     "linrec2_bank_launch": [_P] * 12 + [_I, _I, _P],
     "triangle_additive_bank_launch": [_P] * 3 + [_F, _F, _I, _I, _I, _P],
+    # the bus kernels: x, y, then per phase (op, flag), six pointers, six
+    # floats, then the 4x chain's coefficients
+    "bus_block_launch": [_P] * 6 + [_I, _P],
+    "bus_chain_launch": [_P, _P, _I] + [_P] * 4 + [_I, _P],
 }
 
 
@@ -72,7 +77,7 @@ def _sources():
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -21,8 +21,8 @@ Dispatch, with no fallback: a CUDA tensor launches the hand-written kernel
 tensor takes the ``*_plain`` version, a sample-sequential PyTorch loop in
 the Pallas body's op order (an elementwise pass for the triangle).  Every
 wrapper counts its kernel launches in a plain int attribute
-(``affine1_bank.launches``); a wrapper and its plain version take the same
-arguments.
+(``affine1_bank.launches``, read through :mod:`ops.kernels`); a wrapper and
+its plain version take the same arguments.
 
 All arrays are float32 in the JAX package's ``[V, B]`` layout; masks are
 bool ``[V, B]``.  What bounds each kernel on the card and what its design does
@@ -60,16 +60,6 @@ REPLACES = {
     "linrec2_bank": "libgooey_tpu/ops/pallas_fx.py:2201",
     "triangle_additive_bank": "libgooey_tpu/ops/pallas_voice.py:127",
 }
-
-
-def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
-
-
-def reset_launch_counts():
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
 
 
 # --- dispatch and launch helpers ----------------------------------------------
@@ -358,8 +348,8 @@ def _ap_chain_seq(u, ys, xs, coefs):
     return u, ys, xs
 
 
-def _ovs4_plain(uT, packed, shaper, finish):
-    """The sample loop shared by the fbws and ws4 plain versions: 4x
+def ovs4_plain(uT, packed, shaper, finish):
+    """The sample loop shared by the fbws, ws4 and saturation plain versions: 4x
     polyphase up, ``shaper(n, s)`` at each 2x/4x subsample of base sample
     ``n``, down; ``finish(c, n, y)`` turns the chain's base-rate output into
     the kernel's output.  Returns ``(out [V, B], packed' [100, V])``."""
@@ -417,10 +407,10 @@ def _ovs4_plain(uT, packed, shaper, finish):
     return torch.stack(outs, dim=1), torch.stack(rows, dim=0)
 
 
-def fbws_bank_plain(u, comp_signed, packed):
-    """Plain version of the fused zero-feedback waveshaper (pallas_fx.py:1611-1713):
-    4x polyphase up, tanh, down, signed makeup gain, gated DC blocker."""
-    cT = comp_signed.t()
+def gated_dc(cT):
+    """``finish`` for :func:`ovs4_plain`: the bypass-gated DC blocker of
+    ``y * cs`` with ``cs = cT[n]`` per row (``cs < 0`` marks a bypassed
+    sample: state frozen, output 0), as ``gated_dc`` in csrc/ovs4.cuh."""
 
     def dc_block(c, n, y):
         cs = cT[n]
@@ -432,7 +422,13 @@ def fbws_bank_plain(u, comp_signed, packed):
         c["dcy"] = torch.where(byp, c["dcy"], y1_new)
         return torch.where(byp, 0.0, c["dcy"])
 
-    return _ovs4_plain(u.t(), packed, lambda n, s: torch.tanh(s), dc_block)
+    return dc_block
+
+
+def fbws_bank_plain(u, comp_signed, packed):
+    """Plain version of the fused zero-feedback waveshaper (pallas_fx.py:1611-1713):
+    4x polyphase up, tanh, down, signed makeup gain, gated DC blocker."""
+    return ovs4_plain(u.t(), packed, lambda n, s: torch.tanh(s), gated_dc(comp_signed.t()))
 
 
 def fbws_bank(u, comp_signed, packed):
@@ -484,7 +480,7 @@ def ws4_bank_plain(x, drive, packed):
     engine sample and the packed DC rows passed through."""
     d, comp = _ws4_gain(drive)
     dT, cT = d.t(), comp.t()
-    return _ovs4_plain(x.t(), packed, lambda n, s: torch.tanh(s * dT[n]) * cT[n],
+    return ovs4_plain(x.t(), packed, lambda n, s: torch.tanh(s * dT[n]) * cT[n],
                        lambda c, n, y: y)
 
 
@@ -615,9 +611,6 @@ def triangle_additive_bank(idx, freq, sample_rate: float, max_harmonics: int):
 
 
 triangle_additive_bank.launches = 0
-
-#: the wrappers by name, for the launch counts
-_WRAPPERS = {name: globals()[name] for name in KERNELS}
 
 
 def pack_fbws_bank(state) -> torch.Tensor:

@@ -5,7 +5,8 @@ parameters; the state recursion runs in a bank kernel: ``svf_bank`` for the
 TPT (Simper) state-variable filter, ``linrec2_bank`` (through
 ``scan.linrec2``) for the RBJ biquads, the membrane's five bands and the
 2x-iterated Chamberlin SVF, ``affine1_bank`` (through ``scan.linrec1``) for
-the one-pole structures.  The DC blocker is not ported (no caller yet).
+the one-pole structures.  Of the DC blocker, the state is ported (the bus
+saturation's blocker runs inside its kernel); ``dc_block`` has no caller yet.
 
 Behavioral references: src/filters/resonant_lowpass.rs and
 state_variable_tpt.rs (Simper SVF: g = tan(pi*fc/sr), r = 1/Q,
@@ -135,6 +136,22 @@ def resonant_highpass_block(state: OnePoleState, x, cutoff_hz, resonance,
         s_prev = torch.where(reset, 0.0, s_prev)
     hp = x - s_prev
     return state_new, hp * (1.0 + resonance * 0.1)
+
+
+# --- DC blocker ---------------------------------------------------------------
+
+
+class DCBlockState(NamedTuple):
+    """DC blocker memories ``y[n] = x[n] - x[n-1] + R*y[n-1]``
+    (feedback_waveshaper.rs:262-271): previous input and output."""
+
+    x1: torch.Tensor
+    y1: torch.Tensor
+
+    @staticmethod
+    def init(shape, device) -> "DCBlockState":
+        z = torch.zeros(shape, dtype=torch.float32, device=device)
+        return DCBlockState(x1=z, y1=z.clone())
 
 
 # --- RBJ biquads (Direct Form I) ----------------------------------------------

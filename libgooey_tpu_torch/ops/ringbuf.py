@@ -1,0 +1,62 @@
+"""Device ring buffers with fractional reads: the delay-line substrate
+(port of ``Ring``, ``write_block`` and ``read_frac`` of
+libgooey_tpu/ops/ringbuf.py:26-87).
+
+A delay line keeps its audio history in a ring on the device and works per
+block: reads whose lag is at least the block length reference only earlier
+writes, so a block of reads is one gather and a block of writes one scatter.
+
+Position convention: ``pos`` counts samples written, reduced mod ``L``; sample
+``t`` lives at slot ``t % L``, and "offset w ago, before this sample's
+write" at local sample n reads slot ``(pos + n - w) % L``.  ``pos`` is a 0-d
+int64 tensor on the ring's device, so no block reads it back to the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class Ring(NamedTuple):
+    buf: torch.Tensor  # [..., L] float32
+    pos: torch.Tensor  # [] int64: samples written, mod L
+
+    #: the JAX package keeps ``pos`` as int32
+    NUMPY_DTYPES = {"pos": np.int32}
+
+    @staticmethod
+    def init(length: int, batch=(), device="cpu") -> "Ring":
+        return Ring(buf=torch.zeros(tuple(batch) + (int(length),), dtype=torch.float32,
+                                    device=device),
+                    pos=torch.zeros((), dtype=torch.int64, device=device))
+
+
+def write_block(ring: Ring, x: torch.Tensor) -> Ring:
+    """Append ``x[..., C]`` at the current position.  The buffer is copied,
+    not updated in place, so a state can be rendered from more than once."""
+    L = ring.buf.shape[-1]
+    C = x.shape[-1]
+    idx = torch.remainder(ring.pos + torch.arange(C, device=x.device), L)
+    buf = ring.buf.index_copy(ring.buf.dim() - 1, idx, x)
+    return Ring(buf=buf, pos=torch.remainder(ring.pos + C, L))
+
+
+def read_frac(ring: Ring, offsets: torch.Tensor, min_offset: float = 1.0) -> torch.Tensor:
+    """Fractional read of ``offsets[..., C]`` samples ago (pre-write), for a
+    buffer with the same leading axes as ``offsets``.
+
+    Linear interpolation between the samples ``whole`` and ``whole+1`` ago
+    (plate_reverb.rs:120-129); offsets are clamped to [min_offset, L-2] and
+    local sample n reads relative to ``pos + n``."""
+    L = ring.buf.shape[-1]
+    C = offsets.shape[-1]
+    offsets = torch.clamp(offsets, min_offset, L - 2.0)
+    whole = torch.floor(offsets)
+    frac = offsets - whole
+    base = ring.pos + torch.arange(C, device=offsets.device) - whole.to(torch.int64)
+    a = torch.gather(ring.buf, -1, torch.remainder(base, L))
+    b = torch.gather(ring.buf, -1, torch.remainder(base - 1, L))
+    return a + frac * (b - a)

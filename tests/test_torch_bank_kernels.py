@@ -27,6 +27,7 @@ from libgooey_tpu_torch import interop
 from libgooey_tpu_torch.effects import feedback_waveshaper as tfw
 from libgooey_tpu_torch.ops import bank_kernels as bk
 from libgooey_tpu_torch.ops import filters as tfilters
+from libgooey_tpu_torch.ops import kernels
 from libgooey_tpu_torch.ops import noise as tnoise
 from libgooey_tpu_torch.ops import scan as tscan
 
@@ -209,14 +210,14 @@ def test_feedback_waveshaper_matches_jax():
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
-    bk.reset_launch_counts()
+    kernels.reset_launch_counts()
     rs = np.random.RandomState(0)
     a = T(np.full((4, 16), -3.0e38, np.float32))
     b = T(rs.rand(4, 16).astype(np.float32))
     y, yl = bk.affine1_bank(a, b, b, torch.zeros(4))
     ref, _ = bk.affine1_bank_plain(a, b, b, torch.zeros(4))
     assert torch.equal(y, ref) and torch.equal(yl, y[:, -1])
-    assert all(n == 0 for n in bk.launch_counts().values())
+    assert all(n == 0 for n in kernels.launch_counts().values())
 
 
 def test_other_devices_raise_instead_of_falling_back():

@@ -12,9 +12,12 @@ import pytest
 import torch
 
 from libgooey_tpu_torch.core.smoother import SmootherBank, smoothing_coeff
+from libgooey_tpu_torch.effects import delay, saturation
 from libgooey_tpu_torch.engine import engine
 from libgooey_tpu_torch.instruments import kick
 from libgooey_tpu_torch.ops import bank_kernels as bk
+from libgooey_tpu_torch.ops import bus_kernels as bus
+from libgooey_tpu_torch.ops import kernels, ringbuf
 
 pytestmark = pytest.mark.cuda
 
@@ -85,11 +88,11 @@ def test_kernels_match_plain_versions(dev, V, B):
 
 
 def test_each_launch_counts_once(dev):
-    bk.reset_launch_counts()
+    kernels.reset_launch_counts()
     for name, args, kw in _cases(dev, 64, 32):
         getattr(bk, name)(*args, **kw)
         getattr(bk, name + "_plain")(*args, **kw)
-    assert bk.launch_counts() == {n: 1 for n in bk.KERNELS}
+    assert kernels.launch_counts() == {n: int(n in bk.KERNELS) for n in kernels.KERNELS}
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -126,9 +129,10 @@ def test_kit_with_kernels_matches_plain_versions(dev, monkeypatch):
                   smooth_coeff=smoothing_coeff(SR), limiter_threshold=1.0,
                   family_static=(("kick", (("feedback_path", False), ("max_harmonics", 0))),
                                  ("snare", (("max_harmonics", 64),))))
-    bk.reset_launch_counts()
+    kernels.reset_launch_counts()
     _, got = engine.render_many(state, events, **static)
-    assert all(n > 0 for n in bk.launch_counts().values()), bk.launch_counts()
+    counts = kernels.launch_counts()
+    assert all(counts[n] > 0 for n in bk.KERNELS), counts
     for n in bk.KERNELS:
         monkeypatch.setattr(bk, n, getattr(bk, n + "_plain"))
     _, want = engine.render_many(state, events, **static)
@@ -155,6 +159,138 @@ def test_slice_with_kernels_matches_plain_versions(dev, monkeypatch):
     _, got = engine.render_many(state, events, **static)
     for n in bk.KERNELS:
         monkeypatch.setattr(bk, n, getattr(bk, n + "_plain"))
+    _, want = engine.render_many(state, events, **static)
+    assert float(got.abs().max()) > 1e-4
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def _bus_cases(dev, B, seed=0):
+    """(name, args, kwargs) for each bus wrapper at ``[2, B]``: saturation
+    across its bypass gate, a resonant lowpass, a tilt sweep across the
+    center, the delay both ways on a tap gathered from a filled ring."""
+    rs = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    coeff = smoothing_coeff(SR, 30.0)
+    x = t(rs.uniform(-0.9, 0.9, (2, B)))
+    sat = saturation.init_state(SR, device=dev)
+    ring = ringbuf.Ring(buf=t(rs.uniform(-0.5, 0.5, (2, delay.ring_length(SR)))),
+                        pos=torch.tensor(12345, device=dev))
+    tap = ringbuf.read_frac(ring, t(np.full((2, B), 0.015 * SR)))
+    dl = (x, tap, t([[0.6, 0.8, 4000.0]] * 2), t([[0.3, 0.5, 12000.0]] * 2),
+          t(0.1 * rs.randn(2, 2)))
+    return [
+        ("saturation_block", (x, t([[0.6, 0.5, 0.6]] * 2), t([[0.2, 0.9, 0.0]] * 2),
+                              bus.pack_saturation(sat.ovs, sat.dc)), dict(coeff=coeff)),
+        ("lowpass_block", (x, t(rs.uniform(0.2, 0.9, (2, B))), t(rs.uniform(0.0, 3.3, (2, B))),
+                           t(0.1 * rs.randn(2, 2))), {}),
+        ("tilt_block", (x, t([[0.25, 0.3]] * 2), t([[0.75, 0.6]] * 2), t(0.05 * rs.randn(2, 2))),
+         dict(coeff=coeff, sample_rate=SR)),
+        ("delay_block", dl, dict(coeff=coeff, sample_rate=SR, pingpong=False)),
+        ("delay_block", dl, dict(coeff=coeff, sample_rate=SR, pingpong=True)),
+    ]
+
+
+@pytest.mark.parametrize("B", [64, 512])
+def test_bus_kernels_match_plain_versions(dev, B):
+    """Outputs within 1e-5; carried state within 1e-4 of its magnitude
+    where that exceeds 1 (the delay's cutoff smoother holds Hz)."""
+    for name, args, kw in _bus_cases(dev, B):
+        got = getattr(bus, name)(*args, **kw)
+        want = getattr(bus, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape and g.device == w.device
+            err = float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+            assert err <= (1e-4 if i == len(got) - 1 else 1e-5), f"{name} output {i}: {err}"
+
+
+def _chain_phases(cases):
+    """The bus cases as one run: every effect once, the delay with
+    ping-pong, each on the signal the one before it left."""
+    return [bus.Phase(name, args[1:], kw) for name, args, kw in (cases[:3] + cases[4:])]
+
+
+@pytest.mark.parametrize("B", [64, 512])
+def test_bus_chain_matches_plain_version_and_the_single_kernels(dev, B):
+    """One ``bus_chain`` launch: within the bounds above of its plain
+    version, and bit for bit what the four kernels give one after the
+    other (the same row functions)."""
+    cases = _bus_cases(dev, B)
+    x, phases = cases[0][1][0], _chain_phases(cases)
+    y, outs = bus.bus_chain(x, phases)
+    y_p, outs_p = bus.bus_chain_plain(x, phases)
+    y_1, outs_1 = x, []
+    for ph in phases:
+        y_1, aux = bus.run_phase(y_1, ph)
+        outs_1.append(aux)
+    torch.cuda.synchronize()
+    assert float((y - y_p).abs().max()) <= 1e-5
+    assert torch.equal(y, y_1)
+    for ph, got, want, one in zip(phases, outs, outs_p, outs_1):
+        for i, (g, w, o) in enumerate(zip(got, want, one)):
+            err = float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+            assert err <= (1e-4 if i == len(got) - 1 else 1e-5), f"{ph.name} output {i}: {err}"
+            assert torch.equal(g, o), f"{ph.name} output {i}"
+
+
+def test_each_bus_launch_counts_once(dev):
+    kernels.reset_launch_counts()
+    cases = _bus_cases(dev, 32)
+    for name, args, kw in cases[:4]:
+        getattr(bus, name)(*args, **kw)
+        getattr(bus, name + "_plain")(*args, **kw)
+    bus.bus_chain(cases[0][1][0], _chain_phases(cases))
+    bus.bus_chain_plain(cases[0][1][0], _chain_phases(cases))
+    assert kernels.launch_counts() == {n: int(n in bus.KERNELS) for n in kernels.KERNELS}
+
+
+def test_kit_with_bus_matches_plain_versions(dev, monkeypatch):
+    """The five-family kit at 64 voices a family with the four-effect bus
+    (the tilt off center, a 0.015 s delay), 2 blocks: kernels vs plain
+    versions; the bus as one ``bus_chain`` a block, and with
+    ``fuse_bus=False`` each effect's own kernel a block, bit for bit the
+    same."""
+    from libgooey_tpu_torch.instruments import bass, hihat2, snare, tom2
+
+    V, B, N = 64, 256, 2
+    mods = {"kick": kick, "snare": snare, "hihat2": hihat2, "tom2": tom2, "bass": bass}
+    state = {k: m.init_state(V, device=dev) for k, m in mods.items()}
+    Vt = V * len(mods)
+    state["pan"] = SmootherBank.init(np.linspace(0.2, 0.8, Vt), dev)
+    state["gain"] = SmootherBank.init(np.full(Vt, 1.0 / Vt), dev)
+    state["master"] = SmootherBank.init(np.float32(0.25), dev)
+    fx = ("saturation", "lowpass", "tilt", "delay")
+    targets = dict(engine.FX_DEFAULT_TARGETS, tilt=[0.3, 0.4], delay=[0.015, 0.5, 0.4, 6000.0])
+    for name in fx:
+        state["fx_" + name] = engine.FX_MODULES[name].init_state(SR, device=dev)
+    rs = np.random.RandomState(3)
+    events = {"block_start": (np.arange(N) * B).astype(np.int32)}
+    for k in mods:
+        events[k + "_off"] = rs.randint(0, 2 * B, (N, V)).astype(np.int32)
+        events[k + "_vel"] = rs.uniform(0.3, 1.0, (N, V)).astype(np.float32)
+    for name in fx:
+        events["fx_" + name] = np.tile(np.float32(targets[name]), (N, 1))
+    static = dict(kinds=tuple(mods), sample_rate=SR, block_size=B,
+                  smooth_coeff=smoothing_coeff(SR), limiter_threshold=1.0,
+                  family_static=(("kick", (("feedback_path", False), ("max_harmonics", 0))),
+                                 ("snare", (("max_harmonics", 64),))), fx_order=fx)
+    singles = ("saturation_block", "lowpass_block", "tilt_block", "delay_block")
+    kernels.reset_launch_counts()
+    _, got = engine.render_many(state, events, **static)
+    counts = kernels.launch_counts()
+    assert all(counts[n] > 0 for n in bk.KERNELS), counts
+    assert counts["bus_chain"] == N and all(counts[n] == 0 for n in singles), counts
+    kernels.reset_launch_counts()
+    _, got_1 = engine.render_many(state, events, fuse_bus=False, **static)
+    counts = kernels.launch_counts()
+    assert counts["bus_chain"] == 0 and all(counts[n] == N for n in singles), counts
+    assert torch.equal(got, got_1)
+    for n in kernels.KERNELS:
+        mod = kernels.module_of(n)
+        monkeypatch.setattr(mod, n, getattr(mod, n + "_plain"))
     _, want = engine.render_many(state, events, **static)
     assert float(got.abs().max()) > 1e-4
     assert float((got - want).abs().max()) <= 1e-4

@@ -27,6 +27,11 @@ def test_port_never_imports_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'libgooey_tpu' or k.startswith('libgooey_tpu.'))\n"
         "assert len(mods) >= 20, mods\n"
+        "new = {'libgooey_tpu_torch.ops.bus_kernels', 'libgooey_tpu_torch.ops.ringbuf',\n"
+        "       'libgooey_tpu_torch.effects.saturation', 'libgooey_tpu_torch.effects.lowpass',\n"
+        "       'libgooey_tpu_torch.effects.tilt', 'libgooey_tpu_torch.effects.delay',\n"
+        "       'libgooey_tpu_torch.effects.chain'}\n"
+        "assert new <= set(mods), new - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

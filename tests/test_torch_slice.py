@@ -159,7 +159,7 @@ def test_slice_goes_through_every_bank_wrapper(monkeypatch):
                      "linrec2_bank": 0, "triangle_additive_bank": 0}
 
 
-@pytest.mark.parametrize("kw", [dict(fx_order=("saturation",)),
+@pytest.mark.parametrize("kw", [dict(fx_order=("compressor",)),
                                 dict(lfo_routes=((0, "kick", 0, "frequency", 1.0),))])
 def test_unported_bus_features_raise(kw):
     state = interop.engine_state_from_numpy(_jax_state(), "cpu")
