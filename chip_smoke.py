@@ -10,15 +10,16 @@ Phases (any failure exits non-zero):
 1. device: require a CUDA card; print its name and power limit (nvidia-smi);
 2. build: compile the kernels (libgooey_tpu_torch/csrc, one nvcc per source
    in parallel);
-3. kernels: each of the thirteen kernels against its plain PyTorch version
-   on the card, at the main path's shapes (B = 512; V = 4,096 for the
-   kick's five, V = 1,024 for ws4 and the triangle, R = 2,560 membrane rows
-   for linrec2, the stereo bus [2, B] for the four bus kernels and for
-   ``bus_chain`` running the four in one launch, which must also equal the
-   four kernels in turn bit for bit), inputs from a numpy seed; with each
-   kernel's time, its plain version's and its bound (the larger of bytes
-   over 3.35 TB/s and operations over 67 TFLOP/s); also the counter hash,
-   bit for bit against the CPU;
+3. kernels: each of the seventeen kernels against its plain PyTorch
+   version on the card, at the main path's shapes (B = 512; V = 4,096 for
+   the kick's five, V = 1,024 for ws4 and the triangle, R = 2,560 membrane
+   rows for linrec2, the stereo bus [2, B] for the seven bus kernels, the
+   mono plate input [B] with its [4, 566] and [2, 2719] histories, and
+   ``bus_chain`` running the kit's seven bus phases, and the first four, in
+   one launch, which must also equal the kernels in turn bit for bit),
+   inputs from a numpy seed; with each kernel's time, its plain version's
+   and its bound (the larger of bytes over 3.35 TB/s and operations over
+   67 TFLOP/s); also the counter hash, bit for bit against the CPU;
 4. the kick slice through ``render_many``: 4,096 kick voices, tight preset,
    ``max_harmonics=0, feedback_path=False``, the default bus (mix, master,
    soft limiter), 64 blocks of 512 at 44.1 kHz with sequenced staggered
@@ -34,25 +35,40 @@ Phases (any failure exits non-zero):
    bank kernels, median of 3 renders;
 6. full_kit_4096_bus4: the same kit with the first four effects of
    ``build_full_kit``'s global bus (saturation, lowpass, tilt, delay; fresh
-   effect states, ``FX_DEFAULT_TARGETS`` every block), median of 5 renders;
+   effect states, ``FX_DEFAULT_TARGETS`` every block), median of 3 renders;
    the eight bank kernels launched and the bus as one ``bus_chain`` launch
    a block, as the engine runs a run of effects; then again with the tilt
-   at [0.3, 0.4] (the default knob 0.5 is passthrough), so the SVF runs;
-   then that render with ``fuse_bus=False`` (median of 3), each bus kernel
-   once a block.  The kernel-vs-plain comparison of each runs its 2 blocks
-   with a 0.005 s delay, so the second block reads the ring the first wrote;
-7. the ``Engine`` API with its default statics (kick and snare additive
+   at [0.3, 0.4] (the default knob 0.5 is passthrough), so the SVF runs.
+   The kernel-vs-plain comparison of each runs its 2 blocks with a 0.005 s
+   delay, so the second block reads the ring the first wrote.  (Its
+   ``fuse_bus=False`` render went when phase 7's came to launch every
+   kernel it launched.);
+7. full_kit_4096 with its whole bus, ``bench_configs.build_full_kit``
+   with nothing cut (full_kit_4096_bus7): the kit through saturation,
+   lowpass, tilt, delay, compressor, spring and plate, fresh effect states,
+   ``FX_DEFAULT_TARGETS`` every block, median of 5 renders; all seventeen
+   kernels launched, the six effects before the plate as one ``bus_chain``
+   launch and ``plate_block`` once a block each; its kernel-vs-plain
+   comparison runs 4 blocks with the delay at 0.005 s, the compressor at
+   [-60, 8, 1, 50, 1] (over the threshold at the kit's level) and the plate
+   initialised and held at size 0.0 (its tank reads 2.3-3.2 blocks back);
+   then the render with ``fuse_bus=False`` (median of 3), each of the eight
+   single bus kernels once a block, ``bus_chain`` never;
+8. the ``Engine`` API with its default statics (kick and snare additive
    triangles at 128 and 192 harmonics): 16 named kicks and one sequenced
    instrument of each other family, through saturation, lowpass, tilt
-   [0.3, 0.4] and delay [0.015, 0.5, 0.4, 6000] added with
-   ``add_global_effect``, 1 s.
+   [0.3, 0.4], delay [0.015, 0.5, 0.4, 6000], compressor, spring and plate
+   added with ``add_global_effect``, 1 s; then 1 s more with the
+   compressor keyed from the first kick (``set_sidechain_source``), which
+   splits the bus: the first four in one launch, the compressor's and the
+   spring's own kernels, the plate's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
-JSON summary (launches from the first full_kit_4096_bus4 run, and the four
-per-effect bus kernels' from the ``fuse_bus=False`` run).  ``--profile
-PATH`` also writes torch.profiler tables of 4 steady-state blocks of the
-kick slice, the kit and the three kit-with-bus renders to PATH.
+JSON summary (launches from the first full_kit_4096_bus7 render, and the
+eight single bus kernels' from its ``fuse_bus=False`` render).
+``--profile PATH`` also writes torch.profiler tables of 4 steady-state
+blocks of the kick slice, the kit and each kit-with-bus render to PATH.
 """
 
 from __future__ import annotations
@@ -78,8 +94,12 @@ N_COMPARE = 2
 N_REPEATS = 5
 N_REPEATS_EARLIER = 3
 SEED = 0
+#: audio the Engine phase renders each way, seconds
+ENGINE_SECONDS = 1.0
 #: the bus of full_kit_4096_bus4: the first four effects of build_full_kit's
 FX_ORDER = ("saturation", "lowpass", "tilt", "delay")
+#: build_full_kit's whole bus, in its order (full_kit_4096_bus7)
+FX_ORDER_FULL = FX_ORDER + ("compressor", "spring", "plate")
 
 #: kernel vs plain version: tanhf/expf/tanf and the order of a few roundings
 #: differ.  State is compared relative to its magnitude where that exceeds 1
@@ -103,6 +123,16 @@ OPS_PER_ROW_SAMPLE = {
     "triangle_additive_bank": 364,
     # 4 trajectories, the 4x chain, 4 atan shapers, DC blocker, mix
     "saturation_block": 226, "lowpass_block": 12, "tilt_block": 54, "delay_block": 43,
+    # |x|, the attack/release blend
+    "env_follower_block": 5,
+    # knee (log, exp, 13), gain smoother 3, x*g, the 4x chain 99, 4 atan
+    # shapers 64, DC blocker 3, mix 3
+    "compressor_block": 188,
+    # beta 18, the damping loop 6, six allpasses 24, mix 3
+    "spring_block": 51,
+    # per sample of the mono block: the one-poles 9, four lerped reads 12,
+    # the diffusion's affine chain 22, two modulated allpasses 2 x 9
+    "plate_block": 61,
 }
 #: the 2-block render with kernels vs with plain versions, on the card
 RENDER_TOL = 1e-4
@@ -158,9 +188,9 @@ def kernel_cases(dev):
     import torch
 
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
-    from libgooey_tpu_torch.effects import delay
+    from libgooey_tpu_torch.effects import compressor, delay
     from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
-    from libgooey_tpu_torch.effects import saturation
+    from libgooey_tpu_torch.effects import reverb_plate, reverb_spring, saturation
     from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
     from libgooey_tpu_torch.ops import filters, noise, ringbuf
@@ -253,10 +283,64 @@ def kernel_cases(dev):
     for pingpong in (False, True):
         cases.append(("delay_block", f"{bus_shape}, pingpong={pingpong}", dl,
                       dict(coeff=coeff, sample_rate=SR, pingpong=pingpong), 2))
-    # 13. the four as one run in the kit's order, each on the signal the one
-    #     before it left (the delay without ping-pong, as the engine runs it)
-    phases = [bus.Phase(name, args[1:], kw) for name, _, args, kw, _ in cases[-5:-1]]
-    cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER)}", (xb, phases), {}, 1))
+    first_four = [bus.Phase(name, args[1:], kw) for name, _, args, kw, _ in cases[-5:-1]]
+    # 13. the compressor's detector on loud bursts: a 1 ms attack, a 100 ms
+    #     release, a bypass span that holds the envelope
+    bursts = t((rs.uniform(-1.0, 1.0, (2, B)) * (np.sin(np.arange(B) * 2 * np.pi / 97.0) > 0.3)
+                * 1.5))
+    byp = np.zeros((2, B))
+    byp[:, 200:260] = 1.0
+    env_args = (bursts, t(np.full((2, B), np.exp(-1.0 / (1.0 * 0.001 * SR)))),
+                t(np.full((2, B), np.exp(-1.0 / (100.0 * 0.001 * SR)))), t(byp), t([0.3, 0.0]))
+    cases.append(("env_follower_block", bus_shape, env_args, {}, 1))
+    # 14. its gain stage on that envelope: threshold -30 dB, ratio 8, the
+    #     smoothed gain falling from 1 through 0.99 (the tube colour engages)
+    env = bus.env_follower_block_plain(*env_args)[0]
+    comp = compressor.init_state(SR, device=dev)
+    comp_args = (bursts, env, t(np.full((2, B), -30.0)), t(np.full((2, B), 8.0)),
+                 t(np.ones((2, B))), bus.pack_compressor(comp.ovs, comp.dc, comp.gain))
+    cases.append(("compressor_block", bus_shape, comp_args, {}, 1))
+    # 15. the spring on a filled history, decay 0.3 -> 0.9 and damping
+    #     0.6 -> 0.2 across the block
+    dl, dr = reverb_spring.delay_lengths(SR)
+    D = max(dl + dr)
+    damping = np.linspace(0.6, 0.2, B)[None].repeat(2, 0)
+    fb_gain = 0.95 * np.linspace(0.3, 0.9, B)[None].repeat(2, 0) ** 0.4
+    fbgp = np.concatenate([np.zeros((2, 1)), fb_gain[:, :-1]], axis=-1)
+    A = damping + (1.0 - damping) * np.prod(reverb_spring.GAINS) * fbgp
+    A[:, 0] = damping[:, 0]
+    spring_args = (xb, t(A), t(1.0 - damping), t(fbgp), t(0.3 * rs.randn(2 * bus.SPRING_APS, D)),
+                   t([0.05, -0.02]), t(np.full((2, B), 0.3)), t([0.01, -0.03]))
+    spring_kw = dict(delays=dl + dr, gains=reverb_spring.GAINS)
+    cases.append(("spring_block", f"{bus_shape}, hist [12, {D}]", spring_args, spring_kw, 1))
+    # 16. the plate's sub-block path on filled histories, the size knob
+    #     moving 1.0 -> 0.0 in the block (the modulated lags sweep)
+    srs = SR / reverb_plate.DATTORRO_SR
+    DIN, DMOD = reverb_plate.in_hist_len(SR), reverb_plate.mod_hist_len(SR)
+    q = np.float32(1.0 - smoothing_coeff(SR))
+    size = reverb_plate.size_to_scale(torch.as_tensor(
+        q ** np.arange(1, B + 1, dtype=np.float32))).numpy()
+    lfo = np.sin(2 * np.pi * (np.arange(1, B + 1) * np.array([[0.5], [0.71]]) / SR
+                              + [[0.2], [0.7]]))
+    mod_off = np.clip(np.array([[672.0], [908.0]]) * srs * size + lfo * 16.0 * srs,
+                      1.0, DMOD - 2.0)
+    rows = [rs.uniform(-0.5, 0.5, B) for _ in range(6)]
+    rows[3] = 0.95 * np.linspace(0.1, 0.6, B)
+    cases.append(("plate_block", f"[{B}], in_hist [4, {DIN}], mod_hist [2, {DMOD}]",
+                  (*map(t, rows), t(mod_off), t(0.2 * rs.randn(4, DIN)),
+                   t(0.2 * rs.randn(2, DMOD)), t([0.1, -0.05, 0.02])),
+                  dict(sample_rate=SR), 4))
+    # 17. the kit's seven bus phases as one run, each on the signal the one
+    #     before it left (the delay without ping-pong, as the engine runs
+    #     it; the gain stage on the detector's envelope), then the first
+    #     four alone (full_kit_4096_bus4)
+    seven = first_four + [
+        bus.Phase("env_follower_block", env_args[1:], {}),
+        bus.Phase("compressor_block", (None,) + comp_args[2:], {}),
+        bus.Phase("spring_block", spring_args[1:], spring_kw)]
+    cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER_FULL[:-1])} (7 phases)",
+                  (xb, seven), {}, 1))
+    cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER)}", (xb, first_four), {}, 1))
     return cases
 
 
@@ -277,7 +361,8 @@ def bound_ms(name, args, outs):
     output written once at 3.35 TB/s, or the body's operations at 67
     TFLOP/s, whichever is larger (``bus_chain``: the sum of its phases'
     operations).  Returns ``(ms, "bytes"|"operations")``."""
-    rows, b = args[0].shape
+    shape = args[0].shape
+    rows, b = (1, shape[0]) if len(shape) == 1 else shape
     ops = (sum(OPS_PER_ROW_SAMPLE[ph.name] for ph in args[1]) if name == "bus_chain"
            else OPS_PER_ROW_SAMPLE[name])
     t_bytes = (nbytes(args) + nbytes(outs)) / PEAK_BYTES_S
@@ -321,13 +406,10 @@ def phase_kernels(dev):
         check(np.isfinite(out_err) and out_err <= OUT_TOL, f"{name}: output error {out_err}")
         check(np.isfinite(state_err) and state_err <= STATE_TOL,
               f"{name}: state error {state_err}")
-        if name == "bus_chain":   # one launch gives what the four kernels give in turn
-            y, outs = args[0], []
-            for ph in args[1]:
-                y, aux = mod.run_phase(y, ph)
-                outs.append(aux)
-            same = max_err((y, outs), got) == 0.0
-            print(f"kernel bus_chain: equal to its phases' own kernels in turn: {same}")
+        if name == "bus_chain":   # one launch gives what the kernels give in turn
+            same = max_err(mod.run_phases(*args), got) == 0.0
+            print(f"kernel bus_chain ({len(args[1])} phases): equal to its phases' own "
+                  f"kernels in turn: {same}")
             check(same, "bus_chain differs from its phases' own kernels")
         err = max(out_err, state_err)
         if name in results:   # a second case of one kernel: keep the first's times
@@ -433,23 +515,29 @@ def kit_inputs(dev, n_blocks):
     return state, events, static
 
 
-def bus_inputs(dev, n_blocks, tilt=None, delay_time=None):
-    """full_kit_4096_bus4: the kit of :func:`kit_inputs` with the first four
-    effects of build_full_kit's bus in its order, fresh effect states and
-    ``FX_DEFAULT_TARGETS`` staged every block (``tilt`` overrides the
-    tilt's targets, ``delay_time`` the delay's initial and target time)."""
+def bus_inputs(dev, n_blocks, tilt=None, delay_time=None, order=FX_ORDER, over=None):
+    """The kit of :func:`kit_inputs` with ``order``, effects of
+    build_full_kit's bus in its order (full_kit_4096_bus4: the first four),
+    fresh effect states and ``FX_DEFAULT_TARGETS`` staged every block
+    (``tilt`` overrides the tilt's targets, ``delay_time`` the delay's
+    initial and target time, ``over`` any effect's, its state initialised
+    with them)."""
     from libgooey_tpu_torch.engine import engine
 
     state, events, static = kit_inputs(dev, n_blocks)
-    over = {"tilt": tilt}
+    over = dict(over or {})
+    init = set(over)   # the effects whose state starts at their targets
+    if tilt is not None:
+        over["tilt"] = tilt
     if delay_time is not None:
         over["delay"] = [delay_time, *engine.FX_DEFAULT_TARGETS["delay"][1:]]
-    for name in FX_ORDER:
-        targets = over.get(name) or engine.FX_DEFAULT_TARGETS[name]
-        init = (delay_time,) if name == "delay" and delay_time is not None else ()
-        state["fx_" + name] = engine.FX_MODULES[name].init_state(SR, *init, device=dev)
+        init.add("delay")
+    for name in order:
+        targets = over.get(name, engine.FX_DEFAULT_TARGETS[name])
+        args = targets if name in init else ()
+        state["fx_" + name] = engine.FX_MODULES[name].init_state(SR, *args, device=dev)
         events["fx_" + name] = np.tile(np.asarray(targets, np.float32), (n_blocks, 1))
-    return state, events, dict(static, fx_order=FX_ORDER)
+    return state, events, dict(static, fx_order=order)
 
 
 @contextlib.contextmanager
@@ -519,8 +607,8 @@ def drive_path(label, card, state, events, static, n_voices, path_kernels, repea
         _, out_p = engine.render_many(head_state, head, **static)
     torch.cuda.synchronize()
     err = max_err(out_k, out_p)
-    print(f"{label}: first {N_COMPARE} blocks, kernels vs plain versions: max err "
-          f"{err:.3e} (tol {RENDER_TOL:g})")
+    print(f"{label}: {out_k.shape[0]} blocks, kernels vs plain versions: max err "
+          f"{err:.3e} (tol {RENDER_TOL:g}), peak {float(out_k.abs().max()):.4f}")
     check(err <= RENDER_TOL, f"{label}: kernel render differs from the plain render by {err}")
 
     if prof_file is not None:
@@ -540,7 +628,7 @@ def drive_path(label, card, state, events, static, n_voices, path_kernels, repea
         print(summary)
         prof_file.write(f"# 4 blocks of the {label} ({n_voices} voices) on {card}\n"
                         f"# {summary}\n")
-        prof_file.write(table.table(sort_by="cuda_time_total", row_limit=60))
+        prof_file.write(table.table(sort_by="cuda_time_total", row_limit=90))
         prof_file.write("\n\n")
     return counts
 
@@ -560,40 +648,66 @@ def phase_kit(dev, card, prof_file=None):
                       bk.KERNELS, N_REPEATS_EARLIER, prof_file)
 
 
-#: the bus's per-effect kernels; a run of two or more effects takes bus_chain
-BUS_SINGLES = ("saturation_block", "lowpass_block", "tilt_block", "delay_block")
+#: the bus's single kernels: an effect alone, or every effect with
+#: ``fuse_bus=False``; a run of two or more mergeable effects takes bus_chain
+#: (the plate always launches its own)
+BUS_SINGLES = ("saturation_block", "lowpass_block", "tilt_block", "delay_block",
+               "env_follower_block", "compressor_block", "spring_block", "plate_block")
 #: the delay time of the bus renders' kernel-vs-plain comparison: shorter
 #: than a block, so the second block reads what the first wrote
 COMPARE_DELAY_S = 0.005
+#: full_kit_4096_bus7's comparison: blocks, and the compressor over the
+#: threshold at the kit's level and the plate at its smallest size (its
+#: tank reads 2.3-3.2 blocks back), initialised and staged so
+N_COMPARE_FULL = 4
+COMPARE_FULL = {"compressor": [-60.0, 8.0, 1.0, 50.0, 1.0],
+                "plate": [0.5, 0.3, 0.5, 0.0, 1.0, 0.0]}
+
+
+def check_bus_counts(label, counts, launched, idle):
+    check(all(counts[n] == N_BLOCKS for n in launched) and all(counts[n] == 0 for n in idle),
+          f"{label}: a bus kernel did not launch once per block: {counts}")
 
 
 def phase_bus(dev, card, prof_file=None):
     """full_kit_4096_bus4 with the default targets (the tilt passthrough),
     then with the tilt at [0.3, 0.4]: the bus as one ``bus_chain`` launch a
-    block, as the engine runs it; then the tilt render again with
-    ``fuse_bus=False``, each effect through its own kernel (the path of a
-    lone effect).  Returns the first run's counts, with the per-effect
-    kernels' from the last."""
+    block, as the engine runs it."""
     from libgooey_tpu_torch.ops import bank_kernels as bk
 
-    runs = (("full_kit_4096_bus4", None, True, N_REPEATS),
-            ("full_kit_4096_bus4, tilt [0.3, 0.4]", [0.3, 0.4], True, N_REPEATS),
-            ("full_kit_4096_bus4, tilt [0.3, 0.4], fuse_bus=False", [0.3, 0.4], False,
-             N_REPEATS_EARLIER))
-    counts = None
-    for label, tilt, fuse, repeats in runs:
+    for label, tilt in (("full_kit_4096_bus4", None),
+                        ("full_kit_4096_bus4, tilt [0.3, 0.4]", [0.3, 0.4])):
         state, events, static = bus_inputs(dev, N_BLOCKS, tilt)
-        static = dict(static, fuse_bus=fuse)
         compare = bus_inputs(dev, N_COMPARE, tilt, COMPARE_DELAY_S)[:2]
-        bus_kernels = ("bus_chain",) if fuse else BUS_SINGLES
-        idle = BUS_SINGLES if fuse else ("bus_chain",)
         c = drive_path(label, card, state, events, static, sum(KIT.values()),
-                       bk.KERNELS + bus_kernels, repeats, prof_file, compare)
-        check(all(c[n] == N_BLOCKS for n in bus_kernels) and all(c[n] == 0 for n in idle),
-              f"{label}: a bus kernel did not launch once per block: {c}")
+                       bk.KERNELS + ("bus_chain",), N_REPEATS_EARLIER, prof_file, compare)
+        check_bus_counts(label, c, ("bus_chain",), BUS_SINGLES)
+
+
+def phase_full_bus(dev, card, prof_file=None):
+    """full_kit_4096_bus7, build_full_kit whole: the six effects before the
+    plate as one ``bus_chain`` launch and the plate's own a block; then with
+    ``fuse_bus=False``, each effect through its own kernels (the path of a
+    lone effect).  Returns the first render's counts, with the single bus
+    kernels' from the second."""
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    compare = bus_inputs(dev, N_COMPARE_FULL, None, COMPARE_DELAY_S, FX_ORDER_FULL,
+                         COMPARE_FULL)[:2]
+    counts = None
+    for label, fuse, repeats in (("full_kit_4096_bus7", True, N_REPEATS),
+                                 ("full_kit_4096_bus7, fuse_bus=False", False,
+                                  N_REPEATS_EARLIER)):
+        state, events, static = bus_inputs(dev, N_BLOCKS, order=FX_ORDER_FULL)
+        static = dict(static, fuse_bus=fuse)
+        launched = ("bus_chain", "plate_block") if fuse else BUS_SINGLES
+        c = drive_path(label, card, state, events, static, sum(KIT.values()),
+                       bk.KERNELS + launched, repeats, prof_file, compare)
+        check_bus_counts(label, c, launched,
+                         BUS_SINGLES[:-1] if fuse else ("bus_chain",))
         if counts is None:
             counts = c
-    counts.update((n, c[n]) for n in BUS_SINGLES)
+    counts.update((n, c[n]) for n in BUS_SINGLES[:-1])
     return counts
 
 
@@ -603,8 +717,9 @@ def phase_bus(dev, card, prof_file=None):
 def phase_engine(dev):
     """The Engine with its default statics: 16 sequenced kicks (additive
     triangle at 128 harmonics) and one sequenced instrument of each other
-    family, the bass with a note on one step, through the four ported global
-    effects."""
+    family, the bass with a note on one step, through the seven global
+    effects; then a second second with the compressor keyed from the first
+    kick."""
     from libgooey_tpu_torch.engine.engine import FAMILIES, Engine
     from libgooey_tpu_torch.instruments import kick
     from libgooey_tpu_torch.ops import kernels
@@ -630,21 +745,35 @@ def phase_engine(dev):
     eng.add_global_effect("lowpass")
     eng.add_global_effect("tilt", [0.3, 0.4])
     eng.add_global_effect("delay", [0.015, 0.5, 0.4, 6000.0])
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = eng.render(int(SR))
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    peak = float(np.abs(out).max())
-    check(out.shape == (2, int(SR)), f"engine output shape {out.shape}")
-    check(bool(np.isfinite(out).all()), "engine output is not finite")
-    check(peak > 1e-3, f"engine output is silent (peak {peak})")
-    check(all(n > 0 for k, n in counts.items() if k not in BUS_SINGLES)
-          and counts["bus_chain"] == -(-out.shape[1] // B),
-          f"engine: a kernel never launched, or the bus not once a block: {counts}")
-    print(f"engine: {len(names)} sequenced instruments of 5 families through "
-          f"{'/'.join(eng.fx_order)}, 1 s rendered in {wall:.3f} s, peak {peak:.4f}; "
-          f"launches {json.dumps(counts)}")
+    for name in ("compressor", "spring", "plate"):
+        eng.add_global_effect(name)
+    n_samples = int(SR * ENGINE_SECONDS)
+    n_blocks = -(-n_samples // B)
+    # self-keyed: one run before the plate; keyed from a kick: the
+    # compressor leaves the run, and the spring is left alone
+    for label, source, launched in (
+            ("engine", None, ("bus_chain", "plate_block")),
+            ("engine, sidechain kick0", "kick0",
+             ("bus_chain", "env_follower_block", "compressor_block", "spring_block",
+              "plate_block"))):
+        eng.set_sidechain_source(source)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.render(n_samples)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = float(np.abs(out).max())
+        check(out.shape == (2, n_samples), f"{label}: output shape {out.shape}")
+        check(bool(np.isfinite(out).all()), f"{label}: output is not finite")
+        check(peak > 1e-3, f"{label}: output is silent (peak {peak})")
+        check(all(n > 0 for k, n in counts.items() if k not in BUS_SINGLES + ("bus_chain",))
+              and all(counts[k] == (n_blocks if k in launched else 0)
+                      for k in BUS_SINGLES + ("bus_chain",)),
+              f"{label}: a kernel never launched, or a bus kernel not once a block: {counts}")
+        print(f"{label}: {len(names)} sequenced instruments of 5 families through "
+              f"{'/'.join(eng.fx_order)}, {ENGINE_SECONDS:g} s rendered in {wall:.3f} s, "
+              f"peak {peak:.4f}; "
+              f"launches {json.dumps(counts)}")
 
 
 def main(argv=None) -> int:
@@ -675,7 +804,8 @@ def main(argv=None) -> int:
         with (open(args.profile, "w") if args.profile else contextlib.nullcontext()) as prof:
             phase_slice(dev, card, prof)
             phase_kit(dev, card, prof)
-            counts = phase_bus(dev, card, prof)
+            phase_bus(dev, card, prof)
+            counts = phase_full_bus(dev, card, prof)
         if args.profile:
             print(f"profile written to {args.profile}")
         phase_engine(dev)

@@ -14,14 +14,15 @@ Idiom:
 * PyTorch runs eagerly, so ``jit`` has no counterpart and ``lax.scan`` over
   blocks is a Python loop;
 * every recurrence that the JAX package runs as a Pallas kernel is a CUDA
-  kernel written by hand (``csrc/*.cu``, bound in ``ops/bank_kernels.py`` and
-  ``ops/bus_kernels.py``, listed in ``ops/kernels.py``).  A CUDA tensor
-  launches the kernel or raises; a CPU tensor takes the kernel's plain
-  PyTorch version.
+  kernel written by hand (``csrc/*.cu``, bound in ``ops/bank_kernels.py``,
+  ``ops/bus_kernels.py`` and ``ops/plate_kernels.py``, listed in
+  ``ops/kernels.py``).  A CUDA tensor launches the kernel or raises; a CPU
+  tensor takes the kernel's plain PyTorch version.
 
-What is ported so far is the engine's main path up to the middle of its bus:
-the five headline families and a bus of saturation, lowpass, tilt and delay;
-the rest raises ``NotImplementedError`` and is queued in ROADMAP.md.
+What is ported so far is the engine's whole main path
+(``bench_configs.build_full_kit``): the five headline families and the
+global bus of all seven effects with the compressor's sidechain; the rest
+raises ``NotImplementedError`` and is queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -1,44 +1,69 @@
-// Stereo bus-effect kernels for Hopper (sm_90a): the first four effects of
-// the kit's global bus, one kernel each, and a run of them in one launch.
+// Stereo bus-effect kernels for Hopper (sm_90a): the kit's global bus up to
+// the plate, one kernel each, and a run of them in one launch.
 //
-//   saturation_block <- libgooey_tpu/ops/pallas_fx.py:saturation_block (_sat4_kernel)
-//   lowpass_block    <- libgooey_tpu/ops/pallas_fx.py:lowpass_block (_lowpass_kernel)
-//   tilt_block       <- libgooey_tpu/ops/pallas_fx.py:tilt_block (_tilt_kernel)
-//   delay_block      <- libgooey_tpu/ops/pallas_fx.py:delay_block (_delay_kernel)
-//   bus_chain        <- libgooey_tpu/ops/pallas_chain.py:chain_fused
+//   saturation_block   <- libgooey_tpu/ops/pallas_fx.py:saturation_block (_sat4_kernel)
+//   lowpass_block      <- libgooey_tpu/ops/pallas_fx.py:lowpass_block (_lowpass_kernel)
+//   tilt_block         <- libgooey_tpu/ops/pallas_fx.py:tilt_block (_tilt_kernel)
+//   delay_block        <- libgooey_tpu/ops/pallas_fx.py:delay_block (_delay_kernel)
+//   env_follower_block <- libgooey_tpu/ops/pallas_fx.py:env_follower_block (_env_kernel)
+//   compressor_block   <- libgooey_tpu/ops/pallas_fx.py:compressor_block (_comp_kernel)
+//   spring_block       <- libgooey_tpu/ops/pallas_fx.py:spring_block (_spring_kernel)
+//   bus_chain          <- libgooey_tpu/ops/pallas_chain.py:chain_fused
 //
 // Design: the bus is one stereo [2, B] signal, and every effect is a
 // recurrence through the block's B samples.  So each kernel is one block
 // of two threads, one per channel.  The carried state lives in registers,
 // the smoothed parameter trajectories are computed in the loop (closed form
-// with the settle snap, as the Pallas bodies do), and each effect's block is
-// a __device__ row function over one channel.  The channels meet only in
-// the delay's ping-pong write (each channel's write takes the other
-// channel's filtered tap at the same sample): the delay stages its filtered
-// taps in shared memory and writes after a __syncthreads.
+// with the settle snap, as the Pallas bodies do) or passed in as [2, B]
+// rows where the JAX package computes them outside its kernel (the
+// compressor, the spring), and each effect's block is a __device__ row
+// function over one channel.  The channels meet only in the delay's
+// ping-pong write (each channel's write takes the other channel's filtered
+// tap at the same sample): the delay stages its filtered taps in shared
+// memory and writes after a __syncthreads.
+//
+// The spring's twelve allpass delay lines (six a channel, lags 127-797 at
+// 44.1 kHz) live in shared memory as rings of the history's length D, one
+// per line (csrc/rings.cuh), 12 x D floats (38 KB at 44.1 kHz, independent
+// of B): each
+// sample reads every line at its lag and writes its new value into the slot
+// it frees, the Schroeder allpass in place.  The carried state keeps the
+// JAX package's right-aligned [12, D] history, unrolled from the rings at
+// the end.  Rings rather than the Pallas body's [12, D+B] work buffer keep
+// the launch inside the 48 KB of shared memory a block gets without an
+// opt-in at any block size; above 48 KB (sample rates past ~100 kHz) the
+// launch opts in to dynamic shared memory, and a refused launch returns its
+// error.
 //
 // bus_chain runs a list of such phases in order, threading the signal
 // through its output in place (every row function reads sample n before it
 // writes it), as chain_fused threads it through one VMEM ref.  It calls the
 // same row functions as the per-effect kernels, so a run gives bit for bit
 // what the per-effect kernels give one after the other, with one launch in
-// place of one per effect.  The glue around each effect (trajectories of
-// the delay time, the ring gather and scatter, state packing, freezes)
-// stays in PyTorch before and after the launch, as it stays in XLA around
-// chain_fused.
+// place of one per effect.  The compressor is two phases, as in chain_fused:
+// the detector (env) passes the signal through and leaves its envelope in
+// its output, which the next phase reads; each channel's envelope feeds
+// only its own channel, so no barrier is needed between them.  The glue
+// around each effect (trajectories of the delay time and of the
+// compressor's and spring's parameters, the ring gather and scatter, state
+// packing, freezes) stays in PyTorch before and after the launch, as it
+// stays in XLA around chain_fused.
 //
-// What bounds them on the card: a few KB move per call and a few hundred
-// thousand operations are done, so the card's bound is well under a
-// microsecond; the time is the serial B-step chain of one thread (the
-// saturation's 4x allpass chain and its four atan evaluations per sample
-// the longest).  One SM of 132 is busy.
+// What bounds them on the card: a few KB to a few tens of KB move per call
+// and a few hundred thousand operations are done, so the card's bound is a
+// microsecond or less; the time is the serial B-step chain of one thread
+// (the 4x allpass chains of the saturation and the compressor, with four
+// atan evaluations per sample, the longest) and, for the spring, the copy
+// of its 19 KB of history per channel into and out of the rings.  One SM
+// of 132 is busy.
 //
 // Numerics: the Pallas bodies solve the linear recurrences (the tilt's SVF,
-// the delay's two-pole, the DC blocker) with log-depth scans; these kernels
-// and their plain versions (ops/bus_kernels.py) step them sample by sample
-// in the same per-sample op order, so the two differ at float-noise level.
-// Built with -fmad=false, as bank_kernels.cu: a kernel and its plain
-// version then differ only where expf/tanf/tanhf differ from PyTorch's.
+// the delay's two-pole, the DC blocker, the compressor's gain smoother, the
+// spring's damping loop) with log-depth scans; these kernels and their
+// plain versions (ops/bus_kernels.py) step them sample by sample in the same
+// per-sample op order, so the two differ at float-noise level.  Built with
+// -fmad=false, as bank_kernels.cu: a kernel and its plain version then
+// differ only where expf/logf/tanf/tanhf differ from PyTorch's.
 //
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError(); nothing allocates or synchronizes here.
@@ -47,6 +72,7 @@
 #include <stdint.h>
 
 #include "ovs4.cuh"
+#include "rings.cuh"
 
 namespace {
 
@@ -67,21 +93,41 @@ __device__ __forceinline__ float sign_of(float x) {
 
 // One effect's block as the kernels take it (ops/bus_kernels.py _SLOTS):
 //
-//   op          in[0..3]                 out[0..1]         f[0..5]          flag
-//   saturation  cur, tgt, packed state   state             logq
+//   op          in[...]                  out[0..1]       f[...]            iv[...]    flag
+//   saturation  cur, tgt, packed state   state           logq
 //   lowpass     g, fb, stages            stages
-//   tilt        cur, tgt, ic             state             logq, lp_log,
-//                                                          hp_log, max_cut,
-//                                                          pi, 1/sr
-//   delay       tap, cur, tgt, z         write, state      logq, -2pi/sr    ping-pong
-enum Op : int { kSaturation = 0, kLowpass = 1, kTilt = 2, kDelay = 3 };
+//   tilt        cur, tgt, ic             state           logq, lp_log,
+//                                                        hp_log, max_cut,
+//                                                        pi, 1/sr
+//   delay       tap, cur, tgt, z         write, state    logq, -2pi/sr                ping-pong
+//   env         att_c, rel_c, byp, env0  env, env_last
+//   compressor  env, thr, ratio, mix,    state           20/ln10, -ln10/20,
+//               packed state + gain                      2/pi*1.1
+//   spring      A, p2, fbgp, hist, damp, hist', d_last   gains[6],          lags[12], D
+//               mix, fb0                                 1-gains^2[6],
+//                                                        prod(gains)
+enum Op : int {
+  kSaturation = 0,
+  kLowpass = 1,
+  kTilt = 2,
+  kDelay = 3,
+  kEnv = 4,
+  kCompressor = 5,
+  kSpring = 6,
+};
+
+constexpr int kPhaseIn = 8;
+constexpr int kPhaseOut = 2;
+constexpr int kPhaseF = 16;
+constexpr int kPhaseI = 16;
 
 struct Phase {
   int op;
   int flag;
-  const float* in[4];
-  float* out[2];
-  float f[6];
+  const float* in[kPhaseIn];
+  float* out[kPhaseOut];
+  float f[kPhaseF];
+  int iv[kPhaseI];
 };
 
 constexpr int kMaxPhases = 8;
@@ -319,10 +365,179 @@ __device__ void delay_row(const Phase& p, int c, const float* x, float* y, float
   st_out[5 * c + 4] = traj(cc, tc, logq, B - 1);
 }
 
+// --- 5. env: the compressor's attack/release peak detector --------------------
+
+// Channel c of the detector (_env_kernel): e = c*env + (1-c)*|x| with
+// c = att if |x| > env else rel, flushed below 1e-15; a bypassed sample
+// (byp > 0.5) takes c = 1, which holds the envelope exactly (the Pallas
+// wrapper folds the bypass into the coefficients the same way).  The signal
+// passes through (y = x); the envelope goes to out[0].  The bank follower
+// (bank_kernels.cu env_follow_bank) steps env + (1-c)*(r - env), its own TPU
+// kernel's op order, so the two steps round differently and are not shared.
+__device__ void env_row(const Phase& p, int c, const float* x, float* y, int B) {
+  const float* att = p.in[0];
+  const float* rel = p.in[1];
+  const float* byp = p.in[2];
+  float* env_out = p.out[0];
+  const size_t row = static_cast<size_t>(c) * B;
+  float env = p.in[3][c];
+  for (int n = 0; n < B; ++n) {
+    const size_t i = row + n;
+    const float xn = x[i];
+    const float r = fabsf(xn);
+    const bool frozen = byp[i] > 0.5f;
+    const float cf = frozen ? 1.0f : (r > env ? att[i] : rel[i]);
+    const float e = cf * env + (1.0f - cf) * r;
+    env = e < kDenormal ? 0.0f : e;
+    env_out[i] = env;
+    y[i] = xn;
+  }
+  p.out[1][c] = env;
+}
+
+// --- 6. compressor: knee gain, gain smoother, 4x tube colour, DC, mix -------
+
+// The tube colour (compressor.rs:185-199): atan(v) * (2/pi * 1.1), the
+// Cephes polynomial of the saturation.
+struct AtanShaper {
+  float k;
+  __device__ __forceinline__ float operator()(float v) const { return atan_cephes(v) * k; }
+};
+
+// Rows of the compressor's packed state: the 52 input rows of the 4x chain
+// and DC blocker, then the smoothed gain; the 100 output rows, then the gain.
+constexpr int kFbwsRowsIn = 52;
+
+// Channel c of the compressor block (_comp_kernel) on the detector's
+// envelope: the knee's gain reduction, the one-pole gain smoother (frozen on
+// bypass), x*g through the 4x chain with the atan tube colour (engaged when
+// g < 0.99, always fed so its history stays warm), the bypass-gated DC
+// blocker, the mix and the finite select.
+__device__ void compressor_row(const Phase& p, const FbwsCoefs& k, int c, const float* x,
+                               float* y, int B) {
+  const float* env = p.in[0];
+  const float* thr = p.in[1];
+  const float* ratio = p.in[2];
+  const float* mix = p.in[3];
+  const float* packed = p.in[4];
+  float* st_out = p.out[0];
+  const float db_per_ln = p.f[0];    // 20 / ln 10
+  const float ln_per_db = p.f[1];    // -ln 10 / 20
+  const AtanShaper shape{p.f[2]};
+  const size_t row = static_cast<size_t>(c) * B;
+
+  FbwsState s;
+  load_state(s, packed, c, 2);
+  float g = packed[kFbwsRowsIn * 2 + c];
+  float compressed = 0.0f;
+  bool byp = false;
+  ovs4_row(
+      s, k, B,
+      // called once per sample, before that sample's finish: steps the gain
+      [&](int n) {
+        const size_t i = row + n;
+        byp = mix[i] < 1e-4f;
+        const float env_db = db_per_ln * logf(env[i] + 1e-20f);
+        const float over = env_db - thr[i];
+        const float slope = 1.0f - 1.0f / ratio[i];
+        const float kv = over + 3.0f;
+        const float knee = kv * kv / 12.0f * slope;
+        const float gr = over <= -3.0f ? 0.0f : (over >= 3.0f ? over * slope : knee);
+        const float gain_lin = expf(ln_per_db * gr);
+        g = byp ? g : 0.95f * g + 0.05f * gain_lin;
+        compressed = x[i] * g;
+        return compressed;
+      },
+      [&](int) { return shape; },
+      [&](int n, float v) {
+        const size_t i = row + n;
+        const float colored = g < 0.99f ? v : compressed;
+        const float y1 = gated_dc(s, colored, byp ? -1.0f : 1.0f);
+        const float xn = x[i];
+        const float m = mix[i];
+        const float o = byp ? xn : xn * (1.0f - m) + y1 * m;
+        y[i] = isfinite(o) ? o : 0.0f;
+      },
+      st_out, c, 2);
+  st_out[kFbwsRowsOut * 2 + c] = g;
+}
+
+// --- 7. spring: six allpasses a channel in a damped feedback loop ------------
+
+constexpr int kSpringAps = 6;
+
+__host__ __device__ __forceinline__ size_t spring_ring_bytes(int D) {
+  return 2 * kSpringAps * static_cast<size_t>(D) * sizeof(float);
+}
+
+// Channel c of the spring block (_spring_kernel, stepped sample by sample):
+// the six delayed reads, beta = their allpass chain's affine offset, the
+// damping recurrence d = A*d + p2*(alpha*xeff + beta), the chain input
+// xeff + fbgp*d_prev, the six allpass writes, and the dry/wet mix of
+// reverb_spring.py.  xeff is x with the carried feedback fb0 added at n = 0.
+// Every lag is at least 127 samples, the chunk the Pallas body runs, so its
+// chunked reads see the same values.  ``rings``: 2 x 6 x D shared floats.
+__device__ void spring_row(const Phase& p, int c, const float* x, float* y, float* rings,
+                           int B) {
+  const float* A = p.in[0];
+  const float* p2 = p.in[1];
+  const float* fbgp = p.in[2];
+  const float* mix = p.in[5];
+  float* hist_out = p.out[0];
+  const int D = p.iv[2 * kSpringAps];
+  const float alpha = p.f[2 * kSpringAps];
+  const size_t row = static_cast<size_t>(c) * B;
+  const size_t span = static_cast<size_t>(kSpringAps) * D;
+  float* ring = rings + c * span;
+  const float* hist = p.in[3] + c * span;
+  float g[kSpringAps], omg[kSpringAps];
+  int lag[kSpringAps];
+#pragma unroll
+  for (int j = 0; j < kSpringAps; ++j) {
+    g[j] = p.f[j];
+    omg[j] = p.f[kSpringAps + j];
+    lag[j] = p.iv[c * kSpringAps + j];
+  }
+  __syncthreads();  // the shared memory is free (a chain may hold an earlier phase's)
+  // unrolled so that many independent loads are in flight at once
+#pragma unroll 16
+  for (size_t k = 0; k < span; ++k) ring[k] = hist[k];
+  int w = 0;  // every ring's write slot
+  float d = p.in[4][c];
+  for (int n = 0; n < B; ++n) {
+    const size_t i = row + n;
+    float rd[kSpringAps];
+#pragma unroll
+    for (int j = 0; j < kSpringAps; ++j) rd[j] = ring[j * D + ring_slot(w, lag[j], D)];
+    float beta = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSpringAps; ++j) beta = g[j] * beta + omg[j] * rd[j];
+    const float xn = x[i];
+    const float xe = n == 0 ? xn + p.in[6][c] : xn;
+    const float bv = p2[i] * (alpha * xe + beta);
+    const float d_prev = d;
+    d = A[i] * d + bv;
+    float sig = xe + fbgp[i] * d_prev;
+#pragma unroll
+    for (int j = 0; j < kSpringAps; ++j) {
+      const float v = sig - g[j] * rd[j];
+      ring[j * D + w] = v;
+      sig = g[j] * v + rd[j];
+    }
+    const float m = mix[i];
+    y[i] = xn * (1.0f - m) + sig * m;
+    w = ring_next(w, D);
+  }
+  for (int j = 0; j < kSpringAps; ++j) {
+    unroll_ring(ring + j * D, w, D, hist_out + c * span + static_cast<size_t>(j) * D);
+  }
+  p.out[1][c] = d;
+}
+
 // --- the kernels -----------------------------------------------------------------
 
 __device__ __forceinline__ void run_phase(const Phase& p, const FbwsCoefs& k, int c,
-                                          const float* x, float* y, float* stage, int B) {
+                                          const float* x, float* y, float* smem, int B) {
   switch (p.op) {
     case kSaturation:
       saturation_row(p, k, c, x, y, B);
@@ -334,7 +549,16 @@ __device__ __forceinline__ void run_phase(const Phase& p, const FbwsCoefs& k, in
       tilt_row(p, c, x, y, B);
       break;
     case kDelay:
-      delay_row(p, c, x, y, stage, B);
+      delay_row(p, c, x, y, smem, B);
+      break;
+    case kEnv:
+      env_row(p, c, x, y, B);
+      break;
+    case kCompressor:
+      compressor_row(p, k, c, x, y, B);
+      break;
+    case kSpring:
+      spring_row(p, c, x, y, smem, B);
       break;
   }
 }
@@ -358,27 +582,54 @@ __global__ void delay_block_kernel(const float* x, float* y, Phase p, int B) {
   delay_row(p, threadIdx.x, x, y, stage, B);
 }
 
+__global__ void env_follower_block_kernel(const float* x, float* y, Phase p, int B) {
+  env_row(p, threadIdx.x, x, y, B);
+}
+
+__global__ void compressor_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k,
+                                        int B) {
+  compressor_row(p, k, threadIdx.x, x, y, B);
+}
+
+__global__ void spring_block_kernel(const float* x, float* y, Phase p, int B) {
+  extern __shared__ float rings[];
+  spring_row(p, threadIdx.x, x, y, rings, B);
+}
+
 // A run of effects: x is copied to y, then every phase rewrites y in place.
 __global__ void bus_chain_kernel(const float* x, float* y, Chain ch, FbwsCoefs k, int B) {
-  extern __shared__ float stage[];
+  extern __shared__ float smem[];
   const int c = threadIdx.x;
   const size_t row = static_cast<size_t>(c) * B;
   for (int n = 0; n < B; ++n) y[row + n] = x[row + n];
-  for (int i = 0; i < ch.n; ++i) run_phase(ch.ph[i], k, c, y, y, stage, B);
+  for (int i = 0; i < ch.n; ++i) run_phase(ch.ph[i], k, c, y, y, smem, B);
 }
 
-// ops: (op, flag) per phase; ptrs: in[0..3], out[0..1] per phase; f: 6 per phase
-Phase make_phase(const int* ops, void* const* ptrs, const float* f) {
+// ops: (op, flag) per phase; ptrs: in[0..7], out[0..1] per phase; f: 16 and
+// iv: 16 per phase
+Phase make_phase(const int* ops, void* const* ptrs, const float* f, const int* iv) {
   Phase p{};
   p.op = ops[0];
   p.flag = ops[1];
-  for (int j = 0; j < 4; ++j) p.in[j] = static_cast<const float*>(ptrs[j]);
-  for (int j = 0; j < 2; ++j) p.out[j] = static_cast<float*>(ptrs[4 + j]);
-  for (int j = 0; j < 6; ++j) p.f[j] = f[j];
+  for (int j = 0; j < kPhaseIn; ++j) p.in[j] = static_cast<const float*>(ptrs[j]);
+  for (int j = 0; j < kPhaseOut; ++j) p.out[j] = static_cast<float*>(ptrs[kPhaseIn + j]);
+  for (int j = 0; j < kPhaseF; ++j) p.f[j] = f[j];
+  for (int j = 0; j < kPhaseI; ++j) p.iv[j] = iv[j];
   return p;
 }
 
-size_t stage_bytes(int B) { return 2 * static_cast<size_t>(B) * sizeof(float); }
+// Dynamic shared memory of a phase: the delay's staged taps, the spring's
+// rings.
+size_t phase_smem(const Phase& p, int B) {
+  switch (p.op) {
+    case kDelay:
+      return 2 * static_cast<size_t>(B) * sizeof(float);
+    case kSpring:
+      return spring_ring_bytes(p.iv[2 * kSpringAps]);
+    default:
+      return 0;
+  }
+}
 
 }  // namespace
 
@@ -386,9 +637,11 @@ extern "C" {
 
 // One effect's block through its own kernel.
 int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs,
-                     const float* f, const float* coefs, int B, void* stream) {
-  const Phase p = make_phase(ops, ptrs, f);
+                     const float* f, const int* iv, const float* coefs, int B, void* stream) {
+  const Phase p = make_phase(ops, ptrs, f, iv);
   const cudaStream_t s = as_stream(stream);
+  const size_t smem = phase_smem(p, B);
+  cudaError_t err = cudaSuccess;
   switch (p.op) {
     case kSaturation:
       saturation_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
@@ -400,30 +653,46 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
       tilt_block_kernel<<<1, 2, 0, s>>>(x, y, p, B);
       break;
     case kDelay:
-      delay_block_kernel<<<1, 2, stage_bytes(B), s>>>(x, y, p, B);
+      err = allow_smem(delay_block_kernel, smem);
+      if (err == cudaSuccess) delay_block_kernel<<<1, 2, smem, s>>>(x, y, p, B);
+      break;
+    case kEnv:
+      env_follower_block_kernel<<<1, 2, 0, s>>>(x, y, p, B);
+      break;
+    case kCompressor:
+      compressor_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
+      break;
+    case kSpring:
+      err = allow_smem(spring_block_kernel, smem);
+      if (err == cudaSuccess) spring_block_kernel<<<1, 2, smem, s>>>(x, y, p, B);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // n effects' blocks, in order, in one launch.
 int bus_chain_launch(const float* x, float* y, int n, const int* ops, void* const* ptrs,
-                     const float* f, const float* coefs, int B, void* stream) {
+                     const float* f, const int* iv, const float* coefs, int B,
+                     void* stream) {
   if (n < 1 || n > kMaxPhases) return static_cast<int>(cudaErrorInvalidValue);
   Chain ch{};
   ch.n = n;
-  bool delay = false;
+  size_t smem = 0;
   for (int i = 0; i < n; ++i) {
-    ch.ph[i] = make_phase(ops + 2 * i, ptrs + 6 * i, f + 6 * i);
-    if (ch.ph[i].op < kSaturation || ch.ph[i].op > kDelay) {
+    ch.ph[i] = make_phase(ops + 2 * i, ptrs + (kPhaseIn + kPhaseOut) * i, f + kPhaseF * i,
+                          iv + kPhaseI * i);
+    if (ch.ph[i].op < kSaturation || ch.ph[i].op > kSpring) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    delay = delay || ch.ph[i].op == kDelay;
+    const size_t need = phase_smem(ch.ph[i], B);
+    smem = need > smem ? need : smem;
   }
-  bus_chain_kernel<<<1, 2, delay ? stage_bytes(B) : 0, as_stream(stream)>>>(
-      x, y, ch, fbws_coefs(coefs), B);
+  const cudaError_t err = allow_smem(bus_chain_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bus_chain_kernel<<<1, 2, smem, as_stream(stream)>>>(x, y, ch, fbws_coefs(coefs), B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,10 +10,11 @@ parameter targets, and drives one block step
 
 Ported so far: the five families of the headline kit (kick, snare, hihat2,
 tom2, bass), the per-family pan/gain mix with its pan-settled branch, the
-master gain, a global bus of saturation, lowpass, tilt and delay in any
-order (a run of them in one kernel launch), and the pinned soft limiter.
-The compressor, spring and plate, the sidechain, LFO routes and the hihat,
-tom and poly families raise ``NotImplementedError`` (ROADMAP.md Queue A).
+master gain, the global bus of all seven effects (saturation, lowpass, tilt,
+delay, compressor with its optional sidechain, spring, plate) in any order,
+split into runs as the JAX package splits it (a run of two or more in one
+kernel launch), and the pinned soft limiter.  LFO routes and the hihat, tom
+and poly families raise ``NotImplementedError`` (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -37,9 +38,12 @@ from libgooey_tpu_torch.core.smoother import (
     smoothing_coeff,
 )
 from libgooey_tpu_torch.effects import chain as fx_chain
+from libgooey_tpu_torch.effects import compressor as fx_compressor
 from libgooey_tpu_torch.effects import delay as fx_delay
 from libgooey_tpu_torch.effects import limiter
 from libgooey_tpu_torch.effects import lowpass as fx_lowpass
+from libgooey_tpu_torch.effects import reverb_plate as fx_plate
+from libgooey_tpu_torch.effects import reverb_spring as fx_spring
 from libgooey_tpu_torch.effects import saturation as fx_saturation
 from libgooey_tpu_torch.effects import tilt as fx_tilt
 from libgooey_tpu_torch.engine.sequencer import Sequencer
@@ -68,10 +72,15 @@ FX_MODULES = {
     "lowpass": fx_lowpass,
     "tilt": fx_tilt,
     "delay": fx_delay,
+    "compressor": fx_compressor,
+    "spring": fx_spring,
+    "plate": fx_plate,
 }
 
-#: Global effects of the JAX package that the port does not have yet.
-_NOT_PORTED_FX = ("compressor", "spring", "plate")
+#: Effects that can join a run of effects in one launch (each has
+#: ``prepare``; ``pallas_chain._BUILDERS`` in the JAX package): all but the
+#: plate, and the compressor only while it keys from its own input.
+MERGEABLE_FX = ("saturation", "lowpass", "tilt", "delay", "compressor", "spring")
 
 FX_DEFAULT_TARGETS = {
     "saturation": [0.3, 0.3, 1.0],
@@ -125,6 +134,20 @@ def _pack_triggers(pend: dict, V: int, B: int):
     return offs, vels, freqs
 
 
+def _voice_row(voice_outs, i: int) -> torch.Tensor:
+    """Row ``i`` of the global voice matrix (family order, then slot)
+    without concatenating the banks (engine.py:331-337)."""
+    for out in voice_outs:
+        if i < out.shape[0]:
+            return out[i]
+        i -= out.shape[0]
+    raise IndexError(i)
+
+
+def _joins_run(name: str, sidechain_voice: int) -> bool:
+    return name in MERGEABLE_FX and not (name == "compressor" and sidechain_voice >= 0)
+
+
 def _render_all(
     state: dict,
     events: dict,
@@ -137,6 +160,7 @@ def _render_all(
     family_static=(),
     lfo_routes: Tuple = (),
     fx_order: Tuple[str, ...] = (),
+    sidechain_voice: int = -1,
     fuse_bus: bool = True,
 ):
     """One block over every instrument bank + mix + master + global bus +
@@ -145,15 +169,14 @@ def _render_all(
     ``events`` holds ``<kind>_off`` / ``<kind>_vel`` trigger arrays, the
     scalar ``block_start`` (numpy or tensors), optionally ``bass_freq``
     (per-trigger note frequencies, 0 = the param's) and ``fx_<name>``
-    staged targets for each effect of ``fx_order``.  ``fuse_bus=False``
-    runs every effect through its own kernel, even in a run of two or more
-    (the JAX package's ``LIBGOOEY_CHAIN_FUSE=off``, mixer/chain.py).
-    Returns ``(new_state, stereo[2, B], mono[B])``."""
+    staged targets for each effect of ``fx_order``.  ``sidechain_voice``:
+    global voice index whose raw output keys the compressor's detector (-1:
+    the compressor keys from its input).  ``fuse_bus=False`` runs every
+    effect through its own kernels, even in a run of two or more (the JAX
+    package's ``LIBGOOEY_CHAIN_FUSE=off``, mixer/chain.py).  Returns
+    ``(new_state, stereo[2, B], mono[B])``."""
     if lfo_routes:
         raise not_ported("LFO routes")
-    for fx_name in fx_order:
-        if fx_name not in FX_MODULES:
-            raise not_ported(f"global effect {fx_name!r}")
     static = {k: dict(v) for k, v in family_static}
     new_state = dict(state)
     dev = state["pan"].current.device
@@ -212,19 +235,32 @@ def _render_all(
     bus = mix * master_traj[None, :]
     mono = mono_sum * master_traj
 
-    # global FX chain, user-ordered: a run of two or more effects is one
-    # bus_chain launch, as the JAX package merges it on the TPU
-    # (engine.py:436-473); every ported effect can join a run, so the run is
-    # the whole chain.  A lone effect launches its own kernel.
-    if fuse_bus and len(fx_order) >= 2:
-        fx_states, bus = fx_chain.process_run(
-            [FX_MODULES[n] for n in fx_order], [state["fx_" + n] for n in fx_order], bus,
-            [events["fx_" + n] for n in fx_order], sample_rate=sample_rate)
-        new_state.update(("fx_" + n, st) for n, st in zip(fx_order, fx_states))
-    else:
-        for fx_name in fx_order:
-            new_state["fx_" + fx_name], bus = FX_MODULES[fx_name].process_block(
-                state["fx_" + fx_name], bus, events["fx_" + fx_name], sample_rate=sample_rate)
+    # global FX chain, user-ordered, split into maximal runs as the JAX
+    # package splits it on the TPU (engine.py:443-501): a run of two or more
+    # mergeable effects is one bus_chain launch; the plate, a sidechained
+    # compressor and a lone effect launch their own kernels.
+    i = 0
+    while i < len(fx_order):
+        j = i
+        while fuse_bus and j < len(fx_order) and _joins_run(fx_order[j], sidechain_voice):
+            j += 1
+        if j - i >= 2:
+            run = fx_order[i:j]
+            fx_states, bus = fx_chain.process_run(
+                [FX_MODULES[n] for n in run], [state["fx_" + n] for n in run], bus,
+                [events["fx_" + n] for n in run], sample_rate=sample_rate)
+            new_state.update(("fx_" + n, st) for n, st in zip(run, fx_states))
+            i = j
+            continue
+        fx_name = fx_order[i]
+        kw = {}
+        if fx_name == "compressor" and sidechain_voice >= 0:
+            sc = _voice_row(voice_outs, sidechain_voice)
+            kw["sidechain"] = torch.stack([sc, sc], dim=0)
+        new_state["fx_" + fx_name], bus = FX_MODULES[fx_name].process_block(
+            state["fx_" + fx_name], bus, events["fx_" + fx_name], sample_rate=sample_rate,
+            **kw)
+        i += 1
 
     out = limiter.soft_limit(bus, limiter_threshold)
     mono = limiter.soft_limit(mono, limiter_threshold)
@@ -301,6 +337,7 @@ class Engine:
         # global FX chain: ordered names + staged targets; limiter pinned last
         self.fx_order: List[str] = []
         self.fx_targets: Dict[str, np.ndarray] = {}
+        self.sidechain_source: Optional[str] = None
 
     # --- instrument management ------------------------------------------------
 
@@ -381,8 +418,6 @@ class Engine:
         """Append a global effect (reorderable; SoftLimiter stays pinned last).
         The JAX Engine's extra keyword options are stored there and never
         read, so the port takes none."""
-        if name in _NOT_PORTED_FX:
-            raise not_ported(f"global effect {name!r}")
         if name not in FX_MODULES:
             raise KeyError(name)
         if name not in self.fx_order:
@@ -400,7 +435,7 @@ class Engine:
     def set_effect_order(self, order: List[str]):
         """Reorder the chain (ffi effect_order; limiter pinned last); names
         never added are dropped."""
-        unknown = [n for n in order if n not in FX_MODULES and n not in _NOT_PORTED_FX]
+        unknown = [n for n in order if n not in FX_MODULES]
         if unknown:
             raise KeyError(f"unknown global effects {unknown}")
         self.fx_order = [n for n in order if n in self.fx_targets]
@@ -412,9 +447,9 @@ class Engine:
         return float(self.fx_targets[name][index])
 
     def set_sidechain_source(self, name: Optional[str]):
-        """Compressor detector keyed from an instrument (the compressor is
-        not ported yet)."""
-        raise not_ported("the compressor sidechain")
+        """Compressor detector keyed from an instrument (ffi sidechain);
+        ``None`` keys it from its input again."""
+        self.sidechain_source = name
 
     # --- device state ---------------------------------------------------------------
 
@@ -514,6 +549,8 @@ class Engine:
         """Render one block -> ``(stereo[2, B], mono[B])`` tensors on the device."""
         self._stage()
         events = self._collect_events()
+        sc_voice = (self._global_voice_index(self.sidechain_source)
+                    if self.sidechain_source is not None else -1)
         self._state, out, mono = _render_all(
             self._state,
             events,
@@ -524,6 +561,7 @@ class Engine:
             limiter_threshold=self.limiter_threshold,
             family_static=self._static_key(),
             fx_order=tuple(self.fx_order),
+            sidechain_voice=sc_voice,
         )
         self.sample_count += self.block_size
         return out, mono

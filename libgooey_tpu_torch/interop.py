@@ -6,7 +6,8 @@ the port's state tuples keep the JAX field names and nesting, so both
 packages compute the same thing from the same state.  ``to_numpy`` goes the
 other way; a leaf whose numpy dtype differs from its tensor's (hihat2's
 ``voice_salt``: uint32 in the JAX package, int64 here) is named in its
-tuple's ``NUMPY_DTYPES`` (and ``Ring.pos``: int32 there, int64 here).  Events
+tuple's ``NUMPY_DTYPES`` (``Ring.pos`` and the plate's ``pos``: int32
+there, int64 here).  Events
 need no conversion: they are numpy dicts with the JAX keys (``kick_off``,
 ``kick_vel``, ``bass_freq``, ``block_start``, ``fx_<name>``) that both
 packages take.
@@ -18,14 +19,23 @@ import numpy as np
 import torch
 
 from libgooey_tpu_torch.core.smoother import SmootherBank
-from libgooey_tpu_torch.effects import delay, lowpass, saturation, tilt
+from libgooey_tpu_torch.effects import (
+    compressor,
+    delay,
+    lowpass,
+    reverb_plate,
+    reverb_spring,
+    saturation,
+    tilt,
+)
 from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
 from libgooey_tpu_torch.ops import ringbuf
 
 #: the ported families' modules (``init_state`` builds the template)
 _FAMILIES = {"kick": kick, "snare": snare, "hihat2": hihat2, "tom2": tom2, "bass": bass}
 #: the ported global effects' modules, likewise
-_FX = {"saturation": saturation, "lowpass": lowpass, "tilt": tilt, "delay": delay}
+_FX = {"saturation": saturation, "lowpass": lowpass, "tilt": tilt, "delay": delay,
+       "compressor": compressor, "spring": reverb_spring, "plate": reverb_plate}
 
 
 def from_numpy(template, src, device):
@@ -52,15 +62,26 @@ def kick_state_from_numpy(src, device) -> kick.KickState:
     return family_state_from_numpy("kick", src, device)
 
 
+def _zeros_like(src) -> torch.Tensor:
+    return torch.zeros(np.asarray(src).shape, dtype=torch.float32)
+
+
 def fx_state_from_numpy(name: str, src, device):
-    """A JAX global-effect state (``saturation``, ``lowpass``, ``tilt`` or
-    ``delay``; or a tree with the same fields) -> the port's state of that
-    effect.  The delay's ring keeps the length it has in ``src``."""
+    """A JAX global-effect state (one of ``engine.FX_MODULES``, or a tree
+    with the same fields) -> the port's state of that effect.  Delay lines
+    (the delay's ring, the spring's history, the plate's predelay ring,
+    histories and tank) keep the lengths they have in ``src``."""
+    template = _FX[name].init_state(44100.0)
     if name == "delay":
         L = np.asarray(src.ring.buf).shape[-1]
-        template = delay.init_state(44100.0)._replace(ring=ringbuf.Ring.init(L, batch=(2,)))
-    else:
-        template = _FX[name].init_state(44100.0)
+        template = template._replace(ring=ringbuf.Ring.init(L, batch=(2,)))
+    elif name == "spring":
+        template = template._replace(hist=_zeros_like(src.hist))
+    elif name == "plate":
+        template = template._replace(
+            predelay=ringbuf.Ring.init(np.asarray(src.predelay.buf).shape[-1]),
+            in_hist=_zeros_like(src.in_hist), mod_hist=_zeros_like(src.mod_hist),
+            tank=_zeros_like(src.tank))
     return from_numpy(template, src, device)
 
 

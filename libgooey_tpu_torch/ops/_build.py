@@ -48,10 +48,12 @@ SIGNATURES = {
     "ws4_bank_launch": [_P] * 7 + [_I, _I, _P],
     "linrec2_bank_launch": [_P] * 12 + [_I, _I, _P],
     "triangle_additive_bank_launch": [_P] * 3 + [_F, _F, _I, _I, _I, _P],
-    # the bus kernels: x, y, then per phase (op, flag), six pointers, six
-    # floats, then the 4x chain's coefficients
-    "bus_block_launch": [_P] * 6 + [_I, _P],
-    "bus_chain_launch": [_P, _P, _I] + [_P] * 4 + [_I, _P],
+    # the bus kernels: x, y, then per phase (op, flag), ten pointers, 16
+    # floats and 16 ints, then the 4x chain's coefficients
+    "bus_block_launch": [_P] * 7 + [_I, _P],
+    "bus_chain_launch": [_P, _P, _I] + [_P] * 5 + [_I, _P],
+    # the plate: its 17 pointers, its constants and lags, DIN, DMOD, B
+    "plate_block_launch": [_P] * 3 + [_I, _I, _I, _P],
 }
 
 

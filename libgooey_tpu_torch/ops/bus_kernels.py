@@ -2,15 +2,18 @@
 
 Counterparts of the JAX package's Pallas wrappers:
 
-================  ======================================  ======================
-wrapper           replaces (wrapper line, body)           caller in the port
-================  ======================================  ======================
-saturation_block  pallas_fx.py:504, _sat4_kernel          effects/saturation
-lowpass_block     pallas_fx.py:1027, _lowpass_kernel      effects/lowpass
-tilt_block        pallas_fx.py:880, _tilt_kernel          effects/tilt
-delay_block       pallas_fx.py:962, _delay_kernel         effects/delay
-bus_chain         pallas_chain.py:92, chain_fused         effects/chain
-================  ======================================  ======================
+==================  ======================================  ======================
+wrapper             replaces (wrapper line, body)           caller in the port
+==================  ======================================  ======================
+saturation_block    pallas_fx.py:504, _sat4_kernel          effects/saturation
+lowpass_block       pallas_fx.py:1027, _lowpass_kernel      effects/lowpass
+tilt_block          pallas_fx.py:880, _tilt_kernel          effects/tilt
+delay_block         pallas_fx.py:962, _delay_kernel         effects/delay
+env_follower_block  pallas_fx.py:673, _env_kernel           effects/compressor
+compressor_block    pallas_fx.py:758, _comp_kernel          effects/compressor
+spring_block        pallas_fx.py:126, _spring_kernel        effects/reverb_spring
+bus_chain           pallas_chain.py:92, chain_fused         effects/chain
+==================  ======================================  ======================
 
 Dispatch as in :mod:`ops.bank_kernels`, with no fallback: a CUDA tensor
 launches the hand-written kernel (``csrc/bus_kernels.cu``) or raises; a CPU
@@ -22,12 +25,16 @@ level).  Every wrapper counts its kernel launches in ``<wrapper>.launches``
 
 Signals are the stereo bus, float32 ``[2, B]``; ``cur``/``tgt`` are the
 smoothers' ``[2, P]`` currents and targets, whose per-sample trajectories the
-kernels compute themselves.  An effect's block for a kernel is a
-:class:`Phase`: the wrapper's name and its arguments after the signal.
-``bus_chain`` runs a list of phases in one launch, each on the signal the one
-before it left, through the same per-effect code as the single kernels.  What
-bounds the kernels on the card is in the header of their CUDA source: two
-threads stepping a serial chain.
+kernels compute themselves (the compressor and the spring take theirs as
+``[2, B]`` rows, computed outside as the JAX package computes them outside
+its kernels).  An effect's block for a kernel is a :class:`Phase`: the
+wrapper's name and its arguments after the signal.  ``bus_chain`` runs a
+list of phases in one launch, each on the signal the one before it left,
+through the same per-effect code as the single kernels.  The compressor is
+two phases, its detector (which passes the signal through) and its gain
+stage; in a run the gain stage's ``env`` is ``None``, the detector's output
+before it.  What bounds the kernels on the card is in the header of their
+CUDA source: two threads stepping a serial chain.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ from libgooey_tpu_torch.ops.bank_kernels import (
     unpack_fbws_bank,
 )
 
-KERNELS = ("saturation_block", "lowpass_block", "tilt_block", "delay_block", "bus_chain")
+KERNELS = ("saturation_block", "lowpass_block", "tilt_block", "delay_block",
+           "env_follower_block", "compressor_block", "spring_block", "bus_chain")
 
 #: Source of each kernel and the TPU kernel it replaces (file:line of the
 #: wrapper that reaches ``pl.pallas_call``).
@@ -65,6 +73,9 @@ REPLACES = {
     "lowpass_block": "libgooey_tpu/ops/pallas_fx.py:1027",
     "tilt_block": "libgooey_tpu/ops/pallas_fx.py:880",
     "delay_block": "libgooey_tpu/ops/pallas_fx.py:962",
+    "env_follower_block": "libgooey_tpu/ops/pallas_fx.py:673",
+    "compressor_block": "libgooey_tpu/ops/pallas_fx.py:758",
+    "spring_block": "libgooey_tpu/ops/pallas_fx.py:126",
     "bus_chain": "libgooey_tpu/ops/pallas_chain.py:92",
 }
 
@@ -72,11 +83,17 @@ REPLACES = {
 #: (``FBWS_S_OUT``), then the smoother currents (drive, warmth, mix)
 SAT_S_OUT = FBWS_S_OUT + 3
 
+#: rows of the compressor's packed state: the 4x chain and DC blocker, then
+#: the smoothed gain
+COMP_S_IN = FBWS_S_IN + 1
+COMP_S_OUT = FBWS_S_OUT + 1
+
 #: phases one ``bus_chain`` launch takes (``kMaxPhases`` in the CUDA source)
 MAX_PHASES = 8
-#: the delay stages both channels' filtered taps, 2 x B floats, in the 48 KB
-#: of shared memory a launch gets by default
-MAX_DELAY_B = 6144
+#: a phase's pointer, float and int slots (``kPhaseIn`` ... in the CUDA source)
+_PHASE_IN, _PHASE_OUT, _PHASE_F, _PHASE_I = 8, 2, 16, 16
+#: phases that pass the signal through and leave their result in an output
+_PASSES_SIGNAL = ("env_follower_block",)
 
 
 class Phase(NamedTuple):
@@ -117,34 +134,80 @@ def _trajectories(cur, tgt, coeff, B):
 # --- the launch: phases as the CUDA source's Phase structs ----------------------
 
 
+class _Slots(NamedTuple):
+    """A phase as the CUDA source's ``Phase`` takes it: inputs ``(label,
+    tensor, shape)``, output shapes, scalars, ints and flag."""
+
+    ins: list
+    outs: list
+    f: tuple = ()
+    iv: tuple = ()
+    flag: int = 0
+
+
 def _saturation_slots(B, cur, tgt, packed, *, coeff):
-    return ([("cur", cur, (2, 3)), ("tgt", tgt, (2, 3)), ("packed", packed, (FBWS_S_IN, 2))],
-            [(SAT_S_OUT, 2)], [_logq(coeff)], 0)
+    return _Slots([("cur", cur, (2, 3)), ("tgt", tgt, (2, 3)), ("packed", packed, (FBWS_S_IN, 2))],
+                  [(SAT_S_OUT, 2)], (_logq(coeff),))
 
 
 def _lowpass_slots(B, g, fb, stages):
-    return ([("g", g, (2, B)), ("fb", fb, (2, B)), ("stages", stages, (2, 2))],
-            [(2, 2)], [], 0)
+    return _Slots([("g", g, (2, B)), ("fb", fb, (2, B)), ("stages", stages, (2, 2))], [(2, 2)])
 
 
 def _tilt_slots(B, cur, tgt, ic, *, coeff, sample_rate):
-    return ([("cur", cur, (2, 2)), ("tgt", tgt, (2, 2)), ("ic", ic, (2, 2))], [(2, 4)],
-            [_logq(coeff), _TILT_LP_LOG, _TILT_HP_LOG, _f32(sample_rate * 0.45), _PI,
-             _f32(1.0 / sample_rate)], 0)
+    return _Slots([("cur", cur, (2, 2)), ("tgt", tgt, (2, 2)), ("ic", ic, (2, 2))], [(2, 4)],
+                  (_logq(coeff), _TILT_LP_LOG, _TILT_HP_LOG, _f32(sample_rate * 0.45), _PI,
+                   _f32(1.0 / sample_rate)))
 
 
 def _delay_slots(B, delayed, cur, tgt, z, *, coeff, sample_rate, pingpong=False):
-    if B > MAX_DELAY_B:
-        raise ValueError(f"delay_block: B = {B} exceeds {MAX_DELAY_B}")
-    return ([("delayed", delayed, (2, B)), ("cur", cur, (2, 3)), ("tgt", tgt, (2, 3)),
-             ("z", z, (2, 2))], [(2, B), (2, 5)],
-            [_logq(coeff), _f32(-2.0 * np.pi / sample_rate)], int(bool(pingpong)))
+    return _Slots([("delayed", delayed, (2, B)), ("cur", cur, (2, 3)), ("tgt", tgt, (2, 3)),
+                   ("z", z, (2, 2))], [(2, B), (2, 5)],
+                  (_logq(coeff), _f32(-2.0 * np.pi / sample_rate)), flag=int(bool(pingpong)))
 
 
-#: wrapper -> (the CUDA source's ``Op``, the phase's inputs ``(label, tensor,
-#: shape)``, output shapes, scalars and flag, in the order of its ``Phase``)
+def _env_slots(B, att_c, rel_c, byp, env0):
+    return _Slots([("att_c", att_c, (2, B)), ("rel_c", rel_c, (2, B)), ("byp", byp, (2, B)),
+                   ("env0", env0, (2,))], [(2, B), (2,)])
+
+
+def _compressor_slots(B, env, thr, ratio, mix, packed):
+    return _Slots([("env", env, (2, B)), ("thr", thr, (2, B)), ("ratio", ratio, (2, B)),
+                   ("mix", mix, (2, B)), ("packed", packed, (COMP_S_IN, 2))],
+                  [(COMP_S_OUT, 2)], (_COMP_DB, _COMP_LN, _COMP_SHAPE))
+
+
+def _spring_slots(B, A, p2, fbgp, hist, damp, mix, fb0, *, delays, gains):
+    D = _spring_check(hist, delays, gains)
+    g, omg, alpha = _spring_gains(gains)
+    return _Slots([("A", A, (2, B)), ("p2", p2, (2, B)), ("fbgp", fbgp, (2, B)),
+                   ("hist", hist, (2 * SPRING_APS, D)), ("damp", damp, (2,)),
+                   ("mix", mix, (2, B)), ("fb0", fb0, (2,))],
+                  [(2 * SPRING_APS, D), (2,)], g + omg + (alpha,), tuple(delays) + (D,))
+
+
+#: wrapper -> (the CUDA source's ``Op``, its slots)
 _SLOTS = {"saturation_block": (0, _saturation_slots), "lowpass_block": (1, _lowpass_slots),
-          "tilt_block": (2, _tilt_slots), "delay_block": (3, _delay_slots)}
+          "tilt_block": (2, _tilt_slots), "delay_block": (3, _delay_slots),
+          "env_follower_block": (4, _env_slots), "compressor_block": (5, _compressor_slots),
+          "spring_block": (6, _spring_slots)}
+
+
+def _pad(values, n, fill, what):
+    values = list(values)
+    if len(values) > n:
+        raise ValueError(f"a phase has {len(values)} {what}, at most {n}")
+    return values + [fill] * (n - len(values))
+
+
+def _with_env(phase, outs):
+    """A compressor gain stage whose ``env`` is ``None`` reads the envelope
+    of the detector phase just before it."""
+    if phase.name != "compressor_block" or phase.args[0] is not None:
+        return phase
+    if not outs or len(outs[-1]) != 2:
+        raise ValueError("compressor_block: env=None needs an env_follower_block phase before it")
+    return phase._replace(args=(outs[-1][0],) + tuple(phase.args[1:]))
 
 
 def _launch_phases(name, x, phases, *, fused):
@@ -153,29 +216,32 @@ def _launch_phases(name, x, phases, *, fused):
     B], [each phase's outputs after the signal])``."""
     B = _stereo_b(name, x)
     specs = [("x", x, _F32, (2, B))]
-    ops, ptrs, floats, outs = [], [], [], []
+    ops, ptrs, floats, ints, outs = [], [], [], [], []
     for ph in phases:
+        ph = _with_env(ph, outs)
         op, slots = _SLOTS[ph.name]
-        ins, out_shapes, f, flag = slots(B, *ph.args, **ph.kwargs)
-        specs += [(f"{ph.name} {label}", t, _F32, shape) for label, t, shape in ins]
-        aux = tuple(_empty(shape, x) for shape in out_shapes)
-        ops += [op, flag]
-        ptrs += ([t.data_ptr() for _, t, _ in ins] + [None] * (4 - len(ins))
-                 + [a.data_ptr() for a in aux] + [None] * (2 - len(aux)))
-        floats += f + [0.0] * (6 - len(f))
+        sl = slots(B, *ph.args, **ph.kwargs)
+        specs += [(f"{ph.name} {label}", t, _F32, shape) for label, t, shape in sl.ins]
+        aux = tuple(_empty(shape, x) for shape in sl.outs)
+        ops += [op, sl.flag]
+        ptrs += (_pad([t.data_ptr() for _, t, _ in sl.ins], _PHASE_IN, None, "inputs")
+                 + _pad([a.data_ptr() for a in aux], _PHASE_OUT, None, "outputs"))
+        floats += _pad(sl.f, _PHASE_F, 0.0, "scalars")
+        ints += _pad(sl.iv, _PHASE_I, 0, "ints")
         outs.append(aux)
     _check(name, x.device, specs)
     y = _empty((2, B), x)
     c_ops = (ctypes.c_int * len(ops))(*ops)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_floats = (ctypes.c_float * len(floats))(*floats)
+    c_ints = (ctypes.c_int * len(ints))(*ints)
     keep, coefs = _host_floats(_FBWS_COEFS)
     if fused:
         _launch(name, x.device, "bus_chain_launch", x.data_ptr(), y.data_ptr(), len(phases),
-                c_ops, c_ptrs, c_floats, coefs, B)
+                c_ops, c_ptrs, c_floats, c_ints, coefs, B)
     else:
         _launch(name, x.device, "bus_block_launch", x.data_ptr(), y.data_ptr(),
-                c_ops, c_ptrs, c_floats, coefs, B)
+                c_ops, c_ptrs, c_floats, c_ints, coefs, B)
     del keep
     return y, outs
 
@@ -412,23 +478,225 @@ def delay_block(x, delayed, cur, tgt, z, *, coeff, sample_rate, pingpong=False):
 delay_block.launches = 0
 
 
-# --- 5. bus_chain ---------------------------------------------------------------
+# --- 5. env_follower_block -----------------------------------------------------
+
+
+def env_follower_block_plain(x, att_c, rel_c, byp, env0):
+    """Plain version of the compressor's detector (pallas_fx.py:639-669):
+    ``e = c*env + (1-c)*|x|`` with ``c = att if |x| > env else rel``, 1 on
+    a bypassed sample (``byp > 0.5``: the envelope holds), flushed below
+    1e-15."""
+    rect, frozen = x.abs(), byp > 0.5
+    env, outs = env0, []
+    for n in range(x.shape[1]):
+        r = rect[:, n]
+        c = torch.where(frozen[:, n], 1.0, torch.where(r > env, att_c[:, n], rel_c[:, n]))
+        e = c * env + (1.0 - c) * r
+        env = torch.where(e < 1e-15, 0.0, e)
+        outs.append(env)
+    return torch.stack(outs, dim=1), env
+
+
+def env_follower_block(x, att_c, rel_c, byp, env0):
+    """Stereo attack/release peak detector over one block.
+
+    ``x``: [2, B] detector input, rectified in the kernel (the signal or
+    its magnitude); ``att_c``/``rel_c``: [2, B] retention coefficients;
+    ``byp``: [2, B], 1.0 freezes the follower; ``env0``: [2].  Returns
+    ``(env [2, B], env_last [2])``.  In a ``bus_chain`` run the phase passes
+    the signal through."""
+    if not _on_cuda("env_follower_block", x):
+        return env_follower_block_plain(x, att_c, rel_c, byp, env0)
+    _, env, env_last = _launch_one("env_follower_block", x, (att_c, rel_c, byp, env0), {})
+    env_follower_block.launches += 1
+    return env, env_last
+
+
+env_follower_block.launches = 0
+
+
+# --- 6. compressor_block --------------------------------------------------------
+
+#: the knee's dB scale, the gain's exponent scale and the tube colour's gain,
+#: as the TPU kernel rounds them (pallas_fx.py:731,739,748)
+_COMP_DB = _f32(20.0 / np.float32(np.log(10.0)))
+_COMP_LN = _f32(np.float32(-0.05 * np.log(10.0)))
+_COMP_SHAPE = _f32(np.float32(float(2.0 / np.pi) * 1.1))
+
+
+def compressor_block_plain(x, env, thr, ratio, mix, packed):
+    """Plain version of the compressor's gain stage (pallas_fx.py:718-754):
+    the 6 dB soft knee's gain reduction on the envelope, the one-pole gain
+    smoother (frozen on bypass) stepped sample by sample, ``x*g`` through the
+    4x chain with the atan tube colour (used where ``g < 0.99``), the
+    bypass-gated DC blocker, the mix and the finite select."""
+    byp = mix < 1e-4
+    env_db = _COMP_DB * torch.log(env + 1e-20)
+    over = env_db - thr
+    slope = 1.0 - 1.0 / ratio
+    kv = over + 3.0
+    knee = kv * kv / torch.full_like(kv, 12.0) * slope
+    gr = torch.where(over <= -3.0, 0.0, torch.where(over >= 3.0, over * slope, knee))
+    bv = 0.05 * torch.exp(_COMP_LN * gr)
+    g, gs = packed[FBWS_S_IN], []
+    for n in range(x.shape[1]):
+        g = torch.where(byp[:, n], g, 0.95 * g + bv[:, n])
+        gs.append(g)
+    gain = torch.stack(gs, dim=1)
+    compressed = x * gain
+    gT, cT = gain.t(), compressed.t()
+    dc = gated_dc(torch.where(byp, -1.0, 1.0).t())
+    y1, nst = ovs4_plain(cT, packed[:FBWS_S_IN], lambda n, s: atan_cephes(s) * _COMP_SHAPE,
+                         lambda c, n, y: dc(c, n, torch.where(gT[n] < 0.99, y, cT[n])))
+    out = torch.where(byp, x, x * (1.0 - mix) + y1 * mix)
+    out = torch.where(torch.isfinite(out), out, 0.0)
+    return out, torch.cat([nst, g[None]], dim=0)
+
+
+def compressor_block(x, env, thr, ratio, mix, packed):
+    """The compressor's gain stage over one block.
+
+    ``x``: [2, B]; ``env``: [2, B] detector envelope (``None`` in a
+    ``bus_chain`` run: the detector phase's before it); ``thr``/``ratio``/
+    ``mix``: [2, B] trajectories; ``packed``: [53, 2] from
+    :func:`pack_compressor`.  Returns ``(out [2, B], nst [101, 2])`` for
+    :func:`unpack_compressor`."""
+    if not _on_cuda("compressor_block", x):
+        return compressor_block_plain(x, env, thr, ratio, mix, packed)
+    res = _launch_one("compressor_block", x, (env, thr, ratio, mix, packed), {})
+    compressor_block.launches += 1
+    return res
+
+
+compressor_block.launches = 0
+
+
+def pack_compressor(ovs, dc, gain) -> torch.Tensor:
+    """The compressor's ``[2]``-batched OversamplerState, DCBlockState and
+    smoothed gain -> packed ``[53, 2]``."""
+    core = pack_fbws_bank(SimpleNamespace(ovs=ovs, dc_x1=dc.x1, dc_y1=dc.y1))
+    return torch.cat([core, gain[None]], dim=0)
+
+
+def unpack_compressor(nst, ovs):
+    """Packed ``[101, 2]`` -> ``(OversamplerState, dc_x1, dc_y1, gain)``."""
+    new_ovs, dc_x1, dc_y1 = unpack_fbws_bank(nst[:FBWS_S_OUT], SimpleNamespace(ovs=ovs))
+    return new_ovs, dc_x1, dc_y1, nst[FBWS_S_OUT]
+
+
+# --- 7. spring_block ------------------------------------------------------------
+
+#: allpasses per channel (reverb.rs:30-39)
+SPRING_APS = 6
+
+
+def _spring_check(hist, delays, gains) -> int:
+    """The history's length D, checked against the lags."""
+    D = hist.shape[-1]
+    if len(delays) != 2 * SPRING_APS or len(gains) != SPRING_APS:
+        raise ValueError(f"spring_block: expected {2 * SPRING_APS} lags and {SPRING_APS} gains")
+    if not 1 <= min(delays) <= max(delays) <= D:
+        raise ValueError(f"spring_block: lags {delays} do not fit a history of {D}")
+    return D
+
+
+def _spring_gains(gains):
+    """``(g, 1 - g^2, prod g)`` rounded to float32 from float64, as the
+    TPU kernel's static Python constants are."""
+    return (tuple(_f32(g) for g in gains), tuple(_f32(1.0 - g * g) for g in gains),
+            _f32(np.prod(gains)))
+
+
+def spring_block_plain(x, A, p2, fbgp, hist, damp, mix, fb0, *, delays, gains):
+    """Plain version of the spring block (pallas_fx.py:83-120, stepped sample
+    by sample on a ``[12, D+B]`` work buffer as the Pallas body lays it
+    out): the delayed reads, their allpass chain's offset ``beta``, the
+    damping recurrence, the six allpass writes a channel, and the mix
+    (reverb_spring.py:193)."""
+    B = x.shape[1]
+    D = _spring_check(hist, delays, gains)
+    g, omg, alpha = _spring_gains(gains)
+    W = torch.cat([hist, hist.new_zeros((2 * SPRING_APS, B))], dim=1)
+    rows = torch.arange(2 * SPRING_APS, device=x.device)
+    lags = torch.as_tensor(delays, device=x.device)
+    xe = x.clone()
+    xe[:, 0] = x[:, 0] + fb0
+    d, wets = damp, []
+    for n in range(B):
+        rd = W[rows, D + n - lags].reshape(2, SPRING_APS)
+        beta = torch.zeros_like(d)
+        for j in range(SPRING_APS):
+            beta = g[j] * beta + omg[j] * rd[:, j]
+        bv = p2[:, n] * (alpha * xe[:, n] + beta)
+        d_prev, d = d, A[:, n] * d + bv
+        sig = xe[:, n] + fbgp[:, n] * d_prev
+        vs = []
+        for j in range(SPRING_APS):
+            v = sig - g[j] * rd[:, j]
+            vs.append(v)
+            sig = g[j] * v + rd[:, j]
+        W[:, D + n] = torch.stack(vs, dim=1).reshape(-1)
+        wets.append(sig)
+    out = x * (1.0 - mix) + torch.stack(wets, dim=1) * mix
+    return out, W[:, B:B + D].clone(), d
+
+
+def spring_block(x, A, p2, fbgp, hist, damp, mix, fb0, *, delays, gains):
+    """One stereo spring-reverb block.
+
+    ``x``: [2, B] dry input; ``A``/``p2``/``fbgp``: [2, B] damping-loop
+    trajectories (effects/reverb_spring.py); ``hist``: [12, D] right-aligned
+    allpass histories (left channel's six, then the right's); ``damp``/
+    ``fb0``: [2] carried damping state and feedback sample; ``mix``: [2, B];
+    ``delays``: the 12 lags, ``gains``: the 6 allpass gains.  Returns
+    ``(out [2, B], hist' [12, D], d_last [2])``.  The TPU kernel returns the
+    wet signal and leaves the feedback carry and the mix to its caller; here
+    they are in the kernel, so a lone spring and a spring in a run are one
+    phase (``mix = 1``, ``fb0 = 0`` give the wet signal)."""
+    if not _on_cuda("spring_block", x):
+        return spring_block_plain(x, A, p2, fbgp, hist, damp, mix, fb0, delays=delays,
+                                  gains=gains)
+    res = _launch_one("spring_block", x, (A, p2, fbgp, hist, damp, mix, fb0),
+                      dict(delays=delays, gains=gains))
+    spring_block.launches += 1
+    return res
+
+
+spring_block.launches = 0
+
+
+# --- 8. bus_chain ---------------------------------------------------------------
+
+
+def _run(x, phase, plain: bool):
+    """One phase through its wrapper or its plain version -> ``(y, outputs
+    after the signal)``."""
+    fn = globals()[phase.name + ("_plain" if plain else "")]
+    res = fn(x, *phase.args, **phase.kwargs)
+    if phase.name in _PASSES_SIGNAL:
+        return x, tuple(res)
+    y, *aux = res
+    return y, tuple(aux)
+
+
+def _run_all(x, phases, plain: bool):
+    y, outs = x, []
+    for ph in phases:
+        y, aux = _run(y, _with_env(ph, outs), plain)
+        outs.append(aux)
+    return y, outs
 
 
 def bus_chain_plain(x, phases):
     """Plain version of a run of bus effects: each phase's plain version in
     order, on the signal the one before it left."""
-    y, outs = x, []
-    for ph in phases:
-        y, *aux = globals()[ph.name + "_plain"](y, *ph.args, **ph.kwargs)
-        outs.append(tuple(aux))
-    return y, outs
+    return _run_all(x, phases, plain=True)
 
 
 def bus_chain(x, phases):
     """A run of bus effects in one launch (the counterpart of
     ``pallas_chain.chain_fused``).  ``x``: [2, B]; ``phases``: up to
-    ``MAX_PHASES`` :class:`Phase` of the four effect wrappers.  Returns
+    ``MAX_PHASES`` :class:`Phase` of the effect wrappers.  Returns
     ``(y [2, B], [each phase's outputs after the signal])``, what the
     wrappers give one after the other."""
     if not _on_cuda("bus_chain", x):
@@ -445,6 +713,11 @@ bus_chain.launches = 0
 
 def run_phase(x, phase):
     """One phase through its own effect's wrapper -> ``(y, outputs after the
-    signal)``."""
-    y, *aux = globals()[phase.name](x, *phase.args, **phase.kwargs)
-    return y, tuple(aux)
+    signal)``; a detector phase passes ``x`` through."""
+    return _run(x, phase, plain=False)
+
+
+def run_phases(x, phases):
+    """A run's phases through their own effects' wrappers one after the
+    other: what ``bus_chain`` gives in one launch."""
+    return _run_all(x, phases, plain=False)

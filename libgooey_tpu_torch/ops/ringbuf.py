@@ -1,6 +1,6 @@
 """Device ring buffers with fractional reads: the delay-line substrate
-(port of ``Ring``, ``write_block`` and ``read_frac`` of
-libgooey_tpu/ops/ringbuf.py:26-87).
+(port of ``Ring``, ``write_block``, ``read_frac`` and ``tap_frac`` of
+libgooey_tpu/ops/ringbuf.py:26-123).
 
 A delay line keeps its audio history in a ring on the device and works per
 block: reads whose lag is at least the block length reference only earlier
@@ -60,3 +60,13 @@ def read_frac(ring: Ring, offsets: torch.Tensor, min_offset: float = 1.0) -> tor
     a = torch.gather(ring.buf, -1, torch.remainder(base, L))
     b = torch.gather(ring.buf, -1, torch.remainder(base - 1, L))
     return a + frac * (b - a)
+
+
+def tap_frac(ring_after_write: Ring, offsets: torch.Tensor, n_written: int) -> torch.Tensor:
+    """Post-write fractional tap: offset 0 is this sample's own write.
+
+    ``ring_after_write.pos`` has already advanced by ``n_written``; local
+    sample n reads relative to ``pos - n_written + n`` (plate_reverb.rs:
+    134-142, slot ``idx - 1 - whole``).  Offsets are clamped to [0, L-2]."""
+    before = Ring(buf=ring_after_write.buf, pos=ring_after_write.pos - n_written)
+    return read_frac(before, offsets, min_offset=0.0)

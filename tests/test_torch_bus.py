@@ -1,25 +1,34 @@
 """The port's bus effects against the JAX package's modules on the CPU.
 
 Each port effect (``libgooey_tpu_torch/effects/{saturation,lowpass,tilt,
-delay}.py``) runs its ``process_block`` block by block from the same state
+delay,compressor,reverb_spring,reverb_plate}.py``) runs its
+``process_block`` block by block from the same state
 (carried across with ``interop``) and the same numpy inputs as the JAX
 module, once against ``impl="xla"`` (the path the JAX engine takes on the
 CPU) and once against ``impl="pallas"`` (the TPU kernel's body, in interpret
 mode).  Targets move mid-stream as in tests/test_pallas_fx.py: the
 saturation crosses its bypass gate, the tilt crosses the center, the delay's
-time, feedback and cutoff change.  Also the ring buffer and the freeze
-helper against their JAX twins.
+time, feedback and cutoff change; the compressor (on loud bursts, also keyed
+from a sidechain), the spring and the plate take tests/test_pallas_fx.py's
+target sequences, the plate's size also jumping 1.0 -> 0.0.  Also the ring
+buffer, the freeze helper and the knee against their JAX twins, and the
+plate against tests/test_plate.py's per-sample numpy oracle.
 
 Bounds, output: the tolerances tests/test_pallas_fx.py holds the JAX
-package's two paths to (saturation 2e-5, delay 2e-5, tilt 1e-5, lowpass
-1e-5); every state leaf, the delay's ring included: 1e-4, relative to the
+package's two paths to (saturation 2e-5, delay 2e-5, tilt, lowpass,
+compressor, spring and plate 1e-5); every state leaf, the delay's ring and
+the plate's tank and predelay ring included: 1e-4, relative to the
 leaf's magnitude where that exceeds 1 (the cutoff smoothers hold Hz: the JAX
 package's two paths raise ``1 - coeff`` to the n-th power in two ways,
 ``exp(n log q)`` and ``q**n``, which differ by ~1e-5 of the value).
 Measured with these inputs, output against xla / pallas: saturation 1.9e-5
 / 1.9e-6 (the JAX package's own two paths: 1.9e-5), lowpass 1.1e-7 /
-1.1e-7, tilt 6.0e-7 / 5.7e-7, delay 6.3e-6 / 1.2e-7; worst state leaf
-1.1e-5 (xla, the delay's smoothers) / 1.2e-6 (pallas).
+1.1e-7, tilt 6.0e-7 / 5.7e-7, delay 6.3e-6 / 1.2e-7, compressor 9.5e-7 /
+9.5e-7 (keyed from a sidechain 3.4e-7 / 2.5e-7), spring 4.5e-8 / 6.0e-8, plate
+1.4e-7 / 1.4e-7 (the size jump 1.0e-6 / 1.0e-6, from its float64-rounded
+size powers; with PyTorch's float32 ``pow`` it was 1.1e-5); worst state leaf
+1.1e-5 (xla, the delay's smoothers) / 1.2e-6 (pallas), the new effects' 9.6e-7
+(the compressor's envelope).
 """
 
 import numpy as np
@@ -28,21 +37,28 @@ import torch
 
 import jax.numpy as jnp
 
+from libgooey_tpu.effects import compressor as jcompressor
 from libgooey_tpu.effects import delay as jdelay
 from libgooey_tpu.effects import freeze as jfreeze
 from libgooey_tpu.effects import lowpass as jlowpass
+from libgooey_tpu.effects import reverb_plate as jplate
+from libgooey_tpu.effects import reverb_spring as jspring
 from libgooey_tpu.effects import saturation as jsaturation
 from libgooey_tpu.effects import tilt as jtilt
 from libgooey_tpu.ops import ringbuf as jringbuf
 
 from libgooey_tpu_torch import interop
+from libgooey_tpu_torch.effects import compressor as tcompressor
 from libgooey_tpu_torch.effects import delay as tdelay
 from libgooey_tpu_torch.effects import freeze as tfreeze
 from libgooey_tpu_torch.effects import lowpass as tlowpass
+from libgooey_tpu_torch.effects import reverb_plate as tplate
+from libgooey_tpu_torch.effects import reverb_spring as tspring
 from libgooey_tpu_torch.effects import saturation as tsaturation
 from libgooey_tpu_torch.effects import tilt as ttilt
 from libgooey_tpu_torch.ops import ringbuf as tringbuf
 
+from test_plate import plate_oracle
 from test_torch_slice import _leaves
 
 SR = 44100.0
@@ -50,8 +66,11 @@ B = 512
 STATE_TOL = 1e-4
 
 MODULES = {"saturation": (jsaturation, tsaturation), "lowpass": (jlowpass, tlowpass),
-           "tilt": (jtilt, ttilt), "delay": (jdelay, tdelay)}
-OUT_TOL = {"saturation": 2e-5, "lowpass": 1e-5, "tilt": 1e-5, "delay": 2e-5}
+           "tilt": (jtilt, ttilt), "delay": (jdelay, tdelay),
+           "compressor": (jcompressor, tcompressor), "spring": (jspring, tspring),
+           "plate": (jplate, tplate)}
+OUT_TOL = {"saturation": 2e-5, "lowpass": 1e-5, "tilt": 1e-5, "delay": 2e-5,
+           "compressor": 1e-5, "spring": 1e-5, "plate": 1e-5}
 
 #: (effect, init args, per-block targets, extra kwargs, input seed)
 CASES = {
@@ -72,7 +91,39 @@ CASES = {
               {}, 13),
     "delay_pingpong": ("delay", (0.015, 0.7, 1.0, 6000.0), [(0.015, 0.7, 1.0, 6000.0)] * 4,
                        {"pingpong": True}, 14),
+    # over the threshold, then a harder setting, then the mix under the gate
+    "compressor": ("compressor", (-20.0, 4.0, 5.0, 80.0, 1.0),
+                   [(-20.0, 4.0, 5.0, 80.0, 1.0), (-20.0, 4.0, 5.0, 80.0, 1.0),
+                    (-35.0, 10.0, 1.0, 30.0, 0.6), (-35.0, 10.0, 1.0, 30.0, 0.0)], {}, 5),
+    # the detector keyed from another signal (bursts) while the gain acts on x
+    "compressor_sidechain": ("compressor", (-30.0, 6.0, 2.0, 60.0, 1.0),
+                             [(-30.0, 6.0, 2.0, 60.0, 1.0)] * 4, {"sidechain": True}, 9),
+    "spring": ("spring", (0.5, 1.0, 0.4), [(0.5, 1.0, 0.4), (0.5, 1.0, 0.4), (0.9, 0.6, 0.1)],
+               {}, 7),
+    # decay/mix/damping/predelay/width/size; the size sweeps mid-stream
+    "plate": ("plate", (0.6, 1.0, 0.4, 0.1, 1.0, 0.5),
+              [(0.6, 1.0, 0.4, 0.1, 1.0, 0.5), (0.6, 1.0, 0.4, 0.1, 1.0, 0.5),
+               (0.6, 1.0, 0.4, 0.1, 0.5, 0.9), (0.3, 0.8, 0.2, 0.0, 0.8, 0.2)], {}, 19),
+    # the worst-case size jump, fully large to minimum
+    "plate_size_jump": ("plate", (0.6, 1.0, 0.3, 0.0, 1.0, 1.0),
+                        [(0.6, 1.0, 0.3, 0.0, 1.0, 1.0)] * 2 + [(0.6, 1.0, 0.3, 0.0, 1.0, 0.0)],
+                        {}, 23),
 }
+
+
+def _input(case, rs, n):
+    """Each case's input: a burst into silence for the reverbs (their tails
+    then run on their own), loud gated bursts for the compressor, noise for
+    the rest."""
+    name = CASES[case][0]
+    if name in ("spring", "plate"):
+        x = np.zeros((2, n), np.float32)
+        burst = 200 if name == "spring" else 400
+        x[:, :burst] = rs.uniform(-1, 1, (2, burst))
+        return x
+    if name == "compressor":
+        return (rs.uniform(-1.0, 1.0, (2, n)) * (rs.rand(2, n) > 0.5) * 1.5).astype(np.float32)
+    return rs.uniform(-0.8, 0.8, (2, n)).astype(np.float32)
 
 
 def max_state_err(jax_state, port_state):
@@ -96,15 +147,21 @@ def _run_both(case, impl):
     jmod, tmod = MODULES[name]
     rs = np.random.RandomState(seed)
     n_blocks = 4
-    x = rs.uniform(-0.8, 0.8, (2, n_blocks * B)).astype(np.float32)
+    x = _input(case, rs, n_blocks * B)
+    sc = kw.get("sidechain") and _input("compressor", rs, n_blocks * B)
     jst = jmod.init_state(SR, *init)
     tst = interop.fx_state_from_numpy(name, jst, "cpu")
     worst_out = 0.0
     for i in range(n_blocks):
         tg = np.asarray(seq[min(i, len(seq) - 1)], np.float32)
         xb = x[:, i * B:(i + 1) * B]
-        jst, jy = jmod.process_block(jst, jnp.asarray(xb), tg, sample_rate=SR, impl=impl, **kw)
-        tst, ty = tmod.process_block(tst, torch.from_numpy(xb.copy()), tg, sample_rate=SR, **kw)
+        if sc is not None and sc is not False:
+            kw = {"sidechain": sc[:, i * B:(i + 1) * B]}
+        jkw = {k: jnp.asarray(v) for k, v in kw.items()} if "sidechain" in kw else kw
+        tkw = {k: torch.from_numpy(v) for k, v in kw.items()} if "sidechain" in kw else kw
+        jst, jy = jmod.process_block(jst, jnp.asarray(xb), tg, sample_rate=SR, impl=impl, **jkw)
+        tst, ty = tmod.process_block(tst, torch.from_numpy(xb.copy()), tg, sample_rate=SR, **tkw)
+        assert i < 2 or np.abs(np.asarray(jy)).max() > 1e-3
         worst_out = max(worst_out, float(np.abs(np.asarray(jy) - ty.numpy()).max()))
     return name, worst_out, max_state_err({"s": jst}, {"s": tst})
 
@@ -197,3 +254,45 @@ def test_traj_all_below_matches_jax(cur, tgt):
     want = jfreeze.traj_all_below(jnp.float32(cur), jnp.float32(tgt), jnp.float32(q), B, 1e-4)
     got = tfreeze.traj_all_below(torch.tensor(cur), torch.tensor(tgt), q, B, 1e-4)
     assert bool(want) == bool(got)
+
+
+def test_tap_frac_matches_jax():
+    """The post-write fractional tap (the plate's predelay) after writes
+    that wrap the ring, offsets clamped at both ends."""
+    rs = np.random.RandomState(22)
+    L, C = 700, 128
+    jr, tr = jringbuf.Ring.init(L), tringbuf.Ring.init(L)
+    for _ in range(7):
+        w = rs.randn(C).astype(np.float32)
+        jr = jringbuf.write_block(jr, jnp.asarray(w))
+        tr = tringbuf.write_block(tr, torch.from_numpy(w))
+    offs = rs.uniform(-5.0, L + 5.0, C).astype(np.float32)
+    want = jringbuf.tap_frac(jr, jnp.asarray(offs), C)
+    got = tringbuf.tap_frac(tr, torch.from_numpy(offs), C)
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_gain_reduction_matches_jax():
+    over = np.linspace(-10.0, 10.0, 201, dtype=np.float32)
+    ratio = np.float32(4.0)
+    want = np.asarray(jcompressor.gain_reduction_db(jnp.asarray(over), ratio))
+    got = tcompressor.gain_reduction_db(torch.from_numpy(over), torch.tensor(ratio)).numpy()
+    assert np.abs(want - got).max() <= 1e-6
+
+
+def test_plate_matches_the_oracle():
+    """An impulse through the plate at a small size, full wet, against the
+    per-sample numpy oracle of tests/test_plate.py (its 1e-4 bar)."""
+    n = 8 * B
+    x = np.zeros((2, n), np.float32)
+    x[:, 0] = 1.0
+    args = (0.7, 1.0, 0.2, 0.0, 1.0, 0.1)
+    st, outs = tplate.init_state(SR, *args), []
+    for i in range(0, n, B):
+        st, y = tplate.process_block(st, torch.from_numpy(x[:, i:i + B]),
+                                     np.asarray(args, np.float32), sample_rate=SR)
+        outs.append(y.numpy())
+    got = np.concatenate(outs, axis=-1)
+    wl, wr = plate_oracle(x[0], *args[:3], predelay=args[3], width=args[4], size=args[5])
+    assert np.abs(wl).max() > 1e-3
+    assert max(np.abs(got[0] - wl).max(), np.abs(got[1] - wr).max()) < 1e-4

@@ -1,7 +1,8 @@
 """The bus kernels' plain versions against the JAX package's Pallas wrappers.
 
-The four wrappers of ``libgooey_tpu_torch/ops/bus_kernels.py`` run their plain
-PyTorch versions on the CPU; each is compared with its Pallas wrapper in
+The seven wrappers of ``libgooey_tpu_torch/ops/bus_kernels.py`` and
+``plate_block`` (``ops/plate_kernels.py``) run their plain PyTorch versions
+on the CPU; each is compared with its Pallas wrapper in
 ``libgooey_tpu/ops/pallas_fx.py`` run in interpret mode (as tests/
 test_pallas_fx.py runs it on the CPU), on the same numpy inputs at the bus's
 shape ``[2, B]``.  The Pallas bodies solve the linear recurrences with
@@ -11,7 +12,9 @@ agree at float-noise level.
 Bounds: output <= 2e-5, every state leaf <= 1e-4.  Measured with these
 inputs on the CPU: saturation 4.8e-7 output / 6.4e-7 state, lowpass 2.4e-7 /
 3e-8, tilt 2.4e-7 / 1.6e-7, delay 6e-8 (output and write) / 3e-8, both
-ping-pong settings.
+ping-pong settings; env follower 2.4e-7 / 2.4e-7, compressor 3.1e-7 / 3.2e-8,
+spring 6e-8 / 1.2e-7 (history), plate 8.9e-8 (branch outputs and damping
+filters) / 1.2e-7 (histories).
 """
 
 import numpy as np
@@ -23,8 +26,12 @@ import jax.numpy as jnp
 from libgooey_tpu.ops import oversample as jovs
 from libgooey_tpu.ops import pallas_fx
 
+from libgooey_tpu.effects import reverb_plate as jplate
+from libgooey_tpu.effects import reverb_spring as jspring
+
 from libgooey_tpu_torch.core.smoother import smoothing_coeff
 from libgooey_tpu_torch.ops import bus_kernels as bus
+from libgooey_tpu_torch.ops import plate_kernels
 from libgooey_tpu_torch.ops.filters import DCBlockState
 from libgooey_tpu_torch.ops.oversample import OversamplerState
 
@@ -128,3 +135,145 @@ def test_delay_block_matches_pallas(pingpong):
     assert _err(jout, tout) <= OUT_TOL
     assert _err(jwrite, twrite) <= OUT_TOL
     assert _err(jnst, tnst) <= STATE_TOL
+
+
+def _bursts(rs, n, level=1.5):
+    """Loud bursts on silence: the detector's attack and release both run."""
+    return (rs.uniform(-1.0, 1.0, (2, n)) *
+            (np.sin(np.arange(n) * 2 * np.pi / 97.0) > 0.3) * level).astype(np.float32)
+
+
+def _coef(ms):
+    return np.float32(np.exp(-1.0 / (ms * 0.001 * SR)))
+
+
+def test_env_follower_block_matches_pallas():
+    """Bursts with a 1 ms attack and an 80 ms release from a carried
+    envelope, and a bypass span that must hold it."""
+    rs = np.random.RandomState(21)
+    x = _bursts(rs, B)
+    att, rel = np.full((2, B), _coef(1.0)), np.full((2, B), _coef(80.0))
+    byp = np.zeros((2, B), np.float32)
+    byp[:, 100:160] = 1.0
+    env0 = np.asarray([0.3, 0.0], np.float32)
+    jenv, jlast = pallas_fx.env_follower_block(np.abs(x), att, rel, byp, env0)
+    tenv, tlast = bus.env_follower_block_plain(_t(x), _t(att), _t(rel), _t(byp), _t(env0))
+    assert np.abs(np.asarray(jenv)).max() > 0.5
+    assert np.array_equal(tenv[:, 100:160].numpy(), tenv[:, 99:100].expand(2, 60).numpy())
+    assert _err(jenv, tenv) <= OUT_TOL
+    assert _err(jlast, tlast) <= STATE_TOL
+
+
+def test_compressor_block_matches_pallas():
+    """Two blocks from a zero state on a loud envelope: the knee engaged and
+    the smoothed gain crossing 0.99 (the tube colour switching in), then a
+    block whose mix falls under the bypass gate; the packed state
+    (pack_ovs4_dc there, pack_compressor here) compared leaf by leaf."""
+    rs = np.random.RandomState(5)
+    x = _bursts(rs, 2 * B)
+    env, _ = bus.env_follower_block_plain(
+        _t(x), _t(np.full((2, 2 * B), _coef(1.0))), _t(np.full((2, 2 * B), _coef(30.0))),
+        _t(np.zeros((2, 2 * B))), _t(np.zeros(2)))
+    env = env.numpy()
+    thr = np.full((2, 2 * B), -30.0, np.float32)
+    ratio = np.full((2, 2 * B), 8.0, np.float32)
+    mix = np.ones((2, 2 * B), np.float32)
+    mix[:, B + B // 2:] = 0.0
+    j_ovs, j_dc, j_gain = jovs.OversamplerState.init((2,)), (np.zeros(2, np.float32),) * 2, \
+        np.ones(2, np.float32)
+    t_ovs, t_dc, t_gain = OversamplerState.init(2, "cpu"), DCBlockState.init((2,), "cpu"), \
+        torch.ones(2)
+    crossed = False
+    for i in range(2):
+        sl = slice(i * B, (i + 1) * B)
+        jout, jnst = pallas_fx.compressor_block(
+            jnp.asarray(x[:, sl]), env[:, sl], thr[:, sl], ratio[:, sl], mix[:, sl],
+            pallas_fx.pack_ovs4_dc(j_ovs, *j_dc), j_gain)
+        j_ovs, jdx, jdy, _ = pallas_fx.unpack_ovs4_dc(jnst, j_ovs)
+        j_dc, j_gain = (jdx, jdy), np.asarray(jnst)[0:2, pallas_fx._OUT_IDX["gain"]]
+        tout, tnst = bus.compressor_block_plain(
+            _t(x[:, sl]), _t(env[:, sl]), _t(thr[:, sl]), _t(ratio[:, sl]), _t(mix[:, sl]),
+            bus.pack_compressor(t_ovs, t_dc, t_gain))
+        t_ovs, tdx, tdy, t_gain = bus.unpack_compressor(tnst, t_ovs)
+        t_dc = DCBlockState(x1=tdx, y1=tdy)
+        crossed = crossed or bool((t_gain < 0.99).any())
+        assert _err(jout, tout) <= OUT_TOL, i
+        worst, where = _max_state_err({"ovs": j_ovs, "dc": j_dc, "gain": j_gain},
+                                      {"ovs": t_ovs, "dc": (t_dc.x1, t_dc.y1), "gain": t_gain})
+        assert worst <= STATE_TOL, f"block {i}: {worst} at {where}"
+    assert crossed
+
+
+def _spring_rows(rs, n, decay=(0.3, 0.9), damping=(0.6, 0.2)):
+    """The damping loop's rows for decay and damping moving across the
+    block (reverb_spring.py:128-147, in numpy float32)."""
+    decay_t = np.linspace(*decay, n, dtype=np.float32)[None].repeat(2, 0)
+    damping_t = np.linspace(*damping, n, dtype=np.float32)[None].repeat(2, 0)
+    fb_gain = (np.power(decay_t, np.float32(0.4)) * np.float32(0.95)).astype(np.float32)
+    alpha = np.float32(np.prod(jspring.GAINS))
+    p2 = (np.float32(1.0) - damping_t).astype(np.float32)
+    fbgp = np.concatenate([np.zeros((2, 1), np.float32), fb_gain[:, :-1]], axis=-1)
+    A = (damping_t + p2 * alpha * fbgp).astype(np.float32)
+    A[:, 0] = damping_t[:, 0]
+    return A, p2, fbgp
+
+
+def test_spring_block_matches_pallas():
+    """A filled history and a carried damping state, decay and damping
+    moving; the port's kernel with mix 1 and no feedback carry gives the TPU
+    kernel's wet signal."""
+    rs = np.random.RandomState(7)
+    dl, dr = jspring.delay_lengths(SR)
+    D = max(dl + dr)
+    hist = (0.3 * rs.randn(12, D)).astype(np.float32)
+    damp = np.asarray([0.05, -0.02], np.float32)
+    x = rs.uniform(-0.8, 0.8, (2, B)).astype(np.float32)
+    A, p2, fbgp = _spring_rows(rs, B)
+    jwet, jhist, jlast = pallas_fx.spring_block(
+        jnp.asarray(x), A, p2, fbgp, hist, damp, delays=dl + dr, gains=jspring.GAINS,
+        chunk=jspring.chunk_size(SR, B))
+    twet, thist, tlast = bus.spring_block_plain(
+        _t(x), _t(A), _t(p2), _t(fbgp), _t(hist), _t(damp), _t(np.ones((2, B))), _t(np.zeros(2)),
+        delays=dl + dr, gains=jspring.GAINS)
+    assert np.abs(np.asarray(jwet)).max() > 0.1
+    assert _err(jwet, twet) <= OUT_TOL
+    assert _err(jhist, thist) <= STATE_TOL
+    assert _err(jlast, tlast) <= STATE_TOL
+
+
+def _plate_inputs(rs, n):
+    """The plate kernel's inputs with the size knob moving 1.0 -> 0.0 in
+    the block (the modulated lags sweep ~1,200 samples), filled histories
+    and seeds."""
+    srs = SR / jplate.DATTORRO_SR
+    DIN, DMOD = jplate.in_hist_len(SR), jplate.mod_hist_len(SR)
+    q = np.float32(1.0 - smoothing_coeff(SR))
+    size = (np.float32(0.0) + np.float32(1.0) * q ** np.arange(1, n + 1, dtype=np.float32))
+    scale = np.asarray(jplate.size_to_scale(jnp.asarray(size.astype(np.float32))))
+    ph = np.arange(1, n + 1) * np.array([[0.5], [0.71]]) / SR + np.array([[0.2], [0.7]])
+    mod_off = np.clip(np.array([[672.0], [908.0]]) * srs * scale[None]
+                      + np.sin(2 * np.pi * ph) * 16.0 * srs, 1.0, DMOD - 2.0).astype(np.float32)
+    rows = [rs.uniform(-0.5, 0.5, n).astype(np.float32) for _ in range(6)]
+    rows[3] = np.linspace(0.1, 0.6, n, dtype=np.float32) * np.float32(0.95)   # damping
+    return (rows, mod_off, (0.2 * rs.randn(4, DIN)).astype(np.float32),
+            (0.2 * rs.randn(2, DMOD)).astype(np.float32),
+            np.asarray([0.1, -0.05, 0.02], np.float32))
+
+
+def test_plate_block_matches_pallas():
+    """The sub-block recurrences, the TPU kernel given its one-hot window
+    bases (reverb_plate.py:344-350), the port's without them: the bases only
+    place the TPU gather's window, so the results agree."""
+    rs = np.random.RandomState(19)
+    rows, mod_off, in_hist, mod_hist, seeds = _plate_inputs(rs, B)
+    C = min(jplate.chunk_size(SR, B), jplate.KERNEL_CHUNK)
+    DMOD = mod_hist.shape[1]
+    col_b = DMOD + np.arange(B)[None, :] - np.floor(mod_off).astype(np.int32) - 1
+    wbase = col_b.reshape(2, B // C, C).min(axis=-1).astype(np.int32)
+    want = pallas_fx.plate_block(*rows, mod_off, wbase, in_hist, mod_hist, seeds, chunk=C,
+                                 sample_rate=SR)
+    got = plate_kernels.plate_block_plain(*map(_t, rows), _t(mod_off), _t(in_hist),
+                                          _t(mod_hist), _t(seeds), sample_rate=SR)
+    assert np.abs(np.asarray(want[0])).max() > 0.05
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert _err(w, g) <= (OUT_TOL if i < 4 else STATE_TOL), i

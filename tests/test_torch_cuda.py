@@ -12,12 +12,12 @@ import pytest
 import torch
 
 from libgooey_tpu_torch.core.smoother import SmootherBank, smoothing_coeff
-from libgooey_tpu_torch.effects import delay, saturation
+from libgooey_tpu_torch.effects import compressor, delay, reverb_plate, reverb_spring, saturation
 from libgooey_tpu_torch.engine import engine
 from libgooey_tpu_torch.instruments import kick
 from libgooey_tpu_torch.ops import bank_kernels as bk
 from libgooey_tpu_torch.ops import bus_kernels as bus
-from libgooey_tpu_torch.ops import kernels, ringbuf
+from libgooey_tpu_torch.ops import kernels, plate_kernels, ringbuf
 
 pytestmark = pytest.mark.cuda
 
@@ -167,7 +167,10 @@ def test_slice_with_kernels_matches_plain_versions(dev, monkeypatch):
 def _bus_cases(dev, B, seed=0):
     """(name, args, kwargs) for each bus wrapper at ``[2, B]``: saturation
     across its bypass gate, a resonant lowpass, a tilt sweep across the
-    center, the delay both ways on a tap gathered from a filled ring."""
+    center, the delay both ways on a tap gathered from a filled ring, the
+    compressor's detector on bursts (a bypass span) and its gain stage over
+    the knee, the spring on a filled history with decay and damping
+    moving."""
     rs = np.random.RandomState(seed)
 
     def t(a):
@@ -181,6 +184,19 @@ def _bus_cases(dev, B, seed=0):
     tap = ringbuf.read_frac(ring, t(np.full((2, B), 0.015 * SR)))
     dl = (x, tap, t([[0.6, 0.8, 4000.0]] * 2), t([[0.3, 0.5, 12000.0]] * 2),
           t(0.1 * rs.randn(2, 2)))
+    byp = np.zeros((2, B))
+    byp[:, B // 4:B // 3] = 1.0
+    env = t(np.abs(rs.uniform(0.0, 1.5, (2, B))))
+    comp = compressor.init_state(SR, device=dev)
+    mix = np.ones((2, B))
+    mix[:, 3 * B // 4:] = 0.0
+    dl_s, dr_s = reverb_spring.delay_lengths(SR)
+    D = max(dl_s + dr_s)
+    damping = np.linspace(0.6, 0.2, B)[None].repeat(2, 0)
+    fbgp = np.concatenate([np.zeros((2, 1)), 0.95 * np.linspace(0.3, 0.9, B - 1)[None] ** 0.4
+                           * np.ones((2, 1))], axis=-1)
+    p2 = 1.0 - damping
+    A = damping + p2 * np.prod(reverb_spring.GAINS) * fbgp
     return [
         ("saturation_block", (x, t([[0.6, 0.5, 0.6]] * 2), t([[0.2, 0.9, 0.0]] * 2),
                               bus.pack_saturation(sat.ovs, sat.dc)), dict(coeff=coeff)),
@@ -190,6 +206,13 @@ def _bus_cases(dev, B, seed=0):
          dict(coeff=coeff, sample_rate=SR)),
         ("delay_block", dl, dict(coeff=coeff, sample_rate=SR, pingpong=False)),
         ("delay_block", dl, dict(coeff=coeff, sample_rate=SR, pingpong=True)),
+        ("env_follower_block", (x, t(np.full((2, B), 0.9776)), t(np.full((2, B), 0.99972)),
+                                t(byp), t([0.3, 0.0])), {}),
+        ("compressor_block", (x, env, t(np.full((2, B), -30.0)), t(np.full((2, B), 8.0)), t(mix),
+                              bus.pack_compressor(comp.ovs, comp.dc, comp.gain)), {}),
+        ("spring_block", (x, t(A), t(p2), t(fbgp), t(0.3 * rs.randn(12, D)), t([0.05, -0.02]),
+                          t(np.full((2, B), 0.4)), t([0.01, -0.03])),
+         dict(delays=dl_s + dr_s, gains=reverb_spring.GAINS)),
     ]
 
 
@@ -208,24 +231,25 @@ def test_bus_kernels_match_plain_versions(dev, B):
 
 
 def _chain_phases(cases):
-    """The bus cases as one run: every effect once, the delay with
-    ping-pong, each on the signal the one before it left."""
-    return [bus.Phase(name, args[1:], kw) for name, args, kw in (cases[:3] + cases[4:])]
+    """The bus cases as one run of seven phases: every effect once, the
+    delay with ping-pong, the compressor's gain stage on the detector's
+    envelope, each on the signal the one before it left."""
+    phases = [bus.Phase(name, args[1:], kw) for name, args, kw in (cases[:3] + cases[4:])]
+    comp = phases[5]
+    phases[5] = comp._replace(args=(None,) + comp.args[1:])
+    return phases
 
 
 @pytest.mark.parametrize("B", [64, 512])
 def test_bus_chain_matches_plain_version_and_the_single_kernels(dev, B):
     """One ``bus_chain`` launch: within the bounds above of its plain
-    version, and bit for bit what the four kernels give one after the
+    version, and bit for bit what the seven kernels give one after the
     other (the same row functions)."""
     cases = _bus_cases(dev, B)
     x, phases = cases[0][1][0], _chain_phases(cases)
     y, outs = bus.bus_chain(x, phases)
     y_p, outs_p = bus.bus_chain_plain(x, phases)
-    y_1, outs_1 = x, []
-    for ph in phases:
-        y_1, aux = bus.run_phase(y_1, ph)
-        outs_1.append(aux)
+    y_1, outs_1 = bus.run_phases(x, phases)
     torch.cuda.synchronize()
     assert float((y - y_p).abs().max()) <= 1e-5
     assert torch.equal(y, y_1)
@@ -239,19 +263,57 @@ def test_bus_chain_matches_plain_version_and_the_single_kernels(dev, B):
 def test_each_bus_launch_counts_once(dev):
     kernels.reset_launch_counts()
     cases = _bus_cases(dev, 32)
-    for name, args, kw in cases[:4]:
+    for name, args, kw in cases[:4] + cases[5:]:
         getattr(bus, name)(*args, **kw)
         getattr(bus, name + "_plain")(*args, **kw)
     bus.bus_chain(cases[0][1][0], _chain_phases(cases))
     bus.bus_chain_plain(cases[0][1][0], _chain_phases(cases))
-    assert kernels.launch_counts() == {n: int(n in bus.KERNELS) for n in kernels.KERNELS}
+    args, kw = _plate_case(dev, 32)
+    plate_kernels.plate_block(*args, **kw)
+    plate_kernels.plate_block_plain(*args, **kw)
+    assert kernels.launch_counts() == {n: int(n in bus.KERNELS or n == "plate_block")
+                                       for n in kernels.KERNELS}
+
+
+def _plate_case(dev, B, seed=0):
+    """plate_block's arguments: filled histories, the modulated lags
+    sweeping as the size falls 1.0 -> 0.0 across the block."""
+    rs = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    srs = SR / reverb_plate.DATTORRO_SR
+    DIN, DMOD = reverb_plate.in_hist_len(SR), reverb_plate.mod_hist_len(SR)
+    size = reverb_plate.size_to_scale(torch.linspace(1.0, 0.0, B)).numpy()
+    lfo = np.sin(2 * np.pi * (np.arange(B) * np.array([[0.5], [0.71]]) / SR + [[0.2], [0.7]]))
+    mod_off = np.clip(np.array([[672.0], [908.0]]) * srs * size + lfo * 16.0 * srs,
+                      1.0, DMOD - 2.0)
+    rows = [rs.uniform(-0.5, 0.5, B) for _ in range(6)]
+    rows[3] = np.linspace(0.1, 0.6, B)
+    return ((*map(t, rows), t(mod_off), t(0.2 * rs.randn(4, DIN)), t(0.2 * rs.randn(2, DMOD)),
+             t([0.1, -0.05, 0.02])), dict(sample_rate=SR))
+
+
+@pytest.mark.parametrize("B", [64, 512])
+def test_plate_kernel_matches_plain_version(dev, B):
+    """Outputs and damping filters within 1e-5, histories and seeds within
+    1e-4."""
+    args, kw = _plate_case(dev, B)
+    got = plate_kernels.plate_block(*args, **kw)
+    want = plate_kernels.plate_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.device == w.device
+        assert float((g - w).abs().max()) <= (1e-5 if i < 4 else 1e-4), f"output {i}"
 
 
 def test_kit_with_bus_matches_plain_versions(dev, monkeypatch):
-    """The five-family kit at 64 voices a family with the four-effect bus
-    (the tilt off center, a 0.015 s delay), 2 blocks: kernels vs plain
-    versions; the bus as one ``bus_chain`` a block, and with
-    ``fuse_bus=False`` each effect's own kernel a block, bit for bit the
+    """The five-family kit at 64 voices a family with the seven-effect bus
+    (the tilt off center, a 0.015 s delay, the compressor over the kit's
+    level, the plate at size 0.0), 2 blocks: kernels vs plain versions; the
+    bus as one ``bus_chain`` and one ``plate_block`` a block, and with
+    ``fuse_bus=False`` each effect's own kernels a block, bit for bit the
     same."""
     from libgooey_tpu_torch.instruments import bass, hihat2, snare, tom2
 
@@ -262,8 +324,10 @@ def test_kit_with_bus_matches_plain_versions(dev, monkeypatch):
     state["pan"] = SmootherBank.init(np.linspace(0.2, 0.8, Vt), dev)
     state["gain"] = SmootherBank.init(np.full(Vt, 1.0 / Vt), dev)
     state["master"] = SmootherBank.init(np.float32(0.25), dev)
-    fx = ("saturation", "lowpass", "tilt", "delay")
-    targets = dict(engine.FX_DEFAULT_TARGETS, tilt=[0.3, 0.4], delay=[0.015, 0.5, 0.4, 6000.0])
+    fx = ("saturation", "lowpass", "tilt", "delay", "compressor", "spring", "plate")
+    targets = dict(engine.FX_DEFAULT_TARGETS, tilt=[0.3, 0.4], delay=[0.015, 0.5, 0.4, 6000.0],
+                   compressor=[-60.0, 8.0, 1.0, 50.0, 1.0],
+                   plate=[0.5, 0.3, 0.5, 0.0, 1.0, 0.0])
     for name in fx:
         state["fx_" + name] = engine.FX_MODULES[name].init_state(SR, device=dev)
     rs = np.random.RandomState(3)
@@ -277,12 +341,14 @@ def test_kit_with_bus_matches_plain_versions(dev, monkeypatch):
                   smooth_coeff=smoothing_coeff(SR), limiter_threshold=1.0,
                   family_static=(("kick", (("feedback_path", False), ("max_harmonics", 0))),
                                  ("snare", (("max_harmonics", 64),))), fx_order=fx)
-    singles = ("saturation_block", "lowpass_block", "tilt_block", "delay_block")
+    singles = ("saturation_block", "lowpass_block", "tilt_block", "delay_block",
+               "env_follower_block", "compressor_block", "spring_block")
     kernels.reset_launch_counts()
     _, got = engine.render_many(state, events, **static)
     counts = kernels.launch_counts()
     assert all(counts[n] > 0 for n in bk.KERNELS), counts
-    assert counts["bus_chain"] == N and all(counts[n] == 0 for n in singles), counts
+    assert counts["bus_chain"] == N and counts["plate_block"] == N, counts
+    assert all(counts[n] == 0 for n in singles), counts
     kernels.reset_launch_counts()
     _, got_1 = engine.render_many(state, events, fuse_bus=False, **static)
     counts = kernels.launch_counts()

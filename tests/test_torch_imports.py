@@ -30,7 +30,9 @@ def test_port_never_imports_jax():
         "new = {'libgooey_tpu_torch.ops.bus_kernels', 'libgooey_tpu_torch.ops.ringbuf',\n"
         "       'libgooey_tpu_torch.effects.saturation', 'libgooey_tpu_torch.effects.lowpass',\n"
         "       'libgooey_tpu_torch.effects.tilt', 'libgooey_tpu_torch.effects.delay',\n"
-        "       'libgooey_tpu_torch.effects.chain'}\n"
+        "       'libgooey_tpu_torch.effects.chain', 'libgooey_tpu_torch.effects.compressor',\n"
+        "       'libgooey_tpu_torch.effects.reverb_spring',\n"
+        "       'libgooey_tpu_torch.effects.reverb_plate', 'libgooey_tpu_torch.ops.plate_kernels'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

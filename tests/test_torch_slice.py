@@ -159,11 +159,13 @@ def test_slice_goes_through_every_bank_wrapper(monkeypatch):
                      "linrec2_bank": 0, "triangle_additive_bank": 0}
 
 
-@pytest.mark.parametrize("kw", [dict(fx_order=("compressor",)),
+@pytest.mark.parametrize("kw", [dict(kinds=("kick", "hihat")),
                                 dict(lfo_routes=((0, "kick", 0, "frequency", 1.0),))])
 def test_unported_bus_features_raise(kw):
+    """What the engine block does not have yet raises and points at the
+    ROADMAP (all seven global effects are ported)."""
     state = interop.engine_state_from_numpy(_jax_state(), "cpu")
     events = {"kick_off": np.full(V, B, np.int32), "kick_vel": np.zeros(V, np.float32),
               "block_start": np.int32(0)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine._render_all(state, events, **STATIC, **kw)
+        tengine._render_all(state, events, **{**STATIC, **kw})
