@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -10,16 +10,18 @@ Phases (any failure exits non-zero):
 1. device: require a CUDA card; print its name and power limit (nvidia-smi);
 2. build: compile the kernels (libgooey_tpu_torch/csrc, one nvcc per source
    in parallel);
-3. kernels: each of the seventeen kernels against its plain PyTorch
+3. kernels: each of the twenty-one kernels against its plain PyTorch
    version on the card, at the main path's shapes (B = 512; V = 4,096 for
    the kick's five, V = 1,024 for ws4 and the triangle, R = 2,560 membrane
-   rows for linrec2, the stereo bus [2, B] for the seven bus kernels, the
-   mono plate input [B] with its [4, 566] and [2, 2719] histories, and
-   ``bus_chain`` running the kit's seven bus phases, and the first four, in
-   one launch, which must also equal the kernels in turn bit for bit),
-   inputs from a numpy seed; with each kernel's time, its plain version's
-   and its bound (the larger of bytes over 3.35 TB/s and operations over
-   67 TFLOP/s); also the counter hash, bit for bit against the CPU;
+   rows for linrec2, the stereo bus [2, B] for the nine bus kernels, the
+   mono plate input [B] with its [4, 566] and [2, 2719] histories,
+   ``bus_chain`` running the kit's seven bus phases, the first four, and
+   the product chain's ten in one launch, which must also equal the kernels
+   in turn bit for bit, ``kit_sources`` at the 64-voice product kit and
+   ``kit_drive`` at its kick 16 + snare 16), inputs from a numpy seed; with
+   each kernel's time, its plain version's and its bound (the larger of
+   bytes over 3.35 TB/s and operations over 67 TFLOP/s); also the counter
+   hash, bit for bit against the CPU;
 4. the kick slice through ``render_many``: 4,096 kick voices, tight preset,
    ``max_harmonics=0, feedback_path=False``, the default bus (mix, master,
    soft limiter), 64 blocks of 512 at 44.1 kHz with sequenced staggered
@@ -54,21 +56,38 @@ Phases (any failure exits non-zero):
    initialised and held at size 0.0 (its tank reads 2.3-3.2 blocks back);
    then the render with ``fuse_bus=False`` (median of 3), each of the eight
    single bus kernels once a block, ``bus_chain`` never;
-8. the ``Engine`` API with its default statics (kick and snare additive
+8. product_block_64v_chain9, ``bench_configs.bench_onchip_product_block``:
+   the kit of ``__graft_entry__.entry`` (kick 16 ``max_harmonics=64,
+   feedback_path=False``, snare 16 ``max_harmonics=64``, hihat2 16, tom2 8,
+   bass 8: 64 voices; default presets, pan 0.5, gain 1/64, master 0.25)
+   with the kit's sequenced traffic, 64 blocks, through ``_render_all``
+   (every bank on the kit path: one ``kit_sources`` and one ``kit_drive``
+   a block), then each block's limited stereo through
+   ``mixer.chain.process_chain`` of the nine
+   entries in that config's order (lowpass, delay, saturation, compressor,
+   tilt, spring, waveshaper, feedback waveshaper, plate) at their default
+   targets with fresh states: one ten-phase ``bus_chain`` and one
+   ``plate_block`` a block; median of 5 renders; then once with
+   ``fuse_runs=False`` (each entry's own kernels, the two waveshapers'
+   among them); its kernel-vs-plain comparison runs 4 blocks with both
+   waveshapers engaged and every voice also struck at the first sample;
+9. the ``Engine`` API with its default statics (kick and snare additive
    triangles at 128 and 192 harmonics): 16 named kicks and one sequenced
-   instrument of each other family, through saturation, lowpass, tilt
-   [0.3, 0.4], delay [0.015, 0.5, 0.4, 6000], compressor, spring and plate
-   added with ``add_global_effect``, 1 s; then 1 s more with the
-   compressor keyed from the first kick (``set_sidechain_source``), which
-   splits the bus: the first four in one launch, the compressor's and the
-   spring's own kernels, the plate's.
+   instrument of each other family (all on the kit path), through
+   saturation, lowpass, tilt [0.3, 0.4], delay [0.015, 0.5, 0.4, 6000],
+   compressor, spring and plate added with ``add_global_effect``, 1 s; then
+   1 s more with the compressor keyed from the first kick
+   (``set_sidechain_source``), which splits the bus: the first four in one
+   launch, the compressor's and the spring's own kernels, the plate's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
-JSON summary (launches from the first full_kit_4096_bus7 render, and the
-eight single bus kernels' from its ``fuse_bus=False`` render).
-``--profile PATH`` also writes torch.profiler tables of 4 steady-state
-blocks of the kick slice, the kit and each kit-with-bus render to PATH.
+JSON summary (launches from the first full_kit_4096_bus7 render, the
+eight single bus kernels' from its ``fuse_bus=False`` render, the kit
+kernels' from the product render and the two waveshapers' from its
+``fuse_runs=False`` render).  ``--profile PATH`` also writes
+torch.profiler tables of 4 steady-state blocks of the kick slice, the kit,
+each kit-with-bus render and the product block to PATH.
 """
 
 from __future__ import annotations
@@ -133,7 +152,26 @@ OPS_PER_ROW_SAMPLE = {
     # per sample of the mono block: the one-poles 9, four lerped reads 12,
     # the diffusion's affine chain 22, two modulated allpasses 2 x 9
     "plate_block": 61,
+    # the 4x chain 99, four tanh shapers 12, the mix 3
+    "waveshaper_block": 114,
+    # drive 1, the 4x chain 99, four tanh 4, the makeup gain 20, DC 3, the
+    # feedback filter 4, the mix 3
+    "fbws_fast_block": 134,
 }
+#: the kit kernels' operations per row-sample, by body: the kick's and the
+#: snare's additive triangles (32 harmonics x ~11 at max_harmonics = 64)
+#: dominate; the trajectories, envelopes (a pow each), oscillators, hashes
+#: and recurrences ~150; the bass's and the drives' 4x chains ~110
+OPS_PER_BODY_SAMPLE = {"kick_a": 500, "snare_a": 480, "hihat2": 220, "bass": 260, "tom2": 200,
+                       "kick_b": 130, "snare_b": 140}
+#: the product kit (__graft_entry__.entry), in the engine's family order
+PRODUCT_KIT = {"kick": 16, "snare": 16, "hihat2": 16, "tom2": 8, "bass": 8}
+#: bench_onchip_product_block's chain: lowpass, delay, saturation,
+#: compressor, tilt, spring, waveshaper, feedback waveshaper, plate
+CHAIN9 = (0, 1, 2, 3, 4, 6, 7, 8, 9)
+#: the product comparison's blocks, with both waveshapers engaged
+N_COMPARE_PRODUCT = 4
+PRODUCT_ENGAGED = {6: [4.0, 0.5], 7: [4.0, 0.0, 2000.0, 1.0]}
 #: the 2-block render with kernels vs with plain versions, on the card
 RENDER_TOL = 1e-4
 
@@ -341,7 +379,99 @@ def kernel_cases(dev):
     cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER_FULL[:-1])} (7 phases)",
                   (xb, seven), {}, 1))
     cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER)}", (xb, first_four), {}, 1))
+    # 18. the chain's waveshaper engaged, drive 4 and 6, mixes 0.5 and 0.8
+    ws_args = (xb, t([[4.0, 0.5], [6.0, 0.8]]), t(0.05 * rs.randn(bk.FBWS_S_IN, 2)))
+    cases.append(("waveshaper_block", bus_shape, ws_args, {}, 1))
+    # 19. the feedback waveshaper engaged (feedback 0) on its detector's
+    #     envelope: drive 4 at 2 kHz full wet, drive 8 at 500 Hz mix 0.7
+    att, rel = fbws.env_coeffs(SR)
+    fenv_args = (bursts, t(np.full((2, B), att)), t(np.full((2, B), rel)), t(np.zeros((2, B))),
+                 t([0.2, 0.0]))
+    fb_env = bus.env_follower_block_plain(*fenv_args)[0]
+    fbc = [float(np.clip(1.0 - np.exp(-2.0 * np.pi * f / SR), 0.0, 0.9)) for f in (2000.0, 500.0)]
+    fb_args = (bursts, fb_env, t([[4.0, 0.0, fbc[0], 1.0], [8.0, 0.0, fbc[1], 0.7]]),
+               t(0.05 * rs.randn(bus.COMP_S_IN, 2)))
+    cases.append(("fbws_fast_block", bus_shape, fb_args, {}, 1))
+    # 20. the product chain's first eight entries as one run: ten phases
+    #     (mixer/chain.py; the compressor and the feedback waveshaper two each)
+    sat, lp, tilt, dly = first_four
+    ten = [lp, dly, sat, bus.Phase("env_follower_block", env_args[1:], {}),
+           bus.Phase("compressor_block", (None,) + comp_args[2:], {}), tilt,
+           bus.Phase("spring_block", spring_args[1:], spring_kw),
+           bus.Phase("waveshaper_block", ws_args[1:], {}),
+           bus.Phase("env_follower_block", fenv_args[1:], {}),
+           bus.Phase("fbws_fast_block", (None,) + fb_args[2:], {})]
+    cases.append(("bus_chain", f"{bus_shape}, the product chain's run (10 phases)", (xb, ten),
+                  {}, 1))
+    # 21-22. the kit kernels at the product kit's shapes
+    sources, drive = kit_phases(dev)
+    cases.append(("kit_sources", ", ".join(f"{k} {v}" for k, v in PRODUCT_KIT.items())
+                  + f" voices, B={B}", (sources,), {}, None))
+    cases.append(("kit_drive", f"kick {PRODUCT_KIT['kick']} + snare {PRODUCT_KIT['snare']}, "
+                  f"B={B}", (drive,), {}, None))
     return cases
+
+
+#: the snare's Chamberlin at full cutoff and resonance rings up to inf (the
+#: reference's math), so random snare targets stay under these
+SNARE_CLAMPS = (("filter_cutoff", 0.5), ("filter_resonance", 0.3))
+
+
+def kit_phases(dev):
+    """The kit kernels' phases at the product kit's shapes: random parameter
+    targets with the smoothers moving (the snare's Chamberlin kept off its
+    unstable corner), after 3 blocks of staggered triggers through the kit
+    path; the drive phases from the plain sources' outputs."""
+    import torch
+
+    from libgooey_tpu_torch.core.smoother import SmootherBank, smoothing_coeff
+    from libgooey_tpu_torch.engine import engine
+    from libgooey_tpu_torch.ops import voice
+
+    rs = np.random.RandomState(SEED + 1)
+    state = {}
+    for kind, nv in PRODUCT_KIT.items():
+        mod = engine.FAMILIES[kind]
+        if kind == "tom2":
+            state[kind] = mod.init_state(nv, device=dev)
+            continue
+        tg = rs.uniform(0, 1, (nv, mod.NUM_PARAMS)).astype(np.float32)
+        cur = np.clip(tg + 0.2 * rs.randn(*tg.shape), 0, 1).astype(np.float32)
+        if kind == "snare":
+            for p, hi in SNARE_CLAMPS:
+                tg[:, mod.PARAM_INDEX[p]] = np.minimum(tg[:, mod.PARAM_INDEX[p]], hi)
+                cur[:, mod.PARAM_INDEX[p]] = np.minimum(cur[:, mod.PARAM_INDEX[p]], hi)
+        st = mod.init_state(nv, targets=tg, device=dev)
+        state[kind] = st._replace(params=SmootherBank(current=torch.as_tensor(cur, device=dev),
+                                                      target=st.params.target))
+    coeff = smoothing_coeff(SR)
+
+    def events():
+        return ({k: np.where(rs.rand(v) < 0.5, rs.randint(0, B, v), B).astype(np.int32)
+                 for k, v in PRODUCT_KIT.items()},
+                {k: rs.uniform(0.3, 1.0, v).astype(np.float32) for k, v in PRODUCT_KIT.items()})
+
+    for b in range(3):
+        offs, vels = events()
+        res = voice.kit_render_fused(state, offs, vels, np.int32(b * B), kinds=tuple(PRODUCT_KIT),
+                                     sample_rate=SR, block_size=B, smooth_coeff=coeff,
+                                     kick_max_harmonics=64, snare_max_harmonics=64)
+        state = {k: r[0] for k, r in res.items()}
+    offs, vels = events()
+    blk = voice._Block(dev, np.int32(3 * B), B, SR, coeff)
+    off = {k: blk.ints(offs[k]) for k in PRODUCT_KIT}
+    vel = {k: blk.floats(vels[k]) for k in PRODUCT_KIT}
+    sources = [voice._kick_phase_a(state["kick"], off["kick"], vel["kick"], blk, 64),
+               voice._snare_phase_a(state["snare"], off["snare"], vel["snare"], blk, 64),
+               voice._hihat2_phase_a(state["hihat2"], off["hihat2"], vel["hihat2"], blk),
+               voice._tom2_phase_a(state["tom2"], off["tom2"], blk, True),
+               voice._bass_phase_a(state["bass"], off["bass"], vel["bass"], None, blk)]
+    from libgooey_tpu_torch.ops import voice_kernels
+
+    plain = voice_kernels.kit_sources_plain(sources)
+    drive = [voice._kick_phase_m(state["kick"], plain[0], blk)[0],
+             voice._snare_phase_m(state["snare"], off["snare"], vel["snare"], plain[1], blk)[0]]
+    return sources, drive
 
 
 def nbytes(obj) -> int:
@@ -360,13 +490,20 @@ def bound_ms(name, args, outs):
     """The least time the card could take: each input read once and each
     output written once at 3.35 TB/s, or the body's operations at 67
     TFLOP/s, whichever is larger (``bus_chain``: the sum of its phases'
-    operations).  Returns ``(ms, "bytes"|"operations")``."""
-    shape = args[0].shape
-    rows, b = (1, shape[0]) if len(shape) == 1 else shape
-    ops = (sum(OPS_PER_ROW_SAMPLE[ph.name] for ph in args[1]) if name == "bus_chain"
-           else OPS_PER_ROW_SAMPLE[name])
+    operations; the kit kernels: each phase's body over its rows).
+    Returns ``(ms, "bytes"|"operations")``."""
+    if name in ("kit_sources", "kit_drive"):   # each phase's rows, B samples
+        from libgooey_tpu_torch.ops import voice_kernels
+
+        ops = sum(OPS_PER_BODY_SAMPLE[ph.name] * int(np.prod(voice_kernels._vb_of(ph)))
+                  for ph in args[0])
+    else:
+        shape = args[0].shape
+        rows, b = (1, shape[0]) if len(shape) == 1 else shape
+        ops = rows * b * (sum(OPS_PER_ROW_SAMPLE[ph.name] for ph in args[1])
+                          if name == "bus_chain" else OPS_PER_ROW_SAMPLE[name])
     t_bytes = (nbytes(args) + nbytes(outs)) / PEAK_BYTES_S
-    t_ops = ops * rows * b / PEAK_F32_S
+    t_ops = ops / PEAK_F32_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -393,8 +530,16 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         want = as_tuple(plain(*args, **kw))
         torch.cuda.synchronize()
-        out_err = max_err(got[:n_out], want[:n_out])
-        state_err = rel_err(got[n_out:], want[n_out:])
+        if n_out is None:   # a kit kernel: per phase, its signals then its state
+            got, want = got[0], want[0]
+            nsig = [mod.SIGNALS[ph.name] for ph in args[0]]
+            out_err = max_err([g[:k] for g, k in zip(got, nsig)],
+                              [w[:k] for w, k in zip(want, nsig)])
+            state_err = rel_err([g[k:] for g, k in zip(got, nsig)],
+                                [w[k:] for w, k in zip(want, nsig)])
+        else:
+            out_err = max_err(got[:n_out], want[:n_out])
+            state_err = rel_err(got[n_out:], want[n_out:])
         for _ in range(3):
             kern(*args, **kw)
         ms = cuda_ms(lambda: kern(*args, **kw), 20)
@@ -711,15 +856,187 @@ def phase_full_bus(dev, card, prof_file=None):
     return counts
 
 
-# --- phase 7: the Engine API -------------------------------------------------
+# --- phase 8: the product block -----------------------------------------------
+
+
+def product_inputs(dev, n_blocks, engaged=False):
+    """The product block of bench_configs.bench_onchip_product_block: the
+    kit of __graft_entry__.entry (64 voices, default presets, pan 0.5, gain 1/64,
+    master 0.25) with the kit's sequenced traffic (the per-family lags
+    drawn from one ``RandomState(0)`` in family order), and the nine-entry
+    chain with fresh states at its default targets.  ``engaged``: both
+    waveshapers on, and every voice also struck at the first sample with
+    velocity 0.8 (__graft_entry__.entry's events), so that the comparison's
+    first blocks are loud.  Returns ``(state, events, static, chain)``."""
+    from libgooey_tpu_torch.core.smoother import SmootherBank, smoothing_coeff
+    from libgooey_tpu_torch.engine import engine
+    from libgooey_tpu_torch.mixer import chain
+
+    nv = sum(PRODUCT_KIT.values())
+    state = {k: engine.FAMILIES[k].init_state(v, device=dev) for k, v in PRODUCT_KIT.items()}
+    state["pan"] = SmootherBank.init(np.full(nv, 0.5), dev)
+    state["gain"] = SmootherBank.init(np.full(nv, 1.0 / nv), dev)
+    state["master"] = SmootherBank.init(np.float32(0.25), dev)
+    rng = np.random.RandomState(0)
+    events = {"block_start": (np.arange(n_blocks) * B).astype(np.int32)}
+    for kind, v in PRODUCT_KIT.items():
+        events[kind + "_off"], events[kind + "_vel"] = sequenced_events(rng, v, n_blocks)
+        if engaged:
+            events[kind + "_off"][0], events[kind + "_vel"][0] = 0, 0.8
+    static = dict(kinds=tuple(PRODUCT_KIT), sample_rate=SR, block_size=B,
+                  smooth_coeff=smoothing_coeff(SR), limiter_threshold=1.0,
+                  family_static=(("kick", (("feedback_path", False), ("max_harmonics", 64))),
+                                 ("snare", (("max_harmonics", 64),)), ("tom2", ())))
+    fx = chain.EffectChain(SR, 120.0, device=dev)
+    for eid in CHAIN9:
+        fx.add(eid)
+    for i, vals in (PRODUCT_ENGAGED.items() if engaged else ()):
+        for p, v in enumerate(vals):
+            fx.set_param(i, p, v)
+    return state, events, static, fx
+
+
+def render_product(state, events, static, fx, fuse_runs=True):
+    """Each block through ``_render_all`` (the kit kernels), then its
+    limited stereo through ``process_chain``; events and staged targets go
+    to the card once, up front.  Returns ``stereo[N, 2, B]``."""
+    import torch
+
+    from libgooey_tpu_torch.engine import engine
+    from libgooey_tpu_torch.mixer import chain
+
+    dev = state["pan"].current.device
+    ev = engine._events_to(events, dev)
+    targets = [torch.as_tensor(t, device=dev) for t in fx.targets_list()]
+    key, states, outs = fx.static_key(), list(fx.states), []
+    for i in range(ev["block_start"].shape[0]):
+        state, stereo, _ = engine._render_all(state, {k: v[i] for k, v in ev.items()}, **static)
+        states, y = chain.process_chain(states, stereo, targets, key, sample_rate=SR,
+                                        fuse_runs=fuse_runs)
+        outs.append(y)
+    return torch.stack(outs)
+
+
+def phase_product(dev, card, prof_file=None):
+    """product_block_64v_chain9: the kit kernels once a block, the chain's
+    first eight entries as one ten-phase ``bus_chain`` and the plate's own
+    kernel once a block; again with ``fuse_runs=False``; the first blocks,
+    both waveshapers engaged, against the all-plain render.  Returns the
+    kit kernels' counts and the two waveshapers' from the unfused render."""
+    import torch
+
+    from libgooey_tpu_torch.ops import bus_kernels, kernels
+
+    label = "product_block_64v_chain9"
+    nv = sum(PRODUCT_KIT.values())
+    inputs = product_inputs(dev, N_BLOCKS)
+    head = product_inputs(dev, N_COMPARE_PRODUCT, engaged=True)
+    out_k = render_product(*head)          # warm-up
+    torch.cuda.synchronize()
+
+    # the phases of each bus_chain launch, seen where it packs them
+    phases_seen = []
+    real = bus_kernels._launch_phases
+
+    def recording(name, x, phases, *, fused):
+        if fused:
+            phases_seen.append(len(phases))
+        return real(name, x, phases, fused=fused)
+
+    bus_kernels._launch_phases = recording
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = render_product(*inputs)
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t0]
+    finally:
+        bus_kernels._launch_phases = real
+    counts = kernels.launch_counts()
+    for _ in range(N_REPEATS - 1):
+        t0 = time.perf_counter()
+        render_product(*inputs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    peak = float(out.abs().max())
+    check(bool(torch.isfinite(out).all()), f"{label} output is not finite")
+    check(tuple(out.shape) == (N_BLOCKS, 2, B), f"{label} output shape {tuple(out.shape)}")
+    check(peak > 1e-3, f"{label} output is silent (peak {peak})")
+    once = ("kit_sources", "kit_drive", "bus_chain", "plate_block")
+    check(all(counts[n] == N_BLOCKS for n in once) and phases_seen == [10] * N_BLOCKS
+          and all(counts[n] == 0 for n in ("waveshaper_block", "fbws_fast_block")),
+          f"{label}: not one kit_sources, kit_drive, ten-phase bus_chain and plate_block a "
+          f"block: {counts}, phases {sorted(set(phases_seen))}")
+    audio_s = N_BLOCKS * B / SR
+    print(f"{label}: {nv} voices x {N_BLOCKS} blocks through the nine-entry chain, median of "
+          f"{N_REPEATS} renders {wall:.4f} s ({wall / N_BLOCKS * 1e3:.3f} ms/block; min "
+          f"{min(walls) / N_BLOCKS * 1e3:.3f}, max {max(walls) / N_BLOCKS * 1e3:.3f}), peak "
+          f"{peak:.4f}; aggregate RTF {nv * audio_s / wall:.1f} on {card}")
+    print(f"{label} launches per block: {json.dumps({n: c / N_BLOCKS for n, c in counts.items()})}")
+    print(f"{label} bank kernels between the kit launches, per block: " + json.dumps(
+        {n: counts[n] / N_BLOCKS for n in ("env_follow_bank", "linrec2_bank", "svf_bank",
+                                           "affine1_bank")}))
+
+    kernels.reset_launch_counts()
+    render_product(*inputs, fuse_runs=False)
+    torch.cuda.synchronize()
+    unfused = kernels.launch_counts()
+    singles = ("lowpass_block", "delay_block", "saturation_block", "compressor_block",
+               "tilt_block", "spring_block", "waveshaper_block", "fbws_fast_block", "plate_block")
+    check(all(unfused[n] == N_BLOCKS for n in singles) and unfused["bus_chain"] == 0
+          and unfused["env_follower_block"] == 2 * N_BLOCKS,
+          f"{label}, fuse_runs=False: an entry's kernel not once a block: {unfused}")
+    print(f"{label}, fuse_runs=False launches per block: "
+          f"{json.dumps({n: c / N_BLOCKS for n, c in unfused.items()})}")
+
+    with plain_versions():
+        out_p = render_product(*head)
+    torch.cuda.synchronize()
+    err = max_err(out_k, out_p)
+    print(f"{label}: {N_COMPARE_PRODUCT} blocks with both waveshapers engaged, kernels vs plain "
+          f"versions: max err {err:.3e} (tol {RENDER_TOL:g}), peak {float(out_k.abs().max()):.4f}")
+    check(err <= RENDER_TOL, f"{label}: kernel render differs from the plain render by {err}")
+
+    if prof_file is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        short = product_inputs(dev, 4)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render_product(*short)
+            torch.cuda.synchronize()
+        table = prof.key_averages()
+        device = [e for e in table if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 4e3
+        summary = (f"{label} (traced): {sum(e.count for e in device) / 4:.0f} device ops per "
+                   f"block, device busy {busy_ms:.3f} ms/block, idle share "
+                   f"{1.0 - busy_ms / (wall / N_BLOCKS * 1e3):.3f} of the timed renders' "
+                   f"{wall / N_BLOCKS * 1e3:.3f} ms/block")
+        print(summary)
+        prof_file.write(f"# 4 blocks of the {label} ({nv} voices) on {card}\n# {summary}\n")
+        prof_file.write(table.table(sort_by="cuda_time_total", row_limit=90))
+        prof_file.write("\n\n")
+    return {**{n: counts[n] for n in ("kit_sources", "kit_drive")},
+            **{n: unfused[n] for n in ("waveshaper_block", "fbws_fast_block")}}
+
+
+# --- phase 9: the Engine API -------------------------------------------------
+
+#: the bank kernels the Engine's kit path runs between its two launches
+#: (the kick's follower, the snare's Chamberlin and tom2's resonators, the
+#: bass's swept SVF), and those only the stage path runs
+ENGINE_MIDDLES = ("env_follow_bank", "linrec2_bank", "svf_bank")
+STAGE_ONLY = ("pink_bank", "fbws_bank", "ws4_bank", "triangle_additive_bank",
+              "waveshaper_block", "fbws_fast_block")
 
 
 def phase_engine(dev):
     """The Engine with its default statics: 16 sequenced kicks (additive
     triangle at 128 harmonics) and one sequenced instrument of each other
-    family, the bass with a note on one step, through the seven global
-    effects; then a second second with the compressor keyed from the first
-    kick."""
+    family, the bass with a note on one step, all on the kit path (the kit
+    kernels and the bank kernels between them; no stage-path kernel),
+    through the seven global effects; then a second second with the
+    compressor keyed from the first kick."""
     from libgooey_tpu_torch.engine.engine import FAMILIES, Engine
     from libgooey_tpu_torch.instruments import kick
     from libgooey_tpu_torch.ops import kernels
@@ -766,10 +1083,13 @@ def phase_engine(dev):
         check(out.shape == (2, n_samples), f"{label}: output shape {out.shape}")
         check(bool(np.isfinite(out).all()), f"{label}: output is not finite")
         check(peak > 1e-3, f"{label}: output is silent (peak {peak})")
-        check(all(n > 0 for k, n in counts.items() if k not in BUS_SINGLES + ("bus_chain",))
+        check(all(counts[k] == n_blocks for k in ("kit_sources", "kit_drive"))
+              and all(counts[k] > 0 for k in ENGINE_MIDDLES)
+              and all(counts[k] == 0 for k in STAGE_ONLY)
               and all(counts[k] == (n_blocks if k in launched else 0)
                       for k in BUS_SINGLES + ("bus_chain",)),
-              f"{label}: a kernel never launched, or a bus kernel not once a block: {counts}")
+              f"{label}: the kit kernels not once a block, a middle kernel never launched, a "
+              f"stage-path kernel launched, or a bus kernel not once a block: {counts}")
         print(f"{label}: {len(names)} sequenced instruments of 5 families through "
               f"{'/'.join(eng.fx_order)}, {ENGINE_SECONDS:g} s rendered in {wall:.3f} s, "
               f"peak {peak:.4f}; "
@@ -806,6 +1126,7 @@ def main(argv=None) -> int:
             phase_kit(dev, card, prof)
             phase_bus(dev, card, prof)
             counts = phase_full_bus(dev, card, prof)
+            counts.update(phase_product(dev, card, prof))
         if args.profile:
             print(f"profile written to {args.profile}")
         phase_engine(dev)

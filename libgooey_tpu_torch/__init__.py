@@ -15,14 +15,18 @@ Idiom:
   blocks is a Python loop;
 * every recurrence that the JAX package runs as a Pallas kernel is a CUDA
   kernel written by hand (``csrc/*.cu``, bound in ``ops/bank_kernels.py``,
-  ``ops/bus_kernels.py`` and ``ops/plate_kernels.py``, listed in
-  ``ops/kernels.py``).  A CUDA tensor launches the kernel or raises; a CPU
-  tensor takes the kernel's plain PyTorch version.
+  ``ops/bus_kernels.py``, ``ops/plate_kernels.py`` and
+  ``ops/voice_kernels.py``, listed in ``ops/kernels.py``).  A CUDA tensor
+  launches the kernel or raises; a CPU tensor takes the kernel's plain
+  PyTorch version.
 
 What is ported so far is the engine's whole main path
-(``bench_configs.build_full_kit``): the five headline families and the
-global bus of all seven effects with the compressor's sidechain; the rest
-raises ``NotImplementedError`` and is queued in ROADMAP.md.
+(``bench_configs.build_full_kit``: the five headline families and the
+global bus of all seven effects with the compressor's sidechain) and the
+product block (``bench_configs.bench_onchip_product_block``: small banks
+through the kit kernels, ``ops/voice.py``, then the nine-entry effect
+chain, ``mixer/chain.py``); the rest raises ``NotImplementedError`` and is
+queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -162,18 +162,6 @@ __global__ void env_follow_bank_kernel(const float* __restrict__ rect,
 // The 4x chain of ovs4.cuh around tanh, then the signed makeup gain and the
 // bypass-gated DC blocker.
 
-// The memoryless nonlinearity evaluated at each 4x subsample: the kick's
-// plain tanh (fbws) or the waveshaper's tanh(v*d)*comp with the enclosing
-// engine sample's drive and makeup gain (ws4).
-struct TanhShaper {
-  __device__ __forceinline__ float operator()(float s) const { return tanhf(s); }
-};
-
-struct DriveShaper {
-  float d, cp;
-  __device__ __forceinline__ float operator()(float s) const { return tanhf(s * d) * cp; }
-};
-
 __global__ void fbws_bank_kernel(const float* __restrict__ u,
                                  const float* __restrict__ cs,
                                  const float* __restrict__ st_in,

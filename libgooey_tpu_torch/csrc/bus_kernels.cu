@@ -8,6 +8,8 @@
 //   env_follower_block <- libgooey_tpu/ops/pallas_fx.py:env_follower_block (_env_kernel)
 //   compressor_block   <- libgooey_tpu/ops/pallas_fx.py:compressor_block (_comp_kernel)
 //   spring_block       <- libgooey_tpu/ops/pallas_fx.py:spring_block (_spring_kernel)
+//   waveshaper_block   <- libgooey_tpu/ops/pallas_fx.py:waveshaper_block (_ws4_kernel)
+//   fbws_fast_block    <- libgooey_tpu/ops/pallas_fx.py:fbws_fast_block (_fbws_kernel)
 //   bus_chain          <- libgooey_tpu/ops/pallas_chain.py:chain_fused
 //
 // Design: the bus is one stereo [2, B] signal, and every effect is a
@@ -43,7 +45,8 @@
 // place of one per effect.  The compressor is two phases, as in chain_fused:
 // the detector (env) passes the signal through and leaves its envelope in
 // its output, which the next phase reads; each channel's envelope feeds
-// only its own channel, so no barrier is needed between them.  The glue
+// only its own channel, so no barrier is needed between them; the feedback
+// waveshaper is two phases the same way.  The glue
 // around each effect (trajectories of the delay time and of the
 // compressor's and spring's parameters, the ring gather and scatter, state
 // packing, freezes) stays in PyTorch before and after the launch, as it
@@ -106,6 +109,9 @@ __device__ __forceinline__ float sign_of(float x) {
 //   spring      A, p2, fbgp, hist, damp, hist', d_last   gains[6],          lags[12], D
 //               mix, fb0                                 1-gains^2[6],
 //                                                        prod(gains)
+//   waveshaper  prm [2,2], packed state  state           tanh(0.5)
+//   fbws        env, prm [2,4], packed   state           ln(10)*5.1/20
+//               state + filter
 enum Op : int {
   kSaturation = 0,
   kLowpass = 1,
@@ -114,6 +120,8 @@ enum Op : int {
   kEnv = 4,
   kCompressor = 5,
   kSpring = 6,
+  kWaveshaper = 7,
+  kFbws = 8,
 };
 
 constexpr int kPhaseIn = 8;
@@ -130,7 +138,10 @@ struct Phase {
   int iv[kPhaseI];
 };
 
-constexpr int kMaxPhases = 8;
+// The product chain's run is ten phases (the compressor and the feedback
+// waveshaper take two each); Chain travels by value, 2.6 KB of the 4 KB a
+// kernel's parameters may hold.
+constexpr int kMaxPhases = 12;
 
 struct Chain {
   int n;
@@ -534,6 +545,79 @@ __device__ void spring_row(const Phase& p, int c, const float* x, float* y, floa
   p.out[1][c] = d;
 }
 
+// --- 8. waveshaper: tanh(v*d)*comp at 4x, wet/dry, bypass select ------------
+
+// Channel c of the waveshaper block (_ws4_kernel): block-scalar drive and mix
+// per channel (the chain's staged targets), the 4x chain around
+// tanh(v*d)*tanh(0.5)/tanh(0.5d), the mix, the bypass select and the finite
+// guard.  The packed DC rows pass through.
+__device__ void waveshaper_row(const Phase& p, const FbwsCoefs& k, int c, const float* x,
+                               float* y, int B) {
+  const float drive = p.in[0][2 * c], mix = p.in[0][2 * c + 1];
+  const float d = fmaxf(drive, 1.000001f);
+  const DriveShaper shape{d, p.f[0] / tanhf(0.5f * d)};
+  const bool bypass = mix <= 1e-4f || drive <= 1.0f;
+  const size_t row = static_cast<size_t>(c) * B;
+  FbwsState s;
+  load_state(s, p.in[1], c, 2);
+  ovs4_row(
+      s, k, B, [&](int n) { return x[row + n]; }, [&](int) { return shape; },
+      [&](int n, float v) {
+        const float xn = x[row + n];
+        const float o = bypass ? xn : xn * (1.0f - mix) + v * mix;
+        y[row + n] = isfinite(xn) ? o : 0.0f;
+      },
+      p.out[0], c, 2);
+}
+
+// --- 9. fbws: the feedback waveshaper's zero-feedback path at 4x ---------------
+
+// Envelope-referenced makeup gain (feedback_waveshaper.rs:247-259) in the
+// TPU kernel's exp/log form; makeup_ln = ln(10) * 5.1 / 20.
+__device__ __forceinline__ float fbws_gain(float env, float drive, float feedback,
+                                           float makeup_ln) {
+  const float reference = fmaxf(env, 0.05f);
+  const float driven_ref = fmaxf(fabsf(tanhf(reference * drive)), 1e-6f);
+  const float comp_no_fb = tanhf(reference) / driven_ref;
+  const float drive_norm = fminf(fmaxf((drive - 1.0f) / 99.0f, 0.0f), 1.0f);
+  const float feedback_norm = fminf(fmaxf(feedback / 0.98f, 0.0f), 1.0f);
+  float high_end = expf(1.35f * logf(fmaxf(drive_norm, 1e-30f))) * (feedback_norm * feedback_norm);
+  high_end = drive_norm <= 0.0f ? 0.0f : high_end;
+  const float makeup = expf(makeup_ln * high_end);
+  const float taming = 1.0f / (1.0f + comp_no_fb * feedback * 0.25f);
+  return fminf(comp_no_fb * taming * makeup, 3.0f);
+}
+
+// Channel c of the zero-feedback block (_fbws_kernel) on the detector's
+// envelope: drive*x through the 4x tanh chain, the makeup gain, the
+// bypass-gated DC blocker, the feedback filter's bookkeeping (its state
+// rides the packed state's last row, as the compressor's gain does) and the
+// mix.  drive, feedback, the filter coefficient and mix are block scalars.
+__device__ void fbws_row(const Phase& p, const FbwsCoefs& k, int c, const float* x, float* y,
+                         int B) {
+  const float* env = p.in[0];
+  const float* prm = p.in[1] + 4 * c;
+  const float* packed = p.in[2];
+  const float drive = prm[0], feedback = prm[1], fbc = prm[2], mix = prm[3];
+  const bool bypass = mix <= 1e-4f || drive <= 1.0f;
+  const float a1 = bypass ? 1.0f : 0.0f;
+  const size_t row = static_cast<size_t>(c) * B;
+  FbwsState s;
+  load_state(s, packed, c, 2);
+  float filt = packed[kFbwsRowsIn * 2 + c];
+  ovs4_row(
+      s, k, B, [&](int n) { return x[row + n] * drive; }, [](int) { return TanhShaper{}; },
+      [&](int n, float v) {
+        const float comp = fbws_gain(env[row + n], drive, feedback, p.f[0]);
+        const float dc = gated_dc(s, v, bypass ? -1.0f : comp);
+        filt = (bypass ? 1.0f : 1.0f - fbc) * filt + (1.0f - a1) * fbc * dc;
+        const float xn = x[row + n];
+        y[row + n] = bypass ? xn : xn * (1.0f - mix) + dc * mix;
+      },
+      p.out[0], c, 2);
+  p.out[0][kFbwsRowsOut * 2 + c] = fabsf(filt) < kDenormal ? 0.0f : filt;
+}
+
 // --- the kernels -----------------------------------------------------------------
 
 __device__ __forceinline__ void run_phase(const Phase& p, const FbwsCoefs& k, int c,
@@ -559,6 +643,12 @@ __device__ __forceinline__ void run_phase(const Phase& p, const FbwsCoefs& k, in
       break;
     case kSpring:
       spring_row(p, c, x, y, smem, B);
+      break;
+    case kWaveshaper:
+      waveshaper_row(p, k, c, x, y, B);
+      break;
+    case kFbws:
+      fbws_row(p, k, c, x, y, B);
       break;
   }
 }
@@ -594,6 +684,15 @@ __global__ void compressor_block_kernel(const float* x, float* y, Phase p, FbwsC
 __global__ void spring_block_kernel(const float* x, float* y, Phase p, int B) {
   extern __shared__ float rings[];
   spring_row(p, threadIdx.x, x, y, rings, B);
+}
+
+__global__ void waveshaper_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k,
+                                        int B) {
+  waveshaper_row(p, k, threadIdx.x, x, y, B);
+}
+
+__global__ void fbws_fast_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k, int B) {
+  fbws_row(p, k, threadIdx.x, x, y, B);
 }
 
 // A run of effects: x is copied to y, then every phase rewrites y in place.
@@ -666,6 +765,12 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
       err = allow_smem(spring_block_kernel, smem);
       if (err == cudaSuccess) spring_block_kernel<<<1, 2, smem, s>>>(x, y, p, B);
       break;
+    case kWaveshaper:
+      waveshaper_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
+      break;
+    case kFbws:
+      fbws_fast_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
+      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -684,7 +789,7 @@ int bus_chain_launch(const float* x, float* y, int n, const int* ops, void* cons
   for (int i = 0; i < n; ++i) {
     ch.ph[i] = make_phase(ops + 2 * i, ptrs + (kPhaseIn + kPhaseOut) * i, f + kPhaseF * i,
                           iv + kPhaseI * i);
-    if (ch.ph[i].op < kSaturation || ch.ph[i].op > kSpring) {
+    if (ch.ph[i].op < kSaturation || ch.ph[i].op > kFbws) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const size_t need = phase_smem(ch.ph[i], B);

@@ -1,6 +1,8 @@
 // The 4x polyphase half-band chain shared by the kernels that shape a signal
-// at four times the engine rate: fbws_bank and ws4_bank (bank_kernels.cu)
-// and saturation_block (bus_kernels.cu).
+// at four times the engine rate: fbws_bank and ws4_bank (bank_kernels.cu),
+// saturation_block, compressor_block, waveshaper_block and fbws_fast_block
+// (bus_kernels.cu), and the bass and drive bodies of the kit kernels
+// (voice_kernels.cu).
 //
 // One thread owns one row (a voice, or a channel of the stereo bus) and
 // steps its base-rate samples through stage-1 up, stage-2 up, the
@@ -89,6 +91,19 @@ __device__ __forceinline__ float ovs4_phase_b(FbwsState& s, const FbwsCoefs& k,
   s.d1x1d = d1;
   return y;
 }
+
+// The memoryless nonlinearities evaluated at each 4x subsample: plain tanh
+// (the kick's fbws, the bus feedback waveshaper) or the waveshaper's
+// tanh(v*d)*comp with the enclosing engine sample's drive and makeup gain
+// (ws4, the snare's and the bass's drives, the bus waveshaper).
+struct TanhShaper {
+  __device__ __forceinline__ float operator()(float s) const { return tanhf(s); }
+};
+
+struct DriveShaper {
+  float d, cp;
+  __device__ __forceinline__ float operator()(float s) const { return tanhf(s * d) * cp; }
+};
 
 // The bypass-gated DC blocker (the kick's fbws, the bus saturation).
 // cs < 0 marks a bypassed sample: DC state frozen, output 0; otherwise the

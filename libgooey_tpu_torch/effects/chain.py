@@ -11,8 +11,9 @@ packing, freezes) runs in PyTorch before and after the launch, as it runs
 in XLA around ``chain_fused``.  A run gives what the effects' own
 ``process_block`` give one after the other: none reads the signal before
 its kernel, and the input is made finite once, up front, where each
-effect does it on its own.  The plate and a sidechained compressor do not
-join a run (engine/engine.py splits the bus around them).
+effect does it on its own.  The plate, a sidechained compressor and a
+feedback waveshaper with its feedback on do not join a run
+(engine/engine.py and mixer/chain.py split their effects around them).
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ from libgooey_tpu_torch.ops import bus_kernels
 
 def process_run(modules: Sequence, states: Sequence, x: torch.Tensor, targets_list: Sequence,
                 *, sample_rate: float, options: Optional[Sequence[dict]] = None):
-    """Run effects ``modules`` (each with ``prepare``) over the stereo block
-    ``x`` [2, B] in one launch.  ``options``: per-effect keyword arguments of
-    ``prepare`` (the delay's ``pingpong``).  Returns ``(new_states, y)``."""
+    """Run effects ``modules`` (each with ``prepare``: a phase, or a list of
+    phases for the compressor and the feedback waveshaper) over the stereo
+    block ``x`` [2, B] in one launch.  ``options``: per-effect keyword
+    arguments of ``prepare`` (the delay's ``pingpong``).  Returns
+    ``(new_states, y)``."""
     B = x.shape[-1]
     x = torch.where(torch.isfinite(x), x, 0.0)
     phases, finishers = [], []

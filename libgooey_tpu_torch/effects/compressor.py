@@ -59,7 +59,7 @@ class CompressorState(NamedTuple):
 
 
 def init_state(sample_rate: float, threshold_db=-20.0, ratio=4.0, attack_ms=10.0,
-               release_ms=100.0, mix=1.0, *, device="cpu") -> CompressorState:
+               release_ms=100.0, mix=1.0, *, device) -> CompressorState:
     vals = np.array([[np.clip(v, *r) for v, r in zip(
         (threshold_db, ratio, attack_ms, release_ms, mix), RANGES)]] * 2, np.float32)
     return CompressorState(

@@ -65,7 +65,7 @@ def ring_length(sample_rate: float) -> int:
 
 
 def init_state(sample_rate: float, time_s: float = 0.5, feedback: float = 0.3,
-               mix: float = 0.3, cutoff: float = 8000.0, *, device="cpu") -> DelayState:
+               mix: float = 0.3, cutoff: float = 8000.0, *, device) -> DelayState:
     vals = np.array([
         [min(time_s, MAX_DELAY_TIME), np.clip(feedback, 0, 0.95),
          np.clip(mix, 0, 1), np.clip(cutoff, 20.0, 20000.0)],

@@ -41,7 +41,7 @@ class LowpassState(NamedTuple):
 
 
 def init_state(sample_rate: float, cutoff=8000.0, resonance=0.2, *,
-               device="cpu") -> LowpassState:
+               device) -> LowpassState:
     vals = np.array(
         [[np.clip(cutoff, *CUTOFF_RANGE), np.clip(resonance, 0.0, 0.95)]] * 2, np.float32)
     return LowpassState(stages=torch.zeros((2, 2), dtype=torch.float32, device=device),

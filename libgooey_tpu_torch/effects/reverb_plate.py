@@ -122,7 +122,7 @@ class PlateState(NamedTuple):
 
 def init_state(sample_rate: float, decay: float = 0.5, mix: float = 0.3,
                damping: float = 0.5, predelay: float = 0.0, width: float = 1.0,
-               size: float = 0.5, *, device="cpu") -> PlateState:
+               size: float = 0.5, *, device) -> PlateState:
     def z(shape=()):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 

@@ -67,7 +67,7 @@ def delay_lengths(sample_rate: float):
 
 
 def init_state(sample_rate: float, decay: float = 0.5, mix: float = 0.3,
-               damping: float = 0.5, *, device="cpu") -> SpringState:
+               damping: float = 0.5, *, device) -> SpringState:
     dl, dr = delay_lengths(sample_rate)
     D = max(dl + dr)
     init = np.array([[np.clip(decay, 0, 1), np.clip(mix, 0, 1), np.clip(damping, 0, 1)]] * 2,

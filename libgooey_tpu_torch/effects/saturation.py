@@ -44,7 +44,7 @@ class SaturationState(NamedTuple):
 
 
 def init_state(sample_rate: float, drive=0.3, warmth=0.3, mix=1.0, *,
-               device="cpu") -> SaturationState:
+               device) -> SaturationState:
     vals = np.array([[np.clip(drive, 0, 1), np.clip(warmth, 0, 1),
                       np.clip(mix, 0, 1)]] * 2, np.float32)
     return SaturationState(dc=DCBlockState.init((2,), device),

@@ -36,7 +36,7 @@ class TiltState(NamedTuple):
     smooth: SmootherBank   # [2, 2]
 
 
-def init_state(sample_rate: float, cutoff=0.5, resonance=0.0, *, device="cpu") -> TiltState:
+def init_state(sample_rate: float, cutoff=0.5, resonance=0.0, *, device) -> TiltState:
     vals = np.array([[np.clip(cutoff, 0, 1), np.clip(resonance, 0, 1)]] * 2, np.float32)
     return TiltState(svf=filters.SVFState.init((2,), device),
                      smooth=SmootherBank.init(vals, device))

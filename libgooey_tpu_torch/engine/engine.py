@@ -9,11 +9,13 @@ parameter targets, and drives one block step
     _render_all(state, events) -> (state', stereo[2, B], mono[B])
 
 Ported so far: the five families of the headline kit (kick, snare, hihat2,
-tom2, bass), the per-family pan/gain mix with its pan-settled branch, the
-master gain, the global bus of all seven effects (saturation, lowpass, tilt,
-delay, compressor with its optional sidechain, spring, plate) in any order,
-split into runs as the JAX package splits it (a run of two or more in one
-kernel launch), and the pinned soft limiter.  LFO routes and the hihat, tom
+tom2, bass), with the kit gate (two or more eligible small banks render
+together through the two kit launches, ops/voice.py), the per-family
+pan/gain mix with its pan-settled branch, the master gain, the global bus
+of all seven effects (saturation, lowpass, tilt, delay, compressor with its
+optional sidechain, spring, plate) in any order, split into runs as the
+JAX package splits it (a run of two or more in one kernel launch), and the
+pinned soft limiter.  LFO routes and the hihat, tom
 and poly families raise ``NotImplementedError`` (ROADMAP.md Queue A).
 """
 
@@ -48,6 +50,7 @@ from libgooey_tpu_torch.effects import saturation as fx_saturation
 from libgooey_tpu_torch.effects import tilt as fx_tilt
 from libgooey_tpu_torch.engine.sequencer import Sequencer
 from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
+from libgooey_tpu_torch.ops import voice
 
 #: Instrument family registry: kind -> module (``init_state``,
 #: ``render_block``, PARAM_NAMES / PARAM_INDEX / PRESETS), in the JAX
@@ -148,6 +151,41 @@ def _joins_run(name: str, sidechain_voice: int) -> bool:
     return name in MERGEABLE_FX and not (name == "compressor" and sidechain_voice >= 0)
 
 
+def _render_kit(state, events, kinds, static, sample_rate, block_size, smooth_coeff):
+    """The kit gate (engine.py:218-257): when two or more families are
+    eligible, their blocks go through the two kit launches together
+    (``voice.kit_render_fused``); an ineligible family (``[V, K]`` trigger
+    slots, the kick's feedback path, os_mode != 4, a bank wider than
+    MAX_FUSED_VOICES) renders on its own path.  Returns ``{kind: (state,
+    out)}`` of the kit's families."""
+    if not kinds or not voice.use_kit(state["pan"].current):
+        return {}
+    kit_kinds = []
+    for kind in kinds:
+        st = static.get(kind, {})
+        if kind not in voice.KINDS:
+            continue
+        if kind == "kick" and (st.get("feedback_path", False) or st.get("os_mode", 4) != 4):
+            continue
+        if kind in ("snare", "bass") and st.get("os_mode", 4) != 4:
+            continue
+        if not voice.eligible(events[kind + "_off"], state[kind].trig_sample.shape[0]):
+            continue
+        kit_kinds.append(kind)
+    if len(kit_kinds) < 2:
+        return {}
+    return voice.kit_render_fused(
+        {k: state[k] for k in kit_kinds},
+        {k: events[k + "_off"] for k in kit_kinds},
+        {k: events[k + "_vel"] for k in kit_kinds},
+        events["block_start"], kinds=tuple(kit_kinds), sample_rate=sample_rate,
+        block_size=block_size, smooth_coeff=smooth_coeff,
+        kick_max_harmonics=static.get("kick", {}).get("max_harmonics", 256),
+        snare_max_harmonics=static.get("snare", {}).get("max_harmonics", 256),
+        tom2_triangle=static.get("tom2", {}).get("triangle_enabled", True),
+        bass_note_freq=events.get("bass_freq") if "bass" in kit_kinds else None)
+
+
 def _render_all(
     state: dict,
     events: dict,
@@ -162,6 +200,7 @@ def _render_all(
     fx_order: Tuple[str, ...] = (),
     sidechain_voice: int = -1,
     fuse_bus: bool = True,
+    fused_banks: bool = True,
 ):
     """One block over every instrument bank + mix + master + global bus +
     limiter.
@@ -173,19 +212,26 @@ def _render_all(
     global voice index whose raw output keys the compressor's detector (-1:
     the compressor keys from its input).  ``fuse_bus=False`` runs every
     effect through its own kernels, even in a run of two or more (the JAX
-    package's ``LIBGOOEY_CHAIN_FUSE=off``, mixer/chain.py).  Returns
-    ``(new_state, stereo[2, B], mono[B])``."""
+    package's ``LIBGOOEY_CHAIN_FUSE=off``, mixer/chain.py).
+    ``fused_banks=False`` keeps every bank off the kit path (ops/voice.py).
+    Returns ``(new_state, stereo[2, B], mono[B])``."""
     if lfo_routes:
         raise not_ported("LFO routes")
     static = {k: dict(v) for k, v in family_static}
     new_state = dict(state)
     dev = state["pan"].current.device
 
+    kit_results = _render_kit(state, events, kinds, static, sample_rate, block_size,
+                              smooth_coeff) if fused_banks else {}
     voice_outs = []
     for kind in kinds:
+        if kind in kit_results:
+            new_state[kind], out = kit_results[kind]
+            voice_outs.append(out)
+            continue
         if kind not in FAMILIES:
             raise not_ported(f"instrument family {kind!r}")
-        extra = {}
+        extra = {"fused": fused_banks}
         if kind == "bass" and "bass_freq" in events:
             extra["note_freq"] = events["bass_freq"]
         bank_state, out = FAMILIES[kind].render_block(

@@ -13,8 +13,12 @@ Behavioral reference: src/instruments/bass.rs.
   envelope (latched decay/curve) sweeps from base + amt*(max-base) down;
 * amp envelope: 2 ms linear attack, curved decay (latched); sqrt velocity.
 
-Kernels on this path: ``affine1_bank`` (phase accumulators), ``ws4_bank``
-(overdrive), ``svf_bank`` (filter).
+A bank of at most ``ops.voice.MAX_FUSED_VOICES`` voices with one trigger
+slot a block takes the kit path (``fused=True``, bass.py:176-201): its
+oscillators, 4x drive and envelopes in the ``kit_sources`` kernel, the swept
+SVF after it in ``svf_bank`` (ops/voice.py).  Kernels on the stage path:
+``affine1_bank`` (phase accumulators), ``ws4_bank`` (overdrive),
+``svf_bank`` (filter).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from libgooey_tpu_torch.core.smoother import SmootherBank
 from libgooey_tpu_torch.effects import freeze as frz
 from libgooey_tpu_torch.effects import waveshaper
 from libgooey_tpu_torch.instruments.common import NEVER, VoiceBlock
-from libgooey_tpu_torch.ops import filters, osc
+from libgooey_tpu_torch.ops import filters, osc, voice
 from libgooey_tpu_torch.ops import scan as gscan
 from libgooey_tpu_torch.ops.oversample import OversamplerState
 
@@ -184,14 +188,23 @@ def render_block(
     note_freq=None,
     os_mode: int = 4,
     overrides=None,
+    fused: bool = True,
 ):
     """Render one block for the bass bank -> ``(new_state, out[V, B])``.
 
     ``note_freq``: optional Hz override for this block's triggers, ``[V]``
     or shaped like ``trig_offset``; 0 keeps the param frequency (sequencer
-    per-step notes set the frequency before triggering)."""
+    per-step notes set the frequency before triggering).  ``fused``: allow
+    the kit path (with ``[V]`` notes)."""
     sr = sample_rate
     dev = state.velocity.device
+    if (fused and voice.use_kit(state.velocity)
+            and voice.eligible(trig_offset, state.velocity.shape[0])
+            and overrides is None and os_mode == 4
+            and (note_freq is None or np.ndim(note_freq) == 1)):
+        return voice.bass_render_fused(state, trig_offset, trig_velocity, block_start,
+                                       sample_rate=sr, block_size=block_size,
+                                       smooth_coeff=smooth_coeff, note_freq=note_freq)
     vb = VoiceBlock(state.params, trig_offset, block_start, block_size,
                     smooth_coeff, PARAM_INDEX, overrides=overrides)
     ptraj, vat, eff = vb.ptraj, vb.value_at_trigger, vb.eff

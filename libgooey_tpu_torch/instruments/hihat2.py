@@ -13,9 +13,12 @@ Behavioral reference: src/instruments/hihat2.rs.  Signal path
   asymmetric smoother (instant up, 100-sample down);
 * * velocity * 0.35, TPT SVF highpass at `tone`, then volume.
 
-Kernels on this path: ``affine1_bank`` (phase accumulators and the
-asymmetric smoother), ``pink_bank``, ``linrec2_bank`` (the two biquads),
-``svf_bank`` (tone).
+A bank of at most ``ops.voice.MAX_FUSED_VOICES`` voices with one trigger
+slot a block takes the kit path (``fused=True``, hihat2.py:150-168): the
+whole block in the ``kit_sources`` kernel (ops/voice.py).  Kernels on the
+stage path: ``affine1_bank`` (phase accumulators and the asymmetric
+smoother), ``pink_bank``, ``linrec2_bank`` (the two biquads), ``svf_bank``
+(tone).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from libgooey_tpu_torch.instruments.common import NEVER, VoiceBlock
 from libgooey_tpu_torch.ops import filters
 from libgooey_tpu_torch.ops import noise as pink_mod
 from libgooey_tpu_torch.ops import scan as gscan
+from libgooey_tpu_torch.ops import voice
 
 TWO_PI = float(2.0 * np.pi)
 
@@ -158,10 +162,17 @@ def render_block(
     block_size: int,
     smooth_coeff: float,
     overrides=None,
+    fused: bool = True,
 ):
-    """Render one block for the HiHat2 bank -> ``(new_state, out[V, B])``."""
+    """Render one block for the HiHat2 bank -> ``(new_state, out[V, B])``;
+    ``fused``: allow the kit path."""
     sr = sample_rate
     dev = state.velocity.device
+    if (fused and voice.use_kit(state.velocity)
+            and voice.eligible(trig_offset, state.velocity.shape[0]) and overrides is None):
+        return voice.hihat2_render_fused(state, trig_offset, trig_velocity, block_start,
+                                         sample_rate=sr, block_size=block_size,
+                                         smooth_coeff=smooth_coeff)
     vb = VoiceBlock(state.params, trig_offset, block_start, block_size,
                     smooth_coeff, PARAM_INDEX, overrides=overrides)
     ptraj, eff = vb.ptraj, vb.eff

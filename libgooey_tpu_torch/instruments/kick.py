@@ -7,11 +7,13 @@ an exponential pitch envelope, a phase-modulator transient, a pink-noise
 layer through a resonant low-pass, the feedback waveshaper's overdrive and
 a master amplitude envelope with velocity laws.
 
-The port renders the stage path (``render_block`` below) at every voice
-count: the GPU has no VMEM cap to route around, so the TPU's fused small-bank
-kernel (``pallas_voice.kick_render_fused``, which computes the same block)
-has no counterpart here.  Every recurrence of the block runs in a bank
-kernel (ops/bank_kernels.py); the rest is elementwise math.
+A bank of at most ``ops.voice.MAX_FUSED_VOICES`` voices with one trigger
+slot a block takes the kit path (``fused=True``, the gate of kick.py:253-275):
+its sources in the ``kit_sources`` kernel, the envelope follower between,
+its 4x drive in ``kit_drive`` (ops/voice.py, ops/voice_kernels.py; the
+TPU's ``pallas_voice.kick_render_fused``).  Every other bank renders the
+stage path below, whose recurrences run in the bank kernels
+(ops/bank_kernels.py); the rest is elementwise math.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from libgooey_tpu_torch.core.envelope import ADSR, amplitude
 from libgooey_tpu_torch.core.smoother import SmootherBank
 from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
 from libgooey_tpu_torch.instruments.common import NEVER, VoiceBlock, phase_mod_env
-from libgooey_tpu_torch.ops import filters, noise, osc
+from libgooey_tpu_torch.ops import filters, noise, osc, voice
 
 # --- parameter table (order = host ABI, kick.rs:80-99; all normalized 0-1) ---
 
@@ -220,6 +222,7 @@ def render_block(
     feedback_path: bool = False,
     os_mode: int = 4,
     overrides=None,
+    fused: bool = True,
 ):
     """Render one block for the whole voice bank.
 
@@ -230,11 +233,17 @@ def render_block(
       trig_velocity: float, same shape as ``trig_offset``.
       block_start: int — global sample index of the block's start.
 
-    Returns ``(new_state, out[V, B])``.
+    Returns ``(new_state, out[V, B])``.  ``fused``: allow the kit path.
     """
     B = block_size
     sr = sample_rate
     dev = state.velocity.device
+    if (fused and voice.use_kit(state.velocity)
+            and voice.eligible(trig_offset, state.velocity.shape[0])
+            and overrides is None and not feedback_path and os_mode == 4):
+        return voice.kick_render_fused(state, trig_offset, trig_velocity, block_start,
+                                       sample_rate=sr, block_size=B, smooth_coeff=smooth_coeff,
+                                       max_harmonics=max_harmonics)
     vb = VoiceBlock(state.params, trig_offset, block_start, B, smooth_coeff, PARAM_INDEX,
                     overrides=overrides)
     ptraj, value_at_trigger, eff = vb.ptraj, vb.value_at_trigger, vb.eff

@@ -13,8 +13,12 @@ Behavioral reference: src/instruments/snare.rs.  Architecture
   tanh waveshaper overdrive at 4x (drive = 1 + od*9) before the amp
   envelope; velocity -> decay 0.45, -> pitch 0.5, -> amp sqrt(v).
 
-The port renders the stage path at every voice count (the TPU's fused
-small-bank kernels compute the same block).  Kernels on this path:
+A bank of at most ``ops.voice.MAX_FUSED_VOICES`` voices with one trigger
+slot a block takes the kit path (``fused=True``, the gate of
+snare.py:200-220): its sources in the ``kit_sources`` kernel, the Chamberlin
+between (``linrec2_bank``), its noise envelopes and 4x overdrive in
+``kit_drive`` (ops/voice.py; the TPU's ``pallas_voice.snare_render_fused``).
+Every other bank renders the stage path below; its kernels:
 ``triangle_additive_bank`` (tonal), ``linrec2_bank`` (Chamberlin),
 ``ws4_bank`` (overdrive).
 """
@@ -33,7 +37,7 @@ from libgooey_tpu_torch.core.smoother import SmootherBank
 from libgooey_tpu_torch.effects import freeze as frz
 from libgooey_tpu_torch.effects import waveshaper
 from libgooey_tpu_torch.instruments.common import NEVER, VoiceBlock, phase_mod_env
-from libgooey_tpu_torch.ops import filters, osc
+from libgooey_tpu_torch.ops import filters, osc, voice
 from libgooey_tpu_torch.ops.oversample import OversamplerState
 
 PARAM_NAMES = (
@@ -204,13 +208,21 @@ def render_block(
     max_harmonics: int = 256,
     os_mode: int = 4,
     overrides=None,
+    fused: bool = True,
 ):
     """Render one block for the snare bank -> ``(new_state, out[V, B])``.
 
     ``trig_offset``/``trig_velocity``: ``[V]`` (one trigger slot, ``B`` =
-    none) or ``[V, K]`` slot arrays with offsets ascending per voice."""
+    none) or ``[V, K]`` slot arrays with offsets ascending per voice.
+    ``fused``: allow the kit path."""
     sr = sample_rate
     dev = state.velocity.device
+    if (fused and voice.use_kit(state.velocity)
+            and voice.eligible(trig_offset, state.velocity.shape[0])
+            and overrides is None and os_mode == 4):
+        return voice.snare_render_fused(state, trig_offset, trig_velocity, block_start,
+                                        sample_rate=sr, block_size=block_size,
+                                        smooth_coeff=smooth_coeff, max_harmonics=max_harmonics)
     vb = VoiceBlock(state.params, trig_offset, block_start, block_size,
                     smooth_coeff, PARAM_INDEX, overrides=overrides)
     ptraj, vat, eff = vb.ptraj, vb.value_at_trigger, vb.eff

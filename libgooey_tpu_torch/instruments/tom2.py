@@ -30,7 +30,7 @@ import torch
 from libgooey_tpu_torch.core import dsp
 from libgooey_tpu_torch.core.max_curve import max_curve
 from libgooey_tpu_torch.instruments.common import NEVER
-from libgooey_tpu_torch.ops import filters, morph
+from libgooey_tpu_torch.ops import filters, morph, voice
 from libgooey_tpu_torch.ops import scan as gscan
 
 PARAM_NAMES = (
@@ -132,16 +132,26 @@ def render_block(
     smooth_coeff: float = 0.0,
     triangle_enabled: bool = True,
     overrides=None,
+    fused: bool = True,
 ):
     """Render one block for the Tom2 bank -> ``(new_state, out[V, B])``.
 
     ``trig_velocity``, ``smooth_coeff`` and ``overrides`` are accepted for
     the uniform instrument signature and ignored (tom2.rs discards velocity
-    and is not modulatable)."""
+    and is not modulatable).  With ``fused`` and a ``[V]`` bank the kit
+    path takes it (ops/voice.py): the source stage runs in ``kit_sources``,
+    the bandpass and the membrane below are shared by both paths (tom2.py
+    fused gate, 141-190)."""
     del trig_velocity, smooth_coeff, overrides
     sr = sample_rate
     B = block_size
     dev = state.trig_sample.device
+    if (fused and voice.use_kit(state.trig_sample)
+            and voice.eligible(trig_offset, state.trig_sample.shape[0])):
+        front = voice.tom2_sources_fused(state, trig_offset, block_start, sample_rate=sr,
+                                         block_size=B, triangle_enabled=triangle_enabled)
+        return finish_fused(state, trig_offset, block_start, *front, sample_rate=sr,
+                            block_size=B)
 
     n_local = torch.arange(B, dtype=torch.int32, device=dev)
     trig_offset = torch.as_tensor(trig_offset, device=dev).to(torch.int32)
@@ -267,3 +277,25 @@ def _back_half(state, at_trig, elapsed_i, mixed, env, main_done, fade_factor,
     out = torch.where(main_done & (ring <= 0.0001), 0.0, out)
     out = torch.where(elapsed_i >= 0, out, 0.0)
     return bp_state, mem_state, out
+
+
+def finish_fused(state, trig_offset, block_start, front, mixed, env, main_done, fade_factor,
+                 modulated_freq, *, sample_rate, block_size):
+    """Finish a kit-path render (tom2.py:305): the trigger geometry again,
+    the shared back half, the new Tom2State."""
+    B = block_size
+    dev = state.trig_sample.device
+    n_local = torch.arange(B, dtype=torch.int32, device=dev)
+    off = torch.as_tensor(trig_offset, device=dev).to(torch.int32)[:, None]
+    block_start = torch.as_tensor(block_start, device=dev).to(torch.int32)
+    valid = off < B
+    at_trig = (n_local[None, :] == off) & valid
+    after = (n_local[None, :] >= off) & valid
+    trig_eff = torch.where(after, block_start + off, state.trig_sample[:, None])
+    elapsed_i = (block_start + n_local)[None, :] - trig_eff
+    new_trig, new_decay, new_tri_phase, morph_state = front
+    bp_state, mem_state, out = _back_half(state, at_trig, elapsed_i, mixed, env, main_done,
+                                          fade_factor, modulated_freq, sample_rate)
+    return Tom2State(params=state.params, trig_sample=new_trig, decay_s=new_decay,
+                     tri_phase=new_tri_phase, morph=morph_state, bandpass=bp_state,
+                     membrane=mem_state), out

@@ -22,6 +22,7 @@ from libgooey_tpu_torch.core.smoother import SmootherBank
 from libgooey_tpu_torch.effects import (
     compressor,
     delay,
+    feedback_waveshaper,
     lowpass,
     reverb_plate,
     reverb_spring,
@@ -30,6 +31,7 @@ from libgooey_tpu_torch.effects import (
 )
 from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
 from libgooey_tpu_torch.ops import ringbuf
+from libgooey_tpu_torch.ops.oversample import OversamplerState
 
 #: the ported families' modules (``init_state`` builds the template)
 _FAMILIES = {"kick": kick, "snare": snare, "hihat2": hihat2, "tom2": tom2, "bass": bass}
@@ -71,18 +73,34 @@ def fx_state_from_numpy(name: str, src, device):
     with the same fields) -> the port's state of that effect.  Delay lines
     (the delay's ring, the spring's history, the plate's predelay ring,
     histories and tank) keep the lengths they have in ``src``."""
-    template = _FX[name].init_state(44100.0)
+    template = _FX[name].init_state(44100.0, device="cpu")
     if name == "delay":
         L = np.asarray(src.ring.buf).shape[-1]
-        template = template._replace(ring=ringbuf.Ring.init(L, batch=(2,)))
+        template = template._replace(ring=ringbuf.Ring.init(L, batch=(2,), device="cpu"))
     elif name == "spring":
         template = template._replace(hist=_zeros_like(src.hist))
     elif name == "plate":
         template = template._replace(
-            predelay=ringbuf.Ring.init(np.asarray(src.predelay.buf).shape[-1]),
+            predelay=ringbuf.Ring.init(np.asarray(src.predelay.buf).shape[-1], device="cpu"),
             in_hist=_zeros_like(src.in_hist), mod_hist=_zeros_like(src.mod_hist),
             tank=_zeros_like(src.tank))
     return from_numpy(template, src, device)
+
+
+#: effect-chain ids (mixer/chain.py EFFECT_*) of the global effects above
+_CHAIN_FX = {0: "lowpass", 1: "delay", 2: "saturation", 3: "compressor", 4: "tilt",
+             6: "spring", 9: "plate"}
+
+
+def chain_state_from_numpy(effect_id: int, src, device):
+    """A JAX effect-chain entry's state (mixer/chain.py, by ``EFFECT_*``
+    id) -> the port's: the waveshaper's bare ``OversamplerState``, the
+    feedback waveshaper's ``FBShaperState``, the other effects' states."""
+    if effect_id == 7:
+        return from_numpy(OversamplerState.init(2, "cpu"), src, device)
+    if effect_id == 8:
+        return from_numpy(feedback_waveshaper.FBShaperState.init((2,), "cpu"), src, device)
+    return fx_state_from_numpy(_CHAIN_FX[effect_id], src, device)
 
 
 def smoother_from_numpy(src, device) -> SmootherBank:

@@ -54,6 +54,10 @@ SIGNATURES = {
     "bus_chain_launch": [_P, _P, _I] + [_P] * 5 + [_I, _P],
     # the plate: its 17 pointers, its constants and lags, DIN, DMOD, B
     "plate_block_launch": [_P] * 3 + [_I, _I, _I, _P],
+    # the kit kernels: n phases, then per phase (body, V, B), 26 pointers,
+    # 24 floats and 8 ints, then the 4x chain's coefficients
+    "kit_sources_launch": [_I] + [_P] * 5 + [_P],
+    "kit_drive_launch": [_I] + [_P] * 5 + [_P],
 }
 
 

@@ -124,6 +124,12 @@ def _vb(name, x):
 _F32 = torch.float32
 
 
+def _div(a, b):
+    """``a / b`` for a Python number ``b``, a true division on every device
+    (PyTorch on the card multiplies by the reciprocal of a Python divisor)."""
+    return a / torch.full((), b, dtype=_F32, device=a.device)
+
+
 # --- 1. affine1_bank ------------------------------------------------------------
 
 

@@ -12,6 +12,8 @@ delay_block         pallas_fx.py:962, _delay_kernel         effects/delay
 env_follower_block  pallas_fx.py:673, _env_kernel           effects/compressor
 compressor_block    pallas_fx.py:758, _comp_kernel          effects/compressor
 spring_block        pallas_fx.py:126, _spring_kernel        effects/reverb_spring
+waveshaper_block    pallas_fx.py:614, _ws4_kernel           effects/waveshaper
+fbws_fast_block     pallas_fx.py:1125, _fbws_kernel         effects/feedback_waveshaper
 bus_chain           pallas_chain.py:92, chain_fused         effects/chain
 ==================  ======================================  ======================
 
@@ -33,7 +35,7 @@ list of phases in one launch, each on the signal the one before it left,
 through the same per-effect code as the single kernels.  The compressor is
 two phases, its detector (which passes the signal through) and its gain
 stage; in a run the gain stage's ``env`` is ``None``, the detector's output
-before it.  What bounds the kernels on the card is in the header of their
+before it.  The feedback waveshaper is two phases the same way.  What bounds the kernels on the card is in the header of their
 CUDA source: two threads stepping a serial chain.
 """
 
@@ -51,7 +53,9 @@ from libgooey_tpu_torch.ops.bank_kernels import (
     _FBWS_COEFS,
     FBWS_S_IN,
     FBWS_S_OUT,
+    _TANH_HALF,
     _check,
+    _div,
     _empty,
     _host_floats,
     _launch,
@@ -63,7 +67,8 @@ from libgooey_tpu_torch.ops.bank_kernels import (
 )
 
 KERNELS = ("saturation_block", "lowpass_block", "tilt_block", "delay_block",
-           "env_follower_block", "compressor_block", "spring_block", "bus_chain")
+           "env_follower_block", "compressor_block", "spring_block", "waveshaper_block",
+           "fbws_fast_block", "bus_chain")
 
 #: Source of each kernel and the TPU kernel it replaces (file:line of the
 #: wrapper that reaches ``pl.pallas_call``).
@@ -76,6 +81,8 @@ REPLACES = {
     "env_follower_block": "libgooey_tpu/ops/pallas_fx.py:673",
     "compressor_block": "libgooey_tpu/ops/pallas_fx.py:758",
     "spring_block": "libgooey_tpu/ops/pallas_fx.py:126",
+    "waveshaper_block": "libgooey_tpu/ops/pallas_fx.py:614",
+    "fbws_fast_block": "libgooey_tpu/ops/pallas_fx.py:1125",
     "bus_chain": "libgooey_tpu/ops/pallas_chain.py:92",
 }
 
@@ -88,8 +95,9 @@ SAT_S_OUT = FBWS_S_OUT + 3
 COMP_S_IN = FBWS_S_IN + 1
 COMP_S_OUT = FBWS_S_OUT + 1
 
-#: phases one ``bus_chain`` launch takes (``kMaxPhases`` in the CUDA source)
-MAX_PHASES = 8
+#: phases one ``bus_chain`` launch takes (``kMaxPhases`` in the CUDA source):
+#: the product chain's run of eight entries is ten phases
+MAX_PHASES = 12
 #: a phase's pointer, float and int slots (``kPhaseIn`` ... in the CUDA source)
 _PHASE_IN, _PHASE_OUT, _PHASE_F, _PHASE_I = 8, 2, 16, 16
 #: phases that pass the signal through and leave their result in an output
@@ -186,11 +194,25 @@ def _spring_slots(B, A, p2, fbgp, hist, damp, mix, fb0, *, delays, gains):
                   [(2 * SPRING_APS, D), (2,)], g + omg + (alpha,), tuple(delays) + (D,))
 
 
+def _waveshaper_slots(B, prm, packed):
+    return _Slots([("prm", prm, (2, 2)), ("packed", packed, (FBWS_S_IN, 2))],
+                  [(FBWS_S_OUT, 2)], (_TANH_HALF,))
+
+
+def _fbws_slots(B, env, prm, packed):
+    return _Slots([("env", env, (2, B)), ("prm", prm, (2, 4)), ("packed", packed, (COMP_S_IN, 2))],
+                  [(COMP_S_OUT, 2)], (_FBWS_MAKEUP_LN,))
+
+
 #: wrapper -> (the CUDA source's ``Op``, its slots)
 _SLOTS = {"saturation_block": (0, _saturation_slots), "lowpass_block": (1, _lowpass_slots),
           "tilt_block": (2, _tilt_slots), "delay_block": (3, _delay_slots),
           "env_follower_block": (4, _env_slots), "compressor_block": (5, _compressor_slots),
-          "spring_block": (6, _spring_slots)}
+          "spring_block": (6, _spring_slots), "waveshaper_block": (7, _waveshaper_slots),
+          "fbws_fast_block": (8, _fbws_slots)}
+#: the gain stages whose ``env`` may be ``None`` in a run: the detector's
+#: envelope before them
+_READS_ENV = ("compressor_block", "fbws_fast_block")
 
 
 def _pad(values, n, fill, what):
@@ -201,12 +223,13 @@ def _pad(values, n, fill, what):
 
 
 def _with_env(phase, outs):
-    """A compressor gain stage whose ``env`` is ``None`` reads the envelope
-    of the detector phase just before it."""
-    if phase.name != "compressor_block" or phase.args[0] is not None:
+    """A gain stage (the compressor's, the feedback waveshaper's) whose
+    ``env`` is ``None`` reads the envelope of the detector phase just before
+    it."""
+    if phase.name not in _READS_ENV or phase.args[0] is not None:
         return phase
     if not outs or len(outs[-1]) != 2:
-        raise ValueError("compressor_block: env=None needs an env_follower_block phase before it")
+        raise ValueError(f"{phase.name}: env=None needs an env_follower_block phase before it")
     return phase._replace(args=(outs[-1][0],) + tuple(phase.args[1:]))
 
 
@@ -665,7 +688,113 @@ def spring_block(x, A, p2, fbgp, hist, damp, mix, fb0, *, delays, gains):
 spring_block.launches = 0
 
 
-# --- 8. bus_chain ---------------------------------------------------------------
+# --- 8. waveshaper_block -------------------------------------------------------
+
+
+def waveshaper_block_plain(x, prm, packed):
+    """Plain version of the bus waveshaper (pallas_fx.py:592-611):
+    ``tanh(v*d)*tanh(0.5)/tanh(0.5 d)`` at 4x with block-scalar drive and
+    mix, the mix, the bypass select and the finite guard."""
+    drive, mix = prm[:, 0:1], prm[:, 1:2]
+    d = torch.clamp(drive, min=1.0 + 1e-6)
+    comp = torch.full_like(d, _TANH_HALF) / torch.tanh(0.5 * d)
+    d0, c0 = d[:, 0], comp[:, 0]
+    sat, nst = ovs4_plain(x.t(), packed, lambda n, s: torch.tanh(s * d0) * c0,
+                          lambda c, n, y: y)
+    out = torch.where((mix <= 1e-4) | (drive <= 1.0), x, x * (1.0 - mix) + sat * mix)
+    return torch.where(torch.isfinite(x), out, 0.0), nst
+
+
+def waveshaper_block(x, prm, packed):
+    """One stereo 4x waveshaper block.  ``x``: [2, B]; ``prm``: [2, 2] per
+    channel (drive, mix), block scalars; ``packed``: [52, 2] from
+    ``bank_kernels.pack_ws4_bank``.  Returns ``(out [2, B], nst [100, 2])``
+    for ``bank_kernels.unpack_ws4_bank``; the caller holds the state over a
+    bypassed block."""
+    if not _on_cuda("waveshaper_block", x):
+        return waveshaper_block_plain(x, prm, packed)
+    res = _launch_one("waveshaper_block", x, (prm, packed), {})
+    waveshaper_block.launches += 1
+    return res
+
+
+waveshaper_block.launches = 0
+
+
+# --- 9. fbws_fast_block --------------------------------------------------------
+
+#: ln(10) * 5.1 / 20, the high-end makeup's exponent scale (pallas_fx.py:1099)
+_FBWS_MAKEUP_LN = _f32(5.1 * np.log(10.0) / 20.0)
+
+
+def fbws_gain(env, drive, feedback):
+    """The feedback waveshaper's envelope-referenced makeup gain
+    (feedback_waveshaper.rs:247-259) in the TPU kernel's exp/log form
+    (pallas_fx.py:1087-1100)."""
+    reference = torch.clamp(env, min=0.05)
+    driven_ref = torch.clamp(torch.tanh(reference * drive).abs(), min=1e-6)
+    comp_no_fb = torch.tanh(reference) / driven_ref
+    drive_norm = torch.clamp(_div(drive - 1.0, 99.0), 0.0, 1.0)
+    feedback_norm = torch.clamp(_div(feedback, 0.98), 0.0, 1.0)
+    high_end = torch.exp(1.35 * torch.log(torch.clamp(drive_norm, min=1e-30))) * (
+        feedback_norm * feedback_norm)
+    high_end = torch.where(drive_norm <= 0.0, 0.0, high_end)
+    makeup = torch.exp(_FBWS_MAKEUP_LN * high_end)
+    taming = 1.0 / (1.0 + comp_no_fb * feedback * 0.25)
+    return torch.clamp(comp_no_fb * taming * makeup, max=3.0)
+
+
+def fbws_fast_block_plain(x, env, prm, packed):
+    """Plain version of the zero-feedback feedback waveshaper
+    (pallas_fx.py:1071-1122): ``drive*x`` through the 4x tanh chain, the
+    makeup gain on the detector's envelope, the bypass-gated DC blocker, the
+    feedback filter stepped sample by sample, and the mix."""
+    drive, feedback, fbc, mix = (prm[:, i:i + 1] for i in range(4))
+    bypass = (mix <= 1e-4) | (drive <= 1.0)
+    cs = torch.where(bypass, -1.0, fbws_gain(env, drive, feedback))
+    dc, nst = ovs4_plain((x * drive).t(), packed[:FBWS_S_IN], lambda n, s: torch.tanh(s),
+                         gated_dc(cs.t()))
+    a_f = torch.where(bypass, 1.0, 1.0 - fbc)[:, 0]
+    b_f = (1.0 - bypass.to(_F32)) * fbc * dc
+    filt = packed[FBWS_S_IN]
+    for n in range(x.shape[1]):
+        filt = a_f * filt + b_f[:, n]
+    filt = torch.where(filt.abs() < 1e-15, 0.0, filt)
+    out = torch.where(bypass, x, x * (1.0 - mix) + dc * mix)
+    return out, torch.cat([nst, filt[None]], dim=0)
+
+
+def fbws_fast_block(x, env, prm, packed):
+    """The feedback waveshaper's zero-feedback block on the stereo bus.
+
+    ``x``: [2, B]; ``env``: [2, B] envelope of ``env_follower_block`` on
+    ``x`` (``None`` in a ``bus_chain`` run: the detector phase's before it);
+    ``prm``: [2, 4] per channel (drive, feedback, filter coefficient, mix),
+    block scalars; ``packed``: [53, 2] from :func:`pack_fbws_fast`.
+    Returns ``(out [2, B], nst [101, 2])`` for :func:`unpack_fbws_fast`."""
+    if not _on_cuda("fbws_fast_block", x):
+        return fbws_fast_block_plain(x, env, prm, packed)
+    res = _launch_one("fbws_fast_block", x, (env, prm, packed), {})
+    fbws_fast_block.launches += 1
+    return res
+
+
+fbws_fast_block.launches = 0
+
+
+def pack_fbws_fast(state) -> torch.Tensor:
+    """A ``[2]``-batched FBShaperState -> packed ``[53, 2]``: the fbws
+    layout, then the feedback filter's state."""
+    return torch.cat([pack_fbws_bank(state), state.filter_state[None]], dim=0)
+
+
+def unpack_fbws_fast(nst, ovs):
+    """Packed ``[101, 2]`` -> ``(OversamplerState, dc_x1, dc_y1, filter)``."""
+    new_ovs, dc_x1, dc_y1 = unpack_fbws_bank(nst[:FBWS_S_OUT], SimpleNamespace(ovs=ovs))
+    return new_ovs, dc_x1, dc_y1, nst[FBWS_S_OUT]
+
+
+# --- 10. bus_chain --------------------------------------------------------------
 
 
 def _run(x, phase, plain: bool):

@@ -1,13 +1,14 @@
 """Every hand-written kernel of the port by name: the voice banks'
-(:mod:`ops.bank_kernels`), the bus's (:mod:`ops.bus_kernels`) and the plate's
-(:mod:`ops.plate_kernels`), with their launch counts."""
+(:mod:`ops.bank_kernels`), the bus's (:mod:`ops.bus_kernels`), the plate's
+(:mod:`ops.plate_kernels`) and the kit's (:mod:`ops.voice_kernels`), with
+their launch counts."""
 
 from __future__ import annotations
 
-from libgooey_tpu_torch.ops import bank_kernels, bus_kernels, plate_kernels
+from libgooey_tpu_torch.ops import bank_kernels, bus_kernels, plate_kernels, voice_kernels
 
-MODULES = (bank_kernels, bus_kernels, plate_kernels)
-KERNELS = bank_kernels.KERNELS + bus_kernels.KERNELS + plate_kernels.KERNELS
+MODULES = (bank_kernels, bus_kernels, plate_kernels, voice_kernels)
+KERNELS = sum((mod.KERNELS for mod in MODULES), ())
 
 #: the wrappers as imported, so that the counts survive a caller swapping a
 #: module attribute for the plain version

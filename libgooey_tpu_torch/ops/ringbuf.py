@@ -28,7 +28,7 @@ class Ring(NamedTuple):
     NUMPY_DTYPES = {"pos": np.int32}
 
     @staticmethod
-    def init(length: int, batch=(), device="cpu") -> "Ring":
+    def init(length: int, batch=(), *, device) -> "Ring":
         return Ring(buf=torch.zeros(tuple(batch) + (int(length),), dtype=torch.float32,
                                     device=device),
                     pos=torch.zeros((), dtype=torch.int64, device=device))

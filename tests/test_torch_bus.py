@@ -216,13 +216,13 @@ def test_held_blocks_keep_the_incoming_state():
     """All-bypassed saturation blocks and all-passthrough tilt blocks hand
     back the oversampler / SVF state they were given."""
     x = torch.from_numpy(np.random.RandomState(0).uniform(-0.5, 0.5, (2, B)).astype(np.float32))
-    st = tsaturation.init_state(SR, 0.6, 0.5, 0.0)
+    st = tsaturation.init_state(SR, 0.6, 0.5, 0.0, device="cpu")
     st = st._replace(ovs=st.ovs._replace(up1=st.ovs.up1._replace(ap0=torch.full((2, 4), 0.1))))
     new, out = tsaturation.process_block(st, x, (0.6, 0.5, 0.0), sample_rate=SR)
     assert torch.equal(out, x)
     for a, b in zip(torch.utils._pytree.tree_leaves(new.ovs), torch.utils._pytree.tree_leaves(st.ovs)):
         assert torch.equal(a, b)
-    tt = ttilt.init_state(SR)._replace(svf=ttilt.filters.SVFState(torch.full((2,), 0.2),
+    tt = ttilt.init_state(SR, device="cpu")._replace(svf=ttilt.filters.SVFState(torch.full((2,), 0.2),
                                                                   torch.full((2,), -0.1)))
     new_t, out_t = ttilt.process_block(tt, x, (0.5, 0.0), sample_rate=SR)
     assert torch.equal(out_t, x)
@@ -261,7 +261,7 @@ def test_tap_frac_matches_jax():
     that wrap the ring, offsets clamped at both ends."""
     rs = np.random.RandomState(22)
     L, C = 700, 128
-    jr, tr = jringbuf.Ring.init(L), tringbuf.Ring.init(L)
+    jr, tr = jringbuf.Ring.init(L), tringbuf.Ring.init(L, device="cpu")
     for _ in range(7):
         w = rs.randn(C).astype(np.float32)
         jr = jringbuf.write_block(jr, jnp.asarray(w))
@@ -287,7 +287,7 @@ def test_plate_matches_the_oracle():
     x = np.zeros((2, n), np.float32)
     x[:, 0] = 1.0
     args = (0.7, 1.0, 0.2, 0.0, 1.0, 0.1)
-    st, outs = tplate.init_state(SR, *args), []
+    st, outs = tplate.init_state(SR, *args, device="cpu"), []
     for i in range(0, n, B):
         st, y = tplate.process_block(st, torch.from_numpy(x[:, i:i + B]),
                                      np.asarray(args, np.float32), sample_rate=SR)
@@ -296,3 +296,19 @@ def test_plate_matches_the_oracle():
     wl, wr = plate_oracle(x[0], *args[:3], predelay=args[3], width=args[4], size=args[5])
     assert np.abs(wl).max() > 1e-3
     assert max(np.abs(got[0] - wl).max(), np.abs(got[1] - wr).max()) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["saturation", "lowpass", "tilt", "delay", "compressor",
+                                  "spring", "plate", "ring"])
+def test_states_are_made_where_asked(name):
+    """An effect's ``init_state`` and ``Ring.init`` take the device as a
+    required keyword, as the instruments do: called without it they raise,
+    never handing back CPU tensors a card's engine did not ask for."""
+    from libgooey_tpu_torch.engine import engine as tengine
+
+    make = ((lambda **kw: tringbuf.Ring.init(64, batch=(2,), **kw)) if name == "ring"
+            else (lambda **kw: tengine.FX_MODULES[name].init_state(SR, **kw)))
+    with pytest.raises(TypeError, match="device"):
+        make()
+    leaves = torch.utils._pytree.tree_leaves(make(device="cpu"))
+    assert leaves and all(t.device.type == "cpu" for t in leaves)

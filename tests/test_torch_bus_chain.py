@@ -125,7 +125,7 @@ def test_run_equals_the_per_effect_path(case):
     names, init, seq, pingpong, seed = CASES[case]
     rs = np.random.RandomState(seed)
     modules = [tengine.FX_MODULES[n] for n in names]
-    st = [m.init_state(SR, *init[n]) for m, n in zip(modules, names)]
+    st = [m.init_state(SR, *init[n], device="cpu") for m, n in zip(modules, names)]
     run_st, run_y = list(st), None
     options = [{"pingpong": pingpong} if n == "delay" else {} for n in names]
     for i in range(N):
@@ -156,7 +156,7 @@ def test_engine_bus_merged_or_not_renders_the_same():
              "gain": SmootherBank.init(np.full(V, 0.5), "cpu"),
              "master": SmootherBank.init(np.float32(0.5), "cpu")}
     for name in fx:
-        state["fx_" + name] = tengine.FX_MODULES[name].init_state(SR)
+        state["fx_" + name] = tengine.FX_MODULES[name].init_state(SR, device="cpu")
     events = {"block_start": (np.arange(N) * 128).astype(np.int32),
               "kick_off": rs.randint(0, 256, (N, V)).astype(np.int32),
               "kick_vel": rs.uniform(0.5, 1.0, (N, V)).astype(np.float32)}
@@ -204,7 +204,7 @@ def _split_render(monkeypatch, order, sidechain, **kw):
              "gain": SmootherBank.init(np.full(V, 0.5), "cpu"),
              "master": SmootherBank.init(np.float32(0.5), "cpu")}
     for name in order:
-        state["fx_" + name] = tengine.FX_MODULES[name].init_state(SR)
+        state["fx_" + name] = tengine.FX_MODULES[name].init_state(SR, device="cpu")
     events = {"block_start": (np.arange(2) * Bs).astype(np.int32),
               "kick_off": rs.randint(0, 2 * Bs, (2, V)).astype(np.int32),
               "kick_vel": rs.uniform(0.5, 1.0, (2, V)).astype(np.float32)}

@@ -259,4 +259,4 @@ def test_unported_parts_raise_with_a_pointer():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tkick.render_block(st, np.zeros(2, np.int32), np.ones(2, np.float32), 0,
                            sample_rate=SR, block_size=B, smooth_coeff=smoothing_coeff(SR),
-                           max_harmonics=0, feedback_path=True)
+                           max_harmonics=0, feedback_path=False, os_mode=2)

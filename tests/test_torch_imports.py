@@ -32,7 +32,11 @@ def test_port_never_imports_jax():
         "       'libgooey_tpu_torch.effects.tilt', 'libgooey_tpu_torch.effects.delay',\n"
         "       'libgooey_tpu_torch.effects.chain', 'libgooey_tpu_torch.effects.compressor',\n"
         "       'libgooey_tpu_torch.effects.reverb_spring',\n"
-        "       'libgooey_tpu_torch.effects.reverb_plate', 'libgooey_tpu_torch.ops.plate_kernels'}\n"
+        "       'libgooey_tpu_torch.effects.reverb_plate', 'libgooey_tpu_torch.ops.plate_kernels',\n"
+        "       'libgooey_tpu_torch.ops.voice', 'libgooey_tpu_torch.ops.voice_kernels',\n"
+        "       'libgooey_tpu_torch.effects.waveshaper',\n"
+        "       'libgooey_tpu_torch.effects.feedback_waveshaper',\n"
+        "       'libgooey_tpu_torch.mixer', 'libgooey_tpu_torch.mixer.chain'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
