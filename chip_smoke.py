@@ -10,7 +10,7 @@ Phases (any failure exits non-zero):
 1. device: require a CUDA card; print its name and power limit (nvidia-smi);
 2. build: compile the kernels (libgooey_tpu_torch/csrc, one nvcc per source
    in parallel);
-3. kernels: each of the twenty-one kernels against its plain PyTorch
+3. kernels: each of the twenty-four kernels against its plain PyTorch
    version on the card, at the main path's shapes (B = 512; V = 4,096 for
    the kick's five, V = 1,024 for ws4 and the triangle, R = 2,560 membrane
    rows for linrec2, the stereo bus [2, B] for the nine bus kernels, the
@@ -18,13 +18,19 @@ Phases (any failure exits non-zero):
    ``bus_chain`` running the kit's seven bus phases, the first four, and
    the product chain's ten in one launch, which must also equal the kernels
    in turn bit for bit, ``kit_sources`` at the 64-voice product kit and
-   ``kit_drive`` at its kick 16 + snare 16), inputs from a numpy seed; with
+   ``kit_drive`` at its kick 16 + snare 16, ``mix_bank`` at the kit's 4,096
+   voices with pan and gain moving, ``grain_read_cubic`` at 4,000 grains on
+   a 32,768-sample source with and without ages, ``sampler_read_linear``
+   at 128 voices on a 32,768-frame arena; ``affine1_bank`` also at
+   ``pallas_scan.linrec1_pallas``'s [4,096, 512] with no floor, the
+   function of that TPU kernel), inputs from a numpy seed; with
    each kernel's time, its plain version's and its bound (the larger of
    bytes over 3.35 TB/s and operations over 67 TFLOP/s); also the counter
    hash, bit for bit against the CPU;
 4. the kick slice through ``render_many``: 4,096 kick voices, tight preset,
    ``max_harmonics=0, feedback_path=False``, the default bus (mix, master,
-   soft limiter), 64 blocks of 512 at 44.1 kHz with sequenced staggered
+   soft limiter; the mix is one ``mix_bank`` launch a block, here and in
+   every later phase that runs the engine), 64 blocks of 512 at 44.1 kHz with sequenced staggered
    triggers; checks the output, the launch counts, and the first 2 blocks
    against the same render with every kernel swapped for its plain version;
    reports the aggregate real-time factor (voices x audio seconds / wall s)
@@ -78,16 +84,37 @@ Phases (any failure exits non-zero):
    compressor, spring and plate added with ``add_global_effect``, 1 s; then
    1 s more with the compressor keyed from the first kick
    (``set_sidechain_source``), which splits the bus: the first four in one
-   launch, the compressor's and the spring's own kernels, the plate's.
+   launch, the compressor's and the spring's own kernels, the plate's;
+10. granulator_lfo_sampler_4k_lanes, ``bench_configs.bench_granulator_sampler_4k``
+   without importing it: the granulator's 80-lane state on
+   ``RandomState(0).randn(32768)*0.3`` tiled to 4,000 lanes, every lane
+   seeded active from ``RandomState(1)`` in the bench's draw order
+   (duration, src_pos, step, shape, vel; then the sampler's increment and
+   velocity), plus the reference's full sampler capacity, 4 racks x 32
+   voices as one 128-voice state on a 32,768-frame arena; 64 blocks of no
+   events through ``granulator.render_block`` and ``sampler.render_block``,
+   output ``gout + sout[0]``; one ``grain_read_cubic``, one
+   ``sampler_read_linear``, one ``ws4_bank`` (the drive, one row) and one
+   ``affine1_bank`` (the 1/sqrt(N) smoother, one row) a block; aggregate
+   RTF over the 4,128 lanes, median of 3 renders.  The bench's arena is
+   zeros, so its kernel-vs-plain comparison (4 blocks) fills the arena
+   from a seed, starts the voices at mixed offsets and engages the drive
+   (0.5).  Then 1 s driven by the hosts: a ``GranulatorHost`` cloud
+   (dense, with spray and timing jitter, so grains are stolen into the
+   release pool) and a ``SamplerRackHost`` with two slots and a running
+   pattern, each block on the kernels, its first blocks against the plain
+   versions.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
 JSON summary (launches from the first full_kit_4096_bus7 render, the
 eight single bus kernels' from its ``fuse_bus=False`` render, the kit
 kernels' from the product render and the two waveshapers' from its
-``fuse_runs=False`` render).  ``--profile PATH`` also writes
-torch.profiler tables of 4 steady-state blocks of the kick slice, the kit,
-each kit-with-bus render and the product block to PATH.
+``fuse_runs=False`` render, the grain and sampler reads' from phase 10's
+render).  ``--profile PATH``
+also writes torch.profiler tables of 4 steady-state blocks of the kick
+slice, the kit, each kit-with-bus render, the product block and phase 10's
+render to PATH.
 """
 
 from __future__ import annotations
@@ -157,6 +184,15 @@ OPS_PER_ROW_SAMPLE = {
     # drive 1, the 4x chain 99, four tanh 4, the makeup gain 20, DC 3, the
     # feedback filter 4, the mix 3
     "fbws_fast_block": 134,
+    # per (voice, sample): the two smoothers 6, the clip and angle 3, cos
+    # and sin 2, x*gain 1, two products 2, three sums 3
+    "mix_bank": 17,
+    # per output sample: age 1, the position 4 (multiply, add, clip), the
+    # fraction 1, the Catmull-Rom coefficients 16, the Horner form 6
+    "grain_read_cubic": 28,
+    # per (voice, sample), both channels: age 2, position 3, the fraction
+    # 1, end - 1 1, two lerps 3 each
+    "sampler_read_linear": 13,
 }
 #: the kit kernels' operations per row-sample, by body: the kick's and the
 #: snare's additive triangles (32 harmonics x ~11 at max_harmonics = 64)
@@ -174,6 +210,16 @@ N_COMPARE_PRODUCT = 4
 PRODUCT_ENGAGED = {6: [4.0, 0.5], 7: [4.0, 0.0, 2000.0, 1.0]}
 #: the 2-block render with kernels vs with plain versions, on the card
 RENDER_TOL = 1e-4
+#: granulator_lfo_sampler_4k_lanes (bench_configs.py:465-537): grain lanes,
+#: sampler voices (4 racks x 32), the granulator's source and the arena
+G_LANES = 4000
+S_VOICES = 128
+GRAIN_SOURCE = 1 << 15
+ARENA_FRAMES = 1 << 15
+#: its comparison's blocks and drive; the host-driven render's length
+N_COMPARE_GRAIN = 4
+GRAIN_DRIVE = 0.5
+HOST_SECONDS = 1.0
 
 
 class SmokeFailure(RuntimeError):
@@ -231,7 +277,7 @@ def kernel_cases(dev):
     from libgooey_tpu_torch.effects import reverb_plate, reverb_spring, saturation
     from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
-    from libgooey_tpu_torch.ops import filters, noise, ringbuf
+    from libgooey_tpu_torch.ops import filters, noise, ringbuf, scan
 
     rs = np.random.RandomState(SEED)
 
@@ -248,6 +294,10 @@ def kernel_cases(dev):
         t(np.full((V, B), -3.0e38, np.float32)),
         t(np.where(rs.rand(V, B) < 0.002, 0.0, 0.9 + 0.0999 * rs.rand(V, B))),
         t(0.01 * rs.randn(V, B)), t(0.1 * rs.randn(V))), {}, 1))
+    #    and as pallas_scan.linrec1_pallas's y[n] = a[n]*y[n-1] + b[n], |a| < 1
+    cases.append(("affine1_bank", f"{kick_shape}, no floor: linrec1_pallas's function", (
+        t(np.full((V, B), scan.NO_FLOOR, np.float32)), t(rs.uniform(-0.99, 0.99, (V, B))),
+        t(rs.randn(V, B)), t(rs.randn(V))), {}, 1))
     # 2. pink over hashed white noise with trigger resets
     poles, gains = noise.coefficients(SR)
     kw = dict(poles=tuple(map(float, poles)), gains=tuple(map(float, gains)),
@@ -409,6 +459,37 @@ def kernel_cases(dev):
                   + f" voices, B={B}", (sources,), {}, None))
     cases.append(("kit_drive", f"kick {PRODUCT_KIT['kick']} + snare {PRODUCT_KIT['snare']}, "
                   f"B={B}", (drive,), {}, None))
+    # 23. the engine's fused mix over the kit's 4,096 voices: pans sweeping to
+    #     their mirror image, gains falling from 1.5/V to 1/V
+    Vk = sum(KIT.values())
+    pan = np.linspace(0.2, 0.8, Vk)
+    cases.append(("mix_bank", f"V={Vk}, B={B}", (
+        t(0.3 * rs.randn(Vk, B)), t(pan), t(pan[::-1]), t(np.full(Vk, 1.5 / Vk)),
+        t(np.full(Vk, 1.0 / Vk))), dict(coeff=smoothing_coeff(SR)), 3))
+    # 24. the granulator's reads at the 4k bench's lanes and source: steps
+    #     ±[0.5, 2] and every 50th at ±8, starts across and beyond the
+    #     source, ages up to 60,000 samples and never-spawned lanes (2^30);
+    #     then without ages (age = n)
+    G = G_LANES
+    step = rs.uniform(0.5, 2.0, G) * rs.choice([-1.0, 1.0], G)
+    step[::50] = 8.0 * np.sign(step[::50])
+    age0 = rs.randint(-B, 60000, G)
+    age0[::97] = 2**30
+    grain = (t(0.3 * np.random.RandomState(0).randn(GRAIN_SOURCE)),
+             t(rs.uniform(-300.0, GRAIN_SOURCE + 300.0, G)), t(step))
+    grain_shape = f"G={G}, L={GRAIN_SOURCE}, B={B}"
+    cases.append(("grain_read_cubic", grain_shape + ", ages", grain,
+                  dict(B=B, age0=t(age0, torch.int32)), 1))
+    cases.append(("grain_read_cubic", grain_shape + ", age = n", grain, dict(B=B), 1))
+    # 25. the sampler's reads: 128 voices, slots of 2,000-30,000 frames with
+    #     fractional ends, bases spread over the arena (those running past
+    #     its end clamp), voices started up to 30,000 samples back
+    S = S_VOICES
+    cases.append(("sampler_read_linear", f"V={S}, F={ARENA_FRAMES}, B={B}", (
+        t(0.3 * rs.randn(ARENA_FRAMES, 2)), t(rs.randint(0, ARENA_FRAMES, S), torch.int32),
+        t(rs.uniform(2000.0, 30000.0, S) + rs.choice([0.0, 0.25, 0.5], S)),
+        t(rs.randint(-30000, 2 * B, S), torch.int32), t(rs.uniform(0.5, 2.0, S)), 3 * B),
+        dict(B=B), 1))
     return cases
 
 
@@ -486,23 +567,26 @@ def nbytes(obj) -> int:
     return 0
 
 
-def bound_ms(name, args, outs):
+def bound_ms(name, args, kw, outs):
     """The least time the card could take: each input read once and each
     output written once at 3.35 TB/s, or the body's operations at 67
     TFLOP/s, whichever is larger (``bus_chain``: the sum of its phases'
-    operations; the kit kernels: each phase's body over its rows).
+    operations; the kit kernels: each phase's body over its rows; the
+    reads: per output sample, a stereo frame for the sampler).
     Returns ``(ms, "bytes"|"operations")``."""
     if name in ("kit_sources", "kit_drive"):   # each phase's rows, B samples
         from libgooey_tpu_torch.ops import voice_kernels
 
         ops = sum(OPS_PER_BODY_SAMPLE[ph.name] * int(np.prod(voice_kernels._vb_of(ph)))
                   for ph in args[0])
+    elif name in ("grain_read_cubic", "sampler_read_linear"):
+        ops = int(np.prod(outs[0].shape[:2])) * OPS_PER_ROW_SAMPLE[name]
     else:
         shape = args[0].shape
         rows, b = (1, shape[0]) if len(shape) == 1 else shape
         ops = rows * b * (sum(OPS_PER_ROW_SAMPLE[ph.name] for ph in args[1])
                           if name == "bus_chain" else OPS_PER_ROW_SAMPLE[name])
-    t_bytes = (nbytes(args) + nbytes(outs)) / PEAK_BYTES_S
+    t_bytes = (nbytes(args) + nbytes(list(kw.values())) + nbytes(outs)) / PEAK_BYTES_S
     t_ops = ops / PEAK_F32_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -544,7 +628,7 @@ def phase_kernels(dev):
             kern(*args, **kw)
         ms = cuda_ms(lambda: kern(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
-        bms, bound_by = bound_ms(name, args, got)
+        bms, bound_by = bound_ms(name, args, kw, got)
         print(f"kernel {name}: out err {out_err:.3e} (tol {OUT_TOL:g}), state err "
               f"{state_err:.3e} (tol {STATE_TOL:g}); {ms * 1e3:.1f} us/call vs plain "
               f"{plain_ms * 1e3:.1f} us/call, bound {bms * 1e3:.4f} us ({bound_by}) at {shape}")
@@ -560,7 +644,8 @@ def phase_kernels(dev):
         if name in results:   # a second case of one kernel: keep the first's times
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
             continue
-        # no single PyTorch call computes any of these recurrences
+        # no single PyTorch call computes any of these recurrences, gathers
+        # four clamped taps into a Horner form, or sums a per-sample panned bank
         results[name] = dict(name=name, route="cuda", source=mod.SOURCES[name],
                              replaces=mod.REPLACES[name], launches=0, max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
@@ -704,8 +789,8 @@ def drive_path(label, card, state, events, static, n_voices, path_kernels, repea
                prof_file=None, compare=None):
     """Render one path: warm up, then with every launch count at 0 time
     ``repeats`` renders of ``N_BLOCKS`` and read the counts after the
-    first; check the output, that each of ``path_kernels`` launched, and the
-    first blocks against the all-plain render (``compare``: the state and
+    first; check the output, that each of ``path_kernels`` launched and
+    ``mix_bank`` once a block, and the first blocks against the all-plain render (``compare``: the state and
     events of that comparison, else the path's own first blocks).  Returns
     the counts."""
     import torch
@@ -736,8 +821,8 @@ def drive_path(label, card, state, events, static, n_voices, path_kernels, repea
     check(bool(torch.isfinite(out).all()), f"{label} output is not finite")
     check(tuple(out.shape) == (N_BLOCKS, 2, B), f"{label} output shape {tuple(out.shape)}")
     check(peak > 1e-3, f"{label} output is silent (peak {peak})")
-    check(all(counts[n] > 0 for n in path_kernels),
-          f"{label}: a kernel never launched: {counts}")
+    check(all(counts[n] > 0 for n in path_kernels) and counts["mix_bank"] == N_BLOCKS,
+          f"{label}: a kernel never launched, or the mix not once a block: {counts}")
     audio_s = N_BLOCKS * B / SR
     rtf = n_voices * audio_s / wall
     print(f"{label}: {n_voices} voices x {N_BLOCKS} blocks, median of {repeats} renders "
@@ -757,24 +842,9 @@ def drive_path(label, card, state, events, static, n_voices, path_kernels, repea
     check(err <= RENDER_TOL, f"{label}: kernel render differs from the plain render by {err}")
 
     if prof_file is not None:
-        from torch.profiler import ProfilerActivity, profile
-
         prof_events = {k: v[:4] for k, v in events.items()}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            engine.render_many(state, prof_events, **static)
-            torch.cuda.synchronize()
-        table = prof.key_averages()
-        device = [e for e in table if e.device_type == torch.autograd.DeviceType.CUDA]
-        launches = sum(e.count for e in device) / 4
-        busy_ms = sum(e.self_device_time_total for e in device) / 4e3
-        h2d = sum(e.count for e in device if "HtoD" in e.key) / 4
-        summary = (f"{label} (traced): {launches:.0f} device ops per block (kernels and "
-                   f"copies; {h2d:.0f} host-to-device), device busy {busy_ms:.3f} ms/block")
-        print(summary)
-        prof_file.write(f"# 4 blocks of the {label} ({n_voices} voices) on {card}\n"
-                        f"# {summary}\n")
-        prof_file.write(table.table(sort_by="cuda_time_total", row_limit=90))
-        prof_file.write("\n\n")
+        profile_blocks(f"{label} ({n_voices} voices)", card, prof_file, wall,
+                       lambda: engine.render_many(state, prof_events, **static))
     return counts
 
 
@@ -782,15 +852,15 @@ def phase_slice(dev, card, prof_file=None):
     state, events, static = slice_inputs(dev, N_BLOCKS)
     return drive_path("kick slice", card, state, events, static, V,
                       ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank",
-                       "fbws_bank"), N_REPEATS_EARLIER, prof_file)
+                       "fbws_bank", "mix_bank"), N_REPEATS_EARLIER, prof_file)
 
 
 def phase_kit(dev, card, prof_file=None):
     from libgooey_tpu_torch.ops import bank_kernels as bk
 
     state, events, static = kit_inputs(dev, N_BLOCKS)
-    return drive_path("kit", card, state, events, static, sum(KIT.values()),
-                      bk.KERNELS, N_REPEATS_EARLIER, prof_file)
+    drive_path("kit", card, state, events, static, sum(KIT.values()), bk.KERNELS,
+               N_REPEATS_EARLIER, prof_file)
 
 
 #: the bus's single kernels: an effect alone, or every effect with
@@ -917,6 +987,31 @@ def render_product(state, events, static, fx, fuse_runs=True):
     return torch.stack(outs)
 
 
+def profile_blocks(label, card, prof_file, wall, render4):
+    """torch.profiler over ``render4()``, 4 blocks: print device ops and
+    busy ms per block and the idle share of ``wall`` (the timed renders'
+    median, ``N_BLOCKS`` blocks), and write the table to ``prof_file``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render4()
+        torch.cuda.synchronize()
+    table = prof.key_averages()
+    device = [e for e in table if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 4e3
+    h2d = sum(e.count for e in device if "HtoD" in e.key) / 4
+    summary = (f"{label} (traced): {sum(e.count for e in device) / 4:.0f} device ops per "
+               f"block (kernels and copies; {h2d:.0f} host-to-device), device busy "
+               f"{busy_ms:.3f} ms/block, idle share "
+               f"{1.0 - busy_ms / (wall / N_BLOCKS * 1e3):.3f} of the timed renders' "
+               f"{wall / N_BLOCKS * 1e3:.3f} ms/block")
+    print(summary)
+    prof_file.write(f"# 4 blocks of the {label} on {card}\n# {summary}\n")
+    prof_file.write(table.table(sort_by="cuda_time_total", row_limit=90))
+    prof_file.write("\n\n")
+
+
 def phase_product(dev, card, prof_file=None):
     """product_block_64v_chain9: the kit kernels once a block, the chain's
     first eight entries as one ten-phase ``bus_chain`` and the plate's own
@@ -963,11 +1058,11 @@ def phase_product(dev, card, prof_file=None):
     check(bool(torch.isfinite(out).all()), f"{label} output is not finite")
     check(tuple(out.shape) == (N_BLOCKS, 2, B), f"{label} output shape {tuple(out.shape)}")
     check(peak > 1e-3, f"{label} output is silent (peak {peak})")
-    once = ("kit_sources", "kit_drive", "bus_chain", "plate_block")
+    once = ("kit_sources", "kit_drive", "mix_bank", "bus_chain", "plate_block")
     check(all(counts[n] == N_BLOCKS for n in once) and phases_seen == [10] * N_BLOCKS
           and all(counts[n] == 0 for n in ("waveshaper_block", "fbws_fast_block")),
-          f"{label}: not one kit_sources, kit_drive, ten-phase bus_chain and plate_block a "
-          f"block: {counts}, phases {sorted(set(phases_seen))}")
+          f"{label}: not one kit_sources, kit_drive, mix_bank, ten-phase bus_chain and "
+          f"plate_block a block: {counts}, phases {sorted(set(phases_seen))}")
     audio_s = N_BLOCKS * B / SR
     print(f"{label}: {nv} voices x {N_BLOCKS} blocks through the nine-entry chain, median of "
           f"{N_REPEATS} renders {wall:.4f} s ({wall / N_BLOCKS * 1e3:.3f} ms/block; min "
@@ -999,23 +1094,9 @@ def phase_product(dev, card, prof_file=None):
     check(err <= RENDER_TOL, f"{label}: kernel render differs from the plain render by {err}")
 
     if prof_file is not None:
-        from torch.profiler import ProfilerActivity, profile
-
         short = product_inputs(dev, 4)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            render_product(*short)
-            torch.cuda.synchronize()
-        table = prof.key_averages()
-        device = [e for e in table if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in device) / 4e3
-        summary = (f"{label} (traced): {sum(e.count for e in device) / 4:.0f} device ops per "
-                   f"block, device busy {busy_ms:.3f} ms/block, idle share "
-                   f"{1.0 - busy_ms / (wall / N_BLOCKS * 1e3):.3f} of the timed renders' "
-                   f"{wall / N_BLOCKS * 1e3:.3f} ms/block")
-        print(summary)
-        prof_file.write(f"# 4 blocks of the {label} ({nv} voices) on {card}\n# {summary}\n")
-        prof_file.write(table.table(sort_by="cuda_time_total", row_limit=90))
-        prof_file.write("\n\n")
+        profile_blocks(f"{label} ({nv} voices)", card, prof_file, wall,
+                       lambda: render_product(*short))
     return {**{n: counts[n] for n in ("kit_sources", "kit_drive")},
             **{n: unfused[n] for n in ("waveshaper_block", "fbws_fast_block")}}
 
@@ -1083,17 +1164,211 @@ def phase_engine(dev):
         check(out.shape == (2, n_samples), f"{label}: output shape {out.shape}")
         check(bool(np.isfinite(out).all()), f"{label}: output is not finite")
         check(peak > 1e-3, f"{label}: output is silent (peak {peak})")
-        check(all(counts[k] == n_blocks for k in ("kit_sources", "kit_drive"))
+        check(all(counts[k] == n_blocks for k in ("kit_sources", "kit_drive", "mix_bank"))
               and all(counts[k] > 0 for k in ENGINE_MIDDLES)
               and all(counts[k] == 0 for k in STAGE_ONLY)
               and all(counts[k] == (n_blocks if k in launched else 0)
                       for k in BUS_SINGLES + ("bus_chain",)),
-              f"{label}: the kit kernels not once a block, a middle kernel never launched, a "
-              f"stage-path kernel launched, or a bus kernel not once a block: {counts}")
+              f"{label}: the kit kernels or the mix not once a block, a middle kernel never "
+              f"launched, a stage-path kernel launched, or a bus kernel not once a block: "
+              f"{counts}")
         print(f"{label}: {len(names)} sequenced instruments of 5 families through "
               f"{'/'.join(eng.fx_order)}, {ENGINE_SECONDS:g} s rendered in {wall:.3f} s, "
               f"peak {peak:.4f}; "
               f"launches {json.dumps(counts)}")
+
+
+# --- phase 10: the granulator and the sampler racks -------------------------
+
+#: the kernels of phase 10's render, each once a block
+GRAIN_PATH = ("grain_read_cubic", "sampler_read_linear", "ws4_bank", "affine1_bank")
+
+
+def grain_inputs(dev, compare=False):
+    """The states of bench_configs.bench_granulator_sampler_4k: the
+    granulator's 80-lane state on ``RandomState(0).randn(32768)*0.3`` widened
+    to ``G_LANES`` lanes, every lane seeded active from ``RandomState(1)``
+    in the bench's order (duration, src_pos, step, shape, vel; then the
+    sampler's increment and velocity), the sampler as one ``S_VOICES``-voice
+    state on a zero arena.  ``compare``: the arena filled from a seed, the
+    voices started at mixed offsets and bases, the drive at
+    ``GRAIN_DRIVE``.  Returns ``(grain_state, sampler_state)``."""
+    import torch
+
+    from libgooey_tpu_torch.instruments import granulator as gran
+    from libgooey_tpu_torch.instruments import sampler as samp
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    G, S = G_LANES, S_VOICES
+    buf = np.random.RandomState(0).randn(GRAIN_SOURCE).astype(np.float32) * 0.3
+    cfg = gran.GranulatorConfig(drive=GRAIN_DRIVE if compare else 0.0)
+    rng = np.random.RandomState(1)
+
+    def uniform(lo, hi, n):
+        return t(rng.uniform(lo, hi, n).astype(np.float32))
+
+    gs = gran.init_state(buf, SR, cfg, device=dev)._replace(
+        spawn_sample=t(np.zeros(G), torch.int32), duration=uniform(20000, 60000, G),
+        src_pos=uniform(0, 1 << 14, G), step=uniform(0.5, 2.0, G), shape=uniform(0.5, 4.0, G),
+        vel=uniform(0.3, 1.0, G), rel_start=t(np.full(G, -1), torch.int32),
+        rel_total=t(np.zeros(G)))
+    ss = samp.init_state(ARENA_FRAMES, device=dev)._replace(
+        start_sample=t(np.zeros(S), torch.int32), base=t(np.zeros(S), torch.int32),
+        frames=t(np.full(S, 30000.0)), increment=uniform(0.5, 2.0, S),
+        velocity=uniform(0.3, 1.0, S))
+    if compare:
+        rs = np.random.RandomState(2)
+        ss = ss._replace(arena=t(0.3 * rs.randn(ARENA_FRAMES, 2)),
+                         start_sample=t(rs.randint(0, 4 * B, S), torch.int32),
+                         base=t(rs.randint(0, ARENA_FRAMES - 30000, S), torch.int32))
+    return gs, ss
+
+
+def render_grain(gs, ss, n_blocks):
+    """``n_blocks`` of the bench's step with no events: ``gout + sout[0]``
+    a block, ``[n_blocks, B]``."""
+    import torch
+
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.instruments import granulator as gran
+    from libgooey_tpu_torch.instruments import sampler as samp
+
+    coeff = smoothing_coeff(SR)
+    gev, sev = gran.SpawnEvents.empty(), samp.StartEvents.empty()
+    outs = []
+    for i in range(n_blocks):
+        gs, gout = gran.render_block(gs, gev, i * B, sample_rate=SR, block_size=B,
+                                     smooth_coeff=coeff)
+        ss, sout = samp.render_block(ss, sev, i * B, sample_rate=SR, block_size=B)
+        outs.append(gout + sout[0])
+    return torch.stack(outs)
+
+
+def render_hosts(dev, n_blocks):
+    """The instruments through their hosts: a dense granulator cloud on a
+    4 s noise source (80 grains/s of up to 3 s with spray, timing jitter and
+    random amplitude: the 64 main lanes fill and grains are stolen into the
+    release pool) and a rack of two slots (mono 44.1 kHz, stereo 96 kHz)
+    with a pattern started at beat 0.  Returns ``(grain out, sampler out,
+    steals)``, the outputs ``[n_blocks, B]`` and ``[n_blocks, 2, B]``."""
+    import torch
+
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.instruments import granulator as gran
+    from libgooey_tpu_torch.instruments import sampler as samp
+
+    rs = np.random.RandomState(3)
+    buf = (0.3 * rs.randn(4 * int(SR))).astype(np.float32)
+    cfg = gran.GranulatorConfig(density=1.0, grain_length=1.0, spray=0.3, random_timing=0.5,
+                                random_amp=0.4, cloud_duration=0.5)
+    cloud = gran.GranulatorHost(SR, buf, SR, cfg, seed=0x2468ACE)
+    cloud.trigger(0.0, 0.9)
+    gs = gran.init_state(buf, SR, cfg, device=dev)
+    rack = samp.SamplerRackHost(SR, 120.0, arena_frames=1 << 16)
+    rack.set_buffer(0, (0.5 * rs.randn(6000)).astype(np.float32), SR)
+    rack.set_buffer(1, (0.5 * rs.randn(9000, 2)).astype(np.float32), 96000.0)
+    for step in range(16):
+        rack.set_step(step, step % 2 == 0, step % 4 // 2, 0.8)
+    rack.schedule_start(0.0)
+    rack.activate_start_if_due(0.0)
+    ss = samp.init_state(1 << 16, device=dev)
+    coeff = smoothing_coeff(SR)
+    gouts, souts, steals = [], [], 0
+    for i in range(n_blocks):
+        gev = cloud.collect_events(i * B, B)
+        steals += int((gev.copy_from >= 0).sum())
+        if rack.arena_dirty:
+            ss = ss._replace(arena=torch.as_tensor(rack.arena, device=dev))
+            rack.arena_dirty = False
+        gs, g = gran.render_block(gs, gev, i * B, sample_rate=SR, block_size=B,
+                                  smooth_coeff=coeff)
+        ss, sv = samp.render_block(ss, rack.collect_events(i * B, B), i * B, sample_rate=SR,
+                                   block_size=B)
+        gouts.append(g)
+        souts.append(sv)
+    return torch.stack(gouts), torch.stack(souts), steals
+
+
+def phase_grain(dev, card, prof_file=None):
+    """granulator_lfo_sampler_4k_lanes: the bench's 64 blocks (median of 3
+    renders), each kernel of ``GRAIN_PATH`` once a block; the comparison's
+    blocks against the plain versions; then the hosts for
+    ``HOST_SECONDS``.  Returns the render's counts."""
+    import torch
+
+    from libgooey_tpu_torch.ops import kernels
+
+    label = "granulator_lfo_sampler_4k_lanes"
+    lanes = G_LANES + S_VOICES
+    head = grain_inputs(dev, compare=True)
+    out_k = render_grain(*head, N_COMPARE_GRAIN)        # warm-up
+    torch.cuda.synchronize()
+    inputs = grain_inputs(dev)
+    walls = []
+    for r in range(N_REPEATS_EARLIER):
+        if r == 0:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = render_grain(*inputs, N_BLOCKS)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r == 0:
+            counts = kernels.launch_counts()
+    wall = float(np.median(walls))
+    peak = float(out.abs().max())
+    check(bool(torch.isfinite(out).all()) and tuple(out.shape) == (N_BLOCKS, B),
+          f"{label}: output not finite or of shape {tuple(out.shape)}")
+    check(peak > 1e-3, f"{label} output is silent (peak {peak})")
+    check(all(counts[n] == N_BLOCKS for n in GRAIN_PATH)
+          and sum(counts.values()) == len(GRAIN_PATH) * N_BLOCKS,
+          f"{label}: not each of {GRAIN_PATH} once a block and nothing else: {counts}")
+    audio_s = N_BLOCKS * B / SR
+    print(f"{label}: {G_LANES} grain lanes + {S_VOICES} sampler voices x {N_BLOCKS} blocks, "
+          f"median of {N_REPEATS_EARLIER} renders {wall:.4f} s ({wall / N_BLOCKS * 1e3:.3f} "
+          f"ms/block; min {min(walls) / N_BLOCKS * 1e3:.3f}, max "
+          f"{max(walls) / N_BLOCKS * 1e3:.3f}), peak {peak:.4f}; aggregate RTF "
+          f"{lanes * audio_s / wall:.1f} ({lanes} lanes) on {card}")
+    print(f"{label} launches per block: "
+          f"{json.dumps({n: c / N_BLOCKS for n, c in counts.items() if c})}")
+
+    with plain_versions():
+        out_p = render_grain(*head, N_COMPARE_GRAIN)
+    torch.cuda.synchronize()
+    err = max_err(out_k, out_p)
+    print(f"{label}: {N_COMPARE_GRAIN} blocks, seeded arena, mixed starts, drive "
+          f"{GRAIN_DRIVE}: kernels vs plain versions: max err {err:.3e} (tol {RENDER_TOL:g}), "
+          f"peak {float(out_k.abs().max()):.4f}")
+    check(err <= RENDER_TOL, f"{label}: kernel render differs from the plain render by {err}")
+
+    n_host = int(np.ceil(HOST_SECONDS * SR / B))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    g_out, s_out, steals = render_hosts(dev, n_host)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    host_counts = kernels.launch_counts()
+    g_peak, s_peak = float(g_out.abs().max()), float(s_out.abs().max())
+    with plain_versions():
+        g_p, s_p, _ = render_hosts(dev, N_COMPARE_GRAIN)
+    torch.cuda.synchronize()
+    host_err = max(max_err(g_out[:N_COMPARE_GRAIN], g_p), max_err(s_out[:N_COMPARE_GRAIN], s_p))
+    print(f"{label}, hosts: GranulatorHost cloud and SamplerRackHost pattern, {HOST_SECONDS:g} s "
+          f"({n_host} blocks) in {host_wall:.3f} s, peaks {g_peak:.4f} / {s_peak:.4f}, "
+          f"{steals} grains stolen; first {N_COMPARE_GRAIN} blocks vs plain versions: max err "
+          f"{host_err:.3e}; launches {json.dumps({n: c for n, c in host_counts.items() if c})}")
+    check(bool(torch.isfinite(g_out).all() and torch.isfinite(s_out).all())
+          and g_peak > 1e-3 and s_peak > 1e-3 and steals > 0,
+          f"{label}, hosts: not finite, silent or no steal ({g_peak}, {s_peak}, {steals})")
+    check(all(host_counts[n] == n_host for n in GRAIN_PATH) and host_err <= RENDER_TOL,
+          f"{label}, hosts: a kernel not once a block, or {host_err} off the plain versions: "
+          f"{host_counts}")
+
+    if prof_file is not None:
+        profile_blocks(f"{label} ({lanes} lanes)", card, prof_file, wall,
+                       lambda: render_grain(*inputs, 4))
+    return counts
 
 
 def main(argv=None) -> int:
@@ -1127,9 +1402,11 @@ def main(argv=None) -> int:
             phase_bus(dev, card, prof)
             counts = phase_full_bus(dev, card, prof)
             counts.update(phase_product(dev, card, prof))
+            phase_engine(dev)
+            grain = phase_grain(dev, card, prof)
         if args.profile:
             print(f"profile written to {args.profile}")
-        phase_engine(dev)
+        counts.update((n, grain[n]) for n in ("grain_read_cubic", "sampler_read_linear"))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

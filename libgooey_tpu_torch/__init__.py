@@ -13,20 +13,21 @@ Idiom:
   package's ``[V, B]`` layout;
 * PyTorch runs eagerly, so ``jit`` has no counterpart and ``lax.scan`` over
   blocks is a Python loop;
-* every recurrence that the JAX package runs as a Pallas kernel is a CUDA
+* every computation that the JAX package runs as a Pallas kernel is a CUDA
   kernel written by hand (``csrc/*.cu``, bound in ``ops/bank_kernels.py``,
-  ``ops/bus_kernels.py``, ``ops/plate_kernels.py`` and
-  ``ops/voice_kernels.py``, listed in ``ops/kernels.py``).  A CUDA tensor
-  launches the kernel or raises; a CPU tensor takes the kernel's plain
-  PyTorch version.
+  ``ops/bus_kernels.py``, ``ops/plate_kernels.py``,
+  ``ops/voice_kernels.py`` and ``ops/grain_kernels.py``, listed in
+  ``ops/kernels.py``).  A CUDA tensor launches the kernel or raises; a CPU
+  tensor takes the kernel's plain PyTorch version.
 
 What is ported so far is the engine's whole main path
 (``bench_configs.build_full_kit``: the five headline families and the
-global bus of all seven effects with the compressor's sidechain) and the
+global bus of all seven effects with the compressor's sidechain), the
 product block (``bench_configs.bench_onchip_product_block``: small banks
 through the kit kernels, ``ops/voice.py``, then the nine-entry effect
-chain, ``mixer/chain.py``); the rest raises ``NotImplementedError`` and is
-queued in ROADMAP.md.
+chain, ``mixer/chain.py``) and the granulator and sampler racks with their
+hosts (``bench_configs.bench_granulator_sampler_4k``); the rest raises
+``NotImplementedError`` and is queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,11 @@
-"""Counter-based deterministic noise (port of libgooey_tpu/core/rng.py:33-73).
+"""Counter-based deterministic noise, and the granulator's host generator
+(port of libgooey_tpu/core/rng.py:33-96).
 
 The device white sources are a stateless integer mix of ``(seed, counter)``
 where the counter is samples-since-trigger.  They must match the JAX package
 bit for bit, on the CPU and on CUDA: one wrong bit changes the kick's click
-and pink layers by O(1).
+and pink layers by O(1).  ``XorShift32`` is plain host Python; its draws
+decide the granulator's spawns, so they too match bit for bit.
 
 PyTorch's ``uint32`` lacks shifts and wrapping multiplies on some backends,
 so 32-bit unsigned arithmetic is emulated in ``int64`` with ``& 0xFFFFFFFF``.
@@ -87,3 +89,27 @@ def white_from_sample_index(sample_index, seed=DEFAULT_SEED) -> torch.Tensor:
     Negative indices (not yet triggered) still produce defined values;
     callers gate by envelope."""
     return white(torch.as_tensor(sample_index).to(torch.int32), seed)
+
+
+# --- host-side sequential generator (control rate) ---------------------------
+
+
+class XorShift32:
+    """Sequential xorshift32 as used by the granulator's spawn scheduler
+    (granulator.rs:833-867; libgooey_tpu/core/rng.py:79-96): host Python,
+    the same draws bit for bit."""
+
+    def __init__(self, seed: int = 0x12345678):
+        self.state = (seed & _MASK32) or 1
+
+    def next_u32(self) -> int:
+        x = self.state
+        x ^= (x << 13) & _MASK32
+        x ^= x >> 17
+        x ^= (x << 5) & _MASK32
+        self.state = x
+        return x
+
+    def next_f32(self) -> float:
+        """Uniform in [0, 1) from the top 24 bits."""
+        return (self.next_u32() >> 8) / float(1 << 24)

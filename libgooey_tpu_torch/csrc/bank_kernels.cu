@@ -1,5 +1,6 @@
 // Voice-bank recurrence kernels for Hopper (sm_90a): the seven Pallas bank
-// kernels that the five-family kit runs on the engine's main path.
+// kernels that the five-family kit runs on the engine's main path, and the
+// engine's fused mix.
 //
 //   affine1_bank     <- libgooey_tpu/ops/pallas_fx.py:affine1_bank (_affine1_bank_kernel)
 //   pink_bank        <- libgooey_tpu/ops/pallas_fx.py:pink_bank (_pink_bank_kernel)
@@ -8,8 +9,12 @@
 //   fbws_bank        <- libgooey_tpu/ops/pallas_fx.py:fbws_bank (_fbws_bank_kernel)
 //   ws4_bank         <- libgooey_tpu/ops/pallas_fx.py:ws4_bank (_ws4_bank_kernel)
 //   linrec2_bank     <- libgooey_tpu/ops/pallas_fx.py:linrec2_bank (_linrec2_bank_kernel)
+//   mix_bank         <- libgooey_tpu/ops/pallas_fx.py:mix_bank (_mix_bank_kernel), below
 //
-// Design, shared by all seven: each is a per-row recurrence stepping
+// affine1_bank also computes pallas_scan.py:linrec1_pallas's function, the
+// first-order recurrence y[n] = a[n]*y[n-1] + b[n], with the floor a = -3e38.
+//
+// Design, shared by the seven recurrences: each is a per-row recurrence stepping
 // through the B samples of a block, so one thread owns one voice and walks
 // its row sample by sample with the carried state in registers.  Arrays are
 // the port's logical [V, B] layout, row-major: thread v reads x[v*B + n].
@@ -249,6 +254,73 @@ __global__ void linrec2_bank_kernel(const float* __restrict__ a11,
   s2_last[r] = s2;
 }
 
+// --- 8. mix_bank: smoothed pan/gain, equal-power pan, sums over voices -------
+//
+// No recurrence: per (voice, sample) the smoothers' closed form tgt +
+// snap((cur - tgt) * q^(k+1)) for pan and gain, then x*gain*cos(ang),
+// x*gain*sin(ang) and x*gain with ang = clip(pan, 0, 1)*pi/2, summed over
+// the voices.  Float atomics would sum in a different order every run, so
+// the sum is deterministic in two passes: a thread per (256-voice chunk,
+// sample) walks its chunk's voices in order (the voice scalars are
+// warp-uniform loads, the samples coalesced), then a thread per sample adds
+// the chunks in order.  The plain version (ops/bank_kernels.py) repeats
+// that order.  Bound by bytes: V*B*4 read once (8.4 MB at the kit's 4,096
+// voices), the cosf/sinf of ~17 operations a (voice, sample) well under the
+// float32 rate.
+
+constexpr int kMixChunk = 256;
+constexpr float kSettleEps = 1e-4f;  // core/constants.py SMOOTHER_SETTLE_EPS
+constexpr float kHalfPi = static_cast<float>(3.14159265358979323846 / 2.0);
+
+__global__ void mix_bank_partial_kernel(const float* __restrict__ x,
+                                        const float* __restrict__ pan_cur,
+                                        const float* __restrict__ pan_tgt,
+                                        const float* __restrict__ gain_cur,
+                                        const float* __restrict__ gain_tgt,
+                                        const float* __restrict__ pw,
+                                        float* __restrict__ part, int V, int B) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.y;
+  if (k >= B) return;
+  const float w = pw[k];
+  float sl = 0.0f, sr = 0.0f, sm = 0.0f;
+  const int v_end = min(V, (c + 1) * kMixChunk);
+  for (int v = c * kMixChunk; v < v_end; ++v) {
+    const float pt = pan_tgt[v];
+    const float pdec = (pan_cur[v] - pt) * w;
+    const float pan = pt + (fabsf(pdec) < kSettleEps ? 0.0f : pdec);
+    const float gt = gain_tgt[v];
+    const float gdec = (gain_cur[v] - gt) * w;
+    const float gain = gt + (fabsf(gdec) < kSettleEps ? 0.0f : gdec);
+    const float ang = fminf(fmaxf(pan, 0.0f), 1.0f) * kHalfPi;
+    const float shaped = x[static_cast<size_t>(v) * B + k] * gain;
+    sl = sl + shaped * cosf(ang);
+    sr = sr + shaped * sinf(ang);
+    sm = sm + shaped;
+  }
+  float* p = part + static_cast<size_t>(c) * 3 * B;
+  p[k] = sl;
+  p[B + k] = sr;
+  p[2 * B + k] = sm;
+}
+
+__global__ void mix_bank_sum_kernel(const float* __restrict__ part, int n_chunks,
+                                    float* __restrict__ out_l, float* __restrict__ out_r,
+                                    float* __restrict__ out_m, int B) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= B) return;
+  float sl = 0.0f, sr = 0.0f, sm = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float* p = part + static_cast<size_t>(c) * 3 * B;
+    sl = sl + p[k];
+    sr = sr + p[B + k];
+    sm = sm + p[2 * B + k];
+  }
+  out_l[k] = sl;
+  out_r[k] = sr;
+  out_m[k] = sm;
+}
+
 }  // namespace
 
 extern "C" {
@@ -316,6 +388,22 @@ int linrec2_bank_launch(const float* a11, const float* a12, const float* a21,
                         float* s1_last, float* s2_last, int R, int B, void* stream) {
   linrec2_bank_kernel<<<grid_for(R), kThreads, 0, as_stream(stream)>>>(
       a11, a12, a21, a22, b1, b2, s1_0, s2_0, s1, s2, s1_last, s2_last, R, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mix_bank_launch(const float* x, const float* pan_cur, const float* pan_tgt,
+                    const float* gain_cur, const float* gain_tgt, const float* pw,
+                    float* part, float* out_l, float* out_r, float* out_m, int V, int B,
+                    void* stream) {
+  // part: [n_chunks, 3, B] scratch from the wrapper
+  const int n_chunks = (V + kMixChunk - 1) / kMixChunk;
+  const dim3 tiles((B + kThreads - 1) / kThreads);
+  mix_bank_partial_kernel<<<dim3(tiles.x, n_chunks), kThreads, 0, as_stream(stream)>>>(
+      x, pan_cur, pan_tgt, gain_cur, gain_tgt, pw, part, V, B);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  mix_bank_sum_kernel<<<tiles, kThreads, 0, as_stream(stream)>>>(part, n_chunks, out_l,
+                                                                 out_r, out_m, B);
   return static_cast<int>(cudaGetLastError());
 }
 

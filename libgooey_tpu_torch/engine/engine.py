@@ -10,8 +10,8 @@ parameter targets, and drives one block step
 
 Ported so far: the five families of the headline kit (kick, snare, hihat2,
 tom2, bass), with the kit gate (two or more eligible small banks render
-together through the two kit launches, ops/voice.py), the per-family
-pan/gain mix with its pan-settled branch, the master gain, the global bus
+together through the two kit launches, ops/voice.py), the pan/gain mix of
+every voice in one ``mix_bank`` launch, the master gain, the global bus
 of all seven effects (saturation, lowpass, tilt, delay, compressor with its
 optional sidechain, spring, plate) in any order, split into runs as the
 JAX package splits it (a run of two or more in one kernel launch), and the
@@ -27,16 +27,11 @@ import numpy as np
 import torch
 
 from libgooey_tpu_torch import not_ported
-from libgooey_tpu_torch.core import dsp
-from libgooey_tpu_torch.core.constants import (
-    DEFAULT_BLOCK_SIZE,
-    DEFAULT_SAMPLE_RATE,
-    SMOOTHER_SETTLE_EPS,
-)
+from libgooey_tpu_torch.core.constants import DEFAULT_BLOCK_SIZE, DEFAULT_SAMPLE_RATE
 from libgooey_tpu_torch.core.smoother import (
     SmootherBank,
+    smooth_advance,
     smooth_block,
-    smooth_block_lazy,
     smoothing_coeff,
 )
 from libgooey_tpu_torch.effects import chain as fx_chain
@@ -50,7 +45,7 @@ from libgooey_tpu_torch.effects import saturation as fx_saturation
 from libgooey_tpu_torch.effects import tilt as fx_tilt
 from libgooey_tpu_torch.engine.sequencer import Sequencer
 from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
-from libgooey_tpu_torch.ops import voice
+from libgooey_tpu_torch.ops import bank_kernels, voice
 
 #: Instrument family registry: kind -> module (``init_state``,
 #: ``render_block``, PARAM_NAMES / PARAM_INDEX / PRESETS), in the JAX
@@ -219,7 +214,6 @@ def _render_all(
         raise not_ported("LFO routes")
     static = {k: dict(v) for k, v in family_static}
     new_state = dict(state)
-    dev = state["pan"].current.device
 
     kit_results = _render_kit(state, events, kinds, static, sample_rate, block_size,
                               smooth_coeff) if fused_banks else {}
@@ -248,34 +242,16 @@ def _render_all(
         new_state[kind] = bank_state
         voice_outs.append(out)
 
-    pan_bank, pan_slice = smooth_block_lazy(state["pan"], smooth_coeff, block_size)
-    gain_bank, gain_slice = smooth_block_lazy(state["gain"], smooth_coeff, block_size)
-
-    # Per-family accumulation.  Once the pan smoother has settled (the snap
-    # makes the trajectory EXACTLY its target all block), the per-lane [V]
-    # gains give the same values as the per-sample [V, B] ones; both
-    # branches are evaluated and the choice is made on the device.
-    zeros = torch.zeros(block_size, dtype=torch.float32, device=dev)
-    mix_traj = [zeros, zeros, zeros]   # L, R, mono with per-sample pan
-    mix_const = [zeros, zeros]         # L, R with settled pan
-    idx = 0
-    for out in voice_outs:
-        V = out.shape[0]
-        shaped = out * gain_slice(idx, idx + V)
-        gl, gr = dsp.pan_gains(pan_slice(idx, idx + V))
-        glv, grv = dsp.pan_gains(state["pan"].target[idx:idx + V])
-        mix_traj[0] = mix_traj[0] + torch.sum(shaped * gl, dim=0)
-        mix_traj[1] = mix_traj[1] + torch.sum(shaped * gr, dim=0)
-        mix_traj[2] = mix_traj[2] + torch.sum(shaped, dim=0)
-        mix_const[0] = mix_const[0] + torch.sum(shaped * glv[:, None], dim=0)
-        mix_const[1] = mix_const[1] + torch.sum(shaped * grv[:, None], dim=0)
-        idx += V
-    q = float(np.float32(1.0) - np.float32(smooth_coeff))
-    pan_settled = torch.all(
-        ((state["pan"].current - state["pan"].target) * q).abs() < SMOOTHER_SETTLE_EPS)
-    mix = torch.stack([torch.where(pan_settled, mix_const[0], mix_traj[0]),
-                       torch.where(pan_settled, mix_const[1], mix_traj[1])], dim=0)
-    mono_sum = mix_traj[2]
+    # the mix of every voice in one launch (engine.py:357-376, the JAX
+    # package's MIX_IMPL = "pallas"; its per-family default mix computes the
+    # same sums and stays its test reference)
+    pan, gain = state["pan"], state["gain"]
+    suml, sumr, mono_sum = bank_kernels.mix_bank(
+        torch.cat(voice_outs, dim=0), pan.current, pan.target, gain.current, gain.target,
+        coeff=smooth_coeff)
+    pan_bank = smooth_advance(pan, smooth_coeff, block_size)
+    gain_bank = smooth_advance(gain, smooth_coeff, block_size)
+    mix = torch.stack([suml, sumr], dim=0)
 
     master_bank, master_traj = smooth_block(state["master"], smooth_coeff, block_size)
     bus = mix * master_traj[None, :]

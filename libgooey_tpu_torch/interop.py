@@ -10,7 +10,8 @@ tuple's ``NUMPY_DTYPES`` (``Ring.pos`` and the plate's ``pos``: int32
 there, int64 here).  Events
 need no conversion: they are numpy dicts with the JAX keys (``kick_off``,
 ``kick_vel``, ``bass_freq``, ``block_start``, ``fx_<name>``) that both
-packages take.
+packages take; the granulator's and the sampler's events are NamedTuples
+of numpy arrays with the JAX fields.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from libgooey_tpu_torch.effects import (
     saturation,
     tilt,
 )
-from libgooey_tpu_torch.instruments import bass, hihat2, kick, snare, tom2
+from libgooey_tpu_torch.instruments import bass, granulator, hihat2, kick, sampler, snare, tom2
 from libgooey_tpu_torch.ops import ringbuf
 from libgooey_tpu_torch.ops.oversample import OversamplerState
 
@@ -101,6 +102,28 @@ def chain_state_from_numpy(effect_id: int, src, device):
     if effect_id == 8:
         return from_numpy(feedback_waveshaper.FBShaperState.init((2,), "cpu"), src, device)
     return fx_state_from_numpy(_CHAIN_FX[effect_id], src, device)
+
+
+def granulator_state_from_numpy(src, device) -> granulator.GrainState:
+    """A JAX ``GrainState`` (any lane count, its ``SmootherBank`` params and
+    its shape-() ``OversamplerState`` included) -> the port's."""
+    G, L = np.asarray(src.spawn_sample).shape[0], np.asarray(src.buffer).shape[0]
+    template = granulator.init_state(np.zeros(L, np.float32), 0.0, device="cpu")
+    template = template._replace(**{
+        f: torch.zeros(G, dtype=getattr(template, f).dtype)
+        for f in granulator._GRAIN_FIELDS + ("rel_start", "rel_total")})
+    return from_numpy(template, src, device)
+
+
+def sampler_state_from_numpy(src, device) -> sampler.SamplerState:
+    """A JAX ``SamplerState`` (any arena length and voice count) -> the
+    port's."""
+    F, V = np.asarray(src.arena).shape[0], np.asarray(src.start_sample).shape[0]
+    template = sampler.init_state(F, device="cpu")
+    template = template._replace(**{
+        f: torch.zeros(V, dtype=getattr(template, f).dtype)
+        for f in sampler.SamplerState._fields[1:]})
+    return from_numpy(template, src, device)
 
 
 def smoother_from_numpy(src, device) -> SmootherBank:

@@ -48,6 +48,11 @@ SIGNATURES = {
     "ws4_bank_launch": [_P] * 7 + [_I, _I, _P],
     "linrec2_bank_launch": [_P] * 12 + [_I, _I, _P],
     "triangle_additive_bank_launch": [_P] * 3 + [_F, _F, _I, _I, _I, _P],
+    # the engine's mix: voices, four smoother rows, powers, scratch, L, R, mono
+    "mix_bank_launch": [_P] * 10 + [_I, _I, _P],
+    # the granulator's and the sampler's reads
+    "grain_read_cubic_launch": [_P] * 5 + [_I, _I, _I, _P],
+    "sampler_read_linear_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
     # the bus kernels: x, y, then per phase (op, flag), ten pointers, 16
     # floats and 16 ints, then the 4x chain's coefficients
     "bus_block_launch": [_P] * 7 + [_I, _P],

@@ -1,4 +1,5 @@
-"""The eight kernels of the five-family kit, each beside its plain version.
+"""The eight kernels of the five-family kit and the engine's mix kernel, each
+beside its plain version.
 
 Counterparts of the JAX package's Pallas wrappers:
 
@@ -6,7 +7,9 @@ Counterparts of the JAX package's Pallas wrappers:
 wrapper                 replaces (wrapper line, body)                   callers in the port
 ======================  ==============================================  ==========================
 affine1_bank            pallas_fx.py:2275, _affine1_bank_kernel         ops/scan (linrec1, maxlin,
-                                                                        cumsum_bank)
+                                                                        cumsum_bank); also
+                                                                        pallas_scan.py:60's
+                                                                        linrec1_pallas
 pink_bank               pallas_fx.py:2003, _pink_bank_kernel            ops/noise.pink_block
 svf_bank                pallas_fx.py:1499, _svf_bank_kernel             ops/filters.svf_tpt_block
 env_follow_bank         pallas_fx.py:1396, _env_bank_kernel             feedback_waveshaper
@@ -14,12 +17,14 @@ fbws_bank               pallas_fx.py:1769, _fbws_bank_kernel            feedback
 ws4_bank                pallas_fx.py:1921, _ws4_bank_kernel             effects/waveshaper
 linrec2_bank            pallas_fx.py:2201, _linrec2_bank_kernel         ops/scan.linrec2
 triangle_additive_bank  pallas_voice.py:127, _tri_bank_kernel           ops/osc.triangle_additive
+mix_bank                pallas_fx.py:2102, _mix_bank_kernel             engine._render_all
 ======================  ==============================================  ==========================
 
 Dispatch, with no fallback: a CUDA tensor launches the hand-written kernel
 (``csrc/*.cu``, built at first use by ``ops/_build.py``) or raises; a CPU
 tensor takes the ``*_plain`` version, a sample-sequential PyTorch loop in
-the Pallas body's op order (an elementwise pass for the triangle).  Every
+the Pallas body's op order (an elementwise pass for the triangle, the mix's
+sums over voices in the kernel's order).  Every
 wrapper counts its kernel launches in a plain int attribute
 (``affine1_bank.launches``, read through :mod:`ops.kernels`); a wrapper and
 its plain version take the same arguments.
@@ -39,11 +44,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from libgooey_tpu_torch.core.smoother import pow_table, settle_snap
 from libgooey_tpu_torch.ops import _build
 from libgooey_tpu_torch.ops.oversample import STAGE1, STAGE2, HalfbandState, _split
 
+#: the eight kernels of the kit's voice banks (all on its per-family path)
+#: and the engine's mix
 KERNELS = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "fbws_bank",
-           "ws4_bank", "linrec2_bank", "triangle_additive_bank")
+           "ws4_bank", "linrec2_bank", "triangle_additive_bank", "mix_bank")
 
 #: Source of each kernel and the TPU kernel it replaces (file:line of the
 #: wrapper that reaches ``pl.pallas_call``).
@@ -59,6 +67,7 @@ REPLACES = {
     "ws4_bank": "libgooey_tpu/ops/pallas_fx.py:1921",
     "linrec2_bank": "libgooey_tpu/ops/pallas_fx.py:2201",
     "triangle_additive_bank": "libgooey_tpu/ops/pallas_voice.py:127",
+    "mix_bank": "libgooey_tpu/ops/pallas_fx.py:2102",
 }
 
 
@@ -617,6 +626,81 @@ def triangle_additive_bank(idx, freq, sample_rate: float, max_harmonics: int):
 
 
 triangle_additive_bank.launches = 0
+
+
+# --- 9. mix_bank ------------------------------------------------------------------
+
+#: voices summed in one partial sum: each chunk in voice order, then the
+#: chunks in order (csrc/bank_kernels.cu mix_bank)
+MIX_CHUNK = 256
+_HALF_PI = float(np.float32(np.pi / 2.0))
+
+
+def _mix_powers(coeff, B: int, device):
+    """``q^(k+1)``, k = 0..B-1, with ``q = f32(1 - coeff)`` as the Pallas
+    wrapper rounds it (pallas_fx.py:2137-2138), in XLA's values."""
+    return pow_table(float(np.float32(1.0 - coeff)), B, device)
+
+
+def mix_bank_plain(voices, pan_cur, pan_tgt, gain_cur, gain_tgt, *, coeff):
+    """Plain version of the mix (pallas_fx.py:2071-2098): the pan and gain
+    smoothers' trajectories with the settle snap, equal-power pan, and the
+    three sums over voices, in the kernel's order: sequentially within each
+    ``MIX_CHUNK``-voice chunk, then the chunks in turn."""
+    V, B = voices.shape
+    nc = -(-V // MIX_CHUNK)
+    pad = nc * MIX_CHUNK - V
+
+    def chunks(t, tail):
+        if pad:
+            t = torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+        return t.reshape((nc, MIX_CHUNK) + tail)
+
+    pw = _mix_powers(coeff, B, voices.device)
+    x = chunks(voices, (B,))
+    pc, pt, gc, gt = (chunks(a, (1,)) for a in (pan_cur, pan_tgt, gain_cur, gain_tgt))
+    pan = pt + settle_snap((pc - pt) * pw)
+    gain = gt + settle_snap((gc - gt) * pw)
+    ang = torch.clamp(pan, 0.0, 1.0) * _HALF_PI
+    shaped = x * gain
+    sums = []
+    for term in (shaped * torch.cos(ang), shaped * torch.sin(ang), shaped):
+        part = torch.zeros((nc, B), dtype=_F32, device=voices.device)
+        for j in range(MIX_CHUNK):
+            part = part + term[:, j]
+        total = torch.zeros(B, dtype=_F32, device=voices.device)
+        for c in range(nc):
+            total = total + part[c]
+        sums.append(total)
+    return tuple(sums)
+
+
+def mix_bank(voices, pan_cur, pan_tgt, gain_cur, gain_tgt, *, coeff):
+    """The engine's fused mix over a ``[V, B]`` voice bank.
+
+    ``pan_*``/``gain_*``: [V] smoother current and target values; ``coeff``:
+    the smoothing coefficient.  Returns ``(sum_l, sum_r, sum_mono)``, each
+    ``[B]``: the equal-power-panned mixes and the unpanned one.  The caller
+    advances the smoothers (``smooth_advance``)."""
+    if not _on_cuda("mix_bank", voices):
+        return mix_bank_plain(voices, pan_cur, pan_tgt, gain_cur, gain_tgt, coeff=coeff)
+    V, B = _vb("mix_bank", voices)
+    _check("mix_bank", voices.device, [
+        ("voices", voices, _F32, (V, B)), ("pan_cur", pan_cur, _F32, (V,)),
+        ("pan_tgt", pan_tgt, _F32, (V,)), ("gain_cur", gain_cur, _F32, (V,)),
+        ("gain_tgt", gain_tgt, _F32, (V,))])
+    pw = _mix_powers(coeff, B, voices.device)
+    part = _empty((-(-V // MIX_CHUNK), 3, B), voices)
+    outs = tuple(_empty((B,), voices) for _ in range(3))
+    _launch("mix_bank", voices.device, "mix_bank_launch",
+            voices.data_ptr(), pan_cur.data_ptr(), pan_tgt.data_ptr(), gain_cur.data_ptr(),
+            gain_tgt.data_ptr(), pw.data_ptr(), part.data_ptr(), *(o.data_ptr() for o in outs),
+            V, B)
+    mix_bank.launches += 1
+    return outs
+
+
+mix_bank.launches = 0
 
 
 def pack_fbws_bank(state) -> torch.Tensor:

@@ -1,13 +1,20 @@
-"""Every hand-written kernel of the port by name: the voice banks'
-(:mod:`ops.bank_kernels`), the bus's (:mod:`ops.bus_kernels`), the plate's
-(:mod:`ops.plate_kernels`) and the kit's (:mod:`ops.voice_kernels`), with
+"""Every hand-written kernel of the port by name: the voice banks' and the
+engine mix's (:mod:`ops.bank_kernels`), the bus's (:mod:`ops.bus_kernels`),
+the plate's (:mod:`ops.plate_kernels`), the kit's (:mod:`ops.voice_kernels`)
+and the granulator's and sampler's reads (:mod:`ops.grain_kernels`), with
 their launch counts."""
 
 from __future__ import annotations
 
-from libgooey_tpu_torch.ops import bank_kernels, bus_kernels, plate_kernels, voice_kernels
+from libgooey_tpu_torch.ops import (
+    bank_kernels,
+    bus_kernels,
+    grain_kernels,
+    plate_kernels,
+    voice_kernels,
+)
 
-MODULES = (bank_kernels, bus_kernels, plate_kernels, voice_kernels)
+MODULES = (bank_kernels, bus_kernels, plate_kernels, voice_kernels, grain_kernels)
 KERNELS = sum((mod.KERNELS for mod in MODULES), ())
 
 #: the wrappers as imported, so that the counts survive a caller swapping a

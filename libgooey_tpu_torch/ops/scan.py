@@ -10,6 +10,13 @@ on a CPU tensor its plain sample-sequential version.  Leading axes flatten
 into bank rows.  The ``max`` branch of ``affine1_bank`` is disabled with the
 ``-3e38`` sentinel for the linear recurrences, exactly as the TPU dispatch
 does; ``maxlin`` uses it live.
+
+The JAX package's other first-order kernel, ``pallas_scan.linrec1_pallas``
+(``pallas_scan.py:60``, opt-in through ``scan.USE_PALLAS``), computes the
+same function as ``affine1_bank`` with that floor: the switch only picks
+between two TPU lowerings of one recurrence.  So every ``linrec1`` here is
+its counterpart, and the port has no such switch
+(tests/test_torch_grain_kernels.py holds ``linrec1`` to it).
 """
 
 from __future__ import annotations

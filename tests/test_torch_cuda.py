@@ -61,7 +61,18 @@ def _cases(dev, V, B, seed=0):
          (t(rs.randint(0, 2 * int(SR), (V, 1)) + np.arange(B)[None, :]),
           t(rs.uniform(40.0, 2000.0, (V, B)))),
          dict(sample_rate=SR, max_harmonics=64)),
+        ("mix_bank", _mix_args(rs, t, V, B), dict(coeff=smoothing_coeff(SR))),
     ]
+
+
+def _mix_args(rs, t, V, B):
+    """mix_bank arguments: audio-level voices, pans sweeping (some within
+    the settle snap), gains around 1/V moving."""
+    pt = rs.uniform(0.0, 1.0, V)
+    pc = np.clip(pt + rs.uniform(-0.3, 0.3, V), 0.0, 1.0)
+    pc[::7] = pt[::7] + 5e-5
+    gt = rs.uniform(0.0, 2.0 / V, V)
+    return (t(0.5 * rs.randn(V, B)), t(pc), t(pt), t(gt + rs.uniform(-0.5, 0.5, V) / V), t(gt))
 
 
 def _resonator_rows(rs, t, R, B):
@@ -111,7 +122,7 @@ def test_wrappers_reject_bad_inputs(dev):
 def test_kit_with_kernels_matches_plain_versions(dev, monkeypatch):
     """The five-family kit at 64 voices a family on the stage path
     (``fused_banks=False``), 2 blocks: kernels vs plain versions, all eight
-    launched."""
+    launched and the mix once a block."""
     from libgooey_tpu_torch.instruments import bass, hihat2, snare, tom2
 
     V, B, N = 64, 256, 2
@@ -133,7 +144,7 @@ def test_kit_with_kernels_matches_plain_versions(dev, monkeypatch):
     kernels.reset_launch_counts()
     _, got = engine.render_many(state, events, **static)
     counts = kernels.launch_counts()
-    assert all(counts[n] > 0 for n in bk.KERNELS), counts
+    assert all(counts[n] > 0 for n in bk.KERNELS) and counts["mix_bank"] == N, counts
     for n in bk.KERNELS:
         monkeypatch.setattr(bk, n, getattr(bk, n + "_plain"))
     _, want = engine.render_many(state, events, **static)
@@ -501,3 +512,127 @@ def test_product_block_with_kernels_matches_plain_versions(dev, monkeypatch):
     want = run()
     assert float(got.abs().max()) > 1e-3
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def _grain_case(dev, G, L, B, seed=0):
+    """grain_read_cubic arguments: a white-noise source, starts across and
+    beyond it, steps ±[0.5, 2], lanes at |step| = 8, never-spawned lanes."""
+    rs = np.random.RandomState(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    p0 = rs.uniform(-300.0, L + 300.0, G)
+    step = rs.uniform(0.5, 2.0, G) * rs.choice([-1.0, 1.0], G)
+    step[::9] = np.sign(step[::9]) * 8.0
+    age0 = rs.randint(-3 * B, 60000, G)
+    age0[::13] = 2**30
+    return t(0.3 * rs.randn(L)), t(p0), t(step), t(age0, torch.int32)
+
+
+def _sampler_case(dev, V, F, B, seed=0):
+    """sampler_read_linear arguments: fractional slot ends, bases spread
+    over the arena (some past its end), mixed starts, increments 0.25-3."""
+    rs = np.random.RandomState(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    frames = rs.uniform(64.0, F / 4, V) + rs.choice([0.0, 0.25, 0.5], V)
+    base = rs.randint(0, F, V)
+    return (t(0.3 * rs.randn(F, 2)), t(base, torch.int32), t(frames),
+            t(rs.randint(-20000, 2 * B, V), torch.int32), t(rs.uniform(0.25, 3.0, V)))
+
+
+@pytest.mark.parametrize("G,B", [(37, 64), (4000, 512)])
+def test_grain_read_matches_plain_version(dev, G, B):
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    buf, p0, step, age0 = _grain_case(dev, G, 1 << 15, B)
+    for kw in (dict(age0=age0), {}):
+        got = gk.grain_read_cubic(buf, p0, step, B=B, **kw)
+        want = gk.grain_read_cubic_plain(buf, p0, step, B=B, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (G, B)
+        assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("V,B", [(5, 64), (128, 512)])
+def test_sampler_read_matches_plain_version(dev, V, B):
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    args = _sampler_case(dev, V, 1 << 15, B)
+    got = gk.sampler_read_linear(*args, 3 * B, B=B)
+    want = gk.sampler_read_linear_plain(*args, 3 * B, B=B)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (V, B, 2)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_each_grain_launch_counts_once(dev):
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    kernels.reset_launch_counts()
+    buf, p0, step, age0 = _grain_case(dev, 16, 4096, 32)
+    gk.grain_read_cubic(buf, p0, step, B=32, age0=age0)
+    gk.grain_read_cubic_plain(buf, p0, step, B=32, age0=age0)
+    args = _sampler_case(dev, 8, 4096, 32)
+    gk.sampler_read_linear(*args, 0, B=32)
+    gk.sampler_read_linear_plain(*args, 0, B=32)
+    assert kernels.launch_counts() == {n: int(n in gk.KERNELS) for n in kernels.KERNELS}
+
+
+def test_granulator_and_sampler_with_kernels_match_plain_versions(dev, monkeypatch):
+    """The 4k slice's blocks at 240 grain lanes and 16 voices, the drive
+    engaged, grains spawned and stolen by a host cloud, 3 blocks: kernels
+    vs plain versions within 1e-4; one grain read, one sampler read, one
+    ws4_bank and one affine1_bank a block."""
+    from libgooey_tpu_torch.instruments import granulator as gran
+    from libgooey_tpu_torch.instruments import sampler as samp
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    B, N = 256, 3
+    rs = np.random.RandomState(7)
+    buf = (0.3 * rs.randn(1 << 15)).astype(np.float32)
+    arena = torch.as_tensor(0.3 * rs.randn(1 << 15, 2), dtype=torch.float32, device=dev)
+
+    def run():
+        gs = gran.init_state(buf, SR, gran.GranulatorConfig(drive=0.5), device=dev)
+        lanes = 3 * gran.TOTAL
+        gs = gs._replace(**{f: getattr(gs, f).repeat(3) for f in
+                            gran._GRAIN_FIELDS + ("rel_start", "rel_total")})
+        host = gran.GranulatorHost(SR, buf, SR, gran.GranulatorConfig(density=1.0,
+                                                                      random_timing=0.5))
+        host.trigger(0.0)
+        ss = samp.init_state(1 << 15, device=dev)
+        ss = ss._replace(arena=arena,
+                         **{f: getattr(ss, f)[:16] for f in samp.SamplerState._fields[1:]})
+        ev = samp.StartEvents.empty()
+        ev.voice[:16] = np.arange(16)
+        ev.offset[:16] = np.arange(16) * 13
+        ev.base[:16] = np.arange(16) * 1500
+        ev.frames[:16] = 1000.5
+        ev.increment[:16] = np.linspace(0.5, 2.0, 16)
+        ev.velocity[:16] = 0.7
+        outs = []
+        for i in range(N):
+            gs, g = gran.render_block(gs, host.collect_events(i * B, B), i * B, sample_rate=SR,
+                                      block_size=B, smooth_coeff=smoothing_coeff(SR))
+            ss, s = samp.render_block(ss, ev if i == 0 else samp.StartEvents.empty(), i * B,
+                                      sample_rate=SR, block_size=B)
+            outs.append(g + s[0])
+        assert lanes == gs.src_pos.shape[0]
+        return torch.stack(outs)
+
+    kernels.reset_launch_counts()
+    got = run()
+    counts = kernels.launch_counts()
+    for n in ("grain_read_cubic", "sampler_read_linear", "ws4_bank", "affine1_bank"):
+        assert counts[n] == N, counts
+    for n in kernels.KERNELS:
+        mod = kernels.module_of(n)
+        monkeypatch.setattr(mod, n, getattr(mod, n + "_plain"))
+    want = run()
+    assert float(got.abs().max()) > 1e-3
+    assert float((got - want).abs().max()) <= 1e-4
+    assert gk.KERNELS == ("grain_read_cubic", "sampler_read_linear")

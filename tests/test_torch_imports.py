@@ -36,7 +36,9 @@ def test_port_never_imports_jax():
         "       'libgooey_tpu_torch.ops.voice', 'libgooey_tpu_torch.ops.voice_kernels',\n"
         "       'libgooey_tpu_torch.effects.waveshaper',\n"
         "       'libgooey_tpu_torch.effects.feedback_waveshaper',\n"
-        "       'libgooey_tpu_torch.mixer', 'libgooey_tpu_torch.mixer.chain'}\n"
+        "       'libgooey_tpu_torch.mixer', 'libgooey_tpu_torch.mixer.chain',\n"
+        "       'libgooey_tpu_torch.ops.grain_kernels', 'libgooey_tpu_torch.instruments.granulator',\n"
+        "       'libgooey_tpu_torch.instruments.sampler'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -95,8 +95,9 @@ def test_render_many_matches_jax(bass_notes):
 
 
 def test_kit_goes_through_every_kernel_wrapper(monkeypatch):
-    """All eight wrappers are on the kit's path (on the CPU they run their
-    plain versions; on CUDA the same calls launch the kernels)."""
+    """All eight voice-bank wrappers and the mix are on the kit's path (on
+    the CPU they run their plain versions; on CUDA the same calls launch the
+    kernels)."""
     calls = {n: 0 for n in bank_kernels.KERNELS}
     for n in bank_kernels.KERNELS:
         fn = getattr(bank_kernels, n)
@@ -114,4 +115,4 @@ def test_kit_goes_through_every_kernel_wrapper(monkeypatch):
     # the Chamberlin, hihat2's two biquads, tom2's band-pass and membrane
     assert calls == {"affine1_bank": 26, "pink_bank": 2, "svf_bank": 3,
                      "env_follow_bank": 1, "fbws_bank": 1, "ws4_bank": 2,
-                     "linrec2_bank": 5, "triangle_additive_bank": 1}
+                     "linrec2_bank": 5, "triangle_additive_bank": 1, "mix_bank": 1}

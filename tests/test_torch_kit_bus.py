@@ -130,8 +130,11 @@ def _count_wrapper_calls(monkeypatch, **static):
 
 VOICE_CALLS = {"affine1_bank": 26, "pink_bank": 2, "svf_bank": 3, "env_follow_bank": 1,
                "fbws_bank": 1, "ws4_bank": 2, "linrec2_bank": 5, "triangle_additive_bank": 1,
-               # the kit path's and the chain's waveshapers: not on this path
-               "kit_sources": 0, "kit_drive": 0, "waveshaper_block": 0, "fbws_fast_block": 0}
+               "mix_bank": 1,
+               # the kit path's and the chain's waveshapers, the granulator's
+               # and the sampler's reads: not on this path
+               "kit_sources": 0, "kit_drive": 0, "waveshaper_block": 0, "fbws_fast_block": 0,
+               "grain_read_cubic": 0, "sampler_read_linear": 0}
 
 
 BUS_SINGLES = ("saturation_block", "lowpass_block", "tilt_block", "delay_block",

@@ -139,7 +139,8 @@ def test_multi_trigger_blocks_match_jax():
 def test_slice_goes_through_every_bank_wrapper(monkeypatch):
     """Each of the kick's five bank wrappers is on the slice's path (on the
     CPU they run their plain versions; on CUDA the same calls launch the
-    kernels); the kit's other three are not, at ``max_harmonics=0``."""
+    kernels), and the mix; the kit's other three are not, at
+    ``max_harmonics=0``."""
     calls = {n: 0 for n in bank_kernels.KERNELS}
     for n in bank_kernels.KERNELS:
         fn = getattr(bank_kernels, n)
@@ -156,7 +157,7 @@ def test_slice_goes_through_every_bank_wrapper(monkeypatch):
     tengine.render_many(state, events, **STATIC)
     assert calls == {"affine1_bank": 2, "pink_bank": 1, "svf_bank": 1,
                      "env_follow_bank": 1, "fbws_bank": 1, "ws4_bank": 0,
-                     "linrec2_bank": 0, "triangle_additive_bank": 0}
+                     "linrec2_bank": 0, "triangle_additive_bank": 0, "mix_bank": 1}
 
 
 @pytest.mark.parametrize("kw", [dict(kinds=("kick", "hihat")),
