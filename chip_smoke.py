@@ -12,8 +12,8 @@ Phases (any failure exits non-zero):
    in parallel);
 3. kernels: each of the twenty-four kernels against its plain PyTorch
    version on the card, at the main path's shapes (B = 512; V = 4,096 for
-   the kick's five, V = 1,024 for ws4 and the triangle, R = 2,560 membrane
-   rows for linrec2, the stereo bus [2, B] for the nine bus kernels, the
+   the kick's five, V = 1,024 for ws4 and the triangle, the stereo bus
+   [2, B] for the nine bus kernels, the
    mono plate input [B] with its [4, 566] and [2, 2719] histories,
    ``bus_chain`` running the kit's seven bus phases, the first four, and
    the product chain's ten in one launch, which must also equal the kernels
@@ -21,10 +21,19 @@ Phases (any failure exits non-zero):
    ``kit_drive`` at its kick 16 + snare 16, ``mix_bank`` at the kit's 4,096
    voices with pan and gain moving, ``grain_read_cubic`` at 4,000 grains on
    a 32,768-sample source with and without ages, ``sampler_read_linear``
-   at 128 voices on a 32,768-frame arena; ``affine1_bank`` also at
-   ``pallas_scan.linrec1_pallas``'s [4,096, 512] with no floor, the
-   function of that TPU kernel), inputs from a numpy seed; with
-   each kernel's time, its plain version's and its bound (the larger of
+   at 128 voices on a 32,768-frame arena; the two staged kernels at every
+   shape full_kit_4096_bus7 launches them at, ``affine1_bank`` at 512 and
+   1,024 rows with no floor array and at 1,024 with a live one, at the
+   kick's 4,096 with an explicit floor row, at
+   ``pallas_scan.linrec1_pallas``'s [4,096, 512] with none (the function
+   of that TPU kernel) and at the granulator's one row, ``linrec2_bank`` at
+   1,024, 512 and 2,560 (tom2's membrane) rows, both at 515 rows of 100
+   and 99 samples (tails of rows per block and of the 64-sample chunk,
+   4-byte copies), each bit-equal to its plain version, and
+   ``affine1_bank(None, ...)`` bit-equal to the explicit -3e38 floor with
+   NaN, +-inf and below-floor values), inputs from a numpy seed; with each
+   kernel's device time per call (torch.profiler), its wrapper's wall
+   between CUDA events, its plain version's and its bound (the larger of
    bytes over 3.35 TB/s and operations over 67 TFLOP/s); also the counter
    hash, bit for bit against the CPU;
 4. the kick slice through ``render_many``: 4,096 kick voices, tight preset,
@@ -61,7 +70,8 @@ Phases (any failure exits non-zero):
    [-60, 8, 1, 50, 1] (over the threshold at the kit's level) and the plate
    initialised and held at size 0.0 (its tank reads 2.3-3.2 blocks back);
    then the render with ``fuse_bus=False`` (median of 3), each of the eight
-   single bus kernels once a block, ``bus_chain`` never;
+   single bus kernels once a block, ``bus_chain`` never; 26 ``affine1_bank``
+   and 5 ``linrec2_bank`` launches a block, with the rows of each printed;
 8. product_block_64v_chain9, ``bench_configs.bench_onchip_product_block``:
    the kit of ``__graft_entry__.entry`` (kick 16 ``max_harmonics=64,
    feedback_path=False``, snare 16 ``max_harmonics=64``, hihat2 16, tom2 8,
@@ -111,7 +121,8 @@ JSON summary (launches from the first full_kit_4096_bus7 render, the
 eight single bus kernels' from its ``fuse_bus=False`` render, the kit
 kernels' from the product render and the two waveshapers' from its
 ``fuse_runs=False`` render, the grain and sampler reads' from phase 10's
-render).  ``--profile PATH``
+render; ``ms`` the device time per call of each kernel's first phase-3
+case, the wrapper's wall where the profiler traces nothing).  ``--profile PATH``
 also writes torch.profiler tables of 4 steady-state blocks of the kick
 slice, the kit, each kit-with-bus render, the product block and phase 10's
 render to PATH.
@@ -152,6 +163,9 @@ FX_ORDER_FULL = FX_ORDER + ("compressor", "spring", "plate")
 #: (the delay's cutoff smoother holds Hz).
 OUT_TOL = 1e-5
 STATE_TOL = 1e-4
+
+#: the redesigned kernels: bit-equal to their plain versions at every case
+EXACT = ("affine1_bank", "linrec2_bank")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -251,6 +265,27 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters):
+    """Device milliseconds per call over ``iters`` calls: the CUDA time that
+    torch.profiler traces (the kernels, and any fill or copy the wrapper
+    launches), so a kernel shorter than its wrapper's host work is timed as
+    itself.  None where no trace holds every call's device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):   # a trace now and then comes back short of device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_ops = sum(e.count for e in device)
+        if n_ops > 0 and n_ops % iters == 0:
+            return sum(e.self_device_time_total for e in device) / iters / 1e3
+    return None
+
+
 def max_err(a, b) -> float:
     import torch
 
@@ -277,7 +312,7 @@ def kernel_cases(dev):
     from libgooey_tpu_torch.effects import reverb_plate, reverb_spring, saturation
     from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
-    from libgooey_tpu_torch.ops import filters, noise, ringbuf, scan
+    from libgooey_tpu_torch.ops import filters, noise, ringbuf
 
     rs = np.random.RandomState(SEED)
 
@@ -289,15 +324,36 @@ def kernel_cases(dev):
 
     kick_shape = f"V={V}, B={B}"
     cases = []
-    # 1. affine1 as linrec1 uses it: no floor, one-pole coefficients with resets
-    cases.append(("affine1_bank", kick_shape, (
-        t(np.full((V, B), -3.0e38, np.float32)),
-        t(np.where(rs.rand(V, B) < 0.002, 0.0, 0.9 + 0.0999 * rs.rand(V, B))),
-        t(0.01 * rs.randn(V, B)), t(0.1 * rs.randn(V))), {}, 1))
-    #    and as pallas_scan.linrec1_pallas's y[n] = a[n]*y[n-1] + b[n], |a| < 1
+    # 1. affine1 at the main path's shapes (full_kit_4096_bus7: 19 launches a
+    #    block at 512 rows, tom2's and the bass's phase accumulators and
+    #    filters, through linrec1 with no floor array; 7 at 1,024, hihat2's
+    #    trackers with a live floor among them), the first case's times
+    #    going to the kernel line
+    def one_pole(rows, b=B):
+        return (t(np.where(rs.rand(rows, b) < 0.002, 0.0, 0.9 + 0.0999 * rs.rand(rows, b))),
+                t(0.01 * rs.randn(rows, b)), t(0.1 * rs.randn(rows)))
+
+    def tracker(rows, b=B):   # scan.asym_smooth: instant up, one-pole down, resets
+        target = np.abs(0.5 * rs.randn(rows, b))
+        return (t(target), t(np.where(rs.rand(rows, b) < 0.002, 0.0, 1.0 - 0.0005)),
+                t(0.0005 * target), t(np.abs(0.1 * rs.randn(rows))))
+
+    for rows in (512, 1024):
+        cases.append(("affine1_bank", f"V={rows}, B={B}, no floor", (None, *one_pole(rows)), {}, 1))
+    cases.append(("affine1_bank", f"V=1024, B={B}, live floor (maxlin)", tracker(1024), {}, 1))
+    #    the kick's 4,096 rows, an explicit floor row, as before
+    cases.append(("affine1_bank", f"{kick_shape}, explicit -3e38 floor", (
+        t(np.full((V, B), bk.NO_FLOOR, np.float32)), *one_pole(V)), {}, 1))
+    #    pallas_scan.linrec1_pallas's y[n] = a[n]*y[n-1] + b[n], |a| < 1, as
+    #    every port linrec1 runs it
     cases.append(("affine1_bank", f"{kick_shape}, no floor: linrec1_pallas's function", (
-        t(np.full((V, B), scan.NO_FLOOR, np.float32)), t(rs.uniform(-0.99, 0.99, (V, B))),
-        t(rs.randn(V, B)), t(rs.randn(V))), {}, 1))
+        None, t(rs.uniform(-0.99, 0.99, (V, B))), t(rs.randn(V, B)), t(rs.randn(V))), {}, 1))
+    #    the granulator's 1/sqrt(N) smoother: one row
+    cases.append(("affine1_bank", f"V=1, B={B}, no floor", (None, *one_pole(1)), {}, 1))
+    #    tails: 515 rows (not a multiple of rows per block), 100 samples (not a
+    #    multiple of the 64-sample chunk), 99 (4-byte copies)
+    cases.append(("affine1_bank", "V=515, B=100, live floor", tracker(515, 100), {}, 1))
+    cases.append(("affine1_bank", "V=515, B=99, no floor", (None, *one_pole(515, 99)), {}, 1))
     # 2. pink over hashed white noise with trigger resets
     poles, gains = noise.coefficients(SR)
     kw = dict(poles=tuple(map(float, poles)), gains=tuple(map(float, gains)),
@@ -326,15 +382,20 @@ def kernel_cases(dev):
         t(0.5 * rs.randn(Vs, B)),
         t(np.where(rs.rand(Vs, 1) < 0.1, 1.0, 1.0 + 9.0 * rs.rand(Vs, 1)) * np.ones(B)),
         t(0.05 * rs.randn(bk.FBWS_S_IN, Vs))), {}, 1))
-    # 7. the membrane: tom2's 512 voices x 5 high-Q band-pass rows, resets
-    R = 5 * KIT["tom2"]
-    wr = 2 * np.pi * rs.uniform(160.0, 330.0, (R, 1)) / SR
-    alpha = np.sin(wr) / (2 * rs.uniform(1.0, 7.5, (R, 1)))
-    keep = np.where(rs.rand(R, B) < 0.002, 0.0, 1.0)
-    cases.append(("linrec2_bank", f"R={R}, B={B}", (
-        t(2 * np.cos(wr) / (1 + alpha) * keep), t(-(1 - alpha) / (1 + alpha) * keep),
-        t(keep), t(np.zeros((R, B))), t(0.002 * rs.randn(R, B)), t(np.zeros((R, B))),
-        t(0.01 * rs.randn(R)), t(0.01 * rs.randn(R))), {}, 2))
+    # 7. linrec2 at the main path's shapes (full_kit_4096_bus7: 1 launch a
+    #    block at 512 rows, 3 at 1,024, 1 at 2,560, tom2's 512 voices x 5
+    #    membrane bands), high-Q band-pass rows with resets, the first
+    #    case's times going to the kernel line; then the tails
+    def resonators(rows, b=B):
+        wr = 2 * np.pi * rs.uniform(160.0, 330.0, (rows, 1)) / SR
+        alpha = np.sin(wr) / (2 * rs.uniform(1.0, 7.5, (rows, 1)))
+        keep = np.where(rs.rand(rows, b) < 0.002, 0.0, 1.0)
+        return (t(2 * np.cos(wr) / (1 + alpha) * keep), t(-(1 - alpha) / (1 + alpha) * keep),
+                t(keep), t(np.zeros((rows, b))), t(0.002 * rs.randn(rows, b)),
+                t(np.zeros((rows, b))), t(0.01 * rs.randn(rows)), t(0.01 * rs.randn(rows)))
+
+    for rows, b in ((1024, B), (512, B), (5 * KIT["tom2"], B), (515, 100), (515, 99)):
+        cases.append(("linrec2_bank", f"R={rows}, B={b}", resonators(rows, b), {}, 2))
     # 8. the snare's tonal triangle: up to 2 s after the trigger, 40-2,000 Hz
     cases.append(("triangle_additive_bank", f"V={Vs}, B={B}, 64 harmonics", (
         t(rs.randint(0, 2 * int(SR), (Vs, 1)) + np.arange(B)[None, :]),
@@ -582,7 +643,7 @@ def bound_ms(name, args, kw, outs):
     elif name in ("grain_read_cubic", "sampler_read_linear"):
         ops = int(np.prod(outs[0].shape[:2])) * OPS_PER_ROW_SAMPLE[name]
     else:
-        shape = args[0].shape
+        shape = next(a for a in args if a is not None).shape   # affine1's a may be None
         rows, b = (1, shape[0]) if len(shape) == 1 else shape
         ops = rows * b * (sum(OPS_PER_ROW_SAMPLE[ph.name] for ph in args[1])
                           if name == "bus_chain" else OPS_PER_ROW_SAMPLE[name])
@@ -626,15 +687,21 @@ def phase_kernels(dev):
             state_err = rel_err(got[n_out:], want[n_out:])
         for _ in range(3):
             kern(*args, **kw)
-        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        wall_ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        dev_ms = device_ms(lambda: kern(*args, **kw), 20)
+        ms = wall_ms if dev_ms is None else dev_ms
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
         bms, bound_by = bound_ms(name, args, kw, got)
+        dev_text = "not measured" if dev_ms is None else f"{dev_ms * 1e3:.1f} us"
         print(f"kernel {name}: out err {out_err:.3e} (tol {OUT_TOL:g}), state err "
-              f"{state_err:.3e} (tol {STATE_TOL:g}); {ms * 1e3:.1f} us/call vs plain "
-              f"{plain_ms * 1e3:.1f} us/call, bound {bms * 1e3:.4f} us ({bound_by}) at {shape}")
+              f"{state_err:.3e} (tol {STATE_TOL:g}); device {dev_text}/call, wrapper "
+              f"{wall_ms * 1e3:.1f} us/call vs plain {plain_ms * 1e3:.1f} us/call, bound "
+              f"{bms * 1e3:.4f} us ({bound_by}) at {shape}")
         check(np.isfinite(out_err) and out_err <= OUT_TOL, f"{name}: output error {out_err}")
         check(np.isfinite(state_err) and state_err <= STATE_TOL,
               f"{name}: state error {state_err}")
+        check(name not in EXACT or (out_err == 0.0 and state_err == 0.0),
+              f"{name} at {shape}: not bit-equal to its plain version")
         if name == "bus_chain":   # one launch gives what the kernels give in turn
             same = max_err(mod.run_phases(*args), got) == 0.0
             print(f"kernel bus_chain ({len(args[1])} phases): equal to its phases' own "
@@ -650,7 +717,34 @@ def phase_kernels(dev):
                              replaces=mod.REPLACES[name], launches=0, max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
                              library_ms=None)
+    check_no_floor(dev)
     return results
+
+
+def check_no_floor(dev):
+    """``affine1_bank(None, ...)`` against the explicit -3e38 floor row, bit
+    for bit, with NaN, +-inf and values below the floor in ``c``, at a tail
+    of rows and chunks with 16- and 4-byte copies."""
+    import torch
+
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    rs = np.random.RandomState(SEED + 1)
+    for rows, b in ((515, 100), (515, 99), (512, B)):
+        bb = rs.uniform(-0.99, 0.99, (rows, b)).astype(np.float32)
+        c = rs.randn(rows, b).astype(np.float32)
+        for value, p in ((np.nan, 0.002), (np.inf, 0.002), (-np.inf, 0.002), (-3.2e38, 0.004),
+                         (-3.4e38, 0.002)):
+            c[rs.rand(rows, b) < p] = value
+        args = [torch.as_tensor(x, device=dev) for x in (bb, c, rs.randn(rows).astype(np.float32))]
+        floor = torch.full((rows, b), bk.NO_FLOOR, dtype=torch.float32, device=dev)
+        got, want = bk.affine1_bank(None, *args), bk.affine1_bank(floor, *args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+        print(f"kernel affine1_bank at V={rows}, B={b}: a=None vs the explicit -3e38 floor, "
+              f"bit for bit with NaN, +-inf and below-floor c: {same}")
+        check(same, f"affine1_bank(None) differs from the explicit floor at V={rows}, B={b}")
 
 
 def phase_rng(dev):
@@ -905,6 +999,7 @@ def phase_full_bus(dev, card, prof_file=None):
     ``fuse_bus=False``, each effect through its own kernels (the path of a
     lone effect).  Returns the first render's counts, with the single bus
     kernels' from the second."""
+    from libgooey_tpu_torch.engine import engine
     from libgooey_tpu_torch.ops import bank_kernels as bk
 
     compare = bus_inputs(dev, N_COMPARE_FULL, None, COMPARE_DELAY_S, FX_ORDER_FULL,
@@ -922,8 +1017,37 @@ def phase_full_bus(dev, card, prof_file=None):
                          BUS_SINGLES[:-1] if fuse else ("bus_chain",))
         if counts is None:
             counts = c
+            rows = launch_rows(lambda: engine.render_many(
+                state, {k: v[:1] for k, v in events.items()}, **static))
+            print(f"{label}: rows of each launch in one block: {json.dumps(rows)}")
+            check(c["affine1_bank"] == 26 * N_BLOCKS and c["linrec2_bank"] == 5 * N_BLOCKS
+                  and sum(rows["affine1_bank"].values()) == 26
+                  and sum(rows["linrec2_bank"].values()) == 5,
+                  f"{label}: not 26 affine1_bank and 5 linrec2_bank launches a block")
     counts.update((n, c[n]) for n in BUS_SINGLES[:-1])
     return counts
+
+
+def launch_rows(render):
+    """``{kernel: {rows: launches}}`` of the staged kernels while ``render()``
+    runs, recorded where their wrappers launch (the wrappers themselves
+    stay: each counts into its own module-level name)."""
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    seen = {"affine1_bank": [], "linrec2_bank": []}
+    real = bk._launch
+
+    def recording(name, device, entry, *args):
+        if name in seen:
+            seen[name].append(args[-4])   # ..., R, B, rows per block, 16-byte copies
+        return real(name, device, entry, *args)
+
+    bk._launch = recording
+    try:
+        render()
+    finally:
+        bk._launch = real
+    return {n: {str(r): rs.count(r) for r in sorted(set(rs))} for n, rs in seen.items()}
 
 
 # --- phase 8: the product block -----------------------------------------------

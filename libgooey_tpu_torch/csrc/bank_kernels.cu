@@ -14,23 +14,34 @@
 // affine1_bank also computes pallas_scan.py:linrec1_pallas's function, the
 // first-order recurrence y[n] = a[n]*y[n-1] + b[n], with the floor a = -3e38.
 //
-// Design, shared by the seven recurrences: each is a per-row recurrence stepping
-// through the B samples of a block, so one thread owns one voice and walks
-// its row sample by sample with the carried state in registers.  Arrays are
-// the port's logical [V, B] layout, row-major: thread v reads x[v*B + n].
-// A warp therefore touches 32 cache lines per sample, but each line holds
-// the next 31 samples of that voice and stays in L1 (a 128-thread block
-// keeps 16 KB per streamed array resident), so every byte crosses DRAM once.
-// Per-voice state arrays ([S, V]) are read and written coalesced.
+// Design.  Each of the seven is a per-row recurrence stepping through the B
+// samples of a block, and each keeps one thread per row, walking the row
+// sample by sample with the carried state in registers: the recurrences
+// are not reassociated (a two-pass scan of linrec2 drifts on high-Q
+// resonators, libgooey_tpu/ops/scan.py:49-58, and affine1's max composes
+// only for b >= 0).  Arrays are the port's logical [V, B] layout, row-major.
 //
-// What bounds them on the card: at V = 4,096 a launch is 32 blocks of 128
-// threads, so 32 of the 132 SMs hold one block each and the rest idle (the
-// kit's banks are smaller still: 1,024 snare rows fill 8 SMs, the 2,560
-// membrane rows of linrec2_bank 20).  The small kernels are latency-bound
-// on their serial B-step chain; the fbws and ws4 chains are 32 dependent
-// allpass sections plus four tanhf per base sample.  Filling the card (more
-// rows per launch, or splitting each row's block across threads with a
-// two-pass scan for the linear recurrences) is the first thing to improve.
+// affine1_bank and linrec2_bank, the two the main path launches most (26
+// and 5 times a block in full_kit_4096_bus7, at 512-2,560 rows), are staged
+// (row_stage.cuh): a block of 128 threads owns rc <= 32 rows, the wrapper
+// picks rc so that a launch spreads over the SMs (4 rows a block at 512
+// rows, 8 at 1,024, 20 at 2,560, 32 at 4,096 on 132 SMs; one block for one
+// row), warp 0 walks the rows from shared memory four samples at a time,
+// and warps 1-3 stream 64-sample chunks in with cp.async and the outputs
+// out, coalesced, ahead of and behind the walk.  They are bound by the
+// serial chain at 1-1,024 rows (512 dependent steps of ~18 cycles, ~6.5 us
+// a launch on an H100) and near their bytes bound at 2,560-4,096.
+//
+// The other five (pink, svf, env_follow, fbws, ws4) run a thread per row in
+// blocks of 128 straight from device memory: thread v reads x[v*B + n], so a
+// warp touches 32 cache lines per sample, each holding the next 31 samples
+// of its row in L1, and every byte crosses DRAM once.  Per-voice state
+// arrays ([S, V]) are read and written coalesced.  At V = 4,096 a launch
+// is 32 blocks, so 32 of the 132 SMs hold one block each and the rest idle
+// (1,024 rows fill 8); the small kernels are latency-bound on their serial
+// B-step chain, the fbws and ws4 chains on 32 dependent allpass sections
+// plus four tanhf per base sample.  Staging them the same way is the next
+// step.
 //
 // Numerics: every step keeps the Pallas body's op order, and the build
 // passes -fmad=false so that a*b + c rounds twice, exactly as the plain
@@ -44,6 +55,8 @@
 #include <stdint.h>
 
 #include "ovs4.cuh"
+#include "rings.cuh"
+#include "row_stage.cuh"
 
 namespace {
 
@@ -52,22 +65,66 @@ constexpr int kThreads = 128;
 inline dim3 grid_for(int V) { return dim3((V + kThreads - 1) / kThreads); }
 
 // --- 1. affine1_bank: y[n] = max(a[n], b[n]*y[n-1] + c[n]) ------------------
+//
+// Staged (row_stage.cuh): a walker steps its row four samples at a time from
+// the float4s of a, b and c, with the next four already in registers.  With
+// no floor array (a == nullptr, kFloor false) the same fmaxf takes the
+// constant -3e38f, so the bits equal those of an explicit floor row of it.
 
-__global__ void affine1_bank_kernel(const float* __restrict__ a,
-                                    const float* __restrict__ b,
-                                    const float* __restrict__ c,
-                                    const float* __restrict__ y0,
-                                    float* __restrict__ y,
-                                    float* __restrict__ y_last, int V, int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const size_t row = static_cast<size_t>(v) * B;
-  float yv = y0[v];
-  for (int n = 0; n < B; ++n) {
-    yv = fmaxf(a[row + n], b[row + n] * yv + c[row + n]);
-    y[row + n] = yv;
+constexpr float kNoFloor = -3.0e38f;   // ops/bank_kernels.py NO_FLOOR
+
+template <bool kFloor>
+__global__ void __launch_bounds__(kStageThreads)
+    affine1_bank_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                        const float* __restrict__ c, const float* __restrict__ y0,
+                        float* __restrict__ y, float* __restrict__ y_last, int V, int B,
+                        int rc, int vec) {
+  constexpr int NIN = kFloor ? 3 : 2;
+  float* const dst[1] = {y};
+  const RowSpan s = row_span(V, B, rc, vec);
+  const int v = s.row0 + threadIdx.x;
+  float yv = threadIdx.x < s.rows ? y0[v] : 0.0f;
+  auto walk = [&](const auto& in, const auto& out, int len) {
+    const float* tb = in[0];
+    const float* tc = in[1];
+    const float* ta = in[NIN - 1];   // a's row where there is one, else unused
+    const float4 floor4 = make_float4(kNoFloor, kNoFloor, kNoFloor, kNoFloor);
+    float4 bq = ld4(tb), cq = ld4(tc), aq = kFloor ? ld4(ta) : floor4;
+    // four samples, the next four loaded first (unit q+1 is at most the
+    // row's padding unit)
+    auto group = [&](int q) {
+      const float4 bn = ld4(tb + 4 * q + 4), cn = ld4(tc + 4 * q + 4);
+      const float4 an = kFloor ? ld4(ta + 4 * q + 4) : floor4;
+      float4 o;
+      yv = fmaxf(aq.x, bq.x * yv + cq.x);
+      o.x = yv;
+      yv = fmaxf(aq.y, bq.y * yv + cq.y);
+      o.y = yv;
+      yv = fmaxf(aq.z, bq.z * yv + cq.z);
+      o.z = yv;
+      yv = fmaxf(aq.w, bq.w * yv + cq.w);
+      o.w = yv;
+      st4(out[0] + 4 * q, o);
+      aq = an;
+      bq = bn;
+      cq = cn;
+    };
+    const int full = len >> 2;
+    walk_groups(full, group);
+    const int rem = len & 3;   // only where B % 4 != 0: the last chunk's tail
+    float* o = out[0] + 4 * full;
+    if (rem > 0) o[0] = yv = fmaxf(aq.x, bq.x * yv + cq.x);
+    if (rem > 1) o[1] = yv = fmaxf(aq.y, bq.y * yv + cq.y);
+    if (rem > 2) o[2] = yv = fmaxf(aq.z, bq.z * yv + cq.z);
+  };
+  if constexpr (kFloor) {
+    const float* const src[3] = {b, c, a};
+    staged_rows(src, dst, s, walk);
+  } else {
+    const float* const src[2] = {b, c};
+    staged_rows(src, dst, s, walk);
   }
-  y_last[v] = yv;
+  if (threadIdx.x < s.rows) y_last[v] = yv;
 }
 
 // --- 2. pink_bank: Kellet 3-pole pink filter + direct term -----------------
@@ -223,35 +280,86 @@ __global__ void ws4_bank_kernel(const float* __restrict__ x,
 // compiler from contracting on its own.  High-Q resonators ring across
 // blocks, so the order is kept exactly.  Returns the post-update
 // trajectories.
+//
+// Staged (row_stage.cuh): a walker steps its row four samples at a time from
+// the float4s of the six coefficient rows, the next four in registers ahead
+// of the chain, and writes s1 and s2 four at a time.
 
-__global__ void linrec2_bank_kernel(const float* __restrict__ a11,
-                                    const float* __restrict__ a12,
-                                    const float* __restrict__ a21,
-                                    const float* __restrict__ a22,
-                                    const float* __restrict__ b1,
-                                    const float* __restrict__ b2,
-                                    const float* __restrict__ s1_0,
-                                    const float* __restrict__ s2_0,
-                                    float* __restrict__ s1_out,
-                                    float* __restrict__ s2_out,
-                                    float* __restrict__ s1_last,
-                                    float* __restrict__ s2_last, int R, int B) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const size_t row = static_cast<size_t>(r) * B;
-  float s1 = s1_0[r];
-  float s2 = s2_0[r];
-  for (int n = 0; n < B; ++n) {
-    const size_t i = row + n;
-    const float n1 = fmaf(a11[i], s1, a12[i] * s2) + b1[i];
-    const float n2 = fmaf(a21[i], s1, a22[i] * s2) + b2[i];
-    s1 = n1;
-    s2 = n2;
-    s1_out[i] = s1;
-    s2_out[i] = s2;
+__global__ void __launch_bounds__(kStageThreads)
+    linrec2_bank_kernel(const float* __restrict__ a11, const float* __restrict__ a12,
+                        const float* __restrict__ a21, const float* __restrict__ a22,
+                        const float* __restrict__ b1, const float* __restrict__ b2,
+                        const float* __restrict__ s1_0, const float* __restrict__ s2_0,
+                        float* __restrict__ s1_out, float* __restrict__ s2_out,
+                        float* __restrict__ s1_last, float* __restrict__ s2_last, int R,
+                        int B, int rc, int vec) {
+  const float* const src[6] = {a11, a12, a21, a22, b1, b2};
+  float* const dst[2] = {s1_out, s2_out};
+  const RowSpan s = row_span(R, B, rc, vec);
+  const int r = s.row0 + threadIdx.x;
+  const bool live = threadIdx.x < s.rows;
+  float s1 = live ? s1_0[r] : 0.0f;
+  float s2 = live ? s2_0[r] : 0.0f;
+  staged_rows(src, dst, s, [&](const auto& in, const auto& out, int len) {
+    float4 q[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) q[i] = ld4(in[i]);
+    // one step from the old state, in the Pallas body's order
+    auto step = [&](float m11, float m12, float m21, float m22, float c1, float c2) {
+      const float n1 = fmaf(m11, s1, m12 * s2) + c1;
+      const float n2 = fmaf(m21, s1, m22 * s2) + c2;
+      s1 = n1;
+      s2 = n2;
+    };
+    // four samples, the next four loaded first (unit u+1 is at most the
+    // row's padding unit)
+    auto group = [&](int u) {
+      float4 nq[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) nq[i] = ld4(in[i] + 4 * u + 4);
+      float4 o1, o2;
+      step(q[0].x, q[1].x, q[2].x, q[3].x, q[4].x, q[5].x);
+      o1.x = s1;
+      o2.x = s2;
+      step(q[0].y, q[1].y, q[2].y, q[3].y, q[4].y, q[5].y);
+      o1.y = s1;
+      o2.y = s2;
+      step(q[0].z, q[1].z, q[2].z, q[3].z, q[4].z, q[5].z);
+      o1.z = s1;
+      o2.z = s2;
+      step(q[0].w, q[1].w, q[2].w, q[3].w, q[4].w, q[5].w);
+      o1.w = s1;
+      o2.w = s2;
+      st4(out[0] + 4 * u, o1);
+      st4(out[1] + 4 * u, o2);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) q[i] = nq[i];
+    };
+    const int full = len >> 2;
+    walk_groups(full, group);
+    const int rem = len & 3;   // only where B % 4 != 0: the last chunk's tail
+    float* o1 = out[0] + 4 * full;
+    float* o2 = out[1] + 4 * full;
+    if (rem > 0) {
+      step(q[0].x, q[1].x, q[2].x, q[3].x, q[4].x, q[5].x);
+      o1[0] = s1;
+      o2[0] = s2;
+    }
+    if (rem > 1) {
+      step(q[0].y, q[1].y, q[2].y, q[3].y, q[4].y, q[5].y);
+      o1[1] = s1;
+      o2[1] = s2;
+    }
+    if (rem > 2) {
+      step(q[0].z, q[1].z, q[2].z, q[3].z, q[4].z, q[5].z);
+      o1[2] = s1;
+      o2[2] = s2;
+    }
+  });
+  if (live) {
+    s1_last[r] = s1;
+    s2_last[r] = s2;
   }
-  s1_last[r] = s1;
-  s2_last[r] = s2;
 }
 
 // --- 8. mix_bank: smoothed pan/gain, equal-power pan, sums over voices -------
@@ -321,16 +429,31 @@ __global__ void mix_bank_sum_kernel(const float* __restrict__ part, int n_chunks
   out_m[k] = sm;
 }
 
+template <bool kFloor>
+int launch_affine1(const float* a, const float* b, const float* c, const float* y0,
+                   float* y, float* y_last, int V, int B, int rc, int vec, void* stream) {
+  const size_t smem = stage_smem_bytes(kFloor ? 3 : 2, 1, rc);
+  const cudaError_t err = allow_smem(affine1_bank_kernel<kFloor>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  affine1_bank_kernel<kFloor><<<dim3((V + rc - 1) / rc), kStageThreads, smem,
+                                 as_stream(stream)>>>(a, b, c, y0, y, y_last, V, B, rc, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
+// rc: rows per block (1..kStageMaxRows, the wrapper's choice); vec: 16-byte
+// copies (B % 4 == 0 and every array 16-byte aligned).  a == nullptr: no
+// floor.
 int affine1_bank_launch(const float* a, const float* b, const float* c,
-                        const float* y0, float* y, float* y_last, int V, int B,
-                        void* stream) {
-  affine1_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
-      a, b, c, y0, y, y_last, V, B);
-  return static_cast<int>(cudaGetLastError());
+                        const float* y0, float* y, float* y_last, int V, int B, int rc,
+                        int vec, void* stream) {
+  if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  return a != nullptr
+             ? launch_affine1<true>(a, b, c, y0, y, y_last, V, B, rc, vec, stream)
+             : launch_affine1<false>(a, b, c, y0, y, y_last, V, B, rc, vec, stream);
 }
 
 int pink_bank_launch(const float* w, const uint8_t* reset, const float* fstate,
@@ -385,9 +508,14 @@ int ws4_bank_launch(const float* x, const float* d, const float* cp,
 int linrec2_bank_launch(const float* a11, const float* a12, const float* a21,
                         const float* a22, const float* b1, const float* b2,
                         const float* s1_0, const float* s2_0, float* s1, float* s2,
-                        float* s1_last, float* s2_last, int R, int B, void* stream) {
-  linrec2_bank_kernel<<<grid_for(R), kThreads, 0, as_stream(stream)>>>(
-      a11, a12, a21, a22, b1, b2, s1_0, s2_0, s1, s2, s1_last, s2_last, R, B);
+                        float* s1_last, float* s2_last, int R, int B, int rc, int vec,
+                        void* stream) {
+  if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = stage_smem_bytes(6, 2, rc);
+  const cudaError_t err = allow_smem(linrec2_bank_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  linrec2_bank_kernel<<<dim3((R + rc - 1) / rc), kStageThreads, smem, as_stream(stream)>>>(
+      a11, a12, a21, a22, b1, b2, s1_0, s2_0, s1, s2, s1_last, s2_last, R, B, rc, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,213 @@
+// Row tiles staged through shared memory, for the bank kernels whose rows
+// are sample-sequential recurrences over row-major [R, B] arrays
+// (affine1_bank and linrec2_bank in bank_kernels.cu).
+//
+// A block of kStageThreads threads owns `rc` consecutive rows (rc <= 32,
+// chosen per launch by the wrapper so that a launch spreads over the SMs).
+// Warp 0 holds the walkers, one lane per row, each stepping its row's
+// recurrence with the carried state in registers.  Warps 1-3 are the
+// copiers: they cut the sample axis into chunks of kStageChunk samples,
+// copy each input's [rc, C] tile into a ring of kStageRing stages with
+// cp.async (16-byte copies in coalesced rows where B % 4 == 0 and every
+// pointer is 16-byte aligned, 4-byte copies otherwise), and store the
+// walkers' output tiles (double-buffered) back to device memory, coalesced.
+// One __syncthreads a chunk hands a landed chunk to the walkers and their
+// finished outputs to the copiers, so the copies of the next chunks and the
+// stores of the last one overlap the walk of this one.  The copiers' work
+// for a chunk must stay short of the walk's: a copier finds an element's
+// row and column once and issues every array's copy back to back.
+//
+// Staged rows have a pitch of kStagePitch = C + 4 floats: 16-byte aligned
+// for cp.async and float4 accesses, and one 16-byte unit longer than the
+// chunk, so that the eight lanes of a quarter-warp reading unit q of rows
+// r..r+7 hit the eight distinct 16-byte bank groups (r + q) % 8.  Walkers
+// read four samples as one float4, the next four ahead of the dependent
+// chain, and write their outputs four at a time.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kStageChunk = 64;                 // samples per chunk (C)
+constexpr int kStagePitch = kStageChunk + 4;    // floats per staged row
+constexpr int kStageRing = 3;                   // input chunks in the ring
+constexpr int kStageThreads = 128;              // warp 0 walks, warps 1-3 copy
+constexpr int kStageMaxRows = 32;               // walkers per block
+constexpr int kStageCopiers = kStageThreads - 32;
+
+// Dynamic shared memory of a block: the input ring and two output tiles.
+constexpr size_t stage_smem_bytes(int n_in, int n_out, int rc) {
+  return static_cast<size_t>(kStageRing * n_in + 2 * n_out) * rc * kStagePitch *
+         sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most kStageRing - 2 of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStageRing - 2));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// This block's rows and the sample range of one chunk.
+struct RowSpan {
+  int row0;   // first row of the block
+  int rows;   // rows of the block that exist (the last block may have fewer)
+  int rc;     // rows per block: the staged tiles' row count
+  int B;      // samples per row
+  bool vec;   // 16-byte copies
+
+  __device__ int start(int k) const { return k * kStageChunk; }
+  __device__ int len(int k) const { return min(kStageChunk, B - k * kStageChunk); }
+  __device__ int tile() const { return rc * kStagePitch; }   // floats per array tile
+};
+
+__device__ __forceinline__ RowSpan row_span(int R, int B, int rc, int vec) {
+  RowSpan s;
+  s.row0 = blockIdx.x * rc;
+  s.rows = min(rc, R - s.row0);
+  s.rc = rc;
+  s.B = B;
+  s.vec = vec != 0;
+  return s;
+}
+
+// Element i of a chunk's [rows, n] tile (n 16-byte units, or floats):
+// row r, column j; a whole chunk divides by a constant, a shift.
+__device__ __forceinline__ void tile_index(int i, int n, int& r, int& j) {
+  r = n == kStageChunk / 4 ? i / (kStageChunk / 4) : n == kStageChunk ? i / kStageChunk : i / n;
+  j = i - r * n;
+}
+
+// Copier `p` of kStageCopiers: start the copies of chunk k of each input
+// into `slot` ([N][rc][pitch]) and commit them as one group (an empty group
+// past the last chunk, so that every copier counts the same groups).  A
+// copier finds an element's row and column once and copies it from every
+// array, so the copies go out back to back.
+template <int N>
+__device__ void stage_in(const float* const (&src)[N], float* slot, const RowSpan& s,
+                         int k, int n_chunks, int p) {
+  if (k < n_chunks) {
+    const int n0 = s.start(k), len = s.len(k);
+    const int w = s.vec ? 4 : 1;                 // floats a copy
+    const int n = s.vec ? len >> 2 : len;        // len % 4 == 0 where vec
+    for (int i = p; i < s.rows * n; i += kStageCopiers) {
+      int r, j;
+      tile_index(i, n, r, j);
+      float* d = slot + r * kStagePitch + w * j;
+      const size_t g = static_cast<size_t>(s.row0 + r) * s.B + n0 + w * j;
+#pragma unroll
+      for (int arr = 0; arr < N; ++arr) {
+        if (s.vec) {
+          cp_async16(d + arr * s.tile(), src[arr] + g);
+        } else {
+          cp_async4(d + arr * s.tile(), src[arr] + g);
+        }
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// Copier `p`: store chunk k of each output tile (`tiles`: [N][rc][pitch])
+// to device memory.
+template <int N>
+__device__ void stage_out(float* const (&dst)[N], const float* tiles, const RowSpan& s,
+                          int k, int p) {
+  const int n0 = s.start(k), len = s.len(k);
+  const int w = s.vec ? 4 : 1;
+  const int n = s.vec ? len >> 2 : len;
+  for (int i = p; i < s.rows * n; i += kStageCopiers) {
+    int r, j;
+    tile_index(i, n, r, j);
+    const float* t = tiles + r * kStagePitch + w * j;
+    const size_t g = static_cast<size_t>(s.row0 + r) * s.B + n0 + w * j;
+#pragma unroll
+    for (int arr = 0; arr < N; ++arr) {
+      if (s.vec) {
+        st4(dst[arr] + g, ld4(t + arr * s.tile()));
+      } else {
+        dst[arr][g] = t[arr * s.tile()];
+      }
+    }
+  }
+}
+
+// A walker's `full` groups of four samples: unrolled whole for a whole
+// chunk, so that the registers of the next group rename instead of moving.
+template <class Group>
+__device__ __forceinline__ void walk_groups(int full, Group&& group) {
+  if (full == kStageChunk / 4) {
+#pragma unroll
+    for (int q = 0; q < kStageChunk / 4; ++q) group(q);
+  } else {
+    for (int q = 0; q < full; ++q) group(q);
+  }
+}
+
+// The chunk loop shared by the staged kernels.  `walk(in, out, len)` runs on
+// each walker of a row that exists: `in[i]` and `out[i]` point at its row in
+// input / output tile i, `len` is the chunk's sample count.  The walker's
+// carried state lives in the caller's lambda captures.
+template <int NIN, int NOUT, class Walk>
+__device__ __forceinline__ void staged_rows(const float* const (&src)[NIN],
+                                            float* const (&dst)[NOUT], const RowSpan& s,
+                                            Walk&& walk) {
+  extern __shared__ float4 stage_smem4[];
+  float* ring = reinterpret_cast<float*>(stage_smem4);     // [S][NIN][rc][pitch]
+  float* outs = ring + kStageRing * NIN * s.tile();        // [2][NOUT][rc][pitch]
+  const int n_chunks = (s.B + kStageChunk - 1) / kStageChunk;
+  const int tid = threadIdx.x;
+  const bool walker = tid < 32;
+  const int p = tid - 32;
+
+  if (!walker) {
+    for (int k = 0; k < kStageRing - 1; ++k)
+      stage_in(src, ring + k * NIN * s.tile(), s, k, n_chunks, p);
+  }
+  for (int k = 0; k < n_chunks; ++k) {
+    if (!walker) cp_async_wait_ring();   // chunk k has landed (this copier's part)
+    __syncthreads();                     // ... all of it; walk k-1 and its outputs done
+    if (walker) {
+      if (tid < s.rows) {
+        const float* in = ring + (k % kStageRing) * NIN * s.tile() + tid * kStagePitch;
+        float* out = outs + (k & 1) * NOUT * s.tile() + tid * kStagePitch;
+        const float* ins[NIN];
+        float* outp[NOUT];
+#pragma unroll
+        for (int i = 0; i < NIN; ++i) ins[i] = in + i * s.tile();
+#pragma unroll
+        for (int i = 0; i < NOUT; ++i) outp[i] = out + i * s.tile();
+        walk(ins, outp, s.len(k));
+      }
+    } else {
+      // the slot of chunk k-1, whose walk ended before the barrier
+      const int kn = k + kStageRing - 1;
+      stage_in(src, ring + (kn % kStageRing) * NIN * s.tile(), s, kn, n_chunks, p);
+      if (k > 0) stage_out(dst, outs + ((k - 1) & 1) * NOUT * s.tile(), s, k - 1, p);
+    }
+  }
+  __syncthreads();
+  if (!walker) stage_out(dst, outs + ((n_chunks - 1) & 1) * NOUT * s.tile(), s, n_chunks - 1, p);
+}
+
+}  // namespace

@@ -31,14 +31,20 @@ its plain version take the same arguments.
 
 All arrays are float32 in the JAX package's ``[V, B]`` layout; masks are
 bool ``[V, B]``.  What bounds each kernel on the card and what its design does
-about it is in the header of its CUDA source: the recurrences run one thread
-per row with the state in registers, which at the kit's bank sizes fills
-8-32 of the 132 SMs, the first thing to improve.
+about it is in the header of its CUDA source.  Every recurrence runs one
+thread per row with the state in registers, in the Pallas body's op order.
+``affine1_bank`` and ``linrec2_bank`` are staged (``csrc/row_stage.cuh``):
+a block walks up to 32 rows from 64-sample tiles that its other warps copy
+into shared memory ahead of the walk, and :func:`stage_rows` sizes the
+blocks so that a launch spreads over the SMs; ``affine1_bank(None, ...)``
+reads no floor array.  The other five read device memory directly, 128 rows
+a block, which at the kit's bank sizes fills 8-32 of the 132 SMs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -139,15 +145,55 @@ def _div(a, b):
     return a / torch.full((), b, dtype=_F32, device=a.device)
 
 
+# --- the staged kernels' launch geometry ------------------------------------
+
+#: rows a block of a staged kernel walks at most (one warp of walkers;
+#: ``csrc/row_stage.cuh`` kStageMaxRows)
+STAGE_MAX_ROWS = 32
+
+
+def stage_rows(R: int, n_sm: int) -> int:
+    """Rows per block of a staged kernel (``affine1_bank``, ``linrec2_bank``):
+    the fewest that keep a launch of ``R`` rows within one block per SM, at
+    most one warp, so the launch spreads over ``min(R, n_sm)`` SMs (4 at 512
+    rows on 132 SMs, 8 at 1,024, 20 at 2,560, 32 at 4,096; 1 at one row)."""
+    return max(1, min(STAGE_MAX_ROWS, -(-R // n_sm)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def copies_16b(B: int, *arrays) -> bool:
+    """Whether a staged launch copies 16 bytes at a time: ``B % 4 == 0`` and
+    every array (``None``: absent) starts 16-byte aligned, so every row does;
+    else it copies 4 bytes at a time."""
+    return B % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in arrays if t is not None)
+
+
+def _stage_args(R: int, B: int, device, *arrays):
+    """The staged C entries' ``rc, vec``: rows per block, 16-byte copies."""
+    return stage_rows(R, _sm_count(device.index)), int(copies_16b(B, *arrays))
+
+
 # --- 1. affine1_bank ------------------------------------------------------------
+
+#: the floor that disables the max branch of ``affine1_bank`` (``a = None``)
+NO_FLOOR = -3.0e38
 
 
 def affine1_bank_plain(a, b, c, y0):
-    """Plain version: ``y[n] = max(a[n], b[n]*y[n-1] + c[n])``."""
+    """Plain version: ``y[n] = max(a[n], b[n]*y[n-1] + c[n])``; ``a = None``
+    is a floor row of ``NO_FLOOR``, laid out as ``a`` would be so that the
+    maximum gives the same bits (PyTorch's CPU maximum returns a NaN's
+    payload differently when one side broadcasts)."""
+    if a is None:
+        a = torch.full_like(b, NO_FLOOR)
     aT, bT, cT = a.t(), b.t(), c.t()
     y = y0
     ys = []
-    for n in range(aT.shape[0]):
+    for n in range(bT.shape[0]):
         y = torch.maximum(aT[n], bT[n] * y + cT[n])
         ys.append(y)
     return torch.stack(ys, dim=1), y
@@ -156,7 +202,8 @@ def affine1_bank_plain(a, b, c, y0):
 def affine1_bank(a, b, c, y0):
     """Voice-bank ``y[n] = max(a[n], b[n]*y[n-1] + c[n])`` over ``[V, B]``.
 
-    Pass ``a = -3e38`` for a plain first-order recurrence.
+    ``a = None`` is the plain first-order recurrence: no floor array is read,
+    and the result is that of ``a = NO_FLOOR`` everywhere, bit for bit.
     Returns ``(y [V, B], y_last [V])``."""
     if not _on_cuda("affine1_bank", b):
         return affine1_bank_plain(a, b, c, y0)
@@ -166,8 +213,8 @@ def affine1_bank(a, b, c, y0):
         ("y0", y0, _F32, (V,))])
     y, y_last = _empty((V, B), b), _empty((V,), b)
     _launch("affine1_bank", b.device, "affine1_bank_launch",
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), y0.data_ptr(),
-            y.data_ptr(), y_last.data_ptr(), V, B)
+            _ptr(a), b.data_ptr(), c.data_ptr(), y0.data_ptr(),
+            y.data_ptr(), y_last.data_ptr(), V, B, *_stage_args(V, B, b.device, a, b, c, y))
     affine1_bank.launches += 1
     return y, y_last
 
@@ -569,7 +616,8 @@ def linrec2_bank(a11, a12, a21, a22, b1, b2, s1_0, s2_0):
     s1l, s2l = _empty((R,), a11), _empty((R,), a11)
     _launch("linrec2_bank", a11.device, "linrec2_bank_launch",
             *(t.data_ptr() for _, t in coefs), s1_0.data_ptr(), s2_0.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), s1l.data_ptr(), s2l.data_ptr(), R, B)
+            s1.data_ptr(), s2.data_ptr(), s1l.data_ptr(), s2l.data_ptr(), R, B,
+            *_stage_args(R, B, a11.device, *(t for _, t in coefs), s1, s2))
     linrec2_bank.launches += 1
     return s1, s2, s1l, s2l
 

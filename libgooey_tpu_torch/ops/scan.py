@@ -9,7 +9,9 @@ kernels: on a CUDA tensor the hand-written kernel (``ops/bank_kernels.py``),
 on a CPU tensor its plain sample-sequential version.  Leading axes flatten
 into bank rows.  The ``max`` branch of ``affine1_bank`` is disabled with the
 ``-3e38`` sentinel for the linear recurrences, exactly as the TPU dispatch
-does; ``maxlin`` uses it live.
+does: the port passes ``a = None``, and the kernel takes the sentinel as a
+constant instead of reading a floor array (the same bits); ``maxlin`` uses
+the branch live.
 
 The JAX package's other first-order kernel, ``pallas_scan.linrec1_pallas``
 (``pallas_scan.py:60``, opt-in through ``scan.USE_PALLAS``), computes the
@@ -24,9 +26,6 @@ from __future__ import annotations
 import torch
 
 from libgooey_tpu_torch.ops import bank_kernels
-
-#: ``a`` value that disables the max branch of ``affine1_bank``.
-NO_FLOOR = -3.0e38
 
 
 def _rows(shape) -> int:
@@ -53,10 +52,8 @@ def _affine1(a, b, c, y0):
         a, b, c = torch.broadcast_tensors(a, b, c)
     lead, B = b.shape[:-1], b.shape[-1]
     R = _rows(b.shape)
-    floor = (torch.full((R, B), NO_FLOOR, dtype=torch.float32, device=b.device)
-             if a is None else _flat(a, R, B))
-    y, _ = bank_kernels.affine1_bank(floor, _flat(b, R, B), _flat(c, R, B),
-                                     _flat0(y0, lead, R))
+    y, _ = bank_kernels.affine1_bank(None if a is None else _flat(a, R, B), _flat(b, R, B),
+                                     _flat(c, R, B), _flat0(y0, lead, R))
     return y.reshape(b.shape)
 
 

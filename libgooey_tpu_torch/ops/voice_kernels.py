@@ -73,7 +73,6 @@ from libgooey_tpu_torch.ops.bank_kernels import (
 )
 from libgooey_tpu_torch.ops.morph import TOM_IMPULSE
 from libgooey_tpu_torch.ops.noise import DIRECT_GAIN, OUTPUT_GAIN, coefficients
-from libgooey_tpu_torch.ops.scan import NO_FLOOR
 
 KERNELS = ("kit_sources", "kit_drive")
 
@@ -146,8 +145,8 @@ def _seed_mix(seed: int) -> int:
 def _lin(a, b, y0):
     """``y[n] = a[n]*y[n-1] + b[n]`` through the plain ``affine1_bank``."""
     a, b = torch.broadcast_tensors(a, b)
-    y, _ = bank_kernels.affine1_bank_plain(torch.full_like(b, NO_FLOOR), a.contiguous(),
-                                           b.contiguous(), y0.contiguous())
+    y, _ = bank_kernels.affine1_bank_plain(None, a.contiguous(), b.contiguous(),
+                                           y0.contiguous())
     return y
 
 

@@ -206,6 +206,70 @@ def test_feedback_waveshaper_matches_jax():
         assert tree_err(jst, tst) <= 1e-5
 
 
+# --- affine1 with no floor array; the staged kernels' launch geometry ---------
+
+
+def _floorless_rows(rs, R, n):
+    """``b, c, y0`` of the floorless recurrence with a NaN, +inf, -inf and
+    values below the -3e38 floor in ``c``, each in rows of its own (a NaN
+    stays in its row), and a sprinkle of each in the rest."""
+    b = rs.uniform(-0.99, 0.99, (R, n)).astype(np.float32)
+    c = rs.randn(R, n).astype(np.float32)
+    c[0, n // 2] = np.nan
+    c[1, n // 3] = np.inf
+    c[2, ::7] = -np.inf
+    c[3, ::5] = -3.2e38
+    c[4, ::3] = -3.4e38
+    for value in (np.nan, np.inf, -np.inf, -3.3e38):
+        c[5:][rs.rand(R - 5, n) < 0.002] = value
+    return b, c, rs.randn(R).astype(np.float32)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("R,n", [(5, 37), (V, B)])
+@pytest.mark.parametrize("via", ["affine1_bank", "linrec1"])
+def test_no_floor_equals_the_explicit_floor_bit_for_bit(via, R, n):
+    """``affine1_bank(None, ...)`` and ``scan.linrec1`` (which passes None)
+    give the bits of the explicit ``NO_FLOOR`` row: NaN, +-inf and
+    below-floor values included (-inf and below-floor sums land on the
+    floor)."""
+    b, c, y0 = _floorless_rows(np.random.RandomState(11), R, n)
+    floor = torch.full((R, n), bk.NO_FLOOR)
+    if via == "affine1_bank":
+        got = bk.affine1_bank(None, T(b), T(c), T(y0))
+        want = bk.affine1_bank(floor, T(b), T(c), T(y0))
+    else:
+        got = (tscan.linrec1(T(b), T(c), T(y0)),)
+        want = (tscan.maxlin(floor, T(b), T(c), T(y0)),)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    y = got[0]
+    assert torch.isnan(y[0]).any() and torch.isinf(y[1]).any()
+    assert (y[2:5] == np.float32(bk.NO_FLOOR)).any(dim=1).all()
+
+
+@pytest.mark.parametrize("R,rc", [(1, 1), (5, 1), (132, 1), (512, 4), (515, 4), (1024, 8),
+                                  (2560, 20), (4096, 32), (100_000, 32)])
+def test_staged_launches_spread_over_the_sms(R, rc):
+    """Rows per block on 132 SMs: one block per SM at most, all 32 walkers
+    of a warp once there are more rows than that, and a block for each row
+    while rows are fewer than SMs."""
+    assert bk.stage_rows(R, 132) == rc
+    blocks = -(-R // rc)
+    assert blocks >= min(R, 128)
+    assert blocks <= 132 or rc == bk.STAGE_MAX_ROWS
+
+
+def test_staged_launches_copy_16_bytes_only_where_every_row_is_aligned():
+    x = torch.zeros(4 * 101 + 1)
+    assert bk.copies_16b(100, x[:400].view(4, 100), None)
+    assert not bk.copies_16b(99, x[:396].view(4, 99))
+    assert not bk.copies_16b(100, x[:400].view(4, 100), x[1:401].view(4, 100))
+
+
 # --- dispatch -----------------------------------------------------------------
 
 

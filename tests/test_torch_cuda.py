@@ -119,6 +119,75 @@ def test_wrappers_reject_bad_inputs(dev):
         bk.affine1_bank(a, a, a.cpu(), y0)
 
 
+def _staged_cases(dev, R, B, seed=1):
+    """``(name, args)`` of the two staged kernels: affine1_bank with a live
+    floor (hihat2's tracker) and with none, linrec2_bank's resonator rows."""
+    rs = np.random.RandomState(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    target = np.abs(0.5 * rs.randn(R, B))
+    return [
+        ("affine1_bank", (t(target), t(np.where(rs.rand(R, B) < 0.01, 0.0, 0.9995)),
+                          t(0.0005 * target), t(np.abs(0.1 * rs.randn(R))))),
+        ("affine1_bank", (None, t(rs.uniform(-0.99, 0.99, (R, B))), t(rs.randn(R, B)),
+                          t(rs.randn(R)))),
+        ("linrec2_bank", _resonator_rows(rs, t, R, B)),
+    ]
+
+
+def _assert_staged_equal_plain(cases):
+    for name, args in cases:
+        got = getattr(bk, name)(*args)
+        want = getattr(bk, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape and torch.equal(g, w), f"{name} output {i}"
+
+
+@pytest.mark.parametrize("B", [512, 128, 100, 37])
+@pytest.mark.parametrize("R", [1, 5, 515])
+def test_staged_kernels_equal_their_plain_versions(dev, R, B):
+    """Bit for bit at one row, fewer rows than SMs and a last block short of
+    rows; whole 64-sample chunks, a tail chunk (B = 100) and 4-byte copies
+    (B = 37)."""
+    _assert_staged_equal_plain(_staged_cases(dev, R, B))
+
+
+def test_staged_kernels_take_unaligned_rows(dev):
+    """Contiguous inputs 4 bytes past a 16-byte boundary take the 4-byte
+    copies, bit for bit."""
+    R, B = 515, 128
+
+    def shifted(a):
+        return None if a is None else torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+
+    cases = [(name, tuple(map(shifted, args))) for name, args in _staged_cases(dev, R, B)]
+    assert not any(bk.copies_16b(B, *args) for _, args in cases)
+    _assert_staged_equal_plain(cases)
+
+
+@pytest.mark.parametrize("R,B", [(515, 100), (515, 37), (5, 512)])
+def test_affine1_without_floor_equals_the_explicit_floor(dev, R, B):
+    """``a = None`` reads no floor array and gives the bits of the explicit
+    -3e38 row, with NaN, +-inf and values below the floor in ``c``."""
+    rs = np.random.RandomState(2)
+    c = rs.randn(R, B).astype(np.float32)
+    c[0, B // 2], c[1, B // 3], c[2, ::7], c[3, ::5], c[4, ::3] = (
+        np.nan, np.inf, -np.inf, -3.2e38, -3.4e38)
+    for value in (np.nan, np.inf, -np.inf, -3.3e38):
+        c[5:][rs.rand(R - 5, B) < 0.002] = value
+    args = [torch.as_tensor(x, device=dev) for x in (
+        rs.uniform(-0.99, 0.99, (R, B)).astype(np.float32), c, rs.randn(R).astype(np.float32))]
+    got = bk.affine1_bank(None, *args)
+    want = bk.affine1_bank(torch.full((R, B), bk.NO_FLOOR, device=dev), *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert torch.isinf(got[0][1]).any() and (got[0][2:5] == np.float32(bk.NO_FLOOR)).any()
+
+
 def test_kit_with_kernels_matches_plain_versions(dev, monkeypatch):
     """The five-family kit at 64 voices a family on the stage path
     (``fused_banks=False``), 2 blocks: kernels vs plain versions, all eight
