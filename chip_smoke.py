@@ -31,7 +31,13 @@ Phases (any failure exits non-zero):
    and 99 samples (tails of rows per block and of the 64-sample chunk,
    4-byte copies), each bit-equal to its plain version, and
    ``affine1_bank(None, ...)`` bit-equal to the explicit -3e38 floor with
-   NaN, +-inf and below-floor values), inputs from a numpy seed; with each
+   NaN, +-inf and below-floor values; ``kit_sources`` and ``bus_chain``,
+   the other two redesigned kernels, bit-equal too, at their tails:
+   ``bus_chain`` at B with one phase, twelve (two delays, one after the
+   spring) and nine (two delays, the spring last), and at 100 and 33
+   samples with 1, 4, 7, 9, 10 and 12; ``kit_sources`` with one voice a
+   family, 5/3/7/1/2 voices at 100 and 37 samples and 128 a family),
+   inputs from a numpy seed; with each
    kernel's device time per call (torch.profiler), its wrapper's wall
    between CUDA events, its plain version's and its bound (the larger of
    bytes over 3.35 TB/s and operations over 67 TFLOP/s); also the counter
@@ -165,7 +171,7 @@ OUT_TOL = 1e-5
 STATE_TOL = 1e-4
 
 #: the redesigned kernels: bit-equal to their plain versions at every case
-EXACT = ("affine1_bank", "linrec2_bank")
+EXACT = ("affine1_bank", "linrec2_bank", "kit_sources", "bus_chain")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -216,6 +222,13 @@ OPS_PER_BODY_SAMPLE = {"kick_a": 500, "snare_a": 480, "hihat2": 220, "bass": 260
                        "kick_b": 130, "snare_b": 140}
 #: the product kit (__graft_entry__.entry), in the engine's family order
 PRODUCT_KIT = {"kick": 16, "snare": 16, "hihat2": 16, "tom2": 8, "bass": 8}
+#: phase 3's tails of the redesigned kernels: bus_chain's block sizes past
+#: the main path's, and kit_sources' kits (one voice a family, odd counts,
+#: the kit path's most, ops/voice.py MAX_FUSED_VOICES) with their block sizes
+TAIL_BLOCKS = (100, 33)
+ODD_KIT = {"kick": 5, "snare": 3, "hihat2": 7, "tom2": 1, "bass": 2}
+TAIL_KITS = ((dict.fromkeys(PRODUCT_KIT, 1), B), (ODD_KIT, 100), (ODD_KIT, 37),
+             (dict.fromkeys(PRODUCT_KIT, 128), B))
 #: bench_onchip_product_block's chain: lowpass, delay, saturation,
 #: compressor, tilt, spring, waveshaper, feedback waveshaper, plate
 CHAIN9 = (0, 1, 2, 3, 4, 6, 7, 8, 9)
@@ -269,20 +282,26 @@ def device_ms(fn, iters):
     """Device milliseconds per call over ``iters`` calls: the CUDA time that
     torch.profiler traces (the kernels, and any fill or copy the wrapper
     launches), so a kernel shorter than its wrapper's host work is timed as
-    itself.  None where no trace holds every call's device ops."""
+    itself.  Each device op counts the median of its traced durations times
+    its launches per call (its count in the trace over ``iters``, rounded):
+    a trace now and then holds one op less than the calls launched, or one
+    of the session before it, which this reads past.  None where no trace
+    holds a device op."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):   # a trace now and then comes back short of device events
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        device = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        n_ops = sum(e.count for e in device)
-        if n_ops > 0 and n_ops % iters == 0:
-            return sum(e.self_device_time_total for e in device) / iters / 1e3
+        durations = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                durations.setdefault(e.name, []).append(e.self_device_time_total)
+        total = sum(float(np.median(d)) * round(len(d) / iters) for d in durations.values())
+        if total > 0:
+            return total / 1e3
     return None
 
 
@@ -307,12 +326,9 @@ def kernel_cases(dev):
     import torch
 
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
-    from libgooey_tpu_torch.effects import compressor, delay
     from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
-    from libgooey_tpu_torch.effects import reverb_plate, reverb_spring, saturation
     from libgooey_tpu_torch.ops import bank_kernels as bk
-    from libgooey_tpu_torch.ops import bus_kernels as bus
-    from libgooey_tpu_torch.ops import filters, noise, ringbuf
+    from libgooey_tpu_torch.ops import filters, noise
 
     rs = np.random.RandomState(SEED)
 
@@ -401,123 +417,16 @@ def kernel_cases(dev):
         t(rs.randint(0, 2 * int(SR), (Vs, 1)) + np.arange(B)[None, :]),
         t(rs.uniform(40.0, 2000.0, (Vs, B)))), dict(sample_rate=SR, max_harmonics=64), 1))
 
-    # the bus: one stereo block [2, B]
-    bus_shape = f"[2, {B}]"
-    coeff = smoothing_coeff(SR, 30.0)
-    xb = t(rs.uniform(-0.9, 0.9, (2, B)))
-    # 9. saturation: drive and warmth moving; the left mix falls under the
-    #    bypass gate mid-block, the right one fades from 0.6
-    sat = saturation.init_state(SR, device=dev)
-    cases.append(("saturation_block", bus_shape, (
-        xb, t([[0.6, 0.5, 1.2e-4], [0.6, 0.5, 0.6]]), t([[0.2, 0.9, 0.0]] * 2),
-        bus.pack_saturation(sat.ovs, sat.dc)), dict(coeff=coeff), 1))
-    # 10. lowpass: cutoff sweeping 2-12 kHz at resonance 0.8 (the effect's maps)
-    cut = np.minimum(np.linspace(2000.0, 12000.0, B), 0.4 * SR)[None, :].repeat(2, 0)
-    ratio = np.minimum(cut / 5000.0, 1.0)
-    cases.append(("lowpass_block", bus_shape, (
-        xb, t(np.clip(1.0 - np.exp(-2.0 * np.pi * cut / SR), 0.0, 0.9)),
-        t(0.8 * (1.0 - ratio * ratio * 0.7) * 3.5), t(0.1 * rs.randn(2, 2))), {}, 1))
-    # 11. tilt: the knob sweeping towards 0.75 at rising resonance, the left
-    #     channel across the center
-    cases.append(("tilt_block", bus_shape, (
-        xb, t([[0.45, 0.3], [0.25, 0.3]]), t([[0.75, 0.6]] * 2), t(0.05 * rs.randn(2, 2))),
-        dict(coeff=coeff, sample_rate=SR), 1))
-    # 12. delay: a 0.015 s tap gathered from a filled ring, feedback, mix and
-    #     cutoff moving; both ping-pong settings
-    ring = ringbuf.Ring(buf=t(rs.uniform(-0.5, 0.5, (2, delay.ring_length(SR)))),
-                        pos=torch.tensor(98765, device=dev))
-    tap = ringbuf.read_frac(ring, t(np.full((2, B), 0.015 * SR)))
-    dl = (xb, tap, t([[0.6, 0.8, 4000.0]] * 2), t([[0.5, 0.4, 6000.0]] * 2),
-          t(0.1 * rs.randn(2, 2)))
-    for pingpong in (False, True):
-        cases.append(("delay_block", f"{bus_shape}, pingpong={pingpong}", dl,
-                      dict(coeff=coeff, sample_rate=SR, pingpong=pingpong), 2))
-    first_four = [bus.Phase(name, args[1:], kw) for name, _, args, kw, _ in cases[-5:-1]]
-    # 13. the compressor's detector on loud bursts: a 1 ms attack, a 100 ms
-    #     release, a bypass span that holds the envelope
-    bursts = t((rs.uniform(-1.0, 1.0, (2, B)) * (np.sin(np.arange(B) * 2 * np.pi / 97.0) > 0.3)
-                * 1.5))
-    byp = np.zeros((2, B))
-    byp[:, 200:260] = 1.0
-    env_args = (bursts, t(np.full((2, B), np.exp(-1.0 / (1.0 * 0.001 * SR)))),
-                t(np.full((2, B), np.exp(-1.0 / (100.0 * 0.001 * SR)))), t(byp), t([0.3, 0.0]))
-    cases.append(("env_follower_block", bus_shape, env_args, {}, 1))
-    # 14. its gain stage on that envelope: threshold -30 dB, ratio 8, the
-    #     smoothed gain falling from 1 through 0.99 (the tube colour engages)
-    env = bus.env_follower_block_plain(*env_args)[0]
-    comp = compressor.init_state(SR, device=dev)
-    comp_args = (bursts, env, t(np.full((2, B), -30.0)), t(np.full((2, B), 8.0)),
-                 t(np.ones((2, B))), bus.pack_compressor(comp.ovs, comp.dc, comp.gain))
-    cases.append(("compressor_block", bus_shape, comp_args, {}, 1))
-    # 15. the spring on a filled history, decay 0.3 -> 0.9 and damping
-    #     0.6 -> 0.2 across the block
-    dl, dr = reverb_spring.delay_lengths(SR)
-    D = max(dl + dr)
-    damping = np.linspace(0.6, 0.2, B)[None].repeat(2, 0)
-    fb_gain = 0.95 * np.linspace(0.3, 0.9, B)[None].repeat(2, 0) ** 0.4
-    fbgp = np.concatenate([np.zeros((2, 1)), fb_gain[:, :-1]], axis=-1)
-    A = damping + (1.0 - damping) * np.prod(reverb_spring.GAINS) * fbgp
-    A[:, 0] = damping[:, 0]
-    spring_args = (xb, t(A), t(1.0 - damping), t(fbgp), t(0.3 * rs.randn(2 * bus.SPRING_APS, D)),
-                   t([0.05, -0.02]), t(np.full((2, B), 0.3)), t([0.01, -0.03]))
-    spring_kw = dict(delays=dl + dr, gains=reverb_spring.GAINS)
-    cases.append(("spring_block", f"{bus_shape}, hist [12, {D}]", spring_args, spring_kw, 1))
-    # 16. the plate's sub-block path on filled histories, the size knob
-    #     moving 1.0 -> 0.0 in the block (the modulated lags sweep)
-    srs = SR / reverb_plate.DATTORRO_SR
-    DIN, DMOD = reverb_plate.in_hist_len(SR), reverb_plate.mod_hist_len(SR)
-    q = np.float32(1.0 - smoothing_coeff(SR))
-    size = reverb_plate.size_to_scale(torch.as_tensor(
-        q ** np.arange(1, B + 1, dtype=np.float32))).numpy()
-    lfo = np.sin(2 * np.pi * (np.arange(1, B + 1) * np.array([[0.5], [0.71]]) / SR
-                              + [[0.2], [0.7]]))
-    mod_off = np.clip(np.array([[672.0], [908.0]]) * srs * size + lfo * 16.0 * srs,
-                      1.0, DMOD - 2.0)
-    rows = [rs.uniform(-0.5, 0.5, B) for _ in range(6)]
-    rows[3] = 0.95 * np.linspace(0.1, 0.6, B)
-    cases.append(("plate_block", f"[{B}], in_hist [4, {DIN}], mod_hist [2, {DMOD}]",
-                  (*map(t, rows), t(mod_off), t(0.2 * rs.randn(4, DIN)),
-                   t(0.2 * rs.randn(2, DMOD)), t([0.1, -0.05, 0.02])),
-                  dict(sample_rate=SR), 4))
-    # 17. the kit's seven bus phases as one run, each on the signal the one
-    #     before it left (the delay without ping-pong, as the engine runs
-    #     it; the gain stage on the detector's envelope), then the first
-    #     four alone (full_kit_4096_bus4)
-    seven = first_four + [
-        bus.Phase("env_follower_block", env_args[1:], {}),
-        bus.Phase("compressor_block", (None,) + comp_args[2:], {}),
-        bus.Phase("spring_block", spring_args[1:], spring_kw)]
-    cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER_FULL[:-1])} (7 phases)",
-                  (xb, seven), {}, 1))
-    cases.append(("bus_chain", f"{bus_shape}, {' -> '.join(FX_ORDER)}", (xb, first_four), {}, 1))
-    # 18. the chain's waveshaper engaged, drive 4 and 6, mixes 0.5 and 0.8
-    ws_args = (xb, t([[4.0, 0.5], [6.0, 0.8]]), t(0.05 * rs.randn(bk.FBWS_S_IN, 2)))
-    cases.append(("waveshaper_block", bus_shape, ws_args, {}, 1))
-    # 19. the feedback waveshaper engaged (feedback 0) on its detector's
-    #     envelope: drive 4 at 2 kHz full wet, drive 8 at 500 Hz mix 0.7
-    att, rel = fbws.env_coeffs(SR)
-    fenv_args = (bursts, t(np.full((2, B), att)), t(np.full((2, B), rel)), t(np.zeros((2, B))),
-                 t([0.2, 0.0]))
-    fb_env = bus.env_follower_block_plain(*fenv_args)[0]
-    fbc = [float(np.clip(1.0 - np.exp(-2.0 * np.pi * f / SR), 0.0, 0.9)) for f in (2000.0, 500.0)]
-    fb_args = (bursts, fb_env, t([[4.0, 0.0, fbc[0], 1.0], [8.0, 0.0, fbc[1], 0.7]]),
-               t(0.05 * rs.randn(bus.COMP_S_IN, 2)))
-    cases.append(("fbws_fast_block", bus_shape, fb_args, {}, 1))
-    # 20. the product chain's first eight entries as one run: ten phases
-    #     (mixer/chain.py; the compressor and the feedback waveshaper two each)
-    sat, lp, tilt, dly = first_four
-    ten = [lp, dly, sat, bus.Phase("env_follower_block", env_args[1:], {}),
-           bus.Phase("compressor_block", (None,) + comp_args[2:], {}), tilt,
-           bus.Phase("spring_block", spring_args[1:], spring_kw),
-           bus.Phase("waveshaper_block", ws_args[1:], {}),
-           bus.Phase("env_follower_block", fenv_args[1:], {}),
-           bus.Phase("fbws_fast_block", (None,) + fb_args[2:], {})]
-    cases.append(("bus_chain", f"{bus_shape}, the product chain's run (10 phases)", (xb, ten),
-                  {}, 1))
+    # 9-20. the bus at the main path's block: the single kernels, then the
+    #     runs of bus_chain (the kit's seven phases, the first four, the
+    #     product chain's ten), each against its phases' own kernels too
+    bus_single, runs = bus_cases(dev, rs, B)
+    cases += bus_single
+    for label, run in list(runs.items())[:3]:
+        cases.append(("bus_chain", label, run, {}, 1))
     # 21-22. the kit kernels at the product kit's shapes
     sources, drive = kit_phases(dev)
-    cases.append(("kit_sources", ", ".join(f"{k} {v}" for k, v in PRODUCT_KIT.items())
-                  + f" voices, B={B}", (sources,), {}, None))
+    cases.append(("kit_sources", kit_label(PRODUCT_KIT, B), (sources,), {}, None))
     cases.append(("kit_drive", f"kick {PRODUCT_KIT['kick']} + snare {PRODUCT_KIT['snare']}, "
                   f"B={B}", (drive,), {}, None))
     # 23. the engine's fused mix over the kit's 4,096 voices: pans sweeping to
@@ -551,7 +460,163 @@ def kernel_cases(dev):
         t(rs.uniform(2000.0, 30000.0, S) + rs.choice([0.0, 0.25, 0.5], S)),
         t(rs.randint(-30000, 2 * B, S), torch.int32), t(rs.uniform(0.5, 2.0, S)), 3 * B),
         dict(B=B), 1))
+    # 26. the redesigned kernels' tails: bus_chain at B with one phase,
+    #     twelve, and nine with two delays and the spring last, then at 100
+    #     and 33 samples (not whole chunks) with 1, 4, 7, 9, 10 and 12;
+    #     kit_sources with one voice a family, 5/3/7/1/2 voices at 100 and 37
+    #     samples (not whole tiles), and MAX_FUSED_VOICES a family
+    for label, run in list(runs.items())[3:]:
+        cases.append(("bus_chain", label, run, {}, 1))
+    for b in TAIL_BLOCKS:
+        for label, run in bus_cases(dev, np.random.RandomState(SEED + b), b)[1].items():
+            cases.append(("bus_chain", label, run, {}, 1))
+    for kit, b in TAIL_KITS:
+        cases.append(("kit_sources", kit_label(kit, b), (kit_phases(dev, kit, b)[0],), {}, None))
     return cases
+
+
+def bus_cases(dev, rs, b):
+    """The bus kernels' cases on one stereo block [2, b] (the plate's on its
+    mono [b]), inputs drawn from ``rs`` in a fixed order, and the runs of
+    ``bus_chain``: ``(cases, runs)``, ``runs`` ``{label: (x, phases)}``:
+    the kit's seven phases, the first four, the product chain's ten, then
+    the tails (one phase; twelve; nine with two delays and the spring last)."""
+    import torch
+
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.effects import compressor, delay
+    from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
+    from libgooey_tpu_torch.effects import reverb_plate, reverb_spring, saturation
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import bus_kernels as bus
+    from libgooey_tpu_torch.ops import ringbuf
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    cases = []
+    bus_shape = f"[2, {b}]"
+    coeff = smoothing_coeff(SR, 30.0)
+    xb = t(rs.uniform(-0.9, 0.9, (2, b)))
+    # 9. saturation: drive and warmth moving; the left mix falls under the
+    #    bypass gate mid-block, the right one fades from 0.6
+    sat = saturation.init_state(SR, device=dev)
+    cases.append(("saturation_block", bus_shape, (
+        xb, t([[0.6, 0.5, 1.2e-4], [0.6, 0.5, 0.6]]), t([[0.2, 0.9, 0.0]] * 2),
+        bus.pack_saturation(sat.ovs, sat.dc)), dict(coeff=coeff), 1))
+    # 10. lowpass: cutoff sweeping 2-12 kHz at resonance 0.8 (the effect's maps)
+    cut = np.minimum(np.linspace(2000.0, 12000.0, b), 0.4 * SR)[None, :].repeat(2, 0)
+    ratio = np.minimum(cut / 5000.0, 1.0)
+    cases.append(("lowpass_block", bus_shape, (
+        xb, t(np.clip(1.0 - np.exp(-2.0 * np.pi * cut / SR), 0.0, 0.9)),
+        t(0.8 * (1.0 - ratio * ratio * 0.7) * 3.5), t(0.1 * rs.randn(2, 2))), {}, 1))
+    # 11. tilt: the knob sweeping towards 0.75 at rising resonance, the left
+    #     channel across the center
+    cases.append(("tilt_block", bus_shape, (
+        xb, t([[0.45, 0.3], [0.25, 0.3]]), t([[0.75, 0.6]] * 2), t(0.05 * rs.randn(2, 2))),
+        dict(coeff=coeff, sample_rate=SR), 1))
+    # 12. delay: a 0.015 s tap gathered from a filled ring, feedback, mix and
+    #     cutoff moving; both ping-pong settings
+    ring = ringbuf.Ring(buf=t(rs.uniform(-0.5, 0.5, (2, delay.ring_length(SR)))),
+                        pos=torch.tensor(98765, device=dev))
+    tap = ringbuf.read_frac(ring, t(np.full((2, b), 0.015 * SR)))
+    dl = (xb, tap, t([[0.6, 0.8, 4000.0]] * 2), t([[0.5, 0.4, 6000.0]] * 2),
+          t(0.1 * rs.randn(2, 2)))
+    for pingpong in (False, True):
+        cases.append(("delay_block", f"{bus_shape}, pingpong={pingpong}", dl,
+                      dict(coeff=coeff, sample_rate=SR, pingpong=pingpong), 2))
+    first_four = [bus.Phase(name, args[1:], kw) for name, _, args, kw, _ in cases[-5:-1]]
+    # 13. the compressor's detector on loud bursts: a 1 ms attack, a 100 ms
+    #     release, a bypass span that holds the envelope
+    bursts = t((rs.uniform(-1.0, 1.0, (2, b)) * (np.sin(np.arange(b) * 2 * np.pi / 97.0) > 0.3)
+                * 1.5))
+    byp = np.zeros((2, b))
+    byp[:, 200:260] = 1.0
+    env_args = (bursts, t(np.full((2, b), np.exp(-1.0 / (1.0 * 0.001 * SR)))),
+                t(np.full((2, b), np.exp(-1.0 / (100.0 * 0.001 * SR)))), t(byp), t([0.3, 0.0]))
+    cases.append(("env_follower_block", bus_shape, env_args, {}, 1))
+    # 14. its gain stage on that envelope: threshold -30 dB, ratio 8, the
+    #     smoothed gain falling from 1 through 0.99 (the tube colour engages)
+    env = bus.env_follower_block_plain(*env_args)[0]
+    comp = compressor.init_state(SR, device=dev)
+    comp_args = (bursts, env, t(np.full((2, b), -30.0)), t(np.full((2, b), 8.0)),
+                 t(np.ones((2, b))), bus.pack_compressor(comp.ovs, comp.dc, comp.gain))
+    cases.append(("compressor_block", bus_shape, comp_args, {}, 1))
+    # 15. the spring on a filled history, decay 0.3 -> 0.9 and damping
+    #     0.6 -> 0.2 across the block
+    dl, dr = reverb_spring.delay_lengths(SR)
+    D = max(dl + dr)
+    damping = np.linspace(0.6, 0.2, b)[None].repeat(2, 0)
+    fb_gain = 0.95 * np.linspace(0.3, 0.9, b)[None].repeat(2, 0) ** 0.4
+    fbgp = np.concatenate([np.zeros((2, 1)), fb_gain[:, :-1]], axis=-1)
+    A = damping + (1.0 - damping) * np.prod(reverb_spring.GAINS) * fbgp
+    A[:, 0] = damping[:, 0]
+    spring_args = (xb, t(A), t(1.0 - damping), t(fbgp), t(0.3 * rs.randn(2 * bus.SPRING_APS, D)),
+                   t([0.05, -0.02]), t(np.full((2, b), 0.3)), t([0.01, -0.03]))
+    spring_kw = dict(delays=dl + dr, gains=reverb_spring.GAINS)
+    cases.append(("spring_block", f"{bus_shape}, hist [12, {D}]", spring_args, spring_kw, 1))
+    # 16. the plate's sub-block path on filled histories, the size knob
+    #     moving 1.0 -> 0.0 in the block (the modulated lags sweep)
+    srs = SR / reverb_plate.DATTORRO_SR
+    DIN, DMOD = reverb_plate.in_hist_len(SR), reverb_plate.mod_hist_len(SR)
+    q = np.float32(1.0 - smoothing_coeff(SR))
+    size = reverb_plate.size_to_scale(torch.as_tensor(
+        q ** np.arange(1, b + 1, dtype=np.float32))).numpy()
+    lfo = np.sin(2 * np.pi * (np.arange(1, b + 1) * np.array([[0.5], [0.71]]) / SR
+                              + [[0.2], [0.7]]))
+    mod_off = np.clip(np.array([[672.0], [908.0]]) * srs * size + lfo * 16.0 * srs,
+                      1.0, DMOD - 2.0)
+    rows = [rs.uniform(-0.5, 0.5, b) for _ in range(6)]
+    rows[3] = 0.95 * np.linspace(0.1, 0.6, b)
+    cases.append(("plate_block", f"[{b}], in_hist [4, {DIN}], mod_hist [2, {DMOD}]",
+                  (*map(t, rows), t(mod_off), t(0.2 * rs.randn(4, DIN)),
+                   t(0.2 * rs.randn(2, DMOD)), t([0.1, -0.05, 0.02])),
+                  dict(sample_rate=SR), 4))
+    # the kit's seven bus phases as one run, each on the signal the one
+    #     before it left (the delay without ping-pong, as the engine runs
+    #     it; the gain stage on the detector's envelope), then the first
+    #     four alone (full_kit_4096_bus4)
+    seven = first_four + [
+        bus.Phase("env_follower_block", env_args[1:], {}),
+        bus.Phase("compressor_block", (None,) + comp_args[2:], {}),
+        bus.Phase("spring_block", spring_args[1:], spring_kw)]
+    # 18. the chain's waveshaper engaged, drive 4 and 6, mixes 0.5 and 0.8
+    ws_args = (xb, t([[4.0, 0.5], [6.0, 0.8]]), t(0.05 * rs.randn(bk.FBWS_S_IN, 2)))
+    cases.append(("waveshaper_block", bus_shape, ws_args, {}, 1))
+    # 19. the feedback waveshaper engaged (feedback 0) on its detector's
+    #     envelope: drive 4 at 2 kHz full wet, drive 8 at 500 Hz mix 0.7
+    att, rel = fbws.env_coeffs(SR)
+    fenv_args = (bursts, t(np.full((2, b), att)), t(np.full((2, b), rel)), t(np.zeros((2, b))),
+                 t([0.2, 0.0]))
+    fb_env = bus.env_follower_block_plain(*fenv_args)[0]
+    fbc = [float(np.clip(1.0 - np.exp(-2.0 * np.pi * f / SR), 0.0, 0.9)) for f in (2000.0, 500.0)]
+    fb_args = (bursts, fb_env, t([[4.0, 0.0, fbc[0], 1.0], [8.0, 0.0, fbc[1], 0.7]]),
+               t(0.05 * rs.randn(bus.COMP_S_IN, 2)))
+    cases.append(("fbws_fast_block", bus_shape, fb_args, {}, 1))
+    # 20. the product chain's first eight entries as one run: ten phases
+    #     (mixer/chain.py; the compressor and the feedback waveshaper two each)
+    sat, lp, tilt, dly = first_four
+    ten = [lp, dly, sat, bus.Phase("env_follower_block", env_args[1:], {}),
+           bus.Phase("compressor_block", (None,) + comp_args[2:], {}), tilt,
+           bus.Phase("spring_block", spring_args[1:], spring_kw),
+           bus.Phase("waveshaper_block", ws_args[1:], {}),
+           bus.Phase("env_follower_block", fenv_args[1:], {}),
+           bus.Phase("fbws_fast_block", (None,) + fb_args[2:], {})]
+    # tails: one phase; twelve (the ten, then a ping-pong delay after the
+    #     spring and a second saturation: two delays); nine with two delays
+    #     and the spring last
+    dly_pp = bus.Phase("delay_block", dly.args, dict(dly.kwargs, pingpong=True))
+    det, comp = ten[3:5]
+    runs = {
+        f"{' -> '.join(FX_ORDER_FULL[:-1])} (7 phases)": seven,
+        " -> ".join(FX_ORDER) + " (4 phases)": first_four,
+        "the product chain's run (10 phases)": ten,
+        "saturation alone (1 phase)": [sat],
+        "the product's ten, a ping-pong delay, saturation (12 phases)": ten + [dly_pp, sat],
+        "two delays, the spring last (9 phases)": [lp, dly, sat, det, comp, dly_pp, tilt,
+                                                   ten[7], ten[6]],
+    }
+    return cases, {f"{bus_shape}, {label}": (xb, phases) for label, phases in runs.items()}
 
 
 #: the snare's Chamberlin at full cutoff and resonance rings up to inf (the
@@ -559,12 +624,19 @@ def kernel_cases(dev):
 SNARE_CLAMPS = (("filter_cutoff", 0.5), ("filter_resonance", 0.3))
 
 
-def kit_phases(dev):
-    """The kit kernels' phases at the product kit's shapes: random parameter
+def kit_label(kit, b) -> str:
+    return ", ".join(f"{k} {v}" for k, v in kit.items()) + f" voices, B={b}"
+
+
+def kit_phases(dev, kit=None, b=None):
+    """The kit kernels' phases for ``kit`` ``{family: voices}`` at block
+    size ``b`` (the product kit's shapes by default): random parameter
     targets with the smoothers moving (the snare's Chamberlin kept off its
     unstable corner), after 3 blocks of staggered triggers through the kit
     path; the drive phases from the plain sources' outputs."""
     import torch
+
+    kit, b = kit or PRODUCT_KIT, b or B
 
     from libgooey_tpu_torch.core.smoother import SmootherBank, smoothing_coeff
     from libgooey_tpu_torch.engine import engine
@@ -572,7 +644,7 @@ def kit_phases(dev):
 
     rs = np.random.RandomState(SEED + 1)
     state = {}
-    for kind, nv in PRODUCT_KIT.items():
+    for kind, nv in kit.items():
         mod = engine.FAMILIES[kind]
         if kind == "tom2":
             state[kind] = mod.init_state(nv, device=dev)
@@ -589,20 +661,20 @@ def kit_phases(dev):
     coeff = smoothing_coeff(SR)
 
     def events():
-        return ({k: np.where(rs.rand(v) < 0.5, rs.randint(0, B, v), B).astype(np.int32)
-                 for k, v in PRODUCT_KIT.items()},
-                {k: rs.uniform(0.3, 1.0, v).astype(np.float32) for k, v in PRODUCT_KIT.items()})
+        return ({k: np.where(rs.rand(v) < 0.5, rs.randint(0, b, v), b).astype(np.int32)
+                 for k, v in kit.items()},
+                {k: rs.uniform(0.3, 1.0, v).astype(np.float32) for k, v in kit.items()})
 
-    for b in range(3):
+    for i in range(3):
         offs, vels = events()
-        res = voice.kit_render_fused(state, offs, vels, np.int32(b * B), kinds=tuple(PRODUCT_KIT),
-                                     sample_rate=SR, block_size=B, smooth_coeff=coeff,
+        res = voice.kit_render_fused(state, offs, vels, np.int32(i * b), kinds=tuple(kit),
+                                     sample_rate=SR, block_size=b, smooth_coeff=coeff,
                                      kick_max_harmonics=64, snare_max_harmonics=64)
         state = {k: r[0] for k, r in res.items()}
     offs, vels = events()
-    blk = voice._Block(dev, np.int32(3 * B), B, SR, coeff)
-    off = {k: blk.ints(offs[k]) for k in PRODUCT_KIT}
-    vel = {k: blk.floats(vels[k]) for k in PRODUCT_KIT}
+    blk = voice._Block(dev, np.int32(3 * b), b, SR, coeff)
+    off = {k: blk.ints(offs[k]) for k in kit}
+    vel = {k: blk.floats(vels[k]) for k in kit}
     sources = [voice._kick_phase_a(state["kick"], off["kick"], vel["kick"], blk, 64),
                voice._snare_phase_a(state["snare"], off["snare"], vel["snare"], blk, 64),
                voice._hihat2_phase_a(state["hihat2"], off["hihat2"], vel["hihat2"], blk),

@@ -13,60 +13,71 @@
 //   bus_chain          <- libgooey_tpu/ops/pallas_chain.py:chain_fused
 //
 // Design: the bus is one stereo [2, B] signal, and every effect is a
-// recurrence through the block's B samples.  So each kernel is one block
-// of two threads, one per channel.  The carried state lives in registers,
-// the smoothed parameter trajectories are computed in the loop (closed form
-// with the settle snap, as the Pallas bodies do) or passed in as [2, B]
-// rows where the JAX package computes them outside its kernel (the
-// compressor, the spring), and each effect's block is a __device__ row
-// function over one channel.  The channels meet only in the delay's
-// ping-pong write (each channel's write takes the other channel's filtered
-// tap at the same sample): the delay stages its filtered taps in shared
-// memory and writes after a __syncthreads.
+// recurrence through the block's B samples.  Each effect's block is a row
+// struct over one channel that resumes (begin, run over a span of samples,
+// end; below), run by one warp.  What does not depend on the carried state
+// (a sample's smoother trajectories, closed form with the settle snap as
+// the Pallas bodies compute them; the tilt's coefficients; the compressor's
+// knee gain; the feedback waveshaper's makeup gain; the spring's ring reads
+// and their allpass offset, its allpass writes and mix) is computed per
+// sample on all 32 lanes into the phase's shared scratch; lanes 0 and 1
+// walk the two channels' recurrences on it, with the carried state in
+// registers.  The compressor's and the spring's parameter trajectories come
+// in as [2, B] rows, computed outside as the JAX package computes them
+// outside its kernels.  The 4x phases (saturation, compressor, waveshaper,
+// feedback waveshaper) split their chain: lanes 0 and 1 walk the up-path
+// and the down-path four samples at a time, the 32 lanes evaluate the
+// shaper (an atan or a tanh a 4x subsample) between them (split_4x).  The
+// channels meet only in the delay's ping-pong write (each channel's write
+// takes the other channel's filtered tap at the same sample): the delay
+// stages its filtered taps in shared memory and the two lanes meet at a
+// __syncwarp.  An effect's own kernel is one warp walking its block in
+// 32-sample spans.
 //
 // The spring's twelve allpass delay lines (six a channel, lags 127-797 at
 // 44.1 kHz) live in shared memory as rings of the history's length D, one
 // per line (csrc/rings.cuh), 12 x D floats (38 KB at 44.1 kHz, independent
-// of B): each
-// sample reads every line at its lag and writes its new value into the slot
-// it frees, the Schroeder allpass in place.  The carried state keeps the
-// JAX package's right-aligned [12, D] history, unrolled from the rings at
-// the end.  Rings rather than the Pallas body's [12, D+B] work buffer keep
-// the launch inside the 48 KB of shared memory a block gets without an
-// opt-in at any block size; above 48 KB (sample rates past ~100 kHz) the
-// launch opts in to dynamic shared memory, and a refused launch returns its
-// error.
+// of B), filled from the history and unrolled back to it by the whole warp:
+// each sample reads every line at its lag and writes its new value into the
+// slot it frees, the Schroeder allpass in place.  The carried state keeps
+// the JAX package's right-aligned [12, D] history.  Rings rather than the
+// Pallas body's [12, D+B] work buffer keep the spring's shared memory
+// independent of B; past 48 KB a launch opts in to dynamic shared memory,
+// and a refused launch returns its error.
 //
-// bus_chain runs a list of such phases in order, threading the signal
-// through its output in place (every row function reads sample n before it
-// writes it), as chain_fused threads it through one VMEM ref.  It calls the
-// same row functions as the per-effect kernels, so a run gives bit for bit
-// what the per-effect kernels give one after the other, with one launch in
-// place of one per effect.  The compressor is two phases, as in chain_fused:
-// the detector (env) passes the signal through and leaves its envelope in
-// its output, which the next phase reads; each channel's envelope feeds
-// only its own channel, so no barrier is needed between them; the feedback
-// waveshaper is two phases the same way.  The glue
-// around each effect (trajectories of the delay time and of the
-// compressor's and spring's parameters, the ring gather and scatter, state
-// packing, freezes) stays in PyTorch before and after the launch, as it
-// stays in XLA around chain_fused.
+// bus_chain runs a list of such phases, phase i on warp i, the signal in
+// shared memory threaded in place (every row function reads sample n before
+// it writes it), as chain_fused threads it through one VMEM ref.  The phases
+// are pipelined: the block is cut into 32-sample chunks and at step s warp i
+// runs chunk s - i, one block barrier a step, so a launch takes (phases +
+// chunks - 1) steps of the slowest phase's chunk instead of the sum of the
+// phases.  Each phase has its own shared memory (the delay's taps, the
+// spring's rings, the 4x phases' scratch).  It calls the same row structs as
+// the per-effect kernels, so a run gives bit for bit what the per-effect
+// kernels give one after the other, with one launch in place of one per
+// effect.  The compressor is two phases, as in chain_fused: the detector
+// (env) passes the signal through and leaves its envelope in its output,
+// which the next phase reads at the same chunk a step later; the feedback
+// waveshaper is two phases the same way.  The glue around each effect
+// (trajectories of the delay time and of the compressor's and spring's
+// parameters, the ring gather and scatter, state packing, freezes) stays in
+// PyTorch before and after the launch, as it stays in XLA around
+// chain_fused.
 //
 // What bounds them on the card: a few KB to a few tens of KB move per call
 // and a few hundred thousand operations are done, so the card's bound is a
-// microsecond or less; the time is the serial B-step chain of one thread
-// (the 4x allpass chains of the saturation and the compressor, with four
-// atan evaluations per sample, the longest) and, for the spring, the copy
-// of its 19 KB of history per channel into and out of the rings.  One SM
-// of 132 is busy.
+// microsecond or less; the time is the channels' serial walks, the 4x
+// chains' up- and down-paths the longest (~7 us a 32-sample chunk on an
+// H100, PERF.md), and one SM of 132 is busy.  A bus_chain step takes the
+// slowest phase's chunk and a block barrier.
 //
 // Numerics: the Pallas bodies solve the linear recurrences (the tilt's SVF,
 // the delay's two-pole, the DC blocker, the compressor's gain smoother, the
 // spring's damping loop) with log-depth scans; these kernels and their
 // plain versions (ops/bus_kernels.py) step them sample by sample in the same
 // per-sample op order, so the two differ at float-noise level.  Built with
-// -fmad=false, as bank_kernels.cu: a kernel and its plain version then
-// differ only where expf/logf/tanf/tanhf differ from PyTorch's.
+// -fmad=false, as bank_kernels.cu: a kernel and its plain version then give
+// the same bits on the card.
 //
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError(); nothing allocates or synchronizes here.
@@ -143,10 +154,83 @@ struct Phase {
 // kernel's parameters may hold.
 constexpr int kMaxPhases = 12;
 
-struct Chain {
-  int n;
-  Phase ph[kMaxPhases];
+// Every effect's block is a row struct over one channel c that resumes:
+// begin() loads the channel's carried state into registers, run(n0, n1)
+// steps samples [n0, n1) of the block, end() stores the state.  run() is
+// called by all 32 lanes of the phase's warp: what does not depend on the
+// carried state (a sample's trajectories, coefficients, gains, ring reads)
+// is computed per sample on every lane into the phase's shared scratch,
+// and lanes 0 and 1 walk the channels' recurrences on it in sample order.
+// fill() and drain() run on every lane, before begin() and after end() (the
+// spring's rings; a no-op elsewhere).  An effect's own kernel runs its
+// block span by span; bus_chain runs it chunk by chunk.
+struct RowBase {
+  __device__ __forceinline__ void fill(const Phase&, int, float*) {}
+  __device__ __forceinline__ void drain(const Phase&, int, int, float*) {}
 };
+
+// The span a warp runs at a time: bus_chain's chunk, and the step of an
+// effect's own kernel through its block.
+constexpr int kChainChunk = 32;
+
+// Sample j of a span of len samples on both channels, as every lane takes
+// them: channel c, sample i of the span.
+__device__ __forceinline__ void both_channels(int j, int len, int& c, int& i) {
+  c = j >= len ? 1 : 0;
+  i = j - len * c;
+}
+
+// A 4x phase's shared scratch, per channel: 4C subsamples, C shapers (two
+// floats each at most), four values a sample ([4][C]).
+constexpr int kSub = 4 * kChainChunk;
+constexpr int kShapers = 2 * kChainChunk;
+constexpr int kValues = 4 * kChainChunk;
+constexpr int kScratch4x = 2 * (kSub + kShapers + kValues);
+
+__device__ __forceinline__ float* values_of(float* scratch, int c) {
+  return scratch + 2 * (kSub + kShapers) + c * kValues;
+}
+
+// The 4x chain of a span, split over the warp (ovs4_up_span,
+// ovs4_down_span): every lane evaluates each sample's shaper and the row's
+// own per-sample values (prep(c, n, v): value m of the sample at
+// v[m * kChainChunk]); lanes 0 and 1 walk their channel's up-path; every
+// lane applies the shapers (an atan or a tanh a 4x subsample); lanes 0 and
+// 1 walk the down-path and finish.  The channels' serial chains keep their
+// op order.  Called by every lane of the warp.
+template <class Prep, class Input, class ShaperAt, class Finish>
+__device__ __forceinline__ void split_4x(FbwsState& s, OvsCaps& cap, const FbwsCoefs& k,
+                                         int lane, int n0, int n1, int B, float* scratch,
+                                         const Prep& prep, const Input& input,
+                                         const ShaperAt& shaper_at, const Finish& finish) {
+  using Shaper = decltype(shaper_at(0, 0));
+  static_assert(sizeof(Shaper) <= 2 * sizeof(float), "a shaper is two floats at most");
+  Shaper* shapers = reinterpret_cast<Shaper*>(scratch + 2 * kSub);   // [2][C]
+  const int len = n1 - n0;
+  for (int j = lane; j < 2 * len; j += 32) {
+    int c, i;
+    both_channels(j, len, c, i);
+    shapers[c * kChainChunk + i] = shaper_at(c, n0 + i);
+    prep(c, n0 + i, values_of(scratch, c) + i);
+  }
+  __syncwarp();
+  if (lane < 2) ovs4_up_span(s, cap, k, n0, n1, B, input, scratch + lane * kSub);
+  __syncwarp();
+  const auto shape = [&](int j) {
+    int c, i;
+    both_channels(j, 4 * len, c, i);
+    float& v = scratch[c * kSub + i];
+    v = shapers[c * kChainChunk + (i >> 2)](v);
+  };
+  if (len == kChainChunk) {   // eight a lane, unrolled so that they overlap
+#pragma unroll
+    for (int t = 0; t < 8 * kChainChunk / 32; ++t) shape(lane + 32 * t);
+  } else {
+    for (int j = lane; j < 8 * len; j += 32) shape(j);
+  }
+  __syncwarp();
+  if (lane < 2) ovs4_down_span(s, cap, k, n0, n1, B, scratch + lane * kSub, finish);
+}
 
 // --- 1. saturation: the tube saturation at 4x --------------------------------
 
@@ -186,36 +270,49 @@ constexpr int kFbwsRowsOut = 100;
 // Channel c of the saturation block (_sat4_kernel): smoothed drive, warmth
 // and mix, the 4x chain around the tube curve, the bypass-gated DC blocker
 // (_dc_block), the mix and the finite select.
-__device__ void saturation_row(const Phase& p, const FbwsCoefs& k, int c, const float* x,
-                               float* y, int B) {
-  const float* cur = p.in[0];
-  const float* tgt = p.in[1];
-  float* st_out = p.out[0];
-  const float logq = p.f[0];
-  const size_t row = static_cast<size_t>(c) * B;
-  const float cd = cur[3 * c + 0], cw = cur[3 * c + 1], cm = cur[3 * c + 2];
-  const float td = tgt[3 * c + 0], tw = tgt[3 * c + 1], tm = tgt[3 * c + 2];
-
+struct SaturationRow : RowBase {
   FbwsState s;
-  load_state(s, p.in[2], c, 2);
-  ovs4_row(
-      s, k, B, [&](int n) { return x[row + n]; },
-      [&](int n) {
-        return SatShaper{1.0f + traj(cd, td, logq, n) * 7.0f, traj(cw, tw, logq, n) * 0.4f};
-      },
-      [&](int n, float v) {
-        const float mix = traj(cm, tm, logq, n);
-        const bool byp = mix < 1e-4f;
-        const float v1 = gated_dc(s, v, byp ? -1.0f : 1.0f);
-        const float xn = x[row + n];
-        const float o = byp ? xn : xn * (1.0f - mix) + v1 * mix;
-        y[row + n] = isfinite(o) ? o : 0.0f;
-      },
-      st_out, c, 2);
-  st_out[(kFbwsRowsOut + 0) * 2 + c] = traj(cd, td, logq, B - 1);
-  st_out[(kFbwsRowsOut + 1) * 2 + c] = traj(cw, tw, logq, B - 1);
-  st_out[(kFbwsRowsOut + 2) * 2 + c] = traj(cm, tm, logq, B - 1);
-}
+  OvsCaps cap;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) {
+    load_state(s, p.in[2], c, 2);
+  }
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs& k, int lane,
+                                      const float* x, float* y, int n0, int n1, int B,
+                                      float* scratch) {
+    const float* cur = p.in[0];
+    const float* tgt = p.in[1];
+    const float logq = p.f[0];
+    const int c = min(lane, 1);
+    const size_t row = static_cast<size_t>(c) * B;
+    const float* mix = values_of(scratch, c);   // the mix trajectory
+    split_4x(
+        s, cap, k, lane, n0, n1, B, scratch,
+        [&](int ch, int n, float* v) { v[0] = traj(cur[3 * ch + 2], tgt[3 * ch + 2], logq, n); },
+        [&](int n) { return x[row + n]; },
+        [&](int ch, int n) {
+          return SatShaper{1.0f + traj(cur[3 * ch], tgt[3 * ch], logq, n) * 7.0f,
+                           traj(cur[3 * ch + 1], tgt[3 * ch + 1], logq, n) * 0.4f};
+        },
+        [&](int n, float v) {
+          const float m = mix[n - n0];
+          const bool byp = m < 1e-4f;
+          const float v1 = gated_dc(s, v, byp ? -1.0f : 1.0f);
+          const float xn = x[row + n];
+          const float o = byp ? xn : xn * (1.0f - m) + v1 * m;
+          y[row + n] = isfinite(o) ? o : 0.0f;
+        });
+  }
+  __device__ __forceinline__ void end(const Phase& p, int c, int B) {
+    const float* cur = p.in[0];
+    const float* tgt = p.in[1];
+    const float logq = p.f[0];
+    float* st_out = p.out[0];
+    store_span_state(s, cap, st_out, c, 2);
+    for (int j = 0; j < 3; ++j) {
+      st_out[(kFbwsRowsOut + j) * 2 + c] = traj(cur[3 * c + j], tgt[3 * c + j], logq, B - 1);
+    }
+  }
+};
 
 // --- 2. lowpass: Moog-style 2-pole LP with tanh'd resonance ------------------
 
@@ -235,76 +332,112 @@ __device__ __forceinline__ float lowpass_step(float& s1, float& s2, float xn, fl
   return s2;
 }
 
-__device__ void lowpass_row(const Phase& p, int c, const float* x, float* y, int B) {
-  const float* g = p.in[0];
-  const float* fb = p.in[1];
-  const size_t row = static_cast<size_t>(c) * B;
-  float s1 = p.in[2][2 * c], s2 = p.in[2][2 * c + 1];
-  for (int n = 0; n < B; ++n) {
-    const size_t i = row + n;
-    y[i] = tanhf(lowpass_step(s1, s2, x[i], g[i], fb[i]));
+struct LowpassRow : RowBase {
+  float s1, s2;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) {
+    s1 = p.in[2][2 * c];
+    s2 = p.in[2][2 * c + 1];
   }
-  p.out[0][2 * c] = s1;
-  p.out[0][2 * c + 1] = s2;
-}
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs&, int lane,
+                                      const float* x, float* y, int n0, int n1, int B, float*) {
+    if (lane >= 2) return;
+    const int c = lane;
+    const float* g = p.in[0];
+    const float* fb = p.in[1];
+    const size_t row = static_cast<size_t>(c) * B;
+    for (int n = n0; n < n1; ++n) {
+      const size_t i = row + n;
+      y[i] = tanhf(lowpass_step(s1, s2, x[i], g[i], fb[i]));
+    }
+  }
+  __device__ __forceinline__ void end(const Phase& p, int c, int) {
+    p.out[0][2 * c] = s1;
+    p.out[0][2 * c + 1] = s2;
+  }
+};
 
 // --- 3. tilt: one-knob LP<->HP sweep through a TPT SVF -----------------------
 
-struct TiltConsts {
-  float logq;      // log(1 - coeff), float32
-  float lp_log;    // log(20000/80)
-  float hp_log;    // log(8000/20)
-  float max_cut;   // 0.45 sr
-  float pi;
-  float inv_sr;
-};
+// A tilt phase's shared scratch: six values a sample a channel.
+constexpr int kScratchTilt = 2 * 6 * kChainChunk;
 
 // One sample of the tilt filter (tilt_filter.rs:99-125) at knob/res values
-// ``knob``/``res``: the frequency maps, the SVF coefficients, the SVF step
-// with its pre-update taps, and the crossfade.  Returns the output sample.
-__device__ __forceinline__ float tilt_step(float& ic1, float& ic2, float xn, float knob,
-                                           float res, const TiltConsts& t) {
+// ``knob``/``res``: the frequency maps and the SVF coefficients, kept for
+// the walk at v[m * kChainChunk]: g, h, r, the mix, low-pass or not,
+// passthrough or not.
+__device__ __forceinline__ void tilt_coefs(const Phase& p, float knob, float res, float* v) {
+  const float lp_log = p.f[1];    // log(20000/80)
+  const float hp_log = p.f[2];    // log(8000/20)
+  const float max_cut = p.f[3];   // 0.45 sr
+  const float pi = p.f[4], inv_sr = p.f[5];
   const float lp_mix = 1.0f - knob * 2.0f;
-  const float lp_freq = 80.0f * expf(t.lp_log * (knob * 2.0f));
+  const float lp_freq = 80.0f * expf(lp_log * (knob * 2.0f));
   const float hp_mix = (knob - 0.5f) * 2.0f;
-  const float hp_freq = 20.0f * expf(t.hp_log * ((knob - 0.5f) * 2.0f));
+  const float hp_freq = 20.0f * expf(hp_log * ((knob - 0.5f) * 2.0f));
   const bool use_lp = knob < 0.5f;
   const float mix = use_lp ? lp_mix : hp_mix;
   const float freq = use_lp ? lp_freq : hp_freq;
   const float q = 0.5f + res * 8.0f;
-  const bool passthrough = mix < 0.001f;
-  const float cutoff = fminf(fmaxf(freq, 20.0f), t.max_cut);
-  const float g = tanf(t.pi * cutoff * t.inv_sr);
+  const float cutoff = fminf(fmaxf(freq, 20.0f), max_cut);
+  const float g = tanf(pi * cutoff * inv_sr);
   const float r = 1.0f / fmaxf(q, 0.5f);
-  const float h = 1.0f / (1.0f + r * g + g * g);
-  const float v1 = (g * (xn - ic2) + ic1) * h;
-  const float v2 = ic2 + g * v1;
-  ic1 = 2.0f * v1 - ic1;
-  ic2 = 2.0f * v2 - ic2;
-  const float wet = use_lp ? v2 : xn - (r * v1 + v2);
-  float o = passthrough ? xn : xn * (1.0f - mix) + wet * mix;
-  o = isfinite(o) ? o : 0.0f;
-  return fabsf(o) < kDenormal ? 0.0f : o;
+  v[0] = g;
+  v[kChainChunk] = 1.0f / (1.0f + r * g + g * g);
+  v[2 * kChainChunk] = r;
+  v[3 * kChainChunk] = mix;
+  v[4 * kChainChunk] = use_lp ? 1.0f : 0.0f;
+  v[5 * kChainChunk] = mix < 0.001f ? 1.0f : 0.0f;
 }
 
-__device__ void tilt_row(const Phase& p, int c, const float* x, float* y, int B) {
-  const TiltConsts t{p.f[0], p.f[1], p.f[2], p.f[3], p.f[4], p.f[5]};
-  const float* cur = p.in[0];
-  const float* tgt = p.in[1];
-  float* st_out = p.out[0];
-  const size_t row = static_cast<size_t>(c) * B;
-  const float ck = cur[2 * c], cr = cur[2 * c + 1];
-  const float tk = tgt[2 * c], tr = tgt[2 * c + 1];
-  float ic1 = p.in[2][2 * c], ic2 = p.in[2][2 * c + 1];
-  for (int n = 0; n < B; ++n) {
-    y[row + n] = tilt_step(ic1, ic2, x[row + n], traj(ck, tk, t.logq, n),
-                           traj(cr, tr, t.logq, n), t);
+struct TiltRow : RowBase {
+  float ic1, ic2;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) {
+    ic1 = p.in[2][2 * c];
+    ic2 = p.in[2][2 * c + 1];
   }
-  st_out[4 * c + 0] = ic1;
-  st_out[4 * c + 1] = ic2;
-  st_out[4 * c + 2] = traj(ck, tk, t.logq, B - 1);
-  st_out[4 * c + 3] = traj(cr, tr, t.logq, B - 1);
-}
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs&, int lane,
+                                      const float* x, float* y, int n0, int n1, int B,
+                                      float* scratch) {
+    const float* cur = p.in[0];
+    const float* tgt = p.in[1];
+    const float logq = p.f[0];
+    const int len = n1 - n0;
+    for (int j = lane; j < 2 * len; j += 32) {
+      int c, i;
+      both_channels(j, len, c, i);
+      tilt_coefs(p, traj(cur[2 * c], tgt[2 * c], logq, n0 + i),
+                 traj(cur[2 * c + 1], tgt[2 * c + 1], logq, n0 + i),
+                 scratch + c * 6 * kChainChunk + i);
+    }
+    __syncwarp();
+    if (lane >= 2) return;
+    // the SVF step with its pre-update taps, and the crossfade
+    const int c = lane;
+    const size_t row = static_cast<size_t>(c) * B;
+    const float* v = scratch + c * 6 * kChainChunk;
+    for (int i = 0; i < len; ++i) {
+      const float xn = x[row + n0 + i];
+      const float g = v[i], h = v[kChainChunk + i], r = v[2 * kChainChunk + i];
+      const float mix = v[3 * kChainChunk + i];
+      const float v1 = (g * (xn - ic2) + ic1) * h;
+      const float v2 = ic2 + g * v1;
+      ic1 = 2.0f * v1 - ic1;
+      ic2 = 2.0f * v2 - ic2;
+      const float wet = v[4 * kChainChunk + i] != 0.0f ? v2 : xn - (r * v1 + v2);
+      float o = v[5 * kChainChunk + i] != 0.0f ? xn : xn * (1.0f - mix) + wet * mix;
+      o = isfinite(o) ? o : 0.0f;
+      y[row + n0 + i] = fabsf(o) < kDenormal ? 0.0f : o;
+    }
+  }
+  __device__ __forceinline__ void end(const Phase& p, int c, int B) {
+    const float logq = p.f[0];
+    float* st_out = p.out[0];
+    st_out[4 * c + 0] = ic1;
+    st_out[4 * c + 1] = ic2;
+    st_out[4 * c + 2] = traj(p.in[0][2 * c], p.in[1][2 * c], logq, B - 1);
+    st_out[4 * c + 3] = traj(p.in[0][2 * c + 1], p.in[1][2 * c + 1], logq, B - 1);
+  }
+};
 
 // --- 4. delay: the delay's post-read filter, feedback write and mix ----------
 
@@ -335,46 +468,60 @@ __device__ __forceinline__ float delay_write(float inject, float tap, float fb) 
   return (isfinite(w) && fabsf(w) > kDenormal) ? w : 0.0f;
 }
 
-// Channel c of the delay block.  ``stage`` ([2, B] shared) holds both
-// channels' filtered taps, so called by both threads of the block.
-__device__ void delay_row(const Phase& p, int c, const float* x, float* y, float* stage,
-                          int B) {
-  const float* tap = p.in[0];
-  const float* cur = p.in[1];
-  const float* tgt = p.in[2];
-  float* write = p.out[0];
-  float* st_out = p.out[1];
-  const float logq = p.f[0], gk = p.f[1];
-  const bool pingpong = p.flag != 0;
-  const size_t row = static_cast<size_t>(c) * B;
-  const float cf = cur[3 * c + 0], cm = cur[3 * c + 1], cc = cur[3 * c + 2];
-  const float tf = tgt[3 * c + 0], tm = tgt[3 * c + 1], tc = tgt[3 * c + 2];
-  float z1 = p.in[3][2 * c], z2 = p.in[3][2 * c + 1];
-  __syncthreads();  // the stage is free (a chain may hold an earlier delay)
-  for (int n = 0; n < B; ++n) {
-    const float mix = traj(cm, tm, logq, n);
-    const float filt = delay_filter_step(z1, z2, tap[row + n], traj(cc, tc, logq, n), gk);
-    const float xn = x[row + n];
-    stage[row + n] = filt;
-    // the injection; with ping-pong the dry signal feeds the left channel
-    // only (delay.rs:460-491)
-    write[row + n] = (pingpong && c == 1) ? 0.0f : xn;
-    const float o = xn * (1.0f - mix) + filt * mix;
-    y[row + n] = isfinite(o) ? o : xn;
+// Channel c of the delay block.  ``stage`` ([2, B] shared, the phase's own)
+// holds both channels' filtered taps: with ping-pong each channel's write
+// takes the other channel's tap at the same sample, so the two channels
+// (lanes 0 and 1 of one warp) meet at a __syncwarp after each span's taps.
+struct DelayRow : RowBase {
+  float cf, cm, cc, tf, tm, tc, z1, z2;
+  float* stage;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float* smem) {
+    cf = p.in[1][3 * c + 0];
+    cm = p.in[1][3 * c + 1];
+    cc = p.in[1][3 * c + 2];
+    tf = p.in[2][3 * c + 0];
+    tm = p.in[2][3 * c + 1];
+    tc = p.in[2][3 * c + 2];
+    z1 = p.in[3][2 * c];
+    z2 = p.in[3][2 * c + 1];
+    stage = smem;
   }
-  __syncthreads();
-  // with ping-pong each channel's write takes the other channel's filtered
-  // tap at the same sample
-  const size_t tap_row = static_cast<size_t>(pingpong ? 1 - c : c) * B;
-  for (int n = 0; n < B; ++n) {
-    write[row + n] = delay_write(write[row + n], stage[tap_row + n], traj(cf, tf, logq, n));
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs&, int lane,
+                                      const float* x, float* y, int n0, int n1, int B, float*) {
+    if (lane >= 2) return;
+    const int c = lane;
+    const float* tap = p.in[0];
+    float* write = p.out[0];
+    const float logq = p.f[0], gk = p.f[1];
+    const bool pingpong = p.flag != 0;
+    const size_t row = static_cast<size_t>(c) * B;
+    for (int n = n0; n < n1; ++n) {
+      const float mix = traj(cm, tm, logq, n);
+      const float filt = delay_filter_step(z1, z2, tap[row + n], traj(cc, tc, logq, n), gk);
+      const float xn = x[row + n];
+      stage[row + n] = filt;
+      // the injection; with ping-pong the dry signal feeds the left channel
+      // only (delay.rs:460-491)
+      write[row + n] = (pingpong && c == 1) ? 0.0f : xn;
+      const float o = xn * (1.0f - mix) + filt * mix;
+      y[row + n] = isfinite(o) ? o : xn;
+    }
+    __syncwarp(0x3u);
+    const size_t tap_row = static_cast<size_t>(pingpong ? 1 - c : c) * B;
+    for (int n = n0; n < n1; ++n) {
+      write[row + n] = delay_write(write[row + n], stage[tap_row + n], traj(cf, tf, logq, n));
+    }
   }
-  st_out[5 * c + 0] = z1;
-  st_out[5 * c + 1] = z2;
-  st_out[5 * c + 2] = traj(cf, tf, logq, B - 1);
-  st_out[5 * c + 3] = traj(cm, tm, logq, B - 1);
-  st_out[5 * c + 4] = traj(cc, tc, logq, B - 1);
-}
+  __device__ __forceinline__ void end(const Phase& p, int c, int B) {
+    const float logq = p.f[0];
+    float* st_out = p.out[1];
+    st_out[5 * c + 0] = z1;
+    st_out[5 * c + 1] = z2;
+    st_out[5 * c + 2] = traj(cf, tf, logq, B - 1);
+    st_out[5 * c + 3] = traj(cm, tm, logq, B - 1);
+    st_out[5 * c + 4] = traj(cc, tc, logq, B - 1);
+  }
+};
 
 // --- 5. env: the compressor's attack/release peak detector --------------------
 
@@ -385,26 +532,32 @@ __device__ void delay_row(const Phase& p, int c, const float* x, float* y, float
 // passes through (y = x); the envelope goes to out[0].  The bank follower
 // (bank_kernels.cu env_follow_bank) steps env + (1-c)*(r - env), its own TPU
 // kernel's op order, so the two steps round differently and are not shared.
-__device__ void env_row(const Phase& p, int c, const float* x, float* y, int B) {
-  const float* att = p.in[0];
-  const float* rel = p.in[1];
-  const float* byp = p.in[2];
-  float* env_out = p.out[0];
-  const size_t row = static_cast<size_t>(c) * B;
-  float env = p.in[3][c];
-  for (int n = 0; n < B; ++n) {
-    const size_t i = row + n;
-    const float xn = x[i];
-    const float r = fabsf(xn);
-    const bool frozen = byp[i] > 0.5f;
-    const float cf = frozen ? 1.0f : (r > env ? att[i] : rel[i]);
-    const float e = cf * env + (1.0f - cf) * r;
-    env = e < kDenormal ? 0.0f : e;
-    env_out[i] = env;
-    y[i] = xn;
+struct EnvRow : RowBase {
+  float env;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) { env = p.in[3][c]; }
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs&, int lane,
+                                      const float* x, float* y, int n0, int n1, int B, float*) {
+    if (lane >= 2) return;
+    const int c = lane;
+    const float* att = p.in[0];
+    const float* rel = p.in[1];
+    const float* byp = p.in[2];
+    float* env_out = p.out[0];
+    const size_t row = static_cast<size_t>(c) * B;
+    for (int n = n0; n < n1; ++n) {
+      const size_t i = row + n;
+      const float xn = x[i];
+      const float r = fabsf(xn);
+      const bool frozen = byp[i] > 0.5f;
+      const float cf = frozen ? 1.0f : (r > env ? att[i] : rel[i]);
+      const float e = cf * env + (1.0f - cf) * r;
+      env = e < kDenormal ? 0.0f : e;
+      env_out[i] = env;
+      y[i] = xn;
+    }
   }
-  p.out[1][c] = env;
-}
+  __device__ __forceinline__ void end(const Phase& p, int c, int) { p.out[1][c] = env; }
+};
 
 // --- 6. compressor: knee gain, gain smoother, 4x tube colour, DC, mix -------
 
@@ -420,58 +573,74 @@ struct AtanShaper {
 constexpr int kFbwsRowsIn = 52;
 
 // Channel c of the compressor block (_comp_kernel) on the detector's
-// envelope: the knee's gain reduction, the one-pole gain smoother (frozen on
-// bypass), x*g through the 4x chain with the atan tube colour (engaged when
-// g < 0.99, always fed so its history stays warm), the bypass-gated DC
-// blocker, the mix and the finite select.
-__device__ void compressor_row(const Phase& p, const FbwsCoefs& k, int c, const float* x,
-                               float* y, int B) {
-  const float* env = p.in[0];
-  const float* thr = p.in[1];
-  const float* ratio = p.in[2];
-  const float* mix = p.in[3];
-  const float* packed = p.in[4];
-  float* st_out = p.out[0];
-  const float db_per_ln = p.f[0];    // 20 / ln 10
-  const float ln_per_db = p.f[1];    // -ln 10 / 20
-  const AtanShaper shape{p.f[2]};
-  const size_t row = static_cast<size_t>(c) * B;
-
+// envelope: the knee's gain reduction (per sample, on every lane), the
+// one-pole gain smoother (frozen on bypass; stepped by the up-path's walk,
+// which keeps each sample's gain and x*g for the down-path), x*g through
+// the 4x chain with the atan tube colour (engaged when g < 0.99, always fed
+// so its history stays warm), the bypass-gated DC blocker, the mix and the
+// finite select.
+struct CompressorRow : RowBase {
   FbwsState s;
-  load_state(s, packed, c, 2);
-  float g = packed[kFbwsRowsIn * 2 + c];
-  float compressed = 0.0f;
-  bool byp = false;
-  ovs4_row(
-      s, k, B,
-      // called once per sample, before that sample's finish: steps the gain
-      [&](int n) {
-        const size_t i = row + n;
-        byp = mix[i] < 1e-4f;
-        const float env_db = db_per_ln * logf(env[i] + 1e-20f);
-        const float over = env_db - thr[i];
-        const float slope = 1.0f - 1.0f / ratio[i];
-        const float kv = over + 3.0f;
-        const float knee = kv * kv / 12.0f * slope;
-        const float gr = over <= -3.0f ? 0.0f : (over >= 3.0f ? over * slope : knee);
-        const float gain_lin = expf(ln_per_db * gr);
-        g = byp ? g : 0.95f * g + 0.05f * gain_lin;
-        compressed = x[i] * g;
-        return compressed;
-      },
-      [&](int) { return shape; },
-      [&](int n, float v) {
-        const size_t i = row + n;
-        const float colored = g < 0.99f ? v : compressed;
-        const float y1 = gated_dc(s, colored, byp ? -1.0f : 1.0f);
-        const float xn = x[i];
-        const float m = mix[i];
-        const float o = byp ? xn : xn * (1.0f - m) + y1 * m;
-        y[i] = isfinite(o) ? o : 0.0f;
-      },
-      st_out, c, 2);
-  st_out[kFbwsRowsOut * 2 + c] = g;
-}
+  OvsCaps cap;
+  float g;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) {
+    load_state(s, p.in[4], c, 2);
+    g = p.in[4][kFbwsRowsIn * 2 + c];
+  }
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs& k, int lane,
+                                      const float* x, float* y, int n0, int n1, int B,
+                                      float* scratch) {
+    const float* env = p.in[0];
+    const float* thr = p.in[1];
+    const float* ratio = p.in[2];
+    const float* mix = p.in[3];
+    const float db_per_ln = p.f[0];    // 20 / ln 10
+    const float ln_per_db = p.f[1];    // -ln 10 / 20
+    const AtanShaper shape{p.f[2]};
+    const int c = min(lane, 1);
+    const size_t row = static_cast<size_t>(c) * B;
+    // a sample's bypass, target gain, smoothed gain and x*g
+    float* v = values_of(scratch, c);
+    constexpr int C = kChainChunk;
+    split_4x(
+        s, cap, k, lane, n0, n1, B, scratch,
+        [&](int ch, int n, float* w) {
+          const size_t i = static_cast<size_t>(ch) * B + n;
+          w[0] = mix[i] < 1e-4f ? 1.0f : 0.0f;
+          const float env_db = db_per_ln * logf(env[i] + 1e-20f);
+          const float over = env_db - thr[i];
+          const float slope = 1.0f - 1.0f / ratio[i];
+          const float kv = over + 3.0f;
+          const float knee = kv * kv / 12.0f * slope;
+          const float gr = over <= -3.0f ? 0.0f : (over >= 3.0f ? over * slope : knee);
+          w[C] = expf(ln_per_db * gr);
+        },
+        [&](int n) {
+          const int i = n - n0;
+          g = v[i] != 0.0f ? g : 0.95f * g + 0.05f * v[C + i];
+          const float compressed = x[row + n] * g;
+          v[2 * C + i] = g;
+          v[3 * C + i] = compressed;
+          return compressed;
+        },
+        [&](int, int) { return shape; },
+        [&](int n, float u) {
+          const size_t i = row + n;
+          const int j = n - n0;
+          const bool byp = v[j] != 0.0f;
+          const float colored = v[2 * C + j] < 0.99f ? u : v[3 * C + j];
+          const float y1 = gated_dc(s, colored, byp ? -1.0f : 1.0f);
+          const float xn = x[i];
+          const float m = mix[i];
+          const float o = byp ? xn : xn * (1.0f - m) + y1 * m;
+          y[i] = isfinite(o) ? o : 0.0f;
+        });
+  }
+  __device__ __forceinline__ void end(const Phase& p, int c, int) {
+    store_span_state(s, cap, p.out[0], c, 2);
+    p.out[0][kFbwsRowsOut * 2 + c] = g;
+  }
+};
 
 // --- 7. spring: six allpasses a channel in a damped feedback loop ------------
 
@@ -481,69 +650,121 @@ __host__ __device__ __forceinline__ size_t spring_ring_bytes(int D) {
   return 2 * kSpringAps * static_cast<size_t>(D) * sizeof(float);
 }
 
+// A spring phase's shared scratch after its rings: a sample's six ring
+// reads, its beta and its d_prev, a channel each.
+constexpr int kScratchSpring = 2 * (kSpringAps + 2) * kChainChunk;
+
 // Channel c of the spring block (_spring_kernel, stepped sample by sample):
 // the six delayed reads, beta = their allpass chain's affine offset, the
 // damping recurrence d = A*d + p2*(alpha*xeff + beta), the chain input
 // xeff + fbgp*d_prev, the six allpass writes, and the dry/wet mix of
 // reverb_spring.py.  xeff is x with the carried feedback fb0 added at n = 0.
-// Every lag is at least 127 samples, the chunk the Pallas body runs, so its
-// chunked reads see the same values.  ``rings``: 2 x 6 x D shared floats.
-__device__ void spring_row(const Phase& p, int c, const float* x, float* y, float* rings,
-                           int B) {
-  const float* A = p.in[0];
-  const float* p2 = p.in[1];
-  const float* fbgp = p.in[2];
-  const float* mix = p.in[5];
-  float* hist_out = p.out[0];
-  const int D = p.iv[2 * kSpringAps];
-  const float alpha = p.f[2 * kSpringAps];
-  const size_t row = static_cast<size_t>(c) * B;
-  const size_t span = static_cast<size_t>(kSpringAps) * D;
-  float* ring = rings + c * span;
-  const float* hist = p.in[3] + c * span;
-  float g[kSpringAps], omg[kSpringAps];
-  int lag[kSpringAps];
-#pragma unroll
-  for (int j = 0; j < kSpringAps; ++j) {
-    g[j] = p.f[j];
-    omg[j] = p.f[kSpringAps + j];
-    lag[j] = p.iv[c * kSpringAps + j];
+// Every lag is at least 127 samples at 44.1 kHz, the chunk the Pallas body
+// runs, so its chunked reads see the same values.  ``rings``: 2 x 6 x D
+// shared floats, the phase's own, filled from the history and unrolled back
+// to it by the whole warp; the slot sample n writes is n mod D.  A span
+// runs in parts no longer than the shortest lag, so that no read of a part
+// sees a write of the same part: every lane reads the rings and sums beta
+// for the part's samples, lanes 0 and 1 walk the damping loop, every lane
+// runs the allpass writes and the mix.
+struct SpringRow {
+  float d;
+  __device__ __forceinline__ void fill(const Phase& p, int lane, float* rings) {
+    const size_t n = 2 * kSpringAps * static_cast<size_t>(p.iv[2 * kSpringAps]);
+    const float* hist = p.in[3];
+#pragma unroll 4
+    for (size_t i = lane; i < n; i += 32) rings[i] = hist[i];
   }
-  __syncthreads();  // the shared memory is free (a chain may hold an earlier phase's)
-  // unrolled so that many independent loads are in flight at once
-#pragma unroll 16
-  for (size_t k = 0; k < span; ++k) ring[k] = hist[k];
-  int w = 0;  // every ring's write slot
-  float d = p.in[4][c];
-  for (int n = 0; n < B; ++n) {
-    const size_t i = row + n;
-    float rd[kSpringAps];
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) { d = p.in[4][c]; }
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs&, int lane,
+                                      const float* x, float* y, int n0, int n1, int B,
+                                      float* rings) {
+    const float* A = p.in[0];
+    const float* p2 = p.in[1];
+    const float* fbgp = p.in[2];
+    const float* mix = p.in[5];
+    const int D = p.iv[2 * kSpringAps];
+    const float alpha = p.f[2 * kSpringAps];
+    float* scratch = rings + 2 * kSpringAps * D;
+    constexpr int C = kChainChunk;
+    int min_lag = D;
+    for (int j = 0; j < 2 * kSpringAps; ++j) min_lag = min(min_lag, p.iv[j]);
+    for (int s0 = n0; s0 < n1; s0 += min_lag) {
+      const int len = min(n1 - s0, min_lag);
+      const int w0 = s0 % D;
+      // the ring reads and beta, every lane
+      for (int j = lane; j < 2 * len; j += 32) {
+        int c, i;
+        both_channels(j, len, c, i);
+        int w = w0 + i;
+        w -= w >= D ? D : 0;
+        const float* ring = rings + c * static_cast<size_t>(kSpringAps) * D;
+        float* v = scratch + c * (kSpringAps + 2) * C + i;
+        float beta = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kSpringAps; ++j) rd[j] = ring[j * D + ring_slot(w, lag[j], D)];
-    float beta = 0.0f;
+        for (int a = 0; a < kSpringAps; ++a) {
+          const float rd = ring[a * D + ring_slot(w, p.iv[c * kSpringAps + a], D)];
+          v[a * C] = rd;
+          beta = p.f[a] * beta + p.f[kSpringAps + a] * rd;
+        }
+        v[kSpringAps * C] = beta;
+      }
+      __syncwarp();
+      // the damping loop, lanes 0 and 1
+      if (lane < 2) {
+        const size_t row = static_cast<size_t>(lane) * B;
+        float* v = scratch + lane * (kSpringAps + 2) * C;
+        for (int i = 0; i < len; ++i) {
+          const int n = s0 + i;
+          const float xn = x[row + n];
+          const float xe = n == 0 ? xn + p.in[6][lane] : xn;
+          const float bv = p2[row + n] * (alpha * xe + v[kSpringAps * C + i]);
+          v[(kSpringAps + 1) * C + i] = d;
+          d = A[row + n] * d + bv;
+        }
+      }
+      __syncwarp();
+      // the allpass writes and the mix, every lane
+      for (int j = lane; j < 2 * len; j += 32) {
+        int c, i;
+        both_channels(j, len, c, i);
+        const int n = s0 + i;
+        const size_t at = static_cast<size_t>(c) * B + n;
+        int w = w0 + i;
+        w -= w >= D ? D : 0;
+        float* ring = rings + c * static_cast<size_t>(kSpringAps) * D;
+        const float* v = scratch + c * (kSpringAps + 2) * C + i;
+        const float xn = x[at];
+        const float xe = n == 0 ? xn + p.in[6][c] : xn;
+        float sig = xe + fbgp[at] * v[(kSpringAps + 1) * C];
 #pragma unroll
-    for (int j = 0; j < kSpringAps; ++j) beta = g[j] * beta + omg[j] * rd[j];
-    const float xn = x[i];
-    const float xe = n == 0 ? xn + p.in[6][c] : xn;
-    const float bv = p2[i] * (alpha * xe + beta);
-    const float d_prev = d;
-    d = A[i] * d + bv;
-    float sig = xe + fbgp[i] * d_prev;
-#pragma unroll
-    for (int j = 0; j < kSpringAps; ++j) {
-      const float v = sig - g[j] * rd[j];
-      ring[j * D + w] = v;
-      sig = g[j] * v + rd[j];
+        for (int a = 0; a < kSpringAps; ++a) {
+          const float rd = v[a * C];
+          const float u = sig - p.f[a] * rd;
+          ring[a * D + w] = u;
+          sig = p.f[a] * u + rd;
+        }
+        const float m = mix[at];
+        y[at] = xn * (1.0f - m) + sig * m;
+      }
+      __syncwarp();
     }
-    const float m = mix[i];
-    y[i] = xn * (1.0f - m) + sig * m;
-    w = ring_next(w, D);
   }
-  for (int j = 0; j < kSpringAps; ++j) {
-    unroll_ring(ring + j * D, w, D, hist_out + c * span + static_cast<size_t>(j) * D);
+  __device__ __forceinline__ void end(const Phase& p, int c, int) { p.out[1][c] = d; }
+  __device__ __forceinline__ void drain(const Phase& p, int lane, int B, float* rings) {
+    const int D = p.iv[2 * kSpringAps];
+    const int wB = B % D;
+    for (int j = 0; j < 2 * kSpringAps; ++j) {
+      const float* r = rings + static_cast<size_t>(j) * D;
+      float* out = p.out[0] + static_cast<size_t>(j) * D;
+      for (int m = lane; m < D; m += 32) {
+        int k = wB + m;
+        k -= k >= D ? D : 0;
+        out[m] = r[k];
+      }
+    }
   }
-  p.out[1][c] = d;
-}
+};
 
 // --- 8. waveshaper: tanh(v*d)*comp at 4x, wet/dry, bypass select ------------
 
@@ -551,24 +772,37 @@ __device__ void spring_row(const Phase& p, int c, const float* x, float* y, floa
 // per channel (the chain's staged targets), the 4x chain around
 // tanh(v*d)*tanh(0.5)/tanh(0.5d), the mix, the bypass select and the finite
 // guard.  The packed DC rows pass through.
-__device__ void waveshaper_row(const Phase& p, const FbwsCoefs& k, int c, const float* x,
-                               float* y, int B) {
-  const float drive = p.in[0][2 * c], mix = p.in[0][2 * c + 1];
-  const float d = fmaxf(drive, 1.000001f);
-  const DriveShaper shape{d, p.f[0] / tanhf(0.5f * d)};
-  const bool bypass = mix <= 1e-4f || drive <= 1.0f;
-  const size_t row = static_cast<size_t>(c) * B;
-  FbwsState s;
-  load_state(s, p.in[1], c, 2);
-  ovs4_row(
-      s, k, B, [&](int n) { return x[row + n]; }, [&](int) { return shape; },
-      [&](int n, float v) {
-        const float xn = x[row + n];
-        const float o = bypass ? xn : xn * (1.0f - mix) + v * mix;
-        y[row + n] = isfinite(xn) ? o : 0.0f;
-      },
-      p.out[0], c, 2);
+__device__ __forceinline__ DriveShaper ws_shaper(const Phase& p, int c) {
+  const float d = fmaxf(p.in[0][2 * c], 1.000001f);
+  return DriveShaper{d, p.f[0] / tanhf(0.5f * d)};
 }
+
+struct WaveshaperRow : RowBase {
+  FbwsState s;
+  OvsCaps cap;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) {
+    load_state(s, p.in[1], c, 2);
+  }
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs& k, int lane,
+                                      const float* x, float* y, int n0, int n1, int B,
+                                      float* scratch) {
+    const int c = min(lane, 1);
+    const float drive = p.in[0][2 * c], mix = p.in[0][2 * c + 1];
+    const bool bypass = mix <= 1e-4f || drive <= 1.0f;
+    const size_t row = static_cast<size_t>(c) * B;
+    split_4x(
+        s, cap, k, lane, n0, n1, B, scratch, [](int, int, float*) {},
+        [&](int n) { return x[row + n]; }, [&](int ch, int) { return ws_shaper(p, ch); },
+        [&](int n, float v) {
+          const float xn = x[row + n];
+          const float o = bypass ? xn : xn * (1.0f - mix) + v * mix;
+          y[row + n] = isfinite(xn) ? o : 0.0f;
+        });
+  }
+  __device__ __forceinline__ void end(const Phase& p, int c, int) {
+    store_span_state(s, cap, p.out[0], c, 2);
+  }
+};
 
 // --- 9. fbws: the feedback waveshaper's zero-feedback path at 4x ---------------
 
@@ -589,119 +823,164 @@ __device__ __forceinline__ float fbws_gain(float env, float drive, float feedbac
 }
 
 // Channel c of the zero-feedback block (_fbws_kernel) on the detector's
-// envelope: drive*x through the 4x tanh chain, the makeup gain, the
-// bypass-gated DC blocker, the feedback filter's bookkeeping (its state
-// rides the packed state's last row, as the compressor's gain does) and the
-// mix.  drive, feedback, the filter coefficient and mix are block scalars.
-__device__ void fbws_row(const Phase& p, const FbwsCoefs& k, int c, const float* x, float* y,
-                         int B) {
-  const float* env = p.in[0];
-  const float* prm = p.in[1] + 4 * c;
-  const float* packed = p.in[2];
-  const float drive = prm[0], feedback = prm[1], fbc = prm[2], mix = prm[3];
-  const bool bypass = mix <= 1e-4f || drive <= 1.0f;
-  const float a1 = bypass ? 1.0f : 0.0f;
-  const size_t row = static_cast<size_t>(c) * B;
+// envelope: drive*x through the 4x tanh chain, the makeup gain (per sample,
+// on every lane), the bypass-gated DC blocker, the feedback filter's
+// bookkeeping (its state rides the packed state's last row, as the
+// compressor's gain does) and the mix.  drive, feedback, the filter
+// coefficient and mix are block scalars.
+struct FbwsRow : RowBase {
   FbwsState s;
-  load_state(s, packed, c, 2);
-  float filt = packed[kFbwsRowsIn * 2 + c];
-  ovs4_row(
-      s, k, B, [&](int n) { return x[row + n] * drive; }, [](int) { return TanhShaper{}; },
-      [&](int n, float v) {
-        const float comp = fbws_gain(env[row + n], drive, feedback, p.f[0]);
-        const float dc = gated_dc(s, v, bypass ? -1.0f : comp);
-        filt = (bypass ? 1.0f : 1.0f - fbc) * filt + (1.0f - a1) * fbc * dc;
-        const float xn = x[row + n];
-        y[row + n] = bypass ? xn : xn * (1.0f - mix) + dc * mix;
-      },
-      p.out[0], c, 2);
-  p.out[0][kFbwsRowsOut * 2 + c] = fabsf(filt) < kDenormal ? 0.0f : filt;
-}
+  OvsCaps cap;
+  float filt;
+  __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) {
+    load_state(s, p.in[2], c, 2);
+    filt = p.in[2][kFbwsRowsIn * 2 + c];
+  }
+  __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs& k, int lane,
+                                      const float* x, float* y, int n0, int n1, int B,
+                                      float* scratch) {
+    const float* env = p.in[0];
+    const int c = min(lane, 1);
+    const float* prm = p.in[1] + 4 * c;
+    const float drive = prm[0], fbc = prm[2], mix = prm[3];
+    const bool bypass = mix <= 1e-4f || drive <= 1.0f;
+    const float a1 = bypass ? 1.0f : 0.0f;
+    const size_t row = static_cast<size_t>(c) * B;
+    const float* comp = values_of(scratch, c);
+    split_4x(
+        s, cap, k, lane, n0, n1, B, scratch,
+        [&](int ch, int n, float* w) {
+          const float* q = p.in[1] + 4 * ch;
+          w[0] = fbws_gain(env[static_cast<size_t>(ch) * B + n], q[0], q[1], p.f[0]);
+        },
+        [&](int n) { return x[row + n] * drive; }, [](int, int) { return TanhShaper{}; },
+        [&](int n, float v) {
+          const float dc = gated_dc(s, v, bypass ? -1.0f : comp[n - n0]);
+          filt = (bypass ? 1.0f : 1.0f - fbc) * filt + (1.0f - a1) * fbc * dc;
+          const float xn = x[row + n];
+          y[row + n] = bypass ? xn : xn * (1.0f - mix) + dc * mix;
+        });
+  }
+  __device__ __forceinline__ void end(const Phase& p, int c, int) {
+    store_span_state(s, cap, p.out[0], c, 2);
+    p.out[0][kFbwsRowsOut * 2 + c] = fabsf(filt) < kDenormal ? 0.0f : filt;
+  }
+};
 
 // --- the kernels -----------------------------------------------------------------
 
-__device__ __forceinline__ void run_phase(const Phase& p, const FbwsCoefs& k, int c,
-                                          const float* x, float* y, float* smem, int B) {
+// One barrier of the whole block, reached by the warps of a chain from
+// their own phases' code (bar.sync counts threads, wherever they wait).
+__device__ __forceinline__ void step_barrier() { asm volatile("bar.sync 0;" ::: "memory"); }
+
+// One effect's block through its own kernel: a warp, lanes 0 and 1 the
+// channels, the block in spans of kChainChunk.
+template <class Row>
+__device__ __forceinline__ void one_block(const Phase& p, const FbwsCoefs& k, const float* x,
+                                          float* y, float* smem, int B) {
+  const int lane = threadIdx.x;
+  Row row;
+  row.fill(p, lane, smem);
+  __syncwarp();
+  if (lane < 2) row.begin(p, lane, B, smem);
+  for (int n0 = 0; n0 < B; n0 += kChainChunk) {
+    row.run(p, k, lane, x, y, n0, min(n0 + kChainChunk, B), B, smem);
+    __syncwarp();
+  }
+  if (lane < 2) row.end(p, lane, B);
+  __syncwarp();
+  row.drain(p, lane, B, smem);
+}
+
+// kBusThreads (one warp) in every per-effect launch.
+constexpr int kBusThreads = 32;
+
+template <class Row>
+__global__ void __launch_bounds__(kBusThreads)
+    bus_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k, int B) {
+  extern __shared__ float4 block_smem4[];
+  one_block<Row>(p, k, x, y, reinterpret_cast<float*>(block_smem4), B);
+}
+
+// bus_chain: phase i on warp i (lanes 0 and 1 the channels), the [2, B]
+// signal in shared memory, threaded in place.  The block is cut into chunks
+// of kChainChunk samples; at step s warp i runs chunk s - i, so phase i
+// reads chunk s - i after phase i - 1 wrote it a step before, and warps on
+// different chunks never touch the same samples.  One block barrier a step:
+// n + ceil(B / C) - 1 steps, each as long as the slowest phase's chunk.
+
+struct Chain {
+  int n;
+  Phase ph[kMaxPhases];
+  int smem_off[kMaxPhases];   // each phase's own shared memory, in floats
+};
+
+template <class Row>
+__device__ __forceinline__ void pipelined(const Phase& p, const FbwsCoefs& k, int i,
+                                          float* sig, float* smem, int B, int n_steps) {
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = (B + kChainChunk - 1) / kChainChunk;
+  Row row;
+  row.fill(p, lane, smem);
+  __syncwarp();
+  if (lane < 2) row.begin(p, lane, B, smem);
+  for (int s = 0; s < n_steps; ++s) {
+    const int kc = s - i;
+    if (kc >= 0 && kc < n_chunks) {
+      const int n0 = kc * kChainChunk;
+      row.run(p, k, lane, sig, sig, n0, min(n0 + kChainChunk, B), B, smem);
+    }
+    step_barrier();
+  }
+  if (lane < 2) row.end(p, lane, B);
+  __syncwarp();
+  row.drain(p, lane, B, smem);
+}
+
+__global__ void __launch_bounds__(kMaxPhases * 32)
+    bus_chain_kernel(const float* x, float* y, Chain ch, FbwsCoefs k, int B) {
+  extern __shared__ float4 chain_smem4[];
+  float* smem = reinterpret_cast<float*>(chain_smem4);
+  float* sig = smem;   // [2, B]
+  const int tid = threadIdx.x;
+  const int n_threads = ch.n * 32;
+  for (int i = tid; i < 2 * B; i += n_threads) sig[i] = x[i];
+  __syncthreads();
+  const int i = tid >> 5;
+  const Phase& p = ch.ph[i];
+  float* own = smem + ch.smem_off[i];
+  const int n_steps = ch.n + (B + kChainChunk - 1) / kChainChunk - 1;
   switch (p.op) {
     case kSaturation:
-      saturation_row(p, k, c, x, y, B);
+      pipelined<SaturationRow>(p, k, i, sig, own, B, n_steps);
       break;
     case kLowpass:
-      lowpass_row(p, c, x, y, B);
+      pipelined<LowpassRow>(p, k, i, sig, own, B, n_steps);
       break;
     case kTilt:
-      tilt_row(p, c, x, y, B);
+      pipelined<TiltRow>(p, k, i, sig, own, B, n_steps);
       break;
     case kDelay:
-      delay_row(p, c, x, y, smem, B);
+      pipelined<DelayRow>(p, k, i, sig, own, B, n_steps);
       break;
     case kEnv:
-      env_row(p, c, x, y, B);
+      pipelined<EnvRow>(p, k, i, sig, own, B, n_steps);
       break;
     case kCompressor:
-      compressor_row(p, k, c, x, y, B);
+      pipelined<CompressorRow>(p, k, i, sig, own, B, n_steps);
       break;
     case kSpring:
-      spring_row(p, c, x, y, smem, B);
+      pipelined<SpringRow>(p, k, i, sig, own, B, n_steps);
       break;
     case kWaveshaper:
-      waveshaper_row(p, k, c, x, y, B);
+      pipelined<WaveshaperRow>(p, k, i, sig, own, B, n_steps);
       break;
-    case kFbws:
-      fbws_row(p, k, c, x, y, B);
+    default:
+      pipelined<FbwsRow>(p, k, i, sig, own, B, n_steps);
       break;
   }
-}
-
-// One thread per channel; blockDim.x is 2 in every launch below.
-__global__ void saturation_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k,
-                                        int B) {
-  saturation_row(p, k, threadIdx.x, x, y, B);
-}
-
-__global__ void lowpass_block_kernel(const float* x, float* y, Phase p, int B) {
-  lowpass_row(p, threadIdx.x, x, y, B);
-}
-
-__global__ void tilt_block_kernel(const float* x, float* y, Phase p, int B) {
-  tilt_row(p, threadIdx.x, x, y, B);
-}
-
-__global__ void delay_block_kernel(const float* x, float* y, Phase p, int B) {
-  extern __shared__ float stage[];
-  delay_row(p, threadIdx.x, x, y, stage, B);
-}
-
-__global__ void env_follower_block_kernel(const float* x, float* y, Phase p, int B) {
-  env_row(p, threadIdx.x, x, y, B);
-}
-
-__global__ void compressor_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k,
-                                        int B) {
-  compressor_row(p, k, threadIdx.x, x, y, B);
-}
-
-__global__ void spring_block_kernel(const float* x, float* y, Phase p, int B) {
-  extern __shared__ float rings[];
-  spring_row(p, threadIdx.x, x, y, rings, B);
-}
-
-__global__ void waveshaper_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k,
-                                        int B) {
-  waveshaper_row(p, k, threadIdx.x, x, y, B);
-}
-
-__global__ void fbws_fast_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k, int B) {
-  fbws_row(p, k, threadIdx.x, x, y, B);
-}
-
-// A run of effects: x is copied to y, then every phase rewrites y in place.
-__global__ void bus_chain_kernel(const float* x, float* y, Chain ch, FbwsCoefs k, int B) {
-  extern __shared__ float smem[];
-  const int c = threadIdx.x;
-  const size_t row = static_cast<size_t>(c) * B;
-  for (int n = 0; n < B; ++n) y[row + n] = x[row + n];
-  for (int i = 0; i < ch.n; ++i) run_phase(ch.ph[i], k, c, y, y, smem, B);
+  __syncthreads();
+  for (int j = tid; j < 2 * B; j += n_threads) y[j] = sig[j];
 }
 
 // ops: (op, flag) per phase; ptrs: in[0..7], out[0..1] per phase; f: 16 and
@@ -718,16 +997,34 @@ Phase make_phase(const int* ops, void* const* ptrs, const float* f, const int* i
 }
 
 // Dynamic shared memory of a phase: the delay's staged taps, the spring's
-// rings.
+// rings and scratch, the tilt's and the 4x phases' scratch.
 size_t phase_smem(const Phase& p, int B) {
   switch (p.op) {
     case kDelay:
       return 2 * static_cast<size_t>(B) * sizeof(float);
     case kSpring:
-      return spring_ring_bytes(p.iv[2 * kSpringAps]);
+      return spring_ring_bytes(p.iv[2 * kSpringAps]) + kScratchSpring * sizeof(float);
+    case kTilt:
+      return kScratchTilt * sizeof(float);
+    case kSaturation:
+    case kCompressor:
+    case kWaveshaper:
+    case kFbws:
+      return kScratch4x * sizeof(float);
     default:
       return 0;
   }
+}
+
+// One effect's block through its own kernel.
+template <class Row>
+cudaError_t launch_block(const float* x, float* y, const Phase& p, const float* coefs, int B,
+                         cudaStream_t s) {
+  const size_t smem = phase_smem(p, B);
+  const cudaError_t err = allow_smem(bus_block_kernel<Row>, smem);
+  if (err != cudaSuccess) return err;
+  bus_block_kernel<Row><<<1, kBusThreads, smem, s>>>(x, y, p, fbws_coefs(coefs), B);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -739,65 +1036,52 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
                      const float* f, const int* iv, const float* coefs, int B, void* stream) {
   const Phase p = make_phase(ops, ptrs, f, iv);
   const cudaStream_t s = as_stream(stream);
-  const size_t smem = phase_smem(p, B);
-  cudaError_t err = cudaSuccess;
   switch (p.op) {
     case kSaturation:
-      saturation_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
-      break;
+      return static_cast<int>(launch_block<SaturationRow>(x, y, p, coefs, B, s));
     case kLowpass:
-      lowpass_block_kernel<<<1, 2, 0, s>>>(x, y, p, B);
-      break;
+      return static_cast<int>(launch_block<LowpassRow>(x, y, p, coefs, B, s));
     case kTilt:
-      tilt_block_kernel<<<1, 2, 0, s>>>(x, y, p, B);
-      break;
+      return static_cast<int>(launch_block<TiltRow>(x, y, p, coefs, B, s));
     case kDelay:
-      err = allow_smem(delay_block_kernel, smem);
-      if (err == cudaSuccess) delay_block_kernel<<<1, 2, smem, s>>>(x, y, p, B);
-      break;
+      return static_cast<int>(launch_block<DelayRow>(x, y, p, coefs, B, s));
     case kEnv:
-      env_follower_block_kernel<<<1, 2, 0, s>>>(x, y, p, B);
-      break;
+      return static_cast<int>(launch_block<EnvRow>(x, y, p, coefs, B, s));
     case kCompressor:
-      compressor_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
-      break;
+      return static_cast<int>(launch_block<CompressorRow>(x, y, p, coefs, B, s));
     case kSpring:
-      err = allow_smem(spring_block_kernel, smem);
-      if (err == cudaSuccess) spring_block_kernel<<<1, 2, smem, s>>>(x, y, p, B);
-      break;
+      return static_cast<int>(launch_block<SpringRow>(x, y, p, coefs, B, s));
     case kWaveshaper:
-      waveshaper_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
-      break;
+      return static_cast<int>(launch_block<WaveshaperRow>(x, y, p, coefs, B, s));
     case kFbws:
-      fbws_fast_block_kernel<<<1, 2, 0, s>>>(x, y, p, fbws_coefs(coefs), B);
-      break;
+      return static_cast<int>(launch_block<FbwsRow>(x, y, p, coefs, B, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
-// n effects' blocks, in order, in one launch.
+// n effects' blocks, in order, in one launch: the signal and each phase's
+// own shared memory (16-byte aligned regions, one after another).
 int bus_chain_launch(const float* x, float* y, int n, const int* ops, void* const* ptrs,
                      const float* f, const int* iv, const float* coefs, int B,
                      void* stream) {
   if (n < 1 || n > kMaxPhases) return static_cast<int>(cudaErrorInvalidValue);
   Chain ch{};
   ch.n = n;
-  size_t smem = 0;
+  size_t floats = (2 * static_cast<size_t>(B) + 3) & ~static_cast<size_t>(3);
   for (int i = 0; i < n; ++i) {
     ch.ph[i] = make_phase(ops + 2 * i, ptrs + (kPhaseIn + kPhaseOut) * i, f + kPhaseF * i,
                           iv + kPhaseI * i);
     if (ch.ph[i].op < kSaturation || ch.ph[i].op > kFbws) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const size_t need = phase_smem(ch.ph[i], B);
-    smem = need > smem ? need : smem;
+    ch.smem_off[i] = static_cast<int>(floats);
+    floats += ((phase_smem(ch.ph[i], B) / sizeof(float)) + 3) & ~static_cast<size_t>(3);
   }
+  const size_t smem = floats * sizeof(float);
   const cudaError_t err = allow_smem(bus_chain_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bus_chain_kernel<<<1, 2, smem, as_stream(stream)>>>(x, y, ch, fbws_coefs(coefs), B);
+  bus_chain_kernel<<<1, 32 * n, smem, as_stream(stream)>>>(x, y, ch, fbws_coefs(coefs), B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,8 @@
 // (bus_kernels.cu), and the bass and drive bodies of the kit kernels
 // (voice_kernels.cu).
 //
-// One thread owns one row (a voice, or a channel of the stereo bus) and
-// steps its base-rate samples through stage-1 up, stage-2 up, the
+// In ovs4_row one thread owns one row (a voice, or a channel of the stereo
+// bus) and steps its base-rate samples through stage-1 up, stage-2 up, the
 // nonlinearity at each 4x subsample, stage-2 down and stage-1 down, with
 // every allpass memory in registers.  The packed state is the port's
 // [S, V] layout (ops/bank_kernels.py FBWS_CORE_LAYOUT in, + FBWS_Y2_LAYOUT
@@ -259,6 +259,110 @@ __device__ __forceinline__ void ovs4_row(FbwsState& s, const FbwsCoefs& k, int B
   capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
   finish(B - 1, ovs4_phase_b(s, k, shape, o1, d0));
   store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
+}
+
+// The chunked, split form of ovs4_row, for the two kernels that walk a
+// row's block in spans and evaluate the nonlinearity on other threads
+// (kit_sources' bass, and the 4x phases of bus_chain and of their own
+// kernels).  ovs4_up_span walks the up-path (stage-1 and stage-2
+// upsamplers) of samples [n0, n1) of a B-sample block and leaves sample n's
+// four 4x subsamples at sub[4 (n - n0) ..]; the caller applies the sample's
+// shaper to each in place, on any threads; ovs4_down_span walks the
+// down-path (stage-2 and stage-1 downsamplers) on them and calls finish.
+// The state carries in ``s`` from one span to the next; the span that holds
+// the block's last sample takes the captures into ``cap`` where ovs4_row
+// takes them, and store_span_state stores the state after the last span.
+// The up-path and the down-path hold disjoint parts of the state and every
+// allpass steps its samples in order, so the spans of a block give what
+// ovs4_row gives, bit for bit; ovs4_row stays as it is for the bank kernels.
+struct OvsCaps {
+  Caps<4> u1, d1;
+  Caps<2> u2, d2;
+};
+
+__device__ __forceinline__ void store_span_state(const FbwsState& s, const OvsCaps& cap,
+                                                 float* st, int v, int V) {
+  store_state(s, cap.u1, cap.u2, cap.d2, cap.d1, st, v, V);
+}
+
+// One sample's up-path: its four 4x subsamples into q; cu2, where given,
+// takes the stage-2 memories between the first and the second pair.
+__device__ __forceinline__ void ovs4_up_step(FbwsState& s, const FbwsCoefs& k, float u,
+                                             float* q, Caps<2>* cu2) {
+  const float e1 = ap_chain(u, s.u1y0, s.u1x0, k.c1_0);
+  const float o1 = ap_chain(u, s.u1y1, s.u1x1, k.c1_1);
+  q[0] = ap_chain(e1, s.u2y0, s.u2x0, k.c2_0);
+  q[1] = ap_chain(e1, s.u2y1, s.u2x1, k.c2_1);
+  if (cu2 != nullptr) capture(*cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
+  q[2] = ap_chain(o1, s.u2y0, s.u2x0, k.c2_0);
+  q[3] = ap_chain(o1, s.u2y1, s.u2x1, k.c2_1);
+}
+
+// One sample's down-path on its four shaped subsamples; cd2, where given,
+// takes the stage-2 memories between the two pairs.  Returns the base-rate
+// output.
+__device__ __forceinline__ float ovs4_down_step(FbwsState& s, const FbwsCoefs& k,
+                                                const float* q, Caps<2>* cd2) {
+  const float a0 = ap_chain(q[0], s.d2y0, s.d2x0, k.c2_0);
+  const float a1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
+  const float d0 = 0.5f * (a0 + a1);
+  s.d2x1d = q[1];
+  if (cd2 != nullptr) capture(*cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
+  const float b0 = ap_chain(q[2], s.d2y0, s.d2x0, k.c2_0);
+  const float b1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
+  const float d1 = 0.5f * (b0 + b1);
+  s.d2x1d = q[3];
+  const float e0 = ap_chain(d0, s.d1y0, s.d1x0, k.c1_0);
+  const float e1 = ap_chain(s.d1x1d, s.d1y1, s.d1x1, k.c1_1);
+  s.d1x1d = d1;
+  return 0.5f * (e0 + e1);
+}
+
+// The walks take four samples at a time, their inputs read first, so that
+// the four samples' chains overlap (each allpass still steps them in order);
+// the block's last sample is peeled for its captures.
+constexpr int kOvsGroup = 4;
+
+template <class Input>
+__device__ __forceinline__ void ovs4_up_span(FbwsState& s, OvsCaps& cap, const FbwsCoefs& k,
+                                             int n0, int n1, int B, const Input& input,
+                                             float* sub) {
+  const int stop = n1 < B - 1 ? n1 : B - 1;
+  int n = n0;
+  for (; n + kOvsGroup <= stop; n += kOvsGroup) {
+    float u[kOvsGroup];
+#pragma unroll
+    for (int j = 0; j < kOvsGroup; ++j) u[j] = input(n + j);
+#pragma unroll
+    for (int j = 0; j < kOvsGroup; ++j) ovs4_up_step(s, k, u[j], sub + 4 * (n + j - n0), nullptr);
+  }
+  for (; n < stop; ++n) ovs4_up_step(s, k, input(n), sub + 4 * (n - n0), nullptr);
+  if (n1 == B) {
+    capture(cap.u1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
+    ovs4_up_step(s, k, input(B - 1), sub + 4 * (B - 1 - n0), &cap.u2);
+  }
+}
+
+template <class Finish>
+__device__ __forceinline__ void ovs4_down_span(FbwsState& s, OvsCaps& cap, const FbwsCoefs& k,
+                                               int n0, int n1, int B, const float* sub,
+                                               const Finish& finish) {
+  const int stop = n1 < B - 1 ? n1 : B - 1;
+  int n = n0;
+  for (; n + kOvsGroup <= stop; n += kOvsGroup) {
+    float q[4 * kOvsGroup], y[kOvsGroup];
+#pragma unroll
+    for (int j = 0; j < 4 * kOvsGroup; ++j) q[j] = sub[4 * (n - n0) + j];
+#pragma unroll
+    for (int j = 0; j < kOvsGroup; ++j) y[j] = ovs4_down_step(s, k, q + 4 * j, nullptr);
+#pragma unroll
+    for (int j = 0; j < kOvsGroup; ++j) finish(n + j, y[j]);
+  }
+  for (; n < stop; ++n) finish(n, ovs4_down_step(s, k, sub + 4 * (n - n0), nullptr));
+  if (n1 == B) {
+    capture(cap.d1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
+    finish(B - 1, ovs4_down_step(s, k, sub + 4 * (B - 1 - n0), &cap.d2));
+  }
 }
 
 // coefs (host): c1_0[4], c1_1[4], c2_0[2], c2_1[2]

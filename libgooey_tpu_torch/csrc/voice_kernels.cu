@@ -9,37 +9,45 @@
 //
 // A launch takes a phase table (Kit) of up to five families, each with its
 // body, its bank's V rows and its slots (pointers, scalars, ints), as
-// bus_chain takes its phases; each phase owns a range of blocks and each
-// thread one voice row of it.  The thread walks the row's B samples in
-// order with every carry in registers: the smoother trajectories (closed
-// form, q^(n+1) from a table), the trigger latches, the envelopes, the
-// oscillators and the counter-hash noise are per-sample functions, and the
-// linear recurrences the Pallas bodies solve with lane scans (the kick's
-// click high-pass, pink poles and noise SVF; hihat2's pink poles, DF-I
-// biquads, envelope tracker and tone SVF; every phase accumulator and
-// tom2's rand~ ramp) are stepped, not scanned.  The bass's and the drive
-// bodies' 4x chains are the shared ovs4.cuh chain, with the port's packed
-// [S, V] state layout (the TPU's [2Vp, K] packing and its row padding to 8
-// are layout workarounds of that chip and are not ported).
+// bus_chain takes its phases; each phase owns a range of blocks.
+//
+// kit_sources gives every voice row a block of kTile (128) threads and cuts
+// the row's B samples into tiles of kTile.  The body is uniform within a
+// block.  Per tile, each body alternates between per-sample stages, every
+// thread one sample (the smoother trajectories, closed form, q^(n+1) from a
+// table; the trigger latches, the envelopes, the oscillators' phases and
+// waves, the additive triangles, the counter-hash noise, the filters'
+// coefficients), kept in shared memory (kSlots arrays of a tile), and
+// walks, one lane per independent recurrence stepped in order with its
+// carry in registers from one tile to the next: the kick's click high-pass
+// and its pink poles with the noise SVF; hihat2's pink poles, envelope
+// tracker, then its DF-I biquads and tone SVF; tom2's rand~ ramp; the two
+// running sums of every phase accumulator (PhaseBank, split as the plain
+// version computes it); the bass's 4x chain (its up-path and down-path
+// walked, the drive at each subsample on every thread, ovs4.cuh).  Outputs
+// are stored coalesced.  snare_a has no recurrence.  The Pallas bodies solve
+// the linear recurrences with lane scans; here they are stepped, not
+// scanned.  The state epilogues are written by the lanes that hold the
+// carries, after the last tile.  kit_drive keeps a thread per voice row
+// (kThreads rows a block) walking its whole block; the bass's and the drive
+// bodies' 4x chains use the port's packed [S, V] state layout (the TPU's
+// [2Vp, K] packing and its row padding to 8 are layout workarounds of that
+// chip and are not ported).
 //
 // Each body follows its plain version in ops/voice_kernels.py op for op; the
 // build's -fmad=false keeps a*b + c as two roundings there as here, and
-// every constant division is a true division on both sides.  The kernel
-// and its plain version then differ only where a libdevice function and
-// PyTorch's differ.
+// every constant division is a true division on both sides.  Work moves
+// between threads but no per-sample operation is reordered, so kit_sources
+// gives its plain version bit for bit on the card.
 //
 // What bounds it on the card: at the product kit (64 voices, B = 512) a
 // launch moves a few hundred KB and does ~12 M operations (the kick's and
 // the snare's additive triangles, 32 harmonics a sample, dominate):
 // against 3.35 TB/s and 67 TFLOP/s a fraction of a microsecond.  The
-// kernel takes the time of one thread's serial B-sample walk (2.5 ms for
-// kit_sources, 0.38 ms for kit_drive on an H100, PERF.md).  Five families
-// fill five blocks of 32 threads (16 of a warp's lanes busy at 16 voices),
-// five of 132 SMs.  Splitting each row's block
-// across threads (the elementwise part per sample, the recurrences as a
-// two-pass scan) is the first thing to improve.  A thread writes its row's
-// B samples contiguously, so a warp's stores touch 32 lines per sample; the
-// lines fill across the following samples in L2.
+// kernel takes the time of its longest serial walk: 64 blocks on 64 of 132
+// SMs, and the bass's 4x chain (its up-path and down-path, a few hundred
+// dependent operations a sample) the longest (PERF.md).  kit_drive takes
+// its thread's whole B-sample walk (0.36 ms on an H100).
 //
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError(); nothing allocates or synchronizes here.
@@ -51,7 +59,9 @@
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;   // kit_drive: a thread per voice row
+constexpr int kTile = 128;     // kit_sources: threads per block, samples per tile
+constexpr int kSlots = 22;     // kit_sources: per-tile arrays in shared memory
 constexpr int kIn = 16;
 constexpr int kOut = 10;
 constexpr int kNF = 24;
@@ -187,31 +197,6 @@ __device__ __forceinline__ float max_curve(float p, float fp, float den, bool ne
   return (expf(fp * p) - 1.0f) / den;
 }
 
-// The mod-1 phase accumulator with trigger resets in its split-increment
-// form (pallas_voice._phase_cumsum_reset), stepped
-struct PhaseAcc {
-  float inc0, hi, lo, resid, base, p_prev;
-  __device__ __forceinline__ void init(float first_inc, float carry) {
-    inc0 = first_inc;
-    hi = floorf(inc0 * 2048.0f) * static_cast<float>(1.0 / 2048.0);
-    lo = inc0 - hi;
-    resid = 0.0f;
-    base = -carry;
-    p_prev = 0.0f;
-  }
-  __device__ __forceinline__ float step(int n, float inc, float r) {
-    const float n1 = static_cast<float>(n + 1);
-    float ramp_hi = hi * n1;
-    ramp_hi = ramp_hi - floorf(ramp_hi);
-    const float ramp = ramp_hi + lo * n1;
-    resid = 1.0f * resid + (inc - inc0);
-    const float p = rem1(ramp + resid);
-    base = (1.0f - r) * base + r * p_prev;
-    p_prev = p;
-    return rem1(p - base);
-  }
-};
-
 // The TPT SVF step with its trigger reset (svf_bank)
 __device__ __forceinline__ void svf_step(float& ic1, float& ic2, float x, float g, float h,
                                          bool reset, float& v1, float& v2) {
@@ -272,6 +257,89 @@ struct Row {
 #define OUT_F(i) static_cast<float*>(p.out[i])
 #define OUT_I(i) static_cast<int*>(p.out[i])
 
+// --- the tile walk of kit_sources -------------------------------------------------
+//
+// A block of kTile threads owns one voice row and cuts its B samples into
+// tiles of kTile.  Per tile, every thread computes one sample of the
+// per-sample stage into shared memory (kSlots arrays of kTile floats), then
+// one lane per independent recurrence walks the tile in sample order with
+// its carry in registers, then the threads finish their samples and store
+// them coalesced.  The walkers carry their state from one tile to the next
+// and write it out after the last tile.
+
+#define SLOT(i) (sh + (i) * kTile)
+
+// K mod-1 phase accumulators with trigger resets in their split-increment
+// form (pallas_voice._phase_cumsum_reset), computed as the plain version
+// (ops/voice_kernels.py _phase) computes them: per sample, on every thread,
+// the split increment's ramp and the two mod-1 wraps; walked, one lane per
+// accumulator, the two running sums (the residual increment, and the base
+// a trigger resets to the phase before it).  A tile takes start (at sample 0: the first
+// increments), walk_resid, ramp, walk_base and wrap, with a barrier after
+// each; slots work .. work + 2K hold the sums, out .. out + K the phases.
+template <int K>
+struct PhaseBank {
+  float inc0[K], hi[K], lo[K];   // every thread's, from the block's first increments
+  float resid, base, p_prev;     // accumulator k's carry, on lane k
+  template <class Inc>
+  __device__ __forceinline__ void start(int n0, const float* carry, const Inc& inc) {
+    if (n0 != 0) return;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      inc0[k] = inc(k, 0);
+      hi[k] = floorf(inc0[k] * 2048.0f) * static_cast<float>(1.0 / 2048.0);
+      lo[k] = inc0[k] - hi[k];
+    }
+    if (threadIdx.x < K) {
+      resid = 0.0f;
+      base = -carry[threadIdx.x];
+      p_prev = 0.0f;
+    }
+  }
+  template <class Inc>
+  __device__ __forceinline__ void walk_resid(int len, float* sh, int work, const Inc& inc) {
+    const int k = threadIdx.x;
+    float i0 = inc0[0];
+#pragma unroll
+    for (int j = 1; j < K; ++j) i0 = k == j ? inc0[j] : i0;
+    float* w = SLOT(work + k);
+    for (int i = 0; i < len; ++i) {
+      resid = 1.0f * resid + (inc(k, i) - i0);
+      w[i] = resid;
+    }
+  }
+  __device__ __forceinline__ void ramp(int n0, int len, float* sh, int work) const {
+    const int t = threadIdx.x;
+    if (t >= len) return;
+    const float n1 = static_cast<float>(n0 + t + 1);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float ramp_hi = hi[k] * n1;
+      ramp_hi = ramp_hi - floorf(ramp_hi);
+      const float ramp = ramp_hi + lo[k] * n1;
+      SLOT(work + k)[t] = rem1(ramp + SLOT(work + k)[t]);
+    }
+  }
+  __device__ __forceinline__ void walk_base(const Row& r, int n0, int len, float* sh,
+                                            int work) {
+    const int k = threadIdx.x;
+    const float* p = SLOT(work + k);
+    float* b = SLOT(work + K + k);
+    for (int i = 0; i < len; ++i) {
+      const float rr = r.at(n0 + i) ? 1.0f : 0.0f;
+      base = (1.0f - rr) * base + rr * p_prev;
+      p_prev = p[i];
+      b[i] = base;
+    }
+  }
+  __device__ __forceinline__ void wrap(int len, float* sh, int work, int out) const {
+    const int t = threadIdx.x;
+    if (t >= len) return;
+#pragma unroll
+    for (int k = 0; k < K; ++k) SLOT(out + k)[t] = rem1(SLOT(work + k)[t] - SLOT(work + K + k)[t]);
+  }
+};
+
 // --- kick A: sources (pallas_voice.py:431-593) ----------------------------------
 //
 // in:  cur, tgt [V,19], off [V] i32, vel [V], trig [V] i32, lat [V,6], fst [V,6],
@@ -279,9 +347,14 @@ struct Row {
 // out: total [V,B], ampsc [V,B], ncur [V,19], nlat [V,6], ntrig [V] i32, nfst [V,6]
 // f:   1/sr, 2pi/sr, sr/2, alpha, 1-alpha, max cutoff, sr, q^B, poles[3],
 //      gains[3], direct, outg;  iv: seed mix, triangle terms (-1: none)
+//
+// Walks: the click high-pass (thread 0); the pink poles and the noise SVF on
+// their sum (thread 32).
 
-__device__ void kick_a(const VoicePhase& p, int v) {
-  const int B = p.B;
+enum KickSlot { kKSum, kKClickRaw, kKPinkW, kKG, kKH, kKOscEnv, kKNoiseAmt, kKClickOut, kKNoiseF };
+
+__device__ void kick_a(const VoicePhase& p, int v, float* sh) {
+  const int B = p.B, t = threadIdx.x;
   Row r;
   r.init(IN_F(0) + v * 19, IN_F(1) + v * 19, IN_F(8), IN_I(2)[v], IN_I(4)[v], *IN_I(7), B);
   const float* lat = IN_F(5) + v * 6;
@@ -305,82 +378,108 @@ __device__ void kick_a(const VoicePhase& p, int v) {
   const float ac = DENORM(r.vat(17), 0.1, 10.0);
   const float amp_curve_new = fabsf(ac - 1.0f) < 0.01f ? 1.0f : ac;
   const float pm_active_new = r.vat(9) > 0.001f ? 1.0f : 0.0f;
-  const float news[6] = {vel_new, pitch_mult_new, pitch_curve_new, ad, amp_curve_new,
-                         pm_active_new};
 
   float click_y = fst[0], ic1 = fst[1], ic2 = fst[2];
   float pk[3] = {fst[3], fst[4], fst[5]};
-  for (int n = 0; n < B; ++n) {
-    const bool after = r.after(n), at = r.at(n);
-    const float vel = after ? vel_new : lat[0];
-    const float pitch_mult = after ? pitch_mult_new : lat[1];
-    const float pitch_curve = after ? pitch_curve_new : lat[2];
-    const float amp_decay_s = after ? ad : lat[3];
-    const float amp_curve = after ? amp_curve_new : lat[4];
-    const float pm_active = after ? pm_active_new : lat[5];
-    const int ei = r.elapsed_i(n);
-    const float idx = static_cast<float>(ei);
-    const float el = idx * inv_sr;
+  for (int n0 = 0; n0 < B; n0 += kTile) {
+    const int len = min(kTile, B - n0);
+    if (t < len) {
+      const int n = n0 + t;
+      const bool after = r.after(n);
+      const float vel = after ? vel_new : lat[0];
+      const float pitch_mult = after ? pitch_mult_new : lat[1];
+      const float pitch_curve = after ? pitch_curve_new : lat[2];
+      const float amp_decay_s = after ? ad : lat[3];
+      const float amp_curve = after ? amp_curve_new : lat[4];
+      const float pm_active = after ? pm_active_new : lat[5];
+      const int ei = r.elapsed_i(n);
+      const float idx = static_cast<float>(ei);
+      const float el = idx * inv_sr;
 
-    // live smoothed params (kick.rs:1097-1232)
-    const float decay_scale = 1.0f - 0.5f * vel * vel;
-    const float base_decay = DENORM(r.traj(4, n), 0.01, 4.0) * decay_scale;
-    const float base_freq = DENORM(r.traj(0, n), 30.0, 120.0) * tuning_mult(r.traj(18, n));
-    const float pitch_env = adsr(el, 0.001f, base_decay, 0.0f, Lin{}, Pow{pitch_curve});
-    float fmult = 1.0f + (pitch_mult - 1.0f) * pitch_env;
-    const float pm_amt = r.traj(9, n);
-    const float pm_env = phase_mod_env(el, pm_active > 0.5f);
-    fmult = fmult * (pm_amt > 0.001f ? 1.0f + pm_env * pm_amt * 2.0f : 1.0f);
+      // live smoothed params (kick.rs:1097-1232)
+      const float decay_scale = 1.0f - 0.5f * vel * vel;
+      const float base_decay = DENORM(r.traj(4, n), 0.01, 4.0) * decay_scale;
+      const float base_freq = DENORM(r.traj(0, n), 30.0, 120.0) * tuning_mult(r.traj(18, n));
+      const float pitch_env = adsr(el, 0.001f, base_decay, 0.0f, Lin{}, Pow{pitch_curve});
+      float fmult = 1.0f + (pitch_mult - 1.0f) * pitch_env;
+      const float pm_amt = r.traj(9, n);
+      const float pm_env = phase_mod_env(el, pm_active > 0.5f);
+      fmult = fmult * (pm_amt > 0.001f ? 1.0f + pm_env * pm_amt * 2.0f : 1.0f);
 
-    const float osc_env = adsr(el, 0.001f, base_decay, 0.0f, Lin{}, Lin{});
-    const float sub_out = sinf(idx * (base_freq * fmult) * w) * osc_env * r.traj(2, n);
-    const float punch_out =
-        n_terms >= 0
-            ? triangle(idx, base_freq * 2.5f * fmult, w, nyq, n_terms) * osc_env *
-                  (r.traj(1, n) * 0.7f)
-            : 0.0f;
+      const float osc_env = adsr(el, 0.001f, base_decay, 0.0f, Lin{}, Lin{});
+      const float sub_out = sinf(idx * (base_freq * fmult) * w) * osc_env * r.traj(2, n);
+      const float punch_out =
+          n_terms >= 0
+              ? triangle(idx, base_freq * 2.5f * fmult, w, nyq, n_terms) * osc_env *
+                    (r.traj(1, n) * 0.7f)
+              : 0.0f;
 
-    const float click_env = adsr(el, 0.001f, base_decay * 0.2f, 0.0f, Lin{}, Lin{});
-    const float click_vel_scale = 0.6f + 0.4f * vel;
-    const float click_white = white(static_cast<uint32_t>(static_cast<int>(floorf(idx))), smix);
-    const float pink_white = white(static_cast<uint32_t>(ei), smix);
-    const float click_raw = click_white * click_env * (r.traj(3, n) * 0.15f * click_vel_scale);
-    // cheap resonant HP at 8 kHz / res 4 (resonant_highpass.rs:22-53)
-    const float s_prev = at ? 0.0f : click_y;
-    click_y = (at ? 0.0f : oma) * click_y + alpha * click_raw;
-    const float click_out = (click_raw - s_prev) * 1.4f;
-
-    // pink-noise layer (kick.rs:1174-1193)
-    for (int i = 0; i < 3; ++i) pk[i] = (at ? 0.0f : p.f[8 + i]) * pk[i] + p.f[11 + i] * pink_white;
-    const float pink = (pk[0] + pk[1] + pk[2] + pink_white * p.f[14]) * p.f[15];
-    const float noise_cut = DENORM(r.traj(11, n), 20.0, 10000.0);
-    const float noise_res = DENORM(r.traj(12, n), 0.0, 5.0);
-    const float g = tanf((3.14159265358979f * clampf(noise_cut, 20.0f, max_cut)) / sr);
-    const float inv_q = 1.0f / clampf(noise_res, 0.5f, 10.0f);
-    const float h = 1.0f / (1.0f + inv_q * g + g * g);
-    float v1, v2;
-    svf_step(ic1, ic2, pink, g, h, at, v1, v2);
-    const float noise_filtered = fabsf(v2) < 1e-15f ? 0.0f : v2;
-    const float noise_amt = r.traj(10, n);
-    const float noise_out =
-        noise_amt > 0.001f ? noise_filtered * osc_env * noise_amt * 0.5f : 0.0f;
-
-    total[n] = sub_out + punch_out + click_out + noise_out;
-    // master amplitude scale (kick.rs:1264-1284)
-    const float amp_env =
-        adsr(el, 0.001f, fmaxf(amp_decay_s, 0.001f), 0.0f, Sqrt{}, Pow{amp_curve});
-    ampsc[n] = amp_env * sqrtf(vel) * r.traj(7, n);
+      const float click_env = adsr(el, 0.001f, base_decay * 0.2f, 0.0f, Lin{}, Lin{});
+      const float click_vel_scale = 0.6f + 0.4f * vel;
+      const float click_white = white(static_cast<uint32_t>(static_cast<int>(floorf(idx))), smix);
+      SLOT(kKPinkW)[t] = white(static_cast<uint32_t>(ei), smix);
+      SLOT(kKClickRaw)[t] = click_white * click_env * (r.traj(3, n) * 0.15f * click_vel_scale);
+      const float noise_cut = DENORM(r.traj(11, n), 20.0, 10000.0);
+      const float noise_res = DENORM(r.traj(12, n), 0.0, 5.0);
+      const float g = tanf((3.14159265358979f * clampf(noise_cut, 20.0f, max_cut)) / sr);
+      const float inv_q = 1.0f / clampf(noise_res, 0.5f, 10.0f);
+      SLOT(kKG)[t] = g;
+      SLOT(kKH)[t] = 1.0f / (1.0f + inv_q * g + g * g);
+      SLOT(kKOscEnv)[t] = osc_env;
+      SLOT(kKNoiseAmt)[t] = r.traj(10, n);
+      SLOT(kKSum)[t] = sub_out + punch_out;
+      // master amplitude scale (kick.rs:1264-1284)
+      const float amp_env =
+          adsr(el, 0.001f, fmaxf(amp_decay_s, 0.001f), 0.0f, Sqrt{}, Pow{amp_curve});
+      ampsc[n] = amp_env * sqrtf(vel) * r.traj(7, n);
+    }
+    __syncthreads();
+    if (t == 0) {
+      // cheap resonant HP at 8 kHz / res 4 (resonant_highpass.rs:22-53)
+      for (int i = 0; i < len; ++i) {
+        const bool at = r.at(n0 + i);
+        const float click_raw = SLOT(kKClickRaw)[i];
+        const float s_prev = at ? 0.0f : click_y;
+        click_y = (at ? 0.0f : oma) * click_y + alpha * click_raw;
+        SLOT(kKClickOut)[i] = (click_raw - s_prev) * 1.4f;
+      }
+    } else if (t == 32) {
+      // pink-noise layer (kick.rs:1174-1193) through the noise SVF
+      for (int i = 0; i < len; ++i) {
+        const bool at = r.at(n0 + i);
+        const float pink_white = SLOT(kKPinkW)[i];
+        for (int j = 0; j < 3; ++j)
+          pk[j] = (at ? 0.0f : p.f[8 + j]) * pk[j] + p.f[11 + j] * pink_white;
+        const float pink = (pk[0] + pk[1] + pk[2] + pink_white * p.f[14]) * p.f[15];
+        float v1, v2;
+        svf_step(ic1, ic2, pink, SLOT(kKG)[i], SLOT(kKH)[i], at, v1, v2);
+        SLOT(kKNoiseF)[i] = fabsf(v2) < 1e-15f ? 0.0f : v2;
+      }
+    }
+    __syncthreads();
+    if (t < len) {
+      const float noise_amt = SLOT(kKNoiseAmt)[t];
+      const float noise_out =
+          noise_amt > 0.001f ? SLOT(kKNoiseF)[t] * SLOT(kKOscEnv)[t] * noise_amt * 0.5f : 0.0f;
+      total[n0 + t] = SLOT(kKSum)[t] + SLOT(kKClickOut)[t] + noise_out;
+    }
+    __syncthreads();
   }
 
-  r.advance(OUT_F(2) + v * 19, 19, qB);
-  float* nlat = OUT_F(3) + v * 6;
-  for (int i = 0; i < 6; ++i) nlat[i] = r.has ? news[i] : lat[i];
-  OUT_I(4)[v] = r.new_trig();
-  float* nfst = OUT_F(5) + v * 6;
-  nfst[0] = click_y;
-  nfst[1] = ic1;
-  nfst[2] = ic2;
-  for (int i = 0; i < 3; ++i) nfst[3 + i] = pk[i];
+  if (t == 0) {
+    r.advance(OUT_F(2) + v * 19, 19, qB);
+    const float news[6] = {vel_new, pitch_mult_new, pitch_curve_new, ad, amp_curve_new,
+                           pm_active_new};
+    float* nlat = OUT_F(3) + v * 6;
+    for (int i = 0; i < 6; ++i) nlat[i] = r.has ? news[i] : lat[i];
+    OUT_I(4)[v] = r.new_trig();
+    OUT_F(5)[v * 6] = click_y;
+  } else if (t == 32) {
+    float* nfst = OUT_F(5) + v * 6;
+    nfst[1] = ic1;
+    nfst[2] = ic2;
+    for (int i = 0; i < 3; ++i) nfst[3 + i] = pk[i];
+  }
 }
 
 // --- snare A: tonal and crack layers, noise before the Chamberlin ----------------
@@ -388,9 +487,11 @@ __device__ void kick_a(const VoicePhase& p, int v) {
 // in:  cur, tgt [V,19], off, vel, trig, lat [V,6], bs, powq
 // out: dry [V,B], nraw [V,B], ncur [V,19], nlat [V,6], ntrig [V]
 // f:   1/sr, 2pi/sr, sr/2, q^B;  iv: seed mix, triangle terms (-1: a sine)
+//
+// No recurrence: every sample is its own thread's.
 
 __device__ void snare_a(const VoicePhase& p, int v) {
-  const int B = p.B;
+  const int B = p.B, t = threadIdx.x;
   Row r;
   r.init(IN_F(0) + v * 19, IN_F(1) + v * 19, IN_F(7), IN_I(2)[v], IN_I(4)[v], *IN_I(6), B);
   const float* lat = IN_F(5) + v * 6;
@@ -408,9 +509,8 @@ __device__ void snare_a(const VoicePhase& p, int v) {
   const float ad = DENORM(r.vat(16), 0.0, 4.0) * decay_scale_new;
   const float ac = DENORM(r.vat(17), 0.1, 10.0);
   const float pm_active_new = r.vat(14) > 0.001f ? 1.0f : 0.0f;
-  const float news[6] = {vel_new, pitch_mult_new, ac, tc, ad, pm_active_new};
 
-  for (int n = 0; n < B; ++n) {
+  for (int n = t; n < B; n += kTile) {
     const bool after = r.after(n);
     const float vel = after ? vel_new : lat[0];
     const float pitch_mult = after ? pitch_mult_new : lat[1];
@@ -449,10 +549,13 @@ __device__ void snare_a(const VoicePhase& p, int v) {
     dry[n] = tonal_out + crack_out;
   }
 
-  r.advance(OUT_F(2) + v * 19, 19, qB);
-  float* nlat = OUT_F(3) + v * 6;
-  for (int i = 0; i < 6; ++i) nlat[i] = r.has ? news[i] : lat[i];
-  OUT_I(4)[v] = r.new_trig();
+  if (t == 0) {
+    r.advance(OUT_F(2) + v * 19, 19, qB);
+    const float news[6] = {vel_new, pitch_mult_new, ac, tc, ad, pm_active_new};
+    float* nlat = OUT_F(3) + v * 6;
+    for (int i = 0; i < 6; ++i) nlat[i] = r.has ? news[i] : lat[i];
+    OUT_I(4)[v] = r.new_trig();
+  }
 }
 
 // --- hihat2: the whole block (pallas_voice.py:1439-1549) ---------------------------
@@ -463,6 +566,10 @@ __device__ void snare_a(const VoicePhase& p, int v) {
 //      nsvf [V,2], npink [V,3]
 // f:   1/sr, sr, q^B, 2pi, pi, 0.45 sr, down, 1-down, the attack curve's fp
 //      and den, the decay curve's, poles[3], gains[3], direct, outg;  iv: seed mix
+//
+// Walks, first: the two phase accumulators (threads 0-1), the pink poles
+// (thread 32), the envelope tracker (thread 64); then, on the oscillators'
+// output, the two DF-I biquads and the tone SVF (thread 0).
 
 // One DF-I biquad stage with trigger resets (pallas_voice._biquad_df1): the
 // raw previous inputs, the feedback side as linrec2_bank steps it.
@@ -483,8 +590,16 @@ struct Biquad {
   }
 };
 
-__device__ void hihat2(const VoicePhase& p, int v) {
-  const int B = p.B;
+enum HihatSlot {
+  kHModInc, kHMainInc,   // walked by threads 0-1 into kHModPh, kHMainPh
+  kHModPh, kHMainPh,
+  kHWhite, kHPinkW, kHPink, kHEnvRaw, kHEnv,
+  kHB0, kHB1, kHA1, kHA2, kHToneG, kHToneH, kHVol, kHMainOut, kHOut,
+  kHWork   // four slots: the accumulators' sums
+};
+
+__device__ void hihat2(const VoicePhase& p, int v, float* sh) {
+  const int B = p.B, t = threadIdx.x;
   Row r;
   r.init(IN_F(0) + v * 6, IN_F(1) + v * 6, IN_F(14), IN_I(2)[v], IN_I(4)[v], *IN_I(13), B);
   const float lat0 = IN_F(5)[v];
@@ -505,91 +620,129 @@ __device__ void hihat2(const VoicePhase& p, int v) {
   Biquad q1{hpf[0], hpf[1], hpf[2], hpf[3], 0.0f};
   Biquad q2{hpf[4], hpf[5], hpf[6], hpf[7], 0.0f};
   float ic1 = svf[0], ic2 = svf[1], env = ph[2];
-  PhaseAcc mod_acc, main_acc;
-  float rprev = 0.0f, mod_phase = 0.0f, main_phase = 0.0f;
-  for (int n = 0; n < B; ++n) {
-    const bool after = r.after(n), at = r.at(n);
-    const float reset_f = at ? 1.0f : 0.0f;
-    const float vel = after ? vel_new : lat0;
-    const float el = static_cast<float>(r.elapsed_i(n)) * inv_sr;
+  PhaseBank<2> bank;
+  const auto inc = [&](int k, int i) { return SLOT(kHModInc + k)[i]; };
+  float rprev = 0.0f;
+  for (int n0 = 0; n0 < B; n0 += kTile) {
+    const int len = min(kTile, B - n0);
+    if (t < len) {
+      const int n = n0 + t;
+      const float el = static_cast<float>(r.elapsed_i(n)) * inv_sr;
 
-    const float attack_s = DENORM(r.traj(2, n), 0.5, 200.0) * 0.001f;
-    const float decay_s = DENORM(r.traj(1, n), 0.5, 4000.0) * 0.001f;
-    const float pn = r.traj(0, n);
-    const float pitch_hz = DENORM(pn * pn, 3500.0, 10000.0) * tuning_mult(r.traj(5, n));
+      const float attack_s = DENORM(r.traj(2, n), 0.5, 200.0) * 0.001f;
+      const float decay_s = DENORM(r.traj(1, n), 0.5, 4000.0) * 0.001f;
+      const float pn = r.traj(0, n);
+      const float pitch_hz = DENORM(pn * pn, 3500.0, 10000.0) * tuning_mult(r.traj(5, n));
 
-    // noise (never reset; counter = global sample, salted per voice)
-    const uint32_t n_glob = static_cast<uint32_t>(r.bs) + static_cast<uint32_t>(n);
-    const float wn = white(n_glob + salt * 0x9E3779B9u, smix);
-    const float pw = white(n_glob, smix);
-    for (int i = 0; i < 3; ++i) pk[i] = p.f[12 + i] * pk[i] + p.f[15 + i] * pw;
-    const float pinkn = (pk[0] + pk[1] + pk[2] + pw * p.f[18]) * p.f[19];
-    const float noise_sig = color == 1 ? pinkn : wn;
+      // noise (never reset; counter = global sample, salted per voice)
+      const uint32_t n_glob = static_cast<uint32_t>(r.bs) + static_cast<uint32_t>(n);
+      SLOT(kHWhite)[t] = white(n_glob + salt * 0x9E3779B9u, smix);
+      SLOT(kHPinkW)[t] = white(n_glob, smix);
 
-    // phase-mod oscillator chain (hihat2.rs:256-285, 497-505)
-    const float mod_inc = (pitch_hz * 0.1f) / sr;
-    const float main_inc = pitch_hz / sr;
-    if (n == 0) {
-      mod_acc.init(mod_inc, ph[0]);
-      main_acc.init(main_inc, ph[1]);
+      // phase-mod oscillator increments (hihat2.rs:256-285, 497-505)
+      SLOT(kHModInc)[t] = (pitch_hz * 0.1f) / sr;
+      SLOT(kHMainInc)[t] = pitch_hz / sr;
+
+      // highpass stages at pitch (RBJ, q = 1)
+      const float omega = (two_pi * pitch_hz) / sr;
+      const float sin_o = sinf(omega), cos_o = cosf(omega);
+      const float alpha = sin_o / 2.0f;
+      const float a0 = 1.0f + alpha;
+      SLOT(kHB0)[t] = ((1.0f + cos_o) / 2.0f) / a0;
+      SLOT(kHB1)[t] = -(1.0f + cos_o) / a0;
+      SLOT(kHA1)[t] = (-2.0f * cos_o) / a0;
+      SLOT(kHA2)[t] = (1.0f - alpha) / a0;
+
+      // MaxCurve envelope, before the asymmetric smoother
+      const float attack_prog = attack_s > 0.0f ? el / fmaxf(attack_s, 1e-9f) : 1.0f;
+      const float decay_prog =
+          decay_s > 0.0f ? (el - attack_s) / fmaxf(decay_s, 1e-9f) : 1.0f;
+      const float env_raw = el < attack_s ? max_curve(attack_prog, fa, da, true)
+                                          : 1.0f - max_curve(clamp01(decay_prog), fd, dd, true);
+      SLOT(kHEnvRaw)[t] = el < 0.0f ? 0.0f : env_raw;
+
+      // tone SVF highpass + volume
+      const float tone_hz = DENORM(r.traj(3, n), 500.0, 10000.0);
+      const float g = tanf((pi * clampf(tone_hz, 20.0f, max_cut)) / sr);
+      SLOT(kHToneG)[t] = g;
+      SLOT(kHToneH)[t] = 1.0f / (1.0f + 2.0f * g + g * g);
+      SLOT(kHVol)[t] = r.traj(4, n);
     }
-    mod_phase = mod_acc.step(n, mod_inc, reset_f);
-    main_phase = main_acc.step(n, main_inc, reset_f);
-    const float mod_out = sinf(two_pi * rem1(mod_phase + noise_sig * 0.25f));
-    const float main_out = sinf(two_pi * rem1(main_phase + mod_out * 0.75f));
-
-    // highpass stages at pitch (RBJ, q = 1)
-    const float omega = (two_pi * pitch_hz) / sr;
-    const float sin_o = sinf(omega), cos_o = cosf(omega);
-    const float alpha = sin_o / 2.0f;
-    const float a0 = 1.0f + alpha;
-    const float hb0 = ((1.0f + cos_o) / 2.0f) / a0;
-    const float hb1 = -(1.0f + cos_o) / a0;
-    const float ha1 = (-2.0f * cos_o) / a0;
-    const float ha2 = (1.0f - alpha) / a0;
-    const float keep = 1.0f - reset_f;
-    const float y1 = q1.step(main_out, hb0, hb1, hb0, ha1, ha2, keep, rprev);
-    const float y2 = q2.step(y1, hb0, hb1, hb0, ha1, ha2, keep, rprev);
-    rprev = reset_f;
-    const float filtered = slope == 1 ? y2 * 0.8f : y1;
-
-    // MaxCurve envelope through the asymmetric smoother
-    const float attack_prog = attack_s > 0.0f ? el / fmaxf(attack_s, 1e-9f) : 1.0f;
-    const float decay_prog =
-        decay_s > 0.0f ? (el - attack_s) / fmaxf(decay_s, 1e-9f) : 1.0f;
-    float env_raw = el < attack_s ? max_curve(attack_prog, fa, da, true)
-                                  : 1.0f - max_curve(clamp01(decay_prog), fd, dd, true);
-    env_raw = el < 0.0f ? 0.0f : env_raw;
-    env = fmaxf(env_raw, (at ? 0.0f : one_m_down) * env + down * env_raw);
-    const float output = filtered * env * vel * 0.35f;
-
-    // tone SVF highpass + volume
-    const float tone_hz = DENORM(r.traj(3, n), 500.0, 10000.0);
-    const float g = tanf((pi * clampf(tone_hz, 20.0f, max_cut)) / sr);
-    const float h = 1.0f / (1.0f + 2.0f * g + g * g);
-    float v1, v2;
-    svf_step(ic1, ic2, output, g, h, at, v1, v2);
-    out[n] = (output - (2.0f * v1 + v2)) * r.traj(4, n);
+    __syncthreads();
+    bank.start(n0, ph, inc);
+    if (t < 2) {
+      bank.walk_resid(len, sh, kHWork, inc);
+    } else if (t == 32) {
+      for (int i = 0; i < len; ++i) {
+        const float pw = SLOT(kHPinkW)[i];
+        for (int j = 0; j < 3; ++j) pk[j] = p.f[12 + j] * pk[j] + p.f[15 + j] * pw;
+        SLOT(kHPink)[i] = (pk[0] + pk[1] + pk[2] + pw * p.f[18]) * p.f[19];
+      }
+    } else if (t == 64) {
+      for (int i = 0; i < len; ++i) {
+        const float env_raw = SLOT(kHEnvRaw)[i];
+        env = fmaxf(env_raw, (r.at(n0 + i) ? 0.0f : one_m_down) * env + down * env_raw);
+        SLOT(kHEnv)[i] = env;
+      }
+    }
+    __syncthreads();
+    bank.ramp(n0, len, sh, kHWork);
+    __syncthreads();
+    if (t < 2) bank.walk_base(r, n0, len, sh, kHWork);
+    __syncthreads();
+    bank.wrap(len, sh, kHWork, kHModPh);
+    __syncthreads();
+    if (t < len) {
+      const float noise_sig = color == 1 ? SLOT(kHPink)[t] : SLOT(kHWhite)[t];
+      const float mod_out = sinf(two_pi * rem1(SLOT(kHModPh)[t] + noise_sig * 0.25f));
+      SLOT(kHMainOut)[t] = sinf(two_pi * rem1(SLOT(kHMainPh)[t] + mod_out * 0.75f));
+    }
+    __syncthreads();
+    if (t == 0) {
+      for (int i = 0; i < len; ++i) {
+        const int n = n0 + i;
+        const bool at = r.at(n);
+        const float reset_f = at ? 1.0f : 0.0f;
+        const float vel = r.after(n) ? vel_new : lat0;
+        const float hb0 = SLOT(kHB0)[i], hb1 = SLOT(kHB1)[i];
+        const float ha1 = SLOT(kHA1)[i], ha2 = SLOT(kHA2)[i];
+        const float keep = 1.0f - reset_f;
+        const float y1 = q1.step(SLOT(kHMainOut)[i], hb0, hb1, hb0, ha1, ha2, keep, rprev);
+        const float y2 = q2.step(y1, hb0, hb1, hb0, ha1, ha2, keep, rprev);
+        rprev = reset_f;
+        const float filtered = slope == 1 ? y2 * 0.8f : y1;
+        const float output = filtered * SLOT(kHEnv)[i] * vel * 0.35f;
+        float v1, v2;
+        svf_step(ic1, ic2, output, SLOT(kHToneG)[i], SLOT(kHToneH)[i], at, v1, v2);
+        SLOT(kHOut)[i] = (output - (2.0f * v1 + v2)) * SLOT(kHVol)[i];
+      }
+    }
+    __syncthreads();
+    if (t < len) out[n0 + t] = SLOT(kHOut)[t];
+    __syncthreads();
   }
 
-  r.advance(OUT_F(1) + v * 6, 6, qB);
-  OUT_F(2)[v] = r.has ? vel_new : lat0;
-  OUT_I(3)[v] = r.new_trig();
   float* nph = OUT_F(4) + v * 3;
-  nph[0] = mod_phase;
-  nph[1] = main_phase;
-  nph[2] = env;
-  float* nhpf = OUT_F(5) + v * 8;
-  const Biquad* qs[2] = {&q1, &q2};
-  for (int i = 0; i < 2; ++i) {
-    nhpf[4 * i + 0] = qs[i]->xr1;
-    nhpf[4 * i + 1] = qs[i]->xp1;
-    nhpf[4 * i + 2] = qs[i]->s1;
-    nhpf[4 * i + 3] = qs[i]->s2;
+  if (t < 2) nph[t] = SLOT(kHModPh + t)[(B - 1) % kTile];
+  if (t == 64) nph[2] = env;
+  if (t == 32) {
+    for (int i = 0; i < 3; ++i) OUT_F(7)[v * 3 + i] = pk[i];
   }
-  OUT_F(6)[v * 2] = ic1;
-  OUT_F(6)[v * 2 + 1] = ic2;
-  for (int i = 0; i < 3; ++i) OUT_F(7)[v * 3 + i] = pk[i];
+  if (t == 0) {
+    r.advance(OUT_F(1) + v * 6, 6, qB);
+    OUT_F(2)[v] = r.has ? vel_new : lat0;
+    OUT_I(3)[v] = r.new_trig();
+    float* nhpf = OUT_F(5) + v * 8;
+    const Biquad* qs[2] = {&q1, &q2};
+    for (int i = 0; i < 2; ++i) {
+      nhpf[4 * i + 0] = qs[i]->xr1;
+      nhpf[4 * i + 1] = qs[i]->xp1;
+      nhpf[4 * i + 2] = qs[i]->s1;
+      nhpf[4 * i + 3] = qs[i]->s2;
+    }
+    OUT_F(6)[v * 2] = ic1;
+    OUT_F(6)[v * 2 + 1] = ic2;
+  }
 }
 
 // --- bass: oscillators, bleps, 4x drive, the filter's trajectories ---------------
@@ -599,6 +752,11 @@ __device__ void hihat2(const VoicePhase& p, int v) {
 // out: satur, cut, res, ampsc [V,B], ncur [V,16], nlat [V,6], ntrig,
 //      nph [V,3], nst [100,V]
 // f:   1/sr, sr, q^B, 2pi, tanh(0.5), 18000/20
+//
+// Walks: the three phase accumulators (threads 0-2), then the 4x chain on
+// their mix: its up-path (thread 0), the drive at each subsample (every
+// thread), its down-path (thread 0).  The filter's trajectories and the amp
+// scale are per sample.
 
 __device__ __forceinline__ float poly_blep(float t, float dt) {
   dt = fmaxf(dt, 1e-12f);
@@ -608,8 +766,15 @@ __device__ __forceinline__ float poly_blep(float t, float dt) {
                 : (t > 1.0f - dt ? late * late + 2.0f * late + 1.0f : 0.0f);
 }
 
-__device__ void bass(const VoicePhase& p, const FbwsCoefs& k, int v) {
-  const int B = p.B, V = p.V;
+enum BassSlot {
+  kBInc, kBDetInc,       // the increments: sub and osc, det
+  kBSub, kBOsc, kBDet,   // the accumulators' phases
+  kBShape, kBT1, kBT2, kBT3, kBOd, kBDrive, kBD, kBCp, kBMix, kBSat,
+  kBWork   // six slots: the accumulators' sums; then four: the 4x subsamples
+};
+
+__device__ void bass(const VoicePhase& p, const FbwsCoefs& k, int v, float* sh) {
+  const int B = p.B, V = p.V, t = threadIdx.x;
   Row r;
   r.init(IN_F(0) + v * 16, IN_F(1) + v * 16, IN_F(10), IN_I(2)[v], IN_I(5)[v], *IN_I(9), B);
   const float* lat = IN_F(6) + v * 6;
@@ -631,82 +796,112 @@ __device__ void bass(const VoicePhase& p, const FbwsCoefs& k, int v) {
   const float ac_new = DENORM(r.vat(12), 0.1, 10.0);
   const float fd_new = DENORM(r.vat(9), 0.01, 2.0);
   const float fc_new = DENORM(r.vat(10), 0.1, 8.0);
-  const float news[6] = {vel_new, freq_new, ad_new, ac_new, fd_new, fc_new};
 
-  PhaseAcc sub_acc, osc_acc, det_acc;
-  float sub_phase = 0.0f, osc_phase = 0.0f, det_phase = 0.0f;
-  float mix = 0.0f, od = 0.0f, drive = 0.0f;
+  PhaseBank<3> bank;
+  const auto inc = [&](int k, int i) { return SLOT(k < 2 ? kBInc : kBDetInc)[i]; };
   FbwsState s;
-  load_state(s, IN_F(8), v, V);
-  ovs4_row(
-      s, k, B,
-      // the oscillators (phase accumulators reset at the trigger) and their mix
-      [&](int n) {
-        const bool after = r.after(n);
-        const float reset_f = r.at(n) ? 1.0f : 0.0f;
-        const float freq = (after ? freq_new : lat[1]) * tuning_mult(r.traj(15, n));
-        const float detune_cents = DENORM(r.traj(4, n), 0.0, 30.0);
-        const float det_freq = freq * exp2f(detune_cents / 1200.0f);
-        const float inc = freq / sr;
-        const float det_inc = det_freq / sr;
-        if (n == 0) {
-          sub_acc.init(inc, ph[0]);
-          osc_acc.init(inc, ph[1]);
-          det_acc.init(det_inc, ph[2]);
-        }
-        sub_phase = sub_acc.step(n, inc, reset_f);
-        osc_phase = osc_acc.step(n, inc, reset_f);
-        det_phase = det_acc.step(n, det_inc, reset_f);
-        const float sub_out = sinf(sub_phase * two_pi);
-        const float shape = r.traj(5, n);
-        const float saw_m = (2.0f * osc_phase - 1.0f) - poly_blep(osc_phase, inc);
-        const float sq_m = (osc_phase < 0.5f ? 1.0f : -1.0f) + poly_blep(osc_phase, inc) -
-                           poly_blep(rem1(osc_phase + 0.5f), inc);
-        const float saw_d = (2.0f * det_phase - 1.0f) - poly_blep(det_phase, det_inc);
-        const float sq_d = (det_phase < 0.5f ? 1.0f : -1.0f) + poly_blep(det_phase, det_inc) -
-                           poly_blep(rem1(det_phase + 0.5f), det_inc);
-        const float osc_out = saw_m * (1.0f - shape) + sq_m * shape;
-        const float det_out = saw_d * (1.0f - shape) + sq_d * shape;
-        mix = sub_out * r.traj(1, n) + osc_out * r.traj(2, n) + det_out * r.traj(3, n);
-        return mix;
-      },
+  OvsCaps cap;
+  if (t == 0) load_state(s, IN_F(8), v, V);
+  for (int n0 = 0; n0 < B; n0 += kTile) {
+    const int len = min(kTile, B - n0);
+    if (t < len) {
+      const int n = n0 + t;
+      const bool after = r.after(n);
+      const float freq = (after ? freq_new : lat[1]) * tuning_mult(r.traj(15, n));
+      const float detune_cents = DENORM(r.traj(4, n), 0.0, 30.0);
+      const float det_freq = freq * exp2f(detune_cents / 1200.0f);
+      const float inc = freq / sr;
+      SLOT(kBInc)[t] = inc;
+      SLOT(kBDetInc)[t] = det_freq / sr;
+      SLOT(kBShape)[t] = r.traj(5, n);
+      SLOT(kBT1)[t] = r.traj(1, n);
+      SLOT(kBT2)[t] = r.traj(2, n);
+      SLOT(kBT3)[t] = r.traj(3, n);
       // the pre-filter waveshaper at drive 1 + 9*overdrive
-      [&](int n) {
-        od = r.traj(13, n);
-        drive = 1.0f + od * 9.0f;
-        const float d = fmaxf(drive, 1.000001f);
-        return DriveShaper{d, tanh_half / tanhf(0.5f * d)};
-      },
-      [&](int n, float sat) {
-        const bool after = r.after(n);
-        float ws_out = drive <= 1.0f ? mix : sat;
+      const float od = r.traj(13, n);
+      const float drive = 1.0f + od * 9.0f;
+      const float d = fmaxf(drive, 1.000001f);
+      SLOT(kBOd)[t] = od;
+      SLOT(kBDrive)[t] = drive;
+      SLOT(kBD)[t] = d;
+      SLOT(kBCp)[t] = tanh_half / tanhf(0.5f * d);
+      // swept-filter trajectories (the SVF runs after the launch)
+      const float el = static_cast<float>(r.elapsed_i(n)) * inv_sr;
+      const float fd = after ? fd_new : lat[4];
+      const float fc = after ? fc_new : lat[5];
+      const float fenv = adsr(el, 0.001f, fd, 0.0f, Lin{}, Pow{fc});
+      const float base_cutoff = 20.0f * powf(cut_span, clamp01(r.traj(6, n)));
+      const float env_offset = (18000.0f - base_cutoff) * r.traj(8, n) * fenv;
+      cut[n] = clampf(base_cutoff + env_offset, 20.0f, 18000.0f);
+      res[n] = DENORM(r.traj(7, n), 0.5, 15.0);
+      const float adv = after ? ad_new : lat[2];
+      const float acv = after ? ac_new : lat[3];
+      const float vel = after ? vel_new : lat[0];
+      const float amp_env = adsr(el, 0.002f, adv, 0.0f, Lin{}, Pow{acv});
+      ampsc[n] = amp_env * sqrtf(vel) * r.traj(14, n);
+    }
+    __syncthreads();
+    // the oscillators: phase accumulators reset at the trigger
+    bank.start(n0, ph, inc);
+    if (t < 3) bank.walk_resid(len, sh, kBWork, inc);
+    __syncthreads();
+    bank.ramp(n0, len, sh, kBWork);
+    __syncthreads();
+    if (t < 3) bank.walk_base(r, n0, len, sh, kBWork);
+    __syncthreads();
+    bank.wrap(len, sh, kBWork, kBSub);
+    __syncthreads();
+    if (t < len) {
+      const float inc = SLOT(kBInc)[t], det_inc = SLOT(kBDetInc)[t];
+      const float osc_phase = SLOT(kBOsc)[t], det_phase = SLOT(kBDet)[t];
+      const float sub_out = sinf(SLOT(kBSub)[t] * two_pi);
+      const float shape = SLOT(kBShape)[t];
+      const float saw_m = (2.0f * osc_phase - 1.0f) - poly_blep(osc_phase, inc);
+      const float sq_m = (osc_phase < 0.5f ? 1.0f : -1.0f) + poly_blep(osc_phase, inc) -
+                         poly_blep(rem1(osc_phase + 0.5f), inc);
+      const float saw_d = (2.0f * det_phase - 1.0f) - poly_blep(det_phase, det_inc);
+      const float sq_d = (det_phase < 0.5f ? 1.0f : -1.0f) + poly_blep(det_phase, det_inc) -
+                         poly_blep(rem1(det_phase + 0.5f), det_inc);
+      const float osc_out = saw_m * (1.0f - shape) + sq_m * shape;
+      const float det_out = saw_d * (1.0f - shape) + sq_d * shape;
+      SLOT(kBMix)[t] =
+          sub_out * SLOT(kBT1)[t] + osc_out * SLOT(kBT2)[t] + det_out * SLOT(kBT3)[t];
+    }
+    __syncthreads();
+    // the 4x chain: its up-path, the drive at every subsample, its down-path
+    float* sub = SLOT(kBWork);
+    if (t == 0) {
+      ovs4_up_span(s, cap, k, n0, n0 + len, B, [&](int n) { return SLOT(kBMix)[n - n0]; },
+                   sub);
+    }
+    __syncthreads();
+    for (int j = t; j < 4 * len; j += kTile) {
+      sub[j] = DriveShaper{SLOT(kBD)[j >> 2], SLOT(kBCp)[j >> 2]}(sub[j]);
+    }
+    __syncthreads();
+    if (t == 0) {
+      ovs4_down_span(s, cap, k, n0, n0 + len, B, sub, [&](int n, float sat) {
+        const int i = n - n0;
+        const float mix = SLOT(kBMix)[i];
+        float ws_out = SLOT(kBDrive)[i] <= 1.0f ? mix : sat;
         ws_out = isfinite(mix) ? ws_out : 0.0f;
-        satur[n] = od > 0.001f ? ws_out : mix;
-        // swept-filter trajectories (the SVF runs after the launch)
-        const float el = static_cast<float>(r.elapsed_i(n)) * inv_sr;
-        const float fd = after ? fd_new : lat[4];
-        const float fc = after ? fc_new : lat[5];
-        const float fenv = adsr(el, 0.001f, fd, 0.0f, Lin{}, Pow{fc});
-        const float base_cutoff = 20.0f * powf(cut_span, clamp01(r.traj(6, n)));
-        const float env_offset = (18000.0f - base_cutoff) * r.traj(8, n) * fenv;
-        cut[n] = clampf(base_cutoff + env_offset, 20.0f, 18000.0f);
-        res[n] = DENORM(r.traj(7, n), 0.5, 15.0);
-        const float adv = after ? ad_new : lat[2];
-        const float acv = after ? ac_new : lat[3];
-        const float vel = after ? vel_new : lat[0];
-        const float amp_env = adsr(el, 0.002f, adv, 0.0f, Lin{}, Pow{acv});
-        ampsc[n] = amp_env * sqrtf(vel) * r.traj(14, n);
-      },
-      OUT_F(8), v, V);
+        SLOT(kBSat)[i] = SLOT(kBOd)[i] > 0.001f ? ws_out : mix;
+      });
+    }
+    __syncthreads();
+    if (t < len) satur[n0 + t] = SLOT(kBSat)[t];
+    __syncthreads();
+  }
 
-  r.advance(OUT_F(4) + v * 16, 16, qB);
-  float* nlat = OUT_F(5) + v * 6;
-  for (int i = 0; i < 6; ++i) nlat[i] = r.has ? news[i] : lat[i];
-  OUT_I(6)[v] = r.new_trig();
-  float* nph = OUT_F(7) + v * 3;
-  nph[0] = sub_phase;
-  nph[1] = osc_phase;
-  nph[2] = det_phase;
+  if (t < 3) OUT_F(7)[v * 3 + t] = SLOT(kBSub + t)[(B - 1) % kTile];
+  if (t == 0) {
+    store_span_state(s, cap, OUT_F(8), v, V);
+    r.advance(OUT_F(4) + v * 16, 16, qB);
+    const float news[6] = {vel_new, freq_new, ad_new, ac_new, fd_new, fc_new};
+    float* nlat = OUT_F(5) + v * 6;
+    for (int i = 0; i < 6; ++i) nlat[i] = r.has ? news[i] : lat[i];
+    OUT_I(6)[v] = r.new_trig();
+  }
 }
 
 // --- tom2: the sources (pallas_voice.py:1646-1810) ----------------------------------
@@ -716,6 +911,9 @@ __device__ void bass(const VoicePhase& p, const FbwsCoefs& k, int v) {
 //      nseg [V] i32
 // f:   1/sr, sr, 2pi, 190/sr, the attack curve's fp and den, the decay's;
 // iv:  seed mix, rand~ seed mix, triangle on, B
+//
+// Walks: the five phase accumulators (threads 0-4; the fixed one at a
+// constant increment) and the rand~ ramp (thread 32).
 
 __constant__ float kTomImpulse[64] = {
     0.884058f, 0.942029f, 0.913043f, 0.869565f, 0.833333f, 0.797101f, 0.772947f,
@@ -731,8 +929,14 @@ __constant__ float kTomImpulse[64] = {
 
 __device__ __forceinline__ float tri_wave(float t) { return t < 0.5f ? 4.0f * t - 1.0f : 3.0f - 4.0f * t; }
 
-__device__ void tom2(const VoicePhase& p, int v) {
-  const int B = p.iv[3];
+enum TomSlot {
+  kTInc, kTTri, kTMain, kTTri2, kTFixed, kTGated,   // the accumulators' phases
+  kTClick, kTWhite, kTFrac, kTSeg,
+  kTWork   // ten slots: the accumulators' sums
+};
+
+__device__ void tom2(const VoicePhase& p, int v, float* sh) {
+  const int B = p.iv[3], t = threadIdx.x;
   const float* par = IN_F(0) + v * 9;
   const int off = IN_I(1)[v], trig = IN_I(2)[v];
   const float dec = IN_F(3)[v];
@@ -745,6 +949,10 @@ __device__ void tom2(const VoicePhase& p, int v) {
   const uint32_t smix = static_cast<uint32_t>(p.iv[0]), rmix = static_cast<uint32_t>(p.iv[1]);
   const bool triangle_on = p.iv[2] != 0;
   const bool has = off < B;
+  // the walkers' Row: trigger offset and latch only (tom2 has no smoothers)
+  Row r;
+  r.has = has;
+  r.off = off;
 
   // per-row parameters (plain 0-100 values)
   const float decay_new = (0.5f + (par[4] / 100.0f) * 3999.5f) * 0.001f;
@@ -763,92 +971,114 @@ __device__ void tom2(const VoicePhase& p, int v) {
   const float hi_r = floorf(inc_r * 2048.0f) / 2048.0f;
   const float lo_r = inc_r - hi_r;
 
-  PhaseAcc tri_acc, main_acc, tri2_acc, fixed_acc, gated_acc;
-  float tri_phase = 0.0f, m_main = 0.0f, m_tri = 0.0f, m_fixed = 0.0f, m_gated = 0.0f;
+  PhaseBank<5> bank;
+  const auto inc = [&](int k, int i) { return k == 3 ? fixed : SLOT(kTInc)[i]; };
   float resid_r = 0.0f, base_r = -ph[5], pprev_r = 0.0f, frac = 0.0f;
   int seg = seg0;
-  for (int n = 0; n < B; ++n) {
-    const bool after = has && n >= off;
-    const float reset_f = (has && n == off) ? 1.0f : 0.0f;
-    const uint32_t te = after ? static_cast<uint32_t>(bs) + static_cast<uint32_t>(off)
-                              : static_cast<uint32_t>(trig);
-    const int ei = static_cast<int>(static_cast<uint32_t>(bs) + static_cast<uint32_t>(n) - te);
-    const float el = static_cast<float>(ei) * inv_sr;
+  for (int n0 = 0; n0 < B; n0 += kTile) {
+    const int len = min(kTile, B - n0);
+    if (t < len) {
+      const int n = n0 + t;
+      const bool after = has && n >= off;
+      const uint32_t te = after ? static_cast<uint32_t>(bs) + static_cast<uint32_t>(off)
+                                : static_cast<uint32_t>(trig);
+      const int ei = static_cast<int>(static_cast<uint32_t>(bs) + static_cast<uint32_t>(n) - te);
+      const float el = static_cast<float>(ei) * inv_sr;
 
-    // decay latch + envelope [(1, 1 ms, 0.8), (0, decay, -0.83)]
-    const float decay_s = after ? decay_new : dec;
-    float env = el < 0.001f ? max_curve(el / 0.001f, fu, du, false)
-                            : 1.0f - max_curve(clamp01((el - 0.001f) / decay_s), fdn, ddn, true);
-    env = el < 0.0f ? 0.0f : env;
-    const bool env_complete = el >= (0.001f + decay_s);
+      // decay latch + envelope [(1, 1 ms, 0.8), (0, decay, -0.83)]
+      const float decay_s = after ? decay_new : dec;
+      float env = el < 0.001f ? max_curve(el / 0.001f, fu, du, false)
+                              : 1.0f - max_curve(clamp01((el - 0.001f) / decay_s), fdn, ddn, true);
+      env = el < 0.0f ? 0.0f : env;
+      const bool env_complete = el >= (0.001f + decay_s);
 
-    // pitch
-    const float pm = env * bend_scaled;
-    const float raw_freq = base_freq * (1.0f + pm * pm);
-    const bool past_attack = (el >= 0.001f) || (env > 0.9f);
-    const bool main_done = env_complete || (past_attack && (raw_freq < 20.0f));
-    const float fade = (past_attack && (raw_freq < 40.0f)) ? (raw_freq - 20.0f) / 20.0f : 1.0f;
-    const float freq = fmaxf(raw_freq, 40.0f);
+      // pitch
+      const float pm = env * bend_scaled;
+      const float raw_freq = base_freq * (1.0f + pm * pm);
+      const bool past_attack = (el >= 0.001f) || (env > 0.9f);
+      const bool main_done = env_complete || (past_attack && (raw_freq < 20.0f));
+      const float fade =
+          (past_attack && (raw_freq < 40.0f)) ? (raw_freq - 20.0f) / 20.0f : 1.0f;
+      const float freq = fmaxf(raw_freq, 40.0f);
+      OUT_F(1)[row + n] = env;
+      OUT_F(2)[row + n] = main_done ? 1.0f : 0.0f;
+      OUT_F(3)[row + n] = fade;
+      OUT_F(4)[row + n] = freq;
 
-    // ClickOsc, the standalone triangle and MorphOsc
-    const float click_out = ((ei >= 0 && ei < 64) ? kTomImpulse[ei] : 0.0f) * 1.1f;
-    const float inc = freq / sr;
-    if (n == 0) {
-      tri_acc.init(inc, ph[0]);
-      main_acc.init(inc, ph[1]);
-      tri2_acc.init(inc, ph[2]);
-      fixed_acc.init(fixed, ph[3]);
-      gated_acc.init(inc, ph[4]);
+      // ClickOsc; the oscillators' increment
+      SLOT(kTClick)[t] = ((ei >= 0 && ei < 64) ? kTomImpulse[ei] : 0.0f) * 1.1f;
+      SLOT(kTInc)[t] = freq / sr;
+      SLOT(kTWhite)[t] = white(static_cast<uint32_t>(ei), smix) * 0.2f;
     }
-    tri_phase = tri_acc.step(n, inc, reset_f);
-    m_main = main_acc.step(n, inc, reset_f);
-    m_tri = tri2_acc.step(n, inc, reset_f);
-    m_fixed = fixed_acc.step(n, fixed, reset_f);
-    m_gated = gated_acc.step(n, inc, reset_f);
-    const float tri_out = triangle_on ? tri_wave(rem1(tri_phase - inc)) * 0.5f : 0.0f;
-    const float main_sine = sinf(two_pi * rem1(m_main - inc)) * 0.5f;
-    const float tri_m = tri_wave(rem1(m_tri - inc)) * 0.5f;
-    const float fixed_sine = sinf(two_pi * rem1(m_fixed - fixed)) * 0.5f;
-    const float gated_sine = tone < 99.0f ? sinf(two_pi * rem1(m_gated - inc)) * 0.2f : 0.0f;
-    const float wn = white(static_cast<uint32_t>(ei), smix) * 0.2f;
+    __syncthreads();
+    // the standalone triangle and MorphOsc's main, triangle, fixed and gated
+    bank.start(n0, ph, inc);
+    if (t < 5) {
+      bank.walk_resid(len, sh, kTWork, inc);
+    } else if (t == 32) {
+      // rand~: S&H with linear ramps on the split-increment accumulator
+      for (int i = 0; i < len; ++i) {
+        const int n = n0 + i;
+        const float reset_f = (has && n == off) ? 1.0f : 0.0f;
+        const float n1 = static_cast<float>(n + 1);
+        resid_r = 1.0f * resid_r + (inc_r - inc_r);
+        const float p_r = (hi_r * n1 + lo_r * n1) + resid_r;
+        base_r = (1.0f - reset_f) * base_r + reset_f * pprev_r;
+        pprev_r = p_r;
+        const float total = p_r - base_r;
+        const float seg_local = floorf(total);
+        frac = total - seg_local;
+        seg = ((has && n >= off) ? 0 : seg0) + static_cast<int>(seg_local);
+        SLOT(kTFrac)[i] = frac;
+        SLOT(kTSeg)[i] = __int_as_float(seg);
+      }
+    }
+    __syncthreads();
+    bank.ramp(n0, len, sh, kTWork);
+    __syncthreads();
+    if (t < 5) bank.walk_base(r, n0, len, sh, kTWork);
+    __syncthreads();
+    bank.wrap(len, sh, kTWork, kTTri);
+    __syncthreads();
+    if (t < len) {
+      const float inc = SLOT(kTInc)[t];
+      const float tri_out = triangle_on ? tri_wave(rem1(SLOT(kTTri)[t] - inc)) * 0.5f : 0.0f;
+      const float main_sine = sinf(two_pi * rem1(SLOT(kTMain)[t] - inc)) * 0.5f;
+      const float tri_m = tri_wave(rem1(SLOT(kTTri2)[t] - inc)) * 0.5f;
+      const float fixed_sine = sinf(two_pi * rem1(SLOT(kTFixed)[t] - fixed)) * 0.5f;
+      const float gated_sine =
+          tone < 99.0f ? sinf(two_pi * rem1(SLOT(kTGated)[t] - inc)) * 0.2f : 0.0f;
+      const int sg = __float_as_int(SLOT(kTSeg)[t]);
+      const float tgt_r = sg >= 1 ? white(static_cast<uint32_t>(sg), rmix) : 0.0f;
+      const float cur_r = sg >= 2 ? white(static_cast<uint32_t>(sg) - 1u, rmix) : 0.0f;
+      const float rand_value = cur_r + (tgt_r - cur_r) * SLOT(kTFrac)[t];
 
-    // rand~: S&H with linear ramps on the split-increment accumulator
-    const float n1 = static_cast<float>(n + 1);
-    resid_r = 1.0f * resid_r + (inc_r - inc_r);
-    const float p_r = (hi_r * n1 + lo_r * n1) + resid_r;
-    base_r = (1.0f - reset_f) * base_r + reset_f * pprev_r;
-    pprev_r = p_r;
-    const float total = p_r - base_r;
-    const float seg_local = floorf(total);
-    frac = total - seg_local;
-    seg = (after ? 0 : seg0) + static_cast<int>(seg_local);
-    const float tgt_r = seg >= 1 ? white(static_cast<uint32_t>(seg), rmix) : 0.0f;
-    const float cur_r = seg >= 2 ? white(static_cast<uint32_t>(seg) - 1u, rmix) : 0.0f;
-    const float rand_value = cur_r + (tgt_r - cur_r) * frac;
-
-    const float noise_combined = (wn + rand_value) * 0.4f;
-    const float ch1 = main_sine * fixed_sine;
-    const float ch2 = tri_m + noise_combined;
-    const float ch3 = noise_combined + gated_sine;
-    OUT_F(0)[row + n] = click_out + tri_out + (ch1 * w1 + ch2 * w2 + ch3 * w3);
-    OUT_F(1)[row + n] = env;
-    OUT_F(2)[row + n] = main_done ? 1.0f : 0.0f;
-    OUT_F(3)[row + n] = fade;
-    OUT_F(4)[row + n] = freq;
+      const float noise_combined = (SLOT(kTWhite)[t] + rand_value) * 0.4f;
+      const float ch1 = main_sine * fixed_sine;
+      const float ch2 = tri_m + noise_combined;
+      const float ch3 = noise_combined + gated_sine;
+      OUT_F(0)[row + n0 + t] = SLOT(kTClick)[t] + tri_out + (ch1 * w1 + ch2 * w2 + ch3 * w3);
+    }
+    __syncthreads();
   }
 
-  OUT_I(5)[v] = has ? static_cast<int>(static_cast<uint32_t>(bs) + static_cast<uint32_t>(off))
-                    : trig;
-  OUT_F(6)[v] = has ? decay_new : dec;
   float* nph = OUT_F(7) + v * 6;
-  nph[0] = rem1(tri_phase);
-  nph[1] = m_main;
-  nph[2] = m_tri;
-  nph[3] = m_fixed;
-  nph[4] = m_gated;
-  nph[5] = frac;
-  OUT_I(8)[v] = seg;
+  if (t < 5) {
+    const float last = SLOT(kTTri + t)[(B - 1) % kTile];
+    nph[t] = t == 0 ? rem1(last) : last;
+  }
+  if (t == 32) {
+    nph[5] = frac;
+    OUT_I(8)[v] = seg;
+  }
+  if (t == 0) {
+    OUT_I(5)[v] = has ? static_cast<int>(static_cast<uint32_t>(bs) + static_cast<uint32_t>(off))
+                      : trig;
+    OUT_F(6)[v] = has ? decay_new : dec;
+  }
 }
+
+#undef SLOT
 
 // --- kick B: 4x tanh drive, makeup gain, DC blocker, amp (pallas_voice.py:599) ----
 //
@@ -954,32 +1184,34 @@ __device__ void snare_b(const VoicePhase& p, const FbwsCoefs& k, int v) {
 
 // --- the kernels ----------------------------------------------------------------------
 
-__device__ __forceinline__ const VoicePhase& phase_of(const Kit& kit, int& v) {
+// The phase of this block and its first row: kit_sources gives each voice row
+// a block (rows = 1), kit_drive each 32 rows a block of a thread per row.
+__device__ __forceinline__ const VoicePhase& phase_of(const Kit& kit, int rows, int& v) {
   int i = 0;
   while (i + 1 < kit.n && static_cast<int>(blockIdx.x) >= kit.ph[i + 1].block0) ++i;
-  v = (static_cast<int>(blockIdx.x) - kit.ph[i].block0) * kThreads + static_cast<int>(threadIdx.x);
+  v = (static_cast<int>(blockIdx.x) - kit.ph[i].block0) * rows;
   return kit.ph[i];
 }
 
-__global__ void __launch_bounds__(kThreads) kit_sources_kernel(const Kit kit, FbwsCoefs k) {
+__global__ void __launch_bounds__(kTile) kit_sources_kernel(const Kit kit, FbwsCoefs k) {
+  __shared__ float sh[kSlots * kTile];
   int v;
-  const VoicePhase& p = phase_of(kit, v);
-  if (v >= p.V) return;
+  const VoicePhase& p = phase_of(kit, 1, v);
   switch (p.body) {
     case kKickA:
-      kick_a(p, v);
+      kick_a(p, v, sh);
       break;
     case kSnareA:
       snare_a(p, v);
       break;
     case kHihat2:
-      hihat2(p, v);
+      hihat2(p, v, sh);
       break;
     case kBass:
-      bass(p, k, v);
+      bass(p, k, v, sh);
       break;
     case kTom2:
-      tom2(p, v);
+      tom2(p, v, sh);
       break;
     default:
       break;
@@ -988,7 +1220,8 @@ __global__ void __launch_bounds__(kThreads) kit_sources_kernel(const Kit kit, Fb
 
 __global__ void __launch_bounds__(kThreads) kit_drive_kernel(const Kit kit, FbwsCoefs k) {
   int v;
-  const VoicePhase& p = phase_of(kit, v);
+  const VoicePhase& p = phase_of(kit, kThreads, v);
+  v += static_cast<int>(threadIdx.x);
   if (v >= p.V) return;
   switch (p.body) {
     case kKickB:
@@ -1003,9 +1236,10 @@ __global__ void __launch_bounds__(kThreads) kit_drive_kernel(const Kit kit, Fbws
 }
 
 // ops: (body, V, B) per phase; ptrs: in[16], out[10] per phase; f: 24 and
-// iv: 8 per phase.  Returns the grid's block count, or -1 for a bad table.
+// iv: 8 per phase; rows: voice rows per block.  Returns the grid's block
+// count, or -1 for a bad table.
 int make_kit(Kit& kit, int n, const int* ops, void* const* ptrs, const float* f, const int* iv,
-             int lo, int hi) {
+             int lo, int hi, int rows) {
   if (n < 1 || n > kMaxPhases) return -1;
   kit.n = n;
   int blocks = 0;
@@ -1016,7 +1250,7 @@ int make_kit(Kit& kit, int n, const int* ops, void* const* ptrs, const float* f,
     p.B = ops[3 * i + 2];
     if (p.body < lo || p.body > hi || p.V < 1 || p.B < 1) return -1;
     p.block0 = blocks;
-    blocks += (p.V + kThreads - 1) / kThreads;
+    blocks += (p.V + rows - 1) / rows;
     void* const* pp = ptrs + (kIn + kOut) * i;
     for (int j = 0; j < kIn; ++j) p.in[j] = pp[j];
     for (int j = 0; j < kOut; ++j) p.out[j] = pp[kIn + j];
@@ -1033,16 +1267,16 @@ extern "C" {
 int kit_sources_launch(int n, const int* ops, void* const* ptrs, const float* f, const int* iv,
                        const float* coefs, void* stream) {
   Kit kit{};
-  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickA, kTom2);
+  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickA, kTom2, 1);
   if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
-  kit_sources_kernel<<<blocks, kThreads, 0, as_stream(stream)>>>(kit, fbws_coefs(coefs));
+  kit_sources_kernel<<<blocks, kTile, 0, as_stream(stream)>>>(kit, fbws_coefs(coefs));
   return static_cast<int>(cudaGetLastError());
 }
 
 int kit_drive_launch(int n, const int* ops, void* const* ptrs, const float* f, const int* iv,
                      const float* coefs, void* stream) {
   Kit kit{};
-  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickB, kSnareB);
+  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickB, kSnareB, kThreads);
   if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   kit_drive_kernel<<<blocks, kThreads, 0, as_stream(stream)>>>(kit, fbws_coefs(coefs));
   return static_cast<int>(cudaGetLastError());

@@ -35,8 +35,11 @@ list of phases in one launch, each on the signal the one before it left,
 through the same per-effect code as the single kernels.  The compressor is
 two phases, its detector (which passes the signal through) and its gain
 stage; in a run the gain stage's ``env`` is ``None``, the detector's output
-before it.  The feedback waveshaper is two phases the same way.  What bounds the kernels on the card is in the header of their
-CUDA source: two threads stepping a serial chain.
+before it.  The feedback waveshaper is two phases the same way.  In a
+``bus_chain`` launch each phase runs on a warp of its own, the phases
+pipelined a 32-sample chunk apart; what bounds the kernels on the card is
+in the header of their CUDA source: the serial chains of the channels'
+lanes.
 """
 
 from __future__ import annotations

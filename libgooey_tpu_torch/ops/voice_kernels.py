@@ -32,12 +32,15 @@ launches the hand-written kernel (``csrc/voice_kernels.cu``) or raises; a
 CPU tensor takes the ``*_plain`` version.  The plain versions are written as
 the Pallas bodies are, ``[V, B]`` elementwise math, with each recurrence
 through the port's plain sample-sequential recurrences
-(``bank_kernels.*_plain``); the kernel steps one voice row per thread
-through the block in the same per-sample op order.  The Pallas bodies solve
-the linear recurrences with log-depth lane scans, so the JAX package and
-the port differ at scan-reassociation level (<= 6e-6 on the output at V =
-5, tests/test_torch_kit_fused.py).  Every
-constant division is a true division on both devices (``_div``): PyTorch on
+(``bank_kernels.*_plain``).  ``kit_sources`` gives each voice row a
+block that computes the per-sample stages on every thread and steps each
+recurrence on one lane (the header of ``csrc/voice_kernels.cu``);
+``kit_drive`` steps one voice row per thread.  Both keep the per-sample op
+order, and ``kit_sources`` gives its plain version bit for bit on the card.
+The Pallas bodies solve the linear recurrences with log-depth lane scans,
+so the JAX package and the port differ at scan-reassociation level (<= 6e-6
+on the output at V = 5, tests/test_torch_kit_fused.py).  Every constant
+division is a true division on both devices (``_div``): PyTorch on
 the card turns a division by a Python number into a multiply by its
 reciprocal.
 

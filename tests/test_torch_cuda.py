@@ -705,3 +705,58 @@ def test_granulator_and_sampler_with_kernels_match_plain_versions(dev, monkeypat
     assert float(got.abs().max()) > 1e-3
     assert float((got - want).abs().max()) <= 1e-4
     assert gk.KERNELS == ("grain_read_cubic", "sampler_read_linear")
+
+
+def _bits_equal(got, want):
+    """Every tensor of two nested outputs equal bit for bit (floats by their
+    int32 view, so NaNs and signed zeros count)."""
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(_bits_equal(g, w) for g, w in zip(got, want))
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got.shape == want.shape and bool(torch.equal(got, want))
+
+
+_ODD_KIT = {"kick": 5, "snare": 3, "hihat2": 7, "tom2": 1, "bass": 2}
+_PRODUCT_KIT = {"kick": 16, "snare": 16, "hihat2": 16, "tom2": 8, "bass": 8}
+
+
+@pytest.mark.parametrize("B", [512, 100, 37])
+@pytest.mark.parametrize("kit", [dict.fromkeys(_ODD_KIT, 1), _ODD_KIT, _PRODUCT_KIT,
+                                 dict.fromkeys(_ODD_KIT, 128)],
+                         ids=["one_a_family", "odd", "product", "128_a_family"])
+def test_kit_sources_is_bit_equal_to_its_plain_version(dev, kit, B):
+    """kit_sources (a block per voice row, 128-sample tiles) gives its plain
+    version's outputs and carried state bit for bit, with B not a multiple
+    of the tile, a family of one voice and the kit path's 128."""
+    import chip_smoke
+
+    from libgooey_tpu_torch.ops import voice_kernels as vk
+
+    phases, _ = chip_smoke.kit_phases(dev, kit, B)
+    got, want = vk.kit_sources(phases), vk.kit_sources_plain(phases)
+    torch.cuda.synchronize()
+    for ph, g, w in zip(phases, got, want):
+        assert _bits_equal(g, w), ph.name
+
+
+@pytest.mark.parametrize("B", [512, 100, 33])
+@pytest.mark.parametrize("run", range(6),
+                         ids=["7_phases", "4_phases", "10_phases", "1_phase", "12_phases",
+                              "9_phases_two_delays_spring_last"])
+def test_bus_chain_is_bit_equal_to_its_plain_version_and_its_kernels(dev, run, B):
+    """bus_chain (phases pipelined over warps in 32-sample chunks, the 4x
+    phases split over their warp) gives its plain version and its phases'
+    own kernels in turn bit for bit, with B not a multiple of the chunk,
+    one phase and twelve, two delays, a delay after the spring and the
+    spring last."""
+    import chip_smoke
+
+    _, runs = chip_smoke.bus_cases(dev, np.random.RandomState(B), B)
+    x, phases = list(runs.values())[run]
+    got = bus.bus_chain(x, phases)
+    want = bus.bus_chain_plain(x, phases)
+    turn = bus.run_phases(x, phases)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    assert _bits_equal(got, turn)

@@ -1,0 +1,110 @@
+// A CPU emulation of the CUDA subset the port's kit and bus kernels use, for
+// checking a restructured kernel against another build of it bit for bit
+// before it goes to the card (tools/cuda_cpu_emu/emu_ab.py).
+//
+// A launch runs its blocks one after another; each thread of a block is a
+// std::thread, __syncthreads and bar.sync a std::barrier of the block,
+// __syncwarp(mask) a barrier of the mask's lanes.  __shared__ variables are
+// function statics (one block at a time); dynamic shared memory is a buffer
+// filled with garbage at each block.  Math is the host's libm: two builds
+// agree with each other here, not with the card.  Compile with
+// -ffp-contract=off (nvcc's -fmad=false).
+
+#pragma once
+
+#include <math.h>
+
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+using std::isfinite;
+using std::max;
+using std::min;
+
+struct dim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+struct float4 {
+  float x, y, z, w;
+};
+
+inline thread_local dim3 threadIdx;
+inline dim3 blockIdx, blockDim;
+inline std::barrier<>* emu_block_barrier = nullptr;
+inline char* emu_dyn_smem = nullptr;
+inline std::mutex emu_mutex;
+inline std::map<unsigned long long, std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __constant__
+#define __shared__ static
+
+inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  const unsigned long long key = (static_cast<unsigned long long>(threadIdx.x / 32) << 32) | mask;
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(emu_mutex);
+    auto& slot = emu_warp_barriers[key];
+    if (!slot) slot.reset(new std::barrier<>(__builtin_popcount(mask)));
+    b = slot.get();
+  }
+  b->arrive_and_wait();
+}
+
+inline float __int_as_float(int i) {
+  float f;
+  memcpy(&f, &i, sizeof f);
+  return f;
+}
+inline int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, sizeof i);
+  return i;
+}
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class Kernel>
+inline cudaError_t cudaFuncSetAttribute(Kernel, int, int) {
+  return cudaSuccess;
+}
+
+// kernel<<<grid, block, smem, stream>>>(args) becomes
+// emu_launch(grid, block, smem, stream, [&] { kernel(args); })
+template <class F>
+void emu_launch(int grid, int block, size_t smem, cudaStream_t, F body) {
+  std::vector<char> dyn(smem + 16);
+  emu_dyn_smem = dyn.data();
+  blockDim.x = block;
+  for (int b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    std::barrier<> barrier(block);
+    emu_block_barrier = &barrier;
+    emu_warp_barriers.clear();
+    memset(dyn.data(), 0x7f, dyn.size());
+    std::vector<std::thread> threads;
+    for (int t = 0; t < block; ++t) {
+      threads.emplace_back([&body, t] {
+        threadIdx.x = t;
+        body();
+      });
+    }
+    for (auto& th : threads) th.join();
+  }
+}
