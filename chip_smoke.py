@@ -12,7 +12,7 @@ Phases (any failure exits non-zero):
    in parallel);
 3. kernels: each of the twenty-four kernels against its plain PyTorch
    version on the card, at the main path's shapes (B = 512; V = 4,096 for
-   the kick's five, V = 1,024 for ws4 and the triangle, the stereo bus
+   the kick's pink, env and fbws, V = 1,024 for the triangle, the stereo bus
    [2, B] for the nine bus kernels, the
    mono plate input [B] with its [4, 566] and [2, 2719] histories,
    ``bus_chain`` running the kit's seven bus phases, the first four, and
@@ -31,8 +31,12 @@ Phases (any failure exits non-zero):
    and 99 samples (tails of rows per block and of the 64-sample chunk,
    4-byte copies), each bit-equal to its plain version, and
    ``affine1_bank(None, ...)`` bit-equal to the explicit -3e38 floor with
-   NaN, +-inf and below-floor values; ``kit_sources`` and ``bus_chain``,
-   the other two redesigned kernels, bit-equal too, at their tails:
+   NaN, +-inf and below-floor values; ``svf_bank`` (staged, its reset mask
+   as bytes) at 1,024, 512, 8 and 4,096 rows with resets and at 1,024
+   without, ``ws4_bank`` (its 4x chain split over warps) at 1,024 and 512
+   rows and the granulator's one row, both at 515 rows of 100 and 99
+   samples and with inputs 4 bytes past a 16-byte boundary, bit-equal;
+   ``kit_sources`` and ``bus_chain``, bit-equal too, at their tails:
    ``bus_chain`` at B with one phase, twelve (two delays, one after the
    spring) and nine (two delays, the spring last), and at 100 and 33
    samples with 1, 4, 7, 9, 10 and 12; ``kit_sources`` with one voice a
@@ -171,7 +175,7 @@ OUT_TOL = 1e-5
 STATE_TOL = 1e-4
 
 #: the redesigned kernels: bit-equal to their plain versions at every case
-EXACT = ("affine1_bank", "linrec2_bank", "kit_sources", "bus_chain")
+EXACT = ("affine1_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources", "bus_chain")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -214,6 +218,14 @@ OPS_PER_ROW_SAMPLE = {
     # 1, end - 1 1, two lerps 3 each
     "sampler_read_linear": 13,
 }
+#: the row recurrences' carried chains: dependent operations a sample on the
+#: path from one sample's state to the next's (svf_bank: ic2 -> x - ic2 ->
+#: *g -> +ic1 -> *h -> g*v1 -> +ic2 -> 2*v2 -> -ic2, and the reset select;
+#: ws4_bank: a stage-2 allpass section, stepped twice a sample, 3 each;
+#: affine1_bank: multiply, add, max; linrec2_bank: fma, add), and the
+#: latency of one float32 operation on the card, in cycles
+CHAIN_OPS_PER_SAMPLE = {"svf_bank": 9, "ws4_bank": 6, "affine1_bank": 3, "linrec2_bank": 2}
+CHAIN_CYCLES_PER_OP = 4
 #: the kit kernels' operations per row-sample, by body: the kick's and the
 #: snare's additive triangles (32 harmonics x ~11 at max_harmonics = 64)
 #: dominate; the trajectories, envelopes (a pow each), oscillators, hashes
@@ -263,6 +275,25 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for the chain floors."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def chain_floor_ms(name, args, clock_hz):
+    """The least time of a row's carried chain: its dependent operations a
+    sample (``CHAIN_OPS_PER_SAMPLE``) at ``CHAIN_CYCLES_PER_OP`` cycles each,
+    over the B samples of a block, at the maximum SM clock; None for a
+    kernel not listed."""
+    if name not in CHAIN_OPS_PER_SAMPLE:
+        return None
+    b = next(a for a in args if a is not None).shape[-1]
+    return CHAIN_OPS_PER_SAMPLE[name] * CHAIN_CYCLES_PER_OP * b / clock_hz * 1e3
 
 
 def cuda_ms(fn, iters):
@@ -328,7 +359,7 @@ def kernel_cases(dev):
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
     from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
     from libgooey_tpu_torch.ops import bank_kernels as bk
-    from libgooey_tpu_torch.ops import filters, noise
+    from libgooey_tpu_torch.ops import noise
 
     rs = np.random.RandomState(SEED)
 
@@ -376,12 +407,15 @@ def kernel_cases(dev):
               direct=float(noise.DIRECT_GAIN), outg=float(noise.OUTPUT_GAIN))
     cases.append(("pink_bank", kick_shape, (
         t(rs.uniform(-1, 1, (V, B))), mask(0.002), t(0.1 * rs.randn(V, 3))), kw, 1))
-    # 3. TPT SVF with per-sample cutoff sweeps
-    x = t(0.3 * rs.randn(V, B))
-    g, h = filters.svf_coeffs(t(20.0 + 9000.0 * rs.rand(V, B)), 0.9, SR)
-    cases.append(("svf_bank", kick_shape, (
-        x, g.contiguous(), h.contiguous(), mask(0.002), t(0.1 * rs.randn(V)),
-        t(0.1 * rs.randn(V))), {}, 2))
+    # 3. the TPT SVF at the main path's shapes (full_kit_4096_bus7: the
+    #    kick's noise low-pass and hihat2's tone filter at 1,024 rows, the
+    #    bass's at 512; the product kit's bass at 8; the kick slice's 4,096)
+    #    with per-sample cutoff sweeps and trigger resets, the first case's
+    #    times going to the kernel line; then without a reset mask
+    for rows in (1024, 512, 8, V):
+        cases.append(("svf_bank", f"V={rows}, B={B}, resets", svf_rows(rs, t, rows, B), {}, 2))
+    cases.append(("svf_bank", f"V=1024, B={B}, no reset mask",
+                  svf_rows(rs, t, 1024, B, resets=False), {}, 2))
     # 4. envelope follower with bypass freezes
     att, rel = fbws.env_coeffs(SR)
     cases.append(("env_follow_bank", kick_shape, (
@@ -392,12 +426,15 @@ def kernel_cases(dev):
         t((1.0 + 40.0 * rs.rand(V, 1) ** 3) * 0.3 * rs.randn(V, B)),
         t(np.where(rs.rand(V, B) < 0.05, -1.0, 0.2 + 2.8 * rs.rand(V, B))),
         t(0.1 * rs.randn(bk.FBWS_S_IN, V))), {}, 1))
-    # 6. the snare/bass overdrive: drive 1-10 per voice, some rows bypassed
+    # 6. the 4x overdrive at the main path's shapes (bus7: the snare's 1,024
+    #    rows, the bass's 512, drive 1-10 per voice, some rows bypassed; the
+    #    granulator's one row at its drive of 4), the first case's times
+    #    going to the kernel line
     Vs = KIT["snare"]
-    cases.append(("ws4_bank", f"V={Vs}, B={B}", (
-        t(0.5 * rs.randn(Vs, B)),
-        t(np.where(rs.rand(Vs, 1) < 0.1, 1.0, 1.0 + 9.0 * rs.rand(Vs, 1)) * np.ones(B)),
-        t(0.05 * rs.randn(bk.FBWS_S_IN, Vs))), {}, 1))
+    for rows in (Vs, KIT["bass"]):
+        cases.append(("ws4_bank", f"V={rows}, B={B}", ws4_rows(rs, t, rows, B), {}, 1))
+    cases.append(("ws4_bank", f"V=1, B={B}, drive 4 (the granulator's)",
+                  ws4_rows(rs, t, 1, B, drive=4.0), {}, 1))
     # 7. linrec2 at the main path's shapes (full_kit_4096_bus7: 1 launch a
     #    block at 512 rows, 3 at 1,024, 1 at 2,560, tom2's 512 voices x 5
     #    membrane bands), high-Q band-pass rows with resets, the first
@@ -472,7 +509,55 @@ def kernel_cases(dev):
             cases.append(("bus_chain", label, run, {}, 1))
     for kit, b in TAIL_KITS:
         cases.append(("kit_sources", kit_label(kit, b), (kit_phases(dev, kit, b)[0],), {}, None))
+    #     svf_bank and ws4_bank at 515 rows (not a multiple of rows per
+    #     block) of 100 samples (a tail chunk; the SVF's mask 4 bytes a copy)
+    #     and 99 (4-byte copies; the mask byte by byte), then with every
+    #     input 4 bytes past a 16-byte boundary
+    for b in (100, 99):
+        cases.append(("svf_bank", f"V=515, B={b}, resets", svf_rows(rs, t, 515, b), {}, 2))
+        cases.append(("ws4_bank", f"V=515, B={b}", ws4_rows(rs, t, 515, b), {}, 1))
+    cases.append(("svf_bank", "V=515, B=128, resets, unaligned",
+                  unaligned(svf_rows(rs, t, 515, 128)), {}, 2))
+    cases.append(("ws4_bank", "V=515, B=128, unaligned", unaligned(ws4_rows(rs, t, 515, 128)),
+                  {}, 1))
     return cases
+
+
+def svf_rows(rs, t, rows, b, resets=True):
+    """svf_bank arguments: noise through 20-9,020 Hz cutoff sweeps at Q 0.9,
+    trigger resets (p = 0.002, and on the first and the last sample of every
+    7th row) unless ``resets`` is False."""
+    import torch
+
+    from libgooey_tpu_torch.ops import filters
+
+    g, h = filters.svf_coeffs(t(20.0 + 9000.0 * rs.rand(rows, b)), 0.9, SR)
+    reset = rs.rand(rows, b) < 0.002
+    reset[::7, 0] = reset[::7, -1] = True
+    return (t(0.3 * rs.randn(rows, b)), g.contiguous(), h.contiguous(),
+            t(reset, torch.bool) if resets else None, t(0.1 * rs.randn(rows)),
+            t(0.1 * rs.randn(rows)))
+
+
+def ws4_rows(rs, t, rows, b, drive=None):
+    """ws4_bank arguments: noise, a drive of 1-10 per row (a tenth of the
+    rows at 1, bypassed) or ``drive`` everywhere, a random packed state."""
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    if drive is None:
+        d = np.where(rs.rand(rows, 1) < 0.1, 1.0, 1.0 + 9.0 * rs.rand(rows, 1)) * np.ones(b)
+    else:
+        d = np.full((rows, b), drive)
+    return t(0.5 * rs.randn(rows, b)), t(d), t(0.05 * rs.randn(bk.FBWS_S_IN, rows))
+
+
+def unaligned(args):
+    """The same tensors, each a contiguous view 4 bytes past a 16-byte
+    boundary (``None`` stays)."""
+    import torch
+
+    return tuple(None if a is None else torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+                 for a in args)
 
 
 def bus_cases(dev, rs, b):
@@ -740,6 +825,9 @@ def phase_kernels(dev):
     from libgooey_tpu_torch.ops import kernels
 
     results = {}
+    clock_hz = max_sm_clock_hz()
+    print(f"chain floors at the maximum SM clock, {clock_hz / 1e6:.0f} MHz, "
+          f"{CHAIN_CYCLES_PER_OP} cycles a dependent operation")
     for name, shape, args, kw, n_out in kernel_cases(dev):
         mod = kernels.module_of(name)
         kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
@@ -764,11 +852,13 @@ def phase_kernels(dev):
         ms = wall_ms if dev_ms is None else dev_ms
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
         bms, bound_by = bound_ms(name, args, kw, got)
+        floor = chain_floor_ms(name, args, clock_hz)
         dev_text = "not measured" if dev_ms is None else f"{dev_ms * 1e3:.1f} us"
+        floor_text = "" if floor is None else f", chain floor {floor * 1e3:.2f} us"
         print(f"kernel {name}: out err {out_err:.3e} (tol {OUT_TOL:g}), state err "
               f"{state_err:.3e} (tol {STATE_TOL:g}); device {dev_text}/call, wrapper "
               f"{wall_ms * 1e3:.1f} us/call vs plain {plain_ms * 1e3:.1f} us/call, bound "
-              f"{bms * 1e3:.4f} us ({bound_by}) at {shape}")
+              f"{bms * 1e3:.4f} us ({bound_by}){floor_text} at {shape}")
         check(np.isfinite(out_err) and out_err <= OUT_TOL, f"{name}: output error {out_err}")
         check(np.isfinite(state_err) and state_err <= STATE_TOL,
               f"{name}: state error {state_err}")

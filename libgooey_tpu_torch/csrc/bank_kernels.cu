@@ -15,33 +15,37 @@
 // first-order recurrence y[n] = a[n]*y[n-1] + b[n], with the floor a = -3e38.
 //
 // Design.  Each of the seven is a per-row recurrence stepping through the B
-// samples of a block, and each keeps one thread per row, walking the row
-// sample by sample with the carried state in registers: the recurrences
+// samples of a block, with the carried state in registers: the recurrences
 // are not reassociated (a two-pass scan of linrec2 drifts on high-Q
 // resonators, libgooey_tpu/ops/scan.py:49-58, and affine1's max composes
 // only for b >= 0).  Arrays are the port's logical [V, B] layout, row-major.
 //
-// affine1_bank and linrec2_bank, the two the main path launches most (26
-// and 5 times a block in full_kit_4096_bus7, at 512-2,560 rows), are staged
-// (row_stage.cuh): a block of 128 threads owns rc <= 32 rows, the wrapper
-// picks rc so that a launch spreads over the SMs (4 rows a block at 512
-// rows, 8 at 1,024, 20 at 2,560, 32 at 4,096 on 132 SMs; one block for one
-// row), warp 0 walks the rows from shared memory four samples at a time,
-// and warps 1-3 stream 64-sample chunks in with cp.async and the outputs
-// out, coalesced, ahead of and behind the walk.  They are bound by the
-// serial chain at 1-1,024 rows (512 dependent steps of ~18 cycles, ~6.5 us
-// a launch on an H100) and near their bytes bound at 2,560-4,096.
+// affine1_bank, svf_bank and linrec2_bank (26, 3 and 5 launches a block in
+// full_kit_4096_bus7, at 512-2,560 rows) are staged (row_stage.cuh): a
+// block of 128 threads owns rc <= 32 rows, the wrapper picks rc so that a
+// launch spreads over the SMs (4 rows a block at 512 rows, 8 at 1,024, 20
+// at 2,560, 32 at 4,096 on 132 SMs; one block for one row), warp 0 walks
+// the rows from shared memory four samples at a time, and warps 1-3 stream
+// 64-sample chunks in with cp.async (svf_bank's reset mask as a byte tile)
+// and the outputs out, coalesced, ahead of and behind the walk.  They are
+// bound by the serial chain at 1-1,024 rows (512 dependent steps of ~18
+// cycles for affine1 and linrec2, ~35 for the SVF) and near their bytes
+// bound at 2,560-4,096.
 //
-// The other five (pink, svf, env_follow, fbws, ws4) run a thread per row in
-// blocks of 128 straight from device memory: thread v reads x[v*B + n], so a
-// warp touches 32 cache lines per sample, each holding the next 31 samples
-// of its row in L1, and every byte crosses DRAM once.  Per-voice state
-// arrays ([S, V]) are read and written coalesced.  At V = 4,096 a launch
-// is 32 blocks, so 32 of the 132 SMs hold one block each and the rest idle
-// (1,024 rows fill 8); the small kernels are latency-bound on their serial
-// B-step chain, the fbws and ws4 chains on 32 dependent allpass sections
-// plus four tanhf per base sample.  Staging them the same way is the next
-// step.
+// ws4_bank (2 launches a block in bus7, at 1,024 and 512 rows, and one at
+// one row in the granulator) splits its 4x chain over warps: the up-walk on
+// one, the shaper (with the drive gain) and the copies on two, the
+// down-walk on another, a chunk apart (its section below).
+//
+// The other four (pink, env_follow, fbws, the mix aside) run a thread per
+// row in blocks of 128 straight from device memory: thread v reads x[v*B +
+// n], so a warp touches 32 cache lines per sample, each holding the next 31
+// samples of its row in L1, and every byte crosses DRAM once.  Per-voice
+// state arrays ([S, V]) are read and written coalesced.  At V = 4,096 a
+// launch is 32 blocks, so 32 of the 132 SMs hold one block each and the
+// rest idle; they are latency-bound on their serial B-step chain, fbws on 32
+// dependent allpass sections plus four tanhf per base sample.  Staging them
+// the same way is the next step.
 //
 // Numerics: every step keeps the Pallas body's op order, and the build
 // passes -fmad=false so that a*b + c rounds twice, exactly as the plain
@@ -163,37 +167,78 @@ __global__ void pink_bank_kernel(const float* __restrict__ w,
 }
 
 // --- 3. svf_bank: TPT (Simper) SVF with per-sample g, h and reset ----------
+//
+// Staged (row_stage.cuh) with its reset mask as a byte tile: a walker steps
+// its row four samples at a time from the float4s of x, g and h and one
+// 32-bit word of four reset flags, the next four already in registers, and
+// writes v1 and v2 four at a time.  Without a mask (reset == nullptr,
+// kReset false) no flag is read.  The carried chain is ~8 dependent float
+// operations a sample (ic2 -> x - ic2 -> *g -> +ic1 -> *h -> g*v1 -> +ic2
+// -> 2*v2 - ic2), in the plain version's order.
 
-__global__ void svf_bank_kernel(const float* __restrict__ x,
-                                const float* __restrict__ g,
-                                const float* __restrict__ h,
-                                const uint8_t* __restrict__ reset,
-                                const float* __restrict__ ic1_in,
-                                const float* __restrict__ ic2_in,
-                                float* __restrict__ v1_out,
-                                float* __restrict__ v2_out,
-                                float* __restrict__ ic1_out,
-                                float* __restrict__ ic2_out, int V, int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const size_t row = static_cast<size_t>(v) * B;
-  float ic1 = ic1_in[v];
-  float ic2 = ic2_in[v];
-  for (int n = 0; n < B; ++n) {
-    if (reset != nullptr && reset[row + n] != 0) {
-      ic1 = 0.0f;
-      ic2 = 0.0f;
-    }
-    const float gn = g[row + n];
-    const float v1 = (gn * (x[row + n] - ic2) + ic1) * h[row + n];
-    const float v2 = ic2 + gn * v1;
-    v1_out[row + n] = v1;
-    v2_out[row + n] = v2;
-    ic1 = 2.0f * v1 - ic1;
-    ic2 = 2.0f * v2 - ic2;
+template <bool kReset>
+__global__ void __launch_bounds__(kStageThreads)
+    svf_bank_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                    const float* __restrict__ h, const uint8_t* __restrict__ reset,
+                    const float* __restrict__ ic1_in, const float* __restrict__ ic2_in,
+                    float* __restrict__ v1_out, float* __restrict__ v2_out,
+                    float* __restrict__ ic1_out, float* __restrict__ ic2_out, int V, int B,
+                    int rc, int vec) {
+  const float* const src[3] = {x, g, h};
+  float* const dst[2] = {v1_out, v2_out};
+  const RowSpan s = row_span(V, B, rc, vec);
+  const int v = s.row0 + threadIdx.x;
+  const bool live = threadIdx.x < s.rows;
+  float ic1 = live ? ic1_in[v] : 0.0f;
+  float ic2 = live ? ic2_in[v] : 0.0f;
+  auto walk = [&](const auto& in, const auto& out, const uint8_t* m, int len) {
+    // one sample: a reset zeroes the incoming state, then the TPT step
+    auto step = [&](uint32_t rst, float xn, float gn, float hn, float& o1, float& o2) {
+      if (kReset && rst != 0) {
+        ic1 = 0.0f;
+        ic2 = 0.0f;
+      }
+      const float v1 = (gn * (xn - ic2) + ic1) * hn;
+      const float v2 = ic2 + gn * v1;
+      o1 = v1;
+      o2 = v2;
+      ic1 = 2.0f * v1 - ic1;
+      ic2 = 2.0f * v2 - ic2;
+    };
+    float4 xq = ld4(in[0]), gq = ld4(in[1]), hq = ld4(in[2]);
+    uint32_t fq = kReset ? ld_flags(m) : 0u;
+    // four samples, the next four loaded first (unit q+1 is at most the
+    // row's padding unit)
+    auto group = [&](int q) {
+      const float4 xn = ld4(in[0] + 4 * q + 4), gn = ld4(in[1] + 4 * q + 4),
+                   hn = ld4(in[2] + 4 * q + 4);
+      const uint32_t fn = kReset ? ld_flags(m + 4 * q + 4) : 0u;
+      float4 o1, o2;
+      step(fq & 0xffu, xq.x, gq.x, hq.x, o1.x, o2.x);
+      step(fq & 0xff00u, xq.y, gq.y, hq.y, o1.y, o2.y);
+      step(fq & 0xff0000u, xq.z, gq.z, hq.z, o1.z, o2.z);
+      step(fq & 0xff000000u, xq.w, gq.w, hq.w, o1.w, o2.w);
+      st4(out[0] + 4 * q, o1);
+      st4(out[1] + 4 * q, o2);
+      xq = xn;
+      gq = gn;
+      hq = hn;
+      fq = fn;
+    };
+    const int full = len >> 2;
+    walk_groups(full, group);
+    const int rem = len & 3;   // only where B % 4 != 0: the last chunk's tail
+    float* o1 = out[0] + 4 * full;
+    float* o2 = out[1] + 4 * full;
+    if (rem > 0) step(fq & 0xffu, xq.x, gq.x, hq.x, o1[0], o2[0]);
+    if (rem > 1) step(fq & 0xff00u, xq.y, gq.y, hq.y, o1[1], o2[1]);
+    if (rem > 2) step(fq & 0xff0000u, xq.z, gq.z, hq.z, o1[2], o2[2]);
+  };
+  staged_rows_masked<kReset>(src, dst, reset, s, walk);
+  if (live) {
+    ic1_out[v] = ic1;
+    ic2_out[v] = ic2;
   }
-  ic1_out[v] = ic1;
-  ic2_out[v] = ic2;
 }
 
 // --- 4. env_follow_bank: attack/release follower with freeze ---------------
@@ -247,26 +292,120 @@ __global__ void fbws_bank_kernel(const float* __restrict__ u,
 // The fbws chain with the waveshaper's nonlinearity and no DC blocker: the
 // packed DC rows pass through unchanged, the oversampler history advances
 // at every sample (the caller applies the bypass select and the
-// block-granular freeze, as on the TPU).  d and comp are per engine sample
-// and held across its four subsamples.
+// block-granular freeze, as on the TPU).  d = max(drive, 1 + 1e-6) and
+// comp = tanh(0.5) / tanh(0.5 d) are per engine sample and held across its
+// four subsamples.
+//
+// The 4x chain split over warps (ovs4.cuh's split form): a block of
+// kWsThreads threads owns rc rows (the staged kernels' rows per block), cut
+// into chunks of 32 samples.  In step j, warp 0's lanes (a lane per row)
+// walk the up-path of chunk j from its staged x into a ring of subsample
+// tiles; warps 2-3 compute chunk j-1's drive gains and shape its
+// subsamples in place, copy chunk j+2 of x and of the drive in with
+// cp.async and store chunk j-3 of y; warp 1's lanes walk the down-path of chunk j-2
+// into a y tile.  One __syncthreads a step.  The two walks hold disjoint
+// halves of the state, each loaded and stored by its own warp, coalesced
+// across the rows.  A walk is ~50-60 float operations a sample on one
+// warp; its carried chains are short (a stage-2 section steps twice a
+// sample: 6 dependent operations), so a step is bound by the walks' issue,
+// with the shaper's five tanhf a row-sample beside them while rc <= ~16.
 
-__global__ void ws4_bank_kernel(const float* __restrict__ x,
-                                const float* __restrict__ d,
-                                const float* __restrict__ cp,
-                                const float* __restrict__ st_in,
-                                float* __restrict__ y_out,
-                                float* __restrict__ st_out, FbwsCoefs k, int V,
-                                int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const size_t row = static_cast<size_t>(v) * B;
+constexpr int kWsThreads = 128;   // warp 0 up, warp 1 down, warps 2-3 shape and copy
+using WsStage = StageGeom<32, kWsThreads - 64>;
+constexpr int kWsRing = 4;        // x and drive chunks: walked up / shaped / two in flight
+constexpr int kWsSubRing = 3;     // subsample chunks: walked up / shaped / walked down
+constexpr int kWsSubPitch = 4 * WsStage::kChunk + 4;   // floats per row of subsamples
+constexpr float kDriveFloor = 1.000001f;               // 1 + 1e-6 in float32
 
-  FbwsState s;
-  load_state(s, st_in, v, V);
-  ovs4_row(
-      s, k, B, [&](int n) { return x[row + n]; },
-      [&](int n) { return DriveShaper{d[row + n], cp[row + n]}; },
-      [&](int n, float y) { y_out[row + n] = y; }, st_out, v, V);
+constexpr size_t ws4_smem_bytes(int rc) {
+  return static_cast<size_t>(rc) *
+         (kWsRing * 2 * WsStage::kPitch + kWsSubRing * kWsSubPitch + 2 * WsStage::kPitch) *
+         sizeof(float);
+}
+
+__global__ void __launch_bounds__(kWsThreads)
+    ws4_bank_kernel(const float* __restrict__ x, const float* __restrict__ drive,
+                    const float* __restrict__ st_in, float* __restrict__ y_out,
+                    float* __restrict__ st_out, FbwsCoefs k, float tanh_half, int V, int B,
+                    int rc, int vec) {
+  extern __shared__ float4 ws_smem4[];
+  const RowSpanG<WsStage> s = row_span<WsStage>(V, B, rc, vec);
+  float* ring = reinterpret_cast<float*>(ws_smem4);      // [kWsRing][x, drive][rc][pitch]
+  float* subs = ring + kWsRing * 2 * s.tile();           // [kWsSubRing][rc][kWsSubPitch]
+  float* outs = subs + kWsSubRing * rc * kWsSubPitch;    // [2][rc][pitch]
+  const float* const src[2] = {x, drive};
+  float* const dst[1] = {y_out};
+  const int n_chunks = s.chunks();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool walks = warp < 2 && lane < s.rows;
+  const int v = s.row0 + lane;
+  const int p = threadIdx.x - 64;   // shaper / copier index (warps 2-3)
+
+  FbwsState st;
+  OvsCaps cap;
+  if (walks) {
+    if (warp == 0) {
+      load_up_state(st, st_in, v, V);
+    } else {
+      load_down_state(st, st_in, v, V);
+    }
+  }
+  if (warp >= 2) {
+    for (int c = 0; c < 2; ++c) stage_in(src, ring + c * 2 * s.tile(), s, c, n_chunks, p);
+  }
+  for (int j = 0; j < n_chunks + 2; ++j) {
+    if (warp >= 2) cp_async_wait_ring();   // chunk j has landed (this copier's part)
+    __syncthreads();                       // ... all of it; step j-1 done everywhere
+    if (warp == 0) {
+      if (walks && j < n_chunks) {
+        const int n0 = s.start(j);
+        const float* xr = ring + (j % kWsRing) * 2 * s.tile() + lane * WsStage::kPitch;
+        float* sub = subs + ((j % kWsSubRing) * rc + lane) * kWsSubPitch;
+        ovs4_up_span(
+            st, cap, k, n0, n0 + s.len(j), B, [&](int n) { return xr[n - n0]; }, sub);
+      }
+    } else if (warp == 1) {
+      if (walks && j >= 2) {
+        const int c = j - 2, n0 = s.start(c);
+        const float* sub = subs + ((c % kWsSubRing) * rc + lane) * kWsSubPitch;
+        float* yr = outs + (c & 1) * s.tile() + lane * WsStage::kPitch;
+        ovs4_down_span(st, cap, k, n0, n0 + s.len(c), B, sub,
+                       [&](int n, float y) { yr[n - n0] = y; });
+      }
+    } else {
+      stage_in(src, ring + ((j + 2) % kWsRing) * 2 * s.tile(), s, j + 2, n_chunks, p);
+      if (j >= 3) stage_out(dst, outs + ((j - 3) & 1) * s.tile(), s, j - 3, p);
+      if (j >= 1 && j <= n_chunks) {
+        // chunk j-1's subsamples, shaped in place with their sample's gain
+        const int c = j - 1, len = s.len(c);
+        const float* dr = ring + ((c % kWsRing) * 2 + 1) * s.tile();
+        float* sub = subs + (c % kWsSubRing) * rc * kWsSubPitch;
+        for (int i = p; i < s.rows * len; i += WsStage::kCopiers) {
+          const int r = len == WsStage::kChunk ? i / WsStage::kChunk : i / len;
+          const int n = i - r * len;
+          const float dv = dr[r * WsStage::kPitch + n];
+          const float d = dv < kDriveFloor ? kDriveFloor : dv;   // NaN stays NaN
+          const DriveShaper shape{d, tanh_half / tanhf(0.5f * d)};
+          float* q = sub + r * kWsSubPitch + 4 * n;
+          float4 t = ld4(q);
+          t.x = shape(t.x);
+          t.y = shape(t.y);
+          t.z = shape(t.z);
+          t.w = shape(t.w);
+          st4(q, t);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (warp >= 2) stage_out(dst, outs + ((n_chunks - 1) & 1) * s.tile(), s, n_chunks - 1, p);
+  if (walks) {
+    if (warp == 0) {
+      store_up_state(st, cap.u1, cap.u2, st_out, v, V);
+    } else {
+      store_down_state(st, cap.d2, cap.d1, st_out, v, V);
+    }
+  }
 }
 
 // --- 7. linrec2_bank: s[n] = A[n] s[n-1] + b[n], 2-vector state -------------
@@ -440,6 +579,18 @@ int launch_affine1(const float* a, const float* b, const float* c, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kReset>
+int launch_svf(const float* x, const float* g, const float* h, const uint8_t* reset,
+               const float* ic1, const float* ic2, float* v1, float* v2, float* ic1_out,
+               float* ic2_out, int V, int B, int rc, int vec, void* stream) {
+  const size_t smem = stage_smem_bytes(3, 2, rc, kReset);
+  const cudaError_t err = allow_smem(svf_bank_kernel<kReset>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  svf_bank_kernel<kReset><<<dim3((V + rc - 1) / rc), kStageThreads, smem, as_stream(stream)>>>(
+      x, g, h, reset, ic1, ic2, v1, v2, ic1_out, ic2_out, V, B, rc, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -472,13 +623,17 @@ int pink_bank_launch(const float* w, const uint8_t* reset, const float* fstate,
   return static_cast<int>(cudaGetLastError());
 }
 
+// rc, vec as affine1_bank_launch's; reset == nullptr: no resets.
 int svf_bank_launch(const float* x, const float* g, const float* h,
                     const uint8_t* reset, const float* ic1, const float* ic2,
                     float* v1, float* v2, float* ic1_out, float* ic2_out, int V,
-                    int B, void* stream) {
-  svf_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
-      x, g, h, reset, ic1, ic2, v1, v2, ic1_out, ic2_out, V, B);
-  return static_cast<int>(cudaGetLastError());
+                    int B, int rc, int vec, void* stream) {
+  if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  return reset != nullptr
+             ? launch_svf<true>(x, g, h, reset, ic1, ic2, v1, v2, ic1_out, ic2_out, V, B, rc,
+                                vec, stream)
+             : launch_svf<false>(x, g, h, reset, ic1, ic2, v1, v2, ic1_out, ic2_out, V, B, rc,
+                                 vec, stream);
 }
 
 int env_follow_bank_launch(const float* rect, const uint8_t* freeze,
@@ -497,11 +652,18 @@ int fbws_bank_launch(const float* u, const float* cs, const float* st_in,
   return static_cast<int>(cudaGetLastError());
 }
 
-int ws4_bank_launch(const float* x, const float* d, const float* cp,
-                    const float* st_in, float* y, float* st_out, const float* coefs,
-                    int V, int B, void* stream) {
-  ws4_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
-      x, d, cp, st_in, y, st_out, fbws_coefs(coefs), V, B);
+// coefs (host): the 4x chain's 12, then tanh(0.5) as the plain version
+// rounds it; rc: rows per block (1..kStageMaxRows); vec: 16-byte copies of x,
+// drive and y.
+int ws4_bank_launch(const float* x, const float* drive, const float* st_in, float* y,
+                    float* st_out, const float* coefs, int V, int B, int rc, int vec,
+                    void* stream) {
+  if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ws4_smem_bytes(rc);
+  const cudaError_t err = allow_smem(ws4_bank_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ws4_bank_kernel<<<dim3((V + rc - 1) / rc), kWsThreads, smem, as_stream(stream)>>>(
+      x, drive, st_in, y, st_out, fbws_coefs(coefs), coefs[12], V, B, rc, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -175,8 +175,14 @@ __device__ __forceinline__ void store_caps(const Caps<N>& c, float* st, int& k, 
   store_rows(c.x1, st, k, v, V);
 }
 
-// packed input layout: 52 rows (ops/bank_kernels.py FBWS_CORE_LAYOUT)
-__device__ __forceinline__ void load_state(FbwsState& s, const float* st, int v, int V) {
+// The packed layout's halves: the up-path's rows (0-23; captures 52-75)
+// and the down-path's with the DC rows (24-51; captures 76-99), so that the
+// two walks of the split form (ws4_bank) each load and store their own.
+constexpr int kPackedUpRows = 24;
+constexpr int kPackedCoreRows = 52;
+constexpr int kPackedDownCaps = kPackedCoreRows + 24;
+
+__device__ __forceinline__ void load_up_state(FbwsState& s, const float* st, int v, int V) {
   int r = 0;
   load_rows(s.u1y0, st, r, v, V);
   load_rows(s.u1x0, st, r, v, V);
@@ -186,6 +192,10 @@ __device__ __forceinline__ void load_state(FbwsState& s, const float* st, int v,
   load_rows(s.u2x0, st, r, v, V);
   load_rows(s.u2y1, st, r, v, V);
   load_rows(s.u2x1, st, r, v, V);
+}
+
+__device__ __forceinline__ void load_down_state(FbwsState& s, const float* st, int v, int V) {
+  int r = kPackedUpRows;
   load_rows(s.d2y0, st, r, v, V);
   load_rows(s.d2x0, st, r, v, V);
   load_rows(s.d2y1, st, r, v, V);
@@ -200,10 +210,14 @@ __device__ __forceinline__ void load_state(FbwsState& s, const float* st, int v,
   load_row(s.dcy, st, r, v, V);
 }
 
-// packed output layout: the 52 core rows, then 48 capture rows
-__device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& cu1,
-                                            const Caps<2>& cu2, const Caps<2>& cd2,
-                                            const Caps<4>& cd1, float* st, int v, int V) {
+// packed input layout: 52 rows (ops/bank_kernels.py FBWS_CORE_LAYOUT)
+__device__ __forceinline__ void load_state(FbwsState& s, const float* st, int v, int V) {
+  load_up_state(s, st, v, V);
+  load_down_state(s, st, v, V);
+}
+
+__device__ __forceinline__ void store_up_state(const FbwsState& s, const Caps<4>& cu1,
+                                               const Caps<2>& cu2, float* st, int v, int V) {
   int r = 0;
   store_rows(s.u1y0, st, r, v, V);
   store_rows(s.u1x0, st, r, v, V);
@@ -213,6 +227,14 @@ __device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& c
   store_rows(s.u2x0, st, r, v, V);
   store_rows(s.u2y1, st, r, v, V);
   store_rows(s.u2x1, st, r, v, V);
+  r = kPackedCoreRows;
+  store_caps(cu1, st, r, v, V);
+  store_caps(cu2, st, r, v, V);
+}
+
+__device__ __forceinline__ void store_down_state(const FbwsState& s, const Caps<2>& cd2,
+                                                 const Caps<4>& cd1, float* st, int v, int V) {
+  int r = kPackedUpRows;
   store_rows(s.d2y0, st, r, v, V);
   store_rows(s.d2x0, st, r, v, V);
   store_rows(s.d2y1, st, r, v, V);
@@ -225,10 +247,17 @@ __device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& c
   store_row(s.d1x1d, st, r, v, V);
   store_row(s.dcx, st, r, v, V);
   store_row(s.dcy, st, r, v, V);
-  store_caps(cu1, st, r, v, V);
-  store_caps(cu2, st, r, v, V);
+  r = kPackedDownCaps;
   store_caps(cd2, st, r, v, V);
   store_caps(cd1, st, r, v, V);
+}
+
+// packed output layout: the 52 core rows, then 48 capture rows
+__device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& cu1,
+                                            const Caps<2>& cu2, const Caps<2>& cd2,
+                                            const Caps<4>& cd1, float* st, int v, int V) {
+  store_up_state(s, cu1, cu2, st, v, V);
+  store_down_state(s, cd2, cd1, st, v, V);
 }
 
 // One row's block through the 4x chain.  ``input(n)`` is base sample n,
@@ -261,20 +290,22 @@ __device__ __forceinline__ void ovs4_row(FbwsState& s, const FbwsCoefs& k, int B
   store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
 }
 
-// The chunked, split form of ovs4_row, for the two kernels that walk a
-// row's block in spans and evaluate the nonlinearity on other threads
-// (kit_sources' bass, and the 4x phases of bus_chain and of their own
-// kernels).  ovs4_up_span walks the up-path (stage-1 and stage-2
-// upsamplers) of samples [n0, n1) of a B-sample block and leaves sample n's
-// four 4x subsamples at sub[4 (n - n0) ..]; the caller applies the sample's
-// shaper to each in place, on any threads; ovs4_down_span walks the
-// down-path (stage-2 and stage-1 downsamplers) on them and calls finish.
-// The state carries in ``s`` from one span to the next; the span that holds
-// the block's last sample takes the captures into ``cap`` where ovs4_row
-// takes them, and store_span_state stores the state after the last span.
+// The chunked, split form of ovs4_row, for the kernels that walk a row's
+// block in spans and evaluate the nonlinearity on other threads
+// (kit_sources' bass, the 4x phases of bus_chain and of their own kernels,
+// and ws4_bank, whose up- and down-walks run on two warps).  ovs4_up_span
+// walks the up-path (stage-1 and stage-2 upsamplers) of samples [n0, n1) of
+// a B-sample block and leaves sample n's four 4x subsamples at
+// sub[4 (n - n0) ..]; the caller applies the sample's shaper to each in
+// place, on any threads; ovs4_down_span walks the down-path (stage-2 and
+// stage-1 downsamplers) on them and calls finish.  The state carries in
+// ``s`` from one span to the next; the span that holds the block's last
+// sample takes the captures into ``cap`` where ovs4_row takes them, and
+// store_span_state stores the state after the last span (or each walk its
+// half, store_up_state / store_down_state, where they run on other threads).
 // The up-path and the down-path hold disjoint parts of the state and every
 // allpass steps its samples in order, so the spans of a block give what
-// ovs4_row gives, bit for bit; ovs4_row stays as it is for the bank kernels.
+// ovs4_row gives, bit for bit; ovs4_row stays for fbws_bank and kit_drive.
 struct OvsCaps {
   Caps<4> u1, d1;
   Caps<2> u2, d2;

@@ -40,13 +40,14 @@ _F = ctypes.c_float
 #: C entry points and their argument types (pointers, then ints/floats, then
 #: the CUDA stream).  Every entry returns cudaGetLastError() as an int.
 SIGNATURES = {
-    # the staged kernels: ..., R, B, rows per block, 16-byte copies
+    # the staged kernels (and ws4): ..., R, B, rows per block, 16-byte copies
     "affine1_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "pink_bank_launch": [_P] * 6 + [_I, _I, _P],
-    "svf_bank_launch": [_P] * 10 + [_I, _I, _P],
+    "svf_bank_launch": [_P] * 10 + [_I] * 4 + [_P],
     "env_follow_bank_launch": [_P] * 5 + [_F, _F, _I, _I, _P],
     "fbws_bank_launch": [_P] * 6 + [_I, _I, _P],
-    "ws4_bank_launch": [_P] * 7 + [_I, _I, _P],
+    # x, drive, state in, y, state out, coefficients (+ tanh(0.5)), V, B, rc, vec
+    "ws4_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "linrec2_bank_launch": [_P] * 12 + [_I] * 4 + [_P],
     "triangle_additive_bank_launch": [_P] * 3 + [_F, _F, _I, _I, _I, _P],
     # the engine's mix: voices, four smoother rows, powers, scratch, L, R, mono

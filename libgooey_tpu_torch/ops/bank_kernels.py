@@ -33,12 +33,15 @@ All arrays are float32 in the JAX package's ``[V, B]`` layout; masks are
 bool ``[V, B]``.  What bounds each kernel on the card and what its design does
 about it is in the header of its CUDA source.  Every recurrence runs one
 thread per row with the state in registers, in the Pallas body's op order.
-``affine1_bank`` and ``linrec2_bank`` are staged (``csrc/row_stage.cuh``):
-a block walks up to 32 rows from 64-sample tiles that its other warps copy
-into shared memory ahead of the walk, and :func:`stage_rows` sizes the
-blocks so that a launch spreads over the SMs; ``affine1_bank(None, ...)``
-reads no floor array.  The other five read device memory directly, 128 rows
-a block, which at the kit's bank sizes fills 8-32 of the 132 SMs.
+``affine1_bank``, ``svf_bank`` and ``linrec2_bank`` are staged
+(``csrc/row_stage.cuh``): a block walks up to 32 rows from 64-sample tiles
+that its other warps copy into shared memory ahead of the walk (the SVF's
+reset mask as bytes), and :func:`stage_rows` sizes the blocks so that a
+launch spreads over the SMs; ``affine1_bank(None, ...)`` reads no floor
+array.  ``ws4_bank`` splits its 4x chain over the warps of a block of up
+to 32 rows: the up-walk, the shaper with the drive's gain, the down-walk.
+The other four read device memory directly, 128 rows a block, which at the
+kit's bank sizes fills 8-32 of the 132 SMs.
 """
 
 from __future__ import annotations
@@ -153,10 +156,11 @@ STAGE_MAX_ROWS = 32
 
 
 def stage_rows(R: int, n_sm: int) -> int:
-    """Rows per block of a staged kernel (``affine1_bank``, ``linrec2_bank``):
-    the fewest that keep a launch of ``R`` rows within one block per SM, at
-    most one warp, so the launch spreads over ``min(R, n_sm)`` SMs (4 at 512
-    rows on 132 SMs, 8 at 1,024, 20 at 2,560, 32 at 4,096; 1 at one row)."""
+    """Rows per block of a staged kernel (``affine1_bank``, ``svf_bank``,
+    ``linrec2_bank``) and of ``ws4_bank``: the fewest that keep a launch of
+    ``R`` rows within one block per SM, at most one warp, so the launch
+    spreads over ``min(R, n_sm)`` SMs (4 at 512 rows on 132 SMs, 8 at 1,024,
+    20 at 2,560, 32 at 4,096; 1 at one row)."""
     return max(1, min(STAGE_MAX_ROWS, -(-R // n_sm)))
 
 
@@ -308,7 +312,8 @@ def svf_bank(x, g, h, reset, ic1, ic2):
     _launch("svf_bank", x.device, "svf_bank_launch",
             x.data_ptr(), g.data_ptr(), h.data_ptr(), _ptr(reset),
             ic1.data_ptr(), ic2.data_ptr(), v1.data_ptr(), v2.data_ptr(),
-            ic1o.data_ptr(), ic2o.data_ptr(), V, B)
+            ic1o.data_ptr(), ic2o.data_ptr(), V, B,
+            *_stage_args(V, B, x.device, x, g, h, v1, v2))
     svf_bank.launches += 1
     return v1, v2, ic1o, ic2o
 
@@ -527,8 +532,9 @@ _TANH_HALF = float(torch.tanh(torch.tensor(0.5, dtype=torch.float32)))
 
 def _ws4_gain(drive):
     """``(d, comp)``: the drive floored at 1 + 1e-6 and the makeup gain
-    ``tanh(0.5) / tanh(0.5 d)`` (pallas_fx.py:1936-1937), computed once for
-    the kernel and the plain version alike."""
+    ``tanh(0.5) / tanh(0.5 d)`` (pallas_fx.py:1936-1937), as the kernel
+    computes them per engine sample (its ``tanh(0.5)`` is this module's
+    ``_TANH_HALF``)."""
     d = torch.clamp(drive, min=1.0 + 1e-6)
     # a true division: a Python scalar over a tensor would multiply by the
     # reciprocal and round twice
@@ -553,19 +559,19 @@ def ws4_bank(x, drive, packed):
     ``x``: [V, B] undriven input; ``drive``: [V, B] raw drive trajectory;
     ``packed``: [52, V] from :func:`pack_ws4_bank`.  Returns ``(sat [V, B],
     new_packed [100, V])`` for :func:`unpack_ws4_bank`; the caller applies
-    the bypass select and the block-granular freeze."""
+    the bypass select and the block-granular freeze.  The kernel computes
+    the drive's gain itself (:func:`_ws4_gain`'s arithmetic)."""
     if not _on_cuda("ws4_bank", x):
         return ws4_bank_plain(x, drive, packed)
     V, B = _vb("ws4_bank", x)
     _check("ws4_bank", x.device, [
         ("x", x, _F32, (V, B)), ("drive", drive, _F32, (V, B)),
         ("packed", packed, _F32, (FBWS_S_IN, V))])
-    d, comp = _ws4_gain(drive)
     y, nst = _empty((V, B), x), _empty((FBWS_S_OUT, V), x)
-    keep, coefs = _host_floats(_FBWS_COEFS)
+    keep, coefs = _host_floats([*_FBWS_COEFS, _TANH_HALF])
     _launch("ws4_bank", x.device, "ws4_bank_launch",
-            x.data_ptr(), d.data_ptr(), comp.data_ptr(), packed.data_ptr(),
-            y.data_ptr(), nst.data_ptr(), coefs, V, B)
+            x.data_ptr(), drive.data_ptr(), packed.data_ptr(), y.data_ptr(), nst.data_ptr(),
+            coefs, V, B, *_stage_args(V, B, x.device, x, drive, y))
     del keep
     ws4_bank.launches += 1
     return y, nst

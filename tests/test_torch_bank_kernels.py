@@ -98,6 +98,29 @@ def test_svf_bank_matches_jax():
         assert err(a, b) <= 1e-6, name
 
 
+@pytest.mark.parametrize("R,n", [(1, 128), (130, 100), (130, 37), (1, 37)])
+def test_svf_bank_tails_match_jax(R, n):
+    """One row, a tail of the kernel's 64-sample chunk (100) and 4-byte
+    copies (37), with resets on the first and the last sample of every row
+    (and a mask-free block at one row of 37)."""
+    rs = np.random.RandomState(R + n)
+    x = rs.randn(R, n).astype(np.float32)
+    g, h = jfilters.svf_coeffs(jnp.asarray((200 + 8000 * rs.rand(R, n)).astype(np.float32)),
+                               0.9, SR)
+    g, h = np.asarray(g), np.asarray(h)
+    reset = rs.rand(R, n) < 0.02
+    reset[:, 0] = reset[:, -1] = True
+    if (R, n) == (1, 37):
+        reset = None
+    ic1 = (0.1 * rs.randn(R)).astype(np.float32)
+    ic2 = (0.1 * rs.randn(R)).astype(np.float32)
+    want = pallas_fx.svf_bank(x, g, h, reset, ic1, ic2, interpret=True)
+    got = bk.svf_bank(T(x), T(g), T(h), None if reset is None else T(reset), T(ic1), T(ic2))
+    for name, a, b in zip(("v1", "v2", "ic1", "ic2"), want, got):
+        assert b.shape == a.shape
+        assert err(a, b) <= 1e-6, name
+
+
 def test_env_follow_bank_matches_jax():
     rs = np.random.RandomState(11)
     att, rel = jfw.env_coeffs(SR)
@@ -268,6 +291,104 @@ def test_staged_launches_copy_16_bytes_only_where_every_row_is_aligned():
     assert bk.copies_16b(100, x[:400].view(4, 100), None)
     assert not bk.copies_16b(99, x[:396].view(4, 99))
     assert not bk.copies_16b(100, x[:400].view(4, 100), x[1:401].view(4, 100))
+
+
+def _recorded_launch(monkeypatch, fn, *args, n_coefs=0):
+    """The C entry's arguments of one launch of wrapper ``fn`` on CPU
+    tensors, as on a card of 132 SMs (recorded, not run), and the first
+    ``n_coefs`` floats of its host coefficient array, read during the call."""
+    import ctypes
+
+    calls = []
+
+    def record(name, device, entry, *a):
+        ptr = next((x.value for x in a if isinstance(x, ctypes.c_void_p)), None)
+        calls.append((entry, a, list((ctypes.c_float * n_coefs).from_address(ptr))
+                      if n_coefs else None))
+
+    monkeypatch.setattr(bk, "_on_cuda", lambda name, t: True)
+    monkeypatch.setattr(bk, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(bk, "_launch", record)
+    launches = fn.launches
+    fn(*args)
+    fn.launches = launches
+    (call,) = calls
+    return call
+
+
+@pytest.mark.parametrize("R,n,rc,vec", [(1024, 512, 8, 1), (512, 512, 4, 1), (8, 512, 1, 1),
+                                        (515, 99, 4, 0)])
+def test_svf_bank_launches_staged(monkeypatch, R, n, rc, vec):
+    """``svf_bank`` passes its rows per block and 16-byte flag as the staged
+    kernels do (the reset mask's copy width is the kernel's own choice), and
+    a null mask for ``reset=None``."""
+    x = torch.zeros(R, n)
+    ic = torch.zeros(R)
+    for reset in (torch.zeros(R, n, dtype=torch.bool), None):
+        entry, a, _ = _recorded_launch(monkeypatch, bk.svf_bank, x, x, x, reset, ic, ic)
+        assert entry == "svf_bank_launch" and len(a) == 14
+        assert a[3] == (None if reset is None else reset.data_ptr())
+        assert a[10:] == (R, n, rc, vec) == (R, n, bk.stage_rows(R, 132), vec)
+
+
+@pytest.mark.parametrize("R,n,rc,vec", [(1024, 512, 8, 1), (512, 512, 4, 1), (1, 512, 1, 1),
+                                        (515, 100, 4, 1), (515, 99, 4, 0)])
+def test_ws4_bank_launches_with_the_raw_drive(monkeypatch, R, n, rc, vec):
+    """``ws4_bank`` hands the kernel the raw drive (it computes the gain) and
+    the chain's twelve coefficients followed by tanh(0.5) as the plain
+    version rounds it, with rows per block as the staged kernels."""
+    x, drive = torch.zeros(R, n), torch.ones(R, n)
+    packed = torch.zeros(bk.FBWS_S_IN, R)
+    entry, a, coefs = _recorded_launch(monkeypatch, bk.ws4_bank, x, drive, packed, n_coefs=13)
+    assert entry == "ws4_bank_launch" and len(a) == 10
+    assert a[1] == drive.data_ptr() and a[2] == packed.data_ptr()
+    assert coefs == [float(np.float32(c)) for c in (*bk._FBWS_COEFS, bk._TANH_HALF)]
+    assert a[6:] == (R, n, rc, vec)
+
+
+def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
+    """``tools/torch_kernel_ab.py`` (and the CPU emulator's A/B) call a build
+    from before the svf/ws4 redesign with its own arguments: the SVF without
+    rows per block and 16-byte flag, ws4 with the wrapper's (d, comp) in
+    place of the drive; a build with this tree's entries unchanged."""
+    import sys
+    from pathlib import Path
+
+    from libgooey_tpu_torch.ops import _build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    from torch_kernel_ab import older_args, signatures
+
+    older = dict(_build.SIGNATURES)
+    P, I = _build._P, _build._I
+    older["svf_bank_launch"] = [P] * 10 + [I, I, P]   # the entries' arguments before
+    older["ws4_bank_launch"] = [P] * 7 + [I, I, P]
+    (tmp_path / "ops").mkdir()
+    names = {_build._P: "_P", _build._I: "_I", _build._F: "_F"}
+    (tmp_path / "ops" / "_build.py").write_text(
+        "import ctypes\n_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float\n"
+        "SIGNATURES = {\n"
+        + "".join(f"    {k!r}: [{', '.join(names[t] for t in v)}],\n" for k, v in older.items())
+        + "}\n")
+    (tmp_path / "csrc").mkdir()
+    sigs = signatures(tmp_path / "csrc")
+    assert len(sigs["svf_bank_launch"]) == 13 and len(sigs["ws4_bank_launch"]) == 10
+    assert signatures(Path(bk.__file__).resolve().parents[1] / "csrc") == _build.SIGNATURES
+    svf = tuple(range(100, 110)) + (7, 9, 1, 1)
+    assert older_args("svf_bank_launch", svf, sigs, None) == svf[:12]
+    assert older_args("svf_bank_launch", svf, _build.SIGNATURES, None) == svf
+    ws4 = (1, 2, 3, 4, 5, 6, 7, 9, 1, 1)
+    gains = []
+
+    def gain(drive, V, B):
+        gains.append((drive, V, B))
+        return 11, 12
+
+    assert older_args("ws4_bank_launch", ws4, sigs, gain) == (1, 11, 12, 3, 4, 5, 6, 7, 9)
+    assert gains == [(2, 7, 9)]
+    sigs["env_follow_bank_launch"] = sigs["env_follow_bank_launch"][1:]
+    with pytest.raises(ValueError, match="no older form"):
+        older_args("env_follow_bank_launch", (), sigs, gain)
 
 
 # --- dispatch -----------------------------------------------------------------

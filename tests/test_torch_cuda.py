@@ -119,9 +119,30 @@ def test_wrappers_reject_bad_inputs(dev):
         bk.affine1_bank(a, a, a.cpu(), y0)
 
 
+def _svf_rows(rs, t, R, B, resets=True):
+    """svf_bank arguments: noise through swept cutoffs, trigger resets (and
+    on the first and the last sample of every 7th row) or no mask."""
+    g = np.tan(np.pi * rs.uniform(20.0, 9000.0, (R, B)) / SR)
+    h = 1.0 / (1.0 + 2.0 * 0.55 * g + g * g)
+    reset = rs.rand(R, B) < 0.01
+    reset[::7, 0] = reset[::7, -1] = True
+    return (t(rs.randn(R, B)), t(g), t(h), t(reset, torch.bool) if resets else None,
+            t(0.1 * rs.randn(R)), t(0.1 * rs.randn(R)))
+
+
+def _ws4_rows(rs, t, R, B):
+    """ws4_bank arguments: noise, a drive of 1-10 moving along each row, a
+    tenth of the rows at 1 (bypassed), a random packed state."""
+    drive = 1.0 + 9.0 * rs.rand(R, 1) * np.linspace(0.5, 1.0, B)[None, :]
+    drive[rs.rand(R) < 0.1] = 1.0
+    return t(0.6 * rs.randn(R, B)), t(drive), t(0.1 * rs.randn(bk.FBWS_S_IN, R))
+
+
 def _staged_cases(dev, R, B, seed=1):
-    """``(name, args)`` of the two staged kernels: affine1_bank with a live
-    floor (hihat2's tracker) and with none, linrec2_bank's resonator rows."""
+    """``(name, args)`` of the staged kernels and ws4_bank: affine1_bank
+    with a live floor (hihat2's tracker) and with none, svf_bank with a
+    reset mask and without, linrec2_bank's resonator rows, ws4_bank's
+    overdrive."""
     rs = np.random.RandomState(seed)
 
     def t(a, dtype=torch.float32):
@@ -133,15 +154,21 @@ def _staged_cases(dev, R, B, seed=1):
                           t(0.0005 * target), t(np.abs(0.1 * rs.randn(R))))),
         ("affine1_bank", (None, t(rs.uniform(-0.99, 0.99, (R, B))), t(rs.randn(R, B)),
                           t(rs.randn(R)))),
+        ("svf_bank", _svf_rows(rs, t, R, B)),
+        ("svf_bank", _svf_rows(rs, t, R, B, resets=False)),
         ("linrec2_bank", _resonator_rows(rs, t, R, B)),
+        ("ws4_bank", _ws4_rows(rs, t, R, B)),
     ]
 
 
 def _assert_staged_equal_plain(cases):
+    """Every output, the carried state among them (ic1/ic2, ws4's [100, V]
+    packed state with its captures), bit for bit."""
     for name, args in cases:
         got = getattr(bk, name)(*args)
         want = getattr(bk, name + "_plain")(*args)
         torch.cuda.synchronize()
+        assert len(got) == len(want)
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.shape == w.shape and torch.equal(g, w), f"{name} output {i}"
 
@@ -166,6 +193,30 @@ def test_staged_kernels_take_unaligned_rows(dev):
     cases = [(name, tuple(map(shifted, args))) for name, args in _staged_cases(dev, R, B)]
     assert not any(bk.copies_16b(B, *args) for _, args in cases)
     _assert_staged_equal_plain(cases)
+
+
+@pytest.mark.parametrize("R,B", [(1, 512), (515, 100), (5, 37)])
+def test_ws4_bank_over_two_blocks_equals_its_plain_version(dev, R, B):
+    """The oversampler state threaded through unpack/pack from one block to
+    the next, each side its own: outputs and packed states bit for bit."""
+    from libgooey_tpu_torch.ops import oversample
+
+    rs = np.random.RandomState(4)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.float32)
+
+    ovs = {n: oversample.OversamplerState.init((R,), dev) for n in ("kernel", "plain")}
+    for _ in range(2):
+        x, drive, _ = _ws4_rows(rs, t, R, B)
+        outs = {}
+        for n, fn in (("kernel", bk.ws4_bank), ("plain", bk.ws4_bank_plain)):
+            outs[n] = fn(x, drive, bk.pack_ws4_bank(ovs[n]))
+            ovs[n] = bk.unpack_ws4_bank(outs[n][1], ovs[n])
+        torch.cuda.synchronize()
+        for g, w in zip(outs["kernel"], outs["plain"]):
+            assert torch.equal(g, w)
+    assert float(outs["kernel"][0].abs().max()) > 0.1
 
 
 @pytest.mark.parametrize("R,B", [(515, 100), (515, 37), (5, 512)])

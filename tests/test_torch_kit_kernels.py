@@ -107,6 +107,33 @@ def test_ws4_bank_matches_jax_over_blocks():
     assert float(sat_t.abs().max()) > 0.1
 
 
+@pytest.mark.parametrize("R,n", [(1, 512), (130, 100)])
+def test_ws4_bank_tails_match_jax_over_blocks(R, n):
+    """The granulator's one row at its drive of 4, and 100-sample blocks
+    (a tail of the kernel's 32-sample chunks) with the drive moving within
+    each row, two blocks threaded through each package's pack/unpack."""
+    rs = np.random.RandomState(R + n)
+    j_st = jovs.OversamplerState.init((R,))
+    t_st = tovs.OversamplerState.init((R,), "cpu")
+    for _ in range(2):
+        x = (0.6 * rs.randn(R, n)).astype(np.float32)
+        if R == 1:
+            drive = np.full((R, n), 4.0, np.float32)
+        else:
+            drive = (1.0 + 9.0 * rs.rand(R, 1) * np.linspace(0.5, 1.0, n)).astype(np.float32)
+            drive[::9] = 1.0
+        sat_j, nst_j = pallas_fx.ws4_bank(x, drive, pallas_fx.pack_ws4_bank(j_st),
+                                          interpret=True)
+        j_st = pallas_fx.unpack_ws4_bank(nst_j, j_st)
+        sat_t, nst_t = bk.ws4_bank(T(x), T(drive), bk.pack_ws4_bank(t_st))
+        t_st = bk.unpack_ws4_bank(nst_t, t_st)
+        assert tuple(sat_t.shape) == (R, n) and tuple(nst_t.shape) == (bk.FBWS_S_OUT, R)
+        assert err(sat_j, sat_t) <= 1e-5
+        assert err(nst_j, nst_t) <= 1e-5
+        assert _ovs_err(j_st, t_st) <= 1e-5
+    assert float(sat_t.abs().max()) > 0.1
+
+
 @pytest.mark.parametrize("max_harmonics", [64, 256])
 def test_triangle_additive_bank_matches_jax(max_harmonics):
     """40-2,000 Hz per sample (above Nyquist/64 the taper and the Nyquist cap

@@ -1,14 +1,16 @@
-// A CPU emulation of the CUDA subset the port's kit and bus kernels use, for
-// checking a restructured kernel against another build of it bit for bit
-// before it goes to the card (tools/cuda_cpu_emu/emu_ab.py).
+// A CPU emulation of the CUDA subset the port's kit, bus and bank kernels
+// use, for checking a restructured kernel against another build of it bit
+// for bit before it goes to the card (tools/cuda_cpu_emu/emu_ab.py).
 //
-// A launch runs its blocks one after another; each thread of a block is a
-// std::thread, __syncthreads and bar.sync a std::barrier of the block,
-// __syncwarp(mask) a barrier of the mask's lanes.  __shared__ variables are
-// function statics (one block at a time); dynamic shared memory is a buffer
-// filled with garbage at each block.  Math is the host's libm: two builds
-// agree with each other here, not with the card.  Compile with
-// -ffp-contract=off (nvcc's -fmad=false).
+// A launch runs its blocks one after another (a 2-D grid row by row); each
+// thread of a block is a std::thread, __syncthreads and bar.sync a
+// std::barrier of the block, __syncwarp(mask) a barrier of the mask's lanes.
+// __shared__ variables are function statics (one block at a time); dynamic
+// shared memory is a buffer filled with garbage at each block.  cp.async is
+// a plain copy, done when it is issued, so its commit and wait_group are
+// no-ops (emu_ab.py rewrites the inline PTX into the calls below).  Math is
+// the host's libm: two builds agree with each other here, not with the card.
+// Compile with -ffp-contract=off (nvcc's -fmad=false).
 
 #pragma once
 
@@ -31,10 +33,13 @@ using std::min;
 
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
+  dim3() = default;
+  dim3(unsigned x_, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim;
@@ -76,6 +81,11 @@ inline int __float_as_int(float f) {
   return i;
 }
 
+inline size_t __cvta_generic_to_shared(const void*) { return 0; }
+inline void emu_cp_async(void* smem, const void* gmem, int bytes) { memcpy(smem, gmem, bytes); }
+inline void emu_cp_async_commit() {}
+inline void emu_cp_async_wait() {}
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -88,23 +98,26 @@ inline cudaError_t cudaFuncSetAttribute(Kernel, int, int) {
 // kernel<<<grid, block, smem, stream>>>(args) becomes
 // emu_launch(grid, block, smem, stream, [&] { kernel(args); })
 template <class F>
-void emu_launch(int grid, int block, size_t smem, cudaStream_t, F body) {
+void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, F body) {
   std::vector<char> dyn(smem + 16);
   emu_dyn_smem = dyn.data();
   blockDim.x = block;
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    std::barrier<> barrier(block);
-    emu_block_barrier = &barrier;
-    emu_warp_barriers.clear();
-    memset(dyn.data(), 0x7f, dyn.size());
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t) {
-      threads.emplace_back([&body, t] {
-        threadIdx.x = t;
-        body();
-      });
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      blockIdx.x = bx;
+      blockIdx.y = by;
+      std::barrier<> barrier(block);
+      emu_block_barrier = &barrier;
+      emu_warp_barriers.clear();
+      memset(dyn.data(), 0x7f, dyn.size());
+      std::vector<std::thread> threads;
+      for (int t = 0; t < block; ++t) {
+        threads.emplace_back([&body, t] {
+          threadIdx.x = t;
+          body();
+        });
+      }
+      for (auto& th : threads) th.join();
     }
-    for (auto& th : threads) th.join();
   }
 }

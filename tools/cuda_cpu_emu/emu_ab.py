@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Two builds of the kit and bus kernels against each other, bit for bit, on
-the CPU, before either goes to the card.
+"""Two builds of the kit, bus and bank kernels against each other, bit for
+bit, on the CPU, before either goes to the card.
 
     python3 tools/cuda_cpu_emu/emu_ab.py OTHER_CSRC [CSRC]
 
-Builds ``voice_kernels.cu`` and ``bus_kernels.cu`` of both source
-directories (``CSRC`` defaults to this tree's ``libgooey_tpu_torch/csrc``)
-with g++ against ``cuda_emu.h`` (the CUDA subset, emulated: threads as
-threads, barriers as barriers) into ``libgooey_tpu_torch/_build/emu_*``,
-and runs both through the port's own wrappers' packing on CPU tensors:
-``kit_sources`` and ``kit_drive`` at the product kit, one voice a family,
-5/3/7/1/2 voices at 100 and 37 samples and 128 a family; every bus kernel
-and ``bus_chain`` run of ``chip_smoke.bus_cases`` at 512, 100 and 33
-samples.  A restructuring that moves work between threads but keeps every
-per-sample operation gives the other build's bits; exits 1 where it does
-not.  (The host's libm stands in for the card's, so these outputs are not
-the card's; the card compares each kernel with its plain version.)
+Builds ``voice_kernels.cu``, ``bus_kernels.cu`` and ``bank_kernels.cu`` of
+both source directories (``CSRC`` defaults to this tree's
+``libgooey_tpu_torch/csrc``), with their headers, with g++ against
+``cuda_emu.h`` (the CUDA subset, emulated: threads as threads, barriers as
+barriers, cp.async as a plain copy) into
+``libgooey_tpu_torch/_build/emu_*``, and runs both through the port's own
+wrappers' packing on CPU tensors: ``kit_sources`` and ``kit_drive`` at the
+product kit, one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
+128 a family; every bus kernel and ``bus_chain`` run of
+``chip_smoke.bus_cases`` at 512, 100 and 33 samples; the staged bank
+kernels and ``ws4_bank`` at 1, 5, 130 and 515 rows of 512, 100 and 37
+samples and with unaligned inputs (``BANK_SHAPES``), rows per block as on
+132 SMs.  A build whose ``svf_bank`` / ``ws4_bank`` entries take the
+arguments they took before those kernels were redesigned (its tree's
+``ops/_build.py`` says so) is called that way
+(``tools/torch_kernel_ab.older_args``).  A restructuring that moves work
+between threads but keeps every per-sample operation gives the other
+build's bits; exits 1 where it does not.  (The host's libm stands in for
+the card's, so these outputs are not the card's; the card compares each
+kernel with its plain version.  The bank kernels without a transcendental
+are also held to their plain versions here.)
 """
 
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import re
 import subprocess
 import sys
@@ -30,25 +40,43 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 EMU = Path(__file__).resolve().parent
-SOURCES = ("voice_kernels.cu", "bus_kernels.cu")
+SOURCES = ("voice_kernels.cu", "bus_kernels.cu", "bank_kernels.cu")
+#: the bank kernels' (rows, samples) here, and the unaligned case's
+BANK_SHAPES = ((1, 512), (5, 100), (130, 512), (515, 100), (515, 37))
+BANK_UNALIGNED = (515, 128)
+#: the bank kernels whose plain versions give the kernels' bits on the CPU
+#: too (no transcendental: the host's libm is not the card's)
+BANK_EXACT_ON_CPU = ("affine1_bank", "svf_bank", "linrec2_bank")
 
 
 def translate(src: str) -> str:
-    """CUDA source -> C++ for cuda_emu.h: dynamic shared memory, launches and
-    the inline barrier."""
+    """CUDA source -> C++ for cuda_emu.h: dynamic shared memory, launches,
+    the inline barrier and cp.async."""
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", src)
     src = re.sub(r"(\w+(?:<\w+>)?)<<<(.+?)>>>\((.*?)\);",
-                 r"emu_launch(\2, [&]() { \1(\3); });", src)
+                 r"emu_launch(\2, [&]() { \1(\3); });", src, flags=re.S)
+    src = re.sub(r'asm volatile\("cp\.async\.c[ag]\.shared\.global \[%0\], \[%1\], (\d+);\\n"'
+                 r' ::"r"\(s\), "l"\(gmem\)\);', r"emu_cp_async(smem, gmem, \1);", src)
+    src = re.sub(r'asm volatile\("cp\.async\.commit_group;\\n" ::\);', "emu_cp_async_commit();",
+                 src)
+    src = re.sub(r'asm volatile\("cp\.async\.wait_group %0;\\n" ::"n"\([^)]*\)\);',
+                 "emu_cp_async_wait();", src)
     return src.replace('asm volatile("bar.sync 0;" ::: "memory");', "__syncthreads();")
 
 
-def build(csrc: Path, tag: str) -> ctypes.CDLL:
+def build(csrc: Path, tag: str):
+    """``(library, its C entries' argument types)`` of the sources in
+    ``csrc``, headers translated beside them."""
     from libgooey_tpu_torch.ops import _build
+    from torch_kernel_ab import signatures
 
     out = _build.BUILD_DIR / f"emu_{tag}"
     out.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        (out / header.name).write_text(translate(header.read_text()))
     cpps = []
     for name in SOURCES:
         cpp = out / (Path(name).stem + ".cpp")
@@ -56,17 +84,39 @@ def build(csrc: Path, tag: str) -> ctypes.CDLL:
         cpps.append(str(cpp))
     lib = out / "lib.so"
     cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-           "-I", str(EMU), "-I", str(csrc), "-o", str(lib), *cpps, "-lpthread"]
+           "-I", str(EMU), "-I", str(out), "-o", str(lib), *cpps, "-lpthread"]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"g++ failed on {csrc}:\n{res.stderr[:8000]}")
     handle = ctypes.CDLL(str(lib))
-    for entry, argtypes in _build.SIGNATURES.items():
+    sigs = signatures(csrc)
+    for entry, argtypes in sigs.items():
         if hasattr(handle, entry):
             fn = getattr(handle, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    return handle
+    return handle, sigs
+
+
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_LIBM.tanhf.argtypes = [ctypes.c_float]
+_LIBM.tanhf.restype = ctypes.c_float
+
+
+def host_ws4_gain(drive_ptr, V, B):
+    """ws4's ``(d, comp)`` of the drive at a host pointer, with the host's
+    ``tanhf`` and an IEEE float32 division, as the emulated kernel computes
+    them (for a build whose wrapper passes them)."""
+    import torch
+
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    drive = np.ctypeslib.as_array((ctypes.c_float * (V * B)).from_address(drive_ptr))
+    lo = np.float32(1.0 + 1e-6)
+    d = np.where(drive < lo, lo, drive).astype(np.float32)
+    th = np.array([_LIBM.tanhf(float(np.float32(0.5) * v)) for v in d], np.float32)
+    comp = np.float32(bk._TANH_HALF) / th
+    return torch.from_numpy(d.copy()), torch.from_numpy(comp)
 
 
 def same_bits(a, b) -> bool:
@@ -79,29 +129,77 @@ def same_bits(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def bank_ab_cases(dev, shapes, unaligned_shape):
+    """``(label, name, args)`` of the staged bank kernels and ws4_bank at
+    each ``(rows, samples)``: affine1_bank with a live floor and with none,
+    svf_bank with resets and without, linrec2_bank's resonators, ws4_bank's
+    overdrive; then each with every input 4 bytes past a 16-byte boundary."""
+    import torch
+
+    import chip_smoke as cs
+
+    rs = np.random.RandomState(3)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    def rows(R, B):
+        target = np.abs(0.5 * rs.randn(R, B))
+        w = 2 * np.pi * rs.uniform(150.0, 350.0, (R, 1)) / cs.SR
+        alpha = np.sin(w) / (2 * rs.uniform(1.0, 8.0, (R, 1)))
+        keep = np.where(rs.rand(R, B) < 0.01, 0.0, 1.0)
+        return [
+            ("affine1_bank", (t(target), t(np.where(rs.rand(R, B) < 0.01, 0.0, 0.9995)),
+                              t(0.0005 * target), t(np.abs(0.1 * rs.randn(R))))),
+            ("affine1_bank", (None, t(rs.uniform(-0.99, 0.99, (R, B))), t(rs.randn(R, B)),
+                              t(rs.randn(R)))),
+            ("svf_bank", cs.svf_rows(rs, t, R, B)),
+            ("svf_bank", cs.svf_rows(rs, t, R, B, resets=False)),
+            ("linrec2_bank", (t(2 * np.cos(w) / (1 + alpha) * keep),
+                              t(-(1 - alpha) / (1 + alpha) * keep), t(keep),
+                              t(np.zeros((R, B))), t(0.002 * rs.randn(R, B)),
+                              t(np.zeros((R, B))), t(0.01 * rs.randn(R)),
+                              t(0.01 * rs.randn(R)))),
+            ("ws4_bank", cs.ws4_rows(rs, t, R, B)),
+        ]
+
+    cases = [(f"R={R}, B={B}", name, a) for R, B in shapes for name, a in rows(R, B)]
+    R, B = unaligned_shape
+    cases += [(f"R={R}, B={B}, unaligned", name, cs.unaligned(a)) for name, a in rows(R, B)]
+    return cases
+
+
 def main(argv=None) -> int:
     import chip_smoke as cs
+    from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
     from libgooey_tpu_torch.ops import voice_kernels as vk
+    from torch_kernel_ab import older_args
 
     args = argv if argv is not None else sys.argv[1:]
     if not 1 <= len(args) <= 2:
         print("usage: emu_ab.py OTHER_CSRC [CSRC]", file=sys.stderr)
         return 2
     dirs = [Path(args[0]), Path(args[1]) if len(args) > 1 else ROOT / "libgooey_tpu_torch/csrc"]
-    libs = [build(d, f"{i}_{d.resolve().parent.name}_{d.name}") for i, d in enumerate(dirs)]
+    builds = [build(d, f"{i}_{d.resolve().parent.name}_{d.name}") for i, d in enumerate(dirs)]
 
-    def launcher(lib):
+    def launcher(lib, sigs):
+        keep = []
+
+        def gain(drive_ptr, V, B):
+            keep.append(host_ws4_gain(drive_ptr, V, B))
+            return tuple(t.data_ptr() for t in keep[-1])
+
         def launch(name, device, entry, *a):
-            rc = getattr(lib, entry)(*a, None)
+            rc = getattr(lib, entry)(*older_args(entry, a, sigs, gain), None)
             if rc:
                 raise RuntimeError(f"{name}: launch failed with {rc}")
         return launch
 
     def both(module, fn):
         outs = []
-        for lib in libs:
-            module._launch = launcher(lib)
+        for lib, sigs in builds:
+            module._launch = launcher(lib, sigs)
             outs.append(fn())
         return same_bits(*outs)
 
@@ -130,6 +228,16 @@ def main(argv=None) -> int:
         for label, (x, phases) in runs.items():
             case(f"bus_chain {label}", both(
                 bus, lambda: bus._launch_phases("bus_chain", x, phases, fused=True)))
+    # the bank kernels on CPU tensors: launch as on a card of 132 SMs
+    bk._on_cuda = lambda name, t: True
+    bk._sm_count = lambda index: 132
+    for label, name, a in bank_ab_cases("cpu", BANK_SHAPES, BANK_UNALIGNED):
+        kern = getattr(bk, name)
+        case(f"{name} {label}", both(bk, lambda: kern(*a)))
+        if name in BANK_EXACT_ON_CPU:
+            bk._launch = launcher(*builds[-1])
+            case(f"{name} {label} against its plain version",
+                 same_bits(kern(*a), getattr(bk, name + "_plain")(*a)))
     print(f"{len(failed)} different" if failed else "all bit-equal")
     return 1 if failed else 0
 

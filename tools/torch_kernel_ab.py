@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""A/B of the port's kit_sources and bus_chain against other builds of the
+"""A/B of the port's redesigned kernels against other builds of the
 kernels, on one CUDA card.
 
 Run from the repository root with one or more directories that hold a
 version of ``libgooey_tpu_torch/csrc`` (for example the parent commit's,
 unpacked with ``git archive``):
 
-    python3 tools/torch_kernel_ab.py DIR [DIR ...]
+    python3 tools/torch_kernel_ab.py [--only NAME,...] DIR [DIR ...]
 
 Each directory is built as the port builds its own (``ops/_build.py``'s
 flags, one nvcc per source) into ``libgooey_tpu_torch/_build/ab_<name>/``
 and loaded beside this tree's library; the wrappers launch one or the
-other.  Cases, at the main path's shapes (``chip_smoke.py``'s inputs):
-``kit_sources`` at the product kit and with each of its families alone,
-``bus_chain`` with the kit's seven phases, the first four and the product
-chain's ten, and each bus phase's own kernel.  Every case prints whether
-each build gives this tree's outputs bit for bit, and each build's device
-time per call (``chip_smoke.device_ms``), the builds interleaved (each
-other build, this tree, this tree, each other build in reverse), on the
-card named in the first line.
+other.  A build whose ``svf_bank`` or ``ws4_bank`` entry takes the
+arguments it took before those kernels were redesigned (its tree's
+``ops/_build.py`` beside the directory says so) is called that way
+(:func:`older_args`).  Cases, at the main path's shapes
+(``chip_smoke.py``'s inputs): ``svf_bank`` and ``ws4_bank`` at every
+phase-3 case (the path's shapes, then the tails), ``affine1_bank`` and
+``linrec2_bank`` likewise (their staging header is shared), ``kit_sources``
+at the product kit and with each of its families alone, ``bus_chain`` with
+the kit's seven phases, the first four and the product chain's ten, and
+each bus phase's own kernel.  Every case prints whether each build gives
+this tree's outputs bit for bit, and each build's device time per call
+(``chip_smoke.device_ms``), the builds interleaved (each other build, this
+tree, this tree, each other build in reverse), on the card named in the
+first line, with its maximum SM clock.  A build is named by its tree's
+directory (``X/libgooey_tpu_torch/csrc``: X), else by its own.  ``--only``
+keeps the cases of the named kernels.
 """
 
 from __future__ import annotations
@@ -34,11 +42,17 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
+def build_name(csrc: Path) -> str:
+    """A build's name: its tree's directory, else the directory's own."""
+    p = csrc.resolve()
+    return p.parent.parent.name if p.parent.name == "libgooey_tpu_torch" else p.name
+
+
 def build(csrc: Path) -> Path:
     """The library of the sources in ``csrc``."""
     from libgooey_tpu_torch.ops import _build
 
-    out_dir = _build.BUILD_DIR / f"ab_{csrc.resolve().name}"
+    out_dir = _build.BUILD_DIR / f"ab_{build_name(csrc)}"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, srcs = _build.find_nvcc(), sorted(csrc.glob("*.cu"))
     objs = [out_dir / (s.stem + ".o") for s in srcs]
@@ -55,16 +69,49 @@ def build(csrc: Path) -> Path:
     return lib
 
 
-def load(path: Path):
-    from libgooey_tpu_torch.ops import _build
-
+def load(path: Path, sigs: dict):
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _build.SIGNATURES.items():
+    for name, argtypes in sigs.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def signatures(csrc: Path) -> dict:
+    """The C entries' argument types of the build in ``csrc``: those of the
+    ``ops/_build.py`` of its own tree where it sits in one, else this
+    tree's."""
+    import importlib.util
+
+    from libgooey_tpu_torch.ops import _build
+
+    path = csrc.resolve().parent / "ops" / "_build.py"
+    if not path.is_file():
+        return _build.SIGNATURES
+    spec = importlib.util.spec_from_file_location(f"_build_of_{abs(hash(str(path)))}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.SIGNATURES
+
+
+def older_args(entry, args, sigs, gain):
+    """This tree's arguments of C entry ``entry`` as a build with argument
+    types ``sigs`` takes them: before the redesign ``svf_bank_launch`` took
+    no rows per block or 16-byte flag, and ``ws4_bank_launch`` took neither
+    and the drive's ``(d, comp)`` from its wrapper instead of the drive;
+    ``gain(drive_ptr, V, B)`` gives pointers to those two."""
+    from libgooey_tpu_torch.ops import _build
+
+    if len(sigs[entry]) == len(_build.SIGNATURES[entry]):
+        return args
+    if entry == "svf_bank_launch":
+        return args[:12]
+    if entry == "ws4_bank_launch":
+        x, drive, st_in, y, st_out, coefs, V, B = args[:8]
+        return (x, *gain(drive, V, B), st_in, y, st_out, coefs, V, B)
+    raise ValueError(f"{entry}: no older form known")
 
 
 def same_bits(a, b) -> bool:
@@ -77,22 +124,53 @@ def same_bits(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+class OlderEntries:
+    """A library whose ``svf_bank`` / ``ws4_bank`` entries take their older
+    arguments, called with this tree's (see :func:`older_args`)."""
+
+    def __init__(self, lib, sigs, drives):
+        self.lib, self.sigs, self.drives, self.keep = lib, sigs, drives, []
+
+    def __getattr__(self, entry):
+        fn = getattr(self.lib, entry)
+
+        def gain(drive_ptr, V, B):
+            from libgooey_tpu_torch.ops import bank_kernels as bk
+
+            self.keep[:] = bk._ws4_gain(self.drives[drive_ptr])
+            return tuple(t.data_ptr() for t in self.keep)
+
+        return lambda *a: fn(*older_args(entry, a[:-1], self.sigs, gain), a[-1])
+
+
 def main(argv=None) -> int:
     import torch
 
     import chip_smoke as cs
     from libgooey_tpu_torch.ops import _build
+    from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
     from libgooey_tpu_torch.ops import voice_kernels as vk
 
-    dirs = [Path(d) for d in (argv if argv is not None else sys.argv[1:])]
+    args = list(argv if argv is not None else sys.argv[1:])
+    only = None
+    if args[:1] == ["--only"] and len(args) > 1:
+        only, args = set(args[1].split(",")), args[2:]
+    dirs = [Path(d) for d in args]
     if not dirs or not torch.cuda.is_available():
         print(__doc__.strip().splitlines()[0], "\nneeds a CUDA card and a csrc directory",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    print(cs.card_line(), flush=True)
-    libs = {d.resolve().name: load(build(d)) for d in dirs}
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip()
+    print(cs.card_line(), f"(max SM clock {clock})", flush=True)
+    drives = {}   # ws4's drive tensors by pointer, for an older build's wrapper gain
+    libs = {}
+    for d in dirs:
+        sigs = signatures(d)
+        lib = load(build(d), sigs)
+        libs[build_name(d)] = lib if sigs == _build.SIGNATURES else OlderEntries(lib, sigs, drives)
     libs["this tree"] = _build.load_library()
     real_load = _build.load_library
     others = [n for n in libs if n != "this tree"]
@@ -107,6 +185,8 @@ def main(argv=None) -> int:
             _build.load_library = real_load
 
     def case(label, fn):
+        if only is not None and not any(label.startswith(n) for n in only):
+            return
         mine = run("this tree", fn)
         equal = {n: same_bits(run(n, fn), mine) for n in others}
         times = {n: [] for n in libs}
@@ -117,8 +197,14 @@ def main(argv=None) -> int:
                          for n, ts in times.items())
         print(f"{label}: bit-equal to this tree: {equal}; device us/call: {text}", flush=True)
 
+    for name, shape, args, kw, _ in cs.kernel_cases(dev):
+        if name in ("svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank"):
+            if name == "ws4_bank":
+                drives[args[1].data_ptr()] = args[1]
+            case(f"{name} {shape}",
+                 lambda name=name, args=args, kw=kw: getattr(bk, name)(*args, **kw))
     sources, _ = cs.kit_phases(dev)
-    case(cs.kit_label(cs.PRODUCT_KIT, cs.B), lambda: vk.kit_sources(sources))
+    case(f"kit_sources {cs.kit_label(cs.PRODUCT_KIT, cs.B)}", lambda: vk.kit_sources(sources))
     for ph in sources:
         case(f"kit_sources, {ph.name} alone", lambda ph=ph: vk.kit_sources([ph]))
     singles, runs = cs.bus_cases(dev, np.random.RandomState(cs.SEED), cs.B)
