@@ -12,7 +12,7 @@ Phases (any failure exits non-zero):
    in parallel);
 3. kernels: each of the twenty-four kernels against its plain PyTorch
    version on the card, at the main path's shapes (B = 512; V = 4,096 for
-   the kick's pink, env and fbws, V = 1,024 for the triangle, the stereo bus
+   the kick's env and fbws, V = 1,024 for the triangle, the stereo bus
    [2, B] for the nine bus kernels, the
    mono plate input [B] with its [4, 566] and [2, 2719] histories,
    ``bus_chain`` running the kit's seven bus phases, the first four, and
@@ -31,16 +31,19 @@ Phases (any failure exits non-zero):
    and 99 samples (tails of rows per block and of the 64-sample chunk,
    4-byte copies), each bit-equal to its plain version, and
    ``affine1_bank(None, ...)`` bit-equal to the explicit -3e38 floor with
-   NaN, +-inf and below-floor values; ``svf_bank`` (staged, its reset mask
-   as bytes) at 1,024, 512, 8 and 4,096 rows with resets and at 1,024
-   without, ``ws4_bank`` (its 4x chain split over warps) at 1,024 and 512
-   rows and the granulator's one row, both at 515 rows of 100 and 99
-   samples and with inputs 4 bytes past a 16-byte boundary, bit-equal;
-   ``kit_sources`` and ``bus_chain``, bit-equal too, at their tails:
-   ``bus_chain`` at B with one phase, twelve (two delays, one after the
-   spring) and nine (two delays, the spring last), and at 100 and 33
-   samples with 1, 4, 7, 9, 10 and 12; ``kit_sources`` with one voice a
-   family, 5/3/7/1/2 voices at 100 and 37 samples and 128 a family),
+   NaN, +-inf and below-floor values; ``pink_bank`` (staged, its reset
+   mask as bytes) at bus7's 1,024 rows with resets (the kick) and without
+   a mask (hihat2) and at the kick slice's 4,096 with resets, ``svf_bank``
+   (staged likewise) at 1,024, 512, 8 and 4,096 rows with resets and at
+   1,024 without, ``ws4_bank`` (its 4x chain split over warps) at 1,024
+   and 512 rows and the granulator's one row, all three at 515 rows of 100
+   and 99 samples and with inputs 4 bytes past a 16-byte boundary,
+   bit-equal; ``kit_sources``, ``kit_drive`` and ``bus_chain``, bit-equal
+   too, at their tails: ``bus_chain`` at B with one phase, twelve (two
+   delays, one after the spring) and nine (two delays, the spring last),
+   and at 100 and 33 samples with 1, 4, 7, 9, 10 and 12; the kit kernels
+   with one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
+   128 a family),
    inputs from a numpy seed; with each
    kernel's device time per call (torch.profiler), its wrapper's wall
    between CUDA events, its plain version's and its bound (the larger of
@@ -175,7 +178,8 @@ OUT_TOL = 1e-5
 STATE_TOL = 1e-4
 
 #: the redesigned kernels: bit-equal to their plain versions at every case
-EXACT = ("affine1_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources", "bus_chain")
+EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources",
+         "kit_drive", "bus_chain")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -222,9 +226,12 @@ OPS_PER_ROW_SAMPLE = {
 #: path from one sample's state to the next's (svf_bank: ic2 -> x - ic2 ->
 #: *g -> +ic1 -> *h -> g*v1 -> +ic2 -> 2*v2 -> -ic2, and the reset select;
 #: ws4_bank: a stage-2 allpass section, stepped twice a sample, 3 each;
-#: affine1_bank: multiply, add, max; linrec2_bank: fma, add), and the
-#: latency of one float32 operation on the card, in cycles
-CHAIN_OPS_PER_SAMPLE = {"svf_bank": 9, "ws4_bank": 6, "affine1_bank": 3, "linrec2_bank": 2}
+#: affine1_bank: multiply, add, max; linrec2_bank: fma, add; pink_bank: a
+#: pole's multiply, the reset's select, the add; kit_drive: its 4x chain's,
+#: as ws4_bank's), and the latency of one float32 operation on the card, in
+#: cycles
+CHAIN_OPS_PER_SAMPLE = {"svf_bank": 9, "ws4_bank": 6, "affine1_bank": 3, "linrec2_bank": 2,
+                        "pink_bank": 3, "kit_drive": 6}
 CHAIN_CYCLES_PER_OP = 4
 #: the kit kernels' operations per row-sample, by body: the kick's and the
 #: snare's additive triangles (32 harmonics x ~11 at max_harmonics = 64)
@@ -292,7 +299,12 @@ def chain_floor_ms(name, args, clock_hz):
     kernel not listed."""
     if name not in CHAIN_OPS_PER_SAMPLE:
         return None
-    b = next(a for a in args if a is not None).shape[-1]
+    if name == "kit_drive":   # a list of phases: their block size
+        from libgooey_tpu_torch.ops import voice_kernels
+
+        b = voice_kernels._vb_of(args[0][0])[1]
+    else:
+        b = next(a for a in args if a is not None).shape[-1]
     return CHAIN_OPS_PER_SAMPLE[name] * CHAIN_CYCLES_PER_OP * b / clock_hz * 1e3
 
 
@@ -359,7 +371,6 @@ def kernel_cases(dev):
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
     from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
     from libgooey_tpu_torch.ops import bank_kernels as bk
-    from libgooey_tpu_torch.ops import noise
 
     rs = np.random.RandomState(SEED)
 
@@ -401,12 +412,16 @@ def kernel_cases(dev):
     #    multiple of the 64-sample chunk), 99 (4-byte copies)
     cases.append(("affine1_bank", "V=515, B=100, live floor", tracker(515, 100), {}, 1))
     cases.append(("affine1_bank", "V=515, B=99, no floor", (None, *one_pole(515, 99)), {}, 1))
-    # 2. pink over hashed white noise with trigger resets
-    poles, gains = noise.coefficients(SR)
-    kw = dict(poles=tuple(map(float, poles)), gains=tuple(map(float, gains)),
-              direct=float(noise.DIRECT_GAIN), outg=float(noise.OUTPUT_GAIN))
-    cases.append(("pink_bank", kick_shape, (
-        t(rs.uniform(-1, 1, (V, B))), mask(0.002), t(0.1 * rs.randn(V, 3))), kw, 1))
+    # 2. pink over white noise at the main path's shapes (full_kit_4096_bus7:
+    #    the kick's 1,024 rows with trigger resets, hihat2's 1,024 with no
+    #    mask; the kick slice's 4,096 with resets), the first case's times
+    #    going to the kernel line
+    cases.append(("pink_bank", f"V=1024, B={B}, resets (the kit's kick)",
+                  *pink_rows(rs, t, 1024, B), 1))
+    cases.append(("pink_bank", f"V=1024, B={B}, no reset mask (hihat2)",
+                  *pink_rows(rs, t, 1024, B, resets=False), 1))
+    cases.append(("pink_bank", f"{kick_shape}, resets (the kick slice)",
+                  *pink_rows(rs, t, V, B), 1))
     # 3. the TPT SVF at the main path's shapes (full_kit_4096_bus7: the
     #    kick's noise low-pass and hihat2's tone filter at 1,024 rows, the
     #    bass's at 512; the product kit's bass at 8; the kick slice's 4,096)
@@ -507,20 +522,46 @@ def kernel_cases(dev):
     for b in TAIL_BLOCKS:
         for label, run in bus_cases(dev, np.random.RandomState(SEED + b), b)[1].items():
             cases.append(("bus_chain", label, run, {}, 1))
+    #     kit_sources and kit_drive at the same kits (kit_drive: a block a
+    #     voice row, 32-sample chunks; at 100 and 37 samples a tail chunk)
     for kit, b in TAIL_KITS:
-        cases.append(("kit_sources", kit_label(kit, b), (kit_phases(dev, kit, b)[0],), {}, None))
-    #     svf_bank and ws4_bank at 515 rows (not a multiple of rows per
-    #     block) of 100 samples (a tail chunk; the SVF's mask 4 bytes a copy)
-    #     and 99 (4-byte copies; the mask byte by byte), then with every
-    #     input 4 bytes past a 16-byte boundary
+        sources, drive = kit_phases(dev, kit, b)
+        cases.append(("kit_sources", kit_label(kit, b), (sources,), {}, None))
+        cases.append(("kit_drive", f"kick {kit['kick']} + snare {kit['snare']}, B={b}",
+                      (drive,), {}, None))
+    #     pink_bank, svf_bank and ws4_bank at 515 rows (not a multiple of
+    #     rows per block) of 100 samples (a tail chunk; the masks 4 bytes a
+    #     copy) and 99 (4-byte copies; the masks byte by byte), then with
+    #     every input 4 bytes past a 16-byte boundary
     for b in (100, 99):
+        cases.append(("pink_bank", f"V=515, B={b}, resets", *pink_rows(rs, t, 515, b), 1))
         cases.append(("svf_bank", f"V=515, B={b}, resets", svf_rows(rs, t, 515, b), {}, 2))
         cases.append(("ws4_bank", f"V=515, B={b}", ws4_rows(rs, t, 515, b), {}, 1))
+    args, kw = pink_rows(rs, t, 515, 128)
+    cases.append(("pink_bank", "V=515, B=128, resets, unaligned", unaligned(args), kw, 1))
     cases.append(("svf_bank", "V=515, B=128, resets, unaligned",
                   unaligned(svf_rows(rs, t, 515, 128)), {}, 2))
     cases.append(("ws4_bank", "V=515, B=128, unaligned", unaligned(ws4_rows(rs, t, 515, 128)),
                   {}, 1))
     return cases
+
+
+def pink_rows(rs, t, rows, b, resets=True):
+    """pink_bank ``(arguments, keywords)``: white noise, trigger resets (p =
+    0.002, and on the first and the last sample of every 7th row) unless
+    ``resets`` is False, a random carried state, the filter's coefficients
+    at ``SR``."""
+    import torch
+
+    from libgooey_tpu_torch.ops import noise
+
+    poles, gains = noise.coefficients(SR)
+    kw = dict(poles=tuple(map(float, poles)), gains=tuple(map(float, gains)),
+              direct=float(noise.DIRECT_GAIN), outg=float(noise.OUTPUT_GAIN))
+    reset = rs.rand(rows, b) < 0.002
+    reset[::7, 0] = reset[::7, -1] = True
+    return (t(rs.uniform(-1, 1, (rows, b))), t(reset, torch.bool) if resets else None,
+            t(0.1 * rs.randn(rows, 3))), kw
 
 
 def svf_rows(rs, t, rows, b, resets=True):

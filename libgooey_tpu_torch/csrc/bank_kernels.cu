@@ -20,32 +20,33 @@
 // resonators, libgooey_tpu/ops/scan.py:49-58, and affine1's max composes
 // only for b >= 0).  Arrays are the port's logical [V, B] layout, row-major.
 //
-// affine1_bank, svf_bank and linrec2_bank (26, 3 and 5 launches a block in
-// full_kit_4096_bus7, at 512-2,560 rows) are staged (row_stage.cuh): a
-// block of 128 threads owns rc <= 32 rows, the wrapper picks rc so that a
-// launch spreads over the SMs (4 rows a block at 512 rows, 8 at 1,024, 20
-// at 2,560, 32 at 4,096 on 132 SMs; one block for one row), warp 0 walks
-// the rows from shared memory four samples at a time, and warps 1-3 stream
-// 64-sample chunks in with cp.async (svf_bank's reset mask as a byte tile)
-// and the outputs out, coalesced, ahead of and behind the walk.  They are
-// bound by the serial chain at 1-1,024 rows (512 dependent steps of ~18
-// cycles for affine1 and linrec2, ~35 for the SVF) and near their bytes
-// bound at 2,560-4,096.
+// affine1_bank, pink_bank, svf_bank and linrec2_bank (26, 2, 3 and 5
+// launches a block in full_kit_4096_bus7, at 512-2,560 rows) are staged
+// (row_stage.cuh): a block of 128 threads owns rc <= 32 rows, the wrapper
+// picks rc so that a launch spreads over the SMs (4 rows a block at 512
+// rows, 8 at 1,024, 20 at 2,560, 32 at 4,096 on 132 SMs; one block for one
+// row), warp 0 walks the rows from shared memory four samples at a time,
+// and warps 1-3 stream 64-sample chunks in with cp.async (pink_bank's and
+// svf_bank's reset masks as a byte tile) and the outputs out, coalesced,
+// ahead of and behind the walk.  They are bound by the serial chain at
+// 1-1,024 rows (512 dependent steps of ~12 cycles for pink, ~18 for affine1
+// and linrec2, ~35 for the SVF) and near their bytes bound at 2,560-4,096.
 //
 // ws4_bank (2 launches a block in bus7, at 1,024 and 512 rows, and one at
 // one row in the granulator) splits its 4x chain over warps: the up-walk on
 // one, the shaper (with the drive gain) and the copies on two, the
 // down-walk on another, a chunk apart (its section below).
 //
-// The other four (pink, env_follow, fbws, the mix aside) run a thread per
-// row in blocks of 128 straight from device memory: thread v reads x[v*B +
-// n], so a warp touches 32 cache lines per sample, each holding the next 31
+// The other two (env_follow, fbws, the mix aside) run a thread per row in
+// blocks of 128 straight from device memory: thread v reads x[v*B + n], so
+// a warp touches 32 cache lines per sample, each holding the next 31
 // samples of its row in L1, and every byte crosses DRAM once.  Per-voice
 // state arrays ([S, V]) are read and written coalesced.  At V = 4,096 a
 // launch is 32 blocks, so 32 of the 132 SMs hold one block each and the
 // rest idle; they are latency-bound on their serial B-step chain, fbws on 32
-// dependent allpass sections plus four tanhf per base sample.  Staging them
-// the same way is the next step.
+// dependent allpass sections plus four tanhf per base sample.  Staging
+// env_follow (its freeze mask as bytes) and splitting fbws as ws4_bank is
+// split are the next steps.
 //
 // Numerics: every step keeps the Pallas body's op order, and the build
 // passes -fmad=false so that a*b + c rounds twice, exactly as the plain
@@ -132,6 +133,13 @@ __global__ void __launch_bounds__(kStageThreads)
 }
 
 // --- 2. pink_bank: Kellet 3-pole pink filter + direct term -----------------
+//
+// Staged (row_stage.cuh) with its reset mask as a byte tile, as svf_bank: a
+// walker steps its row four samples at a time from the float4s of w and one
+// 32-bit word of four reset flags, the three poles in registers, and writes
+// pink four at a time.  Without a mask (reset == nullptr, kReset false) no
+// flag is read.  The poles are independent; each carries a multiply, the
+// reset's select and an add a sample.
 
 struct PinkCoefs {
   float pole[3];
@@ -140,30 +148,60 @@ struct PinkCoefs {
   float outg;
 };
 
-__global__ void pink_bank_kernel(const float* __restrict__ w,
-                                 const uint8_t* __restrict__ reset,
-                                 const float* __restrict__ fstate,
-                                 float* __restrict__ pink,
-                                 float* __restrict__ fstate_out, PinkCoefs k,
-                                 int V, int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const size_t row = static_cast<size_t>(v) * B;
-  float y0 = fstate[3 * v + 0];
-  float y1 = fstate[3 * v + 1];
-  float y2 = fstate[3 * v + 2];
-  for (int n = 0; n < B; ++n) {
-    const float wn = w[row + n];
-    const bool rst = reset != nullptr && reset[row + n] != 0;
-    // a trigger reset zeroes the incoming state (ops/noise.py pink_block)
-    y0 = (rst ? 0.0f : k.pole[0] * y0) + k.gain[0] * wn;
-    y1 = (rst ? 0.0f : k.pole[1] * y1) + k.gain[1] * wn;
-    y2 = (rst ? 0.0f : k.pole[2] * y2) + k.gain[2] * wn;
-    pink[row + n] = (y0 + y1 + y2 + k.direct * wn) * k.outg;
+template <bool kReset>
+__global__ void __launch_bounds__(kStageThreads)
+    pink_bank_kernel(const float* __restrict__ w, const uint8_t* __restrict__ reset,
+                     const float* __restrict__ fstate, float* __restrict__ pink,
+                     float* __restrict__ fstate_out, PinkCoefs k, int V, int B, int rc,
+                     int vec) {
+  const float* const src[1] = {w};
+  float* const dst[1] = {pink};
+  const RowSpan s = row_span(V, B, rc, vec);
+  const int v = s.row0 + threadIdx.x;
+  const bool live = threadIdx.x < s.rows;
+  float y0 = live ? fstate[3 * v + 0] : 0.0f;
+  float y1 = live ? fstate[3 * v + 1] : 0.0f;
+  float y2 = live ? fstate[3 * v + 2] : 0.0f;
+  auto walk = [&](const auto& in, const auto& out, const uint8_t* m, int len) {
+    // one sample: a trigger reset zeroes the incoming state (ops/noise.py
+    // pink_block), then the three poles and the direct term
+    auto step = [&](uint32_t rst, float wn) {
+      const bool r = kReset && rst != 0;
+      y0 = (r ? 0.0f : k.pole[0] * y0) + k.gain[0] * wn;
+      y1 = (r ? 0.0f : k.pole[1] * y1) + k.gain[1] * wn;
+      y2 = (r ? 0.0f : k.pole[2] * y2) + k.gain[2] * wn;
+      return (y0 + y1 + y2 + k.direct * wn) * k.outg;
+    };
+    float4 wq = ld4(in[0]);
+    uint32_t fq = kReset ? ld_flags(m) : 0u;
+    // four samples, the next four loaded first (unit q+1 is at most the
+    // row's padding unit)
+    auto group = [&](int q) {
+      const float4 wn = ld4(in[0] + 4 * q + 4);
+      const uint32_t fn = kReset ? ld_flags(m + 4 * q + 4) : 0u;
+      float4 o;
+      o.x = step(fq & 0xffu, wq.x);
+      o.y = step(fq & 0xff00u, wq.y);
+      o.z = step(fq & 0xff0000u, wq.z);
+      o.w = step(fq & 0xff000000u, wq.w);
+      st4(out[0] + 4 * q, o);
+      wq = wn;
+      fq = fn;
+    };
+    const int full = len >> 2;
+    walk_groups(full, group);
+    const int rem = len & 3;   // only where B % 4 != 0: the last chunk's tail
+    float* o = out[0] + 4 * full;
+    if (rem > 0) o[0] = step(fq & 0xffu, wq.x);
+    if (rem > 1) o[1] = step(fq & 0xff00u, wq.y);
+    if (rem > 2) o[2] = step(fq & 0xff0000u, wq.z);
+  };
+  staged_rows_masked<kReset>(src, dst, reset, s, walk);
+  if (live) {
+    fstate_out[3 * v + 0] = y0;
+    fstate_out[3 * v + 1] = y1;
+    fstate_out[3 * v + 2] = y2;
   }
-  fstate_out[3 * v + 0] = y0;
-  fstate_out[3 * v + 1] = y1;
-  fstate_out[3 * v + 2] = y2;
 }
 
 // --- 3. svf_bank: TPT (Simper) SVF with per-sample g, h and reset ----------
@@ -580,6 +618,18 @@ int launch_affine1(const float* a, const float* b, const float* c, const float* 
 }
 
 template <bool kReset>
+int launch_pink(const float* w, const uint8_t* reset, const float* fstate, float* pink,
+                float* fstate_out, const PinkCoefs& k, int V, int B, int rc, int vec,
+                void* stream) {
+  const size_t smem = stage_smem_bytes(1, 1, rc, kReset);
+  const cudaError_t err = allow_smem(pink_bank_kernel<kReset>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pink_bank_kernel<kReset><<<dim3((V + rc - 1) / rc), kStageThreads, smem, as_stream(stream)>>>(
+      w, reset, fstate, pink, fstate_out, k, V, B, rc, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kReset>
 int launch_svf(const float* x, const float* g, const float* h, const uint8_t* reset,
                const float* ic1, const float* ic2, float* v1, float* v2, float* ic1_out,
                float* ic2_out, int V, int B, int rc, int vec, void* stream) {
@@ -607,10 +657,12 @@ int affine1_bank_launch(const float* a, const float* b, const float* c,
              : launch_affine1<false>(a, b, c, y0, y, y_last, V, B, rc, vec, stream);
 }
 
+// coefs (host): pole[3], gain[3], direct, outg; rc, vec as
+// affine1_bank_launch's; reset == nullptr: no resets.
 int pink_bank_launch(const float* w, const uint8_t* reset, const float* fstate,
                      float* pink, float* fstate_out, const float* coefs, int V,
-                     int B, void* stream) {
-  // coefs (host): pole[3], gain[3], direct, outg
+                     int B, int rc, int vec, void* stream) {
+  if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   PinkCoefs k;
   for (int i = 0; i < 3; ++i) {
     k.pole[i] = coefs[i];
@@ -618,9 +670,9 @@ int pink_bank_launch(const float* w, const uint8_t* reset, const float* fstate,
   }
   k.direct = coefs[6];
   k.outg = coefs[7];
-  pink_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
-      w, reset, fstate, pink, fstate_out, k, V, B);
-  return static_cast<int>(cudaGetLastError());
+  return reset != nullptr
+             ? launch_pink<true>(w, reset, fstate, pink, fstate_out, k, V, B, rc, vec, stream)
+             : launch_pink<false>(w, reset, fstate, pink, fstate_out, k, V, B, rc, vec, stream);
 }
 
 // rc, vec as affine1_bank_launch's; reset == nullptr: no resets.

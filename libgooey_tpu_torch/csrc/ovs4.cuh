@@ -177,7 +177,8 @@ __device__ __forceinline__ void store_caps(const Caps<N>& c, float* st, int& k, 
 
 // The packed layout's halves: the up-path's rows (0-23; captures 52-75)
 // and the down-path's with the DC rows (24-51; captures 76-99), so that the
-// two walks of the split form (ws4_bank) each load and store their own.
+// two walks of the split form (ws4_bank, kit_drive) each load and store
+// their own.
 constexpr int kPackedUpRows = 24;
 constexpr int kPackedCoreRows = 52;
 constexpr int kPackedDownCaps = kPackedCoreRows + 24;
@@ -293,19 +294,20 @@ __device__ __forceinline__ void ovs4_row(FbwsState& s, const FbwsCoefs& k, int B
 // The chunked, split form of ovs4_row, for the kernels that walk a row's
 // block in spans and evaluate the nonlinearity on other threads
 // (kit_sources' bass, the 4x phases of bus_chain and of their own kernels,
-// and ws4_bank, whose up- and down-walks run on two warps).  ovs4_up_span
-// walks the up-path (stage-1 and stage-2 upsamplers) of samples [n0, n1) of
-// a B-sample block and leaves sample n's four 4x subsamples at
-// sub[4 (n - n0) ..]; the caller applies the sample's shaper to each in
-// place, on any threads; ovs4_down_span walks the down-path (stage-2 and
-// stage-1 downsamplers) on them and calls finish.  The state carries in
-// ``s`` from one span to the next; the span that holds the block's last
-// sample takes the captures into ``cap`` where ovs4_row takes them, and
-// store_span_state stores the state after the last span (or each walk its
-// half, store_up_state / store_down_state, where they run on other threads).
+// and ws4_bank and kit_drive, whose up- and down-walks run on two warps).
+// ovs4_up_span walks the up-path (stage-1 and stage-2 upsamplers) of
+// samples [n0, n1) of a B-sample block and leaves sample n's four 4x
+// subsamples at sub[4 (n - n0) ..]; the caller applies the sample's shaper
+// to each in place, on any threads; ovs4_down_span walks the down-path
+// (stage-2 and stage-1 downsamplers) on them and calls finish.  The state
+// carries in ``s`` from one span to the next; the span that holds the
+// block's last sample takes the captures into ``cap`` where ovs4_row takes
+// them, and store_span_state stores the state after the last span (or each
+// walk its half, store_up_state / store_down_state, where they run on
+// other threads).
 // The up-path and the down-path hold disjoint parts of the state and every
 // allpass steps its samples in order, so the spans of a block give what
-// ovs4_row gives, bit for bit; ovs4_row stays for fbws_bank and kit_drive.
+// ovs4_row gives, bit for bit; ovs4_row stays for fbws_bank.
 struct OvsCaps {
   Caps<4> u1, d1;
   Caps<2> u2, d2;

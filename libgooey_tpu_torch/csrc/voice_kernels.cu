@@ -28,17 +28,20 @@
 // are stored coalesced.  snare_a has no recurrence.  The Pallas bodies solve
 // the linear recurrences with lane scans; here they are stepped, not
 // scanned.  The state epilogues are written by the lanes that hold the
-// carries, after the last tile.  kit_drive keeps a thread per voice row
-// (kThreads rows a block) walking its whole block; the bass's and the drive
-// bodies' 4x chains use the port's packed [S, V] state layout (the TPU's
-// [2Vp, K] packing and its row padding to 8 are layout workarounds of that
-// chip and are not ported).
+// carries, after the last tile.  kit_drive also gives every voice row a
+// block of 128 threads, and pipelines the row's 32-sample chunks over its
+// warps a step apart: the per-sample inputs and the shaper's parameters,
+// the 4x chain's up-walk, the shaper at each subsample, the down-walk (with
+// the kick's DC blocker and feedback filter) and the finish (drive_row
+// below).  The bass's and the drive bodies' 4x chains use the port's packed
+// [S, V] state layout (the TPU's [2Vp, K] packing and its row padding to 8
+// are layout workarounds of that chip and are not ported).
 //
 // Each body follows its plain version in ops/voice_kernels.py op for op; the
 // build's -fmad=false keeps a*b + c as two roundings there as here, and
 // every constant division is a true division on both sides.  Work moves
-// between threads but no per-sample operation is reordered, so kit_sources
-// gives its plain version bit for bit on the card.
+// between threads but no per-sample operation is reordered, so both kernels
+// give their plain versions bit for bit on the card.
 //
 // What bounds it on the card: at the product kit (64 voices, B = 512) a
 // launch moves a few hundred KB and does ~12 M operations (the kick's and
@@ -46,8 +49,10 @@
 // against 3.35 TB/s and 67 TFLOP/s a fraction of a microsecond.  The
 // kernel takes the time of its longest serial walk: 64 blocks on 64 of 132
 // SMs, and the bass's 4x chain (its up-path and down-path, a few hundred
-// dependent operations a sample) the longest (PERF.md).  kit_drive takes
-// its thread's whole B-sample walk (0.36 ms on an H100).
+// dependent operations a sample) the longest (PERF.md).  kit_drive, whose
+// bound is as small, takes its rows' two walks of the 4x chain, each on one
+// lane, plus two chunks of pipeline fill (32 blocks on 32 SMs at the
+// product kit; 256 blocks, two an SM, at 128 voices a family).
 //
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError(); nothing allocates or synchronizes here.
@@ -59,7 +64,6 @@
 
 namespace {
 
-constexpr int kThreads = 32;   // kit_drive: a thread per voice row
 constexpr int kTile = 128;     // kit_sources: threads per block, samples per tile
 constexpr int kSlots = 22;     // kit_sources: per-tile arrays in shared memory
 constexpr int kIn = 16;
@@ -1080,49 +1084,166 @@ __device__ void tom2(const VoicePhase& p, int v, float* sh) {
 
 #undef SLOT
 
+// --- the chunk pipeline of kit_drive ---------------------------------------------
+//
+// A block of kDrvThreads threads owns one voice row and cuts its B samples
+// into chunks of kDrvChunk, a step apart on four warps (ws4_bank's split in
+// bank_kernels.cu, for one row).  In step j, warp 2 computes chunk j+1's
+// per-sample values (the 4x chain's input, the shaper's parameters, what
+// the down-walk and the finish read; a lane a sample) into a ring of
+// kDrvRing chunks in shared memory; warps 2-3 shape chunk j-1's subsamples
+// in place; warp 3 finishes chunk j-3 and stores it coalesced.  Lane 0 of
+// warp 0 walks the up-path of chunk j (ovs4_up_span) into a ring of
+// subsample tiles, lane 0 of warp 1 the down-path of chunk j-2
+// (ovs4_down_span), with the body's own recurrences beside it (the kick's
+// DC blocker and feedback filter), into an output tile.  One __syncthreads
+// a step.  The two walks hold disjoint halves of the packed state, each
+// loaded and stored by its own lane (load_up_state / store_down_state in
+// ovs4.cuh), the DC rows with the down half.
+
+constexpr int kDrvThreads = 128;   // warp 0 up, warp 1 down, warps 2-3 per sample
+constexpr int kDrvChunk = 32;      // samples a chunk: a lane each of warps 2 and 3
+constexpr int kDrvRing = 5;        // per-sample chunks: written, up, shaped, down, finished
+constexpr int kDrvSubRing = 3;     // subsample chunks: walked up, shaped, walked down
+constexpr int kDrvSlots = 4;       // per-sample arrays a chunk
+
+using DriveSlots = float[kDrvSlots][kDrvChunk];
+
+struct DriveSmem {
+  DriveSlots ps[kDrvRing];
+  float sub[kDrvSubRing][4 * kDrvChunk];
+  float y[2][kDrvChunk];
+};
+
+// One voice row of a drive body through the pipeline.  The body gives
+// input(ps, n, i): sample n, lane i of its chunk, into ps[slot][i] (slot 0
+// the 4x chain's input); shape(ps, sub, i): subsample i of a chunk (its
+// sample i >> 2), in place; down(s, ps, i, y): the down-walk's output y of
+// the chunk's sample i, returning what finish reads; finish(ps, y, n, i);
+// load_down() and store_down(): the down lane's own state.
+template <class Body>
+__device__ __forceinline__ void drive_row(Body& b, const FbwsCoefs& k, int B, int V, int v,
+                                          const float* st_in, float* st_out, DriveSmem& sm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool up = warp == 0 && lane == 0, down = warp == 1 && lane == 0;
+  const int n_chunks = (B + kDrvChunk - 1) / kDrvChunk;
+  auto len = [&](int c) { return min(kDrvChunk, B - c * kDrvChunk); };
+  FbwsState s;
+  OvsCaps cap;
+  if (up) load_up_state(s, st_in, v, V);
+  if (down) {
+    load_down_state(s, st_in, v, V);
+    b.load_down();
+  }
+  if (warp == 2 && lane < len(0)) b.input(sm.ps[0], lane, lane);
+  for (int j = 0; j < n_chunks + 2; ++j) {
+    __syncthreads();   // step j-1 done everywhere
+    if (up) {
+      if (j < n_chunks) {
+        const int n0 = j * kDrvChunk;
+        const float* u = sm.ps[j % kDrvRing][0];
+        ovs4_up_span(
+            s, cap, k, n0, n0 + len(j), B, [&](int n) { return u[n - n0]; },
+            sm.sub[j % kDrvSubRing]);
+      }
+    } else if (down) {
+      if (j >= 2) {
+        const int c = j - 2, n0 = c * kDrvChunk;
+        const DriveSlots& ps = sm.ps[c % kDrvRing];
+        float* y = sm.y[c & 1];
+        ovs4_down_span(s, cap, k, n0, n0 + len(c), B, sm.sub[c % kDrvSubRing],
+                       [&](int n, float yn) { y[n - n0] = b.down(s, ps, n - n0, yn); });
+      }
+    } else if (warp >= 2) {
+      if (warp == 2) {
+        const int c = j + 1;
+        if (c < n_chunks && lane < len(c)) b.input(sm.ps[c % kDrvRing], c * kDrvChunk + lane, lane);
+      } else if (j >= 3 && lane < len(j - 3)) {
+        const int c = j - 3;
+        b.finish(sm.ps[c % kDrvRing], sm.y[c & 1], c * kDrvChunk + lane, lane);
+      }
+      if (j >= 1 && j <= n_chunks) {
+        const int c = j - 1;
+        for (int i = threadIdx.x - 64; i < 4 * len(c); i += kDrvThreads - 64)
+          b.shape(sm.ps[c % kDrvRing], sm.sub[c % kDrvSubRing], i);
+      }
+    }
+  }
+  __syncthreads();
+  const int c = n_chunks - 1;
+  if (warp == 3 && lane < len(c)) {
+    b.finish(sm.ps[c % kDrvRing], sm.y[c & 1], c * kDrvChunk + lane, lane);
+  }
+  if (up) store_up_state(s, cap.u1, cap.u2, st_out, v, V);
+  if (down) {
+    store_down_state(s, cap.d2, cap.d1, st_out, v, V);
+    b.store_down();
+  }
+}
+
 // --- kick B: 4x tanh drive, makeup gain, DC blocker, amp (pallas_voice.py:599) ----
 //
 // in:  total, comp_signed, ampsc [V,B], cur, tgt [V,19], packed [52,V],
 //      filt0 [V], powq
 // out: out [V,B], nst [100,V], nfilt [V]
 // f:   sr, -2pi
+//
+// Per sample: drive*x into the chain, the signed makeup gain, the feedback
+// cutoff's coefficient (an expf); walked on the down lane: the gated DC
+// blocker and the feedback filter.
 
-__device__ void kick_b(const VoicePhase& p, const FbwsCoefs& k, int v) {
-  const int B = p.B, V = p.V;
-  const size_t row = static_cast<size_t>(v) * B;
-  const float* x = IN_F(0) + row;
-  const float* cs = IN_F(1) + row;
-  const float* amp = IN_F(2) + row;
-  const float* cur = IN_F(3) + v * 19;
-  const float* tgt = IN_F(4) + v * 19;
-  const float* powq = IN_F(7);
-  float* out = OUT_F(0) + row;
-  const float sr = p.f[0], m2pi = p.f[1];
-  auto traj = [&](int i, int n) { return snap(tgt[i], (cur[i] - tgt[i]) * powq[n + 1]); };
+enum KickDriveSlot { kKdIn, kKdCs, kKdFbc };
 
-  float filt = IN_F(6)[v];
-  FbwsState s;
-  load_state(s, IN_F(5), v, V);
-  ovs4_row(
-      s, k, B,
-      [&](int n) {
-        const float od = traj(13, n);
-        const float drive = 1.0f + od * od * od * 40.0f;
-        return drive * x[n];
-      },
-      [](int) { return TanhShaper{}; },
-      [&](int n, float y) {
-        const float c = cs[n];
-        const bool byp = c < 0.0f;
-        const float dc = gated_dc(s, y, c);
-        // feedback-filter bookkeeping (the loop gain is 0 on this path)
-        const float fbc_hz = 200.0f + traj(15, n) * 3800.0f;
-        const float fbc = clampf(1.0f - expf((m2pi * fbc_hz) / sr), 0.0f, 0.9f);
-        filt = (byp ? 1.0f : 1.0f - fbc) * filt + (byp ? 0.0f : fbc * dc);
-        out[n] = (byp ? x[n] : dc) * amp[n];
-      },
-      OUT_F(1), v, V);
-  OUT_F(2)[v] = fabsf(filt) < 1e-15f ? 0.0f : filt;
+struct KickDrive {
+  const float *x, *cs, *amp, *cur, *tgt, *powq, *filt0;
+  float *out, *nfilt;
+  float sr, m2pi, filt;
+  __device__ float traj(int i, int n) const {
+    return snap(tgt[i], (cur[i] - tgt[i]) * powq[n + 1]);
+  }
+  __device__ void input(DriveSlots& ps, int n, int i) const {
+    const float od = traj(13, n);
+    const float drive = 1.0f + od * od * od * 40.0f;
+    ps[kKdIn][i] = drive * x[n];
+    ps[kKdCs][i] = cs[n];
+    const float fbc_hz = 200.0f + traj(15, n) * 3800.0f;
+    ps[kKdFbc][i] = clampf(1.0f - expf((m2pi * fbc_hz) / sr), 0.0f, 0.9f);
+  }
+  __device__ void shape(const DriveSlots&, float* sub, int i) const {
+    sub[i] = TanhShaper{}(sub[i]);
+  }
+  __device__ float down(FbwsState& s, const DriveSlots& ps, int i, float y) {
+    const float c = ps[kKdCs][i];
+    const bool byp = c < 0.0f;
+    const float dc = gated_dc(s, y, c);
+    // feedback-filter bookkeeping (the loop gain is 0 on this path)
+    const float fbc = ps[kKdFbc][i];
+    filt = (byp ? 1.0f : 1.0f - fbc) * filt + (byp ? 0.0f : fbc * dc);
+    return dc;
+  }
+  __device__ void finish(const DriveSlots& ps, const float* dc, int n, int i) const {
+    out[n] = (ps[kKdCs][i] < 0.0f ? x[n] : dc[i]) * amp[n];
+  }
+  __device__ void load_down() { filt = *filt0; }
+  __device__ void store_down() const { *nfilt = fabsf(filt) < 1e-15f ? 0.0f : filt; }
+};
+
+__device__ KickDrive kick_b(const VoicePhase& p, int v) {
+  const size_t row = static_cast<size_t>(v) * p.B;
+  KickDrive b;
+  b.x = IN_F(0) + row;
+  b.cs = IN_F(1) + row;
+  b.amp = IN_F(2) + row;
+  b.cur = IN_F(3) + v * 19;
+  b.tgt = IN_F(4) + v * 19;
+  b.filt0 = IN_F(6) + v;
+  b.powq = IN_F(7);
+  b.out = OUT_F(0) + row;
+  b.nfilt = OUT_F(2) + v;
+  b.sr = p.f[0];
+  b.m2pi = p.f[1];
+  b.filt = 0.0f;
+  return b;
 }
 
 // --- snare B: noise envelopes, 4x waveshaper, amp (pallas_voice.py:960) ------------
@@ -1131,72 +1252,94 @@ __device__ void kick_b(const VoicePhase& p, const FbwsCoefs& k, int v) {
 //      packed [52,V], bs, powq
 // out: out [V,B], nst [100,V]
 // f:   1/sr, tanh(0.5)
+//
+// Per sample: the noise envelopes and the chain's input, the drive and its
+// makeup gain (a tanhf), and the finish (the amplitude envelope, a powf).
 
-__device__ void snare_b(const VoicePhase& p, const FbwsCoefs& k, int v) {
-  const int B = p.B, V = p.V;
+enum SnareDriveSlot { kSdIn, kSdDrive, kSdD, kSdCp };
+
+struct SnareDrive {
   Row r;
-  r.init(IN_F(0) + v * 19, IN_F(1) + v * 19, IN_F(10), IN_I(2)[v], IN_I(4)[v], *IN_I(9), B);
-  const float* lat = IN_F(5) + v * 6;
-  const size_t row = static_cast<size_t>(v) * B;
-  const float* dry = IN_F(6) + row;
-  const float* filt = IN_F(7) + row;
-  float* out = OUT_F(0) + row;
-  const float inv_sr = p.f[0], tanh_half = p.f[1];
+  const float *lat, *dry, *filt;
+  float* out;
+  float inv_sr, tanh_half, vel_new, ad, ac;
+  // sample n's latched velocity, amplitude decay and curve, and seconds
+  // since its trigger
+  __device__ void latched(int n, float& vel, float& amp_decay_s, float& amp_curve,
+                          float& el) const {
+    const bool after = r.after(n);
+    vel = after ? vel_new : lat[0];
+    amp_decay_s = after ? ad : lat[4];
+    amp_curve = after ? ac : lat[2];
+    el = static_cast<float>(r.elapsed_i(n)) * inv_sr;
+  }
+  __device__ void input(DriveSlots& ps, int n, int i) const {
+    float vel, amp_decay_s, amp_curve, el;
+    latched(n, vel, amp_decay_s, amp_curve, el);
+    const float decay_scale = 1.0f - 0.45f * vel * vel;
+    const float noise_env = adsr(el, 0.001f, DENORM(r.traj(9, n), 0.0, 3.5) * decay_scale,
+                                 0.0f, Lin{}, Lin{});
+    const float tail_env = adsr(el, 0.001f, DENORM(r.traj(10, n), 0.0, 3.5) * decay_scale,
+                                0.0f, Lin{}, Lin{});
+    const float xfade = r.traj(13, n);
+    ps[kSdIn][i] = dry[n] + filt[n] * (noise_env * 0.7f + tail_env * 0.3f) * xfade;
+    const float drive = 1.0f + r.traj(15, n) * 9.0f;
+    const float d = fmaxf(drive, 1.000001f);
+    ps[kSdDrive][i] = drive;
+    ps[kSdD][i] = d;
+    ps[kSdCp][i] = tanh_half / tanhf(0.5f * d);
+  }
+  __device__ void shape(const DriveSlots& ps, float* sub, int i) const {
+    sub[i] = DriveShaper{ps[kSdD][i >> 2], ps[kSdCp][i >> 2]}(sub[i]);
+  }
+  __device__ float down(FbwsState&, const DriveSlots&, int, float sat) const { return sat; }
+  __device__ void finish(const DriveSlots& ps, const float* sat, int n, int i) const {
+    const float total = ps[kSdIn][i];
+    const float wet = total * (1.0f - 1.0f) + sat[i] * 1.0f;
+    float shaped = ps[kSdDrive][i] <= 1.0f ? total : wet;
+    shaped = isfinite(total) ? shaped : 0.0f;
+    float vel, amp_decay_s, amp_curve, el;
+    latched(n, vel, amp_decay_s, amp_curve, el);
+    const float amp_env =
+        adsr(el, 0.001f, fmaxf(amp_decay_s, 0.001f), 0.0f, Lin{}, Pow{amp_curve});
+    out[n] = shaped * amp_env * sqrtf(vel) * r.traj(6, n);
+  }
+  __device__ void load_down() const {}
+  __device__ void store_down() const {}
+};
 
-  const float vel_new = clamp01(IN_F(3)[v]);
-  const float ad = DENORM(r.vat(16), 0.0, 4.0) * (1.0f - 0.45f * vel_new * vel_new);
-  const float ac = DENORM(r.vat(17), 0.1, 10.0);
-  float total = 0.0f, drive = 0.0f, vel = 0.0f, el = 0.0f, amp_decay_s = 0.0f, amp_curve = 0.0f;
-  FbwsState s;
-  load_state(s, IN_F(8), v, V);
-  ovs4_row(
-      s, k, B,
-      [&](int n) {
-        const bool after = r.after(n);
-        vel = after ? vel_new : lat[0];
-        amp_decay_s = after ? ad : lat[4];
-        amp_curve = after ? ac : lat[2];
-        el = static_cast<float>(r.elapsed_i(n)) * inv_sr;
-        const float decay_scale = 1.0f - 0.45f * vel * vel;
-        const float noise_env = adsr(el, 0.001f, DENORM(r.traj(9, n), 0.0, 3.5) * decay_scale,
-                                     0.0f, Lin{}, Lin{});
-        const float tail_env = adsr(el, 0.001f, DENORM(r.traj(10, n), 0.0, 3.5) * decay_scale,
-                                    0.0f, Lin{}, Lin{});
-        const float xfade = r.traj(13, n);
-        total = dry[n] + filt[n] * (noise_env * 0.7f + tail_env * 0.3f) * xfade;
-        return total;
-      },
-      [&](int n) {
-        drive = 1.0f + r.traj(15, n) * 9.0f;
-        const float d = fmaxf(drive, 1.000001f);
-        return DriveShaper{d, tanh_half / tanhf(0.5f * d)};
-      },
-      [&](int n, float sat) {
-        const float wet = total * (1.0f - 1.0f) + sat * 1.0f;
-        float shaped = drive <= 1.0f ? total : wet;
-        shaped = isfinite(total) ? shaped : 0.0f;
-        const float amp_env =
-            adsr(el, 0.001f, fmaxf(amp_decay_s, 0.001f), 0.0f, Lin{}, Pow{amp_curve});
-        out[n] = shaped * amp_env * sqrtf(vel) * r.traj(6, n);
-      },
-      OUT_F(1), v, V);
+__device__ SnareDrive snare_b(const VoicePhase& p, int v) {
+  const int B = p.B;
+  const size_t row = static_cast<size_t>(v) * B;
+  SnareDrive b;
+  b.r.init(IN_F(0) + v * 19, IN_F(1) + v * 19, IN_F(10), IN_I(2)[v], IN_I(4)[v], *IN_I(9), B);
+  b.lat = IN_F(5) + v * 6;
+  b.dry = IN_F(6) + row;
+  b.filt = IN_F(7) + row;
+  b.out = OUT_F(0) + row;
+  b.inv_sr = p.f[0];
+  b.tanh_half = p.f[1];
+  b.vel_new = clamp01(IN_F(3)[v]);
+  b.ad = DENORM(b.r.vat(16), 0.0, 4.0) * (1.0f - 0.45f * b.vel_new * b.vel_new);
+  b.ac = DENORM(b.r.vat(17), 0.1, 10.0);
+  return b;
 }
 
 // --- the kernels ----------------------------------------------------------------------
 
-// The phase of this block and its first row: kit_sources gives each voice row
-// a block (rows = 1), kit_drive each 32 rows a block of a thread per row.
-__device__ __forceinline__ const VoicePhase& phase_of(const Kit& kit, int rows, int& v) {
+// The phase of this block and its first row (a block a voice row in both
+// kernels).
+__device__ __forceinline__ const VoicePhase& phase_of(const Kit& kit, int& v) {
   int i = 0;
   while (i + 1 < kit.n && static_cast<int>(blockIdx.x) >= kit.ph[i + 1].block0) ++i;
-  v = (static_cast<int>(blockIdx.x) - kit.ph[i].block0) * rows;
+  v = static_cast<int>(blockIdx.x) - kit.ph[i].block0;
   return kit.ph[i];
 }
 
 __global__ void __launch_bounds__(kTile) kit_sources_kernel(const Kit kit, FbwsCoefs k) {
   __shared__ float sh[kSlots * kTile];
   int v;
-  const VoicePhase& p = phase_of(kit, 1, v);
+  const VoicePhase& p = phase_of(kit, v);
   switch (p.body) {
     case kKickA:
       kick_a(p, v, sh);
@@ -1218,28 +1361,31 @@ __global__ void __launch_bounds__(kTile) kit_sources_kernel(const Kit kit, FbwsC
   }
 }
 
-__global__ void __launch_bounds__(kThreads) kit_drive_kernel(const Kit kit, FbwsCoefs k) {
+__global__ void __launch_bounds__(kDrvThreads) kit_drive_kernel(const Kit kit, FbwsCoefs k) {
+  __shared__ DriveSmem sm;
   int v;
-  const VoicePhase& p = phase_of(kit, kThreads, v);
-  v += static_cast<int>(threadIdx.x);
-  if (v >= p.V) return;
+  const VoicePhase& p = phase_of(kit, v);
   switch (p.body) {
-    case kKickB:
-      kick_b(p, k, v);
+    case kKickB: {
+      KickDrive b = kick_b(p, v);
+      drive_row(b, k, p.B, p.V, v, IN_F(5), OUT_F(1), sm);
       break;
-    case kSnareB:
-      snare_b(p, k, v);
+    }
+    case kSnareB: {
+      SnareDrive b = snare_b(p, v);
+      drive_row(b, k, p.B, p.V, v, IN_F(8), OUT_F(1), sm);
       break;
+    }
     default:
       break;
   }
 }
 
 // ops: (body, V, B) per phase; ptrs: in[16], out[10] per phase; f: 24 and
-// iv: 8 per phase; rows: voice rows per block.  Returns the grid's block
-// count, or -1 for a bad table.
+// iv: 8 per phase.  Returns the grid's block count (a block a voice row),
+// or -1 for a bad table.
 int make_kit(Kit& kit, int n, const int* ops, void* const* ptrs, const float* f, const int* iv,
-             int lo, int hi, int rows) {
+             int lo, int hi) {
   if (n < 1 || n > kMaxPhases) return -1;
   kit.n = n;
   int blocks = 0;
@@ -1250,7 +1396,7 @@ int make_kit(Kit& kit, int n, const int* ops, void* const* ptrs, const float* f,
     p.B = ops[3 * i + 2];
     if (p.body < lo || p.body > hi || p.V < 1 || p.B < 1) return -1;
     p.block0 = blocks;
-    blocks += (p.V + rows - 1) / rows;
+    blocks += p.V;
     void* const* pp = ptrs + (kIn + kOut) * i;
     for (int j = 0; j < kIn; ++j) p.in[j] = pp[j];
     for (int j = 0; j < kOut; ++j) p.out[j] = pp[kIn + j];
@@ -1267,7 +1413,7 @@ extern "C" {
 int kit_sources_launch(int n, const int* ops, void* const* ptrs, const float* f, const int* iv,
                        const float* coefs, void* stream) {
   Kit kit{};
-  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickA, kTom2, 1);
+  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickA, kTom2);
   if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   kit_sources_kernel<<<blocks, kTile, 0, as_stream(stream)>>>(kit, fbws_coefs(coefs));
   return static_cast<int>(cudaGetLastError());
@@ -1276,9 +1422,9 @@ int kit_sources_launch(int n, const int* ops, void* const* ptrs, const float* f,
 int kit_drive_launch(int n, const int* ops, void* const* ptrs, const float* f, const int* iv,
                      const float* coefs, void* stream) {
   Kit kit{};
-  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickB, kSnareB, kThreads);
+  const int blocks = make_kit(kit, n, ops, ptrs, f, iv, kKickB, kSnareB);
   if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
-  kit_drive_kernel<<<blocks, kThreads, 0, as_stream(stream)>>>(kit, fbws_coefs(coefs));
+  kit_drive_kernel<<<blocks, kDrvThreads, 0, as_stream(stream)>>>(kit, fbws_coefs(coefs));
   return static_cast<int>(cudaGetLastError());
 }
 

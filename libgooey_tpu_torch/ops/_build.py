@@ -42,7 +42,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     # the staged kernels (and ws4): ..., R, B, rows per block, 16-byte copies
     "affine1_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
-    "pink_bank_launch": [_P] * 6 + [_I, _I, _P],
+    "pink_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "svf_bank_launch": [_P] * 10 + [_I] * 4 + [_P],
     "env_follow_bank_launch": [_P] * 5 + [_F, _F, _I, _I, _P],
     "fbws_bank_launch": [_P] * 6 + [_I, _I, _P],

@@ -33,15 +33,16 @@ All arrays are float32 in the JAX package's ``[V, B]`` layout; masks are
 bool ``[V, B]``.  What bounds each kernel on the card and what its design does
 about it is in the header of its CUDA source.  Every recurrence runs one
 thread per row with the state in registers, in the Pallas body's op order.
-``affine1_bank``, ``svf_bank`` and ``linrec2_bank`` are staged
-(``csrc/row_stage.cuh``): a block walks up to 32 rows from 64-sample tiles
-that its other warps copy into shared memory ahead of the walk (the SVF's
-reset mask as bytes), and :func:`stage_rows` sizes the blocks so that a
-launch spreads over the SMs; ``affine1_bank(None, ...)`` reads no floor
-array.  ``ws4_bank`` splits its 4x chain over the warps of a block of up
-to 32 rows: the up-walk, the shaper with the drive's gain, the down-walk.
-The other four read device memory directly, 128 rows a block, which at the
-kit's bank sizes fills 8-32 of the 132 SMs.
+``affine1_bank``, ``pink_bank``, ``svf_bank`` and ``linrec2_bank`` are
+staged (``csrc/row_stage.cuh``): a block walks up to 32 rows from 64-sample
+tiles that its other warps copy into shared memory ahead of the walk (the
+pink filter's and the SVF's reset masks as bytes), and :func:`stage_rows`
+sizes the blocks so that a launch spreads over the SMs;
+``affine1_bank(None, ...)`` reads no floor array.  ``ws4_bank`` splits its
+4x chain over the warps of a block of up to 32 rows: the up-walk, the
+shaper with the drive's gain, the down-walk.  ``env_follow_bank`` and
+``fbws_bank`` read device memory directly, a thread a row in blocks of 128,
+which at the kick's 4,096 rows fills 32 of the 132 SMs.
 """
 
 from __future__ import annotations
@@ -156,8 +157,8 @@ STAGE_MAX_ROWS = 32
 
 
 def stage_rows(R: int, n_sm: int) -> int:
-    """Rows per block of a staged kernel (``affine1_bank``, ``svf_bank``,
-    ``linrec2_bank``) and of ``ws4_bank``: the fewest that keep a launch of
+    """Rows per block of a staged kernel (``affine1_bank``, ``pink_bank``,
+    ``svf_bank``, ``linrec2_bank``) and of ``ws4_bank``: the fewest that keep a launch of
     ``R`` rows within one block per SM, at most one warp, so the launch
     spreads over ``min(R, n_sm)`` SMs (4 at 512 rows on 132 SMs, 8 at 1,024,
     20 at 2,560, 32 at 4,096; 1 at one row)."""
@@ -263,7 +264,7 @@ def pink_bank(w, reset, fstate, *, poles, gains, direct, outg):
     keep, coefs = _host_floats([*poles, *gains, direct, outg])
     _launch("pink_bank", w.device, "pink_bank_launch",
             w.data_ptr(), _ptr(reset), fstate.data_ptr(), pink.data_ptr(),
-            fout.data_ptr(), coefs, V, B)
+            fout.data_ptr(), coefs, V, B, *_stage_args(V, B, w.device, w, pink))
     del keep
     pink_bank.launches += 1
     return pink, fout

@@ -35,8 +35,10 @@ through the port's plain sample-sequential recurrences
 (``bank_kernels.*_plain``).  ``kit_sources`` gives each voice row a
 block that computes the per-sample stages on every thread and steps each
 recurrence on one lane (the header of ``csrc/voice_kernels.cu``);
-``kit_drive`` steps one voice row per thread.  Both keep the per-sample op
-order, and ``kit_sources`` gives its plain version bit for bit on the card.
+``kit_drive`` gives each voice row a block too, its 4x chain's up- and
+down-walks on lanes of their own and the per-sample work on the other
+warps, 32-sample chunks a step apart.  Both keep the per-sample op order
+and give their plain versions bit for bit on the card.
 The Pallas bodies solve the linear recurrences with log-depth lane scans,
 so the JAX package and the port differ at scan-reassociation level (<= 6e-6
 on the output at V = 5, tests/test_torch_kit_fused.py).  Every constant

@@ -83,6 +83,21 @@ def test_pink_bank_matches_jax():
     assert err(fj, ft) <= 1e-6
 
 
+def test_pink_bank_without_a_mask_matches_jax():
+    """hihat2's call: no reset mask (the kernel instantiates no mask code)."""
+    rs = np.random.RandomState(22)
+    poles, gains = jnoise.coefficients(SR)
+    kw = dict(poles=tuple(map(float, poles)), gains=tuple(map(float, gains)),
+              direct=float(jnoise.DIRECT_GAIN), outg=float(jnoise.OUTPUT_GAIN))
+    w = rs.uniform(-1, 1, (V, B)).astype(np.float32)
+    fstate = (0.3 * rs.randn(V, 3)).astype(np.float32)
+    pj, fj = pallas_fx.pink_bank(w, None, fstate, interpret=True, **kw)
+    pt, ft = bk.pink_bank(T(w), None, T(fstate), **kw)
+    assert err(pj, pt) <= 1e-6
+    assert err(fj, ft) <= 1e-6
+    assert float(np.abs(fj).max()) > 0.1
+
+
 def test_svf_bank_matches_jax():
     rs = np.random.RandomState(12)
     x = rs.randn(V, B).astype(np.float32)

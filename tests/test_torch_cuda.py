@@ -138,11 +138,23 @@ def _ws4_rows(rs, t, R, B):
     return t(0.6 * rs.randn(R, B)), t(drive), t(0.1 * rs.randn(bk.FBWS_S_IN, R))
 
 
+def _pink_rows(rs, t, R, B, resets=True):
+    """pink_bank arguments and keywords: white noise, trigger resets (and on
+    the first and the last sample of every 7th row) or no mask."""
+    reset = rs.rand(R, B) < 0.01
+    reset[::7, 0] = reset[::7, -1] = True
+    return ((t(rs.uniform(-1, 1, (R, B))), t(reset, torch.bool) if resets else None,
+             t(0.1 * rs.randn(R, 3))),
+            dict(poles=(0.99765, 0.963, 0.57), gains=(0.099046, 0.2965164, 1.0526913),
+                 direct=0.1848, outg=0.11))
+
+
 def _staged_cases(dev, R, B, seed=1):
-    """``(name, args)`` of the staged kernels and ws4_bank: affine1_bank
-    with a live floor (hihat2's tracker) and with none, svf_bank with a
-    reset mask and without, linrec2_bank's resonator rows, ws4_bank's
-    overdrive."""
+    """``(name, args, kwargs)`` of the staged kernels and ws4_bank:
+    affine1_bank with a live floor (hihat2's tracker) and with none,
+    svf_bank with a reset mask and without, linrec2_bank's resonator rows,
+    ws4_bank's overdrive, pink_bank with a reset mask (the kick's) and
+    without (hihat2's)."""
     rs = np.random.RandomState(seed)
 
     def t(a, dtype=torch.float32):
@@ -151,22 +163,24 @@ def _staged_cases(dev, R, B, seed=1):
     target = np.abs(0.5 * rs.randn(R, B))
     return [
         ("affine1_bank", (t(target), t(np.where(rs.rand(R, B) < 0.01, 0.0, 0.9995)),
-                          t(0.0005 * target), t(np.abs(0.1 * rs.randn(R))))),
+                          t(0.0005 * target), t(np.abs(0.1 * rs.randn(R)))), {}),
         ("affine1_bank", (None, t(rs.uniform(-0.99, 0.99, (R, B))), t(rs.randn(R, B)),
-                          t(rs.randn(R)))),
-        ("svf_bank", _svf_rows(rs, t, R, B)),
-        ("svf_bank", _svf_rows(rs, t, R, B, resets=False)),
-        ("linrec2_bank", _resonator_rows(rs, t, R, B)),
-        ("ws4_bank", _ws4_rows(rs, t, R, B)),
+                          t(rs.randn(R))), {}),
+        ("svf_bank", _svf_rows(rs, t, R, B), {}),
+        ("svf_bank", _svf_rows(rs, t, R, B, resets=False), {}),
+        ("linrec2_bank", _resonator_rows(rs, t, R, B), {}),
+        ("ws4_bank", _ws4_rows(rs, t, R, B), {}),
+        ("pink_bank", *_pink_rows(rs, t, R, B)),
+        ("pink_bank", *_pink_rows(rs, t, R, B, resets=False)),
     ]
 
 
 def _assert_staged_equal_plain(cases):
-    """Every output, the carried state among them (ic1/ic2, ws4's [100, V]
-    packed state with its captures), bit for bit."""
-    for name, args in cases:
-        got = getattr(bk, name)(*args)
-        want = getattr(bk, name + "_plain")(*args)
+    """Every output, the carried state among them (ic1/ic2, the pink poles,
+    ws4's [100, V] packed state with its captures), bit for bit."""
+    for name, args, kw in cases:
+        got = getattr(bk, name)(*args, **kw)
+        want = getattr(bk, name + "_plain")(*args, **kw)
         torch.cuda.synchronize()
         assert len(got) == len(want)
         for i, (g, w) in enumerate(zip(got, want)):
@@ -190,8 +204,8 @@ def test_staged_kernels_take_unaligned_rows(dev):
     def shifted(a):
         return None if a is None else torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
 
-    cases = [(name, tuple(map(shifted, args))) for name, args in _staged_cases(dev, R, B)]
-    assert not any(bk.copies_16b(B, *args) for _, args in cases)
+    cases = [(name, tuple(map(shifted, args)), kw) for name, args, kw in _staged_cases(dev, R, B)]
+    assert not any(bk.copies_16b(B, *args) for _, args, _ in cases)
     _assert_staged_equal_plain(cases)
 
 
@@ -789,6 +803,28 @@ def test_kit_sources_is_bit_equal_to_its_plain_version(dev, kit, B):
     torch.cuda.synchronize()
     for ph, g, w in zip(phases, got, want):
         assert _bits_equal(g, w), ph.name
+
+
+@pytest.mark.parametrize("B", [512, 100, 37])
+@pytest.mark.parametrize("kit", [dict.fromkeys(_ODD_KIT, 1), _ODD_KIT, _PRODUCT_KIT,
+                                 dict.fromkeys(_ODD_KIT, 128)],
+                         ids=["one_a_family", "odd", "product", "128_a_family"])
+def test_kit_drive_is_bit_equal_to_its_plain_version(dev, kit, B):
+    """kit_drive (a block per voice row, 32-sample chunks pipelined over
+    warps: the up-walk, the shaper, the down-walk with the kick's DC blocker
+    and feedback filter, the finish) gives its plain version's outputs and
+    carried state bit for bit, with B not a multiple of the chunk, a family
+    of one voice and the kit path's 128."""
+    import chip_smoke
+
+    from libgooey_tpu_torch.ops import voice_kernels as vk
+
+    _, phases = chip_smoke.kit_phases(dev, kit, B)
+    got, want = vk.kit_drive(phases), vk.kit_drive_plain(phases)
+    torch.cuda.synchronize()
+    for ph, g, w in zip(phases, got, want):
+        assert _bits_equal(g, w), ph.name
+    assert float(got[0][0].abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("B", [512, 100, 33])

@@ -16,9 +16,9 @@ product kit, one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
 ``chip_smoke.bus_cases`` at 512, 100 and 33 samples; the staged bank
 kernels and ``ws4_bank`` at 1, 5, 130 and 515 rows of 512, 100 and 37
 samples and with unaligned inputs (``BANK_SHAPES``), rows per block as on
-132 SMs.  A build whose ``svf_bank`` / ``ws4_bank`` entries take the
-arguments they took before those kernels were redesigned (its tree's
-``ops/_build.py`` says so) is called that way
+132 SMs.  A build whose ``pink_bank`` / ``svf_bank`` / ``ws4_bank`` entries
+take the arguments they took before those kernels were redesigned (its
+tree's ``ops/_build.py`` says so) is called that way
 (``tools/torch_kernel_ab.older_args``).  A restructuring that moves work
 between threads but keeps every per-sample operation gives the other
 build's bits; exits 1 where it does not.  (The host's libm stands in for
@@ -48,7 +48,7 @@ BANK_SHAPES = ((1, 512), (5, 100), (130, 512), (515, 100), (515, 37))
 BANK_UNALIGNED = (515, 128)
 #: the bank kernels whose plain versions give the kernels' bits on the CPU
 #: too (no transcendental: the host's libm is not the card's)
-BANK_EXACT_ON_CPU = ("affine1_bank", "svf_bank", "linrec2_bank")
+BANK_EXACT_ON_CPU = ("affine1_bank", "pink_bank", "svf_bank", "linrec2_bank")
 
 
 def translate(src: str) -> str:
@@ -130,10 +130,11 @@ def same_bits(a, b) -> bool:
 
 
 def bank_ab_cases(dev, shapes, unaligned_shape):
-    """``(label, name, args)`` of the staged bank kernels and ws4_bank at
-    each ``(rows, samples)``: affine1_bank with a live floor and with none,
-    svf_bank with resets and without, linrec2_bank's resonators, ws4_bank's
-    overdrive; then each with every input 4 bytes past a 16-byte boundary."""
+    """``(label, name, args, kwargs)`` of the staged bank kernels and
+    ws4_bank at each ``(rows, samples)``: affine1_bank with a live floor and
+    with none, pink_bank with resets and without, svf_bank with resets and
+    without, linrec2_bank's resonators, ws4_bank's overdrive; then each with
+    every input 4 bytes past a 16-byte boundary."""
     import torch
 
     import chip_smoke as cs
@@ -150,22 +151,25 @@ def bank_ab_cases(dev, shapes, unaligned_shape):
         keep = np.where(rs.rand(R, B) < 0.01, 0.0, 1.0)
         return [
             ("affine1_bank", (t(target), t(np.where(rs.rand(R, B) < 0.01, 0.0, 0.9995)),
-                              t(0.0005 * target), t(np.abs(0.1 * rs.randn(R))))),
+                              t(0.0005 * target), t(np.abs(0.1 * rs.randn(R)))), {}),
             ("affine1_bank", (None, t(rs.uniform(-0.99, 0.99, (R, B))), t(rs.randn(R, B)),
-                              t(rs.randn(R)))),
-            ("svf_bank", cs.svf_rows(rs, t, R, B)),
-            ("svf_bank", cs.svf_rows(rs, t, R, B, resets=False)),
+                              t(rs.randn(R))), {}),
+            ("pink_bank", *cs.pink_rows(rs, t, R, B)),
+            ("pink_bank", *cs.pink_rows(rs, t, R, B, resets=False)),
+            ("svf_bank", cs.svf_rows(rs, t, R, B), {}),
+            ("svf_bank", cs.svf_rows(rs, t, R, B, resets=False), {}),
             ("linrec2_bank", (t(2 * np.cos(w) / (1 + alpha) * keep),
                               t(-(1 - alpha) / (1 + alpha) * keep), t(keep),
                               t(np.zeros((R, B))), t(0.002 * rs.randn(R, B)),
                               t(np.zeros((R, B))), t(0.01 * rs.randn(R)),
-                              t(0.01 * rs.randn(R)))),
-            ("ws4_bank", cs.ws4_rows(rs, t, R, B)),
+                              t(0.01 * rs.randn(R))), {}),
+            ("ws4_bank", cs.ws4_rows(rs, t, R, B), {}),
         ]
 
-    cases = [(f"R={R}, B={B}", name, a) for R, B in shapes for name, a in rows(R, B)]
+    cases = [(f"R={R}, B={B}", name, a, kw) for R, B in shapes for name, a, kw in rows(R, B)]
     R, B = unaligned_shape
-    cases += [(f"R={R}, B={B}, unaligned", name, cs.unaligned(a)) for name, a in rows(R, B)]
+    cases += [(f"R={R}, B={B}, unaligned", name, cs.unaligned(a), kw)
+              for name, a, kw in rows(R, B)]
     return cases
 
 
@@ -231,13 +235,13 @@ def main(argv=None) -> int:
     # the bank kernels on CPU tensors: launch as on a card of 132 SMs
     bk._on_cuda = lambda name, t: True
     bk._sm_count = lambda index: 132
-    for label, name, a in bank_ab_cases("cpu", BANK_SHAPES, BANK_UNALIGNED):
+    for label, name, a, kw in bank_ab_cases("cpu", BANK_SHAPES, BANK_UNALIGNED):
         kern = getattr(bk, name)
-        case(f"{name} {label}", both(bk, lambda: kern(*a)))
+        case(f"{name} {label}", both(bk, lambda: kern(*a, **kw)))
         if name in BANK_EXACT_ON_CPU:
             bk._launch = launcher(*builds[-1])
             case(f"{name} {label} against its plain version",
-                 same_bits(kern(*a), getattr(bk, name + "_plain")(*a)))
+                 same_bits(kern(*a, **kw), getattr(bk, name + "_plain")(*a, **kw)))
     print(f"{len(failed)} different" if failed else "all bit-equal")
     return 1 if failed else 0
 

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Copies of the kernel sources with parts of ``ws4_bank`` cut out, for
-timing those parts alone on the card with ``tools/torch_kernel_ab.py``.
+"""Copies of the kernel sources with parts of ``ws4_bank`` or ``kit_drive``
+cut out, for timing those parts alone on the card with
+``tools/torch_kernel_ab.py``.
 
     python3 tools/kernel_probes.py OUT_DIR [CSRC]
 
 Writes one directory per probe under ``OUT_DIR`` (inside the copied repo,
 e.g. ``chip_checkout/``), each a copy of ``CSRC`` (default: this tree's
-``libgooey_tpu_torch/csrc``) with lines of ``ws4_bank_kernel`` replaced:
-``walks_only`` (no copies, no shaper: the up- and down-walks on whatever
-shared memory holds), ``up_only`` and ``down_only`` (one walk), and
-``shape_copy`` (no walks: the shaper with the drive's gain and the
-copies).  Their outputs are wrong; only their times mean anything.  Pass
-the directories to ``tools/torch_kernel_ab.py --only ws4_bank``.
+``libgooey_tpu_torch/csrc``) with lines of one kernel replaced.
+``ws4_bank_kernel`` (``bank_kernels.cu``): ``walks_only`` (no copies, no
+shaper: the up- and down-walks on whatever shared memory holds),
+``up_only`` and ``down_only`` (one walk), and ``shape_copy`` (no walks: the
+shaper with the drive's gain and the copies).  ``kit_drive``'s
+``drive_row`` (``voice_kernels.cu``): ``drive_walks`` (no per-sample
+inputs, shaper or finish: the two walks, with the kick's DC blocker and
+feedback filter) and ``drive_stages`` (no walks: the per-sample inputs,
+the shaper and the finish).  Their outputs are wrong; only their times mean
+anything.  Pass the directories to ``tools/torch_kernel_ab.py --only
+ws4_bank`` or ``--only kit_drive``.
 """
 
 from __future__ import annotations
@@ -33,11 +39,22 @@ NO_COPIES = [
 NO_SHAPER = [("if (j >= 1 && j <= n_chunks) {", "if (false) {")]
 NO_UP = [("if (walks && j < n_chunks) {", "if (false) {")]
 NO_DOWN = [("if (walks && j >= 2) {", "if (false) {")]
+NO_DRIVE_STAGES = [
+    ("if (warp == 2 && lane < len(0)) b.input(sm.ps[0], lane, lane);", ";"),
+    ("if (c < n_chunks && lane < len(c)) b.input(", "if (false) b.input("),
+    ("} else if (j >= 3 && lane < len(j - 3)) {", "} else if (false) {"),
+    ("if (warp == 3 && lane < len(c)) {", "if (false) {"),
+    ("if (j >= 1 && j <= n_chunks) {", "if (false) {"),
+]
+NO_DRIVE_WALKS = [("if (j < n_chunks) {", "if (false) {"), ("if (j >= 2) {", "if (false) {")]
+#: probe -> (the source it edits, its edits)
 PROBES = {
-    "walks_only": NO_COPIES + NO_SHAPER,
-    "up_only": NO_COPIES + NO_SHAPER + NO_DOWN,
-    "down_only": NO_COPIES + NO_SHAPER + NO_UP,
-    "shape_copy": NO_UP + NO_DOWN,
+    "walks_only": ("bank_kernels.cu", NO_COPIES + NO_SHAPER),
+    "up_only": ("bank_kernels.cu", NO_COPIES + NO_SHAPER + NO_DOWN),
+    "down_only": ("bank_kernels.cu", NO_COPIES + NO_SHAPER + NO_UP),
+    "shape_copy": ("bank_kernels.cu", NO_UP + NO_DOWN),
+    "drive_walks": ("voice_kernels.cu", NO_DRIVE_STAGES),
+    "drive_stages": ("voice_kernels.cu", NO_DRIVE_WALKS),
 }
 
 
@@ -48,16 +65,16 @@ def main(argv=None) -> int:
         return 2
     out_root = Path(args[0])
     src = Path(args[1]) if len(args) > 1 else ROOT / "libgooey_tpu_torch/csrc"
-    for name, edits in PROBES.items():
-        text = (src / "bank_kernels.cu").read_text()
+    for name, (source, edits) in PROBES.items():
+        text = (src / source).read_text()
         for old, new in edits:
             if text.count(old) != 1:
-                raise SystemExit(f"{name}: the source no longer holds {old!r} once")
+                raise SystemExit(f"{name}: {source} no longer holds {old!r} once")
             text = text.replace(old, new)
         out = out_root / name
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(src, out)
-        (out / "bank_kernels.cu").write_text(text)
+        (out / source).write_text(text)
         print(out)
     return 0
 

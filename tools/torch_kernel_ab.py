@@ -11,14 +11,16 @@ unpacked with ``git archive``):
 Each directory is built as the port builds its own (``ops/_build.py``'s
 flags, one nvcc per source) into ``libgooey_tpu_torch/_build/ab_<name>/``
 and loaded beside this tree's library; the wrappers launch one or the
-other.  A build whose ``svf_bank`` or ``ws4_bank`` entry takes the
-arguments it took before those kernels were redesigned (its tree's
+other.  A build whose ``pink_bank``, ``svf_bank`` or ``ws4_bank`` entry
+takes the arguments it took before those kernels were redesigned (its tree's
 ``ops/_build.py`` beside the directory says so) is called that way
 (:func:`older_args`).  Cases, at the main path's shapes
-(``chip_smoke.py``'s inputs): ``svf_bank`` and ``ws4_bank`` at every
-phase-3 case (the path's shapes, then the tails), ``affine1_bank`` and
-``linrec2_bank`` likewise (their staging header is shared), ``kit_sources``
-at the product kit and with each of its families alone, ``bus_chain`` with
+(``chip_smoke.py``'s inputs): ``pink_bank``, ``svf_bank`` and ``ws4_bank``
+at every phase-3 case (the path's shapes, then the tails), ``affine1_bank``
+and ``linrec2_bank`` likewise (their staging header is shared),
+``kit_sources`` at the product kit and with each of its families alone,
+``kit_drive`` at the product kit, with each of its bodies alone and at
+``chip_smoke.TAIL_KITS``, ``bus_chain`` with
 the kit's seven phases, the first four and the product chain's ten, and
 each bus phase's own kernel.  Every case prints whether each build gives
 this tree's outputs bit for bit, and each build's device time per call
@@ -98,14 +100,17 @@ def signatures(csrc: Path) -> dict:
 
 def older_args(entry, args, sigs, gain):
     """This tree's arguments of C entry ``entry`` as a build with argument
-    types ``sigs`` takes them: before the redesign ``svf_bank_launch`` took
-    no rows per block or 16-byte flag, and ``ws4_bank_launch`` took neither
-    and the drive's ``(d, comp)`` from its wrapper instead of the drive;
-    ``gain(drive_ptr, V, B)`` gives pointers to those two."""
+    types ``sigs`` takes them: before the redesign ``pink_bank_launch`` and
+    ``svf_bank_launch`` took no rows per block or 16-byte flag, and
+    ``ws4_bank_launch`` took neither and the drive's ``(d, comp)`` from its
+    wrapper instead of the drive; ``gain(drive_ptr, V, B)`` gives pointers
+    to those two."""
     from libgooey_tpu_torch.ops import _build
 
     if len(sigs[entry]) == len(_build.SIGNATURES[entry]):
         return args
+    if entry == "pink_bank_launch":
+        return args[:8]
     if entry == "svf_bank_launch":
         return args[:12]
     if entry == "ws4_bank_launch":
@@ -125,8 +130,9 @@ def same_bits(a, b) -> bool:
 
 
 class OlderEntries:
-    """A library whose ``svf_bank`` / ``ws4_bank`` entries take their older
-    arguments, called with this tree's (see :func:`older_args`)."""
+    """A library whose ``pink_bank`` / ``svf_bank`` / ``ws4_bank`` entries
+    take their older arguments, called with this tree's (see
+    :func:`older_args`)."""
 
     def __init__(self, lib, sigs, drives):
         self.lib, self.sigs, self.drives, self.keep = lib, sigs, drives, []
@@ -198,15 +204,21 @@ def main(argv=None) -> int:
         print(f"{label}: bit-equal to this tree: {equal}; device us/call: {text}", flush=True)
 
     for name, shape, args, kw, _ in cs.kernel_cases(dev):
-        if name in ("svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank"):
+        if name in ("pink_bank", "svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank"):
             if name == "ws4_bank":
                 drives[args[1].data_ptr()] = args[1]
             case(f"{name} {shape}",
                  lambda name=name, args=args, kw=kw: getattr(bk, name)(*args, **kw))
-    sources, _ = cs.kit_phases(dev)
+    sources, drive = cs.kit_phases(dev)
     case(f"kit_sources {cs.kit_label(cs.PRODUCT_KIT, cs.B)}", lambda: vk.kit_sources(sources))
     for ph in sources:
         case(f"kit_sources, {ph.name} alone", lambda ph=ph: vk.kit_sources([ph]))
+    case(f"kit_drive {cs.kit_label(cs.PRODUCT_KIT, cs.B)}", lambda: vk.kit_drive(drive))
+    for ph in drive:
+        case(f"kit_drive, {ph.name} alone", lambda ph=ph: vk.kit_drive([ph]))
+    for kit, b in cs.TAIL_KITS:
+        tail = cs.kit_phases(dev, kit, b)[1]
+        case(f"kit_drive {cs.kit_label(kit, b)}", lambda tail=tail: vk.kit_drive(tail))
     singles, runs = cs.bus_cases(dev, np.random.RandomState(cs.SEED), cs.B)
     for label, (x, phases) in list(runs.items())[:3]:
         case(f"bus_chain {label}", lambda x=x, phases=phases: bus.bus_chain(x, phases))
