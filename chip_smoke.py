@@ -38,8 +38,14 @@ Phases (any failure exits non-zero):
    1,024 without, ``ws4_bank`` (its 4x chain split over warps) at 1,024
    and 512 rows and the granulator's one row, all three at 515 rows of 100
    and 99 samples and with inputs 4 bytes past a 16-byte boundary,
-   bit-equal; ``kit_sources``, ``kit_drive`` and ``bus_chain``, bit-equal
-   too, at their tails: ``bus_chain`` at B with one phase, twelve (two
+   bit-equal; ``env_follow_bank`` (staged, its freeze mask as bytes) at
+   the kick slice's 4,096 rows, bus7's 1,024, the product kit's 16, 515
+   rows of 100 and 99 samples and unaligned, bit-equal; ``plate_block``
+   (a block of 512 threads, chunks of samples a thread each) at the main
+   path's block, at 100 and 33 samples, with its modulated lags falling to
+   1 (serial chunks), at 22,050 and 96,000 Hz, bit-equal;
+   ``kit_sources``, ``kit_drive`` and ``bus_chain``, bit-equal too, at
+   their tails: ``bus_chain`` at B with one phase, twelve (two
    delays, one after the spring) and nine (two delays, the spring last),
    and at 100 and 33 samples with 1, 4, 7, 9, 10 and 12; the kit kernels
    with one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
@@ -179,7 +185,7 @@ STATE_TOL = 1e-4
 
 #: the redesigned kernels: bit-equal to their plain versions at every case
 EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources",
-         "kit_drive", "bus_chain")
+         "kit_drive", "bus_chain", "plate_block", "env_follow_bank")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -228,10 +234,12 @@ OPS_PER_ROW_SAMPLE = {
 #: ws4_bank: a stage-2 allpass section, stepped twice a sample, 3 each;
 #: affine1_bank: multiply, add, max; linrec2_bank: fma, add; pink_bank: a
 #: pole's multiply, the reset's select, the add; kit_drive: its 4x chain's,
-#: as ws4_bank's), and the latency of one float32 operation on the card, in
-#: cycles
+#: as ws4_bank's; env_follow_bank: r - env, the multiply, the add, the
+#: flush's compare and select, the freeze select; plate_block: the
+#: bandwidth filter's multiply and add), and the latency of one float32
+#: operation on the card, in cycles
 CHAIN_OPS_PER_SAMPLE = {"svf_bank": 9, "ws4_bank": 6, "affine1_bank": 3, "linrec2_bank": 2,
-                        "pink_bank": 3, "kit_drive": 6}
+                        "pink_bank": 3, "kit_drive": 6, "env_follow_bank": 6, "plate_block": 2}
 CHAIN_CYCLES_PER_OP = 4
 #: the kit kernels' operations per row-sample, by body: the kick's and the
 #: snare's additive triangles (32 harmonics x ~11 at max_harmonics = 64)
@@ -241,8 +249,8 @@ OPS_PER_BODY_SAMPLE = {"kick_a": 500, "snare_a": 480, "hihat2": 220, "bass": 260
                        "kick_b": 130, "snare_b": 140}
 #: the product kit (__graft_entry__.entry), in the engine's family order
 PRODUCT_KIT = {"kick": 16, "snare": 16, "hihat2": 16, "tom2": 8, "bass": 8}
-#: phase 3's tails of the redesigned kernels: bus_chain's block sizes past
-#: the main path's, and kit_sources' kits (one voice a family, odd counts,
+#: phase 3's tails of the redesigned kernels: bus_chain's and plate_block's
+#: block sizes past the main path's, and kit_sources' kits (one voice a family, odd counts,
 #: the kit path's most, ops/voice.py MAX_FUSED_VOICES) with their block sizes
 TAIL_BLOCKS = (100, 33)
 ODD_KIT = {"kick": 5, "snare": 3, "hihat2": 7, "tom2": 1, "bass": 2}
@@ -537,6 +545,18 @@ def kernel_cases(dev):
         cases.append(("pink_bank", f"V=515, B={b}, resets", *pink_rows(rs, t, 515, b), 1))
         cases.append(("svf_bank", f"V=515, B={b}, resets", svf_rows(rs, t, 515, b), {}, 2))
         cases.append(("ws4_bank", f"V=515, B={b}", ws4_rows(rs, t, 515, b), {}, 1))
+    #     env_follow_bank at bus7's 1,024 rows and the product kit's 16, at
+    #     515 rows of 100 and 99 samples, and unaligned
+    for rows, b in ((1024, B), (16, B), (515, 100), (515, 99)):
+        cases.append(("env_follow_bank", f"V={rows}, B={b}, freezes",
+                      *env_rows(rs, t, rows, b), 1))
+    args, kw = env_rows(rs, t, 515, 128)
+    cases.append(("env_follow_bank", "V=515, B=128, freezes, unaligned", unaligned(args), kw,
+                  1))
+    #     plate_block at 100 and 33 samples, with its modulated lags falling
+    #     to 1, at 22,050 and 96,000 Hz
+    for label, args, kw in plate_cases(dev):
+        cases.append(("plate_block", label, args, kw, 4))
     args, kw = pink_rows(rs, t, 515, 128)
     cases.append(("pink_bank", "V=515, B=128, resets, unaligned", unaligned(args), kw, 1))
     cases.append(("svf_bank", "V=515, B=128, resets, unaligned",
@@ -601,6 +621,76 @@ def unaligned(args):
                  for a in args)
 
 
+def env_rows(rs, t, rows, b):
+    """env_follow_bank ``(arguments, keywords)``: a rectified signal, freezes
+    (p = 0.1, and on the first and the last sample of every 7th row), a
+    random carried envelope, the feedback waveshaper's coefficients at
+    ``SR``."""
+    import torch
+
+    from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
+
+    att, rel = fbws.env_coeffs(SR)
+    freeze = rs.rand(rows, b) < 0.1
+    freeze[::7, 0] = freeze[::7, -1] = True
+    return ((t(np.abs(0.5 * rs.randn(rows, b))), t(freeze, torch.bool),
+             t(np.abs(0.1 * rs.randn(rows)))), dict(att=att, rel=rel))
+
+
+def plate_args(dev, rs, b, sr=SR, to_floor=False):
+    """plate_block ``(arguments, keywords)`` on filled histories at ``sr``:
+    the size knob moving 1.0 -> 0.0 in the block (the modulated lags
+    sweep); with ``to_floor`` the lags then fall to the clamp's floor of
+    1.0 over the block (the kernel walks such chunks serially)."""
+    import torch
+
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.effects import reverb_plate
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.float32)
+
+    srs = sr / reverb_plate.DATTORRO_SR
+    DIN, DMOD = reverb_plate.in_hist_len(sr), reverb_plate.mod_hist_len(sr)
+    q = np.float32(1.0 - smoothing_coeff(sr))
+    size = reverb_plate.size_to_scale(torch.as_tensor(
+        q ** np.arange(1, b + 1, dtype=np.float32))).numpy()
+    lfo = np.sin(2 * np.pi * (np.arange(1, b + 1) * np.array([[0.5], [0.71]]) / sr
+                              + [[0.2], [0.7]]))
+    mod_off = np.array([[672.0], [908.0]]) * srs * size + lfo * 16.0 * srs
+    if to_floor:
+        mod_off = mod_off * np.linspace(1.0, -0.2, b)
+    mod_off = np.clip(mod_off, 1.0, DMOD - 2.0)
+    rows = [rs.uniform(-0.5, 0.5, b) for _ in range(6)]
+    rows[3] = 0.95 * np.linspace(0.1, 0.6, b)
+    return ((*map(t, rows), t(mod_off), t(0.2 * rs.randn(4, DIN)), t(0.2 * rs.randn(2, DMOD)),
+             t([0.1, -0.05, 0.02])), dict(sample_rate=sr))
+
+
+def plate_label(args, kw, note="") -> str:
+    (b,), (_, DIN), (_, DMOD) = args[0].shape, args[7].shape, args[8].shape
+    sr = "" if kw["sample_rate"] == SR else f", {kw['sample_rate']:g} Hz"
+    return f"[{b}], in_hist [4, {DIN}], mod_hist [2, {DMOD}]{sr}{note}"
+
+
+#: plate_block's tails (samples, rate, lags falling to 1): a block size past
+#: whole chunks, one of a chunk's fraction, the serial chunks, 22,050 Hz (a
+#: chunk of 79) and 96,000 Hz (256, the longest histories)
+PLATE_TAILS = ((100, SR, False), (33, SR, False), (B, SR, True), (256, 22050.0, False),
+               (B, 96000.0, False))
+
+
+def plate_cases(dev):
+    """``(label, arguments, keywords)`` of plate_block at ``PLATE_TAILS``."""
+    rs = np.random.RandomState(SEED + 2)
+    cases = []
+    for b, sr, to_floor in PLATE_TAILS:
+        args, kw = plate_args(dev, rs, b, sr, to_floor)
+        note = ", modulated lags falling to 1 (serial chunks)" if to_floor else ""
+        cases.append((plate_label(args, kw, note), args, kw))
+    return cases
+
+
 def bus_cases(dev, rs, b):
     """The bus kernels' cases on one stereo block [2, b] (the plate's on its
     mono [b]), inputs drawn from ``rs`` in a fixed order, and the runs of
@@ -612,7 +702,7 @@ def bus_cases(dev, rs, b):
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
     from libgooey_tpu_torch.effects import compressor, delay
     from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
-    from libgooey_tpu_torch.effects import reverb_plate, reverb_spring, saturation
+    from libgooey_tpu_torch.effects import reverb_spring, saturation
     from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
     from libgooey_tpu_torch.ops import ringbuf
@@ -683,21 +773,8 @@ def bus_cases(dev, rs, b):
     cases.append(("spring_block", f"{bus_shape}, hist [12, {D}]", spring_args, spring_kw, 1))
     # 16. the plate's sub-block path on filled histories, the size knob
     #     moving 1.0 -> 0.0 in the block (the modulated lags sweep)
-    srs = SR / reverb_plate.DATTORRO_SR
-    DIN, DMOD = reverb_plate.in_hist_len(SR), reverb_plate.mod_hist_len(SR)
-    q = np.float32(1.0 - smoothing_coeff(SR))
-    size = reverb_plate.size_to_scale(torch.as_tensor(
-        q ** np.arange(1, b + 1, dtype=np.float32))).numpy()
-    lfo = np.sin(2 * np.pi * (np.arange(1, b + 1) * np.array([[0.5], [0.71]]) / SR
-                              + [[0.2], [0.7]]))
-    mod_off = np.clip(np.array([[672.0], [908.0]]) * srs * size + lfo * 16.0 * srs,
-                      1.0, DMOD - 2.0)
-    rows = [rs.uniform(-0.5, 0.5, b) for _ in range(6)]
-    rows[3] = 0.95 * np.linspace(0.1, 0.6, b)
-    cases.append(("plate_block", f"[{b}], in_hist [4, {DIN}], mod_hist [2, {DMOD}]",
-                  (*map(t, rows), t(mod_off), t(0.2 * rs.randn(4, DIN)),
-                   t(0.2 * rs.randn(2, DMOD)), t([0.1, -0.05, 0.02])),
-                  dict(sample_rate=SR), 4))
+    plate, plate_kw = plate_args(dev, rs, b)
+    cases.append(("plate_block", plate_label(plate, plate_kw), plate, plate_kw, 4))
     # the kit's seven bus phases as one run, each on the signal the one
     #     before it left (the delay without ping-pong, as the engine runs
     #     it; the gain stage on the detector's envelope), then the first

@@ -20,33 +20,34 @@
 // resonators, libgooey_tpu/ops/scan.py:49-58, and affine1's max composes
 // only for b >= 0).  Arrays are the port's logical [V, B] layout, row-major.
 //
-// affine1_bank, pink_bank, svf_bank and linrec2_bank (26, 2, 3 and 5
-// launches a block in full_kit_4096_bus7, at 512-2,560 rows) are staged
-// (row_stage.cuh): a block of 128 threads owns rc <= 32 rows, the wrapper
-// picks rc so that a launch spreads over the SMs (4 rows a block at 512
-// rows, 8 at 1,024, 20 at 2,560, 32 at 4,096 on 132 SMs; one block for one
-// row), warp 0 walks the rows from shared memory four samples at a time,
-// and warps 1-3 stream 64-sample chunks in with cp.async (pink_bank's and
-// svf_bank's reset masks as a byte tile) and the outputs out, coalesced,
-// ahead of and behind the walk.  They are bound by the serial chain at
-// 1-1,024 rows (512 dependent steps of ~12 cycles for pink, ~18 for affine1
-// and linrec2, ~35 for the SVF) and near their bytes bound at 2,560-4,096.
+// affine1_bank, pink_bank, svf_bank, env_follow_bank and linrec2_bank (26,
+// 2, 3, 1 and 5 launches a block in full_kit_4096_bus7, at 512-2,560 rows;
+// env_follow_bank also at 4,096 in the kick slice and 16 on the product
+// kit's path) are staged (row_stage.cuh): a block of 128 threads owns rc <=
+// 32 rows, the wrapper picks rc so that a launch spreads over the SMs (4
+// rows a block at 512 rows, 8 at 1,024, 20 at 2,560, 32 at 4,096 on 132
+// SMs; one block a row below 133 rows), warp 0 walks the rows from shared
+// memory four samples at a time, and warps 1-3 stream 64-sample chunks in
+// with cp.async (pink_bank's and svf_bank's reset masks and
+// env_follow_bank's freeze mask as a byte tile) and the outputs out,
+// coalesced, ahead of and behind the walk.  They are bound by the serial
+// chain at 1-1,024 rows (512 dependent steps of ~12 cycles for pink, ~18
+// for affine1 and linrec2, ~24 for the follower, ~35 for the SVF) and near
+// their bytes bound at 2,560-4,096.
 //
 // ws4_bank (2 launches a block in bus7, at 1,024 and 512 rows, and one at
 // one row in the granulator) splits its 4x chain over warps: the up-walk on
 // one, the shaper (with the drive gain) and the copies on two, the
 // down-walk on another, a chunk apart (its section below).
 //
-// The other two (env_follow, fbws, the mix aside) run a thread per row in
-// blocks of 128 straight from device memory: thread v reads x[v*B + n], so
-// a warp touches 32 cache lines per sample, each holding the next 31
-// samples of its row in L1, and every byte crosses DRAM once.  Per-voice
-// state arrays ([S, V]) are read and written coalesced.  At V = 4,096 a
-// launch is 32 blocks, so 32 of the 132 SMs hold one block each and the
-// rest idle; they are latency-bound on their serial B-step chain, fbws on 32
-// dependent allpass sections plus four tanhf per base sample.  Staging
-// env_follow (its freeze mask as bytes) and splitting fbws as ws4_bank is
-// split are the next steps.
+// fbws_bank (the mix aside) runs a thread per row in blocks of 128 straight
+// from device memory: thread v reads x[v*B + n], so a warp touches 32 cache
+// lines per sample, each holding the next 31 samples of its row in L1, and
+// every byte crosses DRAM once.  Its state arrays ([S, V]) are read and
+// written coalesced.  At V = 4,096 a launch is 32 blocks, so 32 of the 132
+// SMs hold one block each and the rest idle; it is latency-bound on its
+// serial B-step chain, 32 dependent allpass sections plus four tanhf per
+// base sample.  Splitting it as ws4_bank is split is the next step.
 //
 // Numerics: every step keeps the Pallas body's op order, and the build
 // passes -fmad=false so that a*b + c rounds twice, exactly as the plain
@@ -280,26 +281,63 @@ __global__ void __launch_bounds__(kStageThreads)
 }
 
 // --- 4. env_follow_bank: attack/release follower with freeze ---------------
+//
+// Staged (row_stage.cuh) with its freeze mask as a byte tile, as pink_bank's
+// resets are, but a set flag holds the state: a walker steps its row four
+// samples at a time from the float4s of rect and one 32-bit word of four
+// freeze flags, the next four already in registers, and writes env four at
+// a time.  1 - c is a select between 1 - att and 1 - rel, each rounded once
+// as the plain version rounds 1 - c, so the compare r > env and that select
+// run beside r - env.  The carried chain is ~6 dependent operations a
+// sample: r - env, the multiply, the add, the flush's compare and select,
+// the freeze select.
 
-__global__ void env_follow_bank_kernel(const float* __restrict__ rect,
-                                       const uint8_t* __restrict__ freeze,
-                                       const float* __restrict__ env0,
-                                       float* __restrict__ env_out,
-                                       float* __restrict__ env_last, float att,
-                                       float rel, int V, int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const size_t row = static_cast<size_t>(v) * B;
-  float env = env0[v];
-  for (int n = 0; n < B; ++n) {
-    const float r = rect[row + n];
-    const float c = r > env ? att : rel;
-    float nv = env + (1.0f - c) * (r - env);
-    if (fabsf(nv) < 1e-15f) nv = 0.0f;
-    if (freeze[row + n] == 0) env = nv;  // frozen samples hold the state
-    env_out[row + n] = env;
-  }
-  env_last[v] = env;
+__global__ void __launch_bounds__(kStageThreads)
+    env_follow_bank_kernel(const float* __restrict__ rect, const uint8_t* __restrict__ freeze,
+                           const float* __restrict__ env0, float* __restrict__ env_out,
+                           float* __restrict__ env_last, float att, float rel, int V, int B,
+                           int rc, int vec) {
+  const float* const src[1] = {rect};
+  float* const dst[1] = {env_out};
+  const RowSpan s = row_span(V, B, rc, vec);
+  const int v = s.row0 + threadIdx.x;
+  const bool live = threadIdx.x < s.rows;
+  const float keep_att = 1.0f - att, keep_rel = 1.0f - rel;
+  float env = live ? env0[v] : 0.0f;
+  auto walk = [&](const auto& in, const auto& out, const uint8_t* m, int len) {
+    // one sample: the follower's step, flushed below 1e-15, held where frozen
+    auto step = [&](uint32_t frozen, float r) {
+      float nv = env + (r > env ? keep_att : keep_rel) * (r - env);
+      nv = fabsf(nv) < 1e-15f ? 0.0f : nv;
+      env = frozen != 0 ? env : nv;
+      return env;
+    };
+    float4 rq = ld4(in[0]);
+    uint32_t fq = ld_flags(m);
+    // four samples, the next four loaded first (unit q+1 is at most the
+    // row's padding unit)
+    auto group = [&](int q) {
+      const float4 rn = ld4(in[0] + 4 * q + 4);
+      const uint32_t fn = ld_flags(m + 4 * q + 4);
+      float4 o;
+      o.x = step(fq & 0xffu, rq.x);
+      o.y = step(fq & 0xff00u, rq.y);
+      o.z = step(fq & 0xff0000u, rq.z);
+      o.w = step(fq & 0xff000000u, rq.w);
+      st4(out[0] + 4 * q, o);
+      rq = rn;
+      fq = fn;
+    };
+    const int full = len >> 2;
+    walk_groups(full, group);
+    const int rem = len & 3;   // only where B % 4 != 0: the last chunk's tail
+    float* o = out[0] + 4 * full;
+    if (rem > 0) o[0] = step(fq & 0xffu, rq.x);
+    if (rem > 1) o[1] = step(fq & 0xff00u, rq.y);
+    if (rem > 2) o[2] = step(fq & 0xff0000u, rq.z);
+  };
+  staged_rows_masked<true>(src, dst, freeze, s, walk);
+  if (live) env_last[v] = env;
 }
 
 // --- 5. fbws_bank: zero-feedback feedback waveshaper at 4x -----------------
@@ -688,11 +726,17 @@ int svf_bank_launch(const float* x, const float* g, const float* h,
                                  vec, stream);
 }
 
+// rc, vec as affine1_bank_launch's; the freeze mask is required.
 int env_follow_bank_launch(const float* rect, const uint8_t* freeze,
                            const float* env0, float* env, float* env_last,
-                           float att, float rel, int V, int B, void* stream) {
-  env_follow_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
-      rect, freeze, env0, env, env_last, att, rel, V, B);
+                           float att, float rel, int V, int B, int rc, int vec,
+                           void* stream) {
+  if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = stage_smem_bytes(1, 1, rc, true);
+  const cudaError_t err = allow_smem(env_follow_bank_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  env_follow_bank_kernel<<<dim3((V + rc - 1) / rc), kStageThreads, smem, as_stream(stream)>>>(
+      rect, freeze, env0, env, env_last, att, rel, V, B, rc, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

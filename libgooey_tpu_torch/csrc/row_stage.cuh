@@ -80,6 +80,11 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// Wait until all of this thread's copy groups have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(0));
+}
+
 // Wait until at most kStageRing - 2 of this thread's copy groups are pending.
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStageRing - 2));

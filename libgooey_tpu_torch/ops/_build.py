@@ -44,7 +44,7 @@ SIGNATURES = {
     "affine1_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "pink_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "svf_bank_launch": [_P] * 10 + [_I] * 4 + [_P],
-    "env_follow_bank_launch": [_P] * 5 + [_F, _F, _I, _I, _P],
+    "env_follow_bank_launch": [_P] * 5 + [_F, _F] + [_I] * 4 + [_P],
     "fbws_bank_launch": [_P] * 6 + [_I, _I, _P],
     # x, drive, state in, y, state out, coefficients (+ tanh(0.5)), V, B, rc, vec
     "ws4_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
@@ -59,8 +59,8 @@ SIGNATURES = {
     # floats and 16 ints, then the 4x chain's coefficients
     "bus_block_launch": [_P] * 7 + [_I, _P],
     "bus_chain_launch": [_P, _P, _I] + [_P] * 5 + [_I, _P],
-    # the plate: its 17 pointers, its constants and lags, DIN, DMOD, B
-    "plate_block_launch": [_P] * 3 + [_I, _I, _I, _P],
+    # the plate: its 17 pointers, its constants and lags, DIN, DMOD, B, the chunk
+    "plate_block_launch": [_P] * 3 + [_I] * 4 + [_P],
     # the kit kernels: n phases, then per phase (body, V, B), 26 pointers,
     # 24 floats and 8 ints, then the 4x chain's coefficients
     "kit_sources_launch": [_I] + [_P] * 5 + [_P],

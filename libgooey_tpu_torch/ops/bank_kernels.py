@@ -32,17 +32,17 @@ its plain version take the same arguments.
 All arrays are float32 in the JAX package's ``[V, B]`` layout; masks are
 bool ``[V, B]``.  What bounds each kernel on the card and what its design does
 about it is in the header of its CUDA source.  Every recurrence runs one
-thread per row with the state in registers, in the Pallas body's op order.
-``affine1_bank``, ``pink_bank``, ``svf_bank`` and ``linrec2_bank`` are
-staged (``csrc/row_stage.cuh``): a block walks up to 32 rows from 64-sample
-tiles that its other warps copy into shared memory ahead of the walk (the
-pink filter's and the SVF's reset masks as bytes), and :func:`stage_rows`
-sizes the blocks so that a launch spreads over the SMs;
-``affine1_bank(None, ...)`` reads no floor array.  ``ws4_bank`` splits its
-4x chain over the warps of a block of up to 32 rows: the up-walk, the
-shaper with the drive's gain, the down-walk.  ``env_follow_bank`` and
-``fbws_bank`` read device memory directly, a thread a row in blocks of 128,
-which at the kick's 4,096 rows fills 32 of the 132 SMs.
+thread with the state in registers, in the Pallas body's op order.
+``affine1_bank``, ``pink_bank``, ``svf_bank``, ``env_follow_bank`` and
+``linrec2_bank`` are staged (``csrc/row_stage.cuh``): a block walks up to 32
+rows from 64-sample tiles that its other warps copy into shared memory ahead
+of the walk (the pink filter's and the SVF's reset masks and the follower's
+freeze mask as bytes), and :func:`stage_rows` sizes the blocks so that a
+launch spreads over the SMs; ``affine1_bank(None, ...)`` reads no floor
+array.  ``ws4_bank`` splits its 4x chain over the warps of a block of up to
+32 rows: the up-walk, the shaper with the drive's gain, the down-walk.
+``fbws_bank`` reads device memory directly, a thread a row in blocks of
+128, which at the kick's 4,096 rows fills 32 of the 132 SMs.
 """
 
 from __future__ import annotations
@@ -158,10 +158,11 @@ STAGE_MAX_ROWS = 32
 
 def stage_rows(R: int, n_sm: int) -> int:
     """Rows per block of a staged kernel (``affine1_bank``, ``pink_bank``,
-    ``svf_bank``, ``linrec2_bank``) and of ``ws4_bank``: the fewest that keep a launch of
-    ``R`` rows within one block per SM, at most one warp, so the launch
-    spreads over ``min(R, n_sm)`` SMs (4 at 512 rows on 132 SMs, 8 at 1,024,
-    20 at 2,560, 32 at 4,096; 1 at one row)."""
+    ``svf_bank``, ``env_follow_bank``, ``linrec2_bank``) and of
+    ``ws4_bank``: the fewest that keep a launch of ``R`` rows within one
+    block per SM, at most one warp, so the launch spreads over ``min(R,
+    n_sm)`` SMs (4 at 512 rows on 132 SMs, 8 at 1,024, 20 at 2,560, 32 at
+    4,096; 1 at one row)."""
     return max(1, min(STAGE_MAX_ROWS, -(-R // n_sm)))
 
 
@@ -356,7 +357,8 @@ def env_follow_bank(rect, freeze, env0, *, att, rel):
     env, env_last = _empty((V, B), rect), _empty((V,), rect)
     _launch("env_follow_bank", rect.device, "env_follow_bank_launch",
             rect.data_ptr(), freeze.data_ptr(), env0.data_ptr(),
-            env.data_ptr(), env_last.data_ptr(), float(att), float(rel), V, B)
+            env.data_ptr(), env_last.data_ptr(), float(att), float(rel), V, B,
+            *_stage_args(V, B, rect.device, rect, env))
     env_follow_bank.launches += 1
     return env, env_last
 

@@ -15,10 +15,14 @@ the Pallas body's per-sample op order (the Pallas body solves the one-poles
 with log-depth scans, so it differs from it at float-noise level).  The
 wrapper counts its kernel launches in ``plate_block.launches``.
 
-The TPU kernel also takes per-chunk window bases for its one-hot MXU gather
-of the modulated reads; a thread on the card reads its ring at the lag
-directly, so they have no counterpart here (tests/test_torch_bus_kernels.py
-shows the results agree without them).
+The kernel is one block of 512 threads on the plain version's work rows:
+the one-poles walked on one lane each, then the input diffusion and the
+modulated allpasses in chunks of :func:`plate_chunk` samples, a thread a
+sample (a chunk whose modulated lags fall below its length walks
+serially).  The TPU kernel also takes per-chunk window bases for its
+one-hot MXU gather of the modulated reads; a thread on the card reads its
+work row at the lag directly, so they have no counterpart here
+(tests/test_torch_bus_kernels.py shows the results agree without them).
 """
 
 from __future__ import annotations
@@ -35,6 +39,12 @@ from libgooey_tpu_torch.ops.bus_kernels import _f32
 KERNELS = ("plate_block",)
 SOURCES = {"plate_block": "libgooey_tpu_torch/csrc/plate_kernels.cu"}
 REPLACES = {"plate_block": "libgooey_tpu/ops/pallas_fx.py:1270"}
+
+#: the kernel's chunk at most: a thread a (branch, sample) of a chunk's
+#: modulated allpasses, in a block of 512 (csrc/plate_kernels.cu)
+MAX_CHUNK = 256
+#: shared memory a block can take on Hopper (227 KB)
+MAX_SMEM_BYTES = 232_448
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,6 +71,22 @@ def plate_constants(sample_rate: float):
               + [_f32(g) for g in gains] + [_f32(1.0 - g * g) for g in gains]
               + [_f32(s) for s in sdir] + [_f32(o - w) for o, w in zip(in_lags, whole)])
     return tuple(floats), tuple(whole)
+
+
+def plate_chunk(sample_rate: float) -> int:
+    """The kernel's chunk: the smallest whole diffusion lag at
+    ``sample_rate``, so that no sample of a chunk reads a diffusion column
+    written in that chunk, capped at ``MAX_CHUNK`` (158 at 44.1 kHz)."""
+    return min(min(plate_constants(sample_rate)[1]), MAX_CHUNK)
+
+
+def smem_bytes(DIN: int, DMOD: int, B: int) -> int:
+    """The kernel's shared memory (``PlateLayout``): the work rows, their
+    pitches D + B rounded up to 4, and five [B] rows, four of them padded
+    by four floats."""
+    b4 = -(-B // 4) * 4
+    rows = -(-(4 * (DIN + b4) + 2 * (DMOD + b4)) // 4) * 4
+    return 4 * (rows + 5 * b4 + 16)
 
 
 def plate_block_plain(delayed_in, fb_a_t, fb_b_t, damping_t, d1a_read, d1b_read, mod_off,
@@ -145,6 +171,10 @@ def plate_block(delayed_in, fb_a_t, fb_b_t, damping_t, d1a_read, d1b_read, mod_o
     floats, lags = plate_constants(sample_rate)
     if max(lags) + 1 > DIN:
         raise ValueError(f"plate_block: diffusion lags {lags} do not fit a history of {DIN}")
+    smem = smem_bytes(DIN, DMOD, B)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"plate_block: B={B} with histories of {DIN} and {DMOD} needs {smem} "
+                         f"bytes of shared memory, more than a block has ({MAX_SMEM_BYTES})")
     labels = ("delayed_in", "fb_a_t", "fb_b_t", "damping_t", "d1a_read", "d1b_read")
     _check("plate_block", delayed_in.device,
            [(lb, t, _F32, (B,)) for lb, t in zip(labels, args)]
@@ -156,7 +186,7 @@ def plate_block(delayed_in, fb_a_t, fb_b_t, damping_t, d1a_read, d1b_read, mod_o
     c_floats = (ctypes.c_float * len(floats))(*floats)
     c_lags = (ctypes.c_int * len(lags))(*lags)
     _launch("plate_block", delayed_in.device, "plate_block_launch", ptrs, c_floats, c_lags,
-            DIN, DMOD, B)
+            DIN, DMOD, B, plate_chunk(sample_rate))
     plate_block.launches += 1
     return outs
 

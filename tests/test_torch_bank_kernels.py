@@ -149,6 +149,25 @@ def test_env_follow_bank_matches_jax():
     assert err(elj, elt) <= 1e-6
 
 
+@pytest.mark.parametrize("R,n", [(1, 128), (130, 100), (130, 99), (16, 512)])
+def test_env_follow_bank_tails_match_jax(R, n):
+    """One row, a tail of the kernel's 64-sample chunk (100), 4-byte copies
+    and the mask byte by byte (99), and the product kit's 16 rows, with
+    freezes on the first and the last sample of every row."""
+    rs = np.random.RandomState(R + n)
+    att, rel = jfw.env_coeffs(SR)
+    rect = np.abs(rs.randn(R, n)).astype(np.float32)
+    freeze = rs.rand(R, n) < 0.1
+    freeze[:, 0] = freeze[:, -1] = True
+    env0 = np.abs(rs.randn(R)).astype(np.float32)
+    ej, elj = pallas_fx.env_follow_bank(rect, freeze.astype(np.float32), env0,
+                                        att=att, rel=rel, interpret=True)
+    et, elt = bk.env_follow_bank(T(rect), T(freeze), T(env0), att=att, rel=rel)
+    assert et.shape == ej.shape
+    assert err(ej, et) <= 1e-6
+    assert err(elj, elt) <= 1e-6
+
+
 def test_fbws_bank_matches_jax_over_blocks():
     """Two blocks threaded through each package's pack/unpack: the dc output
     and every unpacked state field, including the ``*y2``/``*x2`` captures."""
@@ -308,7 +327,7 @@ def test_staged_launches_copy_16_bytes_only_where_every_row_is_aligned():
     assert not bk.copies_16b(100, x[:400].view(4, 100), x[1:401].view(4, 100))
 
 
-def _recorded_launch(monkeypatch, fn, *args, n_coefs=0):
+def _recorded_launch(monkeypatch, fn, *args, n_coefs=0, **kw):
     """The C entry's arguments of one launch of wrapper ``fn`` on CPU
     tensors, as on a card of 132 SMs (recorded, not run), and the first
     ``n_coefs`` floats of its host coefficient array, read during the call."""
@@ -325,7 +344,7 @@ def _recorded_launch(monkeypatch, fn, *args, n_coefs=0):
     monkeypatch.setattr(bk, "_sm_count", lambda index: 132)
     monkeypatch.setattr(bk, "_launch", record)
     launches = fn.launches
-    fn(*args)
+    fn(*args, **kw)
     fn.launches = launches
     (call,) = calls
     return call
@@ -346,6 +365,22 @@ def test_svf_bank_launches_staged(monkeypatch, R, n, rc, vec):
         assert a[10:] == (R, n, rc, vec) == (R, n, bk.stage_rows(R, 132), vec)
 
 
+@pytest.mark.parametrize("R,n,rc,vec", [(4096, 512, 32, 1), (1024, 512, 8, 1), (16, 512, 1, 1),
+                                        (515, 100, 4, 1), (515, 99, 4, 0)])
+def test_env_follow_bank_launches_staged(monkeypatch, R, n, rc, vec):
+    """``env_follow_bank`` passes its rows per block and 16-byte flag as the
+    staged kernels do (the freeze mask's copy width is the kernel's own
+    choice), the coefficients as float32 after them."""
+    rect, env0 = torch.zeros(R, n), torch.zeros(R)
+    freeze = torch.zeros(R, n, dtype=torch.bool)
+    entry, a, _ = _recorded_launch(monkeypatch, bk.env_follow_bank, rect, freeze, env0,
+                                   att=0.9776, rel=0.99981)
+    assert entry == "env_follow_bank_launch" and len(a) == 11
+    assert a[:3] == (rect.data_ptr(), freeze.data_ptr(), env0.data_ptr())
+    assert a[5:7] == (0.9776, 0.99981)
+    assert a[7:] == (R, n, rc, vec) == (R, n, bk.stage_rows(R, 132), vec)
+
+
 @pytest.mark.parametrize("R,n,rc,vec", [(1024, 512, 8, 1), (512, 512, 4, 1), (1, 512, 1, 1),
                                         (515, 100, 4, 1), (515, 99, 4, 0)])
 def test_ws4_bank_launches_with_the_raw_drive(monkeypatch, R, n, rc, vec):
@@ -363,9 +398,10 @@ def test_ws4_bank_launches_with_the_raw_drive(monkeypatch, R, n, rc, vec):
 
 def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     """``tools/torch_kernel_ab.py`` (and the CPU emulator's A/B) call a build
-    from before the svf/ws4 redesign with its own arguments: the SVF without
-    rows per block and 16-byte flag, ws4 with the wrapper's (d, comp) in
-    place of the drive; a build with this tree's entries unchanged."""
+    from before the svf/ws4/env_follow/plate redesigns with its own
+    arguments: the SVF and the follower without rows per block and 16-byte
+    flag, ws4 with the wrapper's (d, comp) in place of the drive, the plate
+    without its chunk; a build with this tree's entries unchanged."""
     import sys
     from pathlib import Path
 
@@ -378,6 +414,8 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     P, I = _build._P, _build._I
     older["svf_bank_launch"] = [P] * 10 + [I, I, P]   # the entries' arguments before
     older["ws4_bank_launch"] = [P] * 7 + [I, I, P]
+    older["env_follow_bank_launch"] = [P] * 5 + [_build._F, _build._F, I, I, P]
+    older["plate_block_launch"] = [P] * 3 + [I, I, I, P]
     (tmp_path / "ops").mkdir()
     names = {_build._P: "_P", _build._I: "_I", _build._F: "_F"}
     (tmp_path / "ops" / "_build.py").write_text(
@@ -388,6 +426,7 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     (tmp_path / "csrc").mkdir()
     sigs = signatures(tmp_path / "csrc")
     assert len(sigs["svf_bank_launch"]) == 13 and len(sigs["ws4_bank_launch"]) == 10
+    assert len(sigs["env_follow_bank_launch"]) == 10 and len(sigs["plate_block_launch"]) == 7
     assert signatures(Path(bk.__file__).resolve().parents[1] / "csrc") == _build.SIGNATURES
     svf = tuple(range(100, 110)) + (7, 9, 1, 1)
     assert older_args("svf_bank_launch", svf, sigs, None) == svf[:12]
@@ -401,9 +440,15 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
 
     assert older_args("ws4_bank_launch", ws4, sigs, gain) == (1, 11, 12, 3, 4, 5, 6, 7, 9)
     assert gains == [(2, 7, 9)]
-    sigs["env_follow_bank_launch"] = sigs["env_follow_bank_launch"][1:]
+    env = (1, 2, 3, 4, 5, 0.9776, 0.99981, 7, 9, 1, 1)
+    assert older_args("env_follow_bank_launch", env, sigs, None) == env[:9]
+    assert older_args("env_follow_bank_launch", env, _build.SIGNATURES, None) == env
+    plate = (1, 2, 3, 566, 2719, 512, 158)
+    assert older_args("plate_block_launch", plate, sigs, None) == plate[:6]
+    assert older_args("plate_block_launch", plate, _build.SIGNATURES, None) == plate
+    sigs["fbws_bank_launch"] = sigs["fbws_bank_launch"][1:]
     with pytest.raises(ValueError, match="no older form"):
-        older_args("env_follow_bank_launch", (), sigs, gain)
+        older_args("fbws_bank_launch", (), sigs, gain)
 
 
 # --- dispatch -----------------------------------------------------------------

@@ -241,16 +241,16 @@ def test_spring_block_matches_pallas():
     assert _err(jlast, tlast) <= STATE_TOL
 
 
-def _plate_inputs(rs, n):
-    """The plate kernel's inputs with the size knob moving 1.0 -> 0.0 in
-    the block (the modulated lags sweep ~1,200 samples), filled histories
-    and seeds."""
-    srs = SR / jplate.DATTORRO_SR
-    DIN, DMOD = jplate.in_hist_len(SR), jplate.mod_hist_len(SR)
-    q = np.float32(1.0 - smoothing_coeff(SR))
+def _plate_inputs(rs, n, sr=SR):
+    """The plate kernel's inputs at ``sr`` with the size knob moving 1.0 ->
+    0.0 in the block (the modulated lags sweep ~1,200 samples at 44.1 kHz),
+    filled histories and seeds."""
+    srs = sr / jplate.DATTORRO_SR
+    DIN, DMOD = jplate.in_hist_len(sr), jplate.mod_hist_len(sr)
+    q = np.float32(1.0 - smoothing_coeff(sr))
     size = (np.float32(0.0) + np.float32(1.0) * q ** np.arange(1, n + 1, dtype=np.float32))
     scale = np.asarray(jplate.size_to_scale(jnp.asarray(size.astype(np.float32))))
-    ph = np.arange(1, n + 1) * np.array([[0.5], [0.71]]) / SR + np.array([[0.2], [0.7]])
+    ph = np.arange(1, n + 1) * np.array([[0.5], [0.71]]) / sr + np.array([[0.2], [0.7]])
     mod_off = np.clip(np.array([[672.0], [908.0]]) * srs * scale[None]
                       + np.sin(2 * np.pi * ph) * 16.0 * srs, 1.0, DMOD - 2.0).astype(np.float32)
     rows = [rs.uniform(-0.5, 0.5, n).astype(np.float32) for _ in range(6)]
@@ -277,3 +277,67 @@ def test_plate_block_matches_pallas():
     assert np.abs(np.asarray(want[0])).max() > 0.05
     for i, (w, g) in enumerate(zip(want, got)):
         assert _err(w, g) <= (OUT_TOL if i < 4 else STATE_TOL), i
+
+
+@pytest.mark.parametrize("sr,n,C", [(SR, 100, 100), (22050.0, 256, 64)],
+                         ids=["B100", "22050Hz"])
+def test_plate_block_tails_match_pallas(sr, n, C):
+    """The plain version against the Pallas body at a block that is not a
+    power of two (one TPU chunk of 100, within the shortest diffusion lag of
+    158) and at 22,050 Hz (chunks of 64, within its shortest lag of 79)."""
+    rs = np.random.RandomState(23)
+    rows, mod_off, in_hist, mod_hist, seeds = _plate_inputs(rs, n, sr)
+    DMOD = mod_hist.shape[1]
+    col_b = DMOD + np.arange(n)[None, :] - np.floor(mod_off).astype(np.int32) - 1
+    wbase = col_b.reshape(2, n // C, C).min(axis=-1).astype(np.int32)
+    want = pallas_fx.plate_block(*rows, mod_off, wbase, in_hist, mod_hist, seeds, chunk=C,
+                                 sample_rate=sr)
+    got = plate_kernels.plate_block_plain(*map(_t, rows), _t(mod_off), _t(in_hist),
+                                          _t(mod_hist), _t(seeds), sample_rate=sr)
+    assert np.abs(np.asarray(want[0])).max() > 0.05
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g.shape == w.shape
+        assert _err(w, g) <= (OUT_TOL if i < 4 else STATE_TOL), i
+
+
+@pytest.mark.parametrize("sr,C", [(44100.0, 158), (22050.0, 79)])
+def test_plate_chunk_is_within_the_shortest_diffusion_lag(monkeypatch, sr, C):
+    """The kernel's chunk is the smallest whole diffusion lag (capped at 256),
+    so no sample of a chunk reads a diffusion column the chunk writes; the
+    wrapper passes it after DIN, DMOD and B."""
+    from libgooey_tpu_torch.effects import reverb_plate
+
+    lags = plate_kernels.plate_constants(sr)[1]
+    assert plate_kernels.plate_chunk(sr) == C == min(lags) <= plate_kernels.MAX_CHUNK
+    assert plate_kernels.plate_chunk(192000.0) == plate_kernels.MAX_CHUNK < min(
+        plate_kernels.plate_constants(192000.0)[1])
+    calls = []
+    monkeypatch.setattr(plate_kernels, "_on_cuda", lambda name, t: True)
+    monkeypatch.setattr(plate_kernels, "_launch", lambda *a: calls.append(a))
+    DIN, DMOD = reverb_plate.in_hist_len(sr), reverb_plate.mod_hist_len(sr)
+    x = torch.zeros(256)
+    launches = plate_kernels.plate_block.launches
+    plate_kernels.plate_block(x, x, x, x, x, x, torch.ones(2, 256), torch.zeros(4, DIN),
+                              torch.zeros(2, DMOD), torch.zeros(3), sample_rate=sr)
+    plate_kernels.plate_block.launches = launches
+    (call,) = calls
+    assert call[2] == "plate_block_launch" and call[-4:] == (DIN, DMOD, 256, C)
+
+
+def test_plate_block_refuses_a_shape_past_shared_memory(monkeypatch):
+    """A block whose work rows exceed Hopper's 227 KB of shared memory raises
+    in the wrapper (192 kHz at the engine's longest block there); 96 kHz at
+    512 samples takes ~90 KB."""
+    from libgooey_tpu_torch.effects import reverb_plate
+
+    assert plate_kernels.smem_bytes(reverb_plate.in_hist_len(96000.0),
+                                    reverb_plate.mod_hist_len(96000.0), 512) < 96_000
+    monkeypatch.setattr(plate_kernels, "_on_cuda", lambda name, t: True)
+    monkeypatch.setattr(plate_kernels, "_launch", lambda *a: pytest.fail("launched"))
+    sr = 192000.0
+    B = reverb_plate.min_tank_lag(sr)
+    DIN, DMOD = reverb_plate.in_hist_len(sr), reverb_plate.mod_hist_len(sr)
+    x = torch.zeros(B)
+    with pytest.raises(ValueError, match="shared memory"):
+        plate_kernels.plate_block(x, x, x, x, x, x, torch.ones(2, B), torch.zeros(4, DIN),
+                                  torch.zeros(2, DMOD), torch.zeros(3), sample_rate=sr)

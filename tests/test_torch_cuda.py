@@ -154,7 +154,7 @@ def _staged_cases(dev, R, B, seed=1):
     affine1_bank with a live floor (hihat2's tracker) and with none,
     svf_bank with a reset mask and without, linrec2_bank's resonator rows,
     ws4_bank's overdrive, pink_bank with a reset mask (the kick's) and
-    without (hihat2's)."""
+    without (hihat2's), env_follow_bank with freezes."""
     rs = np.random.RandomState(seed)
 
     def t(a, dtype=torch.float32):
@@ -172,6 +172,8 @@ def _staged_cases(dev, R, B, seed=1):
         ("ws4_bank", _ws4_rows(rs, t, R, B), {}),
         ("pink_bank", *_pink_rows(rs, t, R, B)),
         ("pink_bank", *_pink_rows(rs, t, R, B, resets=False)),
+        ("env_follow_bank", (t(np.abs(0.5 * rs.randn(R, B))), t(rs.rand(R, B) < 0.1, torch.bool),
+                             t(np.abs(0.1 * rs.randn(R)))), dict(att=0.9776, rel=0.99981)),
     ]
 
 
@@ -460,6 +462,24 @@ def test_plate_kernel_matches_plain_version(dev, B):
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape and g.device == w.device
         assert float((g - w).abs().max()) <= (1e-5 if i < 4 else 1e-4), f"output {i}"
+
+
+@pytest.mark.parametrize("case", range(6), ids=["512", "100", "33", "lags_to_1", "22050_Hz",
+                                                 "96000_Hz"])
+def test_plate_kernel_is_bit_equal_to_its_plain_version(dev, case):
+    """The chunked plate kernel gives its plain version's outputs, histories
+    and seeds bit for bit: whole chunks and tails, modulated lags falling to
+    1 (serial chunks), a chunk of 79 at 22,050 Hz and of 256 at 96,000 Hz."""
+    import chip_smoke
+
+    if case == 0:
+        args, kw = chip_smoke.plate_args(dev, np.random.RandomState(0), 512)
+    else:
+        _, args, kw = chip_smoke.plate_cases(dev)[case - 1]
+    got = plate_kernels.plate_block(*args, **kw)
+    want = plate_kernels.plate_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
 
 
 def test_kit_with_bus_matches_plain_versions(dev, monkeypatch):

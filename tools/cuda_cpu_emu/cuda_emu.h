@@ -4,7 +4,9 @@
 //
 // A launch runs its blocks one after another (a 2-D grid row by row); each
 // thread of a block is a std::thread, __syncthreads and bar.sync a
-// std::barrier of the block, __syncwarp(mask) a barrier of the mask's lanes.
+// std::barrier of the block (__syncthreads_and too, with a count of the
+// threads whose predicate is 0), __syncwarp(mask) a barrier of the mask's
+// lanes.
 // __shared__ variables are function statics (one block at a time); dynamic
 // shared memory is a buffer filled with garbage at each block.  cp.async is
 // a plain copy, done when it is issued, so its commit and wait_group are
@@ -47,6 +49,11 @@ inline std::barrier<>* emu_block_barrier = nullptr;
 inline char* emu_dyn_smem = nullptr;
 inline std::mutex emu_mutex;
 inline std::map<unsigned long long, std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+// __syncthreads_and's counts of false predicates: call g of a thread uses
+// count g % 3, and resets count (g + 1) % 3 (the one call g + 1 uses, which
+// every thread read in call g - 2) before it waits
+inline int emu_and_fails[3];
+inline thread_local unsigned emu_and_calls = 0;
 
 #define __device__
 #define __host__
@@ -57,6 +64,17 @@ inline std::map<unsigned long long, std::unique_ptr<std::barrier<>>> emu_warp_ba
 #define __shared__ static
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+inline int __syncthreads_and(int pred) {
+  const unsigned g = emu_and_calls++;
+  if (threadIdx.x == 0) emu_and_fails[(g + 1) % 3] = 0;
+  if (!pred) {
+    std::lock_guard<std::mutex> lock(emu_mutex);
+    ++emu_and_fails[g % 3];
+  }
+  emu_block_barrier->arrive_and_wait();
+  return emu_and_fails[g % 3] == 0;
+}
 
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
   const unsigned long long key = (static_cast<unsigned long long>(threadIdx.x / 32) << 32) | mask;
@@ -109,6 +127,7 @@ void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, F body) {
       std::barrier<> barrier(block);
       emu_block_barrier = &barrier;
       emu_warp_barriers.clear();
+      for (int& f : emu_and_fails) f = 0;
       memset(dyn.data(), 0x7f, dyn.size());
       std::vector<std::thread> threads;
       for (int t = 0; t < block; ++t) {

@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Two builds of the kit, bus and bank kernels against each other, bit for
-bit, on the CPU, before either goes to the card.
+"""Two builds of the kit, bus, bank and plate kernels against each other,
+bit for bit, on the CPU, before either goes to the card.
 
     python3 tools/cuda_cpu_emu/emu_ab.py OTHER_CSRC [CSRC]
 
-Builds ``voice_kernels.cu``, ``bus_kernels.cu`` and ``bank_kernels.cu`` of
-both source directories (``CSRC`` defaults to this tree's
-``libgooey_tpu_torch/csrc``), with their headers, with g++ against
+Builds ``voice_kernels.cu``, ``bus_kernels.cu``, ``bank_kernels.cu`` and
+``plate_kernels.cu`` of both source directories (``CSRC`` defaults to this
+tree's ``libgooey_tpu_torch/csrc``), with their headers, with g++ against
 ``cuda_emu.h`` (the CUDA subset, emulated: threads as threads, barriers as
 barriers, cp.async as a plain copy) into
 ``libgooey_tpu_torch/_build/emu_*``, and runs both through the port's own
 wrappers' packing on CPU tensors: ``kit_sources`` and ``kit_drive`` at the
 product kit, one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
 128 a family; every bus kernel and ``bus_chain`` run of
-``chip_smoke.bus_cases`` at 512, 100 and 33 samples; the staged bank
+``chip_smoke.bus_cases`` at 512, 100 and 33 samples; ``plate_block`` at
+the main path's block and ``chip_smoke.plate_cases`` (100 and 33 samples,
+the modulated lags falling to 1, 22,050 and 96,000 Hz); the staged bank
 kernels and ``ws4_bank`` at 1, 5, 130 and 515 rows of 512, 100 and 37
 samples and with unaligned inputs (``BANK_SHAPES``), rows per block as on
-132 SMs.  A build whose ``pink_bank`` / ``svf_bank`` / ``ws4_bank`` entries
-take the arguments they took before those kernels were redesigned (its
-tree's ``ops/_build.py`` says so) is called that way
+132 SMs.  A build
+whose entries take the arguments they took before their kernels were
+redesigned (its tree's ``ops/_build.py`` says so) is called that way
 (``tools/torch_kernel_ab.older_args``).  A restructuring that moves work
 between threads but keeps every per-sample operation gives the other
 build's bits; exits 1 where it does not.  (The host's libm stands in for
@@ -42,13 +44,14 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 EMU = Path(__file__).resolve().parent
-SOURCES = ("voice_kernels.cu", "bus_kernels.cu", "bank_kernels.cu")
+SOURCES = ("voice_kernels.cu", "bus_kernels.cu", "bank_kernels.cu", "plate_kernels.cu")
 #: the bank kernels' (rows, samples) here, and the unaligned case's
 BANK_SHAPES = ((1, 512), (5, 100), (130, 512), (515, 100), (515, 37))
 BANK_UNALIGNED = (515, 128)
 #: the bank kernels whose plain versions give the kernels' bits on the CPU
 #: too (no transcendental: the host's libm is not the card's)
-BANK_EXACT_ON_CPU = ("affine1_bank", "pink_bank", "svf_bank", "linrec2_bank")
+BANK_EXACT_ON_CPU = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "linrec2_bank",
+                     "plate_block")
 
 
 def translate(src: str) -> str:
@@ -133,8 +136,9 @@ def bank_ab_cases(dev, shapes, unaligned_shape):
     """``(label, name, args, kwargs)`` of the staged bank kernels and
     ws4_bank at each ``(rows, samples)``: affine1_bank with a live floor and
     with none, pink_bank with resets and without, svf_bank with resets and
-    without, linrec2_bank's resonators, ws4_bank's overdrive; then each with
-    every input 4 bytes past a 16-byte boundary."""
+    without, env_follow_bank with freezes, linrec2_bank's resonators,
+    ws4_bank's overdrive; then each with every input 4 bytes past a 16-byte
+    boundary."""
     import torch
 
     import chip_smoke as cs
@@ -158,6 +162,7 @@ def bank_ab_cases(dev, shapes, unaligned_shape):
             ("pink_bank", *cs.pink_rows(rs, t, R, B, resets=False)),
             ("svf_bank", cs.svf_rows(rs, t, R, B), {}),
             ("svf_bank", cs.svf_rows(rs, t, R, B, resets=False), {}),
+            ("env_follow_bank", *cs.env_rows(rs, t, R, B)),
             ("linrec2_bank", (t(2 * np.cos(w) / (1 + alpha) * keep),
                               t(-(1 - alpha) / (1 + alpha) * keep), t(keep),
                               t(np.zeros((R, B))), t(0.002 * rs.randn(R, B)),
@@ -177,6 +182,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
+    from libgooey_tpu_torch.ops import plate_kernels as pk
     from libgooey_tpu_torch.ops import voice_kernels as vk
     from torch_kernel_ab import older_args
 
@@ -232,16 +238,22 @@ def main(argv=None) -> int:
         for label, (x, phases) in runs.items():
             case(f"bus_chain {label}", both(
                 bus, lambda: bus._launch_phases("bus_chain", x, phases, fused=True)))
-    # the bank kernels on CPU tensors: launch as on a card of 132 SMs
-    bk._on_cuda = lambda name, t: True
+    # the bank kernels and the plate on CPU tensors: launch as on a card of
+    # 132 SMs
+    bk._on_cuda = pk._on_cuda = lambda name, t: True
     bk._sm_count = lambda index: 132
-    for label, name, a, kw in bank_ab_cases("cpu", BANK_SHAPES, BANK_UNALIGNED):
-        kern = getattr(bk, name)
-        case(f"{name} {label}", both(bk, lambda: kern(*a, **kw)))
+    cases = [(label, bk, name, a, kw)
+             for label, name, a, kw in bank_ab_cases("cpu", BANK_SHAPES, BANK_UNALIGNED)]
+    plate = cs.plate_args("cpu", np.random.RandomState(cs.SEED), cs.B)
+    cases += [(label, pk, "plate_block", a, kw)
+              for label, a, kw in [(cs.plate_label(*plate), *plate)] + cs.plate_cases("cpu")]
+    for label, module, name, a, kw in cases:
+        kern = getattr(module, name)
+        case(f"{name} {label}", both(module, lambda: kern(*a, **kw)))
         if name in BANK_EXACT_ON_CPU:
-            bk._launch = launcher(*builds[-1])
+            module._launch = launcher(*builds[-1])
             case(f"{name} {label} against its plain version",
-                 same_bits(kern(*a, **kw), getattr(bk, name + "_plain")(*a, **kw)))
+                 same_bits(kern(*a, **kw), getattr(module, name + "_plain")(*a, **kw)))
     print(f"{len(failed)} different" if failed else "all bit-equal")
     return 1 if failed else 0
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Copies of the kernel sources with parts of ``ws4_bank`` or ``kit_drive``
-cut out, for timing those parts alone on the card with
+"""Copies of the kernel sources with parts of ``ws4_bank``, ``kit_drive`` or
+``plate_block`` cut out, for timing those parts alone on the card with
 ``tools/torch_kernel_ab.py``.
 
     python3 tools/kernel_probes.py OUT_DIR [CSRC]
@@ -15,9 +15,13 @@ shaper with the drive's gain and the copies).  ``kit_drive``'s
 ``drive_row`` (``voice_kernels.cu``): ``drive_walks`` (no per-sample
 inputs, shaper or finish: the two walks, with the kick's DC blocker and
 feedback filter) and ``drive_stages`` (no walks: the per-sample inputs,
-the shaper and the finish).  Their outputs are wrong; only their times mean
-anything.  Pass the directories to ``tools/torch_kernel_ab.py --only
-ws4_bank`` or ``--only kit_drive``.
+the shaper and the finish).  ``plate_block_kernel`` (``plate_kernels.cu``):
+``plate_copies`` (the histories' copies in and out alone),
+``plate_onepoles`` (the bandwidth and damping walks alone) and
+``plate_chunks`` (the diffusion and modulated allpass steps alone).  Their
+outputs are wrong; only their times mean anything.  Pass the directories to
+``tools/torch_kernel_ab.py --only ws4_bank``, ``--only kit_drive`` or
+``--only plate_block``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,19 @@ NO_DRIVE_STAGES = [
     ("if (j >= 1 && j <= n_chunks) {", "if (false) {"),
 ]
 NO_DRIVE_WALKS = [("if (j < n_chunks) {", "if (false) {"), ("if (j >= 2) {", "if (false) {")]
+PLATE_NO_COPIES = [
+    ("for (int r = 0; r < kInAps; ++r) {\n    copy_span<true>(",
+     "for (int r = 0; r < 0; ++r) {\n    copy_span<true>("),
+    ("for (int r = 0; r < 2; ++r) {\n    copy_span<true>(",
+     "for (int r = 0; r < 0; ++r) {\n    copy_span<true>("),
+    ("for (int r = 0; r < kInAps; ++r) {\n    copy_span<false>(",
+     "for (int r = 0; r < 0; ++r) {\n    copy_span<false>("),
+    ("for (int r = 0; r < 2; ++r) {\n    copy_span<false>(",
+     "for (int r = 0; r < 0; ++r) {\n    copy_span<false>("),
+]
+PLATE_NO_ONEPOLES = [("if (warp == 0) {", "if (false) {"),
+                     ("} else if (warp == 1) {", "} else if (false) {")]
+PLATE_NO_CHUNKS = [("for (int j = 0; j <= nc; ++j) {", "for (int j = 0; j < 0; ++j) {")]
 #: probe -> (the source it edits, its edits)
 PROBES = {
     "walks_only": ("bank_kernels.cu", NO_COPIES + NO_SHAPER),
@@ -55,6 +72,9 @@ PROBES = {
     "shape_copy": ("bank_kernels.cu", NO_UP + NO_DOWN),
     "drive_walks": ("voice_kernels.cu", NO_DRIVE_STAGES),
     "drive_stages": ("voice_kernels.cu", NO_DRIVE_WALKS),
+    "plate_copies": ("plate_kernels.cu", PLATE_NO_ONEPOLES + PLATE_NO_CHUNKS),
+    "plate_onepoles": ("plate_kernels.cu", PLATE_NO_COPIES + PLATE_NO_CHUNKS),
+    "plate_chunks": ("plate_kernels.cu", PLATE_NO_COPIES + PLATE_NO_ONEPOLES),
 }
 
 

@@ -11,12 +11,13 @@ unpacked with ``git archive``):
 Each directory is built as the port builds its own (``ops/_build.py``'s
 flags, one nvcc per source) into ``libgooey_tpu_torch/_build/ab_<name>/``
 and loaded beside this tree's library; the wrappers launch one or the
-other.  A build whose ``pink_bank``, ``svf_bank`` or ``ws4_bank`` entry
-takes the arguments it took before those kernels were redesigned (its tree's
-``ops/_build.py`` beside the directory says so) is called that way
-(:func:`older_args`).  Cases, at the main path's shapes
-(``chip_smoke.py``'s inputs): ``pink_bank``, ``svf_bank`` and ``ws4_bank``
-at every phase-3 case (the path's shapes, then the tails), ``affine1_bank``
+other.  A build whose ``pink_bank``, ``svf_bank``, ``ws4_bank``,
+``env_follow_bank`` or ``plate_block`` entry takes the arguments it took
+before those kernels were redesigned (its tree's ``ops/_build.py`` beside
+the directory says so) is called that way (:func:`older_args`).  Cases, at
+the main path's shapes (``chip_smoke.py``'s inputs): ``pink_bank``,
+``svf_bank``, ``ws4_bank``, ``env_follow_bank`` and ``plate_block`` at
+every phase-3 case (the path's shapes, then the tails), ``affine1_bank``
 and ``linrec2_bank`` likewise (their staging header is shared),
 ``kit_sources`` at the product kit and with each of its families alone,
 ``kit_drive`` at the product kit, with each of its bodies alone and at
@@ -100,11 +101,12 @@ def signatures(csrc: Path) -> dict:
 
 def older_args(entry, args, sigs, gain):
     """This tree's arguments of C entry ``entry`` as a build with argument
-    types ``sigs`` takes them: before the redesign ``pink_bank_launch`` and
-    ``svf_bank_launch`` took no rows per block or 16-byte flag, and
-    ``ws4_bank_launch`` took neither and the drive's ``(d, comp)`` from its
-    wrapper instead of the drive; ``gain(drive_ptr, V, B)`` gives pointers
-    to those two."""
+    types ``sigs`` takes them: before the redesign ``pink_bank_launch``,
+    ``svf_bank_launch`` and ``env_follow_bank_launch`` took no rows per
+    block or 16-byte flag, ``ws4_bank_launch`` took neither and the drive's
+    ``(d, comp)`` from its wrapper instead of the drive (``gain(drive_ptr,
+    V, B)`` gives pointers to those two), and ``plate_block_launch`` took
+    no chunk."""
     from libgooey_tpu_torch.ops import _build
 
     if len(sigs[entry]) == len(_build.SIGNATURES[entry]):
@@ -113,6 +115,10 @@ def older_args(entry, args, sigs, gain):
         return args[:8]
     if entry == "svf_bank_launch":
         return args[:12]
+    if entry == "env_follow_bank_launch":
+        return args[:9]
+    if entry == "plate_block_launch":
+        return args[:6]
     if entry == "ws4_bank_launch":
         x, drive, st_in, y, st_out, coefs, V, B = args[:8]
         return (x, *gain(drive, V, B), st_in, y, st_out, coefs, V, B)
@@ -130,8 +136,8 @@ def same_bits(a, b) -> bool:
 
 
 class OlderEntries:
-    """A library whose ``pink_bank`` / ``svf_bank`` / ``ws4_bank`` entries
-    take their older arguments, called with this tree's (see
+    """A library whose redesigned kernels' entries take their older
+    arguments, called with this tree's (see
     :func:`older_args`)."""
 
     def __init__(self, lib, sigs, drives):
@@ -154,8 +160,8 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     from libgooey_tpu_torch.ops import _build
-    from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
+    from libgooey_tpu_torch.ops import kernels
     from libgooey_tpu_torch.ops import voice_kernels as vk
 
     args = list(argv if argv is not None else sys.argv[1:])
@@ -204,11 +210,12 @@ def main(argv=None) -> int:
         print(f"{label}: bit-equal to this tree: {equal}; device us/call: {text}", flush=True)
 
     for name, shape, args, kw, _ in cs.kernel_cases(dev):
-        if name in ("pink_bank", "svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank"):
+        if name in ("pink_bank", "svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank",
+                    "env_follow_bank", "plate_block"):
             if name == "ws4_bank":
                 drives[args[1].data_ptr()] = args[1]
-            case(f"{name} {shape}",
-                 lambda name=name, args=args, kw=kw: getattr(bk, name)(*args, **kw))
+            fn = getattr(kernels.module_of(name), name)
+            case(f"{name} {shape}", lambda fn=fn, args=args, kw=kw: fn(*args, **kw))
     sources, drive = cs.kit_phases(dev)
     case(f"kit_sources {cs.kit_label(cs.PRODUCT_KIT, cs.B)}", lambda: vk.kit_sources(sources))
     for ph in sources:
