@@ -19,7 +19,11 @@ Phases (any failure exits non-zero):
    the product chain's ten in one launch, which must also equal the kernels
    in turn bit for bit, ``kit_sources`` at the 64-voice product kit and
    ``kit_drive`` at its kick 16 + snare 16, ``mix_bank`` at the kit's 4,096
-   voices with pan and gain moving, ``grain_read_cubic`` at 4,000 grains on
+   voices with pan and gain moving (then every pan and gain settled, as in
+   the kit cells' traffic, with the matmul yardstick beside it; half
+   settled; half at the settle snap's float32 edge; the product block's 64
+   voices; 130 voices of 100 and 99 samples, a partial chunk; bit-equal),
+   ``grain_read_cubic`` at 4,000 grains on
    a 32,768-sample source with and without ages, ``sampler_read_linear``
    at 128 voices on a 32,768-frame arena; the two staged kernels at every
    shape full_kit_4096_bus7 launches them at, ``affine1_bank`` at 512 and
@@ -38,7 +42,11 @@ Phases (any failure exits non-zero):
    1,024 without, ``ws4_bank`` (its 4x chain split over warps) at 1,024
    and 512 rows and the granulator's one row, all three at 515 rows of 100
    and 99 samples and with inputs 4 bytes past a 16-byte boundary,
-   bit-equal; ``env_follow_bank`` (staged, its freeze mask as bytes) at
+   bit-equal; ``fbws_bank`` (its 4x chain split over warps as ``ws4_bank``'s,
+   the gated DC blocker on the down-walk) at the kick slice's 4,096 rows,
+   the kit's 1,024, 515 rows of 100 and 99 samples and unaligned, with rows
+   bypassed for the whole block and from mid-block on, bit-equal;
+   ``env_follow_bank`` (staged, its freeze mask as bytes) at
    the kick slice's 4,096 rows, bus7's 1,024, the product kit's 16, 515
    rows of 100 and 99 samples and unaligned, bit-equal; ``plate_block``
    (a block of 512 threads, chunks of samples a thread each) at the main
@@ -141,7 +149,9 @@ eight single bus kernels' from its ``fuse_bus=False`` render, the kit
 kernels' from the product render and the two waveshapers' from its
 ``fuse_runs=False`` render, the grain and sampler reads' from phase 10's
 render; ``ms`` the device time per call of each kernel's first phase-3
-case, the wrapper's wall where the profiler traces nothing).  ``--profile PATH``
+case, the wrapper's wall where the profiler traces nothing; ``library_ms``
+``mix_bank``'s matmul yardstick at the kit cells' settled traffic, null
+elsewhere).  ``--profile PATH``
 also writes torch.profiler tables of 4 steady-state blocks of the kick
 slice, the kit, each kit-with-bus render, the product block and phase 10's
 render to PATH.
@@ -185,7 +195,7 @@ STATE_TOL = 1e-4
 
 #: the redesigned kernels: bit-equal to their plain versions at every case
 EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources",
-         "kit_drive", "bus_chain", "plate_block", "env_follow_bank")
+         "kit_drive", "bus_chain", "plate_block", "env_follow_bank", "fbws_bank", "mix_bank")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -231,7 +241,8 @@ OPS_PER_ROW_SAMPLE = {
 #: the row recurrences' carried chains: dependent operations a sample on the
 #: path from one sample's state to the next's (svf_bank: ic2 -> x - ic2 ->
 #: *g -> +ic1 -> *h -> g*v1 -> +ic2 -> 2*v2 -> -ic2, and the reset select;
-#: ws4_bank: a stage-2 allpass section, stepped twice a sample, 3 each;
+#: ws4_bank and fbws_bank: a stage-2 allpass section, stepped twice a
+#: sample, 3 each (fbws_bank's DC blocker, 2, runs beside it);
 #: affine1_bank: multiply, add, max; linrec2_bank: fma, add; pink_bank: a
 #: pole's multiply, the reset's select, the add; kit_drive: its 4x chain's,
 #: as ws4_bank's; env_follow_bank: r - env, the multiply, the add, the
@@ -239,7 +250,8 @@ OPS_PER_ROW_SAMPLE = {
 #: bandwidth filter's multiply and add), and the latency of one float32
 #: operation on the card, in cycles
 CHAIN_OPS_PER_SAMPLE = {"svf_bank": 9, "ws4_bank": 6, "affine1_bank": 3, "linrec2_bank": 2,
-                        "pink_bank": 3, "kit_drive": 6, "env_follow_bank": 6, "plate_block": 2}
+                        "pink_bank": 3, "kit_drive": 6, "env_follow_bank": 6, "plate_block": 2,
+                        "fbws_bank": 6}
 CHAIN_CYCLES_PER_OP = 4
 #: the kit kernels' operations per row-sample, by body: the kick's and the
 #: snare's additive triangles (32 harmonics x ~11 at max_harmonics = 64)
@@ -563,6 +575,31 @@ def kernel_cases(dev):
                   unaligned(svf_rows(rs, t, 515, 128)), {}, 2))
     cases.append(("ws4_bank", "V=515, B=128, unaligned", unaligned(ws4_rows(rs, t, 515, 128)),
                   {}, 1))
+    #     fbws_bank at the kit cells' kick (1,024 rows), at 515 rows of 100
+    #     and 99 samples, and unaligned, with rows bypassed for the whole
+    #     block and from mid-block on
+    cases.append(("fbws_bank", f"V=1024, B={B}, bypassed rows (the kit's kick)",
+                  fbws_rows(rs, t, 1024, B), {}, 1))
+    for b in (100, 99):
+        cases.append(("fbws_bank", f"V=515, B={b}, bypassed rows", fbws_rows(rs, t, 515, b), {},
+                      1))
+    cases.append(("fbws_bank", "V=515, B=128, bypassed rows, unaligned",
+                  unaligned(fbws_rows(rs, t, 515, 128)), {}, 1))
+    #     mix_bank with every pan and gain settled at the kit's 4,096 voices
+    #     (the kit cells' traffic), with half of them settled, with the
+    #     other half's pans at the settle snap's edge, at the product
+    #     block's 64 voices (pan 0.5), and at 130 voices (a partial chunk)
+    #     of 100 and 99 samples
+    cases.append(("mix_bank", MIX_SETTLED, *mix_rows(rs, t, Vk, B), 3))
+    cases.append(("mix_bank", f"V={Vk}, B={B}, half settled", *mix_rows(rs, t, Vk, B, half=True),
+                  3))
+    cases.append(("mix_bank", f"V={Vk}, B={B}, half at the settle snap's edge",
+                  *mix_rows(rs, t, Vk, B, half=True, edge=True), 3))
+    cases.append(("mix_bank", f"V={sum(PRODUCT_KIT.values())}, B={B}, settled (the product "
+                  "block's)", *mix_rows(rs, t, sum(PRODUCT_KIT.values()), B, pan=0.5), 3))
+    for b in (100, 99):
+        cases.append(("mix_bank", f"V=130, B={b}, half settled",
+                      *mix_rows(rs, t, 130, b, half=True), 3))
     return cases
 
 
@@ -610,6 +647,70 @@ def ws4_rows(rs, t, rows, b, drive=None):
     else:
         d = np.full((rows, b), drive)
     return t(0.5 * rs.randn(rows, b)), t(d), t(0.05 * rs.randn(bk.FBWS_S_IN, rows))
+
+
+def fbws_rows(rs, t, rows, b):
+    """fbws_bank arguments: noise at the kick's drive (1-41 a row), a makeup
+    gain of 0.2-3 with 5% of the samples bypassed (< 0), every 5th row
+    bypassed for the whole block and every 7th (from the 4th) from
+    mid-block on, a random packed state."""
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    u = (1.0 + 40.0 * rs.rand(rows, 1) ** 3) * 0.3 * rs.randn(rows, b)
+    cs = np.where(rs.rand(rows, b) < 0.05, -1.0, 0.2 + 2.8 * rs.rand(rows, b))
+    cs[::5] = -1.0
+    cs[3::7, b // 2:] = -1.0
+    return t(u), t(cs), t(0.1 * rs.randn(bk.FBWS_S_IN, rows))
+
+
+#: mix_bank's case at the kit cells' traffic, which also times its library
+#: yardstick
+MIX_SETTLED = f"V={sum(KIT.values())}, B={B}, every pan and gain settled"
+
+
+def mix_rows(rs, t, voices, b, half=False, edge=False, pan=None):
+    """mix_bank ``(arguments, keywords)`` at ``SR``'s smoothing: voices of
+    noise, pans over [0.2, 0.8] (``pan`` everywhere where given), gains
+    1/V, every pan and gain at its target (the kit cells' traffic); with
+    ``half``, every other voice's pan sweeping to its mirror image and its
+    gain falling from 1.5/V, or with ``edge`` its pan as close to the
+    settle snap's edge as float32 allows (:func:`snap_edge_pans`)."""
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    coeff = smoothing_coeff(SR)
+    pt = (np.linspace(0.2, 0.8, voices) if pan is None else np.full(voices, pan)).astype(np.float32)
+    gt = np.full(voices, 1.0 / voices, np.float32)
+    pc, gc = pt.copy(), gt.copy()
+    if half and edge:
+        q = np.float32(bk._mix_powers(coeff, b, "cpu").abs().max())
+        pc[1::2] = snap_edge_pans(pt[1::2], q)
+    elif half:
+        pc[1::2] = pt[::-1][1::2]
+        gc[1::2] = 1.5 / voices
+    return (t(0.3 * rs.randn(voices, b)), t(pc), t(pt), t(gc), t(gt)), dict(coeff=coeff)
+
+
+def snap_edge_pans(pt, q):
+    """Current pans ``d`` away from targets ``pt`` with ``|d*q|`` (float32)
+    one float32 step below the settle snap's 1e-4 (voices 0, 1 of every 4:
+    settled for the block) or the first at or over it (voices 2, 3: their
+    first samples unsnapped), above and below their targets in turn."""
+    eps, q = np.float32(1e-4), np.float32(q)
+
+    def over(c, p):
+        return abs(np.float32(np.float32(c - p) * q)) >= eps
+
+    out = np.empty_like(pt)
+    for i, p in enumerate(pt.astype(np.float32)):
+        away = np.float32(np.inf if i % 2 == 0 else -np.inf)
+        c = np.float32(p + (eps / q if i % 2 == 0 else -eps / q))
+        while over(c, p):
+            c = np.nextafter(c, p)
+        while not over(np.nextafter(c, away), p):
+            c = np.nextafter(c, away)
+        out[i] = np.nextafter(c, away) if i % 4 >= 2 else c
+    return out
 
 
 def unaligned(args):
@@ -988,17 +1089,46 @@ def phase_kernels(dev):
                   f"kernels in turn: {same}")
             check(same, "bus_chain differs from its phases' own kernels")
         err = max(out_err, state_err)
+        lib_ms = mix_library_ms(args, got) if (name, shape) == ("mix_bank", MIX_SETTLED) else None
         if name in results:   # a second case of one kernel: keep the first's times
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            if lib_ms is not None:
+                results[name]["library_ms"] = lib_ms
             continue
         # no single PyTorch call computes any of these recurrences, gathers
-        # four clamped taps into a Horner form, or sums a per-sample panned bank
+        # four clamped taps into a Horner form, or sums a bank whose pans move
+        # within the block (mix_bank's settled case: mix_library_ms)
         results[name] = dict(name=name, route="cuda", source=mod.SOURCES[name],
                              replaces=mod.REPLACES[name], launches=0, max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
                              library_ms=None)
     check_no_floor(dev)
     return results
+
+
+def mix_library_ms(args, got):
+    """The library yardstick of ``mix_bank`` with every pan and gain settled:
+    one ``torch.matmul`` of ``W = [g cos, g sin, g]`` ([3, V], from the
+    settled pans and gains as the plain version computes them) by the
+    voices, float32 with TF32 off; the same three sums up to their rounding
+    order.  Prints its device time and its largest difference from the
+    kernel's sums; returns the time (ms a call)."""
+    import torch
+
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+
+    voices, _pan_cur, pan_tgt, _gain_cur, gain_tgt = args
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gain = gain_tgt + 0.0
+    ang = torch.clamp(pan_tgt + 0.0, 0.0, 1.0) * bk._HALF_PI
+    W = torch.stack([gain * torch.cos(ang), gain * torch.sin(ang), gain])
+    ref = torch.matmul(W, voices)
+    ms = device_ms(lambda: torch.matmul(W, voices), 20)
+    diff = max_err(tuple(ref), got)
+    print(f"library yardstick torch.matmul(W [3, {voices.shape[0]}], voices): device "
+          f"{'not measured' if ms is None else f'{ms * 1e3:.1f} us'}/call, max |diff| from "
+          f"the kernel's sums {diff:.3e} (rounding order)")
+    return ms
 
 
 def check_no_floor(dev):

@@ -36,18 +36,11 @@
 // their bytes bound at 2,560-4,096.
 //
 // ws4_bank (2 launches a block in bus7, at 1,024 and 512 rows, and one at
-// one row in the granulator) splits its 4x chain over warps: the up-walk on
-// one, the shaper (with the drive gain) and the copies on two, the
-// down-walk on another, a chunk apart (its section below).
-//
-// fbws_bank (the mix aside) runs a thread per row in blocks of 128 straight
-// from device memory: thread v reads x[v*B + n], so a warp touches 32 cache
-// lines per sample, each holding the next 31 samples of its row in L1, and
-// every byte crosses DRAM once.  Its state arrays ([S, V]) are read and
-// written coalesced.  At V = 4,096 a launch is 32 blocks, so 32 of the 132
-// SMs hold one block each and the rest idle; it is latency-bound on its
-// serial B-step chain, 32 dependent allpass sections plus four tanhf per
-// base sample.  Splitting it as ws4_bank is split is the next step.
+// one row in the granulator) and fbws_bank (one launch a block: the kick's
+// 4,096 rows in the kick slice, 1,024 in the kit cells) split their 4x
+// chain over warps: the up-walk on one, the down-walk (fbws_bank's with the
+// gated DC blocker) on another, the shaper and the copies on the rest, a
+// chunk apart (their section below).
 //
 // Numerics: every step keeps the Pallas body's op order, and the build
 // passes -fmad=false so that a*b + c rounds twice, exactly as the plain
@@ -67,8 +60,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-inline dim3 grid_for(int V) { return dim3((V + kThreads - 1) / kThreads); }
 
 // --- 1. affine1_bank: y[n] = max(a[n], b[n]*y[n-1] + c[n]) ------------------
 //
@@ -340,82 +331,112 @@ __global__ void __launch_bounds__(kStageThreads)
   if (live) env_last[v] = env;
 }
 
-// --- 5. fbws_bank: zero-feedback feedback waveshaper at 4x -----------------
+// --- 5-6. fbws_bank and ws4_bank: the 4x chain split over warps -------------
 //
-// The 4x chain of ovs4.cuh around tanh, then the signed makeup gain and the
-// bypass-gated DC blocker.
-
-__global__ void fbws_bank_kernel(const float* __restrict__ u,
-                                 const float* __restrict__ cs,
-                                 const float* __restrict__ st_in,
-                                 float* __restrict__ dc_out,
-                                 float* __restrict__ st_out, FbwsCoefs k, int V,
-                                 int B) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const size_t row = static_cast<size_t>(v) * B;
-
-  FbwsState s;
-  load_state(s, st_in, v, V);
-  ovs4_row(
-      s, k, B, [&](int n) { return u[row + n]; }, [](int) { return TanhShaper{}; },
-      [&](int n, float y) { dc_out[row + n] = gated_dc(s, y, cs[row + n]); }, st_out, v,
-      V);
-}
-
-// --- 6. ws4_bank: the plain waveshaper tanh(v*d)*comp at 4x ----------------
+// fbws_bank, the kick's zero-feedback feedback waveshaper: the 4x chain of
+// ovs4.cuh around tanh, then the signed makeup gain and the bypass-gated DC
+// blocker on each base-rate output.  ws4_bank, the plain waveshaper
+// tanh(v*d)*comp: the same chain with the waveshaper's nonlinearity and no
+// DC blocker; the packed DC rows pass through unchanged, the oversampler
+// history advances at every sample (the caller applies the bypass select
+// and the block-granular freeze, as on the TPU).  d = max(drive, 1 + 1e-6)
+// and comp = tanh(0.5) / tanh(0.5 d) are per engine sample and held across
+// its four subsamples.
 //
-// The fbws chain with the waveshaper's nonlinearity and no DC blocker: the
-// packed DC rows pass through unchanged, the oversampler history advances
-// at every sample (the caller applies the bypass select and the
-// block-granular freeze, as on the TPU).  d = max(drive, 1 + 1e-6) and
-// comp = tanh(0.5) / tanh(0.5 d) are per engine sample and held across its
-// four subsamples.
-//
-// The 4x chain split over warps (ovs4.cuh's split form): a block of
-// kWsThreads threads owns rc rows (the staged kernels' rows per block), cut
-// into chunks of 32 samples.  In step j, warp 0's lanes (a lane per row)
-// walk the up-path of chunk j from its staged x into a ring of subsample
-// tiles; warps 2-3 compute chunk j-1's drive gains and shape its
-// subsamples in place, copy chunk j+2 of x and of the drive in with
-// cp.async and store chunk j-3 of y; warp 1's lanes walk the down-path of chunk j-2
-// into a y tile.  One __syncthreads a step.  The two walks hold disjoint
-// halves of the state, each loaded and stored by its own warp, coalesced
-// across the rows.  A walk is ~50-60 float operations a sample on one
-// warp; its carried chains are short (a stage-2 section steps twice a
-// sample: 6 dependent operations), so a step is bound by the walks' issue,
-// with the shaper's five tanhf a row-sample beside them while rc <= ~16.
+// Both split the 4x chain over warps (ovs4.cuh's split form): a block owns
+// rc rows (the staged kernels' rows per block), cut into chunks of 32
+// samples.  In step j, warp 0's lanes (a lane per row) walk the up-path of
+// chunk j from its staged input into a ring of subsample tiles; the warps
+// past the first two (two in ws4_bank's blocks of 128 threads, six in
+// fbws_bank's of 256) shape chunk j-1's subsamples in place (ws4_bank with
+// each sample's drive gain), copy chunk j+2 of the input and
+// of the second array (ws4_bank's drive, fbws_bank's comp_signed) in with
+// cp.async and store chunk j-3 of the output; warp 1's lanes walk the
+// down-path of chunk j-2 into an output tile, fbws_bank's through the gated
+// DC blocker with chunk j-2's comp_signed from the ring, as kit_drive's
+// down lane carries the kick's (so the ring holds five chunks, j-2 to j+2).
+// One __syncthreads a step.  The two walks hold disjoint halves of the
+// state (the DC rows in the down half), each loaded and stored by its own
+// warp, coalesced across the rows.  A walk is ~50-60 float operations a
+// sample on one warp; its carried chains are short (a stage-2 section steps
+// twice a sample: 6 dependent operations; the DC blocker's 2 run beside
+// them), so a step is bound by the walks' issue while the shaping warps
+// keep up: ws4_bank's two with its five tanhf a row-sample at rc <= ~16
+// (8 at 1,024 rows), fbws_bank's six with four at its 32 rows a block at
+// 4,096 rows (on two warps they set the pace there: ~41 us alone on an
+// H100).
 
-constexpr int kWsThreads = 128;   // warp 0 up, warp 1 down, warps 2-3 shape and copy
-using WsStage = StageGeom<32, kWsThreads - 64>;
-constexpr int kWsRing = 4;        // x and drive chunks: walked up / shaped / two in flight
-constexpr int kWsSubRing = 3;     // subsample chunks: walked up / shaped / walked down
-constexpr int kWsSubPitch = 4 * WsStage::kChunk + 4;   // floats per row of subsamples
-constexpr float kDriveFloor = 1.000001f;               // 1 + 1e-6 in float32
+constexpr int kSplitChunk = 32;      // samples a chunk
+constexpr int kSplitRing = 5;        // input chunks: down / shaped / up / two in flight
+constexpr int kSplitSubRing = 3;     // subsample chunks: walked up / shaped / walked down
+constexpr int kSplitSubPitch = 4 * kSplitChunk + 4;   // floats per row of subsamples
+constexpr float kDriveFloor = 1.000001f;              // 1 + 1e-6 in float32
 
-constexpr size_t ws4_smem_bytes(int rc) {
+// The staging of a split kernel of kThreads threads: warps 0 and 1 walk,
+// the rest shape and copy.
+template <int kThreads>
+using SplitStage = StageGeom<kSplitChunk, kThreads - 64>;
+
+constexpr size_t split4x_smem_bytes(int rc) {
+  constexpr int pitch = SplitStage<128>::kPitch;
   return static_cast<size_t>(rc) *
-         (kWsRing * 2 * WsStage::kPitch + kWsSubRing * kWsSubPitch + 2 * WsStage::kPitch) *
-         sizeof(float);
+         (kSplitRing * 2 * pitch + kSplitSubRing * kSplitSubPitch + 2 * pitch) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(kWsThreads)
-    ws4_bank_kernel(const float* __restrict__ x, const float* __restrict__ drive,
-                    const float* __restrict__ st_in, float* __restrict__ y_out,
-                    float* __restrict__ st_out, FbwsCoefs k, float tanh_half, int V, int B,
-                    int rc, int vec) {
-  extern __shared__ float4 ws_smem4[];
-  const RowSpanG<WsStage> s = row_span<WsStage>(V, B, rc, vec);
-  float* ring = reinterpret_cast<float*>(ws_smem4);      // [kWsRing][x, drive][rc][pitch]
-  float* subs = ring + kWsRing * 2 * s.tile();           // [kWsSubRing][rc][kWsSubPitch]
-  float* outs = subs + kWsSubRing * rc * kWsSubPitch;    // [2][rc][pitch]
-  const float* const src[2] = {x, drive};
+// ws4_bank's nonlinearity, with its sample's drive gain; its down-walk's
+// output is the kernel's.
+struct Ws4Body {
+  static constexpr int kThreads = 128;
+  float tanh_half;
+  __device__ __forceinline__ void shape(float dv, float4& t) const {
+    const float d = dv < kDriveFloor ? kDriveFloor : dv;   // NaN stays NaN
+    const DriveShaper f{d, tanh_half / tanhf(0.5f * d)};
+    t.x = f(t.x);
+    t.y = f(t.y);
+    t.z = f(t.z);
+    t.w = f(t.w);
+  }
+  __device__ __forceinline__ float down(FbwsState&, float, float y) const { return y; }
+};
+
+// fbws_bank's: tanh at each subsample; the down-walk's output through the
+// gated DC blocker with its sample's comp_signed.
+struct FbwsBody {
+  static constexpr int kThreads = 256;
+  __device__ __forceinline__ void shape(float, float4& t) const {
+    const TanhShaper f;
+    t.x = f(t.x);
+    t.y = f(t.y);
+    t.z = f(t.z);
+    t.w = f(t.w);
+  }
+  __device__ __forceinline__ float down(FbwsState& s, float cs, float y) const {
+    return gated_dc(s, y, cs);
+  }
+};
+
+// The block's rows of x (with the second array `aux`) through the split
+// chain into y_out; the packed state from st_in to st_out.
+template <class Body>
+__device__ __forceinline__ void split4x_rows(const float* __restrict__ x,
+                                             const float* __restrict__ aux,
+                                             const float* __restrict__ st_in,
+                                             float* __restrict__ y_out,
+                                             float* __restrict__ st_out, const FbwsCoefs& k,
+                                             const Body& body, int V, int B, int rc, int vec) {
+  using G = SplitStage<Body::kThreads>;
+  extern __shared__ float4 split_smem4[];
+  const RowSpanG<G> s = row_span<G>(V, B, rc, vec);
+  float* ring = reinterpret_cast<float*>(split_smem4);   // [kSplitRing][x, aux][rc][pitch]
+  float* subs = ring + kSplitRing * 2 * s.tile();        // [kSplitSubRing][rc][kSplitSubPitch]
+  float* outs = subs + kSplitSubRing * rc * kSplitSubPitch;   // [2][rc][pitch]
+  const float* const src[2] = {x, aux};
   float* const dst[1] = {y_out};
   const int n_chunks = s.chunks();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool walks = warp < 2 && lane < s.rows;
   const int v = s.row0 + lane;
-  const int p = threadIdx.x - 64;   // shaper / copier index (warps 2-3)
+  const int p = threadIdx.x - 64;   // shaper / copier index (the warps past 1)
 
   FbwsState st;
   OvsCaps cap;
@@ -435,39 +456,35 @@ __global__ void __launch_bounds__(kWsThreads)
     if (warp == 0) {
       if (walks && j < n_chunks) {
         const int n0 = s.start(j);
-        const float* xr = ring + (j % kWsRing) * 2 * s.tile() + lane * WsStage::kPitch;
-        float* sub = subs + ((j % kWsSubRing) * rc + lane) * kWsSubPitch;
+        const float* xr = ring + (j % kSplitRing) * 2 * s.tile() + lane * G::kPitch;
+        float* sub = subs + ((j % kSplitSubRing) * rc + lane) * kSplitSubPitch;
         ovs4_up_span(
             st, cap, k, n0, n0 + s.len(j), B, [&](int n) { return xr[n - n0]; }, sub);
       }
     } else if (warp == 1) {
       if (walks && j >= 2) {
         const int c = j - 2, n0 = s.start(c);
-        const float* sub = subs + ((c % kWsSubRing) * rc + lane) * kWsSubPitch;
-        float* yr = outs + (c & 1) * s.tile() + lane * WsStage::kPitch;
-        ovs4_down_span(st, cap, k, n0, n0 + s.len(c), B, sub,
-                       [&](int n, float y) { yr[n - n0] = y; });
+        const float* sub = subs + ((c % kSplitSubRing) * rc + lane) * kSplitSubPitch;
+        const float* ar = ring + ((c % kSplitRing) * 2 + 1) * s.tile() + lane * G::kPitch;
+        float* yr = outs + (c & 1) * s.tile() + lane * G::kPitch;
+        ovs4_down_span(st, cap, k, n0, n0 + s.len(c), B, sub, [&](int n, float y) {
+          yr[n - n0] = body.down(st, ar[n - n0], y);
+        });
       }
     } else {
-      stage_in(src, ring + ((j + 2) % kWsRing) * 2 * s.tile(), s, j + 2, n_chunks, p);
+      stage_in(src, ring + ((j + 2) % kSplitRing) * 2 * s.tile(), s, j + 2, n_chunks, p);
       if (j >= 3) stage_out(dst, outs + ((j - 3) & 1) * s.tile(), s, j - 3, p);
       if (j >= 1 && j <= n_chunks) {
-        // chunk j-1's subsamples, shaped in place with their sample's gain
+        // chunk j-1's subsamples, shaped in place (with their sample's aux)
         const int c = j - 1, len = s.len(c);
-        const float* dr = ring + ((c % kWsRing) * 2 + 1) * s.tile();
-        float* sub = subs + (c % kWsSubRing) * rc * kWsSubPitch;
-        for (int i = p; i < s.rows * len; i += WsStage::kCopiers) {
-          const int r = len == WsStage::kChunk ? i / WsStage::kChunk : i / len;
+        const float* ar = ring + ((c % kSplitRing) * 2 + 1) * s.tile();
+        float* sub = subs + (c % kSplitSubRing) * rc * kSplitSubPitch;
+        for (int i = p; i < s.rows * len; i += G::kCopiers) {
+          const int r = len == kSplitChunk ? i / kSplitChunk : i / len;
           const int n = i - r * len;
-          const float dv = dr[r * WsStage::kPitch + n];
-          const float d = dv < kDriveFloor ? kDriveFloor : dv;   // NaN stays NaN
-          const DriveShaper shape{d, tanh_half / tanhf(0.5f * d)};
-          float* q = sub + r * kWsSubPitch + 4 * n;
+          float* q = sub + r * kSplitSubPitch + 4 * n;
           float4 t = ld4(q);
-          t.x = shape(t.x);
-          t.y = shape(t.y);
-          t.z = shape(t.z);
-          t.w = shape(t.w);
+          body.shape(ar[r * G::kPitch + n], t);
           st4(q, t);
         }
       }
@@ -482,6 +499,21 @@ __global__ void __launch_bounds__(kWsThreads)
       store_down_state(st, cap.d2, cap.d1, st_out, v, V);
     }
   }
+}
+
+__global__ void __launch_bounds__(FbwsBody::kThreads)
+    fbws_bank_kernel(const float* __restrict__ u, const float* __restrict__ cs,
+                     const float* __restrict__ st_in, float* __restrict__ dc_out,
+                     float* __restrict__ st_out, FbwsCoefs k, int V, int B, int rc, int vec) {
+  split4x_rows(u, cs, st_in, dc_out, st_out, k, FbwsBody{}, V, B, rc, vec);
+}
+
+__global__ void __launch_bounds__(Ws4Body::kThreads)
+    ws4_bank_kernel(const float* __restrict__ x, const float* __restrict__ drive,
+                    const float* __restrict__ st_in, float* __restrict__ y_out,
+                    float* __restrict__ st_out, FbwsCoefs k, float tanh_half, int V, int B,
+                    int rc, int vec) {
+  split4x_rows(x, drive, st_in, y_out, st_out, k, Ws4Body{tanh_half}, V, B, rc, vec);
 }
 
 // --- 7. linrec2_bank: s[n] = A[n] s[n-1] + b[n], 2-vector state -------------
@@ -583,48 +615,171 @@ __global__ void __launch_bounds__(kStageThreads)
 // snap((cur - tgt) * q^(k+1)) for pan and gain, then x*gain*cos(ang),
 // x*gain*sin(ang) and x*gain with ang = clip(pan, 0, 1)*pi/2, summed over
 // the voices.  Float atomics would sum in a different order every run, so
-// the sum is deterministic in two passes: a thread per (256-voice chunk,
-// sample) walks its chunk's voices in order (the voice scalars are
-// warp-uniform loads, the samples coalesced), then a thread per sample adds
-// the chunks in order.  The plain version (ops/bank_kernels.py) repeats
-// that order.  Bound by bytes: V*B*4 read once (8.4 MB at the kit's 4,096
-// voices), the cosf/sinf of ~17 operations a (voice, sample) well under the
-// float32 rate.
+// the sums are ordered: each 256-voice chunk's voices in order, then the
+// chunks in order.  The plain version (ops/bank_kernels.py) repeats that
+// order.
+//
+// A block of kMixThreads threads owns one chunk and a tile of kMixTile
+// samples: 16 chunks x 16 tiles = 256 blocks at the kit's 4,096 voices and
+// B = 512, two to an SM.  Its threads copy the tile of x into shared memory
+// with cp.async and, meanwhile, find the largest |w| of the block's powers
+// and take the chunk's voices, a thread each.  A voice whose pan is settled
+// for the whole block, |(cur - tgt) * w| < 1e-4 at that largest w (the
+// product's rounding is monotone in |w|, so the test covers every sample;
+// a NaN settles nothing), has the pan tgt + 0 at every sample: its cosf and
+// sinf are taken once, bit for bit those of every sample (the JAX engine's
+// settled-pan branch, engine.py:408-422, taken per voice).  Then a thread
+// per (voice, four samples) computes the tile's three terms into shared
+// memory as float4s, the unsettled voices' cosf and sinf per sample; then a
+// thread per (term, sample) adds the chunk's terms in voice order, a
+// 256-step chain, its loads eight ahead.  A second kernel adds the chunks'
+// partial sums in order (with one chunk the first kernel writes 0 + its
+// sum itself).  Bound by bytes: V*B*4 read once (8.4 MB at the kit's 4,096
+// voices); each block's phases run one after another (the copy, the terms,
+// the chain), and an unsettled voice's cosf and sinf cost ~50
+// instructions a (voice, sample), so the kernel stays well above that
+// bound, least where the pans are settled (in every kit cell they are
+// fixed).
 
 constexpr int kMixChunk = 256;
+constexpr int kMixTile = 32;                 // samples a block
+constexpr int kMixQuads = kMixTile / 4;      // four samples a thread: a warp takes four rows
+constexpr int kMixThreads = 256;             // a voice of the chunk each, then (voice, quad)s
+constexpr int kMixTerm = kMixChunk * kMixTile;   // floats of one term's tile
+constexpr size_t kMixSmem = 3 * kMixTerm * sizeof(float);
 constexpr float kSettleEps = 1e-4f;  // core/constants.py SMOOTHER_SETTLE_EPS
 constexpr float kHalfPi = static_cast<float>(3.14159265358979323846 / 2.0);
 
-__global__ void mix_bank_partial_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ pan_cur,
-                                        const float* __restrict__ pan_tgt,
-                                        const float* __restrict__ gain_cur,
-                                        const float* __restrict__ gain_tgt,
-                                        const float* __restrict__ pw,
-                                        float* __restrict__ part, int V, int B) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  if (k >= B) return;
-  const float w = pw[k];
-  float sl = 0.0f, sr = 0.0f, sm = 0.0f;
-  const int v_end = min(V, (c + 1) * kMixChunk);
-  for (int v = c * kMixChunk; v < v_end; ++v) {
-    const float pt = pan_tgt[v];
-    const float pdec = (pan_cur[v] - pt) * w;
-    const float pan = pt + (fabsf(pdec) < kSettleEps ? 0.0f : pdec);
-    const float gt = gain_tgt[v];
-    const float gdec = (gain_cur[v] - gt) * w;
-    const float gain = gt + (fabsf(gdec) < kSettleEps ? 0.0f : gdec);
-    const float ang = fminf(fmaxf(pan, 0.0f), 1.0f) * kHalfPi;
-    const float shaped = x[static_cast<size_t>(v) * B + k] * gain;
-    sl = sl + shaped * cosf(ang);
-    sr = sr + shaped * sinf(ang);
-    sm = sm + shaped;
+// The larger of a and b, a NaN in either kept.
+__device__ __forceinline__ float nan_max(float a, float b) { return a != a || a > b ? a : b; }
+
+// A smoother's value at power w: tgt + snap((cur - tgt) * w).
+__device__ __forceinline__ float snapped(float cur, float tgt, float w) {
+  const float d = (cur - tgt) * w;
+  return tgt + (fabsf(d) < kSettleEps ? 0.0f : d);
+}
+
+__device__ __forceinline__ float pan_angle(float pan) {
+  return fminf(fmaxf(pan, 0.0f), 1.0f) * kHalfPi;
+}
+
+__global__ void __launch_bounds__(kMixThreads)
+    mix_bank_partial_kernel(const float* __restrict__ x, const float* __restrict__ pan_cur,
+                            const float* __restrict__ pan_tgt,
+                            const float* __restrict__ gain_cur,
+                            const float* __restrict__ gain_tgt, const float* __restrict__ pw,
+                            float* __restrict__ part, float* __restrict__ out_l,
+                            float* __restrict__ out_r, float* __restrict__ out_m, int V,
+                            int B) {
+  extern __shared__ float4 mix_smem4[];
+  float* terms = reinterpret_cast<float*>(mix_smem4);   // [3][kMixChunk][kMixTile]
+  float* xs = terms + 2 * kMixTerm;                     // x, then x*gain in place
+  __shared__ float wmax[kMixThreads];
+  __shared__ float4 ws[kMixQuads];           // the tile's powers, 0 past B
+  __shared__ float4 gains[kMixChunk];        // gain cur, tgt; a settled pan's cos, sin
+  __shared__ float2 pans[kMixChunk];         // pan cur, tgt
+  __shared__ int settled[kMixChunk];
+  const int t = threadIdx.x, c = blockIdx.y, k0 = blockIdx.x * kMixTile;
+  const int v0 = c * kMixChunk, nv = min(kMixChunk, V - v0), len = min(kMixTile, B - k0);
+
+  // the tile of x, 16 bytes a copy where every row allows it
+  const bool vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int wid = vec ? 4 : 1, n = vec ? len >> 2 : len;   // floats a copy, copies a row
+  for (int u = t; u < nv * n; u += kMixThreads) {
+    const int r = u / n, j = u - r * n;
+    const float* g = x + static_cast<size_t>(v0 + r) * B + k0 + wid * j;
+    if (vec) {
+      cp_async16(xs + r * kMixTile + wid * j, g);
+    } else {
+      cp_async4(xs + r * kMixTile + j, g);
+    }
   }
-  float* p = part + static_cast<size_t>(c) * 3 * B;
-  p[k] = sl;
-  p[B + k] = sr;
-  p[2 * B + k] = sm;
+  cp_async_commit();
+
+  // the largest |w| of the block's powers; the tile's
+  if (t < kMixTile) reinterpret_cast<float*>(ws)[t] = t < len ? pw[k0 + t] : 0.0f;
+  float m = 0.0f;
+  for (int i = t; i < B; i += kMixThreads) m = nan_max(m, fabsf(pw[i]));
+  wmax[t] = m;
+  __syncthreads();
+  for (int h = kMixThreads / 2; h > 0; h >>= 1) {
+    if (t < h) wmax[t] = nan_max(wmax[t], wmax[t + h]);
+    __syncthreads();
+  }
+  // the chunk's voices; a settled pan's cosine and sine (0 for the others)
+  if (t < nv) {
+    const float pc = pan_cur[v0 + t], pt = pan_tgt[v0 + t];
+    const bool still = fabsf((pc - pt) * wmax[0]) < kSettleEps;
+    const float ang = pan_angle(pt + 0.0f);
+    gains[t] = make_float4(gain_cur[v0 + t], gain_tgt[v0 + t], still ? cosf(ang) : 0.0f,
+                           still ? sinf(ang) : 0.0f);
+    pans[t] = make_float2(pc, pt);
+    settled[t] = still;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the tile's terms, a thread per (voice, four samples); past len they are
+  // never summed
+  const int nq = (len + 3) >> 2;
+  for (int u = t; u < nv * kMixQuads; u += kMixThreads) {
+    const int i = u / kMixQuads, q = u - i * kMixQuads;
+    if (q >= nq) continue;
+    const float4 g = gains[i], w = ws[q];
+    float* xq = xs + i * kMixTile + 4 * q;
+    float4 sh = ld4(xq);
+    sh.x = sh.x * snapped(g.x, g.y, w.x);
+    sh.y = sh.y * snapped(g.x, g.y, w.y);
+    sh.z = sh.z * snapped(g.x, g.y, w.z);
+    sh.w = sh.w * snapped(g.x, g.y, w.w);
+    float4 l, r;
+    if (settled[i]) {
+      l = make_float4(sh.x * g.z, sh.y * g.z, sh.z * g.z, sh.w * g.z);
+      r = make_float4(sh.x * g.w, sh.y * g.w, sh.z * g.w, sh.w * g.w);
+    } else {
+      const float2 p = pans[i];
+      const float a0 = pan_angle(snapped(p.x, p.y, w.x));
+      const float a1 = pan_angle(snapped(p.x, p.y, w.y));
+      const float a2 = pan_angle(snapped(p.x, p.y, w.z));
+      const float a3 = pan_angle(snapped(p.x, p.y, w.w));
+      l = make_float4(sh.x * cosf(a0), sh.y * cosf(a1), sh.z * cosf(a2), sh.w * cosf(a3));
+      r = make_float4(sh.x * sinf(a0), sh.y * sinf(a1), sh.z * sinf(a2), sh.w * sinf(a3));
+    }
+    st4(xq - 2 * kMixTerm, l);
+    st4(xq - kMixTerm, r);
+    st4(xq, sh);
+  }
+  __syncthreads();
+
+  // a thread per (term, sample): the chunk's voices in order, eight at a
+  // time with the next eight loaded ahead of the adds
+  const int warp = t >> 5, lane = t & 31;
+  if (warp < 3 && lane < len) {
+    const float* q = terms + warp * kMixTerm + lane;
+    const int full = nv & ~7;
+    float sum = 0.0f, a[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a[u] = u < full ? q[u * kMixTile] : 0.0f;
+    for (int i = 8; i < full; i += 8) {
+      float b[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) b[u] = q[(i + u) * kMixTile];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) sum = sum + a[u];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) a[u] = b[u];
+    }
+    if (full > 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) sum = sum + a[u];
+    }
+    for (int i = full; i < nv; ++i) sum = sum + q[i * kMixTile];
+    if (V <= kMixChunk) {   // one chunk: its sum is the mix
+      (warp == 0 ? out_l : warp == 1 ? out_r : out_m)[k0 + lane] = 0.0f + sum;
+    } else {
+      part[(static_cast<size_t>(c) * 3 + warp) * B + k0 + lane] = sum;
+    }
+  }
 }
 
 __global__ void mix_bank_sum_kernel(const float* __restrict__ part, int n_chunks,
@@ -633,6 +788,7 @@ __global__ void mix_bank_sum_kernel(const float* __restrict__ part, int n_chunks
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= B) return;
   float sl = 0.0f, sr = 0.0f, sm = 0.0f;
+#pragma unroll 8
   for (int c = 0; c < n_chunks; ++c) {
     const float* p = part + static_cast<size_t>(c) * 3 * B;
     sl = sl + p[k];
@@ -740,11 +896,17 @@ int env_follow_bank_launch(const float* rect, const uint8_t* freeze,
   return static_cast<int>(cudaGetLastError());
 }
 
+// coefs (host): the 4x chain's 12; rc: rows per block (1..kStageMaxRows);
+// vec: 16-byte copies of u, comp_signed and dc.
 int fbws_bank_launch(const float* u, const float* cs, const float* st_in,
-                     float* dc, float* st_out, const float* coefs, int V, int B,
+                     float* dc, float* st_out, const float* coefs, int V, int B, int rc, int vec,
                      void* stream) {
-  fbws_bank_kernel<<<grid_for(V), kThreads, 0, as_stream(stream)>>>(
-      u, cs, st_in, dc, st_out, fbws_coefs(coefs), V, B);
+  if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = split4x_smem_bytes(rc);
+  const cudaError_t err = allow_smem(fbws_bank_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fbws_bank_kernel<<<dim3((V + rc - 1) / rc), FbwsBody::kThreads, smem, as_stream(stream)>>>(
+      u, cs, st_in, dc, st_out, fbws_coefs(coefs), V, B, rc, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -755,10 +917,10 @@ int ws4_bank_launch(const float* x, const float* drive, const float* st_in, floa
                     float* st_out, const float* coefs, int V, int B, int rc, int vec,
                     void* stream) {
   if (rc < 1 || rc > kStageMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ws4_smem_bytes(rc);
+  const size_t smem = split4x_smem_bytes(rc);
   const cudaError_t err = allow_smem(ws4_bank_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ws4_bank_kernel<<<dim3((V + rc - 1) / rc), kWsThreads, smem, as_stream(stream)>>>(
+  ws4_bank_kernel<<<dim3((V + rc - 1) / rc), Ws4Body::kThreads, smem, as_stream(stream)>>>(
       x, drive, st_in, y, st_out, fbws_coefs(coefs), coefs[12], V, B, rc, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -777,19 +939,22 @@ int linrec2_bank_launch(const float* a11, const float* a12, const float* a21,
   return static_cast<int>(cudaGetLastError());
 }
 
+// part: [n_chunks, 3, B] scratch from the wrapper (unused with one chunk)
 int mix_bank_launch(const float* x, const float* pan_cur, const float* pan_tgt,
                     const float* gain_cur, const float* gain_tgt, const float* pw,
                     float* part, float* out_l, float* out_r, float* out_m, int V, int B,
                     void* stream) {
-  // part: [n_chunks, 3, B] scratch from the wrapper
   const int n_chunks = (V + kMixChunk - 1) / kMixChunk;
-  const dim3 tiles((B + kThreads - 1) / kThreads);
-  mix_bank_partial_kernel<<<dim3(tiles.x, n_chunks), kThreads, 0, as_stream(stream)>>>(
-      x, pan_cur, pan_tgt, gain_cur, gain_tgt, pw, part, V, B);
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  mix_bank_sum_kernel<<<tiles, kThreads, 0, as_stream(stream)>>>(part, n_chunks, out_l,
-                                                                 out_r, out_m, B);
+  cudaError_t err = allow_smem(mix_bank_partial_kernel, kMixSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mix_bank_partial_kernel<<<dim3((B + kMixTile - 1) / kMixTile, n_chunks), kMixThreads,
+                            kMixSmem, as_stream(stream)>>>(x, pan_cur, pan_tgt, gain_cur,
+                                                           gain_tgt, pw, part, out_l, out_r,
+                                                           out_m, V, B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
+  mix_bank_sum_kernel<<<dim3((B + kThreads - 1) / kThreads), kThreads, 0, as_stream(stream)>>>(
+      part, n_chunks, out_l, out_r, out_m, B);
   return static_cast<int>(cudaGetLastError());
 }
 

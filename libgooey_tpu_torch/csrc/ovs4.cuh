@@ -4,12 +4,13 @@
 // (bus_kernels.cu), and the bass and drive bodies of the kit kernels
 // (voice_kernels.cu).
 //
-// In ovs4_row one thread owns one row (a voice, or a channel of the stereo
-// bus) and steps its base-rate samples through stage-1 up, stage-2 up, the
-// nonlinearity at each 4x subsample, stage-2 down and stage-1 down, with
-// every allpass memory in registers.  The packed state is the port's
-// [S, V] layout (ops/bank_kernels.py FBWS_CORE_LAYOUT in, + FBWS_Y2_LAYOUT
-// out): row-major by field, one column per row of the signal.
+// A row (a voice, or a channel of the stereo bus) steps its base-rate
+// samples through stage-1 up, stage-2 up, the nonlinearity at each 4x
+// subsample, stage-2 down and stage-1 down, with every allpass memory in
+// registers: the up-path and the down-path as two walks (the split form
+// below), on one thread or on two.  The packed state is the port's [S, V]
+// layout (ops/bank_kernels.py FBWS_CORE_LAYOUT in, + FBWS_Y2_LAYOUT out):
+// row-major by field, one column per row of the signal.
 
 #pragma once
 
@@ -51,45 +52,6 @@ __device__ __forceinline__ float ap_chain(float u, float (&ys)[N], float (&xs)[N
     u = y;
   }
   return u;
-}
-
-// Stage-1 upsample of one base sample, then the first 2x subsample through
-// stage 2, the shaper and the stage-2 downsampler.  Returns (odd stage-1
-// output, first 2x-rate decimated sample).
-template <class Shaper>
-__device__ __forceinline__ void ovs4_phase_a(FbwsState& s, const FbwsCoefs& k,
-                                             const Shaper& shape, float u, float& o1,
-                                             float& d0) {
-  const float e1 = ap_chain(u, s.u1y0, s.u1x0, k.c1_0);
-  o1 = ap_chain(u, s.u1y1, s.u1x1, k.c1_1);
-  const float s0 = ap_chain(e1, s.u2y0, s.u2x0, k.c2_0);
-  const float s1 = ap_chain(e1, s.u2y1, s.u2x1, k.c2_1);
-  const float t0 = shape(s0);
-  const float t1 = shape(s1);
-  const float a0 = ap_chain(t0, s.d2y0, s.d2x0, k.c2_0);
-  const float a1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
-  d0 = 0.5f * (a0 + a1);
-  s.d2x1d = t1;
-}
-
-// Second 2x subsample and the stage-1 downsample.  Returns the base-rate
-// output of the 4x chain.
-template <class Shaper>
-__device__ __forceinline__ float ovs4_phase_b(FbwsState& s, const FbwsCoefs& k,
-                                              const Shaper& shape, float o1, float d0) {
-  const float s2 = ap_chain(o1, s.u2y0, s.u2x0, k.c2_0);
-  const float s3 = ap_chain(o1, s.u2y1, s.u2x1, k.c2_1);
-  const float t2 = shape(s2);
-  const float t3 = shape(s3);
-  const float b0 = ap_chain(t2, s.d2y0, s.d2x0, k.c2_0);
-  const float b1 = ap_chain(s.d2x1d, s.d2y1, s.d2x1, k.c2_1);
-  const float d1 = 0.5f * (b0 + b1);
-  s.d2x1d = t3;
-  const float e0 = ap_chain(d0, s.d1y0, s.d1x0, k.c1_0);
-  const float e1 = ap_chain(s.d1x1d, s.d1y1, s.d1x1, k.c1_1);
-  const float y = 0.5f * (e0 + e1);
-  s.d1x1d = d1;
-  return y;
 }
 
 // The memoryless nonlinearities evaluated at each 4x subsample: plain tanh
@@ -261,53 +223,22 @@ __device__ __forceinline__ void store_state(const FbwsState& s, const Caps<4>& c
   store_down_state(s, cd2, cd1, st, v, V);
 }
 
-// One row's block through the 4x chain.  ``input(n)`` is base sample n,
-// ``shaper_at(n)`` the nonlinearity held across its four subsamples and
-// ``finish(n, y)`` consumes the chain's base-rate output.  The last sample
-// is peeled to take the second-to-last captures: stage-1 memories hold the
-// step-(B-2) section IO before it, stage-2 memories hold 2x-rate index
-// 2B-2 after its first subsample (pallas_fx.py:1697-1713).  The state
-// (with the captures) is stored to ``st_out`` column v of V.
-template <class Input, class ShaperAt, class Finish>
-__device__ __forceinline__ void ovs4_row(FbwsState& s, const FbwsCoefs& k, int B,
-                                         const Input& input, const ShaperAt& shaper_at,
-                                         const Finish& finish, float* st_out, int v,
-                                         int V) {
-  float o1, d0;
-  for (int n = 0; n < B - 1; ++n) {
-    const auto shape = shaper_at(n);
-    ovs4_phase_a(s, k, shape, input(n), o1, d0);
-    finish(n, ovs4_phase_b(s, k, shape, o1, d0));
-  }
-  Caps<4> cu1, cd1;
-  Caps<2> cu2, cd2;
-  capture(cu1, s.u1y0, s.u1x0, s.u1y1, s.u1x1);
-  capture(cd1, s.d1y0, s.d1x0, s.d1y1, s.d1x1);
-  const auto shape = shaper_at(B - 1);
-  ovs4_phase_a(s, k, shape, input(B - 1), o1, d0);
-  capture(cu2, s.u2y0, s.u2x0, s.u2y1, s.u2x1);
-  capture(cd2, s.d2y0, s.d2x0, s.d2y1, s.d2x1);
-  finish(B - 1, ovs4_phase_b(s, k, shape, o1, d0));
-  store_state(s, cu1, cu2, cd2, cd1, st_out, v, V);
-}
-
-// The chunked, split form of ovs4_row, for the kernels that walk a row's
-// block in spans and evaluate the nonlinearity on other threads
-// (kit_sources' bass, the 4x phases of bus_chain and of their own kernels,
-// and ws4_bank and kit_drive, whose up- and down-walks run on two warps).
-// ovs4_up_span walks the up-path (stage-1 and stage-2 upsamplers) of
-// samples [n0, n1) of a B-sample block and leaves sample n's four 4x
-// subsamples at sub[4 (n - n0) ..]; the caller applies the sample's shaper
-// to each in place, on any threads; ovs4_down_span walks the down-path
-// (stage-2 and stage-1 downsamplers) on them and calls finish.  The state
-// carries in ``s`` from one span to the next; the span that holds the
-// block's last sample takes the captures into ``cap`` where ovs4_row takes
-// them, and store_span_state stores the state after the last span (or each
-// walk its half, store_up_state / store_down_state, where they run on
-// other threads).
-// The up-path and the down-path hold disjoint parts of the state and every
-// allpass steps its samples in order, so the spans of a block give what
-// ovs4_row gives, bit for bit; ovs4_row stays for fbws_bank.
+// The 4x chain in spans (kit_sources' bass, the 4x phases of bus_chain and
+// of their own kernels; ws4_bank, fbws_bank and kit_drive, whose up- and
+// down-walks run on two warps).  ovs4_up_span walks the up-path (stage-1
+// and stage-2 upsamplers) of samples [n0, n1) of a B-sample block and
+// leaves sample n's four 4x subsamples at sub[4 (n - n0) ..]; the caller
+// applies the sample's shaper to each in place, on any threads;
+// ovs4_down_span walks the down-path (stage-2 and stage-1 downsamplers) on
+// them and calls finish.  The state carries in ``s`` from one span to the
+// next.  The span that holds the block's last sample takes the
+// second-to-last captures into ``cap`` (stage-1 memories hold the step-(B-2)
+// section IO before it, stage-2 memories hold 2x-rate index 2B-2 after its
+// first subsample, pallas_fx.py:1697-1713), and store_span_state stores
+// the state after the last span (or each walk its half, store_up_state /
+// store_down_state, where they run on other threads).  The up-path and the
+// down-path hold disjoint parts of the state and every allpass steps its
+// samples in order, so any cut of a block into spans gives the same bits.
 struct OvsCaps {
   Caps<4> u1, d1;
   Caps<2> u2, d2;

@@ -45,7 +45,8 @@ SIGNATURES = {
     "pink_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "svf_bank_launch": [_P] * 10 + [_I] * 4 + [_P],
     "env_follow_bank_launch": [_P] * 5 + [_F, _F] + [_I] * 4 + [_P],
-    "fbws_bank_launch": [_P] * 6 + [_I, _I, _P],
+    # u, comp_signed, state in, dc, state out, coefficients, V, B, rc, vec
+    "fbws_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     # x, drive, state in, y, state out, coefficients (+ tanh(0.5)), V, B, rc, vec
     "ws4_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "linrec2_bank_launch": [_P] * 12 + [_I] * 4 + [_P],

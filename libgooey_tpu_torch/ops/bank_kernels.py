@@ -39,10 +39,12 @@ rows from 64-sample tiles that its other warps copy into shared memory ahead
 of the walk (the pink filter's and the SVF's reset masks and the follower's
 freeze mask as bytes), and :func:`stage_rows` sizes the blocks so that a
 launch spreads over the SMs; ``affine1_bank(None, ...)`` reads no floor
-array.  ``ws4_bank`` splits its 4x chain over the warps of a block of up to
-32 rows: the up-walk, the shaper with the drive's gain, the down-walk.
-``fbws_bank`` reads device memory directly, a thread a row in blocks of
-128, which at the kick's 4,096 rows fills 32 of the 132 SMs.
+array.  ``ws4_bank`` and ``fbws_bank`` split their 4x chain over the warps
+of a block of up to 32 rows: the up-walk, the shaper (``ws4_bank``'s with
+the drive's gain), the down-walk (``fbws_bank``'s with the gated DC
+blocker).  ``mix_bank`` takes a block per (256-voice chunk, 32-sample
+tile), a settled pan's cosine and sine once, and sums each chunk in voice
+order.
 """
 
 from __future__ import annotations
@@ -158,11 +160,11 @@ STAGE_MAX_ROWS = 32
 
 def stage_rows(R: int, n_sm: int) -> int:
     """Rows per block of a staged kernel (``affine1_bank``, ``pink_bank``,
-    ``svf_bank``, ``env_follow_bank``, ``linrec2_bank``) and of
-    ``ws4_bank``: the fewest that keep a launch of ``R`` rows within one
-    block per SM, at most one warp, so the launch spreads over ``min(R,
-    n_sm)`` SMs (4 at 512 rows on 132 SMs, 8 at 1,024, 20 at 2,560, 32 at
-    4,096; 1 at one row)."""
+    ``svf_bank``, ``env_follow_bank``, ``linrec2_bank``) and of the split
+    ones (``ws4_bank``, ``fbws_bank``): the fewest that keep a launch of
+    ``R`` rows within one block per SM, at most one warp, so the launch
+    spreads over ``min(R, n_sm)`` SMs (4 at 512 rows on 132 SMs, 8 at
+    1,024, 20 at 2,560, 32 at 4,096; 1 at one row)."""
     return max(1, min(STAGE_MAX_ROWS, -(-R // n_sm)))
 
 
@@ -518,7 +520,8 @@ def fbws_bank(u, comp_signed, packed):
     keep, coefs = _host_floats(_FBWS_COEFS)
     _launch("fbws_bank", u.device, "fbws_bank_launch",
             u.data_ptr(), comp_signed.data_ptr(), packed.data_ptr(),
-            dc.data_ptr(), nst.data_ptr(), coefs, V, B)
+            dc.data_ptr(), nst.data_ptr(), coefs, V, B,
+            *_stage_args(V, B, u.device, u, comp_signed, dc))
     del keep
     fbws_bank.launches += 1
     return dc, nst

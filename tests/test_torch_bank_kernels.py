@@ -396,12 +396,28 @@ def test_ws4_bank_launches_with_the_raw_drive(monkeypatch, R, n, rc, vec):
     assert a[6:] == (R, n, rc, vec)
 
 
+@pytest.mark.parametrize("R,n,rc,vec", [(4096, 512, 32, 1), (1024, 512, 8, 1), (1, 512, 1, 1),
+                                        (515, 100, 4, 1), (515, 99, 4, 0)])
+def test_fbws_bank_launches_split(monkeypatch, R, n, rc, vec):
+    """``fbws_bank`` passes rows per block and the 16-byte flag as the split
+    ``ws4_bank`` does (32 rows a block at the kick slice's 4,096, 8 at the
+    kit's 1,024), after the chain's twelve coefficients."""
+    u, cs = torch.zeros(R, n), torch.ones(R, n)
+    packed = torch.zeros(bk.FBWS_S_IN, R)
+    entry, a, coefs = _recorded_launch(monkeypatch, bk.fbws_bank, u, cs, packed, n_coefs=12)
+    assert entry == "fbws_bank_launch" and len(a) == 10
+    assert a[:3] == (u.data_ptr(), cs.data_ptr(), packed.data_ptr())
+    assert coefs == [float(np.float32(c)) for c in bk._FBWS_COEFS]
+    assert a[6:] == (R, n, rc, vec) == (R, n, bk.stage_rows(R, 132), vec)
+
+
 def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     """``tools/torch_kernel_ab.py`` (and the CPU emulator's A/B) call a build
-    from before the svf/ws4/env_follow/plate redesigns with its own
-    arguments: the SVF and the follower without rows per block and 16-byte
-    flag, ws4 with the wrapper's (d, comp) in place of the drive, the plate
-    without its chunk; a build with this tree's entries unchanged."""
+    from before the svf/ws4/env_follow/plate/fbws redesigns with its own
+    arguments: the SVF, the follower and fbws without rows per block and
+    16-byte flag, ws4 with the wrapper's (d, comp) in place of the drive,
+    the plate without its chunk; a build with this tree's entries
+    unchanged."""
     import sys
     from pathlib import Path
 
@@ -416,6 +432,7 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     older["ws4_bank_launch"] = [P] * 7 + [I, I, P]
     older["env_follow_bank_launch"] = [P] * 5 + [_build._F, _build._F, I, I, P]
     older["plate_block_launch"] = [P] * 3 + [I, I, I, P]
+    older["fbws_bank_launch"] = [P] * 6 + [I, I, P]
     (tmp_path / "ops").mkdir()
     names = {_build._P: "_P", _build._I: "_I", _build._F: "_F"}
     (tmp_path / "ops" / "_build.py").write_text(
@@ -427,6 +444,7 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     sigs = signatures(tmp_path / "csrc")
     assert len(sigs["svf_bank_launch"]) == 13 and len(sigs["ws4_bank_launch"]) == 10
     assert len(sigs["env_follow_bank_launch"]) == 10 and len(sigs["plate_block_launch"]) == 7
+    assert len(sigs["fbws_bank_launch"]) == 9
     assert signatures(Path(bk.__file__).resolve().parents[1] / "csrc") == _build.SIGNATURES
     svf = tuple(range(100, 110)) + (7, 9, 1, 1)
     assert older_args("svf_bank_launch", svf, sigs, None) == svf[:12]
@@ -446,9 +464,57 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     plate = (1, 2, 3, 566, 2719, 512, 158)
     assert older_args("plate_block_launch", plate, sigs, None) == plate[:6]
     assert older_args("plate_block_launch", plate, _build.SIGNATURES, None) == plate
-    sigs["fbws_bank_launch"] = sigs["fbws_bank_launch"][1:]
+    fbws = (1, 2, 3, 4, 5, 6, 4096, 512, 32, 1)
+    assert older_args("fbws_bank_launch", fbws, sigs, None) == fbws[:8]
+    assert older_args("fbws_bank_launch", fbws, _build.SIGNATURES, None) == fbws
+    sigs["triangle_additive_bank_launch"] = sigs["triangle_additive_bank_launch"][1:]
     with pytest.raises(ValueError, match="no older form"):
-        older_args("fbws_bank_launch", (), sigs, gain)
+        older_args("triangle_additive_bank_launch", (), sigs, gain)
+
+
+def test_kernel_probes_apply_to_this_tree(tmp_path):
+    """``tools/kernel_probes.py`` finds each of its edits once in this
+    tree's sources (the split chain's, ``fbws_bank``'s rows per block,
+    ``kit_drive``'s, the plate's) and writes a whole copy per probe."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import kernel_probes
+
+    assert kernel_probes.main([str(tmp_path)]) == 0
+    csrc = Path(bk.__file__).resolve().parents[1] / "csrc"
+    for name, (source, edits) in kernel_probes.PROBES.items():
+        probe = tmp_path / name
+        assert sorted(p.name for p in probe.iterdir()) == sorted(p.name for p in csrc.iterdir())
+        text = (probe / source).read_text()
+        assert all(new in text for _, new in edits) and text != (csrc / source).read_text()
+
+
+@pytest.mark.parametrize("n", [512, 100, 37])
+def test_mix_settled_test_covers_every_sample(n):
+    """``mix_bank``'s kernel takes a voice's pan as settled for the block
+    when ``|(cur - tgt) * w| < 1e-4`` at the largest power ``w``: at the
+    snap's float32 edge (``chip_smoke.snap_edge_pans``) the plain version's
+    snap zeroes every sample of the voices just below it, and not the first
+    sample of those at it."""
+    import sys
+    from pathlib import Path
+
+    from libgooey_tpu_torch.core.smoother import settle_snap, smoothing_coeff
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    pw = bk._mix_powers(smoothing_coeff(SR), n, "cpu")
+    assert bool((pw[1:] <= pw[:-1]).all())
+    pt = np.linspace(0.2, 0.8, 64).astype(np.float32)
+    pc = chip_smoke.snap_edge_pans(pt, np.float32(pw.abs().max()))
+    snapped = settle_snap((T(pc) - T(pt))[:, None] * pw[None, :]) == 0.0
+    below = np.arange(64) % 4 < 2
+    assert bool(snapped[below].all()) and not bool(snapped[~below, 0].any())
+    assert bool(snapped[~below, -1].all())
+    assert (pc > pt).tolist() == [i % 2 == 0 for i in range(64)]
 
 
 # --- dispatch -----------------------------------------------------------------

@@ -211,6 +211,76 @@ def test_staged_kernels_take_unaligned_rows(dev):
     _assert_staged_equal_plain(cases)
 
 
+def _fbws_rows(rs, t, R, B):
+    """fbws_bank arguments: noise at the kick's drive, a makeup gain with
+    5% of the samples bypassed, every 5th row (from the 2nd) bypassed for
+    the whole block and every 7th (from the 4th) from mid-block on, a
+    random packed state."""
+    cs = np.where(rs.rand(R, B) < 0.05, -1.0, 0.2 + 2.8 * rs.rand(R, B))
+    cs[1::5] = -1.0
+    cs[3::7, B // 2:] = -1.0
+    return (t((1.0 + 40.0 * rs.rand(R, 1) ** 3) * 0.3 * rs.randn(R, B)), t(cs),
+            t(0.1 * rs.randn(bk.FBWS_S_IN, R)))
+
+
+@pytest.mark.parametrize("R,B", [(4096, 512), (1024, 512), (515, 100), (515, 37), (5, 512),
+                                 (1, 33)])
+def test_fbws_bank_is_bit_equal_to_its_plain_version(dev, R, B):
+    """The split chain with the DC blocker on its down-walk: the output and
+    the [100, V] packed state with its captures, bit for bit, at a tail of
+    rows and of the 32-sample chunk, with rows bypassed for the whole block
+    and from mid-block on; also with every input 4 bytes past a 16-byte
+    boundary."""
+    rs = np.random.RandomState(6)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.float32)
+
+    args = _fbws_rows(rs, t, R, B)
+    shifted = tuple(torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape) for a in args)
+    for a in (args, shifted):
+        got, want = bk.fbws_bank(*a), bk.fbws_bank_plain(*a)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert float(got[0].abs().max()) > 0.01 and bool((got[0][1::5] == 0).all())
+
+
+def _mix_rows(rs, t, V, B, kind):
+    """mix_bank arguments: voices of noise, pans over [0.2, 0.8] and gains
+    1/V held at their targets (``settled``), every other voice sweeping
+    (``half``) or every voice sweeping (``unsettled``: pans to their mirror
+    image, gains from 1.5/V)."""
+    pt = np.linspace(0.2, 0.8, V)
+    gt = np.full(V, 1.0 / V)
+    pc, gc = pt.copy(), gt.copy()
+    moving = slice(None) if kind == "unsettled" else slice(1, None, 2)
+    if kind != "settled":
+        pc[moving] = pt[::-1][moving]
+        gc[moving] = 1.5 / V
+    return t(0.3 * rs.randn(V, B)), t(pc), t(pt), t(gc), t(gt)
+
+
+@pytest.mark.parametrize("kind", ["settled", "half", "unsettled"])
+@pytest.mark.parametrize("V,B", [(4096, 512), (64, 512), (300, 100), (130, 37)])
+def test_mix_bank_is_bit_equal_to_its_plain_version(dev, V, B, kind):
+    """Settled voices take their cosine and sine once, the others per
+    sample; the three sums in the plain version's order, bit for bit, with
+    one chunk and with a partial one, a tail tile and 4-byte copies."""
+    rs = np.random.RandomState(7)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.float32)
+
+    args = _mix_rows(rs, t, V, B, kind)
+    got = bk.mix_bank(*args, coeff=smoothing_coeff(SR))
+    want = bk.mix_bank_plain(*args, coeff=smoothing_coeff(SR))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (B,) and torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert float(got[2].abs().max()) > 0.0
+
+
 @pytest.mark.parametrize("R,B", [(1, 512), (515, 100), (5, 37)])
 def test_ws4_bank_over_two_blocks_equals_its_plain_version(dev, R, B):
     """The oversampler state threaded through unpack/pack from one block to

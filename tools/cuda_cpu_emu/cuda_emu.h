@@ -38,9 +38,13 @@ struct dim3 {
   dim3() = default;
   dim3(unsigned x_, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
+struct float2 {
+  float x, y;
+};
 struct float4 {
   float x, y, z, w;
 };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 inline thread_local dim3 threadIdx;

@@ -16,9 +16,11 @@ product kit, one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
 ``chip_smoke.bus_cases`` at 512, 100 and 33 samples; ``plate_block`` at
 the main path's block and ``chip_smoke.plate_cases`` (100 and 33 samples,
 the modulated lags falling to 1, 22,050 and 96,000 Hz); the staged bank
-kernels and ``ws4_bank`` at 1, 5, 130 and 515 rows of 512, 100 and 37
-samples and with unaligned inputs (``BANK_SHAPES``), rows per block as on
-132 SMs.  A build
+kernels, ``ws4_bank``, ``fbws_bank`` (rows bypassed for the whole block
+and from mid-block on) and ``mix_bank`` (every voice settled, half of them
+sweeping, half at the settle snap's edge) at 1, 5, 130 and 515 rows (or
+voices) of 512, 100 and 37 samples and with unaligned inputs
+(``BANK_SHAPES``), rows per block as on 132 SMs.  A build
 whose entries take the arguments they took before their kernels were
 redesigned (its tree's ``ops/_build.py`` says so) is called that way
 (``tools/torch_kernel_ab.older_args``).  A restructuring that moves work
@@ -133,12 +135,13 @@ def same_bits(a, b) -> bool:
 
 
 def bank_ab_cases(dev, shapes, unaligned_shape):
-    """``(label, name, args, kwargs)`` of the staged bank kernels and
-    ws4_bank at each ``(rows, samples)``: affine1_bank with a live floor and
-    with none, pink_bank with resets and without, svf_bank with resets and
-    without, env_follow_bank with freezes, linrec2_bank's resonators,
-    ws4_bank's overdrive; then each with every input 4 bytes past a 16-byte
-    boundary."""
+    """``(label, name, args, kwargs)`` of the staged bank kernels, the split
+    ones and mix_bank at each ``(rows, samples)``: affine1_bank with a live
+    floor and with none, pink_bank with resets and without, svf_bank with
+    resets and without, env_follow_bank with freezes, linrec2_bank's
+    resonators, ws4_bank's overdrive, fbws_bank with bypassed rows,
+    mix_bank settled, half sweeping and half at the snap's edge; then each
+    with every input 4 bytes past a 16-byte boundary."""
     import torch
 
     import chip_smoke as cs
@@ -169,6 +172,10 @@ def bank_ab_cases(dev, shapes, unaligned_shape):
                               t(np.zeros((R, B))), t(0.01 * rs.randn(R)),
                               t(0.01 * rs.randn(R))), {}),
             ("ws4_bank", cs.ws4_rows(rs, t, R, B), {}),
+            ("fbws_bank", cs.fbws_rows(rs, t, R, B), {}),
+            ("mix_bank", *cs.mix_rows(rs, t, R, B)),
+            ("mix_bank", *cs.mix_rows(rs, t, R, B, half=True)),
+            ("mix_bank", *cs.mix_rows(rs, t, R, B, half=True, edge=True)),
         ]
 
     cases = [(f"R={R}, B={B}", name, a, kw) for R, B in shapes for name, a, kw in rows(R, B)]

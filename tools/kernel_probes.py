@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Copies of the kernel sources with parts of ``ws4_bank``, ``kit_drive`` or
-``plate_block`` cut out, for timing those parts alone on the card with
-``tools/torch_kernel_ab.py``.
+"""Copies of the kernel sources with parts of ``ws4_bank`` and ``fbws_bank``,
+``kit_drive`` or ``plate_block`` cut out, for timing those parts alone on
+the card with ``tools/torch_kernel_ab.py``.
 
     python3 tools/kernel_probes.py OUT_DIR [CSRC]
 
 Writes one directory per probe under ``OUT_DIR`` (inside the copied repo,
 e.g. ``chip_checkout/``), each a copy of ``CSRC`` (default: this tree's
 ``libgooey_tpu_torch/csrc``) with lines of one kernel replaced.
-``ws4_bank_kernel`` (``bank_kernels.cu``): ``walks_only`` (no copies, no
-shaper: the up- and down-walks on whatever shared memory holds),
-``up_only`` and ``down_only`` (one walk), and ``shape_copy`` (no walks: the
-shaper with the drive's gain and the copies).  ``kit_drive``'s
+The split 4x chain that ``ws4_bank`` and ``fbws_bank`` share
+(``split4x_rows``, ``bank_kernels.cu``): ``walks_only`` (no copies, no
+shaper: the up- and down-walks, ``fbws_bank``'s down-walk with its DC
+blocker, on whatever shared memory holds), ``up_only`` and ``down_only``
+(one walk), and ``shape_copy`` (no walks: the shaper, ``ws4_bank``'s with
+the drive's gain, and the copies); ``fbws_rows16`` (nothing cut:
+``fbws_bank`` at 16 rows a block at most, bit-equal).
+``mix_bank_partial_kernel``: ``mix_partial_only`` (no second kernel: the
+chunks' partial sums only), ``mix_terms_only`` (no sums either: the copy
+of x, the settled test and the terms) and ``mix_loads_only`` (the copy
+and the settled test alone).  ``kit_drive``'s
 ``drive_row`` (``voice_kernels.cu``): ``drive_walks`` (no per-sample
 inputs, shaper or finish: the two walks, with the kick's DC blocker and
 feedback filter) and ``drive_stages`` (no walks: the per-sample inputs,
@@ -20,8 +27,8 @@ the shaper and the finish).  ``plate_block_kernel`` (``plate_kernels.cu``):
 ``plate_onepoles`` (the bandwidth and damping walks alone) and
 ``plate_chunks`` (the diffusion and modulated allpass steps alone).  Their
 outputs are wrong; only their times mean anything.  Pass the directories to
-``tools/torch_kernel_ab.py --only ws4_bank``, ``--only kit_drive`` or
-``--only plate_block``.
+``tools/torch_kernel_ab.py --only ws4_bank,fbws_bank``, ``--only
+mix_bank``, ``--only kit_drive`` or ``--only plate_block``.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ ROOT = Path(__file__).resolve().parents[1]
 NO_COPIES = [
     ("for (int c = 0; c < 2; ++c) stage_in(src, ring + c * 2 * s.tile(), s, c, n_chunks, p);",
      ";"),
-    ("stage_in(src, ring + ((j + 2) % kWsRing) * 2 * s.tile(), s, j + 2, n_chunks, p);", ";"),
+    ("stage_in(src, ring + ((j + 2) % kSplitRing) * 2 * s.tile(), s, j + 2, n_chunks, p);",
+     ";"),
     ("if (j >= 3) stage_out(dst, outs + ((j - 3) & 1) * s.tile(), s, j - 3, p);", ";"),
     ("if (warp >= 2) stage_out(dst, outs + ((n_chunks - 1) & 1) * s.tile(), s, n_chunks - 1, p);",
      ";"),
@@ -43,6 +51,10 @@ NO_COPIES = [
 NO_SHAPER = [("if (j >= 1 && j <= n_chunks) {", "if (false) {")]
 NO_UP = [("if (walks && j < n_chunks) {", "if (false) {")]
 NO_DOWN = [("if (walks && j >= 2) {", "if (false) {")]
+FBWS_ROWS16 = [("float* dc, float* st_out, const float* coefs, int V, int B, int rc, int vec,\n"
+                "                     void* stream) {\n",
+                "float* dc, float* st_out, const float* coefs, int V, int B, int rc, int vec,\n"
+                "                     void* stream) {\n  rc = rc > 16 ? 16 : rc;\n")]
 NO_DRIVE_STAGES = [
     ("if (warp == 2 && lane < len(0)) b.input(sm.ps[0], lane, lane);", ";"),
     ("if (c < n_chunks && lane < len(c)) b.input(", "if (false) b.input("),
@@ -51,6 +63,11 @@ NO_DRIVE_STAGES = [
     ("if (j >= 1 && j <= n_chunks) {", "if (false) {"),
 ]
 NO_DRIVE_WALKS = [("if (j < n_chunks) {", "if (false) {"), ("if (j >= 2) {", "if (false) {")]
+MIX_NO_CHUNK_PASS = [("  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);",
+                      "  return static_cast<int>(err);")]
+MIX_NO_SUMS = [("  if (warp < 3 && lane < len) {", "  if (false) {")]
+MIX_NO_TERMS = [("  for (int u = t; u < nv * kMixQuads; u += kMixThreads) {",
+                 "  for (int u = t; u < 0; u += kMixThreads) {")]
 PLATE_NO_COPIES = [
     ("for (int r = 0; r < kInAps; ++r) {\n    copy_span<true>(",
      "for (int r = 0; r < 0; ++r) {\n    copy_span<true>("),
@@ -70,6 +87,10 @@ PROBES = {
     "up_only": ("bank_kernels.cu", NO_COPIES + NO_SHAPER + NO_DOWN),
     "down_only": ("bank_kernels.cu", NO_COPIES + NO_SHAPER + NO_UP),
     "shape_copy": ("bank_kernels.cu", NO_UP + NO_DOWN),
+    "fbws_rows16": ("bank_kernels.cu", FBWS_ROWS16),
+    "mix_partial_only": ("bank_kernels.cu", MIX_NO_CHUNK_PASS),
+    "mix_terms_only": ("bank_kernels.cu", MIX_NO_CHUNK_PASS + MIX_NO_SUMS),
+    "mix_loads_only": ("bank_kernels.cu", MIX_NO_CHUNK_PASS + MIX_NO_SUMS + MIX_NO_TERMS),
     "drive_walks": ("voice_kernels.cu", NO_DRIVE_STAGES),
     "drive_stages": ("voice_kernels.cu", NO_DRIVE_WALKS),
     "plate_copies": ("plate_kernels.cu", PLATE_NO_ONEPOLES + PLATE_NO_CHUNKS),

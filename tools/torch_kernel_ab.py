@@ -12,13 +12,14 @@ Each directory is built as the port builds its own (``ops/_build.py``'s
 flags, one nvcc per source) into ``libgooey_tpu_torch/_build/ab_<name>/``
 and loaded beside this tree's library; the wrappers launch one or the
 other.  A build whose ``pink_bank``, ``svf_bank``, ``ws4_bank``,
-``env_follow_bank`` or ``plate_block`` entry takes the arguments it took
-before those kernels were redesigned (its tree's ``ops/_build.py`` beside
-the directory says so) is called that way (:func:`older_args`).  Cases, at
-the main path's shapes (``chip_smoke.py``'s inputs): ``pink_bank``,
-``svf_bank``, ``ws4_bank``, ``env_follow_bank`` and ``plate_block`` at
-every phase-3 case (the path's shapes, then the tails), ``affine1_bank``
-and ``linrec2_bank`` likewise (their staging header is shared),
+``env_follow_bank``, ``plate_block`` or ``fbws_bank`` entry takes the
+arguments it took before those kernels were redesigned (its tree's
+``ops/_build.py`` beside the directory says so) is called that way
+(:func:`older_args`).  Cases, at the main path's shapes (``chip_smoke.py``'s
+inputs): ``pink_bank``, ``svf_bank``, ``ws4_bank``, ``fbws_bank``,
+``env_follow_bank``, ``plate_block`` and ``mix_bank`` at every phase-3 case
+(the path's shapes, then the tails), ``affine1_bank`` and ``linrec2_bank``
+likewise (their staging header is shared),
 ``kit_sources`` at the product kit and with each of its families alone,
 ``kit_drive`` at the product kit, with each of its bodies alone and at
 ``chip_smoke.TAIL_KITS``, ``bus_chain`` with
@@ -102,11 +103,11 @@ def signatures(csrc: Path) -> dict:
 def older_args(entry, args, sigs, gain):
     """This tree's arguments of C entry ``entry`` as a build with argument
     types ``sigs`` takes them: before the redesign ``pink_bank_launch``,
-    ``svf_bank_launch`` and ``env_follow_bank_launch`` took no rows per
-    block or 16-byte flag, ``ws4_bank_launch`` took neither and the drive's
-    ``(d, comp)`` from its wrapper instead of the drive (``gain(drive_ptr,
-    V, B)`` gives pointers to those two), and ``plate_block_launch`` took
-    no chunk."""
+    ``svf_bank_launch``, ``env_follow_bank_launch`` and
+    ``fbws_bank_launch`` took no rows per block or 16-byte flag,
+    ``ws4_bank_launch`` took neither and the drive's ``(d, comp)`` from its
+    wrapper instead of the drive (``gain(drive_ptr, V, B)`` gives pointers
+    to those two), and ``plate_block_launch`` took no chunk."""
     from libgooey_tpu_torch.ops import _build
 
     if len(sigs[entry]) == len(_build.SIGNATURES[entry]):
@@ -117,6 +118,8 @@ def older_args(entry, args, sigs, gain):
         return args[:12]
     if entry == "env_follow_bank_launch":
         return args[:9]
+    if entry == "fbws_bank_launch":
+        return args[:8]
     if entry == "plate_block_launch":
         return args[:6]
     if entry == "ws4_bank_launch":
@@ -211,7 +214,7 @@ def main(argv=None) -> int:
 
     for name, shape, args, kw, _ in cs.kernel_cases(dev):
         if name in ("pink_bank", "svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank",
-                    "env_follow_bank", "plate_block"):
+                    "env_follow_bank", "plate_block", "fbws_bank", "mix_bank"):
             if name == "ws4_bank":
                 drives[args[1].data_ptr()] = args[1]
             fn = getattr(kernels.module_of(name), name)
