@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "ovs4.cuh"
+#include "triangle.cuh"
 
 namespace {
 
@@ -167,30 +168,6 @@ __device__ __forceinline__ float phase_mod_env(float el, bool active) {
 
 __device__ __forceinline__ float tuning_mult(float t) {
   return exp2f(((clamp01(t) - 0.5f) * 24.0f) * static_cast<float>(1.0 / 12.0));
-}
-
-// The additive odd-harmonic triangle of one sample (osc_kernels.cu)
-__device__ __forceinline__ float triangle(float idx, float f, float w, float nyquist,
-                                          int n_terms) {
-  const float theta = idx * f * w;
-  const float sin1 = sinf(theta);
-  const float cos2x2 = 2.0f * cosf(2.0f * theta);
-  const float max_h = floorf(nyquist / fmaxf(f, 1e-6f));
-  float prev = -sin1, curr = sin1, acc = 0.0f;
-  for (int k = 0; k < n_terms; ++k) {
-    const float h = 2.0f * static_cast<float>(k) + 1.0f;
-    const float hfreq = f * h;
-    const float ratio = hfreq / nyquist;
-    const float t = (ratio - 0.75f) * 4.0f;
-    const float taper = ratio > 0.75f ? 1.0f - t * t : 1.0f;
-    const float gain = taper / (h * h);
-    const bool active = (h <= max_h) && (hfreq <= nyquist);
-    acc = acc + (active ? gain * curr : 0.0f);
-    const float nxt = cos2x2 * curr - prev;
-    prev = curr;
-    curr = nxt;
-  }
-  return acc;
 }
 
 // Max/MSP curve~ with exp(x) - 1 (pallas_voice._max_curve); fp and den are
@@ -350,14 +327,15 @@ struct PhaseBank {
 //      bs i32, powq [B+1]
 // out: total [V,B], ampsc [V,B], ncur [V,19], nlat [V,6], ntrig [V] i32, nfst [V,6]
 // f:   1/sr, 2pi/sr, sr/2, alpha, 1-alpha, max cutoff, sr, q^B, poles[3],
-//      gains[3], direct, outg;  iv: seed mix, triangle terms (-1: none)
+//      gains[3], direct, outg, the triangle's taper threshold;  iv: seed mix,
+//      triangle terms (-1: none)
 //
 // Walks: the click high-pass (thread 0); the pink poles and the noise SVF on
 // their sum (thread 32).
 
 enum KickSlot { kKSum, kKClickRaw, kKPinkW, kKG, kKH, kKOscEnv, kKNoiseAmt, kKClickOut, kKNoiseF };
 
-__device__ void kick_a(const VoicePhase& p, int v, float* sh) {
+__device__ void kick_a(const VoicePhase& p, int v, float* sh, float* tri_gain) {
   const int B = p.B, t = threadIdx.x;
   Row r;
   r.init(IN_F(0) + v * 19, IN_F(1) + v * 19, IN_F(8), IN_I(2)[v], IN_I(4)[v], *IN_I(7), B);
@@ -369,6 +347,9 @@ __device__ void kick_a(const VoicePhase& p, int v, float* sh) {
   const float max_cut = p.f[5], sr = p.f[6], qB = p.f[7];
   const uint32_t smix = static_cast<uint32_t>(p.iv[0]);
   const int n_terms = p.iv[1];
+  const TriConsts tri{w, nyq, p.f[16], n_terms};
+  const int n_gain = tri_fill_gains(tri_gain, n_terms);
+  __syncthreads();
 
   // trigger-time snapshots (kick.rs:971-1086)
   const float vel_new = clamp01(IN_F(3)[v]);
@@ -414,7 +395,7 @@ __device__ void kick_a(const VoicePhase& p, int v, float* sh) {
       const float sub_out = sinf(idx * (base_freq * fmult) * w) * osc_env * r.traj(2, n);
       const float punch_out =
           n_terms >= 0
-              ? triangle(idx, base_freq * 2.5f * fmult, w, nyq, n_terms) * osc_env *
+              ? triangle(idx, base_freq * 2.5f * fmult, tri, tri_gain, n_gain) * osc_env *
                     (r.traj(1, n) * 0.7f)
               : 0.0f;
 
@@ -490,11 +471,12 @@ __device__ void kick_a(const VoicePhase& p, int v, float* sh) {
 //
 // in:  cur, tgt [V,19], off, vel, trig, lat [V,6], bs, powq
 // out: dry [V,B], nraw [V,B], ncur [V,19], nlat [V,6], ntrig [V]
-// f:   1/sr, 2pi/sr, sr/2, q^B;  iv: seed mix, triangle terms (-1: a sine)
+// f:   1/sr, 2pi/sr, sr/2, q^B, the triangle's taper threshold;  iv: seed
+//      mix, triangle terms (-1: a sine)
 //
 // No recurrence: every sample is its own thread's.
 
-__device__ void snare_a(const VoicePhase& p, int v) {
+__device__ void snare_a(const VoicePhase& p, int v, float* tri_gain) {
   const int B = p.B, t = threadIdx.x;
   Row r;
   r.init(IN_F(0) + v * 19, IN_F(1) + v * 19, IN_F(7), IN_I(2)[v], IN_I(4)[v], *IN_I(6), B);
@@ -504,6 +486,9 @@ __device__ void snare_a(const VoicePhase& p, int v) {
   const float inv_sr = p.f[0], w = p.f[1], nyq = p.f[2], qB = p.f[3];
   const uint32_t smix = static_cast<uint32_t>(p.iv[0]);
   const int n_terms = p.iv[1];
+  const TriConsts tri{w, nyq, p.f[4], n_terms};
+  const int n_gain = tri_fill_gains(tri_gain, n_terms);
+  __syncthreads();
 
   // trigger snapshots (snare.rs:873-1027)
   const float vel_new = clamp01(IN_F(3)[v]);
@@ -538,7 +523,7 @@ __device__ void snare_a(const VoicePhase& p, int v) {
     fmult = fmult * (pm_amt > 0.001f ? 1.0f + pm * pm_amt * 1.0f : 1.0f);
     const float hold_env = adsr(el, 0.001f, 0.001f, 1.0f, Lin{}, Lin{});
 
-    const float tonal_raw = n_terms >= 0 ? triangle(idx, base_freq * fmult, w, nyq, n_terms)
+    const float tonal_raw = n_terms >= 0 ? triangle(idx, base_freq * fmult, tri, tri_gain, n_gain)
                                          : sinf(idx * (base_freq * fmult) * w);
     const float tonal_env = adsr(el, 0.001f, DENORM(r.traj(7, n), 0.0, 3.5) * decay_scale,
                                  0.0f, Lin{}, Pow{tonal_curve});
@@ -1338,14 +1323,15 @@ __device__ __forceinline__ const VoicePhase& phase_of(const Kit& kit, int& v) {
 
 __global__ void __launch_bounds__(kTile) kit_sources_kernel(const Kit kit, FbwsCoefs k) {
   __shared__ float sh[kSlots * kTile];
+  __shared__ float tri_gain[kTriTable];
   int v;
   const VoicePhase& p = phase_of(kit, v);
   switch (p.body) {
     case kKickA:
-      kick_a(p, v, sh);
+      kick_a(p, v, sh, tri_gain);
       break;
     case kSnareA:
-      snare_a(p, v);
+      snare_a(p, v, tri_gain);
       break;
     case kHihat2:
       hihat2(p, v, sh);

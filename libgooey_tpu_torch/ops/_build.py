@@ -50,7 +50,8 @@ SIGNATURES = {
     # x, drive, state in, y, state out, coefficients (+ tanh(0.5)), V, B, rc, vec
     "ws4_bank_launch": [_P] * 6 + [_I] * 4 + [_P],
     "linrec2_bank_launch": [_P] * 12 + [_I] * 4 + [_P],
-    "triangle_additive_bank_launch": [_P] * 3 + [_F, _F, _I, _I, _I, _P],
+    # idx, freq, out, 2 pi / sr, nyquist, the taper threshold, terms, V, B
+    "triangle_additive_bank_launch": [_P] * 3 + [_F, _F, _F, _I, _I, _I, _P],
     # the engine's mix: voices, four smoother rows, powers, scratch, L, R, mono
     "mix_bank_launch": [_P] * 10 + [_I, _I, _P],
     # the granulator's and the sampler's reads

@@ -667,6 +667,23 @@ def triangle_additive_bank_plain(idx, freq, sample_rate: float, max_harmonics: i
     return acc
 
 
+@functools.lru_cache(maxsize=None)
+def taper_threshold(nyquist: float) -> float:
+    """The smallest float32 ``T`` with ``f32(T / nyquist) > 0.75`` (an IEEE
+    float32 division, ``nyquist`` rounded to float32).  The division is
+    monotone in ``T``, so for every float32 ``x`` the plain version's taper
+    test ``x / nyquist > 0.75`` holds exactly where ``x >= T``: the kernels
+    (``csrc/triangle.cuh``) test it without dividing.  Found by stepping
+    through the float32 bit patterns around ``0.75 * nyquist``."""
+    nyq = np.float32(nyquist)
+    x = np.float32(np.float32(0.75) * nyq)
+    while np.float32(x / nyq) > np.float32(0.75):
+        x = np.nextafter(x, np.float32(-np.inf))
+    while not np.float32(x / nyq) > np.float32(0.75):
+        x = np.nextafter(x, np.float32(np.inf))
+    return float(x)
+
+
 def triangle_additive_bank(idx, freq, sample_rate: float, max_harmonics: int):
     """Voice-bank additive triangle over [V, B]: ``idx`` samples since the
     trigger (float), ``freq`` Hz per sample; ``max_harmonics`` bounds the
@@ -677,9 +694,10 @@ def triangle_additive_bank(idx, freq, sample_rate: float, max_harmonics: int):
     _check("triangle_additive_bank", idx.device, [
         ("idx", idx, _F32, (V, B)), ("freq", freq, _F32, (V, B))])
     out = _empty((V, B), idx)
+    nyquist = float(np.float32(sample_rate / 2.0))
     _launch("triangle_additive_bank", idx.device, "triangle_additive_bank_launch",
             idx.data_ptr(), freq.data_ptr(), out.data_ptr(),
-            float(np.float32(TWO_PI / sample_rate)), float(np.float32(sample_rate / 2.0)),
+            float(np.float32(TWO_PI / sample_rate)), nyquist, taper_threshold(nyquist),
             (int(max_harmonics) + 1) // 2, V, B)
     triangle_additive_bank.launches += 1
     return out

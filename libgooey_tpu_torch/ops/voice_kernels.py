@@ -810,6 +810,8 @@ def _specs(ph, V, B):
     sr = float(kw["sample_rate"])
     w = float(np.float32(2.0 * np.pi / sr))
     inv_sr = float(np.float32(1.0 / sr))
+    nyq = float(np.float32(sr / 2.0))
+    taper_from = bank_kernels.taper_threshold(nyq)   # the additive triangles'
     poles, gains = coefficients(sr)
     pink = [float(v) for v in poles] + [float(v) for v in gains] + [
         float(np.float32(DIRECT_GAIN)), float(np.float32(OUTPUT_GAIN))]
@@ -823,15 +825,15 @@ def _specs(ph, V, B):
                         ("powq", f32, pw)]
         outs = [(vb, f32), (vb, f32), ((V, 19), f32), ((V, 6), f32), ((V,), i32),
                 ((V, 6), f32)]
-        fl = [inv_sr, w, float(np.float32(sr / 2.0)), float(alpha),
+        fl = [inv_sr, w, nyq, float(alpha),
               float(np.float32(1.0 - alpha)), float(np.float32(min(20_000.0, sr * 0.45))),
-              float(np.float32(sr)), float(kw["qB"])] + pink
+              float(np.float32(sr)), float(kw["qB"])] + pink + [taper_from]
         iv = [seed, (int(kw["max_harmonics"]) + 1) // 2 if kw["max_harmonics"] > 0 else -1]
         shapes = {"cur": (V, 19), "tgt": (V, 19)}
     elif ph.name == "snare_a":
         ins = common + [("lat", f32, (V, 6)), ("bs", i32, ()), ("powq", f32, pw)]
         outs = [(vb, f32), (vb, f32), ((V, 19), f32), ((V, 6), f32), ((V,), i32)]
-        fl = [inv_sr, w, float(np.float32(sr / 2.0)), float(kw["qB"])]
+        fl = [inv_sr, w, nyq, float(kw["qB"]), taper_from]
         iv = [seed, (int(kw["max_harmonics"]) + 1) // 2 if kw["max_harmonics"] > 0 else -1]
         shapes = {"cur": (V, 19), "tgt": (V, 19)}
     elif ph.name == "bass":

@@ -413,11 +413,11 @@ def test_fbws_bank_launches_split(monkeypatch, R, n, rc, vec):
 
 def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     """``tools/torch_kernel_ab.py`` (and the CPU emulator's A/B) call a build
-    from before the svf/ws4/env_follow/plate/fbws redesigns with its own
-    arguments: the SVF, the follower and fbws without rows per block and
-    16-byte flag, ws4 with the wrapper's (d, comp) in place of the drive,
-    the plate without its chunk; a build with this tree's entries
-    unchanged."""
+    from before the svf/ws4/env_follow/plate/fbws/triangle redesigns with
+    its own arguments: the SVF, the follower and fbws without rows per block
+    and 16-byte flag, ws4 with the wrapper's (d, comp) in place of the
+    drive, the plate without its chunk, the triangle without its taper
+    threshold; a build with this tree's entries unchanged."""
     import sys
     from pathlib import Path
 
@@ -433,6 +433,8 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     older["env_follow_bank_launch"] = [P] * 5 + [_build._F, _build._F, I, I, P]
     older["plate_block_launch"] = [P] * 3 + [I, I, I, P]
     older["fbws_bank_launch"] = [P] * 6 + [I, I, P]
+    F = _build._F
+    older["triangle_additive_bank_launch"] = [P] * 3 + [F, F, I, I, I, P]
     (tmp_path / "ops").mkdir()
     names = {_build._P: "_P", _build._I: "_I", _build._F: "_F"}
     (tmp_path / "ops" / "_build.py").write_text(
@@ -444,7 +446,7 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     sigs = signatures(tmp_path / "csrc")
     assert len(sigs["svf_bank_launch"]) == 13 and len(sigs["ws4_bank_launch"]) == 10
     assert len(sigs["env_follow_bank_launch"]) == 10 and len(sigs["plate_block_launch"]) == 7
-    assert len(sigs["fbws_bank_launch"]) == 9
+    assert len(sigs["fbws_bank_launch"]) == 9 and len(sigs["triangle_additive_bank_launch"]) == 9
     assert signatures(Path(bk.__file__).resolve().parents[1] / "csrc") == _build.SIGNATURES
     svf = tuple(range(100, 110)) + (7, 9, 1, 1)
     assert older_args("svf_bank_launch", svf, sigs, None) == svf[:12]
@@ -467,9 +469,12 @@ def test_ab_tools_call_older_entries_with_their_arguments(tmp_path):
     fbws = (1, 2, 3, 4, 5, 6, 4096, 512, 32, 1)
     assert older_args("fbws_bank_launch", fbws, sigs, None) == fbws[:8]
     assert older_args("fbws_bank_launch", fbws, _build.SIGNATURES, None) == fbws
-    sigs["triangle_additive_bank_launch"] = sigs["triangle_additive_bank_launch"][1:]
+    tri = (1, 2, 3, 1.4247e-4, 22050.0, 16537.502, 32, 1024, 512)
+    assert older_args("triangle_additive_bank_launch", tri, sigs, None) == tri[:5] + tri[6:]
+    assert older_args("triangle_additive_bank_launch", tri, _build.SIGNATURES, None) == tri
+    sigs["sampler_read_linear_launch"] = sigs["sampler_read_linear_launch"][1:]
     with pytest.raises(ValueError, match="no older form"):
-        older_args("triangle_additive_bank_launch", (), sigs, gain)
+        older_args("sampler_read_linear_launch", (), sigs, gain)
 
 
 def test_kernel_probes_apply_to_this_tree(tmp_path):

@@ -937,3 +937,57 @@ def test_bus_chain_is_bit_equal_to_its_plain_version_and_its_kernels(dev, run, B
     torch.cuda.synchronize()
     assert _bits_equal(got, want)
     assert _bits_equal(got, turn)
+
+
+@pytest.mark.parametrize("case", range(10),
+                         ids=["drawn_apart", "snare_traffic"]
+                         + [f"edge_{b}_{h}" for b in (512, 100) for h in (64, 0, 1, 192)])
+def test_triangle_is_bit_equal_to_its_plain_version(dev, case):
+    """The redesigned triangle (the untapered gains from a table, the taper
+    test against T, the walk stopped at the first inactive term) gives its
+    plain version bit for bit: 1,024 voices with every sample's frequency
+    drawn apart, the snare's own traffic (the kit snare bank's launch at
+    ``chip_smoke.SNARE_BLOCK``), and the edge frequencies (NaN, +-inf,
+    +-0, negative, subnormal, T/h, nyquist/h, the max_h steps) at 0, 1, 64
+    and 192 harmonics in rows of 512 and 100."""
+    import chip_smoke
+
+    kw = dict(sample_rate=SR, max_harmonics=64)
+    if case == 0:
+        rs = np.random.RandomState(8)
+        args = (torch.as_tensor(rs.randint(0, 2 * int(SR), (1024, 1)) + np.arange(512)[None, :],
+                                dtype=torch.float32, device=dev),
+                torch.as_tensor(rs.uniform(40.0, 2000.0, (1024, 512)), dtype=torch.float32,
+                                device=dev))
+    elif case == 1:
+        args = chip_smoke.snare_triangle_args(dev)
+    else:
+        _, args, kw = chip_smoke.triangle_tail_cases(dev)[case - 2]
+    got = bk.triangle_additive_bank(*args, **kw)
+    want = bk.triangle_additive_bank_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("case", range(9),
+                         ids=["4000_ages", "4000_age_n", "one_grain", "three_100_a", "three_100_b",
+                              "three_33_a", "three_33_b", "37_L1", "37_L3"])
+def test_grain_read_is_bit_equal_to_its_plain_version(dev, case):
+    """The redesigned grain read (rows on the grid's x, 512-sample tiles on
+    its y, four samples a thread) gives its plain version bit for bit at
+    the 4k bench's 4,000 grains with ages and without, one grain, three of
+    100 and 33 samples on a 4-sample source with steps of +-8.7 and
+    infinite ones, and 37 of 99 on one and on three samples."""
+    import chip_smoke
+
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    if case < 2:
+        buf, p0, step, age0 = _grain_case(dev, 4000, 1 << 15, 512)
+        args, kw = (buf, p0, step), dict(B=512, age0=age0 if case == 0 else None)
+    else:
+        _, args, kw = chip_smoke.grain_tail_cases(dev)[case - 2]
+    got = gk.grain_read_cubic(*args, **kw)
+    want = gk.grain_read_cubic_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)

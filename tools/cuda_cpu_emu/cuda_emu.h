@@ -1,12 +1,13 @@
-// A CPU emulation of the CUDA subset the port's kit, bus and bank kernels
-// use, for checking a restructured kernel against another build of it bit
-// for bit before it goes to the card (tools/cuda_cpu_emu/emu_ab.py).
+// A CPU emulation of the CUDA subset the port's kit, bus, bank, plate,
+// oscillator and grain kernels use, for checking a restructured kernel
+// against another build of it bit for bit before it goes to the card
+// (tools/cuda_cpu_emu/emu_ab.py).
 //
 // A launch runs its blocks one after another (a 2-D grid row by row); each
 // thread of a block is a std::thread, __syncthreads and bar.sync a
 // std::barrier of the block (__syncthreads_and too, with a count of the
 // threads whose predicate is 0), __syncwarp(mask) a barrier of the mask's
-// lanes.
+// lanes.  __ldg is a plain load.
 // __shared__ variables are function statics (one block at a time); dynamic
 // shared memory is a buffer filled with garbage at each block.  cp.async is
 // a plain copy, done when it is issued, so its commit and wait_group are
@@ -66,6 +67,7 @@ inline thread_local unsigned emu_and_calls = 0;
 #define __launch_bounds__(...)
 #define __constant__
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
@@ -101,6 +103,11 @@ inline int __float_as_int(float f) {
   int i;
   memcpy(&i, &f, sizeof i);
   return i;
+}
+
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
 }
 
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }

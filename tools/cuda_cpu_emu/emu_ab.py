@@ -2,10 +2,11 @@
 """Two builds of the kit, bus, bank and plate kernels against each other,
 bit for bit, on the CPU, before either goes to the card.
 
-    python3 tools/cuda_cpu_emu/emu_ab.py OTHER_CSRC [CSRC]
+    python3 tools/cuda_cpu_emu/emu_ab.py [--only NAME,...] OTHER_CSRC [CSRC]
 
-Builds ``voice_kernels.cu``, ``bus_kernels.cu``, ``bank_kernels.cu`` and
-``plate_kernels.cu`` of both source directories (``CSRC`` defaults to this
+Builds ``voice_kernels.cu``, ``bus_kernels.cu``, ``bank_kernels.cu``,
+``plate_kernels.cu``, ``osc_kernels.cu`` and ``grain_kernels.cu`` of both
+source directories (``CSRC`` defaults to this
 tree's ``libgooey_tpu_torch/csrc``), with their headers, with g++ against
 ``cuda_emu.h`` (the CUDA subset, emulated: threads as threads, barriers as
 barriers, cp.async as a plain copy) into
@@ -20,7 +21,13 @@ kernels, ``ws4_bank``, ``fbws_bank`` (rows bypassed for the whole block
 and from mid-block on) and ``mix_bank`` (every voice settled, half of them
 sweeping, half at the settle snap's edge) at 1, 5, 130 and 515 rows (or
 voices) of 512, 100 and 37 samples and with unaligned inputs
-(``BANK_SHAPES``), rows per block as on 132 SMs.  A build
+(``BANK_SHAPES``), rows per block as on 132 SMs;
+``triangle_additive_bank`` at the edge frequencies
+(``chip_smoke.triangle_tail_cases``), on the snare's traffic (its first 64
+voices, at ``chip_smoke.SNARE_BLOCK``) and at 40-2,000 Hz drawn apart, at
+rows of 512, 100 and 37 samples; ``grain_read_cubic`` at
+``chip_smoke.grain_tail_cases`` and at 37 grains of 512 and 99 samples with
+ages and without.  A build
 whose entries take the arguments they took before their kernels were
 redesigned (its tree's ``ops/_build.py`` says so) is called that way
 (``tools/torch_kernel_ab.older_args``).  A restructuring that moves work
@@ -28,7 +35,8 @@ between threads but keeps every per-sample operation gives the other
 build's bits; exits 1 where it does not.  (The host's libm stands in for
 the card's, so these outputs are not the card's; the card compares each
 kernel with its plain version.  The bank kernels without a transcendental
-are also held to their plain versions here.)
+and the grain read are also held to their plain versions here.)  ``--only``
+keeps the cases of the named kernels.
 """
 
 from __future__ import annotations
@@ -46,14 +54,15 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 EMU = Path(__file__).resolve().parent
-SOURCES = ("voice_kernels.cu", "bus_kernels.cu", "bank_kernels.cu", "plate_kernels.cu")
+SOURCES = ("voice_kernels.cu", "bus_kernels.cu", "bank_kernels.cu", "plate_kernels.cu",
+           "osc_kernels.cu", "grain_kernels.cu")
 #: the bank kernels' (rows, samples) here, and the unaligned case's
 BANK_SHAPES = ((1, 512), (5, 100), (130, 512), (515, 100), (515, 37))
 BANK_UNALIGNED = (515, 128)
 #: the bank kernels whose plain versions give the kernels' bits on the CPU
 #: too (no transcendental: the host's libm is not the card's)
 BANK_EXACT_ON_CPU = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "linrec2_bank",
-                     "plate_block")
+                     "plate_block", "grain_read_cubic")
 
 
 def translate(src: str) -> str:
@@ -124,16 +133,6 @@ def host_ws4_gain(drive_ptr, V, B):
     return torch.from_numpy(d.copy()), torch.from_numpy(comp)
 
 
-def same_bits(a, b) -> bool:
-    import torch
-
-    if isinstance(a, (tuple, list)):
-        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return bool(torch.equal(a, b))
-
-
 def bank_ab_cases(dev, shapes, unaligned_shape):
     """``(label, name, args, kwargs)`` of the staged bank kernels, the split
     ones and mix_bank at each ``(rows, samples)``: affine1_bank with a live
@@ -185,17 +184,70 @@ def bank_ab_cases(dev, shapes, unaligned_shape):
     return cases
 
 
+def triangle_ab_cases():
+    """``(label, args, kwargs)`` of triangle_additive_bank on CPU tensors:
+    chip_smoke's edge cases (0, 1, 64 and 192 harmonics: with the gain
+    table and without), the snare's traffic at 512 of its voices, and
+    40-2,000 Hz drawn apart at 512, 64, 5 and 3 rows of 512, 512, 100 and 37
+    samples (V*B not a multiple of a block's samples)."""
+    import torch
+
+    import chip_smoke as cs
+
+    rs = np.random.RandomState(4)
+    cases = [(label, a, kw) for label, a, kw in cs.triangle_tail_cases("cpu")]
+    snare = cs.snare_triangle_args("cpu", voices=512)
+    cases.append(("V=512, the snare's traffic", snare, dict(sample_rate=cs.SR, max_harmonics=64)))
+    for V, B in ((512, 512), (64, 512), (5, 100), (3, 37)):
+        a = (torch.as_tensor(rs.randint(0, 2 * int(cs.SR), (V, 1)) + np.arange(B)[None, :],
+                             dtype=torch.float32),
+             torch.as_tensor(rs.uniform(40.0, 2000.0, (V, B)), dtype=torch.float32))
+        cases.append((f"V={V}, B={B}, 40-2,000 Hz drawn apart", a,
+                      dict(sample_rate=cs.SR, max_harmonics=64)))
+    return cases
+
+
+def grain_ab_cases():
+    """``(label, args, kwargs)`` of grain_read_cubic on CPU tensors:
+    chip_smoke's tails, 37 grains of 512 and 99 samples on the 4k bench's
+    source and 300 of 512 and 1,000 (four samples a thread) with ages
+    (steps up to 8, never-spawned lanes) and without."""
+    import torch
+
+    import chip_smoke as cs
+
+    rs = np.random.RandomState(5)
+    cases = list(cs.grain_tail_cases("cpu"))
+    for G, blocks in ((37, (512, 99)), (300, (512, 1000))):
+        step = rs.uniform(0.5, 2.0, G) * rs.choice([-1.0, 1.0], G)
+        step[::5] = 8.0 * np.sign(step[::5])
+        age0 = rs.randint(-512, 60000, G)
+        age0[::7] = 2**30
+        a = (torch.as_tensor(0.3 * rs.randn(cs.GRAIN_SOURCE), dtype=torch.float32),
+             torch.as_tensor(rs.uniform(-300.0, cs.GRAIN_SOURCE + 300.0, G), dtype=torch.float32),
+             torch.as_tensor(step, dtype=torch.float32))
+        for b in blocks:
+            cases.append((f"G={G}, B={b}, ages", a,
+                          dict(B=b, age0=torch.as_tensor(age0, dtype=torch.int32))))
+            cases.append((f"G={G}, B={b}, age = n", a, dict(B=b)))
+    return cases
+
+
 def main(argv=None) -> int:
     import chip_smoke as cs
     from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
+    from libgooey_tpu_torch.ops import grain_kernels as gk
     from libgooey_tpu_torch.ops import plate_kernels as pk
     from libgooey_tpu_torch.ops import voice_kernels as vk
     from torch_kernel_ab import older_args
 
-    args = argv if argv is not None else sys.argv[1:]
+    args = list(argv if argv is not None else sys.argv[1:])
+    only = None
+    if args[:1] == ["--only"] and len(args) > 1:
+        only, args = set(args[1].split(",")), args[2:]
     if not 1 <= len(args) <= 2:
-        print("usage: emu_ab.py OTHER_CSRC [CSRC]", file=sys.stderr)
+        print("usage: emu_ab.py [--only NAME,...] OTHER_CSRC [CSRC]", file=sys.stderr)
         return 2
     dirs = [Path(args[0]), Path(args[1]) if len(args) > 1 else ROOT / "libgooey_tpu_torch/csrc"]
     builds = [build(d, f"{i}_{d.resolve().parent.name}_{d.name}") for i, d in enumerate(dirs)]
@@ -218,7 +270,7 @@ def main(argv=None) -> int:
         for lib, sigs in builds:
             module._launch = launcher(lib, sigs)
             outs.append(fn())
-        return same_bits(*outs)
+        return cs.same_bits(*outs)
 
     failed = []
 
@@ -227,26 +279,37 @@ def main(argv=None) -> int:
         if not ok:
             failed.append(label)
 
+    def wanted(name):
+        return only is None or name in only
+
     one = dict.fromkeys(cs.PRODUCT_KIT, 1)
     for kit, b in ((cs.PRODUCT_KIT, cs.B), (one, cs.B), (cs.ODD_KIT, 100), (cs.ODD_KIT, 37),
                    (dict.fromkeys(cs.PRODUCT_KIT, 128), cs.B)):
+        if not (wanted("kit_sources") or wanted("kit_drive")):
+            break
         sources, drive = cs.kit_phases("cpu", kit, b)
-        case(f"kit_sources {cs.kit_label(kit, b)}", both(
-            vk, lambda: vk._launch_kit("kit_sources", "kit_sources_launch", sources,
-                                       vk._SOURCE_BODIES)))
-        case(f"kit_drive {cs.kit_label(kit, b)}", both(
-            vk, lambda: vk._launch_kit("kit_drive", "kit_drive_launch", drive,
-                                       vk._DRIVE_BODIES)))
+        if wanted("kit_sources"):
+            case(f"kit_sources {cs.kit_label(kit, b)}", both(
+                vk, lambda: vk._launch_kit("kit_sources", "kit_sources_launch", sources,
+                                           vk._SOURCE_BODIES)))
+        if wanted("kit_drive"):
+            case(f"kit_drive {cs.kit_label(kit, b)}", both(
+                vk, lambda: vk._launch_kit("kit_drive", "kit_drive_launch", drive,
+                                           vk._DRIVE_BODIES)))
     for b in (cs.B,) + cs.TAIL_BLOCKS:
         singles, runs = cs.bus_cases("cpu", np.random.RandomState(b), b)
         for name, shape, a, kw, _ in singles:
-            if name in bus.KERNELS:
+            if name in bus.KERNELS and wanted(name):
                 case(f"{name} {shape}", both(bus, lambda: bus._launch_one(name, a[0], a[1:], kw)))
         for label, (x, phases) in runs.items():
-            case(f"bus_chain {label}", both(
-                bus, lambda: bus._launch_phases("bus_chain", x, phases, fused=True)))
-    # the bank kernels and the plate on CPU tensors: launch as on a card of
-    # 132 SMs
+            if wanted("bus_chain"):
+                case(f"bus_chain {label}", both(
+                    bus, lambda: bus._launch_phases("bus_chain", x, phases, fused=True)))
+    # the bank kernels, the plate and the reads on CPU tensors: launch as on
+    # a card of 132 SMs (the snare's blocks before its captured launch run
+    # on the plain versions, first)
+    tri_cases = triangle_ab_cases() if wanted("triangle_additive_bank") else []
+    grain_cases = grain_ab_cases() if wanted("grain_read_cubic") else []
     bk._on_cuda = pk._on_cuda = lambda name, t: True
     bk._sm_count = lambda index: 132
     cases = [(label, bk, name, a, kw)
@@ -254,13 +317,18 @@ def main(argv=None) -> int:
     plate = cs.plate_args("cpu", np.random.RandomState(cs.SEED), cs.B)
     cases += [(label, pk, "plate_block", a, kw)
               for label, a, kw in [(cs.plate_label(*plate), *plate)] + cs.plate_cases("cpu")]
+    cases += [(label, bk, "triangle_additive_bank", a, kw) for label, a, kw in tri_cases]
+    gk._on_cuda = lambda name, t: True
+    cases += [(label, gk, "grain_read_cubic", a, kw) for label, a, kw in grain_cases]
     for label, module, name, a, kw in cases:
+        if not wanted(name):
+            continue
         kern = getattr(module, name)
         case(f"{name} {label}", both(module, lambda: kern(*a, **kw)))
         if name in BANK_EXACT_ON_CPU:
             module._launch = launcher(*builds[-1])
             case(f"{name} {label} against its plain version",
-                 same_bits(kern(*a, **kw), getattr(module, name + "_plain")(*a, **kw)))
+                 cs.same_bits(kern(*a, **kw), getattr(module, name + "_plain")(*a, **kw)))
     print(f"{len(failed)} different" if failed else "all bit-equal")
     return 1 if failed else 0
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Copies of the kernel sources with parts of ``ws4_bank`` and ``fbws_bank``,
-``kit_drive`` or ``plate_block`` cut out, for timing those parts alone on
+``kit_drive``, ``plate_block``, ``mix_bank``, ``triangle_additive_bank``
+or ``grain_read_cubic`` cut out or changed, for timing those parts alone on
 the card with ``tools/torch_kernel_ab.py``.
 
     python3 tools/kernel_probes.py OUT_DIR [CSRC]
@@ -25,10 +26,21 @@ feedback filter) and ``drive_stages`` (no walks: the per-sample inputs,
 the shaper and the finish).  ``plate_block_kernel`` (``plate_kernels.cu``):
 ``plate_copies`` (the histories' copies in and out alone),
 ``plate_onepoles`` (the bandwidth and damping walks alone) and
-``plate_chunks`` (the diffusion and modulated allpass steps alone).  Their
-outputs are wrong; only their times mean anything.  Pass the directories to
-``tools/torch_kernel_ab.py --only ws4_bank,fbws_bank``, ``--only
-mix_bank``, ``--only kit_drive`` or ``--only plate_block``.
+``plate_chunks`` (the diffusion and modulated allpass steps alone).  The
+additive triangle (``triangle.cuh``, ``osc_kernels.cu``): ``tri_untapered``
+(the table's untapered steps alone: no tapered band, no break),
+``tri_no_break`` (nothing cut: every term past the first inactive one
+tested, as the plain loop does, and skipped), ``tri_no_walk`` (no term:
+the table, loads and stores alone: the sines fall dead with it),
+``tri_no_sines`` (each sine a multiply) and ``tri_copy`` (each output its
+inputs' sum: loads, stores, the table and its barrier).
+``grain_read_cubic`` (``grain_kernels.cu``): ``grain_positions`` (each
+output its position: no taps) and ``grain_stores`` (each output its age: no
+position, no taps).  Outputs of the probes that cut are wrong; only their
+times mean anything.  Pass the directories to ``tools/torch_kernel_ab.py --only
+ws4_bank,fbws_bank``, ``--only mix_bank``, ``--only kit_drive``, ``--only
+plate_block``, ``--only triangle_additive_bank`` or ``--only
+grain_read_cubic``.
 """
 
 from __future__ import annotations
@@ -81,6 +93,22 @@ PLATE_NO_COPIES = [
 PLATE_NO_ONEPOLES = [("if (warp == 0) {", "if (false) {"),
                      ("} else if (warp == 1) {", "} else if (false) {")]
 PLATE_NO_CHUNKS = [("for (int j = 0; j <= nc; ++j) {", "for (int j = 0; j < 0; ++j) {")]
+TRI_UNTAPERED = [("    for (; k < c.n_terms; ++k) {", "    for (; k < 0; ++k) {")]
+TRI_NO_BREAK = [("        acc = acc + 0.0f;\n        break;",
+                 "        acc = acc + 0.0f;\n        continue;")]
+#: the triangle's sines made a multiply each (the walk then runs on other
+#: values), and its loads and stores alone (every term and sine dead)
+TRI_NO_SINES = [("    const float sin1 = sinf(theta);", "    const float sin1 = theta * 0.5f;"),
+                ("    cos2x2 = 2.0f * cosf(2.0f * theta);", "    cos2x2 = 2.0f * (0.5f * theta);")]
+TRI_COPY = [("  if (i < n) out[i] = s.finish(0, gain, c);",
+             "  if (i < n) out[i] = idx[ic] + freq[ic];")]
+#: the triangle with no walk: the table, loads and stores (the sines and
+#: max_h fall dead with the walk)
+TRI_NO_WALK = [("    k1 = k;", "    k1 = 0;"),
+               ("    for (; k < k1; ++k) step(gain[k]);", "    return acc;")]
+GRAIN_POSITIONS = [("  const float i1f = floorf(pos);",
+                    "  return pos;\n  const float i1f = floorf(pos);")]
+GRAIN_STORES = [("  // fmaxf maps a NaN position", "  return age;\n  // fmaxf maps a NaN position")]
 #: probe -> (the source it edits, its edits)
 PROBES = {
     "walks_only": ("bank_kernels.cu", NO_COPIES + NO_SHAPER),
@@ -96,6 +124,13 @@ PROBES = {
     "plate_copies": ("plate_kernels.cu", PLATE_NO_ONEPOLES + PLATE_NO_CHUNKS),
     "plate_onepoles": ("plate_kernels.cu", PLATE_NO_COPIES + PLATE_NO_CHUNKS),
     "plate_chunks": ("plate_kernels.cu", PLATE_NO_COPIES + PLATE_NO_ONEPOLES),
+    "tri_untapered": ("triangle.cuh", TRI_UNTAPERED),
+    "tri_no_break": ("triangle.cuh", TRI_NO_BREAK),
+    "tri_no_walk": ("triangle.cuh", TRI_NO_WALK),
+    "tri_no_sines": ("triangle.cuh", TRI_NO_SINES),
+    "tri_copy": ("osc_kernels.cu", TRI_COPY),
+    "grain_positions": ("grain_kernels.cu", GRAIN_POSITIONS),
+    "grain_stores": ("grain_kernels.cu", GRAIN_STORES),
 }
 
 

@@ -12,15 +12,18 @@ Each directory is built as the port builds its own (``ops/_build.py``'s
 flags, one nvcc per source) into ``libgooey_tpu_torch/_build/ab_<name>/``
 and loaded beside this tree's library; the wrappers launch one or the
 other.  A build whose ``pink_bank``, ``svf_bank``, ``ws4_bank``,
-``env_follow_bank``, ``plate_block`` or ``fbws_bank`` entry takes the
-arguments it took before those kernels were redesigned (its tree's
+``env_follow_bank``, ``plate_block``, ``fbws_bank`` or
+``triangle_additive_bank`` entry takes the arguments it took before those
+kernels were redesigned (its tree's
 ``ops/_build.py`` beside the directory says so) is called that way
 (:func:`older_args`).  Cases, at the main path's shapes (``chip_smoke.py``'s
 inputs): ``pink_bank``, ``svf_bank``, ``ws4_bank``, ``fbws_bank``,
-``env_follow_bank``, ``plate_block`` and ``mix_bank`` at every phase-3 case
+``env_follow_bank``, ``plate_block``, ``mix_bank``,
+``triangle_additive_bank`` and ``grain_read_cubic`` at every phase-3 case
 (the path's shapes, then the tails), ``affine1_bank`` and ``linrec2_bank``
 likewise (their staging header is shared),
-``kit_sources`` at the product kit and with each of its families alone,
+``kit_sources`` at the product kit, with each of its families alone and at
+``chip_smoke.TAIL_KITS`` (its triangle is ``triangle_additive_bank``'s),
 ``kit_drive`` at the product kit, with each of its bodies alone and at
 ``chip_smoke.TAIL_KITS``, ``bus_chain`` with
 the kit's seven phases, the first four and the product chain's ten, and
@@ -107,7 +110,8 @@ def older_args(entry, args, sigs, gain):
     ``fbws_bank_launch`` took no rows per block or 16-byte flag,
     ``ws4_bank_launch`` took neither and the drive's ``(d, comp)`` from its
     wrapper instead of the drive (``gain(drive_ptr, V, B)`` gives pointers
-    to those two), and ``plate_block_launch`` took no chunk."""
+    to those two), ``plate_block_launch`` took no chunk, and
+    ``triangle_additive_bank_launch`` no taper threshold."""
     from libgooey_tpu_torch.ops import _build
 
     if len(sigs[entry]) == len(_build.SIGNATURES[entry]):
@@ -122,20 +126,12 @@ def older_args(entry, args, sigs, gain):
         return args[:8]
     if entry == "plate_block_launch":
         return args[:6]
+    if entry == "triangle_additive_bank_launch":
+        return args[:5] + args[6:]
     if entry == "ws4_bank_launch":
         x, drive, st_in, y, st_out, coefs, V, B = args[:8]
         return (x, *gain(drive, V, B), st_in, y, st_out, coefs, V, B)
     raise ValueError(f"{entry}: no older form known")
-
-
-def same_bits(a, b) -> bool:
-    import torch
-
-    if isinstance(a, (tuple, list)):
-        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return bool(torch.equal(a, b))
 
 
 class OlderEntries:
@@ -203,7 +199,7 @@ def main(argv=None) -> int:
         if only is not None and not any(label.startswith(n) for n in only):
             return
         mine = run("this tree", fn)
-        equal = {n: same_bits(run(n, fn), mine) for n in others}
+        equal = {n: cs.same_bits(run(n, fn), mine) for n in others}
         times = {n: [] for n in libs}
         for n in others + ["this tree", "this tree"] + others[::-1]:
             run(n, fn)
@@ -214,7 +210,8 @@ def main(argv=None) -> int:
 
     for name, shape, args, kw, _ in cs.kernel_cases(dev):
         if name in ("pink_bank", "svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank",
-                    "env_follow_bank", "plate_block", "fbws_bank", "mix_bank"):
+                    "env_follow_bank", "plate_block", "fbws_bank", "mix_bank",
+                    "triangle_additive_bank", "grain_read_cubic"):
             if name == "ws4_bank":
                 drives[args[1].data_ptr()] = args[1]
             fn = getattr(kernels.module_of(name), name)
@@ -227,7 +224,8 @@ def main(argv=None) -> int:
     for ph in drive:
         case(f"kit_drive, {ph.name} alone", lambda ph=ph: vk.kit_drive([ph]))
     for kit, b in cs.TAIL_KITS:
-        tail = cs.kit_phases(dev, kit, b)[1]
+        src, tail = cs.kit_phases(dev, kit, b)
+        case(f"kit_sources {cs.kit_label(kit, b)}", lambda src=src: vk.kit_sources(src))
         case(f"kit_drive {cs.kit_label(kit, b)}", lambda tail=tail: vk.kit_drive(tail))
     singles, runs = cs.bus_cases(dev, np.random.RandomState(cs.SEED), cs.B)
     for label, (x, phases) in list(runs.items())[:3]:
