@@ -58,6 +58,10 @@ Phases (any failure exits non-zero):
    (a block of 512 threads, chunks of samples a thread each) at the main
    path's block, at 100 and 33 samples, with its modulated lags falling to
    1 (serial chunks), at 22,050 and 96,000 Hz, bit-equal;
+   ``saturation_block`` and ``compressor_block`` (their 4x chains' stages
+   on warps of their own, a polyphase branch a lane) also at 512, 100 and
+   33 samples with their bypass gates crossed inside chunks and the
+   compressor's gain through 0.99 (``lone_edge_cases``), bit-equal;
    ``kit_sources``, ``kit_drive`` and ``bus_chain``, bit-equal too, at
    their tails: ``bus_chain`` at B with one phase, twelve (two
    delays, one after the spring) and nine (two delays, the spring last),
@@ -129,7 +133,9 @@ Phases (any failure exits non-zero):
    compressor, spring and plate added with ``add_global_effect``, 1 s; then
    1 s more with the compressor keyed from the first kick
    (``set_sidechain_source``), which splits the bus: the first four in one
-   launch, the compressor's and the spring's own kernels, the plate's;
+   launch, the compressor's and the spring's own kernels, the plate's; its
+   first 2 blocks against the same blocks with every kernel swapped for its
+   plain version (a copy of the engine taken before the render);
 10. granulator_lfo_sampler_4k_lanes, ``bench_configs.bench_granulator_sampler_4k``
    without importing it: the granulator's 80-lane state on
    ``RandomState(0).randn(32768)*0.3`` tiled to 4,000 lanes, every lane
@@ -161,14 +167,15 @@ case, timed with CUDA events where the profiler traces nothing;
 ``library_ms`` ``mix_bank``'s matmul yardstick at the kit cells' settled
 traffic (printed at the product block's 64 voices too), null elsewhere).  ``--profile PATH``
 also writes torch.profiler tables of 4 steady-state blocks of the kick
-slice, the kit, each kit-with-bus render, the product block and phase 10's
-render to PATH.
+slice, the kit, each kit-with-bus render, the product block (fused and
+with ``fuse_runs=False``) and phase 10's render to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -204,7 +211,7 @@ STATE_TOL = 1e-4
 #: the redesigned kernels: bit-equal to their plain versions at every case
 EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources",
          "kit_drive", "bus_chain", "plate_block", "env_follow_bank", "fbws_bank", "mix_bank",
-         "triangle_additive_bank", "grain_read_cubic")
+         "triangle_additive_bank", "grain_read_cubic", "saturation_block", "compressor_block")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -622,6 +629,12 @@ def kernel_cases(dev):
     for b in TAIL_BLOCKS:
         for label, run in bus_cases(dev, np.random.RandomState(SEED + b), b)[1].items():
             cases.append(("bus_chain", label, run, {}, 1))
+    #     saturation_block and compressor_block (their four walks pipelined
+    #     over warps) at B, 100 and 33 samples with their bypass gates
+    #     crossed inside chunks (and the compressor's gain through 0.99)
+    for b in LONE_BLOCKS:
+        for name, label, args, kw in lone_edge_cases(dev, b):
+            cases.append((name, label, args, kw, 1))
     #     kit_sources and kit_drive at the same kits (kit_drive: a block a
     #     voice row, 32-sample chunks; at 100 and 37 samples a tail chunk)
     for kit, b in TAIL_KITS:
@@ -1133,6 +1146,66 @@ def bus_cases(dev, rs, b):
                                                    ten[7], ten[6]],
     }
     return cases, {f"{bus_shape}, {label}": (xb, phases) for label, phases in runs.items()}
+
+
+#: the lone 4x bus kernels' edge cases' blocks: the main path's, then a
+#: tail chunk of 4 samples and one of 1
+LONE_BLOCKS = (B,) + TAIL_BLOCKS
+
+
+def lone_edges(b):
+    """The samples of a ``[2, b]`` block at which the lone 4x kernels' edge
+    cases cross their bypass gate: ``(left, right)``, each inside a
+    32-sample chunk (13 and 7 past a chunk's start)."""
+    return 32 * (b // 64) + 13, 32 * (b // 128) + 7
+
+
+def lone_edge_cases(dev, b, seed=SEED):
+    """``saturation_block``'s and ``compressor_block``'s cases at ``[2, b]``
+    with their edges inside chunks (:func:`lone_edges`), on carried 4x and
+    DC states drawn from ``seed``: ``[(name, label, args, kwargs)]``.  The
+    saturation's left mix falls under the bypass gate at the left edge and
+    its right one rises out of it at the right edge (the DC blocker freezes
+    and resumes mid-chunk), drive and warmth moving; the compressor over
+    its knee on loud bursts, its left mix falling to 0 at the left edge and
+    its right one rising to 1 at the right edge, so that the smoothed gain
+    crosses 0.99 mid-chunk (the tube colour engages)."""
+    import torch
+
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import bus_kernels as bus
+
+    rs = np.random.RandomState(seed + b)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    coeff = smoothing_coeff(SR, 30.0)
+    logq = np.log(1.0 - coeff)
+    left, right = lone_edges(b)
+    # the mix trajectories: tgt + snap((cur - tgt) q^(n+1)) crosses 1e-4 at
+    # n = left falling from cur to 0, and at n = right rising from 0 to tgt
+    fall = 1e-4 * np.exp(-logq * (left + 0.5))
+    rise = 1e-4 / (1.0 - np.exp(logq * (right + 0.5)))
+    x = t(rs.uniform(-0.9, 0.9, (2, b)))
+    state = 0.05 * rs.randn(bk.FBWS_S_IN, 2)
+    sat = (x, t([[0.6, 0.5, fall], [0.3, 0.2, 0.0]]), t([[0.2, 0.9, 0.0], [0.7, 0.6, rise]]),
+           t(state))
+    bursts = (rs.uniform(-1.0, 1.0, (2, b)) * (np.sin(np.arange(b) * 2 * np.pi / 97.0) > 0.3)
+              * 1.5)
+    env = bus.env_follower_block_plain(
+        t(bursts), t(np.full((2, b), np.exp(-1.0 / (1.0 * 0.001 * SR)))),
+        t(np.full((2, b), np.exp(-1.0 / (100.0 * 0.001 * SR)))), t(np.zeros((2, b))),
+        t([0.0, 0.0]))[0]
+    mix = np.ones((2, b))
+    mix[0, left:] = 0.0
+    mix[1, :right] = 0.0
+    comp = (t(bursts), env, t(np.full((2, b), -30.0)), t(np.full((2, b), 8.0)), t(mix),
+            t(np.concatenate([state, np.ones((1, 2))])))
+    shape = f"[2, {b}], the bypass gate crossed at samples {left} and {right}"
+    return [("saturation_block", shape, sat, dict(coeff=coeff)),
+            ("compressor_block", shape + ", the gain through 0.99", comp, {})]
 
 
 #: the snare's Chamberlin at full cutoff and resonance rings up to inf (the
@@ -1868,15 +1941,18 @@ def phase_product(dev, card, prof_file=None):
                                            "affine1_bank")}))
 
     kernels.reset_launch_counts()
+    t0 = time.perf_counter()
     render_product(*inputs, fuse_runs=False)
     torch.cuda.synchronize()
+    wall_unfused = time.perf_counter() - t0
     unfused = kernels.launch_counts()
     singles = ("lowpass_block", "delay_block", "saturation_block", "compressor_block",
                "tilt_block", "spring_block", "waveshaper_block", "fbws_fast_block", "plate_block")
     check(all(unfused[n] == N_BLOCKS for n in singles) and unfused["bus_chain"] == 0
           and unfused["env_follower_block"] == 2 * N_BLOCKS,
           f"{label}, fuse_runs=False: an entry's kernel not once a block: {unfused}")
-    print(f"{label}, fuse_runs=False launches per block: "
+    print(f"{label}, fuse_runs=False: one render {wall_unfused:.4f} s "
+          f"({wall_unfused / N_BLOCKS * 1e3:.3f} ms/block); launches per block: "
           f"{json.dumps({n: c / N_BLOCKS for n, c in unfused.items()})}")
 
     with plain_versions():
@@ -1891,6 +1967,8 @@ def phase_product(dev, card, prof_file=None):
         short = product_inputs(dev, 4)
         profile_blocks(f"{label} ({nv} voices)", card, prof_file, wall,
                        lambda: render_product(*short))
+        profile_blocks(f"{label}, fuse_runs=False ({nv} voices)", card, prof_file,
+                       wall_unfused, lambda: render_product(*short, fuse_runs=False))
     return {**{n: counts[n] for n in ("kit_sources", "kit_drive")},
             **{n: unfused[n] for n in ("waveshaper_block", "fbws_fast_block")}}
 
@@ -1949,12 +2027,23 @@ def phase_engine(dev):
              ("bus_chain", "env_follower_block", "compressor_block", "spring_block",
               "plate_block"))):
         eng.set_sidechain_source(source)
+        twin = copy.deepcopy(eng) if source is not None else None
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = eng.render(n_samples)
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         peak = float(np.abs(out).max())
+        if twin is not None:
+            # the sidechained render's first blocks against the same blocks
+            # with every kernel swapped for its plain version
+            with plain_versions():
+                want = twin.render(N_COMPARE * B)
+            err = float(np.abs(out[:, :N_COMPARE * B].astype(np.float64) - want).max())
+            print(f"{label}: {N_COMPARE} blocks, kernels vs plain versions: max err "
+                  f"{err:.3e} (tol {RENDER_TOL:g}), peak {float(np.abs(want).max()):.4f}")
+            check(err <= RENDER_TOL,
+                  f"{label}: kernel render differs from the plain render by {err}")
         check(out.shape == (2, n_samples), f"{label}: output shape {out.shape}")
         check(bool(np.isfinite(out).all()), f"{label}: output is not finite")
         check(peak > 1e-3, f"{label}: output is silent (peak {peak})")

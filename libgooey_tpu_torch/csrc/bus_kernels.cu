@@ -32,7 +32,9 @@
 // takes the other channel's filtered tap at the same sample): the delay
 // stages its filtered taps in shared memory and the two lanes meet at a
 // __syncwarp.  An effect's own kernel is one warp walking its block in
-// 32-sample spans.
+// 32-sample spans, except the lone saturation and compressor
+// (bus4x_split_kernel, below): their chain's stages walk on warps of their
+// own, a polyphase branch a lane, chunks pipelined a step apart.
 //
 // The spring's twelve allpass delay lines (six a channel, lags 127-797 at
 // 44.1 kHz) live in shared memory as rings of the history's length D, one
@@ -67,9 +69,11 @@
 // What bounds them on the card: a few KB to a few tens of KB move per call
 // and a few hundred thousand operations are done, so the card's bound is a
 // microsecond or less; the time is the channels' serial walks, the 4x
-// chains' up- and down-paths the longest (~7 us a 32-sample chunk on an
-// H100, PERF.md), and one SM of 132 is busy.  A bus_chain step takes the
-// slowest phase's chunk and a block barrier.
+// chains' up- and down-paths the longest (~7 us a 32-sample chunk on one
+// warp, on an H100 80GB HBM3 at 700 W, PERF.md), and one SM of 132 is
+// busy.  A bus_chain step takes the slowest phase's chunk and a block
+// barrier, a lone 4x kernel's step its slowest walk's chunk (a walk's lane
+// runs ~20 instructions a sample).
 //
 // Numerics: the Pallas bodies solve the linear recurrences (the tilt's SVF,
 // the delay's two-pole, the DC blocker, the compressor's gain smoother, the
@@ -87,6 +91,7 @@
 
 #include "ovs4.cuh"
 #include "rings.cuh"
+#include "row_stage.cuh"
 
 namespace {
 
@@ -267,9 +272,37 @@ struct SatShaper {
 // Smoother rows (drive, warmth, mix) appended to the packed output state.
 constexpr int kFbwsRowsOut = 100;
 
+// The saturation's per-sample pieces, shared by SaturationRow and the lone
+// kernel: the mix trajectory, the shaper (drive and warmth trajectories) and
+// the finish of a down-walk's output v on input xn at mix m (the
+// bypass-gated DC blocker, _dc_block, the mix and the finite select).
+__device__ __forceinline__ float sat_mix(const Phase& p, int c, int n) {
+  return traj(p.in[0][3 * c + 2], p.in[1][3 * c + 2], p.f[0], n);
+}
+
+__device__ __forceinline__ SatShaper sat_shaper(const Phase& p, int c, int n) {
+  return SatShaper{1.0f + traj(p.in[0][3 * c], p.in[1][3 * c], p.f[0], n) * 7.0f,
+                   traj(p.in[0][3 * c + 1], p.in[1][3 * c + 1], p.f[0], n) * 0.4f};
+}
+
+__device__ __forceinline__ float sat_finish(FbwsState& s, float v, float m, float xn) {
+  const bool byp = m < 1e-4f;
+  const float v1 = gated_dc(s, v, byp ? -1.0f : 1.0f);
+  const float o = byp ? xn : xn * (1.0f - m) + v1 * m;
+  return isfinite(o) ? o : 0.0f;
+}
+
+// The smoothers' values at the block's last sample, after the packed state.
+__device__ __forceinline__ void sat_end(const Phase& p, int c, int B) {
+  for (int j = 0; j < 3; ++j) {
+    p.out[0][(kFbwsRowsOut + j) * 2 + c] =
+        traj(p.in[0][3 * c + j], p.in[1][3 * c + j], p.f[0], B - 1);
+  }
+}
+
 // Channel c of the saturation block (_sat4_kernel): smoothed drive, warmth
-// and mix, the 4x chain around the tube curve, the bypass-gated DC blocker
-// (_dc_block), the mix and the finite select.
+// and mix, the 4x chain around the tube curve, the bypass-gated DC blocker,
+// the mix and the finite select.
 struct SaturationRow : RowBase {
   FbwsState s;
   OvsCaps cap;
@@ -279,38 +312,18 @@ struct SaturationRow : RowBase {
   __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs& k, int lane,
                                       const float* x, float* y, int n0, int n1, int B,
                                       float* scratch) {
-    const float* cur = p.in[0];
-    const float* tgt = p.in[1];
-    const float logq = p.f[0];
     const int c = min(lane, 1);
     const size_t row = static_cast<size_t>(c) * B;
     const float* mix = values_of(scratch, c);   // the mix trajectory
     split_4x(
         s, cap, k, lane, n0, n1, B, scratch,
-        [&](int ch, int n, float* v) { v[0] = traj(cur[3 * ch + 2], tgt[3 * ch + 2], logq, n); },
-        [&](int n) { return x[row + n]; },
-        [&](int ch, int n) {
-          return SatShaper{1.0f + traj(cur[3 * ch], tgt[3 * ch], logq, n) * 7.0f,
-                           traj(cur[3 * ch + 1], tgt[3 * ch + 1], logq, n) * 0.4f};
-        },
-        [&](int n, float v) {
-          const float m = mix[n - n0];
-          const bool byp = m < 1e-4f;
-          const float v1 = gated_dc(s, v, byp ? -1.0f : 1.0f);
-          const float xn = x[row + n];
-          const float o = byp ? xn : xn * (1.0f - m) + v1 * m;
-          y[row + n] = isfinite(o) ? o : 0.0f;
-        });
+        [&](int ch, int n, float* v) { v[0] = sat_mix(p, ch, n); },
+        [&](int n) { return x[row + n]; }, [&](int ch, int n) { return sat_shaper(p, ch, n); },
+        [&](int n, float v) { y[row + n] = sat_finish(s, v, mix[n - n0], x[row + n]); });
   }
   __device__ __forceinline__ void end(const Phase& p, int c, int B) {
-    const float* cur = p.in[0];
-    const float* tgt = p.in[1];
-    const float logq = p.f[0];
-    float* st_out = p.out[0];
-    store_span_state(s, cap, st_out, c, 2);
-    for (int j = 0; j < 3; ++j) {
-      st_out[(kFbwsRowsOut + j) * 2 + c] = traj(cur[3 * c + j], tgt[3 * c + j], logq, B - 1);
-    }
+    store_span_state(s, cap, p.out[0], c, 2);
+    sat_end(p, c, B);
   }
 };
 
@@ -572,13 +585,43 @@ struct AtanShaper {
 // and DC blocker, then the smoothed gain; the 100 output rows, then the gain.
 constexpr int kFbwsRowsIn = 52;
 
+// The compressor's per-sample pieces, shared by CompressorRow and the lone
+// kernel: the bypass flag (1 where mix < 1e-4), the knee's target gain on
+// the envelope, one step of the gain smoother (frozen on bypass), and the
+// finish of a down-walk's output u (the tube colour where g < 0.99, else
+// x*g; the bypass-gated DC blocker, the mix and the finite select).
+__device__ __forceinline__ float comp_bypass(float mix) { return mix < 1e-4f ? 1.0f : 0.0f; }
+
+__device__ __forceinline__ float comp_target(const Phase& p, float env, float thr,
+                                             float ratio) {
+  const float env_db = p.f[0] * logf(env + 1e-20f);   // 20 / ln 10
+  const float over = env_db - thr;
+  const float slope = 1.0f - 1.0f / ratio;
+  const float kv = over + 3.0f;
+  const float knee = kv * kv / 12.0f * slope;
+  const float gr = over <= -3.0f ? 0.0f : (over >= 3.0f ? over * slope : knee);
+  return expf(p.f[1] * gr);   // -ln 10 / 20
+}
+
+__device__ __forceinline__ float comp_gain(float g, float byp, float target) {
+  return byp != 0.0f ? g : 0.95f * g + 0.05f * target;
+}
+
+__device__ __forceinline__ float comp_finish(FbwsState& s, float u, float byp, float g,
+                                             float xg, float xn, float m) {
+  const bool bp = byp != 0.0f;
+  const float colored = g < 0.99f ? u : xg;
+  const float y1 = gated_dc(s, colored, bp ? -1.0f : 1.0f);
+  const float o = bp ? xn : xn * (1.0f - m) + y1 * m;
+  return isfinite(o) ? o : 0.0f;
+}
+
 // Channel c of the compressor block (_comp_kernel) on the detector's
 // envelope: the knee's gain reduction (per sample, on every lane), the
-// one-pole gain smoother (frozen on bypass; stepped by the up-path's walk,
-// which keeps each sample's gain and x*g for the down-path), x*g through
-// the 4x chain with the atan tube colour (engaged when g < 0.99, always fed
-// so its history stays warm), the bypass-gated DC blocker, the mix and the
-// finite select.
+// one-pole gain smoother (stepped by the up-path's walk, which keeps each
+// sample's gain and x*g for the down-path), x*g through the 4x chain with
+// the atan tube colour (engaged when g < 0.99, always fed so its history
+// stays warm), the bypass-gated DC blocker, the mix and the finite select.
 struct CompressorRow : RowBase {
   FbwsState s;
   OvsCaps cap;
@@ -594,8 +637,6 @@ struct CompressorRow : RowBase {
     const float* thr = p.in[1];
     const float* ratio = p.in[2];
     const float* mix = p.in[3];
-    const float db_per_ln = p.f[0];    // 20 / ln 10
-    const float ln_per_db = p.f[1];    // -ln 10 / 20
     const AtanShaper shape{p.f[2]};
     const int c = min(lane, 1);
     const size_t row = static_cast<size_t>(c) * B;
@@ -606,18 +647,12 @@ struct CompressorRow : RowBase {
         s, cap, k, lane, n0, n1, B, scratch,
         [&](int ch, int n, float* w) {
           const size_t i = static_cast<size_t>(ch) * B + n;
-          w[0] = mix[i] < 1e-4f ? 1.0f : 0.0f;
-          const float env_db = db_per_ln * logf(env[i] + 1e-20f);
-          const float over = env_db - thr[i];
-          const float slope = 1.0f - 1.0f / ratio[i];
-          const float kv = over + 3.0f;
-          const float knee = kv * kv / 12.0f * slope;
-          const float gr = over <= -3.0f ? 0.0f : (over >= 3.0f ? over * slope : knee);
-          w[C] = expf(ln_per_db * gr);
+          w[0] = comp_bypass(mix[i]);
+          w[C] = comp_target(p, env[i], thr[i], ratio[i]);
         },
         [&](int n) {
           const int i = n - n0;
-          g = v[i] != 0.0f ? g : 0.95f * g + 0.05f * v[C + i];
+          g = comp_gain(g, v[i], v[C + i]);
           const float compressed = x[row + n] * g;
           v[2 * C + i] = g;
           v[3 * C + i] = compressed;
@@ -625,15 +660,9 @@ struct CompressorRow : RowBase {
         },
         [&](int, int) { return shape; },
         [&](int n, float u) {
-          const size_t i = row + n;
           const int j = n - n0;
-          const bool byp = v[j] != 0.0f;
-          const float colored = v[2 * C + j] < 0.99f ? u : v[3 * C + j];
-          const float y1 = gated_dc(s, colored, byp ? -1.0f : 1.0f);
-          const float xn = x[i];
-          const float m = mix[i];
-          const float o = byp ? xn : xn * (1.0f - m) + y1 * m;
-          y[i] = isfinite(o) ? o : 0.0f;
+          y[row + n] = comp_finish(s, u, v[j], v[2 * C + j], v[3 * C + j], x[row + n],
+                                   mix[row + n]);
         });
   }
   __device__ __forceinline__ void end(const Phase& p, int c, int) {
@@ -902,6 +931,472 @@ __global__ void __launch_bounds__(kBusThreads)
   one_block<Row>(p, k, x, y, reinterpret_cast<float*>(block_smem4), B);
 }
 
+// --- the lone 4x effects: saturation_block and compressor_block ------------
+//
+// A lone saturation or compressor (a run of one effect, a sidechained
+// compressor, the unmerged bus) runs its 4x chain as five walks, each on a
+// warp of its own, its 32-sample chunks pipelined a step apart as
+// split4x_rows pipelines ws4_bank's two walks.  The four stages of the
+// chain (ovs4.cuh) each put their two polyphase branches on lanes of their
+// own, four lanes a walk (lane = 2 * branch + channel): a branch is the same
+// allpass code on its own coefficients and memories, and the branches meet
+// only in the down stages' half-sums, which the next walk takes in the
+// plain version's order.  At step j:
+//   warp 0  walks chunk j's stage-1 up (the compressor's gain smoother
+//           rides it, on both branches' lanes alike, and keeps each
+//           sample's g and x*g),
+//   warp 1  chunk j-1's stage-2 up into a ring of subsample tiles,
+//   warp 2  chunk j-3's stage-2 down,
+//   warp 3  chunk j-4's stage-1 down,
+//   warp 4  chunk j-5's finish on lanes 0 and 1 (the stage-1 half-sum, the
+//           gated DC blocker, the mix, the finite select) into an output
+//           tile;
+//   warps 5 on (the workers: five warps for the saturation, three for the
+//           compressor, as the probes chose) copy chunk j+2's inputs in
+//           with cp.async, compute chunk j+1's per-sample values (what
+//           does not depend on the carried state: the saturation's mix,
+//           drive and bias trajectories; the compressor's bypass and
+//           target gain), shape chunk j-2's 2 x 128 subsamples (an atan
+//           each) and store chunk j-6's output, coalesced.
+// One barrier a step: a step costs the longest part, where the one-warp
+// kernel's span cost their sum, and a walk's lane steps 4 allpass sections
+// a sample where the one-warp kernel's lane stepped 32.  Each lane
+// loads and stores only its branch's part of the packed state (the DC rows
+// with the finish, the compressor's g with stage-1 up).  A chunk's inputs
+// and values live in a ring of kLoneRing chunks from their copy (step j-2)
+// to the finish (step j+5).  Every per-channel operation keeps the plain
+// version's order, so the kernel gives the one-warp kernel's bits.
+
+constexpr int kLoneWalks = 5;
+// steps behind the up-walk: each walk (stage-1 up, stage-2 up, stage-2
+// down, stage-1 down, the finish), the shaping
+__device__ __forceinline__ constexpr int lone_lag(int walk) { return walk <= 1 ? walk : walk + 1; }
+constexpr int kLagShape = 2;
+constexpr int kLagFinish = 5;
+constexpr int kLoneRing = 8;      // chunks of inputs and values (copied j+2 ... finished j-5)
+constexpr int kLoneSubRing = 4;   // subsample tiles (written j-1, shaped j-2, walked down j-3)
+constexpr int kLonePitch = kChainChunk + 4;        // floats a row of a chunk tile
+constexpr int kLoneSubPitch = 4 * kChainChunk + 4;
+constexpr int kLoneArr = 2 * kLonePitch;           // floats an array's two channels
+
+// The chunk's per-sample arrays of a lone 4x row: kIn inputs copied in,
+// kVals values computed ahead (and, for the compressor, kept by the walk).
+// A sample's element e points into array 0 of its channel; array a is at
+// e[a * kLoneArr].
+struct SatLone {
+  static constexpr int kThreads = 320;   // five worker warps
+  static constexpr int kIn = 1;     // x
+  static constexpr int kVals = 3;   // the mix, the shaper's drive and bias
+  const Phase& p;
+  __device__ __forceinline__ const float* source(int, const float* x) const { return x; }
+  __device__ __forceinline__ const float* packed() const { return p.in[2]; }
+  __device__ __forceinline__ void prep(int c, int n, float* e) const {
+    const SatShaper f = sat_shaper(p, c, n);
+    e[kLoneArr] = sat_mix(p, c, n);
+    e[2 * kLoneArr] = f.drive;
+    e[3 * kLoneArr] = f.bias;
+  }
+  __device__ __forceinline__ float up_in(const float* e) const { return e[0]; }
+  __device__ __forceinline__ float up(float in, float*) const { return in; }
+  __device__ __forceinline__ SatShaper shaper(const float* e) const {
+    return SatShaper{e[2 * kLoneArr], e[3 * kLoneArr]};
+  }
+  __device__ __forceinline__ float2 down_in(const float* e) const {
+    return make_float2(e[0], e[kLoneArr]);
+  }
+  __device__ __forceinline__ float finish(FbwsState& s, float v, float2 in) const {
+    return sat_finish(s, v, in.y, in.x);
+  }
+  __device__ __forceinline__ void begin_up(int) {}
+  __device__ __forceinline__ void end_up(int c, int B) const { sat_end(p, c, B); }
+};
+
+struct CompLone {
+  static constexpr int kThreads = 256;   // three worker warps
+  static constexpr int kIn = 5;     // x, env, thr, ratio, mix
+  static constexpr int kVals = 4;   // the bypass, the target gain, g, x*g
+  const Phase& p;
+  float g;
+  struct Down {
+    float xn, m, byp, g, xg;
+  };
+  __device__ __forceinline__ const float* source(int a, const float* x) const {
+    return a == 0 ? x : p.in[a - 1];
+  }
+  __device__ __forceinline__ const float* packed() const { return p.in[4]; }
+  __device__ __forceinline__ void prep(int, int, float* e) const {
+    e[5 * kLoneArr] = comp_bypass(e[4 * kLoneArr]);
+    e[6 * kLoneArr] = comp_target(p, e[kLoneArr], e[2 * kLoneArr], e[3 * kLoneArr]);
+  }
+  __device__ __forceinline__ float3 up_in(const float* e) const {
+    return make_float3(e[0], e[5 * kLoneArr], e[6 * kLoneArr]);
+  }
+  __device__ __forceinline__ float up(float3 in, float* e) {
+    g = comp_gain(g, in.y, in.z);
+    const float compressed = in.x * g;
+    e[7 * kLoneArr] = g;
+    e[8 * kLoneArr] = compressed;
+    return compressed;
+  }
+  __device__ __forceinline__ AtanShaper shaper(const float*) const { return AtanShaper{p.f[2]}; }
+  __device__ __forceinline__ Down down_in(const float* e) const {
+    return Down{e[0], e[4 * kLoneArr], e[5 * kLoneArr], e[7 * kLoneArr], e[8 * kLoneArr]};
+  }
+  __device__ __forceinline__ float finish(FbwsState& s, float u, const Down& in) const {
+    return comp_finish(s, u, in.byp, in.g, in.xg, in.xn, in.m);
+  }
+  __device__ __forceinline__ void begin_up(int c) { g = p.in[4][kFbwsRowsIn * 2 + c]; }
+  __device__ __forceinline__ void end_up(int c, int) const {
+    p.out[0][kFbwsRowsOut * 2 + c] = g;
+  }
+};
+
+// Samples [0, len) of a chunk through step(i, in, last), in = load(i),
+// four at a time with their loads first (so that their chains overlap); the
+// block's last sample (last: true) peeled, for its captures.
+template <class Load, class Step>
+__device__ __forceinline__ void walk_chunk(int len, bool has_last, const Load& load,
+                                           const Step& step) {
+  using In = decltype(load(0));
+  const int stop = has_last ? len - 1 : len;
+  int i = 0;
+  for (; i + kOvsGroup <= stop; i += kOvsGroup) {
+    In in[kOvsGroup];
+#pragma unroll
+    for (int j = 0; j < kOvsGroup; ++j) in[j] = load(i + j);
+#pragma unroll
+    for (int j = 0; j < kOvsGroup; ++j) step(i + j, in[j], false);
+  }
+  for (; i < stop; ++i) step(i, load(i), false);
+  if (has_last) step(stop, load(stop), true);
+}
+
+// The shared memory of a lone 4x kernel: the ring of chunks' inputs and
+// values ([kLoneRing][arrays][2 ch][pitch]); the tiles between the walks,
+// two chunks each: stage-1 up's outputs e1, o1 ([branch][ch][pitch]),
+// stage-2 down's ([branch][first, second][ch][pitch]: what stage-1 down's
+// lanes sum), stage-1 down's ([branch][ch][pitch]); the subsample tiles
+// ([kLoneSubRing][ch][sub pitch]); the output tiles ([ch][pitch]).
+template <class Body>
+struct LoneTiles {
+  static constexpr int kSlot = (Body::kIn + Body::kVals) * kLoneArr;
+  static constexpr int kRing = kLoneRing * kSlot;
+  static constexpr int kUp = kRing, kDown = kUp + 2 * 2 * kLoneArr;
+  static constexpr int kEnds = kDown + 2 * 4 * kLoneArr, kOut = kEnds + 2 * 2 * kLoneArr;
+  static constexpr int kSub = kOut + 2 * kLoneArr;
+  static constexpr int kFloats = kSub + kLoneSubRing * 2 * kLoneSubPitch;
+  float* smem;
+  int B, n_chunks;
+  __device__ LoneTiles(float* smem_, int B_)
+      : smem(smem_), B(B_), n_chunks((B_ + kChainChunk - 1) / kChainChunk) {}
+  __device__ int len(int j) const { return min(kChainChunk, B - j * kChainChunk); }
+  __device__ float* slot(int j) const { return smem + (j % kLoneRing) * kSlot; }
+  // stage-1 up's output of branch b (e1: 0, o1: 1), channel c
+  __device__ float* up(int j, int b, int c) const {
+    return smem + kUp + (j & 1) * 2 * kLoneArr + b * kLoneArr + c * kLonePitch;
+  }
+  // stage-2 down's output of branch b, its first or second (r) of a sample
+  __device__ float* down(int j, int b, int r, int c) const {
+    return smem + kDown + (j & 1) * 4 * kLoneArr + (2 * b + r) * kLoneArr + c * kLonePitch;
+  }
+  // stage-1 down's output of branch b
+  __device__ float* ends(int j, int b, int c) const {
+    return smem + kEnds + (j & 1) * 2 * kLoneArr + b * kLoneArr + c * kLonePitch;
+  }
+  __device__ float* out(int j, int c) const {
+    return smem + kOut + (j & 1) * kLoneArr + c * kLonePitch;
+  }
+  __device__ float* sub(int j, int c) const {
+    return smem + kSub + ((j % kLoneSubRing) * 2 + c) * kLoneSubPitch;
+  }
+};
+
+// One polyphase branch of a stage: its N sections' output and input
+// memories, in the packed layout at row r0 + 2N * branch (y) and N rows on
+// (x); the stages' first rows and their captures' (ovs4.cuh).
+template <int N>
+struct BranchState {
+  float y[N], x[N];
+  __device__ __forceinline__ void load(const float* st, int r0, int b, int c) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      y[j] = st[(r0 + 2 * N * b + j) * 2 + c];
+      x[j] = st[(r0 + 2 * N * b + N + j) * 2 + c];
+    }
+  }
+  __device__ __forceinline__ void store(float* st, int r0, int b, int c) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      st[(r0 + 2 * N * b + j) * 2 + c] = y[j];
+      st[(r0 + 2 * N * b + N + j) * 2 + c] = x[j];
+    }
+  }
+  __device__ __forceinline__ float step(float u, const float (&a)[N]) { return ap_chain(u, y, x, a); }
+};
+
+__device__ __forceinline__ constexpr int stage_rows(int stage) {
+  return stage == 0 ? 0 : stage == 1 ? kPackedUp2Rows : stage == 2 ? kPackedUpRows : kPackedDown1Rows;
+}
+__device__ __forceinline__ constexpr int stage_caps(int stage) {
+  return stage == 0   ? kPackedCoreRows
+         : stage == 1 ? kPackedUp2Caps
+         : stage == 2 ? kPackedDownCaps
+                      : kPackedDown1Caps;
+}
+constexpr int kRowD2x1d = kPackedDown1Rows - 1;   // stage-2 down's delayed input
+constexpr int kRowD1x1d = kPackedDown1Rows + 16;  // stage-1 down's
+constexpr int kRowDc = kRowD1x1d + 1;             // dcx, dcy
+
+// The steps of a walk: every thread of the block meets at each step's
+// barrier; on the walk's lanes (`on`), walk(q) runs chunk q, `lag` steps
+// behind the up-walk.
+template <class Walk>
+__device__ __forceinline__ void lone_steps(int n_chunks, int lag, bool on, const Walk& walk) {
+  step_barrier();   // the workers' first chunk
+  for (int j = 0; j < n_chunks + kLagFinish; ++j) {
+    step_barrier();   // step j-1 done everywhere
+    const int q = j - lag;
+    if (on && q >= 0 && q < n_chunks) walk(q);
+  }
+  step_barrier();   // the last output tile is done
+}
+
+// Stage `kStage` of the chain (0: stage-1 up, 1: stage-2 up, 2: stage-2
+// down, 3: stage-1 down) on lanes 0-3 of its warp: branch b = lane / 2 of
+// channel c = lane % 2, its sections' memories in registers; for branch 1
+// of the down stages also the delayed input (the previous sample's second
+// value).  Every thread of the block meets at each step's barrier.
+template <int kStage, class Body>
+__device__ __forceinline__ void lone_stage(Body& body, const LoneTiles<Body>& t,
+                                           const FbwsCoefs& k, float* st_out, int lane) {
+  constexpr int N = kStage == 0 || kStage == 3 ? 4 : 2;
+  const bool on = lane < 4;
+  const int c = lane & 1, b = (lane >> 1) & 1;
+  BranchState<N> s, cap;
+  float a[N];
+  float carry = 0.0f;   // branch 1's delayed input (the down stages)
+  const int carry_row = kStage == 2 ? kRowD2x1d : kRowD1x1d;
+  if (on) {
+    const float* st_in = body.packed();
+    s.load(st_in, stage_rows(kStage), b, c);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if constexpr (N == 4) {
+        a[j] = b ? k.c1_1[j] : k.c1_0[j];
+      } else {
+        a[j] = b ? k.c2_1[j] : k.c2_0[j];
+      }
+    }
+    if (kStage >= 2 && b == 1) carry = st_in[carry_row * 2 + c];
+    if (kStage == 0) body.begin_up(c);
+  }
+  lone_steps(t.n_chunks, lone_lag(kStage), on, [&](int q) {
+    float* e = t.slot(q) + c * kLonePitch;
+    const float* sub = t.sub(q, c);
+    if constexpr (kStage == 0) {
+      // x (or x*g) -> e1 (branch 0) or o1 (branch 1)
+      float* out = t.up(q, b, c);
+      walk_chunk(
+          t.len(q), q == t.n_chunks - 1, [&](int i) { return body.up_in(e + i); },
+          [&](int i, auto in, bool last) {
+            const float u = body.up(in, e + i);
+            if (last) cap = s;
+            out[i] = s.step(u, a);
+          });
+    } else if constexpr (kStage == 1) {
+      // e1, o1 -> subsamples b and 2 + b
+      const float* e1 = t.up(q, 0, c);
+      const float* o1 = t.up(q, 1, c);
+      float* out = t.sub(q, c) + b;
+      walk_chunk(
+          t.len(q), q == t.n_chunks - 1, [&](int i) { return make_float2(e1[i], o1[i]); },
+          [&](int i, float2 in, bool last) {
+            out[4 * i] = s.step(in.x, a);
+            if (last) cap = s;
+            out[4 * i + 2] = s.step(in.y, a);
+          });
+    } else if constexpr (kStage == 2) {
+      // branch 0: q0, q2; branch 1: the previous q3, q1 (q3 carried on)
+      const float* qa = sub + (b ? 3 : 0);
+      const float* qb = sub + (b ? 1 : 2);
+      float* first = t.down(q, b, 0, c);
+      float* second = t.down(q, b, 1, c);
+      walk_chunk(
+          t.len(q), q == t.n_chunks - 1,
+          [&](int i) { return make_float2(qa[4 * i], qb[4 * i]); },
+          [&](int i, float2 in, bool last) {
+            const float u = b ? carry : in.x;
+            carry = in.x;
+            first[i] = s.step(u, a);
+            if (last) cap = s;
+            second[i] = s.step(in.y, a);
+          });
+    } else {
+      // branch 0: d0 = (a0 + a1) / 2; branch 1: the previous d1 (d1 =
+      // (b0 + b1) / 2 carried on)
+      const float* p0 = t.down(q, 0, b, c);
+      const float* p1 = t.down(q, 1, b, c);
+      float* out = t.ends(q, b, c);
+      walk_chunk(
+          t.len(q), q == t.n_chunks - 1, [&](int i) { return make_float2(p0[i], p1[i]); },
+          [&](int i, float2 in, bool last) {
+            const float d = 0.5f * (in.x + in.y);
+            const float u = b ? carry : d;
+            carry = d;
+            if (last) cap = s;
+            out[i] = s.step(u, a);
+          });
+    }
+  });
+  if (!on) return;
+  s.store(st_out, stage_rows(kStage), b, c);
+  cap.store(st_out, stage_caps(kStage), b, c);
+  if (kStage >= 2 && b == 1) st_out[carry_row * 2 + c] = carry;
+  if (kStage == 0 && b == 0) body.end_up(c, t.B);
+}
+
+// A finish's inputs of a sample: stage-1 down's branches' outputs and what
+// the body's finish reads.
+template <class R>
+struct FinishIn {
+  float e0, e1;
+  R r;
+};
+
+// The finish on lanes 0 and 1 (channel c): stage-1 down's half-sum, then
+// the body's finish (the gated DC blocker, the mix, the finite select) into
+// the output tile.
+template <class Body>
+__device__ __forceinline__ void lone_finish(const Body& body, const LoneTiles<Body>& t,
+                                            float* st_out, int lane) {
+  const bool on = lane < 2;
+  const int c = lane & 1;
+  FbwsState st;
+  if (on) {
+    st.dcx = body.packed()[kRowDc * 2 + c];
+    st.dcy = body.packed()[(kRowDc + 1) * 2 + c];
+  }
+  lone_steps(t.n_chunks, kLagFinish, on, [&](int q) {
+    const float* e = t.slot(q) + c * kLonePitch;
+    const float* e0 = t.ends(q, 0, c);
+    const float* e1 = t.ends(q, 1, c);
+    float* out = t.out(q, c);
+    walk_chunk(
+        t.len(q), false,
+        [&](int i) {
+          return FinishIn<decltype(body.down_in(e))>{e0[i], e1[i], body.down_in(e + i)};
+        },
+        [&](int i, auto in, bool) { out[i] = body.finish(st, 0.5f * (in.e0 + in.e1), in.r); });
+  });
+  if (!on) return;
+  st_out[kRowDc * 2 + c] = st.dcx;
+  st_out[(kRowDc + 1) * 2 + c] = st.dcy;
+}
+
+// The workers (thread w of kWorkers): at step j, chunk j+2's inputs in
+// with cp.async, chunk j+1's values, chunk j - kLagShape's subsamples
+// shaped in place, the output tile of the chunk finished a step before
+// stored.
+template <class Body>
+__device__ __forceinline__ void lone_workers(const Body& body, const LoneTiles<Body>& t,
+                                             const float* x, float* y, int w) {
+  constexpr int kWorkers = Body::kThreads - 32 * kLoneWalks;
+  const int n_chunks = t.n_chunks, B = t.B;
+  // chunk j's inputs into its slot (a group committed even past the last
+  // chunk, so that every wait below finds the chunk before it landed)
+  const auto copy_in = [&](int j) {
+    if (j < n_chunks) {
+      const int n0 = j * kChainChunk, l = t.len(j);
+      float* sl = t.slot(j);
+      for (int u = w; u < Body::kIn * 2 * l; u += kWorkers) {
+        const int a = u / (2 * l), r = u - a * 2 * l;
+        const int ch = r >= l ? 1 : 0, i = r - l * ch;
+        cp_async4(sl + a * kLoneArr + ch * kLonePitch + i,
+                  body.source(a, x) + static_cast<size_t>(ch) * B + n0 + i);
+      }
+    }
+    cp_async_commit();
+  };
+  const auto prep = [&](int j) {
+    if (j >= n_chunks) return;
+    const int n0 = j * kChainChunk, l = t.len(j);
+    float* sl = t.slot(j);
+    for (int u = w; u < 2 * l; u += kWorkers) {
+      int ch, i;
+      both_channels(u, l, ch, i);
+      body.prep(ch, n0 + i, sl + ch * kLonePitch + i);
+    }
+  };
+  const auto shape = [&](int q) {
+    if (q < 0 || q >= n_chunks) return;
+    const int l = t.len(q);
+    const float* sl = t.slot(q);
+    for (int u = w; u < 8 * l; u += kWorkers) {
+      int ch, i;
+      both_channels(u, 4 * l, ch, i);
+      float& v = t.sub(q, ch)[i];
+      v = body.shaper(sl + ch * kLonePitch + (i >> 2))(v);
+    }
+  };
+  const auto store_out = [&](int o) {
+    const int l = t.len(o);
+    for (int u = w; u < 2 * l; u += kWorkers) {
+      int ch, i;
+      both_channels(u, l, ch, i);
+      y[static_cast<size_t>(ch) * B + o * kChainChunk + i] = t.out(o, ch)[i];
+    }
+  };
+  copy_in(0);
+  copy_in(1);
+  cp_async_wait_all();
+  step_barrier();
+  prep(0);
+  for (int j = 0; j < n_chunks + kLagFinish; ++j) {
+    cp_async_wait_all();   // chunk j+1 has landed (this worker's part)
+    step_barrier();        // ... all of it; step j-1 done everywhere
+    copy_in(j + 2);
+    prep(j + 1);
+    shape(j - kLagShape);
+    if (j > kLagFinish) store_out(j - kLagFinish - 1);
+  }
+  step_barrier();
+  store_out(n_chunks - 1);
+}
+
+template <class Body>
+__global__ void __launch_bounds__(Body::kThreads)
+    bus4x_split_kernel(const float* __restrict__ x, float* __restrict__ y, Phase p,
+                       FbwsCoefs k, int B) {
+  extern __shared__ float4 lone_smem4[];
+  const LoneTiles<Body> t(reinterpret_cast<float*>(lone_smem4), B);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  Body body{p};
+  switch (warp) {
+    case 0:
+      lone_stage<0>(body, t, k, p.out[0], lane);
+      break;
+    case 1:
+      lone_stage<1>(body, t, k, p.out[0], lane);
+      break;
+    case 2:
+      lone_stage<2>(body, t, k, p.out[0], lane);
+      break;
+    case 3:
+      lone_stage<3>(body, t, k, p.out[0], lane);
+      break;
+    case 4:
+      lone_finish(body, t, p.out[0], lane);
+      break;
+    default:
+      lone_workers(body, t, x, y, threadIdx.x - 32 * kLoneWalks);
+  }
+}
+
+template <class Body>
+constexpr size_t lone_smem_bytes() {
+  return static_cast<size_t>(LoneTiles<Body>::kFloats) * sizeof(float);
+}
+
 // bus_chain: phase i on warp i (lanes 0 and 1 the channels), the [2, B]
 // signal in shared memory, threaded in place.  The block is cut into chunks
 // of kChainChunk samples; at step s warp i runs chunk s - i, so phase i
@@ -1027,6 +1522,17 @@ cudaError_t launch_block(const float* x, float* y, const Phase& p, const float* 
   return cudaGetLastError();
 }
 
+// A lone saturation or compressor through the four-walk kernel.
+template <class Body>
+cudaError_t launch_lone(const float* x, float* y, const Phase& p, const float* coefs, int B,
+                        cudaStream_t s) {
+  constexpr size_t smem = lone_smem_bytes<Body>();
+  const cudaError_t err = allow_smem(bus4x_split_kernel<Body>, smem);
+  if (err != cudaSuccess) return err;
+  bus4x_split_kernel<Body><<<1, Body::kThreads, smem, s>>>(x, y, p, fbws_coefs(coefs), B);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1038,7 +1544,7 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
   const cudaStream_t s = as_stream(stream);
   switch (p.op) {
     case kSaturation:
-      return static_cast<int>(launch_block<SaturationRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_lone<SatLone>(x, y, p, coefs, B, s));
     case kLowpass:
       return static_cast<int>(launch_block<LowpassRow>(x, y, p, coefs, B, s));
     case kTilt:
@@ -1048,7 +1554,7 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
     case kEnv:
       return static_cast<int>(launch_block<EnvRow>(x, y, p, coefs, B, s));
     case kCompressor:
-      return static_cast<int>(launch_block<CompressorRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_lone<CompLone>(x, y, p, coefs, B, s));
     case kSpring:
       return static_cast<int>(launch_block<SpringRow>(x, y, p, coefs, B, s));
     case kWaveshaper:

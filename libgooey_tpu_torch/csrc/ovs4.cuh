@@ -144,6 +144,13 @@ __device__ __forceinline__ void store_caps(const Caps<N>& c, float* st, int& k, 
 constexpr int kPackedUpRows = 24;
 constexpr int kPackedCoreRows = 52;
 constexpr int kPackedDownCaps = kPackedCoreRows + 24;
+// Within the halves, by stage (the lone 4x bus kernels walk each stage on
+// its own): stage-2 up's rows start at 16 (captures 68), stage-1 down's at
+// 33 after stage-2 down's delayed input (captures 84).
+constexpr int kPackedUp2Rows = 16;
+constexpr int kPackedDown1Rows = 33;
+constexpr int kPackedUp2Caps = kPackedCoreRows + 16;
+constexpr int kPackedDown1Caps = kPackedDownCaps + 8;
 
 __device__ __forceinline__ void load_up_state(FbwsState& s, const float* st, int v, int V) {
   int r = 0;

@@ -38,7 +38,7 @@ from libgooey_tpu_torch.ops.oversample import OversamplerState
 from test_torch_slice import _max_state_err
 
 SR = 44100.0
-B = 256
+B = 256   # the other kernels' block; the saturation and the compressor also at 100
 OUT_TOL = 2e-5
 STATE_TOL = 1e-4
 COEFF = smoothing_coeff(SR, 30.0)
@@ -52,21 +52,48 @@ def _err(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
 
 
-def test_saturation_block_matches_pallas():
-    """Two blocks from a zero state, each side carrying its own state: the
-    first block crosses the bypass gate (mix 0.6 -> 0), the second comes back
-    with new drive and warmth, so the DC blocker's gating and held state are
-    exercised; the unpacked state is compared leaf by leaf."""
+def _gate_mix(fall_at, rise_at):
+    """Mix smoother values whose trajectory ``tgt + snap((cur - tgt) *
+    q^(n+1))`` falls under the bypass gate (1e-4) at sample ``fall_at``
+    (from the first value to 0) and rises out of it at ``rise_at`` (from 0
+    to the second)."""
+    logq = np.log(1.0 - COEFF)
+    return (1e-4 * np.exp(-logq * (fall_at + 0.5)),
+            1e-4 / (1.0 - np.exp(logq * (rise_at + 0.5))))
+
+
+def _inside_chunks(flags):
+    """The samples where a [2, B] bool row flips, per channel; each must lie
+    inside a 32-sample chunk of the kernels (not at its first sample)."""
+    flips = [np.flatnonzero(np.diff(np.asarray(f, np.int8))) + 1 for f in flags]
+    assert all(len(f) and (f % 32 != 0).all() for f in flips), flips
+    return flips
+
+
+@pytest.mark.parametrize("B", [256, 100])
+def test_saturation_block_matches_pallas(B):
+    """Two blocks from a zero state, each side carrying its own state, drive
+    and warmth moving: in the first the left mix falls under the bypass
+    gate and the right one rises out of it, in the second the other way
+    round, each inside a 32-sample chunk, so the DC blocker's gating and
+    held state are exercised; the unpacked state is compared leaf by
+    leaf."""
     rs = np.random.RandomState(3)
     x = rs.uniform(-0.9, 0.9, (2, 2 * B)).astype(np.float32)
-    blocks = [((0.6, 0.5, 0.6), (0.6, 0.5, 0.0)), ((0.6, 0.5, 0.00005), (0.2, 0.9, 0.8))]
+    fall0, rise0 = _gate_mix(77, 39)
+    fall1, rise1 = _gate_mix(71, 45)
+    blocks = [([[0.6, 0.5, fall0], [0.3, 0.2, 0.0]], [[0.2, 0.9, 0.0], [0.7, 0.6, rise0]]),
+              ([[0.2, 0.9, 0.0], [0.7, 0.6, fall1]], [[0.6, 0.5, rise1], [0.1, 0.3, 0.0]])]
     j_ovs = jovs.OversamplerState.init((2,))
     j_dc = (jnp.zeros(2, jnp.float32), jnp.zeros(2, jnp.float32))
     t_ovs = OversamplerState.init(2, "cpu")
     t_dc = DCBlockState.init((2,), "cpu")
     for i, (cur, tgt) in enumerate(blocks):
-        cur2 = np.asarray([cur, cur], np.float32)
-        tgt2 = np.asarray([tgt, tgt], np.float32)
+        cur2 = np.asarray(cur, np.float32)
+        tgt2 = np.asarray(tgt, np.float32)
+        mix = bus._trajectories(_t(cur2), _t(tgt2), COEFF, B)[2]
+        want = [[77], [39]] if i == 0 else [[45], [71]]
+        assert [list(f) for f in _inside_chunks(mix < 1e-4)] == want
         xb = x[:, i * B:(i + 1) * B]
         jout, jnst = pallas_fx.saturation_block(
             jnp.asarray(xb), cur2, tgt2, pallas_fx.pack_ovs4_dc(j_ovs, *j_dc), coeff=COEFF)
@@ -164,11 +191,29 @@ def test_env_follower_block_matches_pallas():
     assert _err(jlast, tlast) <= STATE_TOL
 
 
-def test_compressor_block_matches_pallas():
+def _gain_below(env, thr, ratio, mix, g0):
+    """Where the compressor's smoothed gain first falls under 0.99, per
+    channel (its knee and smoother in float64)."""
+    over = 20.0 / np.log(10.0) * np.log(env.astype(np.float64) + 1e-20) - thr
+    slope = 1.0 - 1.0 / ratio
+    gr = np.where(over <= -3.0, 0.0,
+                  np.where(over >= 3.0, over * slope, (over + 3.0) ** 2 / 12.0 * slope))
+    target = np.exp(-0.05 * np.log(10.0) * gr)
+    g, first = np.asarray(g0, np.float64), [None, None]
+    for n in range(env.shape[1]):
+        g = np.where(mix[:, n] < 1e-4, g, 0.95 * g + 0.05 * target[:, n])
+        first = [f if f is not None or g[c] >= 0.99 else n for c, f in enumerate(first)]
+    return first
+
+
+@pytest.mark.parametrize("B", [256, 100])
+def test_compressor_block_matches_pallas(B):
     """Two blocks from a zero state on a loud envelope: the knee engaged and
-    the smoothed gain crossing 0.99 (the tube colour switching in), then a
-    block whose mix falls under the bypass gate; the packed state
-    (pack_ovs4_dc there, pack_compressor here) compared leaf by leaf."""
+    the smoothed gain crossing 0.99 inside a 32-sample chunk (the tube
+    colour switching in), then a block whose left mix falls under the
+    bypass gate and whose right one leaves it again, each inside a chunk;
+    the packed state (pack_ovs4_dc there, pack_compressor here) compared
+    leaf by leaf."""
     rs = np.random.RandomState(5)
     x = _bursts(rs, 2 * B)
     env, _ = bus.env_follower_block_plain(
@@ -178,12 +223,15 @@ def test_compressor_block_matches_pallas():
     thr = np.full((2, 2 * B), -30.0, np.float32)
     ratio = np.full((2, 2 * B), 8.0, np.float32)
     mix = np.ones((2, 2 * B), np.float32)
-    mix[:, B + B // 2:] = 0.0
+    mix[0, B + 71:] = 0.0
+    mix[1, B + 7:B + 45] = 0.0
+    assert [list(f) for f in _inside_chunks(mix[:, B:] < 1e-4)] == [[71], [7, 45]]
+    first = _gain_below(env[:, :B], thr[:, :B], ratio[:, :B], mix[:, :B], np.ones(2))
+    assert all(f is not None and f % 32 != 0 for f in first), first
     j_ovs, j_dc, j_gain = jovs.OversamplerState.init((2,)), (np.zeros(2, np.float32),) * 2, \
         np.ones(2, np.float32)
     t_ovs, t_dc, t_gain = OversamplerState.init(2, "cpu"), DCBlockState.init((2,), "cpu"), \
         torch.ones(2)
-    crossed = False
     for i in range(2):
         sl = slice(i * B, (i + 1) * B)
         jout, jnst = pallas_fx.compressor_block(
@@ -196,12 +244,11 @@ def test_compressor_block_matches_pallas():
             bus.pack_compressor(t_ovs, t_dc, t_gain))
         t_ovs, tdx, tdy, t_gain = bus.unpack_compressor(tnst, t_ovs)
         t_dc = DCBlockState(x1=tdx, y1=tdy)
-        crossed = crossed or bool((t_gain < 0.99).any())
         assert _err(jout, tout) <= OUT_TOL, i
         worst, where = _max_state_err({"ovs": j_ovs, "dc": j_dc, "gain": j_gain},
                                       {"ovs": t_ovs, "dc": (t_dc.x1, t_dc.y1), "gain": t_gain})
         assert worst <= STATE_TOL, f"block {i}: {worst} at {where}"
-    assert crossed
+    assert bool((t_gain < 0.99).all())
 
 
 def _spring_rows(rs, n, decay=(0.3, 0.9), damping=(0.6, 0.2)):

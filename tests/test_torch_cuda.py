@@ -939,6 +939,36 @@ def test_bus_chain_is_bit_equal_to_its_plain_version_and_its_kernels(dev, run, B
     assert _bits_equal(got, turn)
 
 
+@pytest.mark.parametrize("B", [512, 100, 33])
+@pytest.mark.parametrize("name", ["saturation_block", "compressor_block"])
+def test_lone_4x_kernels_are_bit_equal_to_their_plain_versions(dev, name, B):
+    """saturation_block and compressor_block (their four walks pipelined
+    over warps) give their plain versions bit for bit, with B not a
+    multiple of the chunk and the bypass gates crossed inside chunks (the
+    compressor's gain through 0.99 too); a bus_chain run of each, with
+    the compressor's detector before it, gives the kernels in turn."""
+    import chip_smoke
+
+    for case, label, args, kw in chip_smoke.lone_edge_cases(dev, B):
+        if case != name:
+            continue
+        got = getattr(bus, name)(*args, **kw)
+        want = getattr(bus, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want), label
+        assert float(got[0].abs().max()) > 0.1
+        phases = [bus.Phase(name, args[1:], kw)]
+        if name == "compressor_block":
+            zeros = torch.zeros_like(args[0])
+            phases = [bus.Phase("env_follower_block", (zeros + 0.9776, zeros + 0.99972, zeros,
+                                                       torch.zeros(2, device=dev)), {}),
+                      bus.Phase(name, (None,) + tuple(args[2:]), kw)]
+        run = bus.bus_chain(args[0], phases)
+        turn = bus.run_phases(args[0], phases)
+        torch.cuda.synchronize()
+        assert _bits_equal(run, turn), label
+
+
 @pytest.mark.parametrize("case", range(10),
                          ids=["drawn_apart", "snare_traffic"]
                          + [f"edge_{b}_{h}" for b in (512, 100) for h in (64, 0, 1, 192)])

@@ -42,10 +42,14 @@ struct dim3 {
 struct float2 {
   float x, y;
 };
+struct float3 {
+  float x, y, z;
+};
 struct float4 {
   float x, y, z, w;
 };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float3 make_float3(float x, float y, float z) { return {x, y, z}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 inline thread_local dim3 threadIdx;

@@ -14,7 +14,9 @@ barriers, cp.async as a plain copy) into
 wrappers' packing on CPU tensors: ``kit_sources`` and ``kit_drive`` at the
 product kit, one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
 128 a family; every bus kernel and ``bus_chain`` run of
-``chip_smoke.bus_cases`` at 512, 100 and 33 samples; ``plate_block`` at
+``chip_smoke.bus_cases`` at 512, 100 and 33 samples, and
+``chip_smoke.lone_edge_cases`` (the saturation and the compressor with
+their bypass gates crossed inside chunks) at the same; ``plate_block`` at
 the main path's block and ``chip_smoke.plate_cases`` (100 and 33 samples,
 the modulated lags falling to 1, 22,050 and 96,000 Hz); the staged bank
 kernels, ``ws4_bank``, ``fbws_bank`` (rows bypassed for the whole block
@@ -298,7 +300,8 @@ def main(argv=None) -> int:
                                            vk._DRIVE_BODIES)))
     for b in (cs.B,) + cs.TAIL_BLOCKS:
         singles, runs = cs.bus_cases("cpu", np.random.RandomState(b), b)
-        for name, shape, a, kw, _ in singles:
+        singles = [(name, shape, a, kw) for name, shape, a, kw, _ in singles]
+        for name, shape, a, kw in singles + cs.lone_edge_cases("cpu", b):
             if name in bus.KERNELS and wanted(name):
                 case(f"{name} {shape}", both(bus, lambda: bus._launch_one(name, a[0], a[1:], kw)))
         for label, (x, phases) in runs.items():

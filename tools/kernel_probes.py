@@ -36,11 +36,20 @@ the table, loads and stores alone: the sines fall dead with it),
 inputs' sum: loads, stores, the table and its barrier).
 ``grain_read_cubic`` (``grain_kernels.cu``): ``grain_positions`` (each
 output its position: no taps) and ``grain_stores`` (each output its age: no
-position, no taps).  Outputs of the probes that cut are wrong; only their
+position, no taps).  The lone 4x bus kernel (``bus4x_split_kernel``:
+``saturation_block``, ``compressor_block``): ``lone_walks_only`` (no copies,
+values, shaping or stores: the five walks on whatever shared memory holds),
+``lone_up1_only``, ``lone_up2_only``, ``lone_down2_only``,
+``lone_down1_only`` and ``lone_finish_only`` (one walk), ``lone_walks_123``
+(the walks of warps 1-3, each on a scheduler of its own) and
+``lone_walks_04`` (warps 0 and 4, which share one), ``lone_workers_only``
+(no walks: the copies, the values, the shaping and the stores);
+``lone_sat_256`` and ``lone_comp_320`` (nothing cut: the saturation on three
+worker warps, the compressor on five, bit-equal).  Outputs of the probes that cut are wrong; only their
 times mean anything.  Pass the directories to ``tools/torch_kernel_ab.py --only
 ws4_bank,fbws_bank``, ``--only mix_bank``, ``--only kit_drive``, ``--only
-plate_block``, ``--only triangle_additive_bank`` or ``--only
-grain_read_cubic``.
+plate_block``, ``--only triangle_additive_bank``, ``--only
+grain_read_cubic`` or ``--only saturation_block,compressor_block``.
 """
 
 from __future__ import annotations
@@ -106,6 +115,28 @@ TRI_COPY = [("  if (i < n) out[i] = s.finish(0, gain, c);",
 #: max_h fall dead with the walk)
 TRI_NO_WALK = [("    k1 = k;", "    k1 = 0;"),
                ("    for (; k < k1; ++k) step(gain[k]);", "    return acc;")]
+#: the lone 4x bus kernel (bus4x_split_kernel: saturation_block and
+#: compressor_block): the workers' copies, values, shaping and stores cut, or
+#: the walks; one walk alone; two or five worker warps
+LONE_NO_WORKERS = [("    copy_in(j + 2);\n    prep(j + 1);\n    shape(j - kLagShape);\n"
+                    "    if (j > kLagFinish) store_out(j - kLagFinish - 1);\n", "")]
+LONE_WALK = "    if (on && q >= 0 && q < n_chunks) walk(q);"
+LONE_NO_WALKS = [(LONE_WALK, "    if (false) walk(q);")]
+
+
+def lone_walks(cond):
+    """The walks whose warp ``cond`` (a C expression of ``warp``) holds,
+    alone: no workers."""
+    return LONE_NO_WORKERS + [(LONE_WALK, LONE_WALK.replace(
+        ") walk(q);", f" && ([](int warp) {{ return {cond}; }})(threadIdx.x / 32)) walk(q);"))]
+
+
+LONE_SAT_256 = [("  static constexpr int kThreads = 320;   // five worker warps",
+                 "  static constexpr int kThreads = 256;")]
+LONE_COMP_320 = [("  static constexpr int kThreads = 256;   // three worker warps",
+                  "  static constexpr int kThreads = 320;")]
+
+
 GRAIN_POSITIONS = [("  const float i1f = floorf(pos);",
                     "  return pos;\n  const float i1f = floorf(pos);")]
 GRAIN_STORES = [("  // fmaxf maps a NaN position", "  return age;\n  // fmaxf maps a NaN position")]
@@ -130,7 +161,17 @@ PROBES = {
     "tri_no_sines": ("triangle.cuh", TRI_NO_SINES),
     "tri_copy": ("osc_kernels.cu", TRI_COPY),
     "grain_positions": ("grain_kernels.cu", GRAIN_POSITIONS),
-    "grain_stores": ("grain_kernels.cu", GRAIN_STORES),
+    "lone_walks_only": ("bus_kernels.cu", LONE_NO_WORKERS),
+    "lone_up1_only": ("bus_kernels.cu", lone_walks("warp == 0")),
+    "lone_up2_only": ("bus_kernels.cu", lone_walks("warp == 1")),
+    "lone_down2_only": ("bus_kernels.cu", lone_walks("warp == 2")),
+    "lone_down1_only": ("bus_kernels.cu", lone_walks("warp == 3")),
+    "lone_finish_only": ("bus_kernels.cu", lone_walks("warp == 4")),
+    "lone_walks_123": ("bus_kernels.cu", lone_walks("warp >= 1 && warp <= 3")),
+    "lone_walks_04": ("bus_kernels.cu", lone_walks("warp == 0 || warp == 4")),
+    "lone_workers_only": ("bus_kernels.cu", LONE_NO_WALKS),
+    "lone_sat_256": ("bus_kernels.cu", LONE_SAT_256),
+    "lone_comp_320": ("bus_kernels.cu", LONE_COMP_320),
 }
 
 

@@ -27,7 +27,9 @@ likewise (their staging header is shared),
 ``kit_drive`` at the product kit, with each of its bodies alone and at
 ``chip_smoke.TAIL_KITS``, ``bus_chain`` with
 the kit's seven phases, the first four and the product chain's ten, and
-each bus phase's own kernel.  Every case prints whether each build gives
+each bus phase's own kernel, the saturation and the compressor also at
+``chip_smoke.lone_edge_cases`` (512, 100 and 33 samples, their bypass gates
+crossed inside chunks).  Up to ``BUILDS_AT_ONCE`` trees build at once.  Every case prints whether each build gives
 this tree's outputs bit for bit, and each build's device time per call
 (``chip_smoke.device_ms``), the builds interleaved (each other build, this
 tree, this tree, each other build in reverse), on the card named in the
@@ -38,6 +40,7 @@ keeps the cases of the named kernels.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import subprocess
 import sys
@@ -47,6 +50,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+#: trees built at once (each runs one nvcc a source)
+BUILDS_AT_ONCE = 3
 
 
 def build_name(csrc: Path) -> str:
@@ -178,9 +183,11 @@ def main(argv=None) -> int:
     print(cs.card_line(), f"(max SM clock {clock})", flush=True)
     drives = {}   # ws4's drive tensors by pointer, for an older build's wrapper gain
     libs = {}
-    for d in dirs:
+    with concurrent.futures.ThreadPoolExecutor(BUILDS_AT_ONCE) as pool:
+        built = list(pool.map(build, dirs))
+    for d, path in zip(dirs, built):
         sigs = signatures(d)
-        lib = load(build(d), sigs)
+        lib = load(path, sigs)
         libs[build_name(d)] = lib if sigs == _build.SIGNATURES else OlderEntries(lib, sigs, drives)
     libs["this tree"] = _build.load_library()
     real_load = _build.load_library
@@ -230,7 +237,10 @@ def main(argv=None) -> int:
     singles, runs = cs.bus_cases(dev, np.random.RandomState(cs.SEED), cs.B)
     for label, (x, phases) in list(runs.items())[:3]:
         case(f"bus_chain {label}", lambda x=x, phases=phases: bus.bus_chain(x, phases))
-    for name, shape, args, kw, _ in singles:
+    singles = [(name, shape, args, kw) for name, shape, args, kw, _ in singles]
+    for b in cs.LONE_BLOCKS:
+        singles += cs.lone_edge_cases(dev, b)
+    for name, shape, args, kw in singles:
         if name in bus.KERNELS:
             case(f"{name} {shape}",
                  lambda name=name, args=args, kw=kw: getattr(bus, name)(*args, **kw))
