@@ -62,6 +62,12 @@ Phases (any failure exits non-zero):
    on warps of their own, a polyphase branch a lane) also at 512, 100 and
    33 samples with their bypass gates crossed inside chunks and the
    compressor's gain through 0.99 (``lone_edge_cases``), bit-equal;
+   ``env_follower_block`` (its channels' walks on warps of their own, on
+   values computed ahead) and ``spring_block`` (parts of the shortest lag,
+   its walks on warps of their own) there too, the detector's bypass span
+   ending inside its 64-sample chunks, the spring also at 22,050 and 96,000
+   Hz, with its history 4 bytes past a 16-byte boundary and with its
+   shortest lag cut to 3 samples (``spring_cases``), bit-equal;
    ``kit_sources``, ``kit_drive`` and ``bus_chain``, bit-equal too, at
    their tails: ``bus_chain`` at B with one phase, twelve (two
    delays, one after the spring) and nine (two delays, the spring last),
@@ -168,7 +174,8 @@ case, timed with CUDA events where the profiler traces nothing;
 traffic (printed at the product block's 64 voices too), null elsewhere).  ``--profile PATH``
 also writes torch.profiler tables of 4 steady-state blocks of the kick
 slice, the kit, each kit-with-bus render, the product block (fused and
-with ``fuse_runs=False``) and phase 10's render to PATH.
+with ``fuse_runs=False``), phase 9's sidechained ``Engine`` render and
+phase 10's render to PATH.
 """
 
 from __future__ import annotations
@@ -211,7 +218,8 @@ STATE_TOL = 1e-4
 #: the redesigned kernels: bit-equal to their plain versions at every case
 EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources",
          "kit_drive", "bus_chain", "plate_block", "env_follow_bank", "fbws_bank", "mix_bank",
-         "triangle_additive_bank", "grain_read_cubic", "saturation_block", "compressor_block")
+         "triangle_additive_bank", "grain_read_cubic", "saturation_block", "compressor_block",
+         "env_follower_block", "spring_block")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -631,10 +639,16 @@ def kernel_cases(dev):
             cases.append(("bus_chain", label, run, {}, 1))
     #     saturation_block and compressor_block (their four walks pipelined
     #     over warps) at B, 100 and 33 samples with their bypass gates
-    #     crossed inside chunks (and the compressor's gain through 0.99)
+    #     crossed inside chunks (and the compressor's gain through 0.99);
+    #     env_follower_block with its bypass span's ends inside chunks and
+    #     spring_block there too, then the spring at 22,050 and 96,000 Hz,
+    #     with its history 4 bytes past a 16-byte boundary and with its
+    #     shortest lag cut to 4 and 3 samples
     for b in LONE_BLOCKS:
         for name, label, args, kw in lone_edge_cases(dev, b):
             cases.append((name, label, args, kw, 1))
+    for label, args, kw in spring_cases(dev):
+        cases.append(("spring_block", label, args, kw, 1))
     #     kit_sources and kit_drive at the same kits (kit_drive: a block a
     #     voice row, 32-sample chunks; at 100 and 37 samples a tail chunk)
     for kit, b in TAIL_KITS:
@@ -1028,7 +1042,7 @@ def bus_cases(dev, rs, b):
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
     from libgooey_tpu_torch.effects import compressor, delay
     from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
-    from libgooey_tpu_torch.effects import reverb_spring, saturation
+    from libgooey_tpu_torch.effects import saturation
     from libgooey_tpu_torch.ops import bank_kernels as bk
     from libgooey_tpu_torch.ops import bus_kernels as bus
     from libgooey_tpu_torch.ops import ringbuf
@@ -1086,17 +1100,9 @@ def bus_cases(dev, rs, b):
     cases.append(("compressor_block", bus_shape, comp_args, {}, 1))
     # 15. the spring on a filled history, decay 0.3 -> 0.9 and damping
     #     0.6 -> 0.2 across the block
-    dl, dr = reverb_spring.delay_lengths(SR)
-    D = max(dl + dr)
-    damping = np.linspace(0.6, 0.2, b)[None].repeat(2, 0)
-    fb_gain = 0.95 * np.linspace(0.3, 0.9, b)[None].repeat(2, 0) ** 0.4
-    fbgp = np.concatenate([np.zeros((2, 1)), fb_gain[:, :-1]], axis=-1)
-    A = damping + (1.0 - damping) * np.prod(reverb_spring.GAINS) * fbgp
-    A[:, 0] = damping[:, 0]
-    spring_args = (xb, t(A), t(1.0 - damping), t(fbgp), t(0.3 * rs.randn(2 * bus.SPRING_APS, D)),
-                   t([0.05, -0.02]), t(np.full((2, b), 0.3)), t([0.01, -0.03]))
-    spring_kw = dict(delays=dl + dr, gains=reverb_spring.GAINS)
-    cases.append(("spring_block", f"{bus_shape}, hist [12, {D}]", spring_args, spring_kw, 1))
+    spring_args, spring_kw = spring_block_args(dev, rs, xb)
+    cases.append(("spring_block", spring_label(spring_args, spring_kw), spring_args, spring_kw,
+                  1))
     # 16. the plate's sub-block path on filled histories, the size knob
     #     moving 1.0 -> 0.0 in the block (the modulated lags sweep)
     plate, plate_kw = plate_args(dev, rs, b)
@@ -1148,8 +1154,79 @@ def bus_cases(dev, rs, b):
     return cases, {f"{bus_shape}, {label}": (xb, phases) for label, phases in runs.items()}
 
 
-#: the lone 4x bus kernels' edge cases' blocks: the main path's, then a
-#: tail chunk of 4 samples and one of 1
+def spring_block_args(dev, rs, x, sr=SR):
+    """spring_block ``(arguments, keywords)`` on the stereo block ``x`` at
+    ``sr``: a filled history drawn from ``rs``, decay 0.3 -> 0.9 and damping
+    0.6 -> 0.2 across the block (reverb_spring.py's rows), a carried damping
+    state and feedback sample, the mix moving 0.2 -> 0.5 (left) and 0.3 ->
+    0.45 (right)."""
+    import torch
+
+    from libgooey_tpu_torch.effects import reverb_spring
+    from libgooey_tpu_torch.ops import bus_kernels as bus
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.float32)
+
+    b = x.shape[1]
+    dl, dr = reverb_spring.delay_lengths(sr)
+    D = max(dl + dr)
+    damping = np.linspace(0.6, 0.2, b)[None].repeat(2, 0)
+    fb_gain = 0.95 * np.linspace(0.3, 0.9, b)[None].repeat(2, 0) ** 0.4
+    fbgp = np.concatenate([np.zeros((2, 1)), fb_gain[:, :-1]], axis=-1)
+    A = damping + (1.0 - damping) * np.prod(reverb_spring.GAINS) * fbgp
+    A[:, 0] = damping[:, 0]
+    mix = np.linspace([0.2, 0.3], [0.5, 0.45], b).T
+    return ((x, t(A), t(1.0 - damping), t(fbgp), t(0.3 * rs.randn(2 * bus.SPRING_APS, D)),
+             t([0.05, -0.02]), t(mix), t([0.01, -0.03])),
+            dict(delays=dl + dr, gains=reverb_spring.GAINS))
+
+
+def spring_label(args, kw, note="") -> str:
+    (_, b), (_, D) = args[0].shape, args[4].shape
+    dl = kw["delays"]
+    return f"[2, {b}], hist [12, {D}], shortest lag {min(dl)}{note}"
+
+
+#: the spring's rates past the main path's (D = 398 and 1,734; the shortest
+#: lag 63 and 276)
+SPRING_RATES = (22050.0, 96000.0)
+
+
+#: the lone spring's shortest lag below any audio rate's: parts of 3 samples
+SPRING_SHORT_LAG = 3
+
+
+def spring_cases(dev, seed=SEED):
+    """``(label, arguments, keywords)`` of spring_block at ``[2, B]`` at
+    ``SPRING_RATES``; at ``SR`` with every input 4 bytes past a 16-byte
+    boundary (the history copied in 4 bytes at a time), and with the
+    shortest lag (127) cut to ``SPRING_SHORT_LAG``."""
+    import torch
+
+    rs = np.random.RandomState(seed + 3)
+
+    def block(sr=SR):
+        x = torch.as_tensor(rs.uniform(-0.9, 0.9, (2, B)), device=dev).to(torch.float32)
+        return spring_block_args(dev, rs, x, sr)
+
+    cases = []
+    for sr in SPRING_RATES:
+        args, kw = block(sr)
+        cases.append((spring_label(args, kw, f", {sr:g} Hz"), args, kw))
+    args, kw = block()
+    cases.append((spring_label(args, kw, ", unaligned"), unaligned(args), kw))
+    args, kw = block()
+    delays = list(kw["delays"])
+    delays[delays.index(min(delays))] = SPRING_SHORT_LAG
+    kw = dict(kw, delays=tuple(delays))
+    cases.append((spring_label(args, kw, f", parts of {SPRING_SHORT_LAG} samples"), args, kw))
+    return cases
+
+
+#: the lone bus kernels' edge cases' blocks: the main path's, then a tail
+#: chunk of 4 samples and one of 1 (32-sample chunks; the detector's 64-sample
+#: chunks: 36 and 33 samples)
 LONE_BLOCKS = (B,) + TAIL_BLOCKS
 
 
@@ -1160,16 +1237,29 @@ def lone_edges(b):
     return 32 * (b // 64) + 13, 32 * (b // 128) + 7
 
 
+def env_edges(b):
+    """The bypass span ``[left, right)`` of the detector's edge case at
+    ``[2, b]``: both ends inside its 64-sample chunks, across a chunk's end
+    where the block has two."""
+    left = 64 * (b // 256) + (37 if b > 64 else b // 6)
+    return left, min(b - 3, left + 40 + 64 * (b // 256))
+
+
 def lone_edge_cases(dev, b, seed=SEED):
-    """``saturation_block``'s and ``compressor_block``'s cases at ``[2, b]``
-    with their edges inside chunks (:func:`lone_edges`), on carried 4x and
-    DC states drawn from ``seed``: ``[(name, label, args, kwargs)]``.  The
-    saturation's left mix falls under the bypass gate at the left edge and
-    its right one rises out of it at the right edge (the DC blocker freezes
-    and resumes mid-chunk), drive and warmth moving; the compressor over
-    its knee on loud bursts, its left mix falling to 0 at the left edge and
-    its right one rising to 1 at the right edge, so that the smoothed gain
-    crosses 0.99 mid-chunk (the tube colour engages)."""
+    """The lone bus kernels' cases at ``[2, b]`` with their edges inside
+    chunks, on carried states drawn from ``seed``: ``[(name, label, args,
+    kwargs)]``.  ``saturation_block``'s and ``compressor_block``'s at
+    :func:`lone_edges`, on carried 4x and DC states: the saturation's left
+    mix falls under the bypass gate at the left edge and its right one
+    rises out of it at the right edge (the DC blocker freezes and resumes
+    mid-chunk), drive and warmth moving; the compressor over its knee on
+    loud bursts, its left mix falling to 0 at the left edge and its right
+    one rising to 1 at the right edge, so that the smoothed gain crosses
+    0.99 mid-chunk (the tube colour engages).  ``env_follower_block`` on
+    those bursts from a carried envelope, attack 0.5-2 ms and release 50-150
+    ms moving, bypassed over :func:`env_edges` (the right channel's span 9
+    samples later); ``spring_block`` on a filled history
+    (:func:`spring_block_args`)."""
     import torch
 
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
@@ -1204,8 +1294,19 @@ def lone_edge_cases(dev, b, seed=SEED):
     comp = (t(bursts), env, t(np.full((2, b), -30.0)), t(np.full((2, b), 8.0)), t(mix),
             t(np.concatenate([state, np.ones((1, 2))])))
     shape = f"[2, {b}], the bypass gate crossed at samples {left} and {right}"
+    lo, hi = env_edges(b)
+    byp = np.zeros((2, b))
+    byp[0, lo:hi] = 1.0
+    byp[1, lo + 9:hi] = 1.0
+    ms = np.linspace([0.5, 50.0], [2.0, 150.0], b).T[:, None, :].repeat(2, 1)
+    env_args = (t(bursts), *(t(np.exp(-1.0 / (m * 0.001 * SR))) for m in ms), t(byp),
+                t([0.3, 0.05]))
+    spring, spring_kw = spring_block_args(dev, rs, x)
     return [("saturation_block", shape, sat, dict(coeff=coeff)),
-            ("compressor_block", shape + ", the gain through 0.99", comp, {})]
+            ("compressor_block", shape + ", the gain through 0.99", comp, {}),
+            ("env_follower_block", f"[2, {b}], bypassed over samples {lo}-{hi - 1}", env_args,
+             {}),
+            ("spring_block", spring_label(spring, spring_kw), spring, spring_kw)]
 
 
 #: the snare's Chamberlin at full cutoff and resonance rings up to inf (the
@@ -1983,13 +2084,14 @@ STAGE_ONLY = ("pink_bank", "fbws_bank", "ws4_bank", "triangle_additive_bank",
               "waveshaper_block", "fbws_fast_block")
 
 
-def phase_engine(dev):
+def phase_engine(dev, card, prof_file=None):
     """The Engine with its default statics: 16 sequenced kicks (additive
     triangle at 128 harmonics) and one sequenced instrument of each other
     family, the bass with a note on one step, all on the kit path (the kit
     kernels and the bank kernels between them; no stage-path kernel),
     through the seven global effects; then a second second with the
-    compressor keyed from the first kick."""
+    compressor keyed from the first kick (with ``prof_file``, then 4 more
+    of its blocks under the profiler)."""
     from libgooey_tpu_torch.engine.engine import FAMILIES, Engine
     from libgooey_tpu_torch.instruments import kick
     from libgooey_tpu_torch.ops import kernels
@@ -2059,6 +2161,10 @@ def phase_engine(dev):
               f"{'/'.join(eng.fx_order)}, {ENGINE_SECONDS:g} s rendered in {wall:.3f} s, "
               f"peak {peak:.4f}; "
               f"launches {json.dumps(counts)}")
+        if prof_file is not None and source is not None:
+            # the idle share against this render's wall a block
+            profile_blocks(f"Engine render, {label}", card, prof_file,
+                           wall * N_BLOCKS / n_blocks, lambda: eng.render(4 * B))
 
 
 # --- phase 10: the granulator and the sampler racks -------------------------
@@ -2285,7 +2391,7 @@ def main(argv=None) -> int:
             phase_bus(dev, card, prof)
             counts = phase_full_bus(dev, card, prof)
             counts.update(phase_product(dev, card, prof))
-            phase_engine(dev)
+            phase_engine(dev, card, prof)
             grain = phase_grain(dev, card, prof)
         if args.profile:
             print(f"profile written to {args.profile}")

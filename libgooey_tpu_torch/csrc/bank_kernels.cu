@@ -451,7 +451,7 @@ __device__ __forceinline__ void split4x_rows(const float* __restrict__ x,
     for (int c = 0; c < 2; ++c) stage_in(src, ring + c * 2 * s.tile(), s, c, n_chunks, p);
   }
   for (int j = 0; j < n_chunks + 2; ++j) {
-    if (warp >= 2) cp_async_wait_ring();   // chunk j has landed (this copier's part)
+    if (warp >= 2) cp_async_wait<kStageRing - 2>();   // chunk j has landed (this copier's part)
     __syncthreads();                       // ... all of it; step j-1 done everywhere
     if (warp == 0) {
       if (walks && j < n_chunks) {
@@ -716,7 +716,7 @@ __global__ void __launch_bounds__(kMixThreads)
     pans[t] = make_float2(pc, pt);
     settled[t] = still;
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
 
   // the tile's terms, a thread per (voice, four samples); past len they are

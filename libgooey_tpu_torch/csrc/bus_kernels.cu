@@ -34,14 +34,18 @@
 // __syncwarp.  An effect's own kernel is one warp walking its block in
 // 32-sample spans, except the lone saturation and compressor
 // (bus4x_split_kernel, below): their chain's stages walk on warps of their
-// own, a polyphase branch a lane, chunks pipelined a step apart.
+// own, a polyphase branch a lane, chunks pipelined a step apart; and the
+// lone detector and spring (env_lone_kernel, spring_lone_kernel, below):
+// each channel's walk on a warp of its own, the per-sample work and the
+// copies on the rest of the block.
 //
 // The spring's twelve allpass delay lines (six a channel, lags 127-797 at
 // 44.1 kHz) live in shared memory as rings of the history's length D, one
 // per line (csrc/rings.cuh), 12 x D floats (38 KB at 44.1 kHz, independent
-// of B), filled from the history and unrolled back to it by the whole warp:
-// each sample reads every line at its lag and writes its new value into the
-// slot it frees, the Schroeder allpass in place.  The carried state keeps
+// of B), filled from the history and unrolled back to it by the whole warp
+// (the whole block in the lone kernel): each sample reads every line at its
+// lag and writes its new value into the slot it frees, the Schroeder
+// allpass in place.  The carried state keeps
 // the JAX package's right-aligned [12, D] history.  Rings rather than the
 // Pallas body's [12, D+B] work buffer keep the spring's shared memory
 // independent of B; past 48 KB a launch opts in to dynamic shared memory,
@@ -88,6 +92,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "ovs4.cuh"
 #include "rings.cuh"
@@ -538,13 +544,41 @@ struct DelayRow : RowBase {
 
 // --- 5. env: the compressor's attack/release peak detector --------------------
 
-// Channel c of the detector (_env_kernel): e = c*env + (1-c)*|x| with
-// c = att if |x| > env else rel, flushed below 1e-15; a bypassed sample
-// (byp > 0.5) takes c = 1, which holds the envelope exactly (the Pallas
-// wrapper folds the bypass into the coefficients the same way).  The signal
-// passes through (y = x); the envelope goes to out[0].  The bank follower
-// (bank_kernels.cu env_follow_bank) steps env + (1-c)*(r - env), its own TPU
-// kernel's op order, so the two steps round differently and are not shared.
+// The detector's step (_env_kernel): e = c*env + (1-c)*|x| with c = att if
+// |x| > env else rel, flushed below 1e-15; a bypassed sample (byp > 0.5)
+// takes c = 1, which holds the envelope exactly (the Pallas wrapper folds
+// the bypass into the coefficients the same way).  Split for a walk: a
+// sample's values that do not depend on the envelope (r = |x| and, with the
+// bypass folded in, c_a = att or 1, (1 - c_a)*r, c_r = rel or 1,
+// (1 - c_r)*r), then the step, which forms both candidates c_a*env +
+// (1 - c_a)*r and c_r*env + (1 - c_r)*r, each the plain version's own
+// expression, and selects by r > env, so the compare leaves the chain.  The
+// bank follower (bank_kernels.cu env_follow_bank) steps env + (1-c)*(r -
+// env), its own TPU kernel's op order, so the two steps round differently
+// and are not shared.
+struct EnvVals {
+  float r, ca, pa, cr, pr;
+};
+
+__device__ __forceinline__ EnvVals env_values(float x, float att, float rel, float byp) {
+  const float r = fabsf(x);
+  const bool frozen = byp > 0.5f;
+  const float ca = frozen ? 1.0f : att;
+  const float cr = frozen ? 1.0f : rel;
+  return EnvVals{r, ca, (1.0f - ca) * r, cr, (1.0f - cr) * r};
+}
+
+__device__ __forceinline__ float env_step(float& env, float r, float ca, float pa, float cr,
+                                          float pr) {
+  const float ea = ca * env + pa;
+  const float er = cr * env + pr;
+  const float e = r > env ? ea : er;
+  env = e < kDenormal ? 0.0f : e;
+  return env;
+}
+
+// Channel c of the detector.  The signal passes through (y = x); the
+// envelope goes to out[0].
 struct EnvRow : RowBase {
   float env;
   __device__ __forceinline__ void begin(const Phase& p, int c, int, float*) { env = p.in[3][c]; }
@@ -560,12 +594,8 @@ struct EnvRow : RowBase {
     for (int n = n0; n < n1; ++n) {
       const size_t i = row + n;
       const float xn = x[i];
-      const float r = fabsf(xn);
-      const bool frozen = byp[i] > 0.5f;
-      const float cf = frozen ? 1.0f : (r > env ? att[i] : rel[i]);
-      const float e = cf * env + (1.0f - cf) * r;
-      env = e < kDenormal ? 0.0f : e;
-      env_out[i] = env;
+      const EnvVals v = env_values(xn, att[i], rel[i], byp[i]);
+      env_out[i] = env_step(env, v.r, v.ca, v.pa, v.cr, v.pr);
       y[i] = xn;
     }
   }
@@ -683,6 +713,59 @@ __host__ __device__ __forceinline__ size_t spring_ring_bytes(int D) {
 // reads, its beta and its d_prev, a channel each.
 constexpr int kScratchSpring = 2 * (kSpringAps + 2) * kChainChunk;
 
+// The spring's per-sample pieces, shared by SpringRow and the lone kernel
+// (spring_lone_kernel), on channel c's six rings (``rings``: 2 x 6 x D, the
+// slot sample n writes is w = n mod D): the six delayed reads (into rd[a *
+// stride]) and beta, their allpass chain's affine offset; the damping
+// loop's input bv; the six allpass writes from the chain input sig, which
+// give the wet sample; the dry/wet mix.  Each piece does its six shared
+// loads before its stores (the compiler does not move a shared load past a
+// shared store).
+__device__ __forceinline__ float spring_reads(const Phase& p, const float* rings, int c, int w,
+                                              int D, float* rd, int stride) {
+  const float* ring = rings + c * static_cast<size_t>(kSpringAps) * D;
+  float v[kSpringAps];
+#pragma unroll
+  for (int a = 0; a < kSpringAps; ++a) {
+    v[a] = ring[a * D + ring_slot(w, p.iv[c * kSpringAps + a], D)];
+  }
+  float beta = 0.0f;
+#pragma unroll
+  for (int a = 0; a < kSpringAps; ++a) {
+    rd[a * stride] = v[a];
+    beta = p.f[a] * beta + p.f[kSpringAps + a] * v[a];
+  }
+  return beta;
+}
+
+// x with the carried feedback fb0 added at n = 0
+__device__ __forceinline__ float spring_xe(const Phase& p, int c, int n, float xn) {
+  return n == 0 ? xn + p.in[6][c] : xn;
+}
+
+__device__ __forceinline__ float spring_input(float p2, float alpha, float xe, float beta) {
+  return p2 * (alpha * xe + beta);
+}
+
+__device__ __forceinline__ float spring_writes(const Phase& p, float* rings, int c, int w, int D,
+                                               float sig, const float* rd, int stride) {
+  float* ring = rings + c * static_cast<size_t>(kSpringAps) * D;
+  float r[kSpringAps];
+#pragma unroll
+  for (int a = 0; a < kSpringAps; ++a) r[a] = rd[a * stride];
+#pragma unroll
+  for (int a = 0; a < kSpringAps; ++a) {
+    const float u = sig - p.f[a] * r[a];
+    ring[a * D + w] = u;
+    sig = p.f[a] * u + r[a];
+  }
+  return sig;
+}
+
+__device__ __forceinline__ float spring_mix(float xn, float wet, float m) {
+  return xn * (1.0f - m) + wet * m;
+}
+
 // Channel c of the spring block (_spring_kernel, stepped sample by sample):
 // the six delayed reads, beta = their allpass chain's affine offset, the
 // damping recurrence d = A*d + p2*(alpha*xeff + beta), the chain input
@@ -727,16 +810,8 @@ struct SpringRow {
         both_channels(j, len, c, i);
         int w = w0 + i;
         w -= w >= D ? D : 0;
-        const float* ring = rings + c * static_cast<size_t>(kSpringAps) * D;
         float* v = scratch + c * (kSpringAps + 2) * C + i;
-        float beta = 0.0f;
-#pragma unroll
-        for (int a = 0; a < kSpringAps; ++a) {
-          const float rd = ring[a * D + ring_slot(w, p.iv[c * kSpringAps + a], D)];
-          v[a * C] = rd;
-          beta = p.f[a] * beta + p.f[kSpringAps + a] * rd;
-        }
-        v[kSpringAps * C] = beta;
+        v[kSpringAps * C] = spring_reads(p, rings, c, w, D, v, C);
       }
       __syncwarp();
       // the damping loop, lanes 0 and 1
@@ -745,9 +820,8 @@ struct SpringRow {
         float* v = scratch + lane * (kSpringAps + 2) * C;
         for (int i = 0; i < len; ++i) {
           const int n = s0 + i;
-          const float xn = x[row + n];
-          const float xe = n == 0 ? xn + p.in[6][lane] : xn;
-          const float bv = p2[row + n] * (alpha * xe + v[kSpringAps * C + i]);
+          const float xe = spring_xe(p, lane, n, x[row + n]);
+          const float bv = spring_input(p2[row + n], alpha, xe, v[kSpringAps * C + i]);
           v[(kSpringAps + 1) * C + i] = d;
           d = A[row + n] * d + bv;
         }
@@ -761,20 +835,10 @@ struct SpringRow {
         const size_t at = static_cast<size_t>(c) * B + n;
         int w = w0 + i;
         w -= w >= D ? D : 0;
-        float* ring = rings + c * static_cast<size_t>(kSpringAps) * D;
         const float* v = scratch + c * (kSpringAps + 2) * C + i;
         const float xn = x[at];
-        const float xe = n == 0 ? xn + p.in[6][c] : xn;
-        float sig = xe + fbgp[at] * v[(kSpringAps + 1) * C];
-#pragma unroll
-        for (int a = 0; a < kSpringAps; ++a) {
-          const float rd = v[a * C];
-          const float u = sig - p.f[a] * rd;
-          ring[a * D + w] = u;
-          sig = p.f[a] * u + rd;
-        }
-        const float m = mix[at];
-        y[at] = xn * (1.0f - m) + sig * m;
+        const float sig = spring_xe(p, c, n, xn) + fbgp[at] * v[(kSpringAps + 1) * C];
+        y[at] = spring_mix(xn, spring_writes(p, rings, c, w, D, sig, v, C), mix[at]);
       }
       __syncwarp();
     }
@@ -1348,11 +1412,11 @@ __device__ __forceinline__ void lone_workers(const Body& body, const LoneTiles<B
   };
   copy_in(0);
   copy_in(1);
-  cp_async_wait_all();
+  cp_async_wait<0>();
   step_barrier();
   prep(0);
   for (int j = 0; j < n_chunks + kLagFinish; ++j) {
-    cp_async_wait_all();   // chunk j+1 has landed (this worker's part)
+    cp_async_wait<0>();   // chunk j+1 has landed (this worker's part)
     step_barrier();        // ... all of it; step j-1 done everywhere
     copy_in(j + 2);
     prep(j + 1);
@@ -1395,6 +1459,374 @@ __global__ void __launch_bounds__(Body::kThreads)
 template <class Body>
 constexpr size_t lone_smem_bytes() {
   return static_cast<size_t>(LoneTiles<Body>::kFloats) * sizeof(float);
+}
+
+// --- the lone detector and spring: env_follower_block and spring_block -------
+//
+// A lone detector (a sidechained compressor's, the unmerged bus's) and a lone
+// spring keep their channels' walks serial, one lane a channel on warps of
+// their own, and move everything else off the walk onto the rest of the
+// block.
+//
+// env_lone_kernel: 128 threads, the block in 64-sample chunks a step apart.
+// At step j, lane 0 of warp c walks chunk j of channel c; warps 2 and 3 copy
+// chunk j+3's x, att, rel and byp in with cp.async (16 bytes a copy where
+// B % 4 == 0 and every array is 16-byte aligned, else 4), compute chunk
+// j+1's values that do not depend on the carried envelope (env_values),
+// store chunk j+1's y = x, and store chunk j-1's envelope from its tile,
+// coalesced.  The walk (env_step) keeps a multiply, an add, a select and the
+// flush's compare and select on its chain.
+//
+// spring_lone_kernel: 256 threads fill the rings from the history
+// (cp.async, 16 bytes a copy where the history is 16-byte aligned: 12 x D
+// floats, a multiple of four), then walk the block in parts of P = the
+// shortest lag (at most kSpringPart) samples, in order, since part k+1 reads
+// what part k wrote: (a) a thread a (channel, sample) does the six ring
+// reads, beta and bv = p2*(alpha*xe + beta); (b) lane 0 of warp c walks
+// channel c's d = A*d + bv and keeps each sample's d_prev, while the other
+// warps copy the five trajectories (x, A, p2, fbgp, mix) of part k+2 in (16
+// bytes a copy where B % 4 == 0 and the arrays are 16-byte aligned, from
+// the part's first sample rounded down to a multiple of 4; else 4); (c) a
+// thread a (channel, sample) runs the six allpass writes and the mix and
+// stores y, coalesced.  The trajectories' tiles hold kSpringPart samples,
+// so shared memory stays 12 x D floats and ~24 KB, whatever B.  Then the
+// whole block drains the rotated rings.
+
+constexpr int kEnvThreads = 128;   // warps 0 and 1 walk, warps 2 and 3 work
+constexpr int kEnvWalkers = 64;
+constexpr int kEnvWorkers = kEnvThreads - kEnvWalkers;
+constexpr int kEnvChunk = 64;
+constexpr int kEnvPitch = kEnvChunk + 4;   // floats a row of a chunk tile
+constexpr int kEnvArr = 2 * kEnvPitch;     // floats an array's two channels
+constexpr int kEnvIn = 4;                  // x, att, rel, byp
+constexpr int kEnvVals = 5;                // r, c_a, (1 - c_a)*r, c_r, (1 - c_r)*r
+constexpr int kEnvRing = 4;                // input chunks (copied j+3, prepared j+1)
+
+// The detector's tiles: the inputs' ring ([kEnvRing][kEnvIn][2 ch][pitch]),
+// the values ([2][kEnvVals][2 ch][pitch]) and the envelope's output
+// ([2][2 ch][pitch]), chunks alternating.
+struct EnvTiles {
+  static constexpr int kVals = kEnvRing * kEnvIn * kEnvArr;
+  static constexpr int kOut = kVals + 2 * kEnvVals * kEnvArr;
+  static constexpr int kFloats = kOut + 2 * kEnvArr;
+  float* smem;
+  int B, n_chunks;
+  __device__ EnvTiles(float* smem_, int B_)
+      : smem(smem_), B(B_), n_chunks((B_ + kEnvChunk - 1) / kEnvChunk) {}
+  __device__ int len(int j) const { return min(kEnvChunk, B - j * kEnvChunk); }
+  __device__ float* in(int j, int a, int c) const {
+    return smem + ((j % kEnvRing) * kEnvIn + a) * kEnvArr + c * kEnvPitch;
+  }
+  __device__ float* val(int j, int v, int c) const {
+    return smem + kVals + ((j & 1) * kEnvVals + v) * kEnvArr + c * kEnvPitch;
+  }
+  __device__ float* out(int j, int c) const {
+    return smem + kOut + (j & 1) * kEnvArr + c * kEnvPitch;
+  }
+};
+
+// A group of four samples' values, as the walk loads them.
+struct EnvGroup {
+  float4 r, ca, pa, cr, pr;
+};
+
+// Lane 0 of warp c: channel c's walk through chunk j, four samples at a
+// time, each group's values loaded a group ahead, before the group ahead of
+// them stores its envelope (the compiler does not move a shared load past
+// a shared store).  A load past the chunk stays inside the tiles and is not
+// used.
+__device__ __forceinline__ void env_walk(const EnvTiles& t, int j, int c, float& env) {
+  const float* r = t.val(j, 0, c);
+  const float* ca = t.val(j, 1, c);
+  const float* pa = t.val(j, 2, c);
+  const float* cr = t.val(j, 3, c);
+  const float* pr = t.val(j, 4, c);
+  float* out = t.out(j, c);
+  const int len = t.len(j);
+  const auto load = [&](int i) {
+    return EnvGroup{ld4(r + i), ld4(ca + i), ld4(pa + i), ld4(cr + i), ld4(pr + i)};
+  };
+  EnvGroup g = load(0);
+  const auto group = [&](int i) {
+    const EnvGroup next = load(i + 4);
+    float4 o;
+    o.x = env_step(env, g.r.x, g.ca.x, g.pa.x, g.cr.x, g.pr.x);
+    o.y = env_step(env, g.r.y, g.ca.y, g.pa.y, g.cr.y, g.pr.y);
+    o.z = env_step(env, g.r.z, g.ca.z, g.pa.z, g.cr.z, g.pr.z);
+    o.w = env_step(env, g.r.w, g.ca.w, g.pa.w, g.cr.w, g.pr.w);
+    st4(out + i, o);
+    g = next;
+  };
+  if (len == kEnvChunk) {
+#pragma unroll
+    for (int i = 0; i < kEnvChunk; i += 4) group(i);
+  } else {
+    int i = 0;
+    for (; i + 4 <= len; i += 4) group(i);
+    for (; i < len; ++i) out[i] = env_step(env, r[i], ca[i], pa[i], cr[i], pr[i]);
+  }
+}
+
+__global__ void __launch_bounds__(kEnvThreads)
+    env_lone_kernel(const float* __restrict__ x, float* __restrict__ y, Phase p, int B, int vec) {
+  extern __shared__ float4 env_smem4[];
+  const EnvTiles t(reinterpret_cast<float*>(env_smem4), B);
+  const int tid = threadIdx.x;
+  const int n_chunks = t.n_chunks;
+  if (tid < kEnvWalkers) {
+    const int c = tid >> 5;
+    const bool walker = (tid & 31) == 0;
+    float env = walker ? p.in[3][c] : 0.0f;
+    step_barrier();   // chunk 0's inputs landed
+    for (int j = 0; j <= n_chunks; ++j) {
+      step_barrier();   // chunk j's values ready; walk j-1 stored
+      if (walker && j < n_chunks) env_walk(t, j, c, env);
+    }
+    if (walker) p.out[1][c] = env;
+    return;
+  }
+  // the workers
+  const int w = tid - kEnvWalkers;
+  const int width = vec ? 4 : 1;
+  const auto copy_in = [&](int j) {
+    if (j < n_chunks) {
+      const int n0 = j * kEnvChunk, units = vec ? t.len(j) >> 2 : t.len(j);
+#pragma unroll
+      for (int a = 0; a < kEnvIn; ++a) {
+        const float* src = a == 0 ? x : p.in[a - 1];
+        for (int u = w; u < 2 * units; u += kEnvWorkers) {
+          int ch, i;
+          both_channels(u, units, ch, i);
+          float* d = t.in(j, a, ch) + width * i;
+          const float* g = src + static_cast<size_t>(ch) * B + n0 + width * i;
+          if (vec) {
+            cp_async16(d, g);
+          } else {
+            cp_async4(d, g);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // chunk j of a tile (row(ch): channel ch's row) to the [2, B] array dst,
+  // coalesced
+  const auto store = [&](float* dst, int j, const auto& row) {
+    const int n0 = j * kEnvChunk, units = vec ? t.len(j) >> 2 : t.len(j);
+    for (int u = w; u < 2 * units; u += kEnvWorkers) {
+      int ch, i;
+      both_channels(u, units, ch, i);
+      float* g = dst + static_cast<size_t>(ch) * B + n0 + width * i;
+      const float* s = row(ch) + width * i;
+      if (vec) {
+        st4(g, ld4(s));
+      } else {
+        *g = *s;
+      }
+    }
+  };
+  // chunk j's values, and its y = x
+  const auto prep = [&](int j) {
+    if (j >= n_chunks) return;
+    const int l = t.len(j);
+    for (int u = w; u < 2 * l; u += kEnvWorkers) {
+      int ch, i;
+      both_channels(u, l, ch, i);
+      const EnvVals v = env_values(t.in(j, 0, ch)[i], t.in(j, 1, ch)[i], t.in(j, 2, ch)[i],
+                                   t.in(j, 3, ch)[i]);
+      t.val(j, 0, ch)[i] = v.r;
+      t.val(j, 1, ch)[i] = v.ca;
+      t.val(j, 2, ch)[i] = v.pa;
+      t.val(j, 3, ch)[i] = v.cr;
+      t.val(j, 4, ch)[i] = v.pr;
+    }
+    store(y, j, [&](int ch) { return t.in(j, 0, ch); });
+  };
+  copy_in(0);
+  copy_in(1);
+  copy_in(2);
+  cp_async_wait<2>();
+  step_barrier();
+  prep(0);
+  for (int j = 0; j <= n_chunks; ++j) {
+    cp_async_wait<1>();   // chunk j+1 has landed (this worker's part)
+    step_barrier();       // ... all of it; chunk j's values ready; walk j-1 done
+    copy_in(j + 3);
+    prep(j + 1);
+    if (j > 0) store(p.out[0], j - 1, [&](int ch) { return t.out(j - 1, ch); });
+  }
+}
+
+constexpr int kSpringThreads = 256;   // warps 0 and 1 walk, all run the parts' steps
+constexpr int kSpringWalkers = 64;
+constexpr int kSpringPart = 128;                // samples a part at most
+constexpr int kSpringPitch = kSpringPart + 4;   // floats a trajectory tile's row
+constexpr int kSpringTraj = 5;                  // x, A, p2, fbgp, mix
+constexpr int kSpringTiles = 3;                 // parts' trajectories in flight (k, k+1, k+2)
+
+// The lone spring's shared memory after its rings (12 x D floats): the
+// trajectories of three parts ([kSpringTiles][kSpringTraj][2 ch]
+// [kSpringPitch]: a part's samples from offset o, its first sample % 4
+// where the copies take 16 bytes, else 0), a part's ring reads ([2 ch][6]
+// [kSpringPart]), its bv and its d_prev ([2 ch][kSpringPart] each).
+constexpr int kSpringTrajTile = kSpringTraj * 2 * kSpringPitch;
+constexpr int kSpringLoneScratch =
+    kSpringTiles * kSpringTrajTile + 2 * (kSpringAps + 2) * kSpringPart;
+
+__host__ __device__ __forceinline__ size_t spring_lone_smem_bytes(int D) {
+  return spring_ring_bytes(D) + kSpringLoneScratch * sizeof(float);
+}
+
+// The lone spring's part: the shortest lag, at most kSpringPart samples.
+inline int spring_part(const Phase& p) {
+  int min_lag = p.iv[2 * kSpringAps];
+  for (int j = 0; j < 2 * kSpringAps; ++j) min_lag = p.iv[j] < min_lag ? p.iv[j] : min_lag;
+  return min_lag < kSpringPart ? min_lag : kSpringPart;
+}
+
+// Four floats from shared memory at any float offset.
+__device__ __forceinline__ float4 ld4u(const float* q) {
+  return make_float4(q[0], q[1], q[2], q[3]);
+}
+
+__global__ void __launch_bounds__(kSpringThreads)
+    spring_lone_kernel(const float* __restrict__ x, float* __restrict__ y, Phase p, int B, int P,
+                       int vec_hist, int vec_traj) {
+  extern __shared__ float4 spring_smem4[];
+  float* rings = reinterpret_cast<float*>(spring_smem4);
+  const int D = p.iv[2 * kSpringAps];
+  float* traj = rings + 2 * kSpringAps * D;      // 12 * D: a multiple of 4
+  float* rd = traj + kSpringTiles * kSpringTrajTile;   // [2 ch][6][part]
+  float* bv = rd + 2 * kSpringAps * kSpringPart;  // [2 ch][part]
+  float* dprev = bv + 2 * kSpringPart;            // [2 ch][part]
+  const int tid = threadIdx.x;
+  const float alpha = p.f[2 * kSpringAps];
+  const int n_parts = (B + P - 1) / P;
+  // sample i of part k's trajectory a of channel c: tile(k, a, c)[off(k) + i]
+  const auto tile = [&](int k, int a, int c) {
+    return traj + (k % kSpringTiles) * kSpringTrajTile + (a * 2 + c) * kSpringPitch;
+  };
+  const auto off = [&](int k) { return vec_traj ? (k * P) & 3 : 0; };
+  // part k's trajectories, copied by the threads that do not walk (one
+  // copy group on every thread, so that every wait counts the same groups):
+  // 16 bytes a copy from the part's first sample rounded down to a multiple
+  // of 4 where B % 4 == 0 and the five arrays are 16-byte aligned, else 4
+  const auto copy_part = [&](int k) {
+    if (k < n_parts && tid >= kSpringWalkers) {
+      const int s0 = k * P, len = min(P, B - s0);
+      const int o = off(k), w = vec_traj ? 4 : 1;
+      const int units = vec_traj ? (o + len + 3) >> 2 : len;
+#pragma unroll
+      for (int a = 0; a < kSpringTraj; ++a) {
+        // x, A (in[0]), p2 (in[1]), fbgp (in[2]), mix (in[5])
+        const float* src = a == 0 ? x : p.in[a == 4 ? 5 : a - 1];
+        for (int u = tid - kSpringWalkers; u < 2 * units; u += kSpringThreads - kSpringWalkers) {
+          int c, i;
+          both_channels(u, units, c, i);
+          float* d = tile(k, a, c) + w * i;
+          const float* g = src + static_cast<size_t>(c) * B + s0 - o + w * i;
+          if (vec_traj) {
+            cp_async16(d, g);
+          } else {
+            cp_async4(d, g);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // the fill, with part 0's trajectories in the same group
+  const float* hist = p.in[3];
+  const int n_hist = 2 * kSpringAps * D;
+  if (vec_hist) {
+    for (int u = tid; u < n_hist / 4; u += kSpringThreads) cp_async16(rings + 4 * u, hist + 4 * u);
+  } else {
+    for (int u = tid; u < n_hist; u += kSpringThreads) cp_async4(rings + u, hist + u);
+  }
+  copy_part(0);
+  copy_part(1);
+  const int walker = (tid & 31) == 0 && tid < kSpringWalkers ? tid >> 5 : -1;
+  float d = walker >= 0 ? p.in[4][walker] : 0.0f;
+  for (int k = 0; k < n_parts; ++k) {
+    const int s0 = k * P, len = min(P, B - s0), o = off(k);
+    const int w0 = s0 % D;
+    cp_async_wait<1>();   // part k's trajectories (and the fill) landed
+    __syncthreads();      // ... everywhere; part k-1's writes done
+    // (a) the ring reads, beta and bv, a thread a (channel, sample)
+    for (int u = tid; u < 2 * len; u += kSpringThreads) {
+      int c, i;
+      both_channels(u, len, c, i);
+      int w = w0 + i;
+      w -= w >= D ? D : 0;
+      const float beta = spring_reads(p, rings, c, w, D, rd + c * kSpringAps * kSpringPart + i,
+                                      kSpringPart);
+      const float xe = spring_xe(p, c, s0 + i, tile(k, 0, c)[o + i]);
+      bv[c * kSpringPart + i] = spring_input(tile(k, 2, c)[o + i], alpha, xe, beta);
+    }
+    __syncthreads();
+    // (b) the damping loop, lane 0 of warps 0 and 1, four samples at a
+    //     time, each group's A and bv loaded two groups ahead (before the
+    //     stores of the two groups ahead of them; past the part they stay
+    //     inside shared memory and are not used); meanwhile the other
+    //     warps copy part k+2's trajectories into part k-1's tiles
+    copy_part(k + 2);
+    if (walker >= 0) {
+      const float* A = tile(k, 1, walker) + o;
+      const float* b = bv + walker * kSpringPart;
+      float* dp = dprev + walker * kSpringPart;
+      float4 a0 = ld4u(A), b0 = ld4(b), a1 = ld4u(A + 4), b1 = ld4(b + 4);
+      int i = 0;
+#pragma unroll 4
+      for (; i + 4 <= len; i += 4) {
+        const float4 a2 = ld4u(A + i + 8), b2 = ld4(b + i + 8);
+        float4 q;
+        q.x = d;
+        d = a0.x * d + b0.x;
+        q.y = d;
+        d = a0.y * d + b0.y;
+        q.z = d;
+        d = a0.z * d + b0.z;
+        q.w = d;
+        d = a0.w * d + b0.w;
+        st4(dp + i, q);
+        a0 = a1;
+        b0 = b1;
+        a1 = a2;
+        b1 = b2;
+      }
+      for (; i < len; ++i) {
+        dp[i] = d;
+        d = A[i] * d + b[i];
+      }
+    }
+    __syncthreads();
+    // (c) the allpass writes and the mix, a thread a (channel, sample)
+    for (int u = tid; u < 2 * len; u += kSpringThreads) {
+      int c, i;
+      both_channels(u, len, c, i);
+      const int n = s0 + i;
+      int w = w0 + i;
+      w -= w >= D ? D : 0;
+      const float xn = tile(k, 0, c)[o + i];
+      const float sig = spring_xe(p, c, n, xn) + tile(k, 3, c)[o + i] * dprev[c * kSpringPart + i];
+      const float wet = spring_writes(p, rings, c, w, D, sig,
+                                      rd + c * kSpringAps * kSpringPart + i, kSpringPart);
+      y[static_cast<size_t>(c) * B + n] = spring_mix(xn, wet, tile(k, 4, c)[o + i]);
+    }
+  }
+  __syncthreads();
+  if (walker >= 0) p.out[1][walker] = d;
+  // the drain: hist'[j][m] = the ring's value m samples after B - D
+  const int wB = B % D;
+  for (int j = 0; j < 2 * kSpringAps; ++j) {
+    const float* r = rings + static_cast<size_t>(j) * D;
+    float* out = p.out[0] + static_cast<size_t>(j) * D;
+    for (int m = tid; m < D; m += kSpringThreads) {
+      int k = wB + m;
+      k -= k >= D ? D : 0;
+      out[m] = r[k];
+    }
+  }
 }
 
 // bus_chain: phase i on warp i (lanes 0 and 1 the channels), the [2, B]
@@ -1522,6 +1954,37 @@ cudaError_t launch_block(const float* x, float* y, const Phase& p, const float* 
   return cudaGetLastError();
 }
 
+// Whether every pointer is 16-byte aligned.
+__host__ inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* q : ptrs) {
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  }
+  return true;
+}
+
+// A lone detector: 16-byte copies where B % 4 == 0 and every array is
+// 16-byte aligned (bank_kernels.copies_16b's test).
+cudaError_t launch_env(const float* x, float* y, const Phase& p, int B, cudaStream_t s) {
+  const int vec = B % 4 == 0 && aligned16({x, y, p.in[0], p.in[1], p.in[2], p.out[0]});
+  constexpr size_t smem = EnvTiles::kFloats * sizeof(float);
+  const cudaError_t err = allow_smem(env_lone_kernel, smem);
+  if (err != cudaSuccess) return err;
+  env_lone_kernel<<<1, kEnvThreads, smem, s>>>(x, y, p, B, vec);
+  return cudaGetLastError();
+}
+
+// A lone spring: its rings and ~24 KB, opted in past 48 KB.
+cudaError_t launch_spring(const float* x, float* y, const Phase& p, int B, cudaStream_t s) {
+  const int P = spring_part(p);
+  const size_t smem = spring_lone_smem_bytes(p.iv[2 * kSpringAps]);
+  const cudaError_t err = allow_smem(spring_lone_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int vec_traj = B % 4 == 0 && aligned16({x, p.in[0], p.in[1], p.in[2], p.in[5]});
+  spring_lone_kernel<<<1, kSpringThreads, smem, s>>>(x, y, p, B, P, aligned16({p.in[3]}),
+                                                     vec_traj);
+  return cudaGetLastError();
+}
+
 // A lone saturation or compressor through the four-walk kernel.
 template <class Body>
 cudaError_t launch_lone(const float* x, float* y, const Phase& p, const float* coefs, int B,
@@ -1552,11 +2015,11 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
     case kDelay:
       return static_cast<int>(launch_block<DelayRow>(x, y, p, coefs, B, s));
     case kEnv:
-      return static_cast<int>(launch_block<EnvRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_env(x, y, p, B, s));
     case kCompressor:
       return static_cast<int>(launch_lone<CompLone>(x, y, p, coefs, B, s));
     case kSpring:
-      return static_cast<int>(launch_block<SpringRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_spring(x, y, p, B, s));
     case kWaveshaper:
       return static_cast<int>(launch_block<WaveshaperRow>(x, y, p, coefs, B, s));
     case kFbws:

@@ -301,7 +301,7 @@ __global__ void __launch_bounds__(kPlateThreads)
       a.db[n] = cb[n];
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
 
   // 3. step j: chunk j's diffusion, chunk j-1's modulated allpasses

@@ -80,14 +80,11 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// Wait until all of this thread's copy groups have landed.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(0));
-}
-
-// Wait until at most kStageRing - 2 of this thread's copy groups are pending.
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStageRing - 2));
+// Wait until at most N of this thread's copy groups are pending (0: all
+// have landed).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -262,7 +259,7 @@ __device__ __forceinline__ void staged_rows_masked(const float* const (&src)[NIN
     for (int k = 0; k < kStageRing - 1; ++k) copy_in(k);
   }
   for (int k = 0; k < n_chunks; ++k) {
-    if (!walker) cp_async_wait_ring();   // chunk k has landed (this copier's part)
+    if (!walker) cp_async_wait<kStageRing - 2>();   // chunk k has landed (this copier's part)
     __syncthreads();                     // ... all of it; walk k-1 and its outputs done
     if (walker) {
       if (tid < s.rows) {

@@ -38,7 +38,8 @@ from libgooey_tpu_torch.ops.oversample import OversamplerState
 from test_torch_slice import _max_state_err
 
 SR = 44100.0
-B = 256   # the other kernels' block; the saturation and the compressor also at 100
+B = 256   # the other kernels' block; the saturation, the detector, the compressor and
+#           the spring also at 100
 OUT_TOL = 2e-5
 STATE_TOL = 1e-4
 COEFF = smoothing_coeff(SR, 30.0)
@@ -174,19 +175,23 @@ def _coef(ms):
     return np.float32(np.exp(-1.0 / (ms * 0.001 * SR)))
 
 
-def test_env_follower_block_matches_pallas():
+@pytest.mark.parametrize("B,span", [(256, (100, 160)), (100, (37, 77))])
+def test_env_follower_block_matches_pallas(B, span):
     """Bursts with a 1 ms attack and an 80 ms release from a carried
-    envelope, and a bypass span that must hold it."""
+    envelope, and a bypass span that must hold it; the span starts and ends
+    inside the lone kernel's 64-sample chunks (across a chunk's end)."""
+    lo, hi = span
+    assert lo % 64 and hi % 64 and lo // 64 < hi // 64
     rs = np.random.RandomState(21)
     x = _bursts(rs, B)
     att, rel = np.full((2, B), _coef(1.0)), np.full((2, B), _coef(80.0))
     byp = np.zeros((2, B), np.float32)
-    byp[:, 100:160] = 1.0
+    byp[:, lo:hi] = 1.0
     env0 = np.asarray([0.3, 0.0], np.float32)
     jenv, jlast = pallas_fx.env_follower_block(np.abs(x), att, rel, byp, env0)
     tenv, tlast = bus.env_follower_block_plain(_t(x), _t(att), _t(rel), _t(byp), _t(env0))
     assert np.abs(np.asarray(jenv)).max() > 0.5
-    assert np.array_equal(tenv[:, 100:160].numpy(), tenv[:, 99:100].expand(2, 60).numpy())
+    assert np.array_equal(tenv[:, lo:hi].numpy(), tenv[:, lo - 1:lo].expand(2, hi - lo).numpy())
     assert _err(jenv, tenv) <= OUT_TOL
     assert _err(jlast, tlast) <= STATE_TOL
 
@@ -265,20 +270,25 @@ def _spring_rows(rs, n, decay=(0.3, 0.9), damping=(0.6, 0.2)):
     return A, p2, fbgp
 
 
-def test_spring_block_matches_pallas():
+@pytest.mark.parametrize("B,sr", [(256, SR), (100, SR), (256, 96000.0)])
+def test_spring_block_matches_pallas(B, sr):
     """A filled history and a carried damping state, decay and damping
     moving; the port's kernel with mix 1 and no feedback carry gives the TPU
-    kernel's wet signal."""
+    kernel's wet signal.  At 100 samples the lone kernel's last part is
+    shorter than the shortest lag (127); at 96,000 Hz the lags more than
+    double (the shortest 276, past the kernel's 128-sample parts; the
+    history 1,734)."""
     rs = np.random.RandomState(7)
-    dl, dr = jspring.delay_lengths(SR)
+    dl, dr = jspring.delay_lengths(sr)
     D = max(dl + dr)
+    assert B % min(dl + dr) or sr != SR
     hist = (0.3 * rs.randn(12, D)).astype(np.float32)
     damp = np.asarray([0.05, -0.02], np.float32)
     x = rs.uniform(-0.8, 0.8, (2, B)).astype(np.float32)
     A, p2, fbgp = _spring_rows(rs, B)
     jwet, jhist, jlast = pallas_fx.spring_block(
         jnp.asarray(x), A, p2, fbgp, hist, damp, delays=dl + dr, gains=jspring.GAINS,
-        chunk=jspring.chunk_size(SR, B))
+        chunk=jspring.chunk_size(sr, B))
     twet, thist, tlast = bus.spring_block_plain(
         _t(x), _t(A), _t(p2), _t(fbgp), _t(hist), _t(damp), _t(np.ones((2, B))), _t(np.zeros(2)),
         delays=dl + dr, gains=jspring.GAINS)

@@ -969,6 +969,48 @@ def test_lone_4x_kernels_are_bit_equal_to_their_plain_versions(dev, name, B):
         assert _bits_equal(run, turn), label
 
 
+@pytest.mark.parametrize("case", ["512", "100", "33", "22050_Hz", "96000_Hz", "unaligned",
+                                  "parts_of_3_samples"])
+def test_env_and_spring_kernels_are_bit_equal_to_their_plain_versions(dev, case):
+    """env_follower_block (its walks on warps of their own, values computed
+    ahead) and spring_block (parts of the shortest lag, its walk on warps of
+    their own) give their plain versions bit for bit: at 512, 100 and 33
+    samples (the bus cases', and the detector's bypass span ending inside
+    chunks), the spring at 22,050 and 96,000 Hz, with its history
+    unaligned (4-byte fill) and with its shortest lag cut to 3 (parts of 3
+    samples); a bus_chain run of the detector,
+    the compressor and the spring gives the kernels in turn."""
+    import chip_smoke
+
+    names = ("env_follower_block", "spring_block")
+    if case.isdigit():
+        B = int(case)
+        lone = {c[0]: c for c in chip_smoke.lone_edge_cases(dev, B)}
+        singles, _ = chip_smoke.bus_cases(dev, np.random.RandomState(B), B)
+        cases = [lone[n] for n in names]
+        cases += [(n, label, a, kw) for n, label, a, kw, _ in singles if n in names]
+    else:
+        cases = [("spring_block", label, a, kw) for label, a, kw in chip_smoke.spring_cases(dev)
+                 if label.endswith(case.replace("_", " "))]
+    assert len(cases) == (4 if case.isdigit() else 1)
+    for name, label, args, kw in cases:
+        got = getattr(bus, name)(*args, **kw)
+        want = getattr(bus, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want), label
+        assert float(got[0].abs().max()) > 0.1, label
+    if case.isdigit():
+        (_, _, env, _), (_, _, comp, _), (_, _, spring, spring_kw) = (
+            lone[n] for n in ("env_follower_block", "compressor_block", "spring_block"))
+        phases = [bus.Phase("env_follower_block", env[1:], {}),
+                  bus.Phase("compressor_block", (None,) + tuple(comp[2:]), {}),
+                  bus.Phase("spring_block", spring[1:], spring_kw)]
+        run = bus.bus_chain(env[0], phases)
+        turn = bus.run_phases(env[0], phases)
+        torch.cuda.synchronize()
+        assert _bits_equal(run, turn)
+
+
 @pytest.mark.parametrize("case", range(10),
                          ids=["drawn_apart", "snare_traffic"]
                          + [f"edge_{b}_{h}" for b in (512, 100) for h in (64, 0, 1, 192)])

@@ -16,7 +16,10 @@ product kit, one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
 128 a family; every bus kernel and ``bus_chain`` run of
 ``chip_smoke.bus_cases`` at 512, 100 and 33 samples, and
 ``chip_smoke.lone_edge_cases`` (the saturation and the compressor with
-their bypass gates crossed inside chunks) at the same; ``plate_block`` at
+their bypass gates crossed inside chunks, the detector with its bypass
+span's ends inside chunks, the spring) at the same, and
+``chip_smoke.spring_cases`` (the spring at 22,050 and 96,000 Hz and with
+its history unaligned); ``plate_block`` at
 the main path's block and ``chip_smoke.plate_cases`` (100 and 33 samples,
 the modulated lags falling to 1, 22,050 and 96,000 Hz); the staged bank
 kernels, ``ws4_bank``, ``fbws_bank`` (rows bypassed for the whole block
@@ -37,7 +40,8 @@ between threads but keeps every per-sample operation gives the other
 build's bits; exits 1 where it does not.  (The host's libm stands in for
 the card's, so these outputs are not the card's; the card compares each
 kernel with its plain version.  The bank kernels without a transcendental
-and the grain read are also held to their plain versions here.)  ``--only``
+and the grain read, the detector and the spring are also held to their
+plain versions here.)  ``--only``
 keeps the cases of the named kernels.
 """
 
@@ -65,6 +69,9 @@ BANK_UNALIGNED = (515, 128)
 #: too (no transcendental: the host's libm is not the card's)
 BANK_EXACT_ON_CPU = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "linrec2_bank",
                      "plate_block", "grain_read_cubic")
+#: the bus kernels held to their plain versions here too (the detector
+#: passes its signal through: y must be x)
+BUS_EXACT_ON_CPU = ("env_follower_block", "spring_block")
 
 
 def translate(src: str) -> str:
@@ -298,12 +305,22 @@ def main(argv=None) -> int:
             case(f"kit_drive {cs.kit_label(kit, b)}", both(
                 vk, lambda: vk._launch_kit("kit_drive", "kit_drive_launch", drive,
                                            vk._DRIVE_BODIES)))
+    springs = [("spring_block", label, a, kw) for label, a, kw in cs.spring_cases("cpu")]
     for b in (cs.B,) + cs.TAIL_BLOCKS:
         singles, runs = cs.bus_cases("cpu", np.random.RandomState(b), b)
         singles = [(name, shape, a, kw) for name, shape, a, kw, _ in singles]
+        if b == cs.B:
+            singles += springs
         for name, shape, a, kw in singles + cs.lone_edge_cases("cpu", b):
             if name in bus.KERNELS and wanted(name):
                 case(f"{name} {shape}", both(bus, lambda: bus._launch_one(name, a[0], a[1:], kw)))
+            if name in BUS_EXACT_ON_CPU and wanted(name):
+                bus._launch = launcher(*builds[-1])
+                got = bus._launch_one(name, a[0], a[1:], kw)
+                if name in bus._PASSES_SIGNAL:   # (y, *outputs): y is x
+                    got = got[1:] if cs.same_bits(got[0], a[0]) else (got[0],)
+                case(f"{name} {shape} against its plain version",
+                     cs.same_bits(got, getattr(bus, name + "_plain")(*a, **kw)))
         for label, (x, phases) in runs.items():
             if wanted("bus_chain"):
                 case(f"bus_chain {label}", both(

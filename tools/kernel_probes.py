@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Copies of the kernel sources with parts of ``ws4_bank`` and ``fbws_bank``,
-``kit_drive``, ``plate_block``, ``mix_bank``, ``triangle_additive_bank``
-or ``grain_read_cubic`` cut out or changed, for timing those parts alone on
-the card with ``tools/torch_kernel_ab.py``.
+``kit_drive``, ``plate_block``, ``mix_bank``, ``triangle_additive_bank``,
+``grain_read_cubic`` or the lone bus kernels cut out or changed, for timing
+those parts alone on the card with ``tools/torch_kernel_ab.py``.
 
     python3 tools/kernel_probes.py OUT_DIR [CSRC]
 
@@ -45,11 +45,23 @@ values, shaping or stores: the five walks on whatever shared memory holds),
 ``lone_walks_04`` (warps 0 and 4, which share one), ``lone_workers_only``
 (no walks: the copies, the values, the shaping and the stores);
 ``lone_sat_256`` and ``lone_comp_320`` (nothing cut: the saturation on three
-worker warps, the compressor on five, bit-equal).  Outputs of the probes that cut are wrong; only their
-times mean anything.  Pass the directories to ``tools/torch_kernel_ab.py --only
+worker warps, the compressor on five, bit-equal).  The lone detector
+(``env_lone_kernel``: ``env_follower_block``): ``env_staging`` (no walk: the
+copies, the values and the stores) and ``env_walk`` (the walk alone, on
+whatever shared memory holds), ``env_chunk32`` and ``env_chunk128``
+(nothing cut: chunks of 32 and 128 samples, bit-equal).  The lone spring
+(``spring_lone_kernel``: ``spring_block``): ``spring_fill_drain`` (no
+parts: the rings' fill and drain), ``spring_walk`` (the damping walk
+alone: no fill, drain, copies, reads or writes), ``spring_workers``
+(everything but the walk), ``spring_no_traj``, ``spring_no_a`` and
+``spring_no_c`` (the trajectories' copies, the parts' reads or their
+writes cut) and ``spring_512`` (nothing cut: 512 threads, bit-equal).
+Outputs of the probes that cut are wrong; only their times mean anything.
+Pass the directories to ``tools/torch_kernel_ab.py --only
 ws4_bank,fbws_bank``, ``--only mix_bank``, ``--only kit_drive``, ``--only
 plate_block``, ``--only triangle_additive_bank``, ``--only
-grain_read_cubic`` or ``--only saturation_block,compressor_block``.
+grain_read_cubic``, ``--only saturation_block,compressor_block`` or ``--only
+env_follower_block,spring_block``.
 """
 
 from __future__ import annotations
@@ -137,6 +149,32 @@ LONE_COMP_320 = [("  static constexpr int kThreads = 256;   // three worker warp
                   "  static constexpr int kThreads = 320;")]
 
 
+#: the lone detector (env_lone_kernel: env_follower_block): the walk cut,
+#: or the workers' copies, values and stores
+ENV_NO_WALK = [("      if (walker && j < n_chunks) env_walk(t, j, c, env);",
+                "      if (false) env_walk(t, j, c, env);")]
+ENV_NO_WORKERS = [("  copy_in(0);\n  copy_in(1);\n  copy_in(2);\n", ""),
+                  ("  cp_async_wait<2>();\n  step_barrier();\n  prep(0);\n",
+                   "  cp_async_wait<2>();\n  step_barrier();\n"),
+                  ("    copy_in(j + 3);\n    prep(j + 1);\n    if (j > 0) store(", "    if (false) store(")]
+#: the lone spring (spring_lone_kernel: spring_block): the fill, the
+#: drain, the trajectories' copies, the parts' reads (a) and writes (c),
+#: the walk; its threads
+SPRING_NO_FILL = [("  const int n_hist = 2 * kSpringAps * D;", "  const int n_hist = 0;")]
+SPRING_NO_DRAIN = [("    for (int m = tid; m < D; m += kSpringThreads) {",
+                    "    for (int m = tid; m < 0; m += kSpringThreads) {")]
+SPRING_NO_PARTS = [("  const int n_parts = (B + P - 1) / P;", "  const int n_parts = 0;")]
+SPRING_NO_TRAJ = [("    if (k < n_parts && tid >= kSpringWalkers) {", "    if (false) {")]
+SPRING_STEP = "a thread a (channel, sample)\n    for (int u = tid; u < 2 * len; u += kSpringThreads) {"
+SPRING_NO_A = [("// (a) the ring reads, beta and bv, " + SPRING_STEP,
+                "// (a) the ring reads, beta and bv, " + SPRING_STEP.replace("2 * len", "0"))]
+SPRING_NO_C = [("// (c) the allpass writes and the mix, " + SPRING_STEP,
+                "// (c) the allpass writes and the mix, " + SPRING_STEP.replace("2 * len", "0"))]
+SPRING_NO_WALK = [("    if (walker >= 0) {\n      const float* A", "    if (false) {\n      const float* A")]
+SPRING_512 = [("constexpr int kSpringThreads = 256;", "constexpr int kSpringThreads = 512;")]
+ENV_CHUNK = "constexpr int kEnvChunk = 64;"
+
+
 GRAIN_POSITIONS = [("  const float i1f = floorf(pos);",
                     "  return pos;\n  const float i1f = floorf(pos);")]
 GRAIN_STORES = [("  // fmaxf maps a NaN position", "  return age;\n  // fmaxf maps a NaN position")]
@@ -172,6 +210,18 @@ PROBES = {
     "lone_workers_only": ("bus_kernels.cu", LONE_NO_WALKS),
     "lone_sat_256": ("bus_kernels.cu", LONE_SAT_256),
     "lone_comp_320": ("bus_kernels.cu", LONE_COMP_320),
+    "env_staging": ("bus_kernels.cu", ENV_NO_WALK),
+    "env_walk": ("bus_kernels.cu", ENV_NO_WORKERS),
+    "spring_fill_drain": ("bus_kernels.cu", SPRING_NO_PARTS),
+    "spring_walk": ("bus_kernels.cu", SPRING_NO_FILL + SPRING_NO_DRAIN + SPRING_NO_TRAJ
+                    + SPRING_NO_A + SPRING_NO_C),
+    "spring_workers": ("bus_kernels.cu", SPRING_NO_WALK),
+    "spring_no_traj": ("bus_kernels.cu", SPRING_NO_TRAJ),
+    "spring_no_a": ("bus_kernels.cu", SPRING_NO_A),
+    "spring_no_c": ("bus_kernels.cu", SPRING_NO_C),
+    "spring_512": ("bus_kernels.cu", SPRING_512),
+    "env_chunk32": ("bus_kernels.cu", [(ENV_CHUNK, ENV_CHUNK.replace("64", "32"))]),
+    "env_chunk128": ("bus_kernels.cu", [(ENV_CHUNK, ENV_CHUNK.replace("64", "128"))]),
 }
 
 

@@ -27,9 +27,10 @@ likewise (their staging header is shared),
 ``kit_drive`` at the product kit, with each of its bodies alone and at
 ``chip_smoke.TAIL_KITS``, ``bus_chain`` with
 the kit's seven phases, the first four and the product chain's ten, and
-each bus phase's own kernel, the saturation and the compressor also at
-``chip_smoke.lone_edge_cases`` (512, 100 and 33 samples, their bypass gates
-crossed inside chunks).  Up to ``BUILDS_AT_ONCE`` trees build at once.  Every case prints whether each build gives
+each bus phase's own kernel, the spring also at ``chip_smoke.spring_cases``
+(22,050 and 96,000 Hz, an unaligned history), and the saturation, the
+compressor, the detector and the spring at ``chip_smoke.lone_edge_cases``
+(512, 100 and 33 samples, their bypass gates crossed inside chunks).  Up to ``BUILDS_AT_ONCE`` trees build at once.  Every case prints whether each build gives
 this tree's outputs bit for bit, and each build's device time per call
 (``chip_smoke.device_ms``), the builds interleaved (each other build, this
 tree, this tree, each other build in reverse), on the card named in the
@@ -238,6 +239,7 @@ def main(argv=None) -> int:
     for label, (x, phases) in list(runs.items())[:3]:
         case(f"bus_chain {label}", lambda x=x, phases=phases: bus.bus_chain(x, phases))
     singles = [(name, shape, args, kw) for name, shape, args, kw, _ in singles]
+    singles += [("spring_block", label, args, kw) for label, args, kw in cs.spring_cases(dev)]
     for b in cs.LONE_BLOCKS:
         singles += cs.lone_edge_cases(dev, b)
     for name, shape, args, kw in singles:
