@@ -58,10 +58,15 @@ Phases (any failure exits non-zero):
    (a block of 512 threads, chunks of samples a thread each) at the main
    path's block, at 100 and 33 samples, with its modulated lags falling to
    1 (serial chunks), at 22,050 and 96,000 Hz, bit-equal;
-   ``saturation_block`` and ``compressor_block`` (their 4x chains' stages
-   on warps of their own, a polyphase branch a lane) also at 512, 100 and
-   33 samples with their bypass gates crossed inside chunks and the
-   compressor's gain through 0.99 (``lone_edge_cases``), bit-equal;
+   ``saturation_block``, ``compressor_block``, ``waveshaper_block`` and
+   ``fbws_fast_block`` (their 4x chains' stages on warps of their own, a
+   polyphase branch a lane) also at 512, 100 and 33 samples with the
+   saturation's and the compressor's bypass gates crossed inside chunks and
+   the compressor's gain through 0.99, each waveshaper with a channel
+   bypassed by its mix and the other by its drive, both engaged, the
+   waveshaper with +-inf samples, the feedback waveshaper on an envelope
+   under its 0.05 floor, with feedback 0.5, at drives 150 and 100 and with a
+   filter of 1e-16 flushed (``lone_edge_cases``), bit-equal;
    ``env_follower_block`` (its channels' walks on warps of their own, on
    values computed ahead) and ``spring_block`` (parts of the shortest lag,
    its walks on warps of their own) there too, the detector's bypass span
@@ -219,7 +224,7 @@ STATE_TOL = 1e-4
 EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources",
          "kit_drive", "bus_chain", "plate_block", "env_follow_bank", "fbws_bank", "mix_bank",
          "triangle_additive_bank", "grain_read_cubic", "saturation_block", "compressor_block",
-         "env_follower_block", "spring_block")
+         "env_follower_block", "spring_block", "waveshaper_block", "fbws_fast_block")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -637,9 +642,12 @@ def kernel_cases(dev):
     for b in TAIL_BLOCKS:
         for label, run in bus_cases(dev, np.random.RandomState(SEED + b), b)[1].items():
             cases.append(("bus_chain", label, run, {}, 1))
-    #     saturation_block and compressor_block (their four walks pipelined
-    #     over warps) at B, 100 and 33 samples with their bypass gates
-    #     crossed inside chunks (and the compressor's gain through 0.99);
+    #     saturation_block, compressor_block, waveshaper_block and
+    #     fbws_fast_block (their four walks pipelined over warps) at B, 100
+    #     and 33 samples with their bypass gates crossed inside chunks (and
+    #     the compressor's gain through 0.99; the waveshapers bypassed by
+    #     mix and by drive, engaged, +-inf in x, the envelope under the
+    #     floor, the drive_norm clip, the filter's flush);
     #     env_follower_block with its bypass span's ends inside chunks and
     #     spring_block there too, then the spring at 22,050 and 96,000 Hz,
     #     with its history 4 bytes past a 16-byte boundary and with its
@@ -1259,7 +1267,8 @@ def lone_edge_cases(dev, b, seed=SEED):
     those bursts from a carried envelope, attack 0.5-2 ms and release 50-150
     ms moving, bypassed over :func:`env_edges` (the right channel's span 9
     samples later); ``spring_block`` on a filled history
-    (:func:`spring_block_args`)."""
+    (:func:`spring_block_args`); ``waveshaper_block`` and
+    ``fbws_fast_block`` from :func:`waveshaper_edge_cases`."""
     import torch
 
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
@@ -1306,7 +1315,56 @@ def lone_edge_cases(dev, b, seed=SEED):
             ("compressor_block", shape + ", the gain through 0.99", comp, {}),
             ("env_follower_block", f"[2, {b}], bypassed over samples {lo}-{hi - 1}", env_args,
              {}),
-            ("spring_block", spring_label(spring, spring_kw), spring, spring_kw)]
+            ("spring_block", spring_label(spring, spring_kw), spring, spring_kw)] + [
+                (name, label, args, {})
+                for name, label, args in waveshaper_edge_cases(t, b, x, bursts, state)]
+
+
+#: the feedback filter's coefficients of the feedback waveshaper's edge cases
+#: (2 kHz and 500 Hz at 44.1 kHz, as the chain maps its cutoff)
+FBWS_EDGE_FBC = tuple(float(np.clip(1.0 - np.exp(-2.0 * np.pi * f / SR), 0.0, 0.9))
+                      for f in (2000.0, 500.0))
+
+
+def waveshaper_edge_cases(t, b, x, bursts, state):
+    """``[(name, label, args)]`` of ``waveshaper_block`` and
+    ``fbws_fast_block`` at ``[2, b]`` (``x``, ``bursts``: its inputs; ``state``:
+    a carried 4x and DC state; ``t``: numpy to a device tensor): each with one
+    channel bypassed by its mix at 0 and the other by its drive at 1.0; both
+    channels engaged; the waveshaper with an inf sample (left) and a -inf
+    (right) at :func:`lone_edges` (the finite guard); the feedback
+    waveshaper on an envelope dipping under the makeup gain's 0.05 floor
+    inside chunks, with feedback 0.5 on its right channel (the makeup's
+    high end), and at drives 150 and 100 (the drive_norm clip); its bypassed
+    left channel carries a feedback filter of 1e-16 (the flush)."""
+    left, right = lone_edges(b)
+    xn = x.cpu().numpy()
+    x_inf = xn.copy()
+    x_inf[0, left], x_inf[1, right] = np.inf, -np.inf
+    n = np.arange(b)
+    env = np.stack([0.3 + 0.3 * np.sin(2.0 * np.pi * n / 37.0),
+                    0.3 + 0.3 * np.sin(2.0 * np.pi * n / 29.0 + 1.0)])
+    fb_state = lambda filt: t(np.concatenate([state, np.asarray([filt], np.float32)]))
+    fbc0, fbc1 = FBWS_EDGE_FBC
+    shape = f"[2, {b}]"
+    return [
+        ("waveshaper_block", f"{shape}, bypassed by mix 0 (left) and drive 1.0 (right)",
+         (x, t([[4.0, 0.0], [1.0, 0.5]]), t(state))),
+        ("waveshaper_block", f"{shape}, drives 4 and 150 engaged on a carried state",
+         (x, t([[4.0, 0.5], [150.0, 0.8]]), t(state))),
+        ("waveshaper_block", f"{shape}, inf at sample {left} (left), -inf at {right} (right)",
+         (t(x_inf), t([[4.0, 1.0], [6.0, 0.8]]), t(state))),
+        ("fbws_fast_block", f"{shape}, bypassed by mix 0 (left, filter 1e-16) and drive 1.0 "
+         "(right)", (t(bursts), t(env), t([[4.0, 0.0, fbc0, 0.0], [1.0, 0.0, fbc1, 0.7]]),
+                     fb_state([1e-16, 0.02]))),
+        ("fbws_fast_block", f"{shape}, engaged, the envelope under 0.05 inside chunks, "
+         "feedback 0.5 (right)", (t(bursts), t(env), t([[4.0, 0.0, fbc0, 1.0],
+                                                        [8.0, 0.5, fbc1, 0.7]]),
+                                  fb_state([0.01, -0.02]))),
+        ("fbws_fast_block", f"{shape}, drives 150 and 100, feedback 0.5 and 0.98",
+         (t(bursts), t(env), t([[150.0, 0.5, fbc0, 0.6], [100.0, 0.98, fbc1, 1.0]]),
+          fb_state([0.01, -0.02]))),
+    ]
 
 
 #: the snare's Chamberlin at full cutoff and resonance rings up to inf (the
@@ -1467,6 +1525,20 @@ def rel_err(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
 
 
+def case_rel_err(a, b) -> float:
+    """:func:`rel_err` of an ``EXACT`` kernel's state against its plain
+    version's, where a NaN or an infinity on both sides at one place agrees
+    (a waveshaper's 4x state after an infinite input sample; the bits are
+    held by :func:`same_bits`), as :func:`case_err` for the outputs."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return max((case_rel_err(x, y) for x, y in zip(a, b)), default=0.0)
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    d = ((a - b).abs() / b.abs().clamp(min=1.0))
+    return float(torch.where((a == b) | (torch.isnan(a) & torch.isnan(b)), 0.0, d).max())
+
+
 def phase_kernels(dev):
     import torch
 
@@ -1485,16 +1557,17 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         # NaN and +-inf may agree only where same_bits holds the bits too
         err_of = case_err if name in EXACT else max_err
+        rel_of = case_rel_err if name in EXACT else rel_err
         if n_out is None:   # a kit kernel: per phase, its signals then its state
             got, want = got[0], want[0]
             nsig = [mod.SIGNALS[ph.name] for ph in args[0]]
             out_err = err_of([g[:k] for g, k in zip(got, nsig)],
                                [w[:k] for w, k in zip(want, nsig)])
-            state_err = rel_err([g[k:] for g, k in zip(got, nsig)],
-                                [w[k:] for w, k in zip(want, nsig)])
+            state_err = rel_of([g[k:] for g, k in zip(got, nsig)],
+                               [w[k:] for w, k in zip(want, nsig)])
         else:
             out_err = err_of(got[:n_out], want[:n_out])
-            state_err = rel_err(got[n_out:], want[n_out:])
+            state_err = rel_of(got[n_out:], want[n_out:])
         for _ in range(3):
             kern(*args, **kw)
         wall_ms = cuda_ms(lambda: kern(*args, **kw), 20)

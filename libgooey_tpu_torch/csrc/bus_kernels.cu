@@ -32,7 +32,8 @@
 // takes the other channel's filtered tap at the same sample): the delay
 // stages its filtered taps in shared memory and the two lanes meet at a
 // __syncwarp.  An effect's own kernel is one warp walking its block in
-// 32-sample spans, except the lone saturation and compressor
+// 32-sample spans (the lowpass, the tilt and the delay), except the lone 4x
+// effects, the saturation, compressor, waveshaper and feedback waveshaper
 // (bus4x_split_kernel, below): their chain's stages walk on warps of their
 // own, a polyphase branch a lane, chunks pipelined a step apart; and the
 // lone detector and spring (env_lone_kernel, spring_lone_kernel, below):
@@ -870,6 +871,18 @@ __device__ __forceinline__ DriveShaper ws_shaper(const Phase& p, int c) {
   return DriveShaper{d, p.f[0] / tanhf(0.5f * d)};
 }
 
+// The waveshaper's per-sample pieces, shared by WaveshaperRow and the lone
+// kernel: channel c's bypass, and the finish of a down-walk's output v on
+// input xn (the mix, the bypass select, the finite guard).
+__device__ __forceinline__ bool ws_bypass(const Phase& p, int c) {
+  return p.in[0][2 * c + 1] <= 1e-4f || p.in[0][2 * c] <= 1.0f;
+}
+
+__device__ __forceinline__ float ws_finish(float v, float xn, float mix, bool bypass) {
+  const float o = bypass ? xn : xn * (1.0f - mix) + v * mix;
+  return isfinite(xn) ? o : 0.0f;
+}
+
 struct WaveshaperRow : RowBase {
   FbwsState s;
   OvsCaps cap;
@@ -880,17 +893,13 @@ struct WaveshaperRow : RowBase {
                                       const float* x, float* y, int n0, int n1, int B,
                                       float* scratch) {
     const int c = min(lane, 1);
-    const float drive = p.in[0][2 * c], mix = p.in[0][2 * c + 1];
-    const bool bypass = mix <= 1e-4f || drive <= 1.0f;
+    const float mix = p.in[0][2 * c + 1];
+    const bool bypass = ws_bypass(p, c);
     const size_t row = static_cast<size_t>(c) * B;
     split_4x(
         s, cap, k, lane, n0, n1, B, scratch, [](int, int, float*) {},
         [&](int n) { return x[row + n]; }, [&](int ch, int) { return ws_shaper(p, ch); },
-        [&](int n, float v) {
-          const float xn = x[row + n];
-          const float o = bypass ? xn : xn * (1.0f - mix) + v * mix;
-          y[row + n] = isfinite(xn) ? o : 0.0f;
-        });
+        [&](int n, float v) { y[row + n] = ws_finish(v, x[row + n], mix, bypass); });
   }
   __device__ __forceinline__ void end(const Phase& p, int c, int) {
     store_span_state(s, cap, p.out[0], c, 2);
@@ -900,20 +909,51 @@ struct WaveshaperRow : RowBase {
 // --- 9. fbws: the feedback waveshaper's zero-feedback path at 4x ---------------
 
 // Envelope-referenced makeup gain (feedback_waveshaper.rs:247-259) in the
-// TPU kernel's exp/log form; makeup_ln = ln(10) * 5.1 / 20.
-__device__ __forceinline__ float fbws_gain(float env, float drive, float feedback,
-                                           float makeup_ln) {
-  const float reference = fmaxf(env, 0.05f);
-  const float driven_ref = fmaxf(fabsf(tanhf(reference * drive)), 1e-6f);
-  const float comp_no_fb = tanhf(reference) / driven_ref;
+// TPU kernel's exp/log form: fbws_makeup, the high end's part of a
+// channel's block scalars prm = (drive, feedback, filter coefficient, mix)
+// (p.f[0] = ln(10) * 5.1 / 20), and fbws_gain, a sample's gain on the
+// envelope with it.
+__device__ __forceinline__ float fbws_makeup(const Phase& p, const float* prm) {
+  const float drive = prm[0], feedback = prm[1];
   const float drive_norm = fminf(fmaxf((drive - 1.0f) / 99.0f, 0.0f), 1.0f);
   const float feedback_norm = fminf(fmaxf(feedback / 0.98f, 0.0f), 1.0f);
   float high_end = expf(1.35f * logf(fmaxf(drive_norm, 1e-30f))) * (feedback_norm * feedback_norm);
   high_end = drive_norm <= 0.0f ? 0.0f : high_end;
-  const float makeup = expf(makeup_ln * high_end);
+  return expf(p.f[0] * high_end);
+}
+
+__device__ __forceinline__ float fbws_gain(float env, float drive, float feedback,
+                                           float makeup) {
+  const float reference = fmaxf(env, 0.05f);
+  const float driven_ref = fmaxf(fabsf(tanhf(reference * drive)), 1e-6f);
+  const float comp_no_fb = tanhf(reference) / driven_ref;
   const float taming = 1.0f / (1.0f + comp_no_fb * feedback * 0.25f);
   return fminf(comp_no_fb * taming * makeup, 3.0f);
 }
+
+// The feedback waveshaper's per-sample pieces, shared by FbwsRow and the
+// lone kernel, on a channel's block scalars prm: its bypass; the DC
+// blocker's gain of a sample on the envelope (-1 on a bypassed channel:
+// gated_dc then holds); one step of the feedback filter on the DC blocker's
+// output; the mix; the filter's flush at the block's end.
+__device__ __forceinline__ bool fbws_bypass(const float* prm) {
+  return prm[3] <= 1e-4f || prm[0] <= 1.0f;
+}
+
+__device__ __forceinline__ float fbws_cs(const float* prm, float env, float makeup) {
+  return fbws_bypass(prm) ? -1.0f : fbws_gain(env, prm[0], prm[1], makeup);
+}
+
+__device__ __forceinline__ float fbws_filter(float filt, bool bypass, float fbc, float dc) {
+  const float a1 = bypass ? 1.0f : 0.0f;
+  return (bypass ? 1.0f : 1.0f - fbc) * filt + (1.0f - a1) * fbc * dc;
+}
+
+__device__ __forceinline__ float fbws_out(float xn, float dc, float mix, bool bypass) {
+  return bypass ? xn : xn * (1.0f - mix) + dc * mix;
+}
+
+__device__ __forceinline__ float flushed(float v) { return fabsf(v) < kDenormal ? 0.0f : v; }
 
 // Channel c of the zero-feedback block (_fbws_kernel) on the detector's
 // envelope: drive*x through the 4x tanh chain, the makeup gain (per sample,
@@ -936,27 +976,25 @@ struct FbwsRow : RowBase {
     const int c = min(lane, 1);
     const float* prm = p.in[1] + 4 * c;
     const float drive = prm[0], fbc = prm[2], mix = prm[3];
-    const bool bypass = mix <= 1e-4f || drive <= 1.0f;
-    const float a1 = bypass ? 1.0f : 0.0f;
+    const bool bypass = fbws_bypass(prm);
     const size_t row = static_cast<size_t>(c) * B;
-    const float* comp = values_of(scratch, c);
+    const float* cs = values_of(scratch, c);
     split_4x(
         s, cap, k, lane, n0, n1, B, scratch,
         [&](int ch, int n, float* w) {
           const float* q = p.in[1] + 4 * ch;
-          w[0] = fbws_gain(env[static_cast<size_t>(ch) * B + n], q[0], q[1], p.f[0]);
+          w[0] = fbws_cs(q, env[static_cast<size_t>(ch) * B + n], fbws_makeup(p, q));
         },
         [&](int n) { return x[row + n] * drive; }, [](int, int) { return TanhShaper{}; },
         [&](int n, float v) {
-          const float dc = gated_dc(s, v, bypass ? -1.0f : comp[n - n0]);
-          filt = (bypass ? 1.0f : 1.0f - fbc) * filt + (1.0f - a1) * fbc * dc;
-          const float xn = x[row + n];
-          y[row + n] = bypass ? xn : xn * (1.0f - mix) + dc * mix;
+          const float dc = gated_dc(s, v, cs[n - n0]);
+          filt = fbws_filter(filt, bypass, fbc, dc);
+          y[row + n] = fbws_out(x[row + n], dc, mix, bypass);
         });
   }
   __device__ __forceinline__ void end(const Phase& p, int c, int) {
     store_span_state(s, cap, p.out[0], c, 2);
-    p.out[0][kFbwsRowsOut * 2 + c] = fabsf(filt) < kDenormal ? 0.0f : filt;
+    p.out[0][kFbwsRowsOut * 2 + c] = flushed(filt);
   }
 };
 
@@ -995,10 +1033,11 @@ __global__ void __launch_bounds__(kBusThreads)
   one_block<Row>(p, k, x, y, reinterpret_cast<float*>(block_smem4), B);
 }
 
-// --- the lone 4x effects: saturation_block and compressor_block ------------
+// --- the lone 4x effects: saturation_block, compressor_block,
+// --- waveshaper_block and fbws_fast_block -------------------------------------
 //
-// A lone saturation or compressor (a run of one effect, a sidechained
-// compressor, the unmerged bus) runs its 4x chain as five walks, each on a
+// A lone 4x effect (a run of one effect, a sidechained compressor, the
+// unmerged bus or chain) runs its 4x chain as five walks, each on a
 // warp of its own, its 32-sample chunks pipelined a step apart as
 // split4x_rows pipelines ws4_bank's two walks.  The four stages of the
 // chain (ovs4.cuh) each put their two polyphase branches on lanes of their
@@ -1013,15 +1052,17 @@ __global__ void __launch_bounds__(kBusThreads)
 //   warp 2  chunk j-3's stage-2 down,
 //   warp 3  chunk j-4's stage-1 down,
 //   warp 4  chunk j-5's finish on lanes 0 and 1 (the stage-1 half-sum, the
-//           gated DC blocker, the mix, the finite select) into an output
-//           tile;
+//           gated DC blocker, the mix, the finite select; the feedback
+//           waveshaper's filter) into an output tile;
 //   warps 5 on (the workers: five warps for the saturation, three for the
-//           compressor, as the probes chose) copy chunk j+2's inputs in
-//           with cp.async, compute chunk j+1's per-sample values (what
-//           does not depend on the carried state: the saturation's mix,
-//           drive and bias trajectories; the compressor's bypass and
-//           target gain), shape chunk j-2's 2 x 128 subsamples (an atan
-//           each) and store chunk j-6's output, coalesced.
+//           compressor and the two waveshapers, as the probes chose) copy
+//           chunk j+2's inputs in with cp.async, compute chunk j+1's
+//           per-sample values (what does not depend on the carried state:
+//           the saturation's mix, drive and bias trajectories; the
+//           compressor's bypass and target gain; the feedback
+//           waveshaper's drive*x and makeup gain), shape chunk j-2's
+//           2 x 128 subsamples (an atan or a tanh each) and store chunk
+//           j-6's output, coalesced.
 // One barrier a step: a step costs the longest part, where the one-warp
 // kernel's span cost their sum, and a walk's lane steps 4 allpass sections
 // a sample where the one-warp kernel's lane stepped 32.  Each lane
@@ -1043,10 +1084,15 @@ constexpr int kLonePitch = kChainChunk + 4;        // floats a row of a chunk ti
 constexpr int kLoneSubPitch = 4 * kChainChunk + 4;
 constexpr int kLoneArr = 2 * kLonePitch;           // floats an array's two channels
 
-// The chunk's per-sample arrays of a lone 4x row: kIn inputs copied in,
-// kVals values computed ahead (and, for the compressor, kept by the walk).
-// A sample's element e points into array 0 of its channel; array a is at
-// e[a * kLoneArr].
+// A lone 4x effect's body.  The chunk's per-sample arrays: kIn inputs
+// copied in (source(a, x)), kVals values computed ahead (prep; the
+// compressor's last two kept by the walk, up).  A sample's element e points
+// into array 0 of its channel; array a is at e[a * kLoneArr].  up_in / up:
+// stage-1 up's input; shaper(c, e): a subsample's shaper; down_in / finish:
+// the finish of a sample; begin_up / end_up and begin_finish / end_finish
+// load and store what the stage-1 up lanes and the finish lanes carry
+// besides the chain and the DC blocker (the compressor's gain, the
+// feedback waveshaper's filter).
 struct SatLone {
   static constexpr int kThreads = 320;   // five worker warps
   static constexpr int kIn = 1;     // x
@@ -1062,7 +1108,7 @@ struct SatLone {
   }
   __device__ __forceinline__ float up_in(const float* e) const { return e[0]; }
   __device__ __forceinline__ float up(float in, float*) const { return in; }
-  __device__ __forceinline__ SatShaper shaper(const float* e) const {
+  __device__ __forceinline__ SatShaper shaper(int, const float* e) const {
     return SatShaper{e[2 * kLoneArr], e[3 * kLoneArr]};
   }
   __device__ __forceinline__ float2 down_in(const float* e) const {
@@ -1073,6 +1119,8 @@ struct SatLone {
   }
   __device__ __forceinline__ void begin_up(int) {}
   __device__ __forceinline__ void end_up(int c, int B) const { sat_end(p, c, B); }
+  __device__ __forceinline__ void begin_finish(int) {}
+  __device__ __forceinline__ void end_finish(int) const {}
 };
 
 struct CompLone {
@@ -1102,7 +1150,9 @@ struct CompLone {
     e[8 * kLoneArr] = compressed;
     return compressed;
   }
-  __device__ __forceinline__ AtanShaper shaper(const float*) const { return AtanShaper{p.f[2]}; }
+  __device__ __forceinline__ AtanShaper shaper(int, const float*) const {
+    return AtanShaper{p.f[2]};
+  }
   __device__ __forceinline__ Down down_in(const float* e) const {
     return Down{e[0], e[4 * kLoneArr], e[5 * kLoneArr], e[7 * kLoneArr], e[8 * kLoneArr]};
   }
@@ -1112,6 +1162,96 @@ struct CompLone {
   __device__ __forceinline__ void begin_up(int c) { g = p.in[4][kFbwsRowsIn * 2 + c]; }
   __device__ __forceinline__ void end_up(int c, int) const {
     p.out[0][kFbwsRowsOut * 2 + c] = g;
+  }
+  __device__ __forceinline__ void begin_finish(int) {}
+  __device__ __forceinline__ void end_finish(int) const {}
+};
+
+// The waveshaper: x up, each subsample through its channel's
+// tanh(v*d)*comp (ws_shaper, once a thread: drive and mix are block
+// scalars), the finish's mix, bypass select and finite guard.  It has no DC
+// blocker: lone_finish loads the packed DC rows and stores them unchanged.
+struct WsLone {
+  static constexpr int kThreads = 256;   // the waveshaper: three worker warps
+  static constexpr int kIn = 1;     // x
+  static constexpr int kVals = 0;
+  const Phase& p;
+  DriveShaper sh0, sh1;   // each channel's shaper
+  float mix;              // the finish lane's channel's
+  bool bypass;
+  __device__ explicit WsLone(const Phase& p_)
+      : p(p_), sh0(ws_shaper(p_, 0)), sh1(ws_shaper(p_, 1)), mix(0.0f), bypass(false) {}
+  __device__ __forceinline__ const float* source(int, const float* x) const { return x; }
+  __device__ __forceinline__ const float* packed() const { return p.in[1]; }
+  __device__ __forceinline__ void prep(int, int, float*) const {}
+  __device__ __forceinline__ float up_in(const float* e) const { return e[0]; }
+  __device__ __forceinline__ float up(float in, float*) const { return in; }
+  __device__ __forceinline__ DriveShaper shaper(int c, const float*) const {
+    return c ? sh1 : sh0;
+  }
+  __device__ __forceinline__ float down_in(const float* e) const { return e[0]; }
+  __device__ __forceinline__ float finish(FbwsState&, float v, float xn) const {
+    return ws_finish(v, xn, mix, bypass);
+  }
+  __device__ __forceinline__ void begin_up(int) {}
+  __device__ __forceinline__ void end_up(int, int) const {}
+  __device__ __forceinline__ void begin_finish(int c) {
+    mix = p.in[0][2 * c + 1];
+    bypass = ws_bypass(p, c);
+  }
+  __device__ __forceinline__ void end_finish(int) const {}
+};
+
+// The feedback waveshaper's zero-feedback path: drive*x up (computed ahead
+// with the DC blocker's gain on the envelope, fbws_cs, on each channel's
+// makeup, fbws_makeup, once a thread), tanh at each subsample, the
+// finish's gated DC blocker, the feedback filter carried on the finish lane
+// (loaded and stored, flushed, by begin_finish and end_finish) and the mix.
+struct FbwsLone {
+  static constexpr int kThreads = 256;   // the feedback waveshaper: three worker warps
+  static constexpr int kIn = 2;     // x, env
+  static constexpr int kVals = 2;   // drive*x, the DC blocker's gain (-1: bypassed)
+  const Phase& p;
+  float mk0, mk1;         // each channel's makeup
+  float fbc, mix, filt;   // the finish lane's channel's
+  bool bypass;
+  struct Down {
+    float xn, cs;
+  };
+  __device__ explicit FbwsLone(const Phase& p_)
+      : p(p_), mk0(fbws_makeup(p_, p_.in[1])), mk1(fbws_makeup(p_, p_.in[1] + 4)), fbc(0.0f),
+        mix(0.0f), filt(0.0f), bypass(false) {}
+  __device__ __forceinline__ const float* source(int a, const float* x) const {
+    return a == 0 ? x : p.in[0];
+  }
+  __device__ __forceinline__ const float* packed() const { return p.in[2]; }
+  __device__ __forceinline__ void prep(int c, int, float* e) const {
+    const float* prm = p.in[1] + 4 * c;
+    e[2 * kLoneArr] = e[0] * prm[0];
+    e[3 * kLoneArr] = fbws_cs(prm, e[kLoneArr], c ? mk1 : mk0);
+  }
+  __device__ __forceinline__ float up_in(const float* e) const { return e[2 * kLoneArr]; }
+  __device__ __forceinline__ float up(float in, float*) const { return in; }
+  __device__ __forceinline__ TanhShaper shaper(int, const float*) const { return TanhShaper{}; }
+  __device__ __forceinline__ Down down_in(const float* e) const {
+    return Down{e[0], e[3 * kLoneArr]};
+  }
+  __device__ __forceinline__ float finish(FbwsState& s, float v, const Down& in) {
+    const float dc = gated_dc(s, v, in.cs);
+    filt = fbws_filter(filt, bypass, fbc, dc);
+    return fbws_out(in.xn, dc, mix, bypass);
+  }
+  __device__ __forceinline__ void begin_up(int) {}
+  __device__ __forceinline__ void end_up(int, int) const {}
+  __device__ __forceinline__ void begin_finish(int c) {
+    const float* prm = p.in[1] + 4 * c;
+    fbc = prm[2];
+    mix = prm[3];
+    bypass = fbws_bypass(prm);
+    filt = p.in[2][kFbwsRowsIn * 2 + c];
+  }
+  __device__ __forceinline__ void end_finish(int c) const {
+    p.out[0][kFbwsRowsOut * 2 + c] = flushed(filt);
   }
 };
 
@@ -1328,10 +1468,12 @@ struct FinishIn {
 };
 
 // The finish on lanes 0 and 1 (channel c): stage-1 down's half-sum, then
-// the body's finish (the gated DC blocker, the mix, the finite select) into
-// the output tile.
+// the body's finish (the gated DC blocker, the mix, the finite select; the
+// feedback waveshaper's filter) into the output tile.  The DC rows are
+// loaded and stored here whether the body steps them or not, and the body's
+// own carried values by its begin_finish and end_finish.
 template <class Body>
-__device__ __forceinline__ void lone_finish(const Body& body, const LoneTiles<Body>& t,
+__device__ __forceinline__ void lone_finish(Body& body, const LoneTiles<Body>& t,
                                             float* st_out, int lane) {
   const bool on = lane < 2;
   const int c = lane & 1;
@@ -1339,6 +1481,7 @@ __device__ __forceinline__ void lone_finish(const Body& body, const LoneTiles<Bo
   if (on) {
     st.dcx = body.packed()[kRowDc * 2 + c];
     st.dcy = body.packed()[(kRowDc + 1) * 2 + c];
+    body.begin_finish(c);
   }
   lone_steps(t.n_chunks, kLagFinish, on, [&](int q) {
     const float* e = t.slot(q) + c * kLonePitch;
@@ -1355,6 +1498,7 @@ __device__ __forceinline__ void lone_finish(const Body& body, const LoneTiles<Bo
   if (!on) return;
   st_out[kRowDc * 2 + c] = st.dcx;
   st_out[(kRowDc + 1) * 2 + c] = st.dcy;
+  body.end_finish(c);
 }
 
 // The workers (thread w of kWorkers): at step j, chunk j+2's inputs in
@@ -1399,7 +1543,7 @@ __device__ __forceinline__ void lone_workers(const Body& body, const LoneTiles<B
       int ch, i;
       both_channels(u, 4 * l, ch, i);
       float& v = t.sub(q, ch)[i];
-      v = body.shaper(sl + ch * kLonePitch + (i >> 2))(v);
+      v = body.shaper(ch, sl + ch * kLonePitch + (i >> 2))(v);
     }
   };
   const auto store_out = [&](int o) {
@@ -1985,7 +2129,8 @@ cudaError_t launch_spring(const float* x, float* y, const Phase& p, int B, cudaS
   return cudaGetLastError();
 }
 
-// A lone saturation or compressor through the four-walk kernel.
+// A lone 4x effect (saturation, compressor, waveshaper, feedback
+// waveshaper) through the four-walk kernel.
 template <class Body>
 cudaError_t launch_lone(const float* x, float* y, const Phase& p, const float* coefs, int B,
                         cudaStream_t s) {
@@ -2021,9 +2166,9 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
     case kSpring:
       return static_cast<int>(launch_spring(x, y, p, B, s));
     case kWaveshaper:
-      return static_cast<int>(launch_block<WaveshaperRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_lone<WsLone>(x, y, p, coefs, B, s));
     case kFbws:
-      return static_cast<int>(launch_block<FbwsRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_lone<FbwsLone>(x, y, p, coefs, B, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,6 @@
 """The bus kernels' plain versions against the JAX package's Pallas wrappers.
 
-The seven wrappers of ``libgooey_tpu_torch/ops/bus_kernels.py`` and
+The nine wrappers of ``libgooey_tpu_torch/ops/bus_kernels.py`` and
 ``plate_block`` (``ops/plate_kernels.py``) run their plain PyTorch versions
 on the CPU; each is compared with its Pallas wrapper in
 ``libgooey_tpu/ops/pallas_fx.py`` run in interpret mode (as tests/
@@ -14,8 +14,11 @@ inputs on the CPU: saturation 4.8e-7 output / 6.4e-7 state, lowpass 2.4e-7 /
 3e-8, tilt 2.4e-7 / 1.6e-7, delay 6e-8 (output and write) / 3e-8, both
 ping-pong settings; env follower 2.4e-7 / 2.4e-7, compressor 3.1e-7 / 3.2e-8,
 spring 6e-8 / 1.2e-7 (history), plate 8.9e-8 (branch outputs and damping
-filters) / 1.2e-7 (histories).
+filters) / 1.2e-7 (histories); waveshaper 5.1e-7 / 7.2e-7, feedback
+waveshaper 7.2e-7 / 2.3e-5 (B = 256, 100 and 33).
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -30,6 +33,7 @@ from libgooey_tpu.effects import reverb_plate as jplate
 from libgooey_tpu.effects import reverb_spring as jspring
 
 from libgooey_tpu_torch.core.smoother import smoothing_coeff
+from libgooey_tpu_torch.ops import bank_kernels as bk
 from libgooey_tpu_torch.ops import bus_kernels as bus
 from libgooey_tpu_torch.ops import plate_kernels
 from libgooey_tpu_torch.ops.filters import DCBlockState
@@ -254,6 +258,81 @@ def test_compressor_block_matches_pallas(B):
                                       {"ovs": t_ovs, "dc": (t_dc.x1, t_dc.y1), "gain": t_gain})
         assert worst <= STATE_TOL, f"block {i}: {worst} at {where}"
     assert bool((t_gain < 0.99).all())
+
+
+@pytest.mark.parametrize("B", [256, 100, 33])
+def test_waveshaper_block_matches_pallas(B):
+    """Two blocks from a zero state, each side carrying its own state, drive
+    and mix block scalars per channel: the left channel engaged, then
+    bypassed by its mix at 0; the right one bypassed by its drive at 0.8
+    (<= 1), then engaged at drive 6.  Both sides step the chain through a
+    bypassed block (the caller holds the state); the state is compared
+    leaf by leaf."""
+    rs = np.random.RandomState(9)
+    x = rs.uniform(-1.2, 1.2, (2, 2 * B)).astype(np.float32)
+    blocks = [((4.0, 0.8), (0.5, 0.7)), ((4.0, 6.0), (0.0, 0.8))]
+    j_ovs, t_ovs = jovs.OversamplerState.init((2,)), OversamplerState.init(2, "cpu")
+    zeros = jnp.zeros(2, jnp.float32)
+    for i, (drive, mix) in enumerate(blocks):
+        xb = x[:, i * B:(i + 1) * B]
+        drive, mix = np.asarray(drive, np.float32), np.asarray(mix, np.float32)
+        jout, jnst = pallas_fx.waveshaper_block(
+            jnp.asarray(xb), drive, mix, pallas_fx.pack_ovs4_dc(j_ovs, zeros, zeros))
+        j_ovs = pallas_fx.unpack_ovs4_dc(jnst, j_ovs)[0]
+        tout, tnst = bus.waveshaper_block_plain(_t(xb), _t(np.stack([drive, mix], -1)),
+                                                bk.pack_ws4_bank(t_ovs))
+        t_ovs = bk.unpack_ws4_bank(tnst, t_ovs)
+        jout = np.asarray(jout)
+        bypassed = (mix <= 1e-4) | (drive <= 1.0)
+        assert np.array_equal(jout[bypassed], xb[bypassed])
+        assert np.abs(jout[~bypassed] - xb[~bypassed]).max() > 0.1
+        assert _err(jout, tout) <= OUT_TOL, i
+        worst, where = _max_state_err({"ovs": j_ovs}, {"ovs": t_ovs})
+        assert worst <= STATE_TOL, f"block {i}: {worst} at {where}"
+
+
+@pytest.mark.parametrize("B", [256, 100, 33])
+def test_fbws_fast_block_matches_pallas(B):
+    """Two blocks of loud bursts from a carried feedback filter on an
+    envelope that dips under the makeup gain's 0.05 floor inside 32-sample
+    chunks: the left channel bypassed by its drive at 1.0 with a filter of
+    1e-16 (flushed to 0), then engaged at drive 150 (the drive_norm clip);
+    the right one engaged at drive 8 with feedback 0.5 (the makeup's high
+    end), then bypassed by its mix at 0 (its DC blocker and filter held).
+    The DC blocker, the filter and the 4x state compared leaf by leaf."""
+    rs = np.random.RandomState(7)
+    x = _bursts(rs, 2 * B)
+    n = np.arange(2 * B)
+    env = np.stack([0.3 + 0.3 * np.sin(2.0 * np.pi * n / 37.0),
+                    0.3 + 0.3 * np.sin(2.0 * np.pi * n / 29.0 + 1.0)]).astype(np.float32)
+    assert all((np.flatnonzero(e[:B] < 0.05) % 32 != 0).any() for e in env)
+    fbc = [np.float32(1.0 - np.exp(-2.0 * np.pi * f / SR)) for f in (2000.0, 500.0)]
+    blocks = [[[1.0, 0.0, fbc[0], 1.0], [8.0, 0.5, fbc[1], 0.7]],
+              [[150.0, 0.0, fbc[0], 0.6], [8.0, 0.5, fbc[1], 0.0]]]
+    filt0 = np.asarray([1e-16, 0.01], np.float32)
+    j_ovs, j_dc, j_filt = jovs.OversamplerState.init((2,)), (np.zeros(2, np.float32),) * 2, filt0
+    t_ovs, t_dc, t_filt = OversamplerState.init(2, "cpu"), (torch.zeros(2),) * 2, _t(filt0)
+    for i, prm in enumerate(blocks):
+        sl = slice(i * B, (i + 1) * B)
+        prm = np.asarray(prm, np.float32)
+        jout, jnst = pallas_fx.fbws_fast_block(
+            jnp.asarray(x[:, sl]), env[:, sl], *prm.T, pallas_fx.pack_ovs4_dc(j_ovs, *j_dc),
+            j_filt)
+        j_ovs, jdx, jdy, _ = pallas_fx.unpack_ovs4_dc(jnst, j_ovs)
+        j_dc, j_filt = (jdx, jdy), np.asarray(jnst)[0:2, pallas_fx._OUT_IDX["gain"]]
+        state = SimpleNamespace(ovs=t_ovs, dc_x1=t_dc[0], dc_y1=t_dc[1], filter_state=t_filt)
+        tout, tnst = bus.fbws_fast_block_plain(_t(x[:, sl]), _t(env[:, sl]), _t(prm),
+                                               bus.pack_fbws_fast(state))
+        t_ovs, tdx, tdy, t_filt = bus.unpack_fbws_fast(tnst, t_ovs)
+        t_dc = (tdx, tdy)
+        assert np.abs(np.asarray(jout)).max() > 0.1
+        assert _err(jout, tout) <= OUT_TOL, i
+        worst, where = _max_state_err({"ovs": j_ovs, "dc": j_dc, "filt": j_filt},
+                                      {"ovs": t_ovs, "dc": t_dc, "filt": t_filt})
+        assert worst <= STATE_TOL, f"block {i}: {worst} at {where}"
+        if i == 0:   # the bypassed left channel's 1e-16 flushed on both sides
+            assert j_filt[0] == 0.0 and float(t_filt[0]) == 0.0
+            assert abs(float(t_filt[1])) > 1e-3
 
 
 def _spring_rows(rs, n, decay=(0.3, 0.9), damping=(0.6, 0.2)):

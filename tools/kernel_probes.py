@@ -37,7 +37,8 @@ inputs' sum: loads, stores, the table and its barrier).
 ``grain_read_cubic`` (``grain_kernels.cu``): ``grain_positions`` (each
 output its position: no taps) and ``grain_stores`` (each output its age: no
 position, no taps).  The lone 4x bus kernel (``bus4x_split_kernel``:
-``saturation_block``, ``compressor_block``): ``lone_walks_only`` (no copies,
+``saturation_block``, ``compressor_block``, ``waveshaper_block``,
+``fbws_fast_block``): ``lone_walks_only`` (no copies,
 values, shaping or stores: the five walks on whatever shared memory holds),
 ``lone_up1_only``, ``lone_up2_only``, ``lone_down2_only``,
 ``lone_down1_only`` and ``lone_finish_only`` (one walk), ``lone_walks_123``
@@ -45,7 +46,10 @@ values, shaping or stores: the five walks on whatever shared memory holds),
 ``lone_walks_04`` (warps 0 and 4, which share one), ``lone_workers_only``
 (no walks: the copies, the values, the shaping and the stores);
 ``lone_sat_256`` and ``lone_comp_320`` (nothing cut: the saturation on three
-worker warps, the compressor on five, bit-equal).  The lone detector
+worker warps, the compressor on five, bit-equal); ``lone_ws_224``,
+``lone_ws_320``, ``lone_fbws_224`` and ``lone_fbws_320`` (nothing cut: the
+waveshaper and the feedback waveshaper on two and on five worker warps,
+bit-equal).  The lone detector
 (``env_lone_kernel``: ``env_follower_block``): ``env_staging`` (no walk: the
 copies, the values and the stores) and ``env_walk`` (the walk alone, on
 whatever shared memory holds), ``env_chunk32`` and ``env_chunk128``
@@ -127,9 +131,10 @@ TRI_COPY = [("  if (i < n) out[i] = s.finish(0, gain, c);",
 #: max_h fall dead with the walk)
 TRI_NO_WALK = [("    k1 = k;", "    k1 = 0;"),
                ("    for (; k < k1; ++k) step(gain[k]);", "    return acc;")]
-#: the lone 4x bus kernel (bus4x_split_kernel: saturation_block and
-#: compressor_block): the workers' copies, values, shaping and stores cut, or
-#: the walks; one walk alone; two or five worker warps
+#: the lone 4x bus kernel (bus4x_split_kernel: saturation_block,
+#: compressor_block, waveshaper_block, fbws_fast_block): the workers'
+#: copies, values, shaping and stores cut, or the walks; one walk alone;
+#: other numbers of worker warps
 LONE_NO_WORKERS = [("    copy_in(j + 2);\n    prep(j + 1);\n    shape(j - kLagShape);\n"
                     "    if (j > kLagFinish) store_out(j - kLagFinish - 1);\n", "")]
 LONE_WALK = "    if (on && q >= 0 && q < n_chunks) walk(q);"
@@ -147,6 +152,13 @@ LONE_SAT_256 = [("  static constexpr int kThreads = 320;   // five worker warps"
                  "  static constexpr int kThreads = 256;")]
 LONE_COMP_320 = [("  static constexpr int kThreads = 256;   // three worker warps",
                   "  static constexpr int kThreads = 320;")]
+
+
+def lone_threads(body, threads):
+    """The waveshaper's (``body`` "the waveshaper") or the feedback
+    waveshaper's lone kernel on ``threads`` threads."""
+    return [(f"  static constexpr int kThreads = 256;   // {body}: three worker warps",
+             f"  static constexpr int kThreads = {threads};")]
 
 
 #: the lone detector (env_lone_kernel: env_follower_block): the walk cut,
@@ -210,6 +222,10 @@ PROBES = {
     "lone_workers_only": ("bus_kernels.cu", LONE_NO_WALKS),
     "lone_sat_256": ("bus_kernels.cu", LONE_SAT_256),
     "lone_comp_320": ("bus_kernels.cu", LONE_COMP_320),
+    "lone_ws_224": ("bus_kernels.cu", lone_threads("the waveshaper", 224)),
+    "lone_ws_320": ("bus_kernels.cu", lone_threads("the waveshaper", 320)),
+    "lone_fbws_224": ("bus_kernels.cu", lone_threads("the feedback waveshaper", 224)),
+    "lone_fbws_320": ("bus_kernels.cu", lone_threads("the feedback waveshaper", 320)),
     "env_staging": ("bus_kernels.cu", ENV_NO_WALK),
     "env_walk": ("bus_kernels.cu", ENV_NO_WORKERS),
     "spring_fill_drain": ("bus_kernels.cu", SPRING_NO_PARTS),
