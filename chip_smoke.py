@@ -73,6 +73,12 @@ Phases (any failure exits non-zero):
    ending inside its 64-sample chunks, the spring also at 22,050 and 96,000
    Hz, with its history 4 bytes past a 16-byte boundary and with its
    shortest lag cut to 3 samples (``spring_cases``), bit-equal;
+   ``lowpass_block`` and ``delay_block`` (each channel's walk on a warp of
+   its own, on values computed ahead) there too, the lowpass's feedback
+   across 1, its stages flushed under 1e-15 inside a chunk and +-inf in
+   x, the delay's smoothers settling inside chunks, its writes flushed, a
+   NaN tap, both ping-pong settings and an unaligned tap
+   (``walk_edge_cases``), bit-equal;
    ``kit_sources``, ``kit_drive`` and ``bus_chain``, bit-equal too, at
    their tails: ``bus_chain`` at B with one phase, twelve (two
    delays, one after the spring) and nine (two delays, the spring last),
@@ -224,7 +230,8 @@ STATE_TOL = 1e-4
 EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "kit_sources",
          "kit_drive", "bus_chain", "plate_block", "env_follow_bank", "fbws_bank", "mix_bank",
          "triangle_additive_bank", "grain_read_cubic", "saturation_block", "compressor_block",
-         "env_follower_block", "spring_block", "waveshaper_block", "fbws_fast_block")
+         "env_follower_block", "spring_block", "waveshaper_block", "fbws_fast_block",
+         "lowpass_block", "delay_block")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -278,16 +285,19 @@ OPS_PER_ROW_SAMPLE = {
 #: (bus_kernels.cu): the 4x chain's 6 of saturation_block,
 #: compressor_block (its gain smoother beside it), waveshaper_block and
 #: fbws_fast_block, lowpass_block's s2 -> s2*fb -> tanh -> *min(fb, 1) ->
-#: x - -> - s1 -> *g -> + s1 -> s1 - s2 -> *g -> + s2 and the flush's
-#: compare and select, tilt_block's SVF (ic2 -> x - ic2 -> *g -> + ic1 ->
-#: *h -> g*v1 -> + ic2 -> 2*v2 -> - ic2), delay_block's two-pole filter
+#: x - -> - s1 -> *g -> + s1 -> s1 - s2 -> *g -> + s2, the NaN compare,
+#: the flush's compare and the select, 20 instructions in the walk's SASS
+#: (cuobjdump -sass of walk_lone_kernel<LowpassLone>), tanhf 8 of them
+#: (|v|*2log2(e), ex2, + 1, rcp, 1 - 2r, the select past 9.01, the sign and
+#: the small-argument polynomial's last fma); tilt_block's SVF (ic2 -> x -
+#: ic2 -> *g -> + ic1 -> *h -> g*v1 -> + ic2 -> 2*v2 -> - ic2), delay_block's two-pole filter
 #: (a multiply, two adds), env_follower_block's compare, select, multiply,
 #: add, flush compare and select, spring_block's damping loop (multiply,
 #: add); bus_chain: its longest phase's, the phases running side by side),
 #: and the latency of one float32 operation on the card, in cycles
 CHAIN_OPS_PER_SAMPLE = {"svf_bank": 9, "ws4_bank": 6, "affine1_bank": 3, "linrec2_bank": 2,
                         "pink_bank": 3, "kit_drive": 6, "env_follow_bank": 6, "plate_block": 2,
-                        "fbws_bank": 6, "saturation_block": 6, "lowpass_block": 12,
+                        "fbws_bank": 6, "saturation_block": 6, "lowpass_block": 20,
                         "tilt_block": 8, "delay_block": 3, "env_follower_block": 6,
                         "compressor_block": 6, "spring_block": 2, "waveshaper_block": 6,
                         "fbws_fast_block": 6}
@@ -652,9 +662,13 @@ def kernel_cases(dev):
     #     spring_block there too, then the spring at 22,050 and 96,000 Hz,
     #     with its history 4 bytes past a 16-byte boundary and with its
     #     shortest lag cut to 4 and 3 samples
+    #     lowpass_block and delay_block (each channel's walk on a warp of its
+    #     own) there too: the lowpass's feedback across 1, its stages
+    #     flushed, +-inf in x; the delay's smoothers settling, its writes
+    #     flushed, a NaN tap, both ping-pong settings, an unaligned tap
     for b in LONE_BLOCKS:
         for name, label, args, kw in lone_edge_cases(dev, b):
-            cases.append((name, label, args, kw, 1))
+            cases.append((name, label, args, kw, 2 if name == "delay_block" else 1))
     for label, args, kw in spring_cases(dev):
         cases.append(("spring_block", label, args, kw, 1))
     #     kit_sources and kit_drive at the same kits (kit_drive: a block a
@@ -1317,7 +1331,65 @@ def lone_edge_cases(dev, b, seed=SEED):
              {}),
             ("spring_block", spring_label(spring, spring_kw), spring, spring_kw)] + [
                 (name, label, args, {})
-                for name, label, args in waveshaper_edge_cases(t, b, x, bursts, state)]
+                for name, label, args in waveshaper_edge_cases(t, b, x, bursts, state)] + (
+                    walk_edge_cases(t, b, rs, coeff))
+
+
+def walk_edge_cases(t, b, rs, coeff):
+    """``[(name, label, args, kwargs)]`` of ``lowpass_block`` and
+    ``delay_block`` at ``[2, b]`` on carried states drawn from ``rs`` (``t``:
+    numpy to a device tensor), their edges at :func:`lone_edges` (inside the
+    lone walk's chunks of 32, 64 and 128 samples).  The lowpass: a burst
+    that falls silent at the first edge, the left channel's feedback rising
+    0.4 -> 1.6 across 1 (the ``min`` clip) at g 0.5, the right one's at 0
+    at g 0.9 (the effect's clip), so that both stages flush under 1e-15
+    inside a chunk; then +inf (left) and -inf (right) at the edges, feedback
+    1.5 and 0, which reset the filter a sample later.  The delay, with and
+    without ping-pong: each channel's feedback and mix settling (the 1e-4
+    snap) at the edges, the left cutoff sweeping 3-8 kHz, the right one
+    settling at 20 Hz (inside a chunk: at 20 Hz its float32 steps are
+    ~1e-6); the taps (and the right channel's x) at 1e-16-2e-15
+    up to the first edge, so that the writes fall under the 1e-15 flush; a
+    NaN tap (left) at the second edge, after which the left output falls
+    back to x and its writes (the right ones' under ping-pong) to 0; then
+    with the tap a view 4 bytes past a 16-byte boundary (4-byte copies)."""
+    left, right = lone_edges(b)
+    first, second = min(left, right), max(left, right)
+    shape = f"[2, {b}]"
+    x = rs.uniform(-0.9, 0.9, (2, b))
+    burst = x.copy()
+    burst[:, first:] = 0.0
+    fb = np.stack([np.minimum(np.linspace(0.4, 1.6 * b / first, b), 1.6), np.zeros(b)])
+    g = np.stack([np.full(b, 0.5), np.full(b, 0.9)])
+    x_inf = x.copy()
+    x_inf[0, left], x_inf[1, right] = np.inf, -np.inf
+    cases = [
+        ("lowpass_block", f"{shape}, a burst silent from sample {first}, feedback across 1 "
+         "(left) and 0 at g 0.9 (right): both stages flushed",
+         (t(burst), t(g), t(fb), t(0.1 * rs.randn(2, 2))), {}),
+        ("lowpass_block", f"{shape}, inf at sample {left} (left), -inf at {right} (right)",
+         (t(x_inf), t(g), t([[1.5] * b, [0.0] * b]), t(0.1 * rs.randn(2, 2))), {}),
+    ]
+    logq = np.log(1.0 - coeff)
+    snap = lambda n: 1e-4 * np.exp(-logq * (n + 0.5))   # |cur - tgt| snapping at n
+    tgt = np.asarray([[0.6, 0.5, 8000.0], [0.45, 0.7, 20.0]], np.float32)
+    cur = tgt + np.asarray([[snap(left), -snap(right), -5000.0],
+                            [-snap(right), snap(left), snap(left)]])
+    xd = x.copy()
+    xd[1, :first] = 2e-15 * rs.uniform(-1.0, 1.0, first)
+    tap = 0.5 * rs.uniform(-1.0, 1.0, (2, b))
+    tap[:, :first] = 1e-16 * rs.uniform(-1.0, 1.0, (2, first))
+    tap[0, second] = np.nan
+    z = [[1e-17, -2e-17], [2e-17, 1e-17]]
+    args = (t(xd), t(tap), t(cur), t(tgt), t(z))
+    label = (f"{shape}, feedback and mix settling at samples {left} and {right}, the right "
+             f"cutoff at 20 Hz, writes flushed before {first}, a NaN tap (left) at {second}")
+    for pingpong in (False, True):
+        kw = dict(coeff=coeff, sample_rate=SR, pingpong=pingpong)
+        cases.append(("delay_block", f"{label}, pingpong={pingpong}", args, kw))
+    cases.append(("delay_block", f"{label}, the tap unaligned",
+                  args[:1] + unaligned(args[1:2]) + args[2:], dict(kw, pingpong=False)))
+    return cases
 
 
 #: the feedback filter's coefficients of the feedback waveshaper's edge cases

@@ -31,14 +31,15 @@
 // channels meet only in the delay's ping-pong write (each channel's write
 // takes the other channel's filtered tap at the same sample): the delay
 // stages its filtered taps in shared memory and the two lanes meet at a
-// __syncwarp.  An effect's own kernel is one warp walking its block in
-// 32-sample spans (the lowpass, the tilt and the delay), except the lone 4x
+// __syncwarp.  The lone tilt is one warp walking its block in 32-sample
+// spans (bus_block_kernel).  The other effects' own kernels: the lone 4x
 // effects, the saturation, compressor, waveshaper and feedback waveshaper
 // (bus4x_split_kernel, below): their chain's stages walk on warps of their
-// own, a polyphase branch a lane, chunks pipelined a step apart; and the
-// lone detector and spring (env_lone_kernel, spring_lone_kernel, below):
-// each channel's walk on a warp of its own, the per-sample work and the
-// copies on the rest of the block.
+// own, a polyphase branch a lane, chunks pipelined a step apart; the lone
+// detector and spring (env_lone_kernel, spring_lone_kernel, below) and the
+// lone lowpass and delay (walk_lone_kernel, below): each channel's walk on
+// a warp of its own, the per-sample work and the copies on the rest of the
+// block.
 //
 // The spring's twelve allpass delay lines (six a channel, lags 127-797 at
 // 44.1 kHz) live in shared memory as rings of the history's length D, one
@@ -336,11 +337,15 @@ struct SaturationRow : RowBase {
 
 // --- 2. lowpass: Moog-style 2-pole LP with tanh'd resonance ------------------
 
-// One sample of the nonlinear recurrence (lowpass_filter.rs); returns the
-// raw stage-2 value, whose tanh is the effect's output.
-__device__ __forceinline__ float lowpass_step(float& s1, float& s2, float xn, float gn,
-                                              float fbn) {
-  const float infb = xn - tanhf(s2 * fbn) * fminf(fbn, 1.0f);
+// One sample of the nonlinear recurrence (lowpass_filter.rs) on the
+// feedback fbn and its clip mn = min(fbn, 1), which a walk takes computed
+// ahead; returns the raw stage-2 value, whose tanh is the effect's output.
+// (The flushes and the NaN reset as one select give the same bits and a
+// lone walk ~0.8 us faster, but bus_chain's one-warp lowpass row slower;
+// PERF.md.)
+__device__ __forceinline__ float lowpass_step(float& s1, float& s2, float xn, float gn, float fbn,
+                                              float mn) {
+  const float infb = xn - tanhf(s2 * fbn) * mn;
   s1 = s1 + gn * (infb - s1);
   s2 = s2 + gn * (s1 - s2);
   if (fabsf(s1) < kDenormal) s1 = 0.0f;
@@ -367,7 +372,7 @@ struct LowpassRow : RowBase {
     const size_t row = static_cast<size_t>(c) * B;
     for (int n = n0; n < n1; ++n) {
       const size_t i = row + n;
-      y[i] = tanhf(lowpass_step(s1, s2, x[i], g[i], fb[i]));
+      y[i] = tanhf(lowpass_step(s1, s2, x[i], g[i], fb[i], fminf(fb[i], 1.0f)));
     }
   }
   __device__ __forceinline__ void end(const Phase& p, int c, int) {
@@ -465,9 +470,15 @@ constexpr float kDelayRes = 0.3f;  // FILTER_RESONANCE (delay.rs)
 
 // One sample of the darkening two-pole low-pass on the gathered tap
 // (delay.rs:370-384), in the affine form the Pallas body scans:
-// z' = A z + b with the old state on both rows.  Returns the filtered tap.
-__device__ __forceinline__ float delay_filter_step(float& z1, float& z2, float tap,
-                                                   float cut, float gk) {
+// z' = A z + b with the old state on both rows.  Split for a walk: the
+// coefficients of a sample (delay_coefs: the cutoff's g, A and b), which do
+// not depend on the state, then the affine step (delay_affine), which
+// returns the filtered tap.
+struct DelayCoefs {
+  float a11, a12, b1, a21, a22, b2;
+};
+
+__device__ __forceinline__ DelayCoefs delay_coefs(float tap, float cut, float gk) {
   const float g = 1.0f - expf(gk * cut);
   const float a11 = 1.0f - g + g * kDelayRes;
   const float a12 = -g * kDelayRes;
@@ -475,8 +486,12 @@ __device__ __forceinline__ float delay_filter_step(float& z1, float& z2, float t
   const float a21 = g * a11;
   const float a22 = (1.0f - g) + g * a12;
   const float b2 = g * b1;
-  const float n1 = a11 * z1 + a12 * z2 + b1;
-  const float n2 = a21 * z1 + a22 * z2 + b2;
+  return DelayCoefs{a11, a12, b1, a21, a22, b2};
+}
+
+__device__ __forceinline__ float delay_affine(float& z1, float& z2, const DelayCoefs& k) {
+  const float n1 = k.a11 * z1 + k.a12 * z2 + k.b1;
+  const float n2 = k.a21 * z1 + k.a22 * z2 + k.b2;
   z1 = n1;
   z2 = n2;
   return n2;
@@ -517,7 +532,8 @@ struct DelayRow : RowBase {
     const size_t row = static_cast<size_t>(c) * B;
     for (int n = n0; n < n1; ++n) {
       const float mix = traj(cm, tm, logq, n);
-      const float filt = delay_filter_step(z1, z2, tap[row + n], traj(cc, tc, logq, n), gk);
+      const float filt =
+          delay_affine(z1, z2, delay_coefs(tap[row + n], traj(cc, tc, logq, n), gk));
       const float xn = x[row + n];
       stage[row + n] = filt;
       // the injection; with ping-pong the dry signal feeds the left channel
@@ -1973,6 +1989,337 @@ __global__ void __launch_bounds__(kSpringThreads)
   }
 }
 
+// --- the lone walks: lowpass_block and delay_block ----------------------------
+//
+// walk_lone_kernel<Body>: a lone effect whose serial work is one short
+// recurrence a channel, laid out as env_lone_kernel: Body::kThreads
+// threads, the block in chunks of Body::kChunk samples a step apart.  At
+// step j, lane 0 of warp c walks chunk j of channel c (Body::step, the
+// carried state in registers), four samples at a time, each group's values
+// loaded from shared memory a group ahead, and writes its outputs to a tile;
+// the other warps (the workers) copy chunk j+3's inputs into a ring slot
+// with cp.async (16 bytes a copy where B % 4 == 0 and every array the
+// kernel reads or writes is 16-byte aligned, else 4), compute chunk j+1's
+// values that do not depend on the carried state into the same slot
+// (Body::prep), and finish chunk j-1 from its slot and the walks' tile
+// (Body::finish: what a sample's outputs take besides the walk, which may
+// read the other channel's walk), storing them coalesced.  One barrier a
+// step, n_chunks + 1 steps.  A slot lives from its copy (step j-3) to its
+// finish (step j+1): a ring of kWalkRing.  Every per-channel operation
+// keeps the plain version's order, so the kernel gives the one-warp
+// kernel's bits.  What bounds it on the card is the walk: the lowpass's
+// dependent chain is 20 instructions a sample (tanhf 8 of them, two on the
+// ex2 and rcp unit), ~120 cycles; the delay's is three, and its step's
+// fixed cost (the barrier, the workers' four expf a sample) weighs as much
+// as its walk.
+//
+// A body: kIn inputs copied in (source(a, x)) and kVals values computed
+// ahead, arrays of a slot; the walk reads kWalkN of them from kWalkFirst on
+// and writes kOuts arrays of the tile; finish writes kRes outputs
+// (dest(r, y)).  A sample's element e points into array 0 of its channel,
+// array a at e[a * kArr]; a tile element o into channel 0's first output,
+// channel c's output m at o[c * pitch + m * kArr].
+//
+//   LowpassLone: x, g, fb in; min(fb, 1) ahead; the walk (lowpass_step:
+//     the feedback's tanh, two one-poles, the flush and NaN reset) keeps the
+//     raw stage-2 value; the finish takes its tanh.
+//   DelayLone: x and the gathered tap in; the feedback, mix and cutoff
+//     trajectories and the filter's coefficients (delay_coefs) ahead; the
+//     walk steps the affine two-pole (delay_affine) and keeps the filtered
+//     tap; the finish mixes it and forms the ring write from the partner
+//     channel's filtered tap under ping-pong.
+
+// Whether every pointer is 16-byte aligned.
+__host__ inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* q : ptrs) {
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  }
+  return true;
+}
+
+constexpr int kWalkWalkers = 64;   // warps 0 and 1: lane 0 of each walks a channel
+constexpr int kWalkAhead = 3;      // chunks copied ahead of the walk
+constexpr int kWalkRing = kWalkAhead + 2;
+
+__host__ __device__ __forceinline__ constexpr int walk_pitch(int chunk) { return chunk + 4; }
+__host__ __device__ __forceinline__ constexpr int walk_arr(int chunk) {
+  return 2 * walk_pitch(chunk);
+}
+
+struct LowpassLone {
+  static constexpr int kThreads = 160;   // the lowpass: three worker warps (by probe)
+  static constexpr int kChunk = 128;     // the lowpass's chunk (by probe)
+  static constexpr int kIn = 3;          // x, g, fb
+  static constexpr int kVals = 1;        // min(fb, 1)
+  static constexpr int kWalkFirst = 0, kWalkN = 4;
+  static constexpr int kOuts = 1;        // the raw stage-2 value
+  static constexpr int kRes = 1;         // y
+  static constexpr int kArr = walk_arr(kChunk);
+  const Phase& p;
+  float s1, s2;
+  __host__ static bool aligned(const float* x, const float* y, const Phase& p) {
+    return aligned16({x, y, p.in[0], p.in[1]});
+  }
+  __device__ __forceinline__ const float* source(int a, const float* x) const {
+    return a == 0 ? x : p.in[a - 1];
+  }
+  __device__ __forceinline__ float* dest(int, float* y) const { return y; }
+  __device__ __forceinline__ void begin(int c) {
+    s1 = p.in[2][2 * c];
+    s2 = p.in[2][2 * c + 1];
+  }
+  __device__ __forceinline__ void prep(int, int, float* e) const {
+    e[3 * kArr] = fminf(e[2 * kArr], 1.0f);
+  }
+  __device__ __forceinline__ void step(const float (&v)[kWalkN], float (&o)[kOuts]) {
+    o[0] = lowpass_step(s1, s2, v[0], v[1], v[2], v[3]);
+  }
+  __device__ __forceinline__ void finish(const float*, const float* o, int c,
+                                         float (&r)[kRes]) const {
+    r[0] = tanhf(o[c * walk_pitch(kChunk)]);
+  }
+  __device__ __forceinline__ void end(int c, int) const {
+    p.out[0][2 * c] = s1;
+    p.out[0][2 * c + 1] = s2;
+  }
+};
+
+struct DelayLone {
+  static constexpr int kThreads = 128;   // the delay: two worker warps (by probe)
+  static constexpr int kChunk = 64;      // the delay's chunk (by probe)
+  static constexpr int kIn = 2;          // x, the tap
+  static constexpr int kVals = 8;        // feedback, mix, a11, a12, b1, a21, a22, b2
+  static constexpr int kWalkFirst = 4, kWalkN = 6;
+  static constexpr int kOuts = 1;        // the filtered tap
+  static constexpr int kRes = 2;         // y, the ring write
+  static constexpr int kArr = walk_arr(kChunk);
+  const Phase& p;
+  float z1, z2;
+  __host__ static bool aligned(const float* x, const float* y, const Phase& p) {
+    return aligned16({x, y, p.in[0], p.out[0]});
+  }
+  __device__ __forceinline__ const float* source(int a, const float* x) const {
+    return a == 0 ? x : p.in[0];
+  }
+  __device__ __forceinline__ float* dest(int r, float* y) const { return r == 0 ? y : p.out[0]; }
+  __device__ __forceinline__ void begin(int c) {
+    z1 = p.in[3][2 * c];
+    z2 = p.in[3][2 * c + 1];
+  }
+  __device__ __forceinline__ void prep(int c, int n, float* e) const {
+    const float* cur = p.in[1] + 3 * c;
+    const float* tgt = p.in[2] + 3 * c;
+    const float logq = p.f[0];
+    e[2 * kArr] = traj(cur[0], tgt[0], logq, n);
+    e[3 * kArr] = traj(cur[1], tgt[1], logq, n);
+    const DelayCoefs k = delay_coefs(e[kArr], traj(cur[2], tgt[2], logq, n), p.f[1]);
+    e[4 * kArr] = k.a11;
+    e[5 * kArr] = k.a12;
+    e[6 * kArr] = k.b1;
+    e[7 * kArr] = k.a21;
+    e[8 * kArr] = k.a22;
+    e[9 * kArr] = k.b2;
+  }
+  __device__ __forceinline__ void step(const float (&v)[kWalkN], float (&o)[kOuts]) {
+    o[0] = delay_affine(z1, z2, DelayCoefs{v[0], v[1], v[2], v[3], v[4], v[5]});
+  }
+  // y = the mix, x where it is not finite; the write: the injection (with
+  // ping-pong the dry signal feeds the left channel only, delay.rs:460-491)
+  // plus the partner's filtered tap (its own without ping-pong) times the
+  // feedback
+  __device__ __forceinline__ void finish(const float* e, const float* o, int c,
+                                         float (&r)[kRes]) const {
+    constexpr int P = walk_pitch(kChunk);
+    const bool pingpong = p.flag != 0;
+    const float xn = e[0], mix = e[3 * kArr];
+    const float out = xn * (1.0f - mix) + o[c * P] * mix;
+    r[0] = isfinite(out) ? out : xn;
+    r[1] = delay_write((pingpong && c == 1) ? 0.0f : xn, o[(pingpong ? 1 - c : c) * P],
+                       e[2 * kArr]);
+  }
+  __device__ __forceinline__ void end(int c, int B) const {
+    const float* cur = p.in[1] + 3 * c;
+    const float* tgt = p.in[2] + 3 * c;
+    const float logq = p.f[0];
+    float* st_out = p.out[1];
+    st_out[5 * c + 0] = z1;
+    st_out[5 * c + 1] = z2;
+    st_out[5 * c + 2] = traj(cur[0], tgt[0], logq, B - 1);
+    st_out[5 * c + 3] = traj(cur[1], tgt[1], logq, B - 1);
+    st_out[5 * c + 4] = traj(cur[2], tgt[2], logq, B - 1);
+  }
+};
+
+// A lone walk's shared memory: the ring of chunks' inputs and values
+// ([kWalkRing][kIn + kVals][2 ch][pitch]) and the walks' output tiles
+// ([2][kOuts][2 ch][pitch]), chunks alternating.
+template <class Body>
+struct WalkTiles {
+  static constexpr int C = Body::kChunk, kArr = Body::kArr;
+  static constexpr int kSlot = (Body::kIn + Body::kVals) * kArr;
+  static constexpr int kOut = kWalkRing * kSlot;
+  static constexpr int kFloats = kOut + 2 * Body::kOuts * kArr;
+  float* smem;
+  int B, n_chunks;
+  __device__ WalkTiles(float* smem_, int B_) : smem(smem_), B(B_), n_chunks((B_ + C - 1) / C) {}
+  __device__ int len(int j) const { return min(C, B - j * C); }
+  __device__ float* slot(int j) const { return smem + (j % kWalkRing) * kSlot; }
+  __device__ float* out(int j) const { return smem + kOut + (j & 1) * Body::kOuts * kArr; }
+};
+
+__device__ __forceinline__ float lane_of(const float4& q, int k) {
+  return k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+}
+
+// Lane 0 of warp c: channel c's walk through a chunk of len samples (e: its
+// slot's channel-c element 0; o: its tile's), four samples at a time, each
+// group's values loaded a group ahead, before the group ahead of them stores
+// its outputs (the compiler does not move a shared load past a shared
+// store).  A load past the chunk stays inside the slot and is not used.
+template <class Body>
+__device__ __forceinline__ void walk_lone_chunk(Body& body, const float* e, float* o, int len) {
+  constexpr int N = Body::kWalkN, M = Body::kOuts, A = Body::kArr;
+  const float* v = e + Body::kWalkFirst * A;
+  float4 q[N];
+#pragma unroll
+  for (int a = 0; a < N; ++a) q[a] = ld4(v + a * A);
+  const auto group = [&](int i) {
+    float4 next[N];
+#pragma unroll
+    for (int a = 0; a < N; ++a) next[a] = ld4(v + a * A + i + 4);
+    float r[M][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float s[N], out[M];
+#pragma unroll
+      for (int a = 0; a < N; ++a) s[a] = lane_of(q[a], k);
+      body.step(s, out);
+#pragma unroll
+      for (int m = 0; m < M; ++m) r[m][k] = out[m];
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) st4(o + m * A + i, make_float4(r[m][0], r[m][1], r[m][2], r[m][3]));
+#pragma unroll
+    for (int a = 0; a < N; ++a) q[a] = next[a];
+  };
+  if (len == Body::kChunk) {
+#pragma unroll
+    for (int i = 0; i < Body::kChunk; i += 4) group(i);
+  } else {
+    int i = 0;
+    for (; i + 4 <= len; i += 4) group(i);
+    for (; i < len; ++i) {
+      float s[N], out[M];
+#pragma unroll
+      for (int a = 0; a < N; ++a) s[a] = v[a * A + i];
+      body.step(s, out);
+#pragma unroll
+      for (int m = 0; m < M; ++m) o[m * A + i] = out[m];
+    }
+  }
+}
+
+template <class Body>
+__global__ void __launch_bounds__(Body::kThreads)
+    walk_lone_kernel(const float* __restrict__ x, float* __restrict__ y, Phase p, int B, int vec) {
+  extern __shared__ float4 walk_smem4[];
+  const WalkTiles<Body> t(reinterpret_cast<float*>(walk_smem4), B);
+  constexpr int P = walk_pitch(Body::kChunk), A = Body::kArr;
+  const int tid = threadIdx.x;
+  const int n_chunks = t.n_chunks;
+  Body body{p};
+  if (tid < kWalkWalkers) {
+    const int c = tid >> 5;
+    const bool walker = (tid & 31) == 0;
+    if (walker) body.begin(c);
+    step_barrier();   // chunk 0's inputs landed
+    for (int j = 0; j <= n_chunks; ++j) {
+      step_barrier();   // chunk j's values ready; walk j-1 finished
+      if (walker && j < n_chunks) walk_lone_chunk(body, t.slot(j) + c * P, t.out(j) + c * P, t.len(j));
+    }
+    if (walker) body.end(c, B);
+    return;
+  }
+  // the workers
+  constexpr int kWorkers = Body::kThreads - kWalkWalkers;
+  const int w = tid - kWalkWalkers;
+  const int width = vec ? 4 : 1;
+  const auto copy_in = [&](int j) {
+    if (j < n_chunks) {
+      const int n0 = j * Body::kChunk, units = vec ? t.len(j) >> 2 : t.len(j);
+#pragma unroll
+      for (int a = 0; a < Body::kIn; ++a) {
+        const float* src = body.source(a, x);
+        for (int u = w; u < 2 * units; u += kWorkers) {
+          int ch, i;
+          both_channels(u, units, ch, i);
+          float* d = t.slot(j) + a * A + ch * P + width * i;
+          const float* g = src + static_cast<size_t>(ch) * B + n0 + width * i;
+          if (vec) {
+            cp_async16(d, g);
+          } else {
+            cp_async4(d, g);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  const auto prep = [&](int j) {
+    if (j >= n_chunks) return;
+    const int n0 = j * Body::kChunk, l = t.len(j);
+    float* e = t.slot(j);
+    for (int u = w; u < 2 * l; u += kWorkers) {
+      int ch, i;
+      both_channels(u, l, ch, i);
+      body.prep(ch, n0 + i, e + ch * P + i);
+    }
+  };
+  // chunk j's outputs, a sample (four where the copies take 16 bytes) a
+  // worker at a time, stored coalesced
+  const auto finish = [&](int j) {
+    constexpr int R = Body::kRes;
+    const int n0 = j * Body::kChunk, units = vec ? t.len(j) >> 2 : t.len(j);
+    const float* e = t.slot(j);
+    const float* o = t.out(j);
+    for (int u = w; u < 2 * units; u += kWorkers) {
+      int ch, i;
+      both_channels(u, units, ch, i);
+      const size_t at = static_cast<size_t>(ch) * B + n0 + width * i;
+      if (vec) {
+        float r[R][4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float s[R];
+          body.finish(e + ch * P + 4 * i + k, o + 4 * i + k, ch, s);
+#pragma unroll
+          for (int m = 0; m < R; ++m) r[m][k] = s[m];
+        }
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          st4(body.dest(m, y) + at, make_float4(r[m][0], r[m][1], r[m][2], r[m][3]));
+        }
+      } else {
+        float s[R];
+        body.finish(e + ch * P + i, o + i, ch, s);
+#pragma unroll
+        for (int m = 0; m < R; ++m) body.dest(m, y)[at] = s[m];
+      }
+    }
+  };
+  for (int j = 0; j < kWalkAhead; ++j) copy_in(j);
+  cp_async_wait<kWalkAhead - 1>();   // chunk 0 has landed (this worker's part)
+  step_barrier();
+  prep(0);
+  for (int j = 0; j <= n_chunks; ++j) {
+    cp_async_wait<kWalkAhead - 2>();   // chunk j+1 has landed (this worker's part)
+    step_barrier();   // ... all of it; chunk j's values ready; walk j-1 done
+    copy_in(j + kWalkAhead);
+    prep(j + 1);
+    if (j > 0) finish(j - 1);
+  }
+}
+
 // bus_chain: phase i on warp i (lanes 0 and 1 the channels), the [2, B]
 // signal in shared memory, threaded in place.  The block is cut into chunks
 // of kChainChunk samples; at step s warp i runs chunk s - i, so phase i
@@ -2098,14 +2445,6 @@ cudaError_t launch_block(const float* x, float* y, const Phase& p, const float* 
   return cudaGetLastError();
 }
 
-// Whether every pointer is 16-byte aligned.
-__host__ inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* q : ptrs) {
-    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
-  }
-  return true;
-}
-
 // A lone detector: 16-byte copies where B % 4 == 0 and every array is
 // 16-byte aligned (bank_kernels.copies_16b's test).
 cudaError_t launch_env(const float* x, float* y, const Phase& p, int B, cudaStream_t s) {
@@ -2114,6 +2453,18 @@ cudaError_t launch_env(const float* x, float* y, const Phase& p, int B, cudaStre
   const cudaError_t err = allow_smem(env_lone_kernel, smem);
   if (err != cudaSuccess) return err;
   env_lone_kernel<<<1, kEnvThreads, smem, s>>>(x, y, p, B, vec);
+  return cudaGetLastError();
+}
+
+// A lone lowpass or delay: 16-byte copies where B % 4 == 0 and every array
+// the kernel reads or writes is 16-byte aligned.
+template <class Body>
+cudaError_t launch_walk(const float* x, float* y, const Phase& p, int B, cudaStream_t s) {
+  const int vec = B % 4 == 0 && Body::aligned(x, y, p);
+  constexpr size_t smem = WalkTiles<Body>::kFloats * sizeof(float);
+  const cudaError_t err = allow_smem(walk_lone_kernel<Body>, smem);
+  if (err != cudaSuccess) return err;
+  walk_lone_kernel<Body><<<1, Body::kThreads, smem, s>>>(x, y, p, B, vec);
   return cudaGetLastError();
 }
 
@@ -2154,11 +2505,11 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
     case kSaturation:
       return static_cast<int>(launch_lone<SatLone>(x, y, p, coefs, B, s));
     case kLowpass:
-      return static_cast<int>(launch_block<LowpassRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_walk<LowpassLone>(x, y, p, B, s));
     case kTilt:
       return static_cast<int>(launch_block<TiltRow>(x, y, p, coefs, B, s));
     case kDelay:
-      return static_cast<int>(launch_block<DelayRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_walk<DelayLone>(x, y, p, B, s));
     case kEnv:
       return static_cast<int>(launch_env(x, y, p, B, s));
     case kCompressor:

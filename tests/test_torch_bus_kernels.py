@@ -10,9 +10,10 @@ log-depth scans and the plain versions step them sample by sample, so the two
 agree at float-noise level.
 
 Bounds: output <= 2e-5, every state leaf <= 1e-4.  Measured with these
-inputs on the CPU: saturation 4.8e-7 output / 6.4e-7 state, lowpass 2.4e-7 /
-3e-8, tilt 2.4e-7 / 1.6e-7, delay 6e-8 (output and write) / 3e-8, both
-ping-pong settings; env follower 2.4e-7 / 2.4e-7, compressor 3.1e-7 / 3.2e-8,
+inputs on the CPU: saturation 4.8e-7 output / 6.4e-7 state, lowpass 1.5e-7 /
+6e-8, tilt 2.4e-7 / 1.6e-7, delay 6e-8 (output and write) / 4.5e-8, both
+ping-pong settings (the lowpass and the delay at B = 256, 100 and 33, two
+blocks each); env follower 2.4e-7 / 2.4e-7, compressor 3.1e-7 / 3.2e-8,
 spring 6e-8 / 1.2e-7 (history), plate 8.9e-8 (branch outputs and damping
 filters) / 1.2e-7 (histories); waveshaper 5.1e-7 / 7.2e-7, feedback
 waveshaper 7.2e-7 / 2.3e-5 (B = 256, 100 and 33).
@@ -116,19 +117,30 @@ def test_saturation_block_matches_pallas(B):
         assert worst <= STATE_TOL, f"block {i}: {worst} at {where}"
 
 
-def test_lowpass_block_matches_pallas():
-    """Resonant settings (fb up to 3.3) over a loud input, two blocks."""
+@pytest.mark.parametrize("B", [256, 100, 33])
+def test_lowpass_block_matches_pallas(B):
+    """Two blocks from a carried state, over a loud input that falls silent
+    after a burst in the second: feedback up to 3.3 (resonance above 1, the
+    min(fb, 1) clip engaged) on the left, g up to the effect's 0.9 clip; the
+    right channel at feedback 0 and g 0.9 in the silence, so that both
+    stages flush under 1e-15."""
     rs = np.random.RandomState(15)
     st_j = np.asarray([[0.1, -0.2], [0.05, 0.3]], np.float32)
     st_t = _t(st_j)
+    quiet = B // 3
     for i in range(2):
         x = rs.uniform(-0.9, 0.9, (2, B)).astype(np.float32)
         g = rs.uniform(0.2, 0.9, (2, B)).astype(np.float32)
         fb = rs.uniform(0.0, 3.3, (2, B)).astype(np.float32)
+        if i == 1:
+            x[:, quiet:] = 0.0
+            g[1, quiet:], fb[1, quiet:] = 0.9, 0.0
         jout, st_j = pallas_fx.lowpass_block(jnp.asarray(x), g, fb, st_j)
         tout, st_t = bus.lowpass_block_plain(_t(x), _t(g), _t(fb), st_t)
+        assert np.abs(np.asarray(jout)).max() > 0.5
         assert _err(jout, tout) <= OUT_TOL, i
         assert _err(st_j, st_t) <= STATE_TOL, i
+    assert (tout[1, -3:] == 0.0).all() and (st_t[1] == 0.0).all()
 
 
 @pytest.mark.parametrize("cur,tgt", [((0.25, 0.3), (0.75, 0.6)),
@@ -149,24 +161,52 @@ def test_tilt_block_matches_pallas(cur, tgt):
     assert _err(jnst, tnst) <= STATE_TOL
 
 
+def _settling(tgt, cur, at):
+    """Smoother currents (float32) off their targets ``tgt`` by the
+    distance whose trajectory ``tgt + snap((cur - tgt) * q^(n+1))`` snaps
+    to the target (1e-4) at sample ``at``, on the side of ``cur``, or
+    ``cur`` where ``at`` is None (still moving at the block's end)."""
+    tgt = np.asarray(tgt, np.float32)
+    d = 1e-4 * np.exp(-np.log(1.0 - COEFF) * (np.asarray(at, np.float64) + 0.5))
+    out = tgt + np.where(np.asarray(cur) > tgt, d, -d)
+    return np.where(np.isnan(np.asarray(at, np.float64)), cur, out).astype(np.float32)
+
+
+@pytest.mark.parametrize("B", [256, 100, 33])
 @pytest.mark.parametrize("pingpong", [False, True])
-def test_delay_block_matches_pallas(pingpong):
-    """A pre-gathered tap, feedback/mix/cutoff moving, both channels."""
+def test_delay_block_matches_pallas(pingpong, B):
+    """A pre-gathered tap, two blocks with carried filter and smoother
+    state: in the first, feedback and mix settle (the 1e-4 snap) inside the
+    block, each channel at its own sample, while the cutoff sweeps; in the
+    second the cutoff turns and sweeps down."""
     rs = np.random.RandomState(13)
-    x = rs.uniform(-0.8, 0.8, (2, B)).astype(np.float32)
-    delayed = rs.uniform(-0.5, 0.5, (2, B)).astype(np.float32)
-    cur = np.asarray([[0.6, 0.8, 4000.0], [0.5, 0.7, 3000.0]], np.float32)
     tgt = np.asarray([[0.3, 0.5, 12000.0], [0.3, 0.5, 12000.0]], np.float32)
+    nan = float("nan")
+    at = [[B // 2 + 3, B // 3, nan], [B // 4 + 1, 2 * B // 3, nan]]
+    cur_j = _settling(tgt, [[0.6, 0.8, 4000.0], [0.1, 0.2, 3000.0]], at)
+    fb_t, mix_t, _ = bus._trajectories(_t(cur_j), _t(tgt), COEFF, B)
+    for row, (fa, ma) in zip(range(2), ((at[0][0], at[0][1]), (at[1][0], at[1][1]))):
+        assert int(np.argmax(fb_t[row].numpy() == tgt[row, 0])) == fa
+        assert int(np.argmax(mix_t[row].numpy() == tgt[row, 1])) == ma
     z = np.asarray([[0.1, 0.05], [-0.2, -0.1]], np.float32)
-    st = np.concatenate([z, np.zeros((2, 3), np.float32)], axis=-1)
-    jout, jwrite, jnst = pallas_fx.delay_block(
-        jnp.asarray(x), delayed, cur, tgt, st, coeff=COEFF, sample_rate=SR, pingpong=pingpong)
-    tout, twrite, tnst = bus.delay_block_plain(
-        _t(x), _t(delayed), _t(cur), _t(tgt), _t(z), coeff=COEFF, sample_rate=SR,
-        pingpong=pingpong)
-    assert _err(jout, tout) <= OUT_TOL
-    assert _err(jwrite, twrite) <= OUT_TOL
-    assert _err(jnst, tnst) <= STATE_TOL
+    st_j = np.concatenate([z, np.zeros((2, 3), np.float32)], axis=-1)
+    cur_t, z_t = _t(cur_j), _t(z)
+    for i in range(2):
+        x = rs.uniform(-0.8, 0.8, (2, B)).astype(np.float32)
+        delayed = rs.uniform(-0.5, 0.5, (2, B)).astype(np.float32)
+        jout, jwrite, jnst = pallas_fx.delay_block(
+            jnp.asarray(x), delayed, cur_j, tgt, st_j, coeff=COEFF, sample_rate=SR,
+            pingpong=pingpong)
+        tout, twrite, tnst = bus.delay_block_plain(
+            _t(x), _t(delayed), cur_t, _t(tgt), z_t, coeff=COEFF, sample_rate=SR,
+            pingpong=pingpong)
+        assert _err(jout, tout) <= OUT_TOL, i
+        assert _err(jwrite, twrite) <= OUT_TOL, i
+        assert _err(jnst, tnst) <= STATE_TOL, i
+        st_j, cur_j = np.asarray(jnst), np.asarray(jnst)[:, 2:]
+        z_t, cur_t = tnst[:, :2].contiguous(), tnst[:, 2:].contiguous()
+        tgt = tgt.copy()
+        tgt[:, 2] = 2000.0
 
 
 def _bursts(rs, n, level=1.5):

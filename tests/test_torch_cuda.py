@@ -973,6 +973,35 @@ def test_lone_4x_kernels_are_bit_equal_to_their_plain_versions(dev, name, B):
         assert _bits_equal(run, turn), label
 
 
+@pytest.mark.parametrize("B", [512, 100, 33])
+@pytest.mark.parametrize("name", ["lowpass_block", "delay_block"])
+def test_lone_walk_kernels_are_bit_equal_to_their_plain_versions(dev, name, B):
+    """lowpass_block and delay_block (each channel's walk on a warp of its
+    own, on values computed ahead) give their plain versions bit for bit,
+    with B not a multiple of the chunk: the bus cases, the lowpass's
+    feedback across 1, its stages flushed under 1e-15 inside a chunk and
+    +-inf in x, the delay's smoothers settling inside chunks, its writes
+    flushed, a NaN tap (a NaN agreeing by its bits), both ping-pong
+    settings and an unaligned tap (4-byte copies); a bus_chain run of each
+    gives the kernel."""
+    import chip_smoke
+
+    singles, _ = chip_smoke.bus_cases(dev, np.random.RandomState(B), B)
+    cases = [c for c in chip_smoke.lone_edge_cases(dev, B) if c[0] == name]
+    cases += [(n, label, a, kw) for n, label, a, kw, _ in singles if n == name]
+    assert len(cases) == (3 if name == "lowpass_block" else 5)
+    for case, label, args, kw in cases:
+        got = getattr(bus, name)(*args, **kw)
+        want = getattr(bus, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want), label
+        assert float(got[0].abs().max()) > 0.1, label
+        run = bus.bus_chain(args[0], [bus.Phase(name, args[1:], kw)])
+        turn = bus.run_phases(args[0], [bus.Phase(name, args[1:], kw)])
+        torch.cuda.synchronize()
+        assert _bits_equal(run, turn), label
+
+
 @pytest.mark.parametrize("case", ["512", "100", "33", "22050_Hz", "96000_Hz", "unaligned",
                                   "parts_of_3_samples"])
 def test_env_and_spring_kernels_are_bit_equal_to_their_plain_versions(dev, case):

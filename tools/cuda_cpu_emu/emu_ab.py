@@ -19,7 +19,10 @@ product kit, one voice a family, 5/3/7/1/2 voices at 100 and 37 samples and
 their bypass gates crossed inside chunks, the detector with its bypass
 span's ends inside chunks, the spring, the waveshaper and the feedback
 waveshaper bypassed by mix and by drive, engaged, with +-inf samples, on an
-envelope under the makeup's floor) at the same, and
+envelope under the makeup's floor; the lowpass with its feedback across 1,
+its stages flushed and +-inf samples; the delay with its smoothers settling
+inside chunks, its writes flushed, a NaN tap, both ping-pong settings and
+an unaligned tap) at the same, and
 ``chip_smoke.spring_cases`` (the spring at 22,050 and 96,000 Hz and with
 its history unaligned); ``plate_block`` at
 the main path's block and ``chip_smoke.plate_cases`` (100 and 33 samples,

@@ -59,13 +59,22 @@ parts: the rings' fill and drain), ``spring_walk`` (the damping walk
 alone: no fill, drain, copies, reads or writes), ``spring_workers``
 (everything but the walk), ``spring_no_traj``, ``spring_no_a`` and
 ``spring_no_c`` (the trajectories' copies, the parts' reads or their
-writes cut) and ``spring_512`` (nothing cut: 512 threads, bit-equal).
+writes cut) and ``spring_512`` (nothing cut: 512 threads, bit-equal).  The
+lone walks (``walk_lone_kernel``: ``lowpass_block``, ``delay_block``):
+``walk_walks_only`` (no copies, values or finishes: the walks on whatever
+shared memory holds), ``walk_workers_only`` (no walks: the copies, the
+values and the finishes), ``walk_lowpass_128`` and ``walk_delay_160``
+(nothing cut: the lowpass on two worker warps, the delay on three,
+bit-equal), ``walk_lowpass_chunk32``, ``walk_lowpass_chunk64``,
+``walk_delay_chunk32`` and ``walk_delay_chunk128`` (nothing cut: the
+lowpass's 128-sample chunks cut to 32 and 64, the delay's 64 to 32 or
+grown to 128, bit-equal).
 Outputs of the probes that cut are wrong; only their times mean anything.
 Pass the directories to ``tools/torch_kernel_ab.py --only
 ws4_bank,fbws_bank``, ``--only mix_bank``, ``--only kit_drive``, ``--only
 plate_block``, ``--only triangle_additive_bank``, ``--only
-grain_read_cubic``, ``--only saturation_block,compressor_block`` or ``--only
-env_follower_block,spring_block``.
+grain_read_cubic``, ``--only saturation_block,compressor_block``, ``--only
+env_follower_block,spring_block`` or ``--only lowpass_block,delay_block``.
 """
 
 from __future__ import annotations
@@ -185,6 +194,27 @@ SPRING_NO_C = [("// (c) the allpass writes and the mix, " + SPRING_STEP,
 SPRING_NO_WALK = [("    if (walker >= 0) {\n      const float* A", "    if (false) {\n      const float* A")]
 SPRING_512 = [("constexpr int kSpringThreads = 256;", "constexpr int kSpringThreads = 512;")]
 ENV_CHUNK = "constexpr int kEnvChunk = 64;"
+#: the lone walks (walk_lone_kernel: lowpass_block, delay_block): the
+#: workers' copies, values and finishes cut, or the walks; each body's
+#: worker warps and chunk
+WALK_NO_WORKERS = [("  for (int j = 0; j < kWalkAhead; ++j) copy_in(j);\n", ""),
+                   ("  prep(0);\n  for (int j = 0; j <= n_chunks; ++j) {\n"
+                    "    cp_async_wait<kWalkAhead - 2>();",
+                    "  for (int j = 0; j <= n_chunks; ++j) {\n    cp_async_wait<kWalkAhead - 2>();"),
+                   ("    copy_in(j + kWalkAhead);\n    prep(j + 1);\n    if (j > 0) finish(j - 1);\n",
+                    "")]
+WALK_NO_WALK = [("      if (walker && j < n_chunks) walk_lone_chunk(",
+                 "      if (false) walk_lone_chunk(")]
+
+
+def walk_body(body, what, old, new):
+    """``body``'s (the lowpass, the delay) ``kThreads`` or ``kChunk``
+    (``what``: "threads" or "chunk") from ``old`` to ``new``."""
+    if what == "chunk":
+        line = f"  static constexpr int kChunk = {old};{' ' * (8 - len(str(old)))}// {body}'s chunk"
+    else:
+        line = f"  static constexpr int kThreads = {old};   // {body}: "
+    return [(line, line.replace(f"= {old};", f"= {new};"))]
 
 
 GRAIN_POSITIONS = [("  const float i1f = floorf(pos);",
@@ -238,6 +268,14 @@ PROBES = {
     "spring_512": ("bus_kernels.cu", SPRING_512),
     "env_chunk32": ("bus_kernels.cu", [(ENV_CHUNK, ENV_CHUNK.replace("64", "32"))]),
     "env_chunk128": ("bus_kernels.cu", [(ENV_CHUNK, ENV_CHUNK.replace("64", "128"))]),
+    "walk_walks_only": ("bus_kernels.cu", WALK_NO_WORKERS),
+    "walk_workers_only": ("bus_kernels.cu", WALK_NO_WALK),
+    "walk_lowpass_128": ("bus_kernels.cu", walk_body("the lowpass", "threads", 160, 128)),
+    "walk_delay_160": ("bus_kernels.cu", walk_body("the delay", "threads", 128, 160)),
+    "walk_lowpass_chunk32": ("bus_kernels.cu", walk_body("the lowpass", "chunk", 128, 32)),
+    "walk_lowpass_chunk64": ("bus_kernels.cu", walk_body("the lowpass", "chunk", 128, 64)),
+    "walk_delay_chunk32": ("bus_kernels.cu", walk_body("the delay", "chunk", 64, 32)),
+    "walk_delay_chunk128": ("bus_kernels.cu", walk_body("the delay", "chunk", 64, 128)),
 }
 
 

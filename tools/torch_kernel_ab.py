@@ -29,9 +29,9 @@ likewise (their staging header is shared),
 the kit's seven phases, the first four and the product chain's ten, and
 each bus phase's own kernel, the spring also at ``chip_smoke.spring_cases``
 (22,050 and 96,000 Hz, an unaligned history), and the saturation, the
-compressor, the detector, the spring and the two waveshapers at
-``chip_smoke.lone_edge_cases`` (512, 100 and 33 samples, their bypass gates
-crossed inside chunks).  Up to ``BUILDS_AT_ONCE`` trees build at once.  Every case prints whether each build gives
+compressor, the detector, the spring, the two waveshapers, the lowpass and
+the delay at ``chip_smoke.lone_edge_cases`` (512, 100 and 33 samples, their
+bypass gates crossed and their smoothers settling inside chunks).  Up to ``BUILDS_AT_ONCE`` trees build at once.  Every case prints whether each build gives
 this tree's outputs bit for bit, and each build's device time per call
 (``chip_smoke.device_ms``), the builds interleaved (each other build, this
 tree, this tree, each other build in reverse), on the card named in the
