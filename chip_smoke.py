@@ -31,7 +31,10 @@ Phases (any failure exits non-zero):
    drawn apart, on the snare's own traffic (bus7's launch at block 48) and
    at the edge frequencies with 0, 1, 64 and 192 harmonics (bit-equal),
    ``sampler_read_linear``
-   at 128 voices on a 32,768-frame arena; the two staged kernels at every
+   at 128 voices on a 32,768-frame arena (then its tails: one voice, 130
+   voices of 512, 100 and 33 samples with fractional ends, negative, inf
+   and NaN increments, ages before the start, bases at the arena's end and
+   ages wrapping past 2^31; bit-equal); the two staged kernels at every
    shape full_kit_4096_bus7 launches them at, ``affine1_bank`` at 512 and
    1,024 rows with no floor array and at 1,024 with a live one, at the
    kick's 4,096 with an explicit floor row, at
@@ -78,7 +81,10 @@ Phases (any failure exits non-zero):
    across 1, its stages flushed under 1e-15 inside a chunk and +-inf in
    x, the delay's smoothers settling inside chunks, its writes flushed, a
    NaN tap, both ping-pong settings and an unaligned tap
-   (``walk_edge_cases``), bit-equal;
+   (``walk_edge_cases``), bit-equal; ``tilt_block`` (on the same lone walk
+   kernel) there too, the knob through the center inside a chunk, a
+   passthrough span inside the block, Q at its top, +-inf in x and x
+   unaligned (``tilt_edge_cases``), bit-equal;
    ``kit_sources``, ``kit_drive`` and ``bus_chain``, bit-equal too, at
    their tails: ``bus_chain`` at B with one phase, twelve (two
    delays, one after the spring) and nine (two delays, the spring last),
@@ -231,7 +237,7 @@ EXACT = ("affine1_bank", "pink_bank", "svf_bank", "ws4_bank", "linrec2_bank", "k
          "kit_drive", "bus_chain", "plate_block", "env_follow_bank", "fbws_bank", "mix_bank",
          "triangle_additive_bank", "grain_read_cubic", "saturation_block", "compressor_block",
          "env_follower_block", "spring_block", "waveshaper_block", "fbws_fast_block",
-         "lowpass_block", "delay_block")
+         "lowpass_block", "delay_block", "tilt_block", "sampler_read_linear")
 
 #: the card's published peaks (H100 SXM, dense, at 700 W): device memory
 #: bytes/s and float32 operations/s outside the tensor cores
@@ -662,10 +668,12 @@ def kernel_cases(dev):
     #     spring_block there too, then the spring at 22,050 and 96,000 Hz,
     #     with its history 4 bytes past a 16-byte boundary and with its
     #     shortest lag cut to 4 and 3 samples
-    #     lowpass_block and delay_block (each channel's walk on a warp of its
-    #     own) there too: the lowpass's feedback across 1, its stages
-    #     flushed, +-inf in x; the delay's smoothers settling, its writes
-    #     flushed, a NaN tap, both ping-pong settings, an unaligned tap
+    #     lowpass_block, delay_block and tilt_block (each channel's walk on
+    #     a warp of its own) there too: the lowpass's feedback across 1, its
+    #     stages flushed, +-inf in x; the delay's smoothers settling, its
+    #     writes flushed, a NaN tap, both ping-pong settings, an unaligned
+    #     tap; the tilt's knob through the center, a passthrough span, Q at
+    #     its top, +-inf in x, x unaligned
     for b in LONE_BLOCKS:
         for name, label, args, kw in lone_edge_cases(dev, b):
             cases.append((name, label, args, kw, 2 if name == "delay_block" else 1))
@@ -738,6 +746,11 @@ def kernel_cases(dev):
         cases.append(("triangle_additive_bank", label, args, kw, 1))
     for label, args, kw in grain_tail_cases(dev):
         cases.append(("grain_read_cubic", label, args, kw, 1))
+    #     sampler_read_linear with one voice, at 130 voices of 100 and 33
+    #     samples, fractional ends, negative and non-finite increments, ages
+    #     before the start, bases at the arena's end and ages wrapping
+    for label, args, kw in sampler_tail_cases(dev):
+        cases.append(("sampler_read_linear", label, args, kw, 1))
     return cases
 
 
@@ -971,6 +984,44 @@ def grain_tail_cases(dev):
         cases.append((f"G=37, L={L}, B=99, age = n", (
             t(rs.randn(L)), t(rs.uniform(-2.0, L + 2.0, 37)), t(rs.uniform(-8.7, 8.7, 37))),
             dict(B=99)))
+    return cases
+
+
+def sampler_tail_cases(dev):
+    """``(label, arguments, keywords)`` of sampler_read_linear past the main
+    path, on a 32,768-frame arena: one voice; 130 voices of 512, 100 and 33
+    samples (an odd B stores a frame at a time), slots of 1-3,000 frames
+    ending on a fraction (the hold plateau; one frame and half of one too),
+    increments of +-[0.25, 3], [4, 6), 6, inf and NaN, voices started up to
+    4,000 samples back and after the block's end (a negative age, read
+    forward by a negative increment), every tenth slot's base at the
+    arena's end (the index clamp); then the block's start 50 samples short
+    of 2^31, so that the ages wrap."""
+    import torch
+
+    rs = np.random.RandomState(SEED + 4)
+    F = ARENA_FRAMES
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    arena = t(0.3 * rs.randn(F, 2))
+    cases = [(f"V=1, F={F}, B={B}", (arena, t([F // 3], torch.int32), t([5000.25]),
+                                      t([-700], torch.int32), t([1.5]), 3 * B), dict(B=B))]
+    V = 130
+    for b, block_start in ((B, 3 * B), (100, 3 * B), (33, 3 * B), (B, 2**31 - 50)):
+        base = rs.randint(0, F, V)
+        base[::10] = F - rs.randint(1, 40, len(base[::10]))
+        frames = rs.randint(2, 3000, V) + rs.choice([0.0, 0.25, 0.5, 0.75], V)
+        frames[1], frames[2] = 1.0, 0.5
+        start = block_start + rs.randint(-4000, b + 200, V)
+        inc = rs.uniform(0.25, 3.0, V) * rs.choice([-1.0, 1.0], V)
+        inc[3::7] = rs.uniform(4.0, 6.0, len(inc[3::7]))
+        inc[::7] = 6.0
+        inc[5], inc[6] = np.inf, np.nan
+        cases.append((f"V={V}, F={F}, B={b}, block start {block_start}, tails", (
+            arena, t(base, torch.int32), t(frames), t(start.astype(np.int64).astype(np.int32), torch.int32),
+            t(inc), block_start), dict(B=b)))
     return cases
 
 
@@ -1336,8 +1387,8 @@ def lone_edge_cases(dev, b, seed=SEED):
 
 
 def walk_edge_cases(t, b, rs, coeff):
-    """``[(name, label, args, kwargs)]`` of ``lowpass_block`` and
-    ``delay_block`` at ``[2, b]`` on carried states drawn from ``rs`` (``t``:
+    """``[(name, label, args, kwargs)]`` of ``lowpass_block``, ``delay_block``
+    and ``tilt_block`` at ``[2, b]`` on carried states drawn from ``rs`` (``t``:
     numpy to a device tensor), their edges at :func:`lone_edges` (inside the
     lone walk's chunks of 32, 64 and 128 samples).  The lowpass: a burst
     that falls silent at the first edge, the left channel's feedback rising
@@ -1352,7 +1403,10 @@ def walk_edge_cases(t, b, rs, coeff):
     up to the first edge, so that the writes fall under the 1e-15 flush; a
     NaN tap (left) at the second edge, after which the left output falls
     back to x and its writes (the right ones' under ping-pong) to 0; then
-    with the tap a view 4 bytes past a 16-byte boundary (4-byte copies)."""
+    with the tap a view 4 bytes past a 16-byte boundary (4-byte copies).
+    The tilt (:func:`tilt_edge_cases`): the knob crossing the center inside
+    a chunk, a passthrough span inside the block, Q at its top, +-inf in x
+    and an unaligned x."""
     left, right = lone_edges(b)
     first, second = min(left, right), max(left, right)
     shape = f"[2, {b}]"
@@ -1389,7 +1443,46 @@ def walk_edge_cases(t, b, rs, coeff):
         cases.append(("delay_block", f"{label}, pingpong={pingpong}", args, kw))
     cases.append(("delay_block", f"{label}, the tap unaligned",
                   args[:1] + unaligned(args[1:2]) + args[2:], dict(kw, pingpong=False)))
-    return cases
+    return cases + tilt_edge_cases(t, b, rs, coeff)
+
+
+def tilt_edge_cases(t, b, rs, coeff):
+    """``[(name, label, args, kwargs)]`` of ``tilt_block`` at ``[2, b]`` on
+    carried SVF states drawn from ``rs``, its edges at :func:`lone_edges`
+    (inside the lone walk's chunks): the left knob rising through the
+    center (0.5: the low-pass hands over to the high-pass, its cutoff
+    jumping from ~20 kHz to 20 Hz, inside a passthrough span of a few
+    samples) at the first edge and the right one falling through it at the
+    second, the right channel's resonance at 1 (Q 8.5, the top); then both
+    knobs crawling through the center (targets 0.52 and 0.48), so that the
+    passthrough (mix < 0.001) holds for ~60 samples around the edges,
+    resonance 1 on both; +inf (left) and -inf (right) in x at the edges,
+    after which the SVF's state is not finite and the outputs flush to 0;
+    then the first case with x a view 4 bytes past a 16-byte boundary
+    (4-byte copies)."""
+    left, right = lone_edges(b)
+    logq = np.log(1.0 - coeff)
+    # the knob's trajectory tgt + (cur - tgt) q^(n+1) crosses 0.5 at sample n
+    through = lambda tgt, n: tgt + (0.5 - tgt) * np.exp(-logq * (n + 0.5))
+    x = rs.uniform(-0.9, 0.9, (2, b))
+    ic = 0.05 * rs.randn(2, 2)
+    shape = f"[2, {b}]"
+    kw = dict(coeff=coeff, sample_rate=SR)
+    cross = (t(x), t([[through(0.9, left), 0.3], [through(0.1, right), 1.0]]),
+             t([[0.9, 0.6], [0.1, 1.0]]), t(ic))
+    x_inf = x.copy()
+    x_inf[0, left], x_inf[1, right] = np.inf, -np.inf
+    return [
+        ("tilt_block", f"{shape}, the knob through the center at samples {left} (rising, left) "
+         f"and {right} (falling, right, res 1)", cross, kw),
+        ("tilt_block", f"{shape}, passthrough around samples {left} (left) and {right} "
+         "(right), res 1", (t(x), t([[through(0.52, left), 1.0], [through(0.48, right), 1.0]]),
+                            t([[0.52, 1.0], [0.48, 1.0]]), t(ic)), kw),
+        ("tilt_block", f"{shape}, inf at sample {left} (left), -inf at {right} (right)",
+         (t(x_inf), t([[0.3, 0.5], [0.8, 0.9]]), t([[0.35, 0.5], [0.75, 0.9]]), t(ic)), kw),
+        ("tilt_block", f"{shape}, the knob through the center, x unaligned",
+         unaligned(cross[:1]) + cross[1:], kw),
+    ]
 
 
 #: the feedback filter's coefficients of the feedback waveshaper's edge cases

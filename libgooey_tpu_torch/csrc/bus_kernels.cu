@@ -15,12 +15,13 @@
 // Design: the bus is one stereo [2, B] signal, and every effect is a
 // recurrence through the block's B samples.  Each effect's block is a row
 // struct over one channel that resumes (begin, run over a span of samples,
-// end; below), run by one warp.  What does not depend on the carried state
-// (a sample's smoother trajectories, closed form with the settle snap as
-// the Pallas bodies compute them; the tilt's coefficients; the compressor's
-// knee gain; the feedback waveshaper's makeup gain; the spring's ring reads
-// and their allpass offset, its allpass writes and mix) is computed per
-// sample on all 32 lanes into the phase's shared scratch; lanes 0 and 1
+// end; below), run by one warp in bus_chain.  What does not depend on the
+// carried state (a sample's smoother trajectories, closed form with the
+// settle snap as the Pallas bodies compute them; the tilt's coefficients;
+// the compressor's knee gain; the feedback waveshaper's makeup gain; the
+// spring's ring reads and their allpass offset, its allpass writes and
+// mix) is computed per sample on all 32 lanes into the phase's shared
+// scratch; lanes 0 and 1
 // walk the two channels' recurrences on it, with the carried state in
 // registers.  The compressor's and the spring's parameter trajectories come
 // in as [2, B] rows, computed outside as the JAX package computes them
@@ -31,15 +32,15 @@
 // channels meet only in the delay's ping-pong write (each channel's write
 // takes the other channel's filtered tap at the same sample): the delay
 // stages its filtered taps in shared memory and the two lanes meet at a
-// __syncwarp.  The lone tilt is one warp walking its block in 32-sample
-// spans (bus_block_kernel).  The other effects' own kernels: the lone 4x
+// __syncwarp.  That one-warp row is what bus_chain runs; each effect's own
+// kernel spreads its block over a block of warps instead: the lone 4x
 // effects, the saturation, compressor, waveshaper and feedback waveshaper
 // (bus4x_split_kernel, below): their chain's stages walk on warps of their
 // own, a polyphase branch a lane, chunks pipelined a step apart; the lone
 // detector and spring (env_lone_kernel, spring_lone_kernel, below) and the
-// lone lowpass and delay (walk_lone_kernel, below): each channel's walk on
-// a warp of its own, the per-sample work and the copies on the rest of the
-// block.
+// lone lowpass, tilt and delay (walk_lone_kernel, below): each channel's
+// walk on a warp of its own, the per-sample work and the copies on the rest
+// of the block.
 //
 // The spring's twelve allpass delay lines (six a channel, lags 127-797 at
 // 44.1 kHz) live in shared memory as rings of the history's length D, one
@@ -175,15 +176,14 @@ constexpr int kMaxPhases = 12;
 // is computed per sample on every lane into the phase's shared scratch,
 // and lanes 0 and 1 walk the channels' recurrences on it in sample order.
 // fill() and drain() run on every lane, before begin() and after end() (the
-// spring's rings; a no-op elsewhere).  An effect's own kernel runs its
-// block span by span; bus_chain runs it chunk by chunk.
+// spring's rings; a no-op elsewhere).  bus_chain runs a row chunk by
+// chunk; the effects' own kernels call its per-sample pieces.
 struct RowBase {
   __device__ __forceinline__ void fill(const Phase&, int, float*) {}
   __device__ __forceinline__ void drain(const Phase&, int, int, float*) {}
 };
 
-// The span a warp runs at a time: bus_chain's chunk, and the step of an
-// effect's own kernel through its block.
+// The span a warp runs at a time: bus_chain's chunk.
 constexpr int kChainChunk = 32;
 
 // Sample j of a span of len samples on both channels, as every lane takes
@@ -386,11 +386,14 @@ struct LowpassRow : RowBase {
 // A tilt phase's shared scratch: six values a sample a channel.
 constexpr int kScratchTilt = 2 * 6 * kChainChunk;
 
-// One sample of the tilt filter (tilt_filter.rs:99-125) at knob/res values
-// ``knob``/``res``: the frequency maps and the SVF coefficients, kept for
-// the walk at v[m * kChainChunk]: g, h, r, the mix, low-pass or not,
-// passthrough or not.
-__device__ __forceinline__ void tilt_coefs(const Phase& p, float knob, float res, float* v) {
+// The tilt filter's coefficients at knob/res values ``knob``/``res``
+// (tilt_filter.rs:99-125): the frequency maps and the SVF's g, h and r, the
+// mix, low-pass or not, passthrough or not (the flags as 1 or 0).
+struct TiltCoefs {
+  float g, h, r, mix, lp, pass;
+};
+
+__device__ __forceinline__ TiltCoefs tilt_coefs(const Phase& p, float knob, float res) {
   const float lp_log = p.f[1];    // log(20000/80)
   const float hp_log = p.f[2];    // log(8000/20)
   const float max_cut = p.f[3];   // 0.45 sr
@@ -406,12 +409,46 @@ __device__ __forceinline__ void tilt_coefs(const Phase& p, float knob, float res
   const float cutoff = fminf(fmaxf(freq, 20.0f), max_cut);
   const float g = tanf(pi * cutoff * inv_sr);
   const float r = 1.0f / fmaxf(q, 0.5f);
-  v[0] = g;
-  v[kChainChunk] = 1.0f / (1.0f + r * g + g * g);
-  v[2 * kChainChunk] = r;
-  v[3 * kChainChunk] = mix;
-  v[4 * kChainChunk] = use_lp ? 1.0f : 0.0f;
-  v[5 * kChainChunk] = mix < 0.001f ? 1.0f : 0.0f;
+  return TiltCoefs{g, 1.0f / (1.0f + r * g + g * g), r, mix, use_lp ? 1.0f : 0.0f,
+                   mix < 0.001f ? 1.0f : 0.0f};
+}
+
+// The coefficients of channel c at block sample n: the knob's and the
+// resonance's trajectories (in[0], in[1]: cur, tgt [2, 2]; f[0]: log q).
+__device__ __forceinline__ TiltCoefs tilt_coefs_at(const Phase& p, int c, int n) {
+  const float* cur = p.in[0];
+  const float* tgt = p.in[1];
+  return tilt_coefs(p, traj(cur[2 * c], tgt[2 * c], p.f[0], n),
+                    traj(cur[2 * c + 1], tgt[2 * c + 1], p.f[0], n));
+}
+
+// One step of the TPT SVF on input x: its pre-update taps v1 and v2.
+__device__ __forceinline__ void tilt_svf(float& ic1, float& ic2, float x, float g, float h,
+                                         float& v1, float& v2) {
+  v1 = (g * (x - ic2) + ic1) * h;
+  v2 = ic2 + g * v1;
+  ic1 = 2.0f * v1 - ic1;
+  ic2 = 2.0f * v2 - ic2;
+}
+
+// A sample's output from its taps: the low- or high-pass, the crossfade (x
+// itself in passthrough), the finite select and the 1e-15 flush.
+__device__ __forceinline__ float tilt_out(float x, float v1, float v2, float r, float mix,
+                                          float lp, float pass) {
+  const float wet = lp != 0.0f ? v2 : x - (r * v1 + v2);
+  float o = pass != 0.0f ? x : x * (1.0f - mix) + wet * mix;
+  o = isfinite(o) ? o : 0.0f;
+  return fabsf(o) < kDenormal ? 0.0f : o;
+}
+
+// The carried state after the block: (ic1, ic2, knob, res) of channel c.
+__device__ __forceinline__ void tilt_end(const Phase& p, int c, int B, float ic1, float ic2) {
+  const float logq = p.f[0];
+  float* st_out = p.out[0];
+  st_out[4 * c + 0] = ic1;
+  st_out[4 * c + 1] = ic2;
+  st_out[4 * c + 2] = traj(p.in[0][2 * c], p.in[1][2 * c], logq, B - 1);
+  st_out[4 * c + 3] = traj(p.in[0][2 * c + 1], p.in[1][2 * c + 1], logq, B - 1);
 }
 
 struct TiltRow : RowBase {
@@ -423,44 +460,35 @@ struct TiltRow : RowBase {
   __device__ __forceinline__ void run(const Phase& p, const FbwsCoefs&, int lane,
                                       const float* x, float* y, int n0, int n1, int B,
                                       float* scratch) {
-    const float* cur = p.in[0];
-    const float* tgt = p.in[1];
-    const float logq = p.f[0];
+    // each sample's coefficients at v[m * kChainChunk], in TiltCoefs' order
     const int len = n1 - n0;
     for (int j = lane; j < 2 * len; j += 32) {
       int c, i;
       both_channels(j, len, c, i);
-      tilt_coefs(p, traj(cur[2 * c], tgt[2 * c], logq, n0 + i),
-                 traj(cur[2 * c + 1], tgt[2 * c + 1], logq, n0 + i),
-                 scratch + c * 6 * kChainChunk + i);
+      const TiltCoefs k = tilt_coefs_at(p, c, n0 + i);
+      float* v = scratch + c * 6 * kChainChunk + i;
+      v[0] = k.g;
+      v[kChainChunk] = k.h;
+      v[2 * kChainChunk] = k.r;
+      v[3 * kChainChunk] = k.mix;
+      v[4 * kChainChunk] = k.lp;
+      v[5 * kChainChunk] = k.pass;
     }
     __syncwarp();
     if (lane >= 2) return;
-    // the SVF step with its pre-update taps, and the crossfade
     const int c = lane;
     const size_t row = static_cast<size_t>(c) * B;
     const float* v = scratch + c * 6 * kChainChunk;
     for (int i = 0; i < len; ++i) {
       const float xn = x[row + n0 + i];
-      const float g = v[i], h = v[kChainChunk + i], r = v[2 * kChainChunk + i];
-      const float mix = v[3 * kChainChunk + i];
-      const float v1 = (g * (xn - ic2) + ic1) * h;
-      const float v2 = ic2 + g * v1;
-      ic1 = 2.0f * v1 - ic1;
-      ic2 = 2.0f * v2 - ic2;
-      const float wet = v[4 * kChainChunk + i] != 0.0f ? v2 : xn - (r * v1 + v2);
-      float o = v[5 * kChainChunk + i] != 0.0f ? xn : xn * (1.0f - mix) + wet * mix;
-      o = isfinite(o) ? o : 0.0f;
-      y[row + n0 + i] = fabsf(o) < kDenormal ? 0.0f : o;
+      float v1, v2;
+      tilt_svf(ic1, ic2, xn, v[i], v[kChainChunk + i], v1, v2);
+      y[row + n0 + i] = tilt_out(xn, v1, v2, v[2 * kChainChunk + i], v[3 * kChainChunk + i],
+                                 v[4 * kChainChunk + i], v[5 * kChainChunk + i]);
     }
   }
   __device__ __forceinline__ void end(const Phase& p, int c, int B) {
-    const float logq = p.f[0];
-    float* st_out = p.out[0];
-    st_out[4 * c + 0] = ic1;
-    st_out[4 * c + 1] = ic2;
-    st_out[4 * c + 2] = traj(p.in[0][2 * c], p.in[1][2 * c], logq, B - 1);
-    st_out[4 * c + 3] = traj(p.in[0][2 * c + 1], p.in[1][2 * c + 1], logq, B - 1);
+    tilt_end(p, c, B, ic1, ic2);
   }
 };
 
@@ -1020,35 +1048,6 @@ struct FbwsRow : RowBase {
 // their own phases' code (bar.sync counts threads, wherever they wait).
 __device__ __forceinline__ void step_barrier() { asm volatile("bar.sync 0;" ::: "memory"); }
 
-// One effect's block through its own kernel: a warp, lanes 0 and 1 the
-// channels, the block in spans of kChainChunk.
-template <class Row>
-__device__ __forceinline__ void one_block(const Phase& p, const FbwsCoefs& k, const float* x,
-                                          float* y, float* smem, int B) {
-  const int lane = threadIdx.x;
-  Row row;
-  row.fill(p, lane, smem);
-  __syncwarp();
-  if (lane < 2) row.begin(p, lane, B, smem);
-  for (int n0 = 0; n0 < B; n0 += kChainChunk) {
-    row.run(p, k, lane, x, y, n0, min(n0 + kChainChunk, B), B, smem);
-    __syncwarp();
-  }
-  if (lane < 2) row.end(p, lane, B);
-  __syncwarp();
-  row.drain(p, lane, B, smem);
-}
-
-// kBusThreads (one warp) in every per-effect launch.
-constexpr int kBusThreads = 32;
-
-template <class Row>
-__global__ void __launch_bounds__(kBusThreads)
-    bus_block_kernel(const float* x, float* y, Phase p, FbwsCoefs k, int B) {
-  extern __shared__ float4 block_smem4[];
-  one_block<Row>(p, k, x, y, reinterpret_cast<float*>(block_smem4), B);
-}
-
 // --- the lone 4x effects: saturation_block, compressor_block,
 // --- waveshaper_block and fbws_fast_block -------------------------------------
 //
@@ -1079,14 +1078,14 @@ __global__ void __launch_bounds__(kBusThreads)
 //           waveshaper's drive*x and makeup gain), shape chunk j-2's
 //           2 x 128 subsamples (an atan or a tanh each) and store chunk
 //           j-6's output, coalesced.
-// One barrier a step: a step costs the longest part, where the one-warp
-// kernel's span cost their sum, and a walk's lane steps 4 allpass sections
-// a sample where the one-warp kernel's lane stepped 32.  Each lane
+// One barrier a step: a step costs the longest part, where a one-warp
+// row's span (bus_chain's) costs their sum, and a walk's lane steps 4
+// allpass sections a sample where a row's lane steps 32.  Each lane
 // loads and stores only its branch's part of the packed state (the DC rows
 // with the finish, the compressor's g with stage-1 up).  A chunk's inputs
 // and values live in a ring of kLoneRing chunks from their copy (step j-2)
 // to the finish (step j+5).  Every per-channel operation keeps the plain
-// version's order, so the kernel gives the one-warp kernel's bits.
+// version's order, so the kernel gives bus_chain's row's bits.
 
 constexpr int kLoneWalks = 5;
 // steps behind the up-walk: each walk (stage-1 up, stage-2 up, stage-2
@@ -1989,7 +1988,7 @@ __global__ void __launch_bounds__(kSpringThreads)
   }
 }
 
-// --- the lone walks: lowpass_block and delay_block ----------------------------
+// --- the lone walks: lowpass_block, tilt_block and delay_block ---------------
 //
 // walk_lone_kernel<Body>: a lone effect whose serial work is one short
 // recurrence a channel, laid out as env_lone_kernel: Body::kThreads
@@ -2006,12 +2005,12 @@ __global__ void __launch_bounds__(kSpringThreads)
 // read the other channel's walk), storing them coalesced.  One barrier a
 // step, n_chunks + 1 steps.  A slot lives from its copy (step j-3) to its
 // finish (step j+1): a ring of kWalkRing.  Every per-channel operation
-// keeps the plain version's order, so the kernel gives the one-warp
-// kernel's bits.  What bounds it on the card is the walk: the lowpass's
-// dependent chain is 20 instructions a sample (tanhf 8 of them, two on the
-// ex2 and rcp unit), ~120 cycles; the delay's is three, and its step's
-// fixed cost (the barrier, the workers' four expf a sample) weighs as much
-// as its walk.
+// keeps the plain version's order, so the kernel gives bus_chain's row's
+// bits.  What bounds it on the card is the walk: the lowpass's dependent
+// chain is 20 instructions a sample (tanhf 8 of them, two on the ex2 and
+// rcp unit), ~120 cycles; the tilt's SVF is eight float operations; the
+// delay's is three, and its step's fixed cost (the barrier, the workers'
+// four expf a sample) weighs as much as its walk.
 //
 // A body: kIn inputs copied in (source(a, x)) and kVals values computed
 // ahead, arrays of a slot; the walk reads kWalkN of them from kWalkFirst on
@@ -2023,6 +2022,11 @@ __global__ void __launch_bounds__(kSpringThreads)
 //   LowpassLone: x, g, fb in; min(fb, 1) ahead; the walk (lowpass_step:
 //     the feedback's tanh, two one-poles, the flush and NaN reset) keeps the
 //     raw stage-2 value; the finish takes its tanh.
+//   TiltLone: x in; the knob's and the resonance's trajectories and the
+//     coefficients (tilt_coefs: g, h, r, the mix, the low-pass and the
+//     passthrough flags) ahead, g and h beside x; the walk steps the SVF
+//     (tilt_svf) and keeps its taps v1 and v2; the finish (tilt_out) mixes
+//     them.
 //   DelayLone: x and the gathered tap in; the feedback, mix and cutoff
 //     trajectories and the filter's coefficients (delay_coefs) ahead; the
 //     walk steps the affine two-pole (delay_affine) and keeps the filtered
@@ -2082,6 +2086,47 @@ struct LowpassLone {
     p.out[0][2 * c] = s1;
     p.out[0][2 * c + 1] = s2;
   }
+};
+
+struct TiltLone {
+  static constexpr int kThreads = 128;   // the tilt: two worker warps (by probe)
+  static constexpr int kChunk = 64;      // the tilt's chunk (by probe)
+  static constexpr int kIn = 1;          // x
+  static constexpr int kVals = 6;        // g, h, r, mix, low-pass, passthrough
+  static constexpr int kWalkFirst = 0, kWalkN = 3;
+  static constexpr int kOuts = 2;        // the SVF's taps v1, v2
+  static constexpr int kRes = 1;         // y
+  static constexpr int kArr = walk_arr(kChunk);
+  const Phase& p;
+  float ic1, ic2;
+  __host__ static bool aligned(const float* x, const float* y, const Phase&) {
+    return aligned16({x, y});
+  }
+  __device__ __forceinline__ const float* source(int, const float* x) const { return x; }
+  __device__ __forceinline__ float* dest(int, float* y) const { return y; }
+  __device__ __forceinline__ void begin(int c) {
+    ic1 = p.in[2][2 * c];
+    ic2 = p.in[2][2 * c + 1];
+  }
+  __device__ __forceinline__ void prep(int c, int n, float* e) const {
+    const TiltCoefs k = tilt_coefs_at(p, c, n);
+    e[kArr] = k.g;
+    e[2 * kArr] = k.h;
+    e[3 * kArr] = k.r;
+    e[4 * kArr] = k.mix;
+    e[5 * kArr] = k.lp;
+    e[6 * kArr] = k.pass;
+  }
+  __device__ __forceinline__ void step(const float (&v)[kWalkN], float (&o)[kOuts]) {
+    tilt_svf(ic1, ic2, v[0], v[1], v[2], o[0], o[1]);
+  }
+  __device__ __forceinline__ void finish(const float* e, const float* o, int c,
+                                         float (&r)[kRes]) const {
+    constexpr int P = walk_pitch(kChunk);
+    r[0] = tilt_out(e[0], o[c * P], o[c * P + kArr], e[3 * kArr], e[4 * kArr], e[5 * kArr],
+                    e[6 * kArr]);
+  }
+  __device__ __forceinline__ void end(int c, int B) const { tilt_end(p, c, B, ic1, ic2); }
 };
 
 struct DelayLone {
@@ -2434,17 +2479,6 @@ size_t phase_smem(const Phase& p, int B) {
   }
 }
 
-// One effect's block through its own kernel.
-template <class Row>
-cudaError_t launch_block(const float* x, float* y, const Phase& p, const float* coefs, int B,
-                         cudaStream_t s) {
-  const size_t smem = phase_smem(p, B);
-  const cudaError_t err = allow_smem(bus_block_kernel<Row>, smem);
-  if (err != cudaSuccess) return err;
-  bus_block_kernel<Row><<<1, kBusThreads, smem, s>>>(x, y, p, fbws_coefs(coefs), B);
-  return cudaGetLastError();
-}
-
 // A lone detector: 16-byte copies where B % 4 == 0 and every array is
 // 16-byte aligned (bank_kernels.copies_16b's test).
 cudaError_t launch_env(const float* x, float* y, const Phase& p, int B, cudaStream_t s) {
@@ -2456,7 +2490,7 @@ cudaError_t launch_env(const float* x, float* y, const Phase& p, int B, cudaStre
   return cudaGetLastError();
 }
 
-// A lone lowpass or delay: 16-byte copies where B % 4 == 0 and every array
+// A lone lowpass, tilt or delay: 16-byte copies where B % 4 == 0 and every array
 // the kernel reads or writes is 16-byte aligned.
 template <class Body>
 cudaError_t launch_walk(const float* x, float* y, const Phase& p, int B, cudaStream_t s) {
@@ -2507,7 +2541,7 @@ int bus_block_launch(const float* x, float* y, const int* ops, void* const* ptrs
     case kLowpass:
       return static_cast<int>(launch_walk<LowpassLone>(x, y, p, B, s));
     case kTilt:
-      return static_cast<int>(launch_block<TiltRow>(x, y, p, coefs, B, s));
+      return static_cast<int>(launch_walk<TiltLone>(x, y, p, B, s));
     case kDelay:
       return static_cast<int>(launch_walk<DelayLone>(x, y, p, B, s));
     case kEnv:

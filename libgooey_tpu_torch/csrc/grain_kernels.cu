@@ -23,13 +23,19 @@
 // warp's loads then span four times the source.  The granulator's source (32,768 samples, 128 KB) stays in L1 and
 // L2, so the taps cost cache hits, not DRAM traffic.
 //
-// sampler_read_linear: one thread per (voice, sample), consecutive threads
-// on consecutive samples of one voice; the arena stays in L2.
+// sampler_read_linear: a block of 128 threads takes a tile of up to 512
+// frames of one voice (voices on blockIdx.x, tiles on blockIdx.y: no
+// integer division), the voice's base, frames, start and increment in
+// registers, and each thread two pairs of consecutive frames, 128 pairs
+// apart; a pair is one float4 store where B is even (16-byte aligned), two
+// float2 stores where it is odd.  The arena stays in L2.
 //
 // What bounds them: bytes.  At the path's shapes (4,000 grains x 512, 128
 // voices x 512 stereo) each writes 8.2 MB / 0.5 MB and reads ~130-260 KB of
 // source and per-lane scalars; about 30 and 12 float operations an output
-// sample.
+// sample.  The sampler's read is over in ~0.6 us more than an empty launch
+// of its grid: the voice's scalars, then the taps they locate, then the
+// stores (PERF.md).
 //
 // Numerics: each step keeps the gather path's op order (position
 // p0 + step * f32(age), the Horner combine ((a0 f + a1) f + a2) f + p1, the
@@ -45,12 +51,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-
-inline dim3 grid_for(int64_t n) {
-  return dim3(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-}
 
 // int32 sums wrap, as XLA's and PyTorch's int32 arithmetic does
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
@@ -116,31 +116,69 @@ __global__ void __launch_bounds__(kGrainThreads)
 
 // --- sampler_read_linear: stereo lerp over an interleaved [F, 2] arena -------
 
-__global__ void sampler_read_linear_kernel(const float2* __restrict__ arena, int F,
-                                           const int32_t* __restrict__ base,
-                                           const float* __restrict__ frames,
-                                           const int32_t* __restrict__ start,
-                                           const float* __restrict__ inc,
-                                           int block_start, float2* __restrict__ out,
-                                           int V, int B) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<int64_t>(V) * B) return;
-  const int v = static_cast<int>(i / B);
-  const int n = static_cast<int>(i - static_cast<int64_t>(v) * B);
+constexpr int kSamplerThreads = 128;
+constexpr int kSamplerPairs = 2;   // pairs of frames a thread, kSamplerThreads pairs apart
+constexpr int kSamplerTile = 2 * kSamplerThreads * kSamplerPairs;   // frames a block
+
+// One stereo frame at block sample n of a voice whose slot starts at b in
+// the arena, holds em1 + 1 frames, and was started at `start`, moving inc
+// frames a sample.
+__device__ __forceinline__ float2 sampler_frame(const float2* __restrict__ arena, int F, int b,
+                                                float em1, int32_t start, float inc,
+                                                int block_start, int n) {
   // sampler.py:111-132: the age as int32, then one rounding
-  const float age = static_cast<float>(wrap_sub(wrap_add(block_start, n), start[v]));
-  const float em1 = frames[v] - 1.0f;
-  const float posc = fminf(fmaxf(age * inc[v], 0.0f), em1);
+  const float age = static_cast<float>(wrap_sub(wrap_add(block_start, n), start));
+  const float posc = fminf(fmaxf(age * inc, 0.0f), em1);
   const float i0f = floorf(posc);
   const float frac = posc - i0f;
   const int i0 = static_cast<int>(i0f);
   // the second tap stops at the slot's last whole frame, so a fractional
   // end holds f0 on its plateau
   const int i1 = min(i0 + 1, static_cast<int>(em1));
-  const int b = base[v];
   const float2 f0 = __ldg(arena + min(max(b + i0, 0), F - 1));
   const float2 f1 = __ldg(arena + min(max(b + i1, 0), F - 1));
-  out[i] = make_float2(f0.x + (f1.x - f0.x) * frac, f0.y + (f1.y - f0.y) * frac);
+  return make_float2(f0.x + (f1.x - f0.x) * frac, f0.y + (f1.y - f0.y) * frac);
+}
+
+// A tile of kSamplerTile frames of one voice (voices on blockIdx.x, tiles on
+// blockIdx.y: no integer division), the voice's slot and start in
+// registers; each thread takes kSamplerPairs pairs of consecutive frames,
+// kSamplerThreads pairs apart, computes all of them and then stores each
+// pair as one float4 (Vec4: B even, so that every pair starts 16 bytes
+// into the output) or as two float2; a pair past B's last frame holds one
+// float2 or none.
+template <bool Vec4>
+__global__ void __launch_bounds__(kSamplerThreads)
+    sampler_read_linear_kernel(const float2* __restrict__ arena, int F,
+                               const int32_t* __restrict__ base, const float* __restrict__ frames,
+                               const int32_t* __restrict__ start, const float* __restrict__ inc,
+                               int block_start, float2* __restrict__ out, int B) {
+  const int v = static_cast<int>(blockIdx.x);
+  const int b = base[v];
+  const float em1 = frames[v] - 1.0f;
+  const int32_t s0 = start[v];
+  const float dv = inc[v];
+  float2* row = out + static_cast<size_t>(v) * B;
+  const int n0 = static_cast<int>(blockIdx.y) * kSamplerTile + 2 * static_cast<int>(threadIdx.x);
+  float2 f[kSamplerPairs][2];
+#pragma unroll
+  for (int j = 0; j < kSamplerPairs; ++j) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {   // a frame past B takes the last one's and is dropped
+      const int n = min(n0 + 2 * kSamplerThreads * j + k, B - 1);
+      f[j][k] = sampler_frame(arena, F, b, em1, s0, dv, block_start, n);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSamplerPairs; ++j) {
+    const int n = n0 + 2 * kSamplerThreads * j;
+    if (Vec4 && n < B) {
+      *reinterpret_cast<float4*>(row + n) = make_float4(f[j][0].x, f[j][0].y, f[j][1].x, f[j][1].y);
+    } else if (!Vec4) {
+      if (n < B) row[n] = f[j][0];
+      if (n + 1 < B) row[n + 1] = f[j][1];
+    }
+  }
 }
 
 }  // namespace
@@ -160,10 +198,18 @@ int grain_read_cubic_launch(const float* buf, const float* p0, const float* step
 int sampler_read_linear_launch(const float* arena, const int32_t* base, const float* frames,
                                const int32_t* start, const float* inc, float* out,
                                int block_start, int F, int V, int B, void* stream) {
-  sampler_read_linear_kernel<<<grid_for(static_cast<int64_t>(V) * B), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(arena), F, base, frames, start, inc, block_start,
-      reinterpret_cast<float2*>(out), V, B);
+  const dim3 grid(static_cast<unsigned>(V),
+                  static_cast<unsigned>((B + kSamplerTile - 1) / kSamplerTile));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a = reinterpret_cast<const float2*>(arena);
+  auto* o = reinterpret_cast<float2*>(out);
+  if (B % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    sampler_read_linear_kernel<true><<<grid, kSamplerThreads, 0, s>>>(
+        a, F, base, frames, start, inc, block_start, o, B);
+  } else {
+    sampler_read_linear_kernel<false><<<grid, kSamplerThreads, 0, s>>>(
+        a, F, base, frames, start, inc, block_start, o, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

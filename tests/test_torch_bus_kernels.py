@@ -143,14 +143,28 @@ def test_lowpass_block_matches_pallas(B):
     assert (tout[1, -3:] == 0.0).all() and (st_t[1] == 0.0).all()
 
 
-@pytest.mark.parametrize("cur,tgt", [((0.25, 0.3), (0.75, 0.6)),
-                                     ((0.7, 0.9), (0.3, 0.5)),
-                                     ((0.5, 0.0), (0.5, 0.0))])
-def test_tilt_block_matches_pallas(cur, tgt):
+def _through_center(tgt, n):
+    """A knob current whose trajectory towards ``tgt`` crosses the center
+    (0.5) between samples ``n - 1`` and ``n``."""
+    return float(tgt + (0.5 - tgt) * np.exp(-np.log(1.0 - COEFF) * (n + 0.5)))
+
+
+@pytest.mark.parametrize("cur,tgt,n,at", [
+    pytest.param((0.25, 0.3), (0.75, 0.6), B, None, id="cur0-tgt0"),
+    pytest.param((0.7, 0.9), (0.3, 0.5), B, None, id="cur1-tgt1"),
+    pytest.param((0.5, 0.0), (0.5, 0.0), B, None, id="cur2-tgt2"),
+    pytest.param((0.25, 0.3), (0.75, 0.6), 100, None, id="B100"),
+    pytest.param((0.7, 0.9), (0.3, 0.5), 33, None, id="B33"),
+    pytest.param((_through_center(0.9, B // 2 + 7), 1.0), (0.9, 1.0), B, B // 2 + 7,
+                 id="through-center-res1"),
+])
+def test_tilt_block_matches_pallas(cur, tgt, n, at):
     """Sweeps across the center in both directions at resonance up to Q 7.7,
-    and the passthrough knob."""
+    and the passthrough knob, at B = 256, 100 and 33; the knob rising
+    through the center mid-block (the low-pass handing over to the
+    high-pass inside a short passthrough span) at resonance 1 (Q 8.5)."""
     rs = np.random.RandomState(11)
-    x = rs.uniform(-0.8, 0.8, (2, B)).astype(np.float32)
+    x = rs.uniform(-0.8, 0.8, (2, n)).astype(np.float32)
     cur2, tgt2 = np.asarray([cur, cur], np.float32), np.asarray([tgt, tgt], np.float32)
     ic = np.asarray([[0.02, -0.05], [-0.01, 0.04]], np.float32)
     st = np.concatenate([ic, np.zeros((2, 2), np.float32)], axis=-1)
@@ -159,6 +173,9 @@ def test_tilt_block_matches_pallas(cur, tgt):
                                       sample_rate=SR)
     assert _err(jout, tout) <= OUT_TOL
     assert _err(jnst, tnst) <= STATE_TOL
+    if at is not None:   # the knob crosses the center at sample ``at``
+        knob = bus._trajectories(_t(cur2), _t(tgt2), COEFF, n)[0][0].numpy()
+        assert knob[at - 1] < 0.5 <= knob[at]
 
 
 def _settling(tgt, cur, at):

@@ -793,6 +793,26 @@ def test_sampler_read_matches_plain_version(dev, V, B):
     assert float((got - want).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("case", range(5))
+def test_sampler_read_is_bit_equal_at_its_tails(dev, case):
+    """sampler_read_linear (a block a voice tile, pairs of frames a thread)
+    gives its plain version bit for bit at chip_smoke's tails: one voice,
+    130 voices of 512, 100 and 33 samples (float2 stores at the odd B), the
+    hold plateau, negative and non-finite increments, ages before the start,
+    bases at the arena's end, ages wrapping past 2^31."""
+    import chip_smoke
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    cases = chip_smoke.sampler_tail_cases(dev)
+    assert len(cases) == 5
+    label, args, kw = cases[case]
+    got = gk.sampler_read_linear(*args, **kw)
+    want = gk.sampler_read_linear_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (args[1].shape[0], kw["B"], 2), label
+    assert _bits_equal(got, want), label
+
+
 def test_each_grain_launch_counts_once(dev):
     from libgooey_tpu_torch.ops import grain_kernels as gk
 
@@ -974,22 +994,24 @@ def test_lone_4x_kernels_are_bit_equal_to_their_plain_versions(dev, name, B):
 
 
 @pytest.mark.parametrize("B", [512, 100, 33])
-@pytest.mark.parametrize("name", ["lowpass_block", "delay_block"])
+@pytest.mark.parametrize("name", ["lowpass_block", "delay_block", "tilt_block"])
 def test_lone_walk_kernels_are_bit_equal_to_their_plain_versions(dev, name, B):
-    """lowpass_block and delay_block (each channel's walk on a warp of its
-    own, on values computed ahead) give their plain versions bit for bit,
-    with B not a multiple of the chunk: the bus cases, the lowpass's
-    feedback across 1, its stages flushed under 1e-15 inside a chunk and
-    +-inf in x, the delay's smoothers settling inside chunks, its writes
-    flushed, a NaN tap (a NaN agreeing by its bits), both ping-pong
-    settings and an unaligned tap (4-byte copies); a bus_chain run of each
-    gives the kernel."""
+    """lowpass_block, delay_block and tilt_block (each channel's walk on a
+    warp of its own, on values computed ahead) give their plain versions
+    bit for bit, with B not a multiple of the chunk: the bus cases, the
+    lowpass's feedback across 1, its stages flushed under 1e-15 inside a
+    chunk and +-inf in x, the delay's smoothers settling inside chunks, its
+    writes flushed, a NaN tap (a NaN agreeing by its bits), both ping-pong
+    settings and an unaligned tap (4-byte copies); the tilt's knob through
+    the center inside a chunk, a passthrough span inside the block, Q at
+    its top, +-inf in x and x unaligned; a bus_chain run of each gives the
+    kernel."""
     import chip_smoke
 
     singles, _ = chip_smoke.bus_cases(dev, np.random.RandomState(B), B)
     cases = [c for c in chip_smoke.lone_edge_cases(dev, B) if c[0] == name]
     cases += [(n, label, a, kw) for n, label, a, kw, _ in singles if n == name]
-    assert len(cases) == (3 if name == "lowpass_block" else 5)
+    assert len(cases) == {"lowpass_block": 3, "delay_block": 5, "tilt_block": 5}[name]
     for case, label, args, kw in cases:
         got = getattr(bus, name)(*args, **kw)
         want = getattr(bus, name + "_plain")(*args, **kw)

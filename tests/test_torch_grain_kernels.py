@@ -119,16 +119,16 @@ def test_grain_read_maps_non_finite_starts():
 def _sampler_slots(rs, V, F, max_inc=3.0):
     base = (rs.randint(0, 12, V) * 1000).astype(np.int32)
     frames = rs.uniform(400.0, 3000.0, V).astype(np.float32)
-    frames[:2] = [700.5, 64.25]    # fractional ends
+    frames[:2] = np.float32([700.5, 64.25])[:V]    # fractional ends
     start = rs.randint(-4000, 2 * B, V).astype(np.int32)
     start[0] = -4000               # past its fractional end from the first block on
     inc = rs.uniform(0.4, max_inc, V).astype(np.float32)
     return base, frames, start, inc
 
 
-def _jax_sampler_frames(arena, base, frames, start, inc, block_start):
-    """sampler.py:111-132's gather branch, op for op."""
-    n_global = jnp.int32(block_start) + jnp.arange(B, dtype=jnp.int32)
+def _jax_sampler_frames(arena, base, frames, start, inc, block_start, n=B):
+    """sampler.py:111-132's gather branch, op for op, over ``n`` samples."""
+    n_global = jnp.int32(block_start) + jnp.arange(n, dtype=jnp.int32)
     age = (n_global[None, :] - jnp.asarray(start)[:, None]).astype(jnp.float32)
     pos = age * jnp.asarray(inc)[:, None]
     end = jnp.asarray(frames)[:, None]
@@ -142,23 +142,37 @@ def _jax_sampler_frames(arena, base, frames, start, inc, block_start):
     return np.asarray(f0 + (f1 - f0) * frac)
 
 
-@pytest.mark.parametrize("max_inc", [3.0, 6.0])
-def test_sampler_read_matches_the_gather_path(max_inc):
+@pytest.mark.parametrize("max_inc,V,n,tails", [
+    pytest.param(3.0, 24, B, False, id="3.0"),
+    pytest.param(6.0, 24, B, False, id="6.0"),
+    pytest.param(3.0, 1, B, False, id="V1"),
+    pytest.param(6.0, 130, 100, True, id="V130-B100-tails"),
+    pytest.param(6.0, 130, 33, True, id="V130-B33-tails"),
+])
+def test_sampler_read_matches_the_gather_path(max_inc, V, n, tails):
     """Fractional slot ends (the plateau holds ``f0``), voices not started
-    yet, voices past their end, increments past the Pallas wrapper's 4.0."""
+    yet, voices past their end, increments past the Pallas wrapper's 4.0;
+    one voice; at the tails, 130 voices of 100 and 33 samples with negative
+    increments (a voice started after the sample reads forward), every
+    seventh increment 6, and every tenth slot's base at the arena's end
+    (its reads clamp to the last frame)."""
     rs = np.random.RandomState(3)
     F = 1 << 14
     arena = (0.4 * rs.standard_normal((F, 2))).astype(np.float32)
-    base, frames, start, inc = _sampler_slots(rs, 24, F, max_inc)
+    base, frames, start, inc = _sampler_slots(rs, V, F, max_inc)
+    if tails:   # voice 0 keeps its plateau
+        inc[1:] *= rs.choice([-1.0, 1.0], V - 1).astype(np.float32)
+        inc[::7] = 6.0
+        base[10::10] = F - rs.randint(1, 40, len(base[10::10]))
     block_start = B
-    want = _jax_sampler_frames(arena, base, frames, start, inc, block_start)
+    want = _jax_sampler_frames(arena, base, frames, start, inc, block_start, n)
     got = grain_kernels.sampler_read_linear(_t(arena), _t(base), _t(frames), _t(start),
-                                            _t(inc), block_start, B=B)
-    assert got.shape == (24, B, 2)
+                                            _t(inc), block_start, B=n)
+    assert got.shape == (V, n, 2)
     assert np.abs(got.numpy() - want).max() <= 1e-6
     # the plateau of a fractional end holds the last whole frame exactly
     hold = arena[base[0] + int(np.floor(frames[0] - 1.0))]
-    np.testing.assert_array_equal(got[0].numpy(), np.tile(hold, (B, 1)))
+    np.testing.assert_array_equal(got[0].numpy(), np.tile(hold, (n, 1)))
 
 
 def test_sampler_read_matches_the_pallas_kernel():

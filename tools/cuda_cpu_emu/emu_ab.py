@@ -37,7 +37,12 @@ voices) of 512, 100 and 37 samples and with unaligned inputs
 voices, at ``chip_smoke.SNARE_BLOCK``) and at 40-2,000 Hz drawn apart, at
 rows of 512, 100 and 37 samples; ``grain_read_cubic`` at
 ``chip_smoke.grain_tail_cases`` and at 37 grains of 512 and 99 samples with
-ages and without.  A build
+ages and without; ``sampler_read_linear`` at the main path's 128 voices
+and ``chip_smoke.sampler_tail_cases`` (one voice, 130 of 512, 100 and 33
+samples, fractional ends, negative and non-finite increments, bases at the
+arena's end, ages wrapping).  The tilt's cases are among the lone
+kernels' (``chip_smoke.walk_edge_cases``: the knob through the center, a
+passthrough span, Q at its top, +-inf in x, x unaligned).  A build
 whose entries take the arguments they took before their kernels were
 redesigned (its tree's ``ops/_build.py`` says so) is called that way
 (``tools/torch_kernel_ab.older_args``).  A restructuring that moves work
@@ -45,8 +50,8 @@ between threads but keeps every per-sample operation gives the other
 build's bits; exits 1 where it does not.  (The host's libm stands in for
 the card's, so these outputs are not the card's; the card compares each
 kernel with its plain version.  The bank kernels without a transcendental
-and the grain read, the detector and the spring are also held to their
-plain versions here.)  ``--only``
+and the grain and sampler reads, the detector and the spring are also
+held to their plain versions here.)  ``--only``
 keeps the cases of the named kernels.
 """
 
@@ -73,7 +78,7 @@ BANK_UNALIGNED = (515, 128)
 #: the bank kernels whose plain versions give the kernels' bits on the CPU
 #: too (no transcendental: the host's libm is not the card's)
 BANK_EXACT_ON_CPU = ("affine1_bank", "pink_bank", "svf_bank", "env_follow_bank", "linrec2_bank",
-                     "plate_block", "grain_read_cubic")
+                     "plate_block", "grain_read_cubic", "sampler_read_linear")
 #: the bus kernels held to their plain versions here too (the detector
 #: passes its signal through: y must be x)
 BUS_EXACT_ON_CPU = ("env_follower_block", "spring_block")
@@ -247,6 +252,25 @@ def grain_ab_cases():
     return cases
 
 
+def sampler_ab_cases():
+    """``(label, args, kwargs)`` of sampler_read_linear on CPU tensors: 128
+    voices of 512 samples on a 32,768-frame arena as phase 3 draws them,
+    then chip_smoke's tails."""
+    import torch
+
+    import chip_smoke as cs
+
+    rs = np.random.RandomState(6)
+    F, V = cs.ARENA_FRAMES, cs.S_VOICES
+    a = (torch.as_tensor(0.3 * rs.randn(F, 2), dtype=torch.float32),
+         torch.as_tensor(rs.randint(0, F, V), dtype=torch.int32),
+         torch.as_tensor(rs.uniform(2000.0, 30000.0, V) + rs.choice([0.0, 0.25, 0.5], V),
+                         dtype=torch.float32),
+         torch.as_tensor(rs.randint(-30000, 2 * cs.B, V), dtype=torch.int32),
+         torch.as_tensor(rs.uniform(0.5, 2.0, V), dtype=torch.float32), 3 * cs.B)
+    return [(f"V={V}, F={F}, B={cs.B}", a, dict(B=cs.B))] + cs.sampler_tail_cases("cpu")
+
+
 def main(argv=None) -> int:
     import chip_smoke as cs
     from libgooey_tpu_torch.ops import bank_kernels as bk
@@ -335,6 +359,7 @@ def main(argv=None) -> int:
     # on the plain versions, first)
     tri_cases = triangle_ab_cases() if wanted("triangle_additive_bank") else []
     grain_cases = grain_ab_cases() if wanted("grain_read_cubic") else []
+    sampler_cases = sampler_ab_cases() if wanted("sampler_read_linear") else []
     bk._on_cuda = pk._on_cuda = lambda name, t: True
     bk._sm_count = lambda index: 132
     cases = [(label, bk, name, a, kw)
@@ -345,6 +370,7 @@ def main(argv=None) -> int:
     cases += [(label, bk, "triangle_additive_bank", a, kw) for label, a, kw in tri_cases]
     gk._on_cuda = lambda name, t: True
     cases += [(label, gk, "grain_read_cubic", a, kw) for label, a, kw in grain_cases]
+    cases += [(label, gk, "sampler_read_linear", a, kw) for label, a, kw in sampler_cases]
     for label, module, name, a, kw in cases:
         if not wanted(name):
             continue

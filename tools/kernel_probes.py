@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Copies of the kernel sources with parts of ``ws4_bank`` and ``fbws_bank``,
 ``kit_drive``, ``plate_block``, ``mix_bank``, ``triangle_additive_bank``,
-``grain_read_cubic`` or the lone bus kernels cut out or changed, for timing
+``grain_read_cubic``, ``sampler_read_linear`` or the lone bus kernels cut
+out or changed, for timing
 those parts alone on the card with ``tools/torch_kernel_ab.py``.
 
     python3 tools/kernel_probes.py OUT_DIR [CSRC]
@@ -68,13 +69,22 @@ values and the finishes), ``walk_lowpass_128`` and ``walk_delay_160``
 bit-equal), ``walk_lowpass_chunk32``, ``walk_lowpass_chunk64``,
 ``walk_delay_chunk32`` and ``walk_delay_chunk128`` (nothing cut: the
 lowpass's 128-sample chunks cut to 32 and 64, the delay's 64 to 32 or
-grown to 128, bit-equal).
+grown to 128, bit-equal); ``walk_tilt_160``, ``walk_tilt_chunk32`` and
+``walk_tilt_chunk128`` (nothing cut: the tilt on three worker warps, its
+64-sample chunks cut to 32 or grown to 128, bit-equal).
+``sampler_read_linear`` (``grain_kernels.cu``): ``sampler_pairs1`` and
+``sampler_pairs4`` (nothing cut: one pair of frames a thread, tiles of
+256 frames, or four, tiles of 1,024; bit-equal), ``sampler_empty`` (every
+block returns at once: the launch of its grid) and ``launch_floor`` (one
+block of 128 threads that returns at once: the card's cost of an empty
+kernel).
 Outputs of the probes that cut are wrong; only their times mean anything.
 Pass the directories to ``tools/torch_kernel_ab.py --only
 ws4_bank,fbws_bank``, ``--only mix_bank``, ``--only kit_drive``, ``--only
 plate_block``, ``--only triangle_additive_bank``, ``--only
 grain_read_cubic``, ``--only saturation_block,compressor_block``, ``--only
-env_follower_block,spring_block`` or ``--only lowpass_block,delay_block``.
+env_follower_block,spring_block``, ``--only
+lowpass_block,delay_block,tilt_block`` or ``--only sampler_read_linear``.
 """
 
 from __future__ import annotations
@@ -217,6 +227,15 @@ def walk_body(body, what, old, new):
     return [(line, line.replace(f"= {old};", f"= {new};"))]
 
 
+#: the sampler read: its pairs of frames a thread; its blocks returning at
+#: once, on its grid or on one block
+SAMPLER_PAIRS = "constexpr int kSamplerPairs = 2;"
+SAMPLER_EMPTY = [("  const int v = static_cast<int>(blockIdx.x);\n  const int b = base[v];",
+                  "  if (B > 0) return;\n  const int v = static_cast<int>(blockIdx.x);\n"
+                  "  const int b = base[v];")]
+ONE_BLOCK = [("  const dim3 grid(static_cast<unsigned>(V),\n"
+              "                  static_cast<unsigned>((B + kSamplerTile - 1) / kSamplerTile));",
+              "  const dim3 grid(1u, 1u);")]
 GRAIN_POSITIONS = [("  const float i1f = floorf(pos);",
                     "  return pos;\n  const float i1f = floorf(pos);")]
 GRAIN_STORES = [("  // fmaxf maps a NaN position", "  return age;\n  // fmaxf maps a NaN position")]
@@ -276,6 +295,13 @@ PROBES = {
     "walk_lowpass_chunk64": ("bus_kernels.cu", walk_body("the lowpass", "chunk", 128, 64)),
     "walk_delay_chunk32": ("bus_kernels.cu", walk_body("the delay", "chunk", 64, 32)),
     "walk_delay_chunk128": ("bus_kernels.cu", walk_body("the delay", "chunk", 64, 128)),
+    "walk_tilt_160": ("bus_kernels.cu", walk_body("the tilt", "threads", 128, 160)),
+    "walk_tilt_chunk32": ("bus_kernels.cu", walk_body("the tilt", "chunk", 64, 32)),
+    "walk_tilt_chunk128": ("bus_kernels.cu", walk_body("the tilt", "chunk", 64, 128)),
+    "sampler_pairs1": ("grain_kernels.cu", [(SAMPLER_PAIRS, SAMPLER_PAIRS.replace("2", "1"))]),
+    "sampler_pairs4": ("grain_kernels.cu", [(SAMPLER_PAIRS, SAMPLER_PAIRS.replace("2", "4"))]),
+    "sampler_empty": ("grain_kernels.cu", SAMPLER_EMPTY),
+    "launch_floor": ("grain_kernels.cu", SAMPLER_EMPTY + ONE_BLOCK),
 }
 
 

@@ -19,8 +19,8 @@ kernels were redesigned (its tree's
 (:func:`older_args`).  Cases, at the main path's shapes (``chip_smoke.py``'s
 inputs): ``pink_bank``, ``svf_bank``, ``ws4_bank``, ``fbws_bank``,
 ``env_follow_bank``, ``plate_block``, ``mix_bank``,
-``triangle_additive_bank`` and ``grain_read_cubic`` at every phase-3 case
-(the path's shapes, then the tails), ``affine1_bank`` and ``linrec2_bank``
+``triangle_additive_bank``, ``grain_read_cubic`` and ``sampler_read_linear``
+at every phase-3 case (the path's shapes, then the tails), ``affine1_bank`` and ``linrec2_bank``
 likewise (their staging header is shared),
 ``kit_sources`` at the product kit, with each of its families alone and at
 ``chip_smoke.TAIL_KITS`` (its triangle is ``triangle_additive_bank``'s),
@@ -29,9 +29,10 @@ likewise (their staging header is shared),
 the kit's seven phases, the first four and the product chain's ten, and
 each bus phase's own kernel, the spring also at ``chip_smoke.spring_cases``
 (22,050 and 96,000 Hz, an unaligned history), and the saturation, the
-compressor, the detector, the spring, the two waveshapers, the lowpass and
-the delay at ``chip_smoke.lone_edge_cases`` (512, 100 and 33 samples, their
-bypass gates crossed and their smoothers settling inside chunks).  Up to ``BUILDS_AT_ONCE`` trees build at once.  Every case prints whether each build gives
+compressor, the detector, the spring, the two waveshapers, the lowpass,
+the delay and the tilt at ``chip_smoke.lone_edge_cases`` (512, 100 and 33
+samples, their bypass gates crossed, their smoothers settling and the
+tilt's knob crossing the center inside chunks).  Up to ``BUILDS_AT_ONCE`` trees build at once.  Every case prints whether each build gives
 this tree's outputs bit for bit, and each build's device time per call
 (``chip_smoke.device_ms``), the builds interleaved (each other build, this
 tree, this tree, each other build in reverse), on the card named in the
@@ -220,7 +221,7 @@ def main(argv=None) -> int:
     for name, shape, args, kw, _ in cs.kernel_cases(dev):
         if name in ("pink_bank", "svf_bank", "ws4_bank", "affine1_bank", "linrec2_bank",
                     "env_follow_bank", "plate_block", "fbws_bank", "mix_bank",
-                    "triangle_additive_bank", "grain_read_cubic"):
+                    "triangle_additive_bank", "grain_read_cubic", "sampler_read_linear"):
             if name == "ws4_bank":
                 drives[args[1].data_ptr()] = args[1]
             fn = getattr(kernels.module_of(name), name)
