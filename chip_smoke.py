@@ -177,7 +177,31 @@ Phases (any failure exits non-zero):
    (dense, with spray and timing jitter, so grains are stolen into the
    release pool) and a ``SamplerRackHost`` with two slots and a running
    pattern, each block on the kernels, its first blocks against the plain
-   versions.
+   versions;
+11. the whole ``Engine``: (a) at a host's scale, through the API a C-API
+   host calls: kick, snare, hihat (8 closed, 8 open) and hihat2 16 each,
+   tom (two of each preset), tom2 and bass 8, poly 4 synths (24 lanes),
+   pan 0.5, gain 1/96, each on a 120 BPM sequencer staggered as phase 9's
+   (the snares with per-step ``PresetBlender`` blends), the seven effects
+   (the delay with an extra keyword option), LFO 0 at 1/8 and 140 BPM on
+   the basses' cutoff, LFO 1 at 0.8 Hz on kicks 0-3's pitch, LFO 2 on hihat
+   0's decay, LFO 3 on poly 0's cutoff, a chord on each poly synth held
+   0.5 s, 2 s in all; checks that the routed kick and bass left the kit
+   path (one ``kit_sources`` and ``kit_drive`` a block for the snare,
+   hihat2 and tom2; the kick's ``fbws_bank`` and the bass's ``ws4_bank``
+   once a block) and that each routed family's scan is one
+   ``affine1_bank`` a routed parameter a block, its first 2 blocks against
+   a copy rendered on the plain versions, then ``bounce_to_buffer`` of 1 s
+   from two copies of the engine, bit for bit; (b) every family at the
+   full kit's widths through ``render_many`` (kick, snare, hihat, hihat2
+   1,024; tom, tom2, bass 512; poly 85 synths, 510 lanes: 6,142 voices,
+   all on the stage path) with ``build_full_kit``'s traffic and its
+   seven-effect bus and three routes (LFO 0 on bass 0's cutoff, LFO 1 on
+   kick 0's pitch, LFO 2 on hihat 0's decay), median of 3 renders of 64
+   blocks, wall ms/block and aggregate RTF, its first 2 blocks against the
+   plain versions, and the kernels at the shapes the cell adds (the poly
+   lanes' ``affine1_bank`` and ``svf_bank`` at 510 rows, the tom's
+   triangle at [512, B] and 128 harmonics) timed with their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
@@ -191,8 +215,8 @@ case, timed with CUDA events where the profiler traces nothing;
 traffic (printed at the product block's 64 voices too), null elsewhere).  ``--profile PATH``
 also writes torch.profiler tables of 4 steady-state blocks of the kick
 slice, the kit, each kit-with-bus render, the product block (fused and
-with ``fuse_runs=False``), phase 9's sidechained ``Engine`` render and
-phase 10's render to PATH.
+with ``fuse_runs=False``), phase 9's sidechained ``Engine`` render,
+phase 10's render and phase 11(b)'s render to PATH.
 """
 
 from __future__ import annotations
@@ -2598,6 +2622,332 @@ def phase_grain(dev, card, prof_file=None):
     return counts
 
 
+# --- phase 11: the whole Engine ------------------------------------------------
+
+#: phase 11(a), the Engine at a host's scale: named instruments per family
+#: (poly: synths of six lanes), each on a sequencer
+WHOLE_ENGINE = {"kick": 16, "snare": 16, "hihat": 16, "hihat2": 16, "tom": 8, "tom2": 8,
+                "bass": 8, "poly": 4}
+WHOLE_GAIN = 1.0 / 96.0
+WHOLE_SECONDS = 2.0
+#: how long each poly synth holds its chord, and the bounce's length, seconds
+CHORD_SECONDS = 0.5
+BOUNCE_SECONDS = 1.0
+TOM_PRESETS = ("high", "mid", "low", "floor")
+CHORDS = (("C", "major7"), ("A", "minor9"), ("F", "dominant7"), ("G", "major"))
+#: phase 11(b), every family at the full kit's widths (poly: 85 synths,
+#: 510 lanes), each bank over MAX_FUSED_VOICES
+WHOLE_KIT = {"kick": 1024, "snare": 1024, "hihat": 1024, "hihat2": 1024, "tom": 512,
+             "tom2": 512, "bass": 512, "poly": 85}
+#: (b)'s routes, ``(lfo, kind, slot, param, depth)``: each one affine1_bank
+#: scan over its whole bank a block
+WHOLE_ROUTES = ((0, "bass", 0, "filter_cutoff", 0.8), (1, "kick", 0, "frequency", 1.0),
+                (2, "hihat", 0, "decay", 1.0))
+#: the kernels at the shapes phase 11(b) adds, by (name, rows): what runs there
+NEW_SHAPES = {
+    "affine1_bank": {("affine1_bank", 510): "the poly lanes' phases"},
+    "svf_bank": {("svf_bank", 510): "the poly lanes' filter"},
+    "triangle_additive_bank": {("triangle_additive_bank", 512): "the tom's punch, 128 "
+                                                                 "harmonics"},
+}
+
+
+@contextlib.contextmanager
+def route_scans():
+    """Record ``(kind, routed params, affine1_bank launches)`` of every
+    routed family's one-pole scan (``engine._lfo_overrides``)."""
+    from libgooey_tpu_torch.engine import engine
+    from libgooey_tpu_torch.ops import kernels
+
+    real = engine._lfo_overrides
+    seen = []
+
+    def recording(kind, *args):
+        before = kernels.launch_counts()["affine1_bank"]
+        out = real(kind, *args)
+        seen.append((kind, len(out), kernels.launch_counts()["affine1_bank"] - before))
+        return out
+
+    engine._lfo_overrides = recording
+    try:
+        yield seen
+    finally:
+        engine._lfo_overrides = real
+
+
+@contextlib.contextmanager
+def last_calls(names):
+    """Keep each named wrapper's arguments at its last launch of each row
+    count, ``{(name, rows): (args, kw)}`` (the triangle's sample rate and
+    harmonics as keywords, as ``kernel_cases`` passes them)."""
+    from libgooey_tpu_torch.ops import kernels
+
+    seen = {}
+    saved = {n: getattr(kernels.module_of(n), n) for n in names}
+
+    def recorder(name, fn):
+        def recording(*args, **kw):
+            rows = next(a for a in args if a is not None).shape[0]
+            if name == "triangle_additive_bank":
+                args, kw = args[:2], dict(sample_rate=args[2], max_harmonics=args[3])
+            seen[(name, rows)] = (args, kw)
+            # the wrapper counts its launch on its module's name for itself,
+            # which is this function while recording: carry the count over
+            recording.launches = fn.launches
+            try:
+                return fn(*args, **kw)
+            finally:
+                fn.launches = recording.launches
+        return recording
+
+    for n, fn in saved.items():
+        setattr(kernels.module_of(n), n, recorder(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels.module_of(n), n, fn)
+
+
+def check_route_scans(label, seen, n_blocks, kinds):
+    """One affine1_bank launch per routed parameter, for each routed family
+    in ``kinds`` a block."""
+    per_block = [(k, n, n) for k, n, _ in seen[:len(kinds)]]
+    check([k for k, _, _ in per_block] == list(kinds) and seen == per_block * n_blocks,
+          f"{label}: the routes' scans were not one affine1_bank per routed parameter a "
+          f"block: {seen[:2 * len(kinds)]}")
+    print(f"{label}: LFO routes on {', '.join(kinds)}: one affine1_bank a routed parameter, "
+          f"{sum(n for _, _, n in per_block)} a block")
+
+
+def whole_engine(dev):
+    """The Engine of phase 11(a): ``WHOLE_ENGINE``'s instruments (kicks
+    through phase 9's four presets, the hihats 8 closed and 8 open, the toms
+    two of each preset, the others their defaults), pan 0.5, gain 1/96,
+    each on a 120 BPM sequencer staggered as phase 9's (the bass with a
+    note on a step, the snares with preset blends on two steps); the seven
+    global effects (the delay's with an extra keyword option); four LFOs
+    (1/8 at 140 BPM on the basses' cutoff, 0.8 Hz on kicks 0-3's pitch, 4 Hz
+    on hihat 0's decay, 1.5 Hz on poly 0's cutoff); a chord struck on each
+    poly synth."""
+    from libgooey_tpu_torch.core.blendable import PresetBlender
+    from libgooey_tpu_torch.engine.engine import FAMILIES, Engine
+
+    eng = Engine(SR, B, device=dev)
+    kick_presets = ("tight", "punch", "loose", "dirt")
+    names = []
+    for kind, n in WHOLE_ENGINE.items():
+        presets = FAMILIES[kind].PRESETS
+        for i in range(n):
+            if kind == "kick":
+                cfg = presets[kick_presets[i % 4]]()
+            elif kind == "hihat":
+                cfg = presets["closed_default" if i < n // 2 else "open_default"]()
+            elif kind == "tom":
+                cfg = presets[TOM_PRESETS[i // 2]]()
+            else:
+                cfg = presets["default"]()
+            names.append(f"{kind}{i}")
+            eng.add_instrument(names[-1], kind, cfg)
+    snare = FAMILIES["snare"].PRESETS
+    for i, name in enumerate(names):
+        eng.set_gain(name, WHOLE_GAIN)
+        seq = eng.new_sequencer(name, 120.0)
+        seq.set_pattern([(s + i) % 4 == 0 for s in range(16)])
+        if name.startswith("bass"):
+            seq.set_step_note(1, 40)
+        if name.startswith("snare"):
+            eng.blenders[name] = PresetBlender(*(snare[p]() for p in sorted(snare)[:4]))
+            seq.set_step_blend((2 - i) % 4, 0.8, 0.3)
+            seq.set_step_blend((2 - i) % 4 + 8, 0.2, 0.9)
+        seq.start()
+    eng.set_master_gain(0.5)
+    eng.add_global_effect("saturation")
+    eng.add_global_effect("lowpass")
+    eng.add_global_effect("tilt", [0.3, 0.4])
+    eng.add_global_effect("delay", [0.015, 0.5, 0.4, 6000.0], pingpong=True)
+    for name in ("compressor", "spring", "plate"):
+        eng.add_global_effect(name)
+    eng.set_lfo(0, division=5, bpm=140.0)
+    for i in range(WHOLE_ENGINE["bass"]):
+        eng.add_lfo_route(0, f"bass{i}", "filter_cutoff", depth=0.8)
+    eng.set_lfo(1, frequency_hz=0.8)
+    for i in range(4):
+        eng.add_lfo_route(1, f"kick{i}", "frequency", depth=0.5)
+    eng.set_lfo(2, frequency_hz=4.0)
+    eng.add_lfo_route(2, "hihat0", "decay")
+    eng.set_lfo(3, frequency_hz=1.5, offset=0.2)
+    eng.add_lfo_route(3, "poly0", "filter_cutoff")
+    for i, (root, quality) in enumerate(CHORDS):
+        eng.poly_chord_on(f"poly{i}", root, quality, "root", 3 + i % 2, 0.9)
+    return eng, names
+
+
+def phase_whole_engine(dev, card):
+    """Phase 11(a): the whole Engine API at a host's scale for
+    ``WHOLE_SECONDS`` (each poly synth's chord released after
+    ``CHORD_SECONDS``); the routed kick and bass leave the kit path, the
+    snare, hihat2 and tom2 stay on it; its first blocks against a copy of
+    the engine rendered on the plain versions; then ``bounce_to_buffer``
+    of ``BOUNCE_SECONDS`` from two copies of the engine, bit for bit."""
+    from libgooey_tpu_torch.ops import kernels
+
+    label = "whole engine"
+    eng, names = whole_engine(dev)
+    twin = copy.deepcopy(eng)
+    n_chord = int(SR * CHORD_SECONDS)   # rounded up to whole blocks
+    n_total = int(SR * WHOLE_SECONDS)
+    kernels.reset_launch_counts()
+    with route_scans() as seen:
+        t0 = time.perf_counter()
+        n_head = -(-n_chord // B)
+        head = eng.render(n_head * B)
+        for i, (root, quality) in enumerate(CHORDS):
+            eng.poly_chord_off(f"poly{i}", root, quality, "root", 3 + i % 2)
+        tail = eng.render(n_total - n_head * B)
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_blocks = n_head + -(-(n_total - n_head * B) // B)
+    out = np.concatenate([head, tail], axis=1)
+    peak = float(np.abs(out).max())
+    midi = len(eng.drain_midi_out())
+
+    with plain_versions():
+        want = twin.render(N_COMPARE * B)
+    err = float(np.abs(out[:, :N_COMPARE * B].astype(np.float64) - want).max())
+    print(f"{label}: {N_COMPARE} blocks, kernels vs plain versions: max err {err:.3e} "
+          f"(tol {RENDER_TOL:g}), peak {float(np.abs(want).max()):.4f}")
+    check(err <= RENDER_TOL, f"{label}: kernel render differs from the plain render by {err}")
+    check(out.shape == (2, n_total) and bool(np.isfinite(out).all())
+          and peak > 1e-3, f"{label}: output shape {out.shape}, not finite or silent ({peak})")
+    check_route_scans(label, seen, n_blocks, ("kick", "hihat", "bass", "poly"))
+    # the kit: snare, hihat2 and tom2 (one kit_sources and one kit_drive a
+    # block); the routed kick and bass on their stage paths (the kick's
+    # fbws_bank, the bass's ws4_bank; the kick's and the tom's triangles)
+    once = ("kit_sources", "kit_drive", "mix_bank", "fbws_bank", "ws4_bank", "bus_chain",
+            "plate_block")
+    check(all(counts[n] == n_blocks for n in once)
+          and counts["triangle_additive_bank"] == 2 * n_blocks
+          and all(counts[n] > 0 for n in ("affine1_bank", "svf_bank", "pink_bank",
+                                          "env_follow_bank", "linrec2_bank")),
+          f"{label}: the kit (snare, hihat2, tom2), the routed kick's and bass's stage paths "
+          f"or the bus not as expected over {n_blocks} blocks: {counts}")
+    print(f"{label}: {len(names)} sequenced instruments of 8 families "
+          f"({json.dumps(WHOLE_ENGINE)}; poly chords held {CHORD_SECONDS:g} s) through "
+          f"{'/'.join(eng.fx_order)}, {WHOLE_SECONDS:g} s ({n_blocks} blocks) rendered in "
+          f"{wall:.3f} s ({wall / n_blocks * 1e3:.3f} ms/block), peak {peak:.4f}, "
+          f"{midi} MIDI-out events drained; on {card}")
+    print(f"{label} launches per block: "
+          f"{json.dumps({n: c / n_blocks for n, c in counts.items() if c})}")
+
+    other = copy.deepcopy(eng)
+    n_bounce = int(SR * BOUNCE_SECONDS)
+    t0 = time.perf_counter()
+    buf = eng.bounce_to_buffer(n_bounce)
+    bounce_wall = time.perf_counter() - t0
+    again = other.bounce_to_buffer(n_bounce)
+    b_peak = float(np.abs(buf).max())
+    print(f"{label}: bounce_to_buffer {BOUNCE_SECONDS:g} s in {bounce_wall:.3f} s, peak "
+          f"{b_peak:.4f}, equal to a second bounce from a copy: {np.array_equal(buf, again)}")
+    check(buf.shape == (n_bounce,) and bool(np.isfinite(buf).all()) and b_peak > 1e-3,
+          f"{label}: bounce of shape {buf.shape}, not finite or silent ({b_peak})")
+    check(np.array_equal(buf, again), f"{label}: two bounces from one state differ")
+
+
+def whole_kit_inputs(dev, n_blocks):
+    """State, stacked events and statics of phase 11(b): ``WHOLE_KIT``'s
+    banks at default presets with build_full_kit's sequenced traffic (one
+    ``RandomState(0)`` drawing each bank's lags in family order; the poly
+    lanes at MIDI 36-83, never released), LFO 0 at 1/8 and 140 BPM, LFO 1
+    at 0.8 Hz and LFO 2 at 4 Hz on ``WHOLE_ROUTES``, and the seven-effect
+    bus at ``FX_DEFAULT_TARGETS`` with fresh states."""
+    from libgooey_tpu_torch import music
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.engine import engine, lfo
+
+    state = {kind: engine.FAMILIES[kind].init_state(nv, device=dev)
+             for kind, nv in WHOLE_KIT.items()}
+    state.update(mixer_state(sum(WHOLE_KIT.values()), dev))
+    rng = np.random.RandomState(0)
+    events = {"block_start": (np.arange(n_blocks) * B).astype(np.int32)}
+    for kind, nv in WHOLE_KIT.items():
+        lanes = nv * engine._lanes_per_slot(kind)
+        events[kind + "_off"], events[kind + "_vel"] = sequenced_events(rng, lanes, n_blocks)
+    lanes = events["poly_off"].shape[1]
+    freqs = np.array([music.midi_to_freq(36 + n % 48) for n in range(lanes)], np.float32)
+    events["poly_freq"] = np.tile(freqs, (n_blocks, 1))
+    events["poly_rel"] = np.full((n_blocks, lanes), B, np.int32)
+    lfos = [lfo.LfoConfig() for _ in range(8)]
+    lfos[0].division, lfos[0].bpm = 5, 140.0
+    lfos[1].frequency_hz = 0.8
+    lfos[2].frequency_hz = 4.0
+    events["lfo_phase"] = np.array([[c.advance(B, SR) for c in lfos] for _ in range(n_blocks)],
+                                   np.float32)
+    events["lfo_inc"] = np.tile(np.array([c.freq() / SR for c in lfos], np.float32),
+                                (n_blocks, 1))
+    events["lfo_amount"] = np.ones((n_blocks, 8), np.float32)
+    events["lfo_offset"] = np.zeros((n_blocks, 8), np.float32)
+    for name in FX_ORDER_FULL:
+        state["fx_" + name] = engine.FX_MODULES[name].init_state(SR, device=dev)
+        events["fx_" + name] = np.tile(
+            np.asarray(engine.FX_DEFAULT_TARGETS[name], np.float32), (n_blocks, 1))
+    statics = dict(engine.FAMILY_STATIC, kick=dict(feedback_path=False, max_harmonics=0),
+                   snare=dict(max_harmonics=64))
+    static = dict(kinds=tuple(WHOLE_KIT), sample_rate=SR, block_size=B,
+                  smooth_coeff=smoothing_coeff(SR), limiter_threshold=1.0,
+                  family_static=tuple((k, tuple(sorted(statics[k].items())))
+                                      for k in WHOLE_KIT if k in statics),
+                  lfo_routes=WHOLE_ROUTES, fx_order=FX_ORDER_FULL)
+    return state, events, static
+
+
+def phase_whole_kit(dev, card, prof_file=None):
+    """Phase 11(b): every family at the full kit's widths through
+    ``render_many`` with three LFO routes and the seven-effect bus, all on
+    the stage path; then the routes' scans checked over ``SNARE_BLOCK``
+    blocks, and the kernels at the shapes this cell adds timed on that
+    render's last launch."""
+    from libgooey_tpu_torch.engine import engine
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import kernels
+
+    label = "whole_kit_6142_routes_bus7"
+    state, events, static = whole_kit_inputs(dev, N_BLOCKS)
+    n_voices = sum(nv * engine._lanes_per_slot(k) for k, nv in WHOLE_KIT.items())
+    counts = drive_path(label, card, state, events, static, n_voices,
+                        tuple(n for n in bk.KERNELS) + ("bus_chain", "plate_block"),
+                        N_REPEATS_EARLIER, prof_file)
+    check(counts["kit_sources"] == 0 and counts["bus_chain"] == N_BLOCKS
+          and counts["plate_block"] == N_BLOCKS,
+          f"{label}: a bank on the kit path, or the bus not one bus_chain and one plate_block "
+          f"a block: {counts}")
+    # the routes' scans, and the kernels at the shapes this cell adds (the
+    # poly's 510 rows, the tom's 512-row triangle at 128 harmonics; the
+    # routes' and the hihat's one-poles run at phase 3's 512 and 1,024
+    # rows), read at the last of SNARE_BLOCK blocks, when most voices have
+    # struck
+    n = SNARE_BLOCK
+    with route_scans() as seen, last_calls(NEW_SHAPES) as calls:
+        engine.render_many(state, {k: v[:n] for k, v in events.items()}, **static)
+    check_route_scans(label, seen, n, ("kick", "hihat", "bass"))
+    for (name, rows), (args, kw) in sorted(calls.items()):
+        if (name, rows) not in NEW_SHAPES[name]:
+            continue
+        mod = kernels.module_of(name)
+        kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        got = as_tuple(kern(*args, **kw))
+        err = max_err(got, as_tuple(plain(*args, **kw)))
+        ms = device_ms(lambda: kern(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
+        bms, bound_by = bound_ms(name, args, kw, got)
+        print(f"{label}: kernel {name} at {NEW_SHAPES[name][(name, rows)]} "
+              f"[{rows}, {B}] (the last of {n} blocks): device {ms * 1e3:.1f} us/call, plain "
+              f"{plain_ms * 1e3:.1f} us/call, bound {bms * 1e3:.4f} us ({bound_by}), "
+              f"max err vs plain {err:.3e}")
+        check(err <= OUT_TOL, f"{label}: {name} at {rows} rows differs from its plain "
+              f"version by {err}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", help="write a torch.profiler table here")
@@ -2631,6 +2981,8 @@ def main(argv=None) -> int:
             counts.update(phase_product(dev, card, prof))
             phase_engine(dev, card, prof)
             grain = phase_grain(dev, card, prof)
+            phase_whole_engine(dev, card)
+            phase_whole_kit(dev, card, prof)
         if args.profile:
             print(f"profile written to {args.profile}")
         counts.update((n, grain[n]) for n in ("grain_read_cubic", "sampler_read_linear"))

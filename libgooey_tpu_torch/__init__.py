@@ -25,9 +25,13 @@ What is ported so far is the engine's whole main path
 global bus of all seven effects with the compressor's sidechain), the
 product block (``bench_configs.bench_onchip_product_block``: small banks
 through the kit kernels, ``ops/voice.py``, then the nine-entry effect
-chain, ``mixer/chain.py``) and the granulator and sampler racks with their
-hosts (``bench_configs.bench_granulator_sampler_4k``); the rest raises
-``NotImplementedError`` and is queued in ROADMAP.md.
+chain, ``mixer/chain.py``), the granulator and sampler racks with their
+hosts (``bench_configs.bench_granulator_sampler_4k``) and the whole
+``Engine`` of the JAX package (``engine/engine.py``: all eight families,
+LFO routes, poly notes and chords with the host's lane allocator, preset
+blends, the MIDI-out queue, the bounce methods and the source scatter).
+The rest (the mixer graph, ``GooeyEngine``, the loops) is queued in
+ROADMAP.md; an entry point the port lacks raises ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

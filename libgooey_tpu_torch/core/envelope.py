@@ -33,10 +33,15 @@ def apply_curve(progress: torch.Tensor, c) -> torch.Tensor:
     return torch.pow(torch.clamp(progress, min=0.0), c)
 
 
-def amplitude(env: ADSR, elapsed: torch.Tensor) -> torch.Tensor:
-    """Envelope amplitude for ``elapsed`` seconds since trigger, un-released
-    (the drum path: a sustain-0 envelope is 0 after attack + decay; the
-    manual-release branch is not ported yet).  Negative elapsed yields 0."""
+def amplitude(env: ADSR, elapsed: torch.Tensor, release_elapsed=None) -> torch.Tensor:
+    """Envelope amplitude for ``elapsed`` seconds since trigger.  Negative
+    elapsed yields 0.
+
+    ``release_elapsed``: seconds since a manual release, or None for the
+    un-released path (the drum path: a sustain-0 envelope is 0 after attack
+    + decay).  Where it is positive, the amplitude is the held value at
+    ``elapsed - release_elapsed`` ramped linearly to 0 over ``release``
+    seconds (src/envelope.rs:163-189)."""
     a, d, s = env.attack, env.decay, env.sustain
     attack_amp = apply_curve(elapsed / a, env.attack_curve)
     decay_prog = apply_curve((elapsed - a) / d, env.decay_curve)
@@ -45,4 +50,14 @@ def amplitude(env: ADSR, elapsed: torch.Tensor) -> torch.Tensor:
     in_attack = elapsed < a
     in_decay = elapsed < a + d
     held = torch.where(in_attack, attack_amp, torch.where(in_decay, decay_amp, s))
-    return torch.where(elapsed >= 0.0, held, 0.0)
+    held = torch.where(elapsed >= 0.0, held, 0.0)
+    if release_elapsed is None:
+        return held
+    pre = amplitude(env, elapsed - release_elapsed)
+    released = pre * torch.clamp(1.0 - release_elapsed / env.release, min=0.0)
+    return torch.where(release_elapsed > 0.0, released, held)
+
+
+def drum_active(env: ADSR, elapsed: torch.Tensor) -> torch.Tensor:
+    """Whether a sustain-0 envelope still has signal (attack+decay window)."""
+    return (elapsed >= 0.0) & (elapsed < env.attack + env.decay)

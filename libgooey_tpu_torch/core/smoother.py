@@ -45,6 +45,10 @@ class SmootherBank(NamedTuple):
         t = torch.as_tensor(np.array(targets, np.float32), device=self.current.device)
         return SmootherBank(current=self.current, target=t)
 
+    def snapped(self) -> "SmootherBank":
+        """`SmoothedParam::snap` — jump current to target (smoother.rs:99-104)."""
+        return SmootherBank(current=self.target, target=self.target)
+
 
 def broadcast_targets(targets, shape, device) -> torch.Tensor:
     """Staged targets as a contiguous float32 ``shape`` tensor on ``device``

@@ -7,7 +7,11 @@
   snap (smoother.rs:120-137);
 * the value a trigger reads = smoother state after ``offset`` ticks;
 * per-sample latched values via ``after`` masks, and elapsed-time arrays
-  from a carried last-trigger sample index.
+  from a carried last-trigger sample index;
+* LFO-routed parameters (``overrides``): per-sample ``[V, B]``
+  trajectories the engine computed as one-pole scans toward the routes'
+  targets, in place of the closed form (ffi.rs:1237-1250 applies the
+  routes before the instrument's tick).
 
 ``trig_offset`` is ``[V]`` (one trigger slot, ``block_size`` = none) or
 ``[V, K]`` slot arrays with offsets ascending per voice; each sample sees the
@@ -36,15 +40,13 @@ class VoiceBlock:
     def __init__(self, bank: SmootherBank, trig_offset, block_start,
                  block_size: int, smooth_coeff: float, param_index: dict,
                  overrides=None):
-        if overrides:
-            from libgooey_tpu_torch import not_ported
-
-            raise not_ported("LFO-modulated parameter overrides")
         dev = bank.current.device
         self.bank = bank
         self.B = block_size
         self.q = np.float32(1.0 - smooth_coeff)
         self.param_index = param_index
+        #: LFO-routed parameter trajectories ``{name: [V, B]}``
+        self.overrides = overrides or {}
         self.powers = torch.pow(
             float(self.q), torch.arange(1, block_size + 1, dtype=torch.float32, device=dev))
 
@@ -59,6 +61,7 @@ class VoiceBlock:
         self.block_start = torch.as_tensor(block_start, device=dev).to(torch.int32)
         self.trig_global = self.block_start + off                # [V, K]
         self.has_trig_k = off < block_size                       # [V, K]
+        self.has_trig = torch.any(self.has_trig_k, dim=1)        # [V]
         n = self.n_local[None, :]
         # per-slot masks [V, K, B]; `after`/`at_trig` collapse over K
         self.after_k = (n[:, None, :] >= off[:, :, None]) & self.has_trig_k[:, :, None]
@@ -71,6 +74,8 @@ class VoiceBlock:
 
     def ptraj(self, name: str) -> torch.Tensor:
         """Smoothed per-sample trajectory of one param, ``[V, B]``."""
+        if name in self.overrides:
+            return self.overrides[name]
         idx = self.param_index[name]
         tgt = self.bank.target[:, idx, None]
         delta = (self.bank.current[:, idx] - self.bank.target[:, idx])[:, None]
@@ -80,11 +85,19 @@ class VoiceBlock:
         """Smoothed value as read by each trigger slot: ``[V]`` in
         single-trigger mode, ``[V, K]`` otherwise."""
         idx = self.param_index[name]
-        tgt = self.bank.target[:, idx, None]                     # [V, 1]
-        delta = self.bank.current[:, idx, None] - tgt
-        decayed = delta * torch.pow(
-            float(self.q), torch.clamp(self.trig_offset, 0, self.B).to(torch.float32))
-        out = tgt + settle_snap(decayed)
+        if name in self.overrides:
+            # the routed trajectory one sample before the trigger; the bank's
+            # current value for a trigger at the block's first sample
+            traj = self.overrides[name]                              # [V, B]
+            off = torch.clamp(self.trig_offset - 1, 0, self.B - 1).to(torch.int64)
+            at = torch.gather(traj, 1, off)                          # [V, K]
+            out = torch.where(self.trig_offset == 0, self.bank.current[:, idx, None], at)
+        else:
+            tgt = self.bank.target[:, idx, None]                     # [V, 1]
+            delta = self.bank.current[:, idx, None] - tgt
+            decayed = delta * torch.pow(
+                float(self.q), torch.clamp(self.trig_offset, 0, self.B).to(torch.float32))
+            out = tgt + settle_snap(decayed)
         return out[:, 0] if self.legacy else out
 
     def eff(self, new, old) -> torch.Tensor:
@@ -96,12 +109,26 @@ class VoiceBlock:
             out = torch.where(self.after_k[:, k, :], new[:, k, None], out)
         return out
 
+    def eff_vec(self, new, old) -> torch.Tensor:
+        """Vector variant: new ``[V, K, D]``, old ``[V, D]`` -> ``[V, B, D]``."""
+        out = torch.broadcast_to(old[:, None, :], self.after.shape + old.shape[-1:])
+        for k in range(self.K):
+            out = torch.where(self.after_k[:, k, :, None], new[:, k, None, :], out)
+        return out
+
     def latch(self, new, old) -> torch.Tensor:
         """End-of-block latched state ``[V]``: the LAST trigger's value."""
         new = self._as_vk(new)
         out = old
         for k in range(self.K):
             out = torch.where(self.has_trig_k[:, k], new[:, k].to(out.dtype), out)
+        return out
+
+    def latch_vec(self, new, old) -> torch.Tensor:
+        """Vector variant: new ``[V, K, D]``, old ``[V, D]`` -> ``[V, D]``."""
+        out = old
+        for k in range(self.K):
+            out = torch.where(self.has_trig_k[:, k, None], new[:, k, :], out)
         return out
 
     def trig_eff(self, prev_trig_sample) -> torch.Tensor:
@@ -120,10 +147,15 @@ class VoiceBlock:
         return trig_eff, elapsed_i, idx_f, idx_f * float(np.float32(1.0 / sample_rate))
 
     def advance_bank(self) -> SmootherBank:
-        """Smoother state at the end of the block (closed form + settle)."""
+        """Smoother state at the end of the block (closed form + settle); a
+        routed parameter ends at its trajectory's last sample."""
         delta = self.bank.current - self.bank.target
         decayed = delta * float(self.q ** np.float32(self.B))
         new_current = self.bank.target + settle_snap(decayed)
+        if self.overrides:
+            new_current = new_current.clone()
+            for name, traj in self.overrides.items():
+                new_current[:, self.param_index[name]] = traj[:, -1]
         return SmootherBank(current=new_current, target=self.bank.target)
 
 

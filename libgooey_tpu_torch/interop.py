@@ -30,12 +30,24 @@ from libgooey_tpu_torch.effects import (
     saturation,
     tilt,
 )
-from libgooey_tpu_torch.instruments import bass, granulator, hihat2, kick, sampler, snare, tom2
+from libgooey_tpu_torch.instruments import (
+    bass,
+    granulator,
+    hihat,
+    hihat2,
+    kick,
+    poly,
+    sampler,
+    snare,
+    tom,
+    tom2,
+)
 from libgooey_tpu_torch.ops import ringbuf
 from libgooey_tpu_torch.ops.oversample import OversamplerState
 
-#: the ported families' modules (``init_state`` builds the template)
-_FAMILIES = {"kick": kick, "snare": snare, "hihat2": hihat2, "tom2": tom2, "bass": bass}
+#: the engine families' modules (``init_state`` builds the template)
+_FAMILIES = {"kick": kick, "snare": snare, "hihat": hihat, "hihat2": hihat2, "tom": tom,
+             "tom2": tom2, "bass": bass, "poly": poly}
 #: the ported global effects' modules, likewise
 _FX = {"saturation": saturation, "lowpass": lowpass, "tilt": tilt, "delay": delay,
        "compressor": compressor, "spring": reverb_spring, "plate": reverb_plate}
@@ -55,8 +67,10 @@ def from_numpy(template, src, device):
 
 def family_state_from_numpy(kind: str, src, device):
     """A JAX bank state of family ``kind`` (or a tree with the same fields)
-    -> the port's state of that family."""
+    -> the port's state of that family (poly: its lanes, six a synth)."""
     V = np.asarray(src.trig_sample).shape[0]
+    if kind == "poly":
+        V //= poly.NUM_VOICES
     return from_numpy(_FAMILIES[kind].init_state(V, device="cpu"), src, device)
 
 

@@ -111,10 +111,13 @@ class OnePoleState(NamedTuple):
 
 
 def onepole_lp_block(state: OnePoleState, x, coeff, reset=None):
-    """``y += coeff * (x - y)`` over a block with a scalar ``coeff``;
-    returns ``(state, y traj)``."""
-    coeff = float(np.float32(coeff))
-    a = torch.full_like(x, float(np.float32(1.0) - np.float32(coeff)))
+    """``y += coeff * (x - y)`` over a block; ``coeff`` is a scalar or a
+    per-sample tensor broadcasting against ``x``; returns ``(state, y traj)``."""
+    if isinstance(coeff, torch.Tensor):
+        a = torch.broadcast_to(1.0 - coeff, x.shape)
+    else:
+        coeff = float(np.float32(coeff))
+        a = torch.full_like(x, float(np.float32(1.0) - np.float32(coeff)))
     if reset is not None:
         a = torch.where(reset, 0.0, a)
     y = gscan.linrec1(a, coeff * x, state.y)

@@ -23,6 +23,7 @@ its counterpart, and the port has no such switch
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from libgooey_tpu_torch.ops import bank_kernels
@@ -67,7 +68,12 @@ def linrec1(a, b, y0) -> torch.Tensor:
 
 def onepole(coeff, x, y0) -> torch.Tensor:
     """One-pole lowpass toward ``x``: ``y[n] = y[n-1] + coeff*(x[n]-y[n-1])``
-    with a per-sample ``coeff`` tensor broadcasting against ``x``."""
+    with a per-sample ``coeff`` tensor broadcasting against ``x``, or a
+    Python number, rounded to float32 before ``1 - coeff`` as the JAX
+    package's ``jnp.asarray(coeff)`` rounds it (``scan.py:165-166``)."""
+    if not isinstance(coeff, torch.Tensor):
+        c = np.float32(coeff)
+        return linrec1(torch.full_like(x, float(np.float32(1.0) - c)), float(c) * x, y0)
     return linrec1(1.0 - coeff, coeff * x, y0)
 
 

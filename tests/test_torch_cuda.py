@@ -358,6 +358,65 @@ def test_kit_with_kernels_matches_plain_versions(dev, monkeypatch):
     assert float((got - want).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("family", ["hihat", "tom", "poly"])
+def test_new_families_with_a_route_match_plain_versions(dev, monkeypatch, family):
+    """The hihat (its output one-pole: ``affine1_bank``), the tom (its punch:
+    ``triangle_additive_bank`` at 128 harmonics) and the poly synth (its
+    phases: ``affine1_bank``; its filter: ``svf_bank``) at V = 64 voices
+    (the poly synth: 10 synths, 60 lanes) and B = 512, 2 blocks with a routed parameter's trajectory from the
+    engine's one-pole scan: kernels vs plain versions within 1e-4."""
+    from libgooey_tpu_torch.instruments import hihat, poly, tom
+    from libgooey_tpu_torch.ops import scan
+
+    mod, param, kw = {"hihat": (hihat, "decay", {}),
+                      "tom": (tom, "frequency", {"max_harmonics": 128}),
+                      "poly": (poly, "filter_cutoff", {})}[family]
+    V, B, N = 64, 512, 2
+    rs = np.random.RandomState(4)
+    n_bank = V // poly.NUM_VOICES if family == "poly" else V
+    presets = sorted(mod.PRESETS)
+    targets = np.stack([mod.PRESETS[presets[v % len(presets)]]().as_array()
+                        for v in range(n_bank)])
+    lanes = n_bank * poly.NUM_VOICES if family == "poly" else V
+    coeff = smoothing_coeff(SR)
+    blocks = []
+    for blk in range(N):
+        off = rs.randint(0, 2 * B, lanes).astype(np.int32)
+        vel = rs.uniform(0.3, 1.0, lanes).astype(np.float32)
+        lfo = np.clip(0.5 + 0.4 * np.sin(0.01 * (np.arange(B) + blk * B)), 0, 1)
+        extra = {}
+        if family == "poly":
+            extra = dict(trig_freq=rs.uniform(80, 900, lanes).astype(np.float32),
+                         release_offset=np.where(rs.rand(lanes) < 0.3, 200, B).astype(np.int32))
+        blocks.append((off, vel, np.tile(lfo, (n_bank, 1)).astype(np.float32), extra))
+
+    def render():
+        state = mod.init_state(n_bank, targets=targets, device=dev)
+        outs = []
+        for blk, (off, vel, tgt, extra) in enumerate(blocks):
+            traj = scan.onepole(coeff, torch.as_tensor(tgt, device=dev),
+                                state.params.current[:, mod.PARAM_INDEX[param]])
+            if family == "poly":
+                traj = torch.repeat_interleave(traj, poly.NUM_VOICES, dim=0)
+            state, out = mod.render_block(state, off, vel, blk * B, sample_rate=SR,
+                                          block_size=B, smooth_coeff=coeff,
+                                          overrides={param: traj}, **extra, **kw)
+            outs.append(out)
+        return torch.stack(outs)
+
+    kernels.reset_launch_counts()
+    got = render()
+    counts = kernels.launch_counts()
+    used = {"hihat": ("affine1_bank",), "tom": ("affine1_bank", "triangle_additive_bank"),
+            "poly": ("affine1_bank", "svf_bank")}[family]
+    assert all(counts[n] >= N for n in used), counts
+    for n in bk.KERNELS:
+        monkeypatch.setattr(bk, n, getattr(bk, n + "_plain"))
+    want = render()
+    assert float(got.abs().max()) > 1e-4
+    assert float((got - want).abs().max()) <= 1e-4
+
+
 def test_slice_with_kernels_matches_plain_versions(dev, monkeypatch):
     V, B, N = 256, 256, 2
     state = {

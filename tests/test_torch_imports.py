@@ -38,7 +38,10 @@ def test_port_never_imports_jax():
         "       'libgooey_tpu_torch.effects.feedback_waveshaper',\n"
         "       'libgooey_tpu_torch.mixer', 'libgooey_tpu_torch.mixer.chain',\n"
         "       'libgooey_tpu_torch.ops.grain_kernels', 'libgooey_tpu_torch.instruments.granulator',\n"
-        "       'libgooey_tpu_torch.instruments.sampler'}\n"
+        "       'libgooey_tpu_torch.instruments.sampler', 'libgooey_tpu_torch.instruments.hihat',\n"
+        "       'libgooey_tpu_torch.instruments.tom', 'libgooey_tpu_torch.instruments.poly',\n"
+        "       'libgooey_tpu_torch.engine.lfo', 'libgooey_tpu_torch.music',\n"
+        "       'libgooey_tpu_torch.core.blendable', 'libgooey_tpu_torch.io_wav'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

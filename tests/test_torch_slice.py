@@ -163,10 +163,45 @@ def test_slice_goes_through_every_bank_wrapper(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(kinds=("kick", "hihat")),
                                 dict(lfo_routes=((0, "kick", 0, "frequency", 1.0),))])
 def test_unported_bus_features_raise(kw):
-    """What the engine block does not have yet raises and points at the
-    ROADMAP (all seven global effects are ported)."""
-    state = interop.engine_state_from_numpy(_jax_state(), "cpu")
-    events = {"kick_off": np.full(V, B, np.int32), "kick_vel": np.zeros(V, np.float32),
-              "block_start": np.int32(0)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine._render_all(state, events, **{**STATIC, **kw})
+    """The two engine features this test once expected to raise, now
+    ported, against the JAX ``_render_all`` for 3 blocks: a hihat bank of 4
+    beside the kicks (``kinds``), and an LFO at 0.8 Hz routed to kick 0's
+    frequency (``lfo_routes``: one one-pole scan toward the LFO's targets,
+    in place of the closed-form smoother).  State within 4e-4, relative to
+    its magnitude where that exceeds 1."""
+    from libgooey_tpu.instruments import hihat as jhihat
+
+    jstate = _jax_state()
+    if "hihat" in kw.get("kinds", ()):
+        nh = 4
+        jstate["hihat"] = jhihat.init_state(nh, jhihat.HiHatConfig.open_default())
+        jstate["pan"] = JSmootherBank.init(np.linspace(0.1, 0.9, V + nh).astype(np.float32))
+        jstate["gain"] = JSmootherBank.init(np.full(V + nh, 1.0 / V, np.float32))
+    tstate = interop.engine_state_from_numpy(jstate, "cpu")
+    static = {**STATIC, **kw}
+    peak = 0.0
+    for blk in range(3):
+        events = {"kick_off": np.full(V, B, np.int32), "kick_vel": np.full(V, 0.9, np.float32),
+                  "block_start": np.int32(blk * B)}
+        if blk == 0:
+            events["kick_off"][:4] = [0, 20, 77, 127]
+        if "hihat" in static["kinds"]:
+            events["hihat_off"] = np.array([3, B, 60, B] if blk != 1 else [B, 9, B, B],
+                                           np.int32)
+            events["hihat_vel"] = np.full(4, 0.7, np.float32)
+        if static.get("lfo_routes"):
+            events.update(lfo_phase=np.full(8, 0.1 + 0.01 * blk, np.float32),
+                          lfo_inc=np.full(8, 0.8 / SR, np.float32),
+                          lfo_amount=np.ones(8, np.float32), lfo_offset=np.zeros(8, np.float32))
+        jstate, jout, _ = jengine._render_all_jit(
+            jstate, {k: jnp.asarray(v) for k, v in events.items()}, **static)
+        tstate, tout, _ = tengine._render_all(tstate, events, **static)
+        jout = np.asarray(jout)
+        peak = max(peak, float(np.abs(jout).max()))
+        assert np.abs(tout.numpy() - jout).max() <= OUT_TOL, f"block {blk}"
+        for path, a in _leaves(jstate):
+            b = dict(_leaves(interop.to_numpy(tstate)))[path]
+            err = np.max(np.abs(a.astype(np.float64) - b) / np.maximum(1.0, np.abs(a)),
+                         initial=0.0)
+            assert err <= STATE_TOL, f"block {blk}: {path} off by {err}"
+    assert peak > 1e-3
