@@ -186,12 +186,12 @@ Phases (any failure exits non-zero):
    (the delay with an extra keyword option), LFO 0 at 1/8 and 140 BPM on
    the basses' cutoff, LFO 1 at 0.8 Hz on kicks 0-3's pitch, LFO 2 on hihat
    0's decay, LFO 3 on poly 0's cutoff, a chord on each poly synth held
-   0.5 s, 2 s in all; checks that the routed kick and bass left the kit
+   0.5 s, 1 s in all; checks that the routed kick and bass left the kit
    path (one ``kit_sources`` and ``kit_drive`` a block for the snare,
    hihat2 and tom2; the kick's ``fbws_bank`` and the bass's ``ws4_bank``
    once a block) and that each routed family's scan is one
    ``affine1_bank`` a routed parameter a block, its first 2 blocks against
-   a copy rendered on the plain versions, then ``bounce_to_buffer`` of 1 s
+   a copy rendered on the plain versions, then ``bounce_to_buffer`` of 0.5 s
    from two copies of the engine, bit for bit; (b) every family at the
    full kit's widths through ``render_many`` (kick, snare, hihat, hihat2
    1,024; tom, tom2, bass 512; poly 85 synths, 510 lanes: 6,142 voices,
@@ -201,7 +201,30 @@ Phases (any failure exits non-zero):
    blocks, wall ms/block and aggregate RTF, its first 2 blocks against the
    plain versions, and the kernels at the shapes the cell adds (the poly
    lanes' ``affine1_bank`` and ``svf_bank`` at 510 rows, the tom's
-   triangle at [512, B] and 128 harmonics) timed with their bounds.
+   triangle at [512, B] and 128 harmonics) timed with their bounds;
+12. the loops and the submix graph, in the order of
+   ``bench_configs.bench_preserve_pitch_loops``: ``Mixer(44100, bpm=180,
+   block_size=512)`` at its default capacity (four [2, 2^22] buffers), its
+   four channels each an 8 s stereo loop (four bars at 120 BPM: warp 1.5;
+   noise bursts on the beats over a low sine, from the seed) in
+   PreservePitch; (a) the host search and (b) the device search
+   (``search_hop`` a hop), 32 ``render_block`` calls each; the stem render
+   of channel 0 twice, bit for bit; (c) the streamed hop loop,
+   ``render_blocks(128)`` three times, every channel streamed, three
+   ``grain_read_cubic`` launches a hop, the WSOLA reads' shapes (four
+   channels' 65 coarse and 31 fine candidates of a hop, 882 samples, and
+   their 12 grain rows of 1,764) timed with their bounds, bit-equal to the
+   plain version; its first 8 blocks against (b)'s within 1.5e-3; (d) the
+   loops in row 0 of the clip grid, the transport running, launched at beat
+   0, ``render_blocks(2)`` then ``render_blocks(128)`` streamed; (e)
+   ``MixerGraph.with_default_layout`` for 64 blocks fed by (d)'s output and
+   an ``Engine`` of phase 9's 16 kicks, a lowpass, a delay and the plate on
+   the Loops track (one ``bus_chain`` and one ``plate_block`` a block), the
+   Drums track at pan 0.2, the Loops track soloed from block 32, each
+   track's ``take_peak``; each part's wall ms/block (and (a)-(d)'s
+   aggregate RTF over the 4 channels) and launches a block; the first 4
+   blocks of (a), (b) and (e) and (c)'s and (d)'s first calls against a
+   copy rendered on the plain versions.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
@@ -216,7 +239,8 @@ traffic (printed at the product block's 64 voices too), null elsewhere).  ``--pr
 also writes torch.profiler tables of 4 steady-state blocks of the kick
 slice, the kit, each kit-with-bus render, the product block (fused and
 with ``fuse_runs=False``), phase 9's sidechained ``Engine`` render,
-phase 10's render and phase 11(b)'s render to PATH.
+phase 10's render, phase 11(b)'s render, and 4 blocks of phase 12's (c)
+and (e) to PATH.
 """
 
 from __future__ import annotations
@@ -2346,17 +2370,13 @@ STAGE_ONLY = ("pink_bank", "fbws_bank", "ws4_bank", "triangle_additive_bank",
               "waveshaper_block", "fbws_fast_block")
 
 
-def phase_engine(dev, card, prof_file=None):
-    """The Engine with its default statics: 16 sequenced kicks (additive
-    triangle at 128 harmonics) and one sequenced instrument of each other
-    family, the bass with a note on one step, all on the kit path (the kit
-    kernels and the bank kernels between them; no stage-path kernel),
-    through the seven global effects; then a second second with the
-    compressor keyed from the first kick (with ``prof_file``, then 4 more
-    of its blocks under the profiler)."""
+def engine_kit(dev, others=("snare", "hihat2", "tom2", "bass")):
+    """Phase 9's instruments in an ``Engine`` with no effect: 16 sequenced
+    kicks of the four presets and one sequenced instrument of each family
+    in ``others`` (the bass with a note on one step), pans spread, 120 BPM,
+    master 0.5.  Returns ``(engine, names)``."""
     from libgooey_tpu_torch.engine.engine import FAMILIES, Engine
     from libgooey_tpu_torch.instruments import kick
-    from libgooey_tpu_torch.ops import kernels
 
     eng = Engine(SR, B, device=dev)
     presets = ("tight", "punch", "loose", "dirt")
@@ -2364,7 +2384,7 @@ def phase_engine(dev, card, prof_file=None):
     for i in range(16):
         names.append(f"kick{i}")
         eng.add_kick(names[-1], kick.PRESETS[presets[i % 4]]())
-    for kind in ("snare", "hihat2", "tom2", "bass"):
+    for kind in others:
         names.append(kind)
         eng.add_instrument(kind, kind, FAMILIES[kind].PRESETS["default"]())
     for i, name in enumerate(names):
@@ -2375,6 +2395,20 @@ def phase_engine(dev, card, prof_file=None):
             seq.set_step_note(1, 40)
         seq.start()
     eng.set_master_gain(0.5)
+    return eng, names
+
+
+def phase_engine(dev, card, prof_file=None):
+    """The Engine with its default statics: 16 sequenced kicks (additive
+    triangle at 128 harmonics) and one sequenced instrument of each other
+    family, the bass with a note on one step, all on the kit path (the kit
+    kernels and the bank kernels between them; no stage-path kernel),
+    through the seven global effects; then a second second with the
+    compressor keyed from the first kick (with ``prof_file``, then 4 more
+    of its blocks under the profiler)."""
+    from libgooey_tpu_torch.ops import kernels
+
+    eng, names = engine_kit(dev)
     eng.add_global_effect("saturation")
     eng.add_global_effect("lowpass")
     eng.add_global_effect("tilt", [0.3, 0.4])
@@ -2629,10 +2663,10 @@ def phase_grain(dev, card, prof_file=None):
 WHOLE_ENGINE = {"kick": 16, "snare": 16, "hihat": 16, "hihat2": 16, "tom": 8, "tom2": 8,
                 "bass": 8, "poly": 4}
 WHOLE_GAIN = 1.0 / 96.0
-WHOLE_SECONDS = 2.0
+WHOLE_SECONDS = 1.0
 #: how long each poly synth holds its chord, and the bounce's length, seconds
 CHORD_SECONDS = 0.5
-BOUNCE_SECONDS = 1.0
+BOUNCE_SECONDS = 0.5
 TOM_PRESETS = ("high", "mid", "low", "floor")
 CHORDS = (("C", "major7"), ("A", "minor9"), ("F", "dominant7"), ("G", "major"))
 #: phase 11(b), every family at the full kit's widths (poly: 85 synths,
@@ -2676,10 +2710,11 @@ def route_scans():
 
 
 @contextlib.contextmanager
-def last_calls(names):
+def last_calls(names, rows_of=None):
     """Keep each named wrapper's arguments at its last launch of each row
     count, ``{(name, rows): (args, kw)}`` (the triangle's sample rate and
-    harmonics as keywords, as ``kernel_cases`` passes them)."""
+    harmonics as keywords, as ``kernel_cases`` passes them).  ``rows_of(args,
+    kw)``: the key's second part, by default the first argument's rows."""
     from libgooey_tpu_torch.ops import kernels
 
     seen = {}
@@ -2687,7 +2722,8 @@ def last_calls(names):
 
     def recorder(name, fn):
         def recording(*args, **kw):
-            rows = next(a for a in args if a is not None).shape[0]
+            rows = (next(a for a in args if a is not None).shape[0] if rows_of is None
+                    else rows_of(args, kw))
             if name == "triangle_additive_bank":
                 args, kw = args[:2], dict(sample_rate=args[2], max_harmonics=args[3])
             seen[(name, rows)] = (args, kw)
@@ -2948,6 +2984,330 @@ def phase_whole_kit(dev, card, prof_file=None):
               f"version by {err}")
 
 
+# --- phase 12: the loops and the submix graph -----------------------------------
+
+#: each channel's loop: four bars at LOOP_BPM (352,800 frames)
+LOOP_SECONDS = 8.0
+LOOP_BPM = 120.0
+#: the mixer's tempo, warp 1.5 (bench_configs.bench_preserve_pitch_loops)
+LOOP_MIXER_BPM = 180.0
+N_LOOP_BLOCKS = 32        # (a), (b): render_block calls
+LOOP_K = 128              # (c), (d): blocks a render_blocks call
+N_LOOP_BATCHES = 3        # (c): render_blocks calls
+N_GRAPH_BLOCKS = 64       # (e)
+N_COMPARE_LOOPS = 4       # (a), (b), (e): first blocks against the plain versions
+#: (b) against (c): blocks, and the JAX package's streamed-vs-host bound
+#: (tests/test_wsola_stream.py)
+N_STREAM_VS_HOST = 8
+STREAM_TOL = 1.5e-3
+#: the WSOLA reads' shapes, (grains, samples): the four channels' 65 coarse
+#: and 31 fine candidates a hop (a hop is 882 samples) and their 12 grain
+#: rows (mono, left, right) of win_n = 1,764
+WSOLA_READS = {(260, 882): "the coarse candidates, 4 x 65",
+               (124, 882): "the fine candidates, 4 x 31",
+               (12, 1764): "the grains, 4 x 3 rows"}
+
+
+def loop_buffers(seed=SEED):
+    """Four 8 s stereo loops from ``seed``: on each beat at ``LOOP_BPM`` a
+    noise burst decaying at 8/s over a low sine (55, 110, 165, 220 Hz), the
+    left and right noise drawn apart.  Returns ``[(left, right)] * 4``."""
+    rs = np.random.RandomState(seed)
+    n = int(LOOP_SECONDS * SR)
+    t = np.arange(n) / SR
+    env = np.exp(-8.0 * (t % (60.0 / LOOP_BPM)))
+    out = []
+    for c in range(4):
+        sine = 0.1 * np.sin(2.0 * np.pi * 55.0 * (c + 1) * t)
+        out.append(tuple((sine + 0.25 * env * rs.randn(n)).astype(np.float32)
+                         for _ in range(2)))
+    return out
+
+
+def loop_mixer(dev, bufs, grid=False):
+    """``Mixer(44100, bpm=180, block_size=512)`` at its default capacity
+    (four ``[2, 2^22]`` buffers) with the loops (source BPM 120: warp 1.5) in
+    PreservePitch on its four channels, playing; or, with ``grid``, loaded
+    into row 0 of its clip grid, the transport started, each launched at
+    beat 0."""
+    from libgooey_tpu_torch.mixer.loop_channel import PITCH_PRESERVE
+    from libgooey_tpu_torch.mixer.mixer import Mixer
+    from libgooey_tpu_torch.mixer.stereo_buffer import StereoSampleBuffer
+
+    m = Mixer(SR, bpm=LOOP_MIXER_BPM, block_size=B, device=dev)
+    m.set_bpm(LOOP_MIXER_BPM)
+    for c, (left, right) in enumerate(bufs):
+        buf = StereoSampleBuffer.from_channels(left, right, SR, LOOP_BPM)
+        if grid:
+            m.clip_grid.load(c, 0, buf, LOOP_BPM)
+        else:
+            ch = m.channels[c]
+            ch.set_buffer(buf)
+            ch.pitch_mode = PITCH_PRESERVE
+            ch.set_playing(True)
+    if grid:
+        m.clip_grid.transport_start(m.channels)
+        for c in range(len(bufs)):
+            m.clip_grid.launch_at(c, 0, 0.0)
+    return m
+
+
+@contextlib.contextmanager
+def wsola_search_on_device(on):
+    """``mixer.wsola.USE_DEVICE_SEARCH`` set to ``on`` for new stretchers."""
+    from libgooey_tpu_torch.mixer import wsola
+
+    saved = wsola.USE_DEVICE_SEARCH
+    wsola.USE_DEVICE_SEARCH = on
+    try:
+        yield
+    finally:
+        wsola.USE_DEVICE_SEARCH = saved
+
+
+def stream_hops_due(m, K):
+    """The hops ``render_blocks(K)`` runs for channel 0's stretcher (every
+    channel of these mixers runs the same), counted on the host before the
+    call: ``ceil((K·B - r0) / hop)`` with ``r0`` the current hop's rest."""
+    from libgooey_tpu_torch.mixer import wsola
+
+    host = m.channels[0]._stretcher
+    hop = max(int(round(wsola.HOP_MS / 1000.0 * SR)), 1)
+    r0 = hop - host.drain_idx if host is not None and host.drain_idx < hop else 0
+    return -(-(K * B - r0) // hop)
+
+
+def check_loop_render(label, out, n_blocks):
+    import torch
+
+    peak = float(out.abs().max())
+    check(tuple(out.shape) == (2, n_blocks * B) and bool(torch.isfinite(out).all()),
+          f"{label}: output of shape {tuple(out.shape)} or not finite")
+    check(peak > 1e-3, f"{label}: output is silent (peak {peak})")
+    return peak
+
+
+def check_streamed(label, m, counts, hops):
+    """Every channel on the device hop loop, three grain reads a hop (one
+    wrap group)."""
+    check(m.streamed_channels == 4 and counts["grain_read_cubic"] == 3 * hops,
+          f"{label}: {m.streamed_channels} of 4 channels streamed, or grain_read_cubic "
+          f"{counts['grain_read_cubic']} times, not 3 x {hops} hops")
+
+
+def loops_line(label, card, walls, n_blocks, counts, peak, extra=""):
+    wall = float(np.median(walls))
+    rtf = 4 * n_blocks * B / SR / wall
+    print(f"{label}: 4 channels x {n_blocks} blocks, {wall / n_blocks * 1e3:.3f} ms/block "
+          f"(median of {len(walls)}: " + ", ".join(f"{w / n_blocks * 1e3:.3f}" for w in walls)
+          + f"), aggregate RTF {rtf:.1f} (4 channels), peak {peak:.4f}{extra} on {card}")
+    print(f"{label} launches per block: "
+          f"{json.dumps({n: c / n_blocks for n, c in counts.items() if c})}")
+    return wall
+
+
+def compare_plain(label, got, want, tol=RENDER_TOL):
+    err = max_err(got, want)
+    print(f"{label}: kernels vs plain versions: max err {err:.3e} (tol {tol:g})")
+    check(err <= tol, f"{label}: kernel render differs from the plain render by {err}")
+
+
+def phase_loops(dev, card, prof_file=None):
+    """Phase 12: the loop mixer in the order of
+    ``bench_configs.bench_preserve_pitch_loops``, (a) the host search and
+    (b) the device search through ``render_block``, (c) the streamed hop
+    loop through ``render_blocks``, (d) the clip grid with its transport
+    running; then (e) the submix graph fed by (d) and an ``Engine`` kit.
+    Returns (d)'s output, for (e)."""
+    import torch
+
+    from libgooey_tpu_torch.ops import kernels
+
+    bufs = loop_buffers()
+    outs = {}
+    for label, on_device in (("loops (a) PreservePitch, host search", False),
+                             ("loops (b) PreservePitch, device search", True)):
+        with wsola_search_on_device(on_device):
+            m = loop_mixer(dev, bufs)
+            twin = copy.deepcopy(m)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = torch.cat([m.render_block() for _ in range(N_LOOP_BLOCKS)], dim=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            with plain_versions():
+                want = torch.cat([twin.render_block() for _ in range(N_COMPARE_LOOPS)], dim=1)
+        peak = check_loop_render(label, out, N_LOOP_BLOCKS)
+        loops_line(label, card, [wall], N_LOOP_BLOCKS, counts, peak)
+        compare_plain(f"{label}, {N_COMPARE_LOOPS} blocks", out[:, :N_COMPARE_LOOPS * B], want)
+        outs[on_device] = (m, out)
+
+    # the stem render of channel 0, twice from one state
+    m = outs[False][0]
+    t0 = time.perf_counter()
+    stem = m.render_channel_to_buffer(0, int(SR))
+    stem_wall = time.perf_counter() - t0
+    again = m.render_channel_to_buffer(0, int(SR))
+    print(f"loops: render_channel_to_buffer(0, {int(SR)}) in {stem_wall:.3f} s, peak "
+          f"{float(np.abs(stem).max()):.4f}, equal to a second call: "
+          f"{np.array_equal(stem, again)}")
+    check(stem.shape == (2, int(SR)) and bool(np.isfinite(stem).all())
+          and float(np.abs(stem).max()) > 1e-3, "loops: the stem render is silent or wrong")
+    check(np.array_equal(stem, again), "loops: two stem renders from one state differ")
+
+    label = "loops (c) PreservePitch, streamed hop loop"
+    with wsola_search_on_device(True):
+        m = loop_mixer(dev, bufs)
+        twin = copy.deepcopy(m)
+        walls = []
+        for r in range(N_LOOP_BATCHES):
+            hops = stream_hops_due(m, LOOP_K)
+            kernels.reset_launch_counts()
+            recording = (last_calls(("grain_read_cubic",),
+                                    rows_of=lambda args, kw: (args[1].shape[0], kw["B"]))
+                         if r == 0 else contextlib.nullcontext({}))
+            with recording as reads:
+                t0 = time.perf_counter()
+                out = m.render_blocks(LOOP_K)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            counts = kernels.launch_counts()
+            check_streamed(f"{label}, call {r}", m, counts, hops)
+            print(f"{label}, call {r}: {m.streamed_channels} channels streamed, {hops} hops, "
+                  f"{counts['grain_read_cubic']} grain_read_cubic launches")
+            if r == 0:
+                first, first_counts, wsola_reads = out, counts, reads
+        with plain_versions():
+            want = twin.render_blocks(LOOP_K)
+    peak = check_loop_render(label, first, LOOP_K)
+    wall_c = loops_line(label, card, walls, LOOP_K, first_counts, peak)
+    compare_plain(f"{label}, first call ({LOOP_K} blocks)", first, want)
+    n = N_STREAM_VS_HOST * B
+    err = max_err(first[:, :n], outs[True][1][:, :n])
+    print(f"{label}: first {N_STREAM_VS_HOST} blocks vs (b)'s per-block render: max err "
+          f"{err:.3e} (tol {STREAM_TOL:g})")
+    check(err <= STREAM_TOL, f"{label}: the streamed render differs from (b)'s by {err}")
+    wsola_read_rows(wsola_reads, first_counts)
+    if prof_file is not None:
+        profile_blocks(f"{label} (4 channels)", card, prof_file,
+                       wall_c / LOOP_K * N_BLOCKS, lambda: m.render_blocks(4))
+
+    label = "loops (d) clip grid, transport running"
+    with wsola_search_on_device(True):
+        m = loop_mixer(dev, bufs, grid=True)
+        twin = copy.deepcopy(m)
+        head = m.render_blocks(2)       # lands the launches (the host path)
+        hops = stream_hops_due(m, LOOP_K)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = m.render_blocks(LOOP_K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check_streamed(label, m, counts, hops)
+        with plain_versions():
+            want = torch.cat([twin.render_blocks(2), twin.render_blocks(LOOP_K)], dim=1)
+    peak = check_loop_render(label, out, LOOP_K)
+    loops_line(label, card, [wall], LOOP_K, counts, peak,
+               f", transport at beat {m.clip_grid.transport_beat:.4f}")
+    compare_plain(f"{label}, 2 + {LOOP_K} blocks", torch.cat([head, out], dim=1), want)
+    return out
+
+
+def wsola_read_rows(reads, counts):
+    """The grain reads at the WSOLA shapes (``WSOLA_READS``), from (c)'s
+    first call: each bit-equal to its plain version, its device time, its
+    plain version's, its bound."""
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    check(set(k[1] for k in reads) == set(WSOLA_READS),
+          f"loops: the grain reads ran at {sorted(reads)}, not {sorted(WSOLA_READS)}")
+    per_block = counts["grain_read_cubic"] / 3 / LOOP_K
+    for (_name, shape), (args, kw) in sorted(reads.items()):
+        got = gk.grain_read_cubic(*args, **kw)
+        want = gk.grain_read_cubic_plain(*args, **kw)
+        ms = device_ms(lambda: gk.grain_read_cubic(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: gk.grain_read_cubic_plain(*args, **kw), 1)
+        bms, bound_by = bound_ms("grain_read_cubic", args, kw, (got,))
+        print(f"kernel grain_read_cubic at {WSOLA_READS[shape]} [{shape[0]}, {shape[1]}] from "
+              f"a {args[0].shape[0]}-sample union: device {ms * 1e3:.1f} us/call, plain "
+              f"{plain_ms * 1e3:.1f} us/call, bound {bms * 1e3:.4f} us ({bound_by}), "
+              f"{per_block:.3f} launches a block, bit-equal: {same_bits(got, want)}")
+        check(same_bits(got, want), f"grain_read_cubic at {shape} not bit-equal to its plain "
+              f"version")
+
+
+def phase_graph(dev, card, loops, prof_file=None):
+    """Phase 12(e): ``MixerGraph.with_default_layout`` fed for
+    ``N_GRAPH_BLOCKS`` blocks by (d)'s loop output (``SOURCE_LOOPMIXER``, the
+    Loops track) and an ``Engine`` of phase 9's 16 kicks
+    (``SOURCE_DRUMKIT``, the Drums track; rendered first, off the clock), a
+    lowpass, a delay and the plate on the Loops track's rack (one two-phase
+    ``bus_chain`` and one ``plate_block`` a block), the Drums track panned
+    to 0.2, the Loops track soloed from the middle block on; the first
+    blocks against a copy rendered on the plain versions; ``take_peak`` of
+    every track at the end."""
+    import torch
+
+    from libgooey_tpu_torch.mixer import chain as chain_mod
+    from libgooey_tpu_torch.mixer import graph as graph_mod
+    from libgooey_tpu_torch.ops import kernels
+
+    label = "graph (e) default layout, drums and loops"
+    n = N_GRAPH_BLOCKS
+    eng, _ = engine_kit(dev, others=())
+    frames = torch.zeros((n, graph_mod.SOURCE_CAPACITY, 2, B), dtype=torch.float32, device=dev)
+    for k in range(n):
+        frames[k, graph_mod.SOURCE_DRUMKIT] = eng.render_block()[0]
+        frames[k, graph_mod.SOURCE_LOOPMIXER] = loops[:, k * B:(k + 1) * B]
+    g = graph_mod.MixerGraph.with_default_layout(SR, LOOP_MIXER_BPM, device=dev)
+    loops_track = 3
+    rack = g.tracks[loops_track].rack
+    for eid in (chain_mod.EFFECT_LOWPASS_FILTER, chain_mod.EFFECT_DELAY,
+                chain_mod.EFFECT_PLATE_REVERB):
+        rack.add(eid)
+    rack.set_param(0, 0, 5000.0)        # cutoff
+    rack.set_param(1, 2, 0.4)           # the delay's mix
+    g.set_track_pan(0, 0.2)
+
+    def render(graph, blocks):
+        out = []
+        for k in blocks:
+            if k == n // 2:
+                graph.set_track_solo(loops_track, True)
+            master, peaks = graph.render(frames[k], B)
+            graph.record_peaks(peaks)
+            out.append(master)
+        return torch.cat(out, dim=1)
+
+    twin = copy.deepcopy(g)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = render(g, range(n))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    with plain_versions():
+        want = render(twin, range(N_COMPARE_LOOPS))
+    peak = check_loop_render(label, out, n)
+    peaks = [g.take_peak(t) for t in range(len(g.tracks))]
+    print(f"{label}: {len(g.tracks)} tracks x {n} blocks, {wall / n * 1e3:.3f} ms/block "
+          f"(sources rendered beforehand), peak {peak:.4f}, take_peak "
+          f"{json.dumps(dict(zip((t.name for t in g.tracks), peaks)))} on {card}")
+    print(f"{label} launches per block: "
+          f"{json.dumps({k: c / n for k, c in counts.items() if c})}")
+    compare_plain(f"{label}, {N_COMPARE_LOOPS} blocks", out[:, :N_COMPARE_LOOPS * B], want)
+    check(counts["bus_chain"] == n and counts["plate_block"] == n,
+          f"{label}: the Loops rack not one bus_chain and one plate_block a block: {counts}")
+    check(peaks[0] > 1e-3 and peaks[loops_track] > 1e-3 and peaks[1] == peaks[2] == 0.0,
+          f"{label}: track peaks {peaks}")
+    if prof_file is not None:
+        profile_blocks(f"{label} ({len(g.tracks)} tracks)", card, prof_file, wall / n * N_BLOCKS,
+                       lambda: render(g, range(n - 4, n)))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", help="write a torch.profiler table here")
@@ -2983,6 +3343,8 @@ def main(argv=None) -> int:
             grain = phase_grain(dev, card, prof)
             phase_whole_engine(dev, card)
             phase_whole_kit(dev, card, prof)
+            loops = phase_loops(dev, card, prof)
+            phase_graph(dev, card, loops, prof)
         if args.profile:
             print(f"profile written to {args.profile}")
         counts.update((n, grain[n]) for n in ("grain_read_cubic", "sampler_read_linear"))

@@ -11,10 +11,15 @@ there, int64 here).  Events
 need no conversion: they are numpy dicts with the JAX keys (``kick_off``,
 ``kick_vel``, ``bass_freq``, ``block_start``, ``fx_<name>``) that both
 packages take; the granulator's and the sampler's events are NamedTuples
-of numpy arrays with the JAX fields.
+of numpy arrays with the JAX fields.  The submix graph's and the loop
+mixer's device state (``graph_state_from_numpy``, ``mixer_state_from_numpy``)
+go into a port object with ``load_graph_state`` / ``load_mixer_state``; their
+host fields are numpy on both sides.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -162,6 +167,63 @@ def engine_state_from_numpy(src: dict, device) -> dict:
 
             raise not_ported(f"engine state entry {key!r}")
     return out
+
+
+class GraphState(NamedTuple):
+    """A ``MixerGraph``'s device state: the ``[T, 3]`` strip smoothers (or
+    None before the first render), each track's rack states and the peak
+    accumulator (or None)."""
+
+    smooth: Optional[SmootherBank]
+    racks: list
+    peak: Optional[torch.Tensor]
+
+
+class MixerState(NamedTuple):
+    """A loop ``Mixer``'s device state, per channel: the ``[2, 2 *
+    capacity]`` buffer, the gain/gate smoothers and the chain states."""
+
+    buffers: list
+    gains: list
+    chains: list
+
+
+def _rack_from_numpy(chain, device) -> list:
+    return [chain_state_from_numpy(e.effect_id, st, device)
+            for e, st in zip(chain.entries, chain.states)]
+
+
+def graph_state_from_numpy(src, device) -> GraphState:
+    """A JAX ``MixerGraph`` (or an object with its ``_smooth``, ``tracks``
+    with their ``rack``, and ``_peak_dev``) -> the port's graph state.
+    ``load_graph_state`` puts it into a port ``MixerGraph``."""
+    smooth = None if src._smooth is None else smoother_from_numpy(src._smooth, device)
+    peak = (None if src._peak_dev is None
+            else torch.as_tensor(np.array(src._peak_dev, np.float32), device=device))
+    return GraphState(smooth, [_rack_from_numpy(t.rack, device) for t in src.tracks], peak)
+
+
+def load_graph_state(graph, state: GraphState):
+    graph._smooth, graph._peak_dev = state.smooth, state.peak
+    for t, rack in zip(graph.tracks, state.racks):
+        t.rack.states = list(rack)
+
+
+def mixer_state_from_numpy(src, device) -> MixerState:
+    """A JAX loop ``Mixer`` (or an object with its ``_dev_buffers``,
+    ``_gain_banks`` and ``channels`` with their ``chain``) -> the port's
+    mixer state.  ``load_mixer_state`` puts it into a port ``Mixer``."""
+    return MixerState(
+        [torch.as_tensor(np.array(b, np.float32), device=device) for b in src._dev_buffers],
+        [smoother_from_numpy(g, device) for g in src._gain_banks],
+        [_rack_from_numpy(ch.chain, device) for ch in src.channels])
+
+
+def load_mixer_state(mixer, state: MixerState):
+    mixer._dev_buffers = list(state.buffers)
+    mixer._gain_banks = list(state.gains)
+    for ch, rack in zip(mixer.channels, state.chains):
+        ch.chain.states = list(rack)
 
 
 def to_numpy(tree):

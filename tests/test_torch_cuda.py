@@ -1177,3 +1177,52 @@ def test_grain_read_is_bit_equal_to_its_plain_version(dev, case):
     want = gk.grain_read_cubic_plain(*args, **kw)
     torch.cuda.synchronize()
     assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(260, 882), (124, 882), (12, 1764)],
+                         ids=["coarse_4x65", "fine_4x31", "grains_4x3"])
+def test_grain_read_is_bit_equal_at_the_wsola_shapes(dev, shape):
+    """grain_read_cubic at the streamed WSOLA loop's reads at 44.1 kHz (four
+    channels' coarse and fine candidates of one hop, their grain rows of
+    win_n) from a flattened union of 4 x 3 x U samples, each channel's starts
+    inside its own third of rows, bit for bit against its plain version."""
+    from libgooey_tpu_torch.ops import grain_kernels as gk
+
+    G, B = shape
+    C, U = 4, 2900
+    rs = np.random.RandomState(G)
+    union = torch.as_tensor(0.3 * rs.randn(C * 3 * U), dtype=torch.float32, device=dev)
+    step = np.repeat(rs.uniform(0.9, 1.1, C), G // C)
+    chan = np.repeat(np.arange(C) * 3 * U, G // C)
+    p0 = chan + rs.uniform(4.0, U - 1.1 * B - 4.0, G)
+    args = (union, torch.as_tensor(p0, dtype=torch.float32, device=dev),
+            torch.as_tensor(step, dtype=torch.float32, device=dev))
+    got = gk.grain_read_cubic(*args, B=B)
+    want = gk.grain_read_cubic_plain(*args, B=B)
+    torch.cuda.synchronize()
+    assert got.shape == (G, B) and _bits_equal(got, want)
+
+
+def test_streamed_loops_match_plain_versions(dev, monkeypatch):
+    """chip_smoke's four 8 s loops at warp 1.5 through the streamed hop loop,
+    render_blocks(8): every channel streamed, three grain reads a hop, the
+    render within 1e-4 of a copy's render on the plain versions."""
+    import copy
+
+    import chip_smoke
+    from libgooey_tpu_torch.mixer import wsola
+
+    monkeypatch.setattr(wsola, "USE_DEVICE_SEARCH", True)
+    m = chip_smoke.loop_mixer(dev, chip_smoke.loop_buffers())
+    twin = copy.deepcopy(m)
+    hops = chip_smoke.stream_hops_due(m, 8)
+    kernels.reset_launch_counts()
+    got = m.render_blocks(8)
+    counts = kernels.launch_counts()
+    assert m.streamed_channels == 4 and counts["grain_read_cubic"] == 3 * hops, counts
+    for n in kernels.KERNELS:
+        mod = kernels.module_of(n)
+        monkeypatch.setattr(mod, n, getattr(mod, n + "_plain"))
+    want = twin.render_blocks(8)
+    assert got.shape == (2, 8 * 512) and float(got.abs().max()) > 1e-3
+    assert float((got - want).abs().max()) <= 1e-4

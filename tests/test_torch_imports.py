@@ -41,7 +41,12 @@ def test_port_never_imports_jax():
         "       'libgooey_tpu_torch.instruments.sampler', 'libgooey_tpu_torch.instruments.hihat',\n"
         "       'libgooey_tpu_torch.instruments.tom', 'libgooey_tpu_torch.instruments.poly',\n"
         "       'libgooey_tpu_torch.engine.lfo', 'libgooey_tpu_torch.music',\n"
-        "       'libgooey_tpu_torch.core.blendable', 'libgooey_tpu_torch.io_wav'}\n"
+        "       'libgooey_tpu_torch.core.blendable', 'libgooey_tpu_torch.io_wav',\n"
+        "       'libgooey_tpu_torch.mixer.graph', 'libgooey_tpu_torch.mixer.stereo_buffer',\n"
+        "       'libgooey_tpu_torch.mixer.loop_channel', 'libgooey_tpu_torch.mixer.wsola',\n"
+        "       'libgooey_tpu_torch.mixer.clip_grid', 'libgooey_tpu_torch.mixer.stream',\n"
+        "       'libgooey_tpu_torch.mixer.mixer', 'libgooey_tpu_torch.ops.wsola_search',\n"
+        "       'libgooey_tpu_torch.ops.wsola_stream'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
