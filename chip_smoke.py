@@ -224,7 +224,28 @@ Phases (any failure exits non-zero):
    track's ``take_peak``; each part's wall ms/block (and (a)-(d)'s
    aggregate RTF over the 4 channels) and launches a block; the first 4
    blocks of (a), (b) and (e) and (c)'s and (d)'s first calls against a
-   copy rendered on the plain versions.
+   copy rendered on the plain versions;
+13. ``GooeyEngine``, the product engine behind the C API, at its full width
+   (4 kit channels x 5 kinds, the bass strip, the poly): (a)
+   ``bench_configs.bench_sequenced_submix``'s session (four strips on
+   ``x.x.x.x.x.x.x.x.``, pans 0.2-0.8, strip 3 muted), 16 blocks through
+   ``_render_one_block``, then ``render(K * 512)`` through the span at K =
+   16 and 64; (b) ``bench_interactive_pipelined``'s (swing 0.6, saturation,
+   delay and spring: one ``bus_chain`` a block), 64 blocks enqueued before
+   one synchronize (median of 3), then a depth-1 loop for the worst block;
+   (c) a whole session at 180 BPM: (b)'s strips, the kick and the tom struck
+   on their first step as well (a multi-trigger block: the span takes their
+   stage path), the granulator on phase 10's source, triggered, a rack of
+   two slots with its pattern, phase 12's four loops in PreservePitch
+   (streamed), a chord on the poly, saturation -> lowpass -> delay -> plate
+   and a compressor keyed from strip 0; ``render(64 * 512)`` through the
+   span (every kernel of ``SESSION_PATH`` launched), then 64 callbacks of
+   ``EngineOutput.fill`` paced at 11.61 ms with a prefetch of 4, with its
+   overrun count.  Each render's wall ms/block and RTF (audio s over wall
+   s); its first 2 blocks against a copy on the plain versions; (a)'s and
+   (c)'s spans against a second engine's per-block path; the span's block
+   loop under ``torch.cuda.set_sync_debug_mode("warn")``, no synchronizing
+   call allowed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
@@ -232,20 +253,23 @@ JSON summary (launches from the first full_kit_4096_bus7 render, the
 eight single bus kernels' from its ``fuse_bus=False`` render, the kit
 kernels' from the product render and the two waveshapers' from its
 ``fuse_runs=False`` render, the grain and sampler reads' from phase 10's
-render; ``ms`` the device time per call of each kernel's first phase-3
+render, each raised to phase 13 (c)'s span count where that is larger;
+``ms`` the device time per call of each kernel's first phase-3
 case, timed with CUDA events where the profiler traces nothing;
 ``library_ms`` ``mix_bank``'s matmul yardstick at the kit cells' settled
 traffic (printed at the product block's 64 voices too), null elsewhere).  ``--profile PATH``
 also writes torch.profiler tables of 4 steady-state blocks of the kick
 slice, the kit, each kit-with-bus render, the product block (fused and
 with ``fuse_runs=False``), phase 9's sidechained ``Engine`` render,
-phase 10's render, phase 11(b)'s render, and 4 blocks of phase 12's (c)
-and (e) to PATH.
+phase 10's render, phase 11(b)'s render, 4 blocks of phase 12's (c)
+and (e), and 4 blocks of phase 13's (a) per-block and span, (b) and (c)
+to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import json
@@ -3308,6 +3332,392 @@ def phase_graph(dev, card, loops, prof_file=None):
                        lambda: render(g, range(n - 4, n)))
 
 
+# --- phase 13: GooeyEngine, the product engine behind the C API ------------------
+
+GOOEY_PANS = (0.2, 0.4, 0.6, 0.8, 0.5)
+N_GOOEY_BLOCKS = 16       # (a): _render_one_block calls
+GOOEY_SPANS = (16, 64)    # (a): render(K * B) through the span
+N_PIPELINED = 64          # (b): blocks enqueued before one synchronize
+N_SESSION = 64            # (c): the span render and the EngineOutput fills
+N_PREFETCH = 4            # (c): EngineOutput's prefetch depth
+N_COMPARE_GOOEY = 2       # first blocks of each render against the plain versions
+GOOEY_TOL = 1e-4
+#: the kernels (c)'s span launches: the kit path (snare, hihat2, bass), the
+#: kick's and the tom's stage path (their multi-trigger first block widens
+#: the span), the poly, the granulator, the rack, the streamed loops, the
+#: global run, the plate and the keyed compressor
+SESSION_PATH = ("kit_sources", "kit_drive", "affine1_bank", "svf_bank", "pink_bank",
+                "env_follow_bank", "fbws_bank", "linrec2_bank", "triangle_additive_bank",
+                "ws4_bank", "grain_read_cubic", "sampler_read_linear", "bus_chain",
+                "plate_block", "env_follower_block", "compressor_block")
+
+
+def stereo(inter):
+    """An interleaved render as ``[2, frames]``."""
+    return np.asarray(inter).reshape(-1, 2).T
+
+
+def gooey_strips(g, swing=None):
+    for ch in range(4):
+        seq = g.sequencers[ch]
+        seq.set_pattern_string("x.x.x.x.x.x.x.x.")
+        if swing is not None:
+            seq.set_swing(swing)
+        seq.start()
+
+
+def submix_engine(dev, span=True):
+    """(a) ``bench_configs.bench_sequenced_submix``'s session."""
+    from libgooey_tpu_torch.gooey import GooeyEngine
+
+    g = GooeyEngine(SR, B, device=dev)
+    gooey_strips(g)
+    g.strip_pan[:] = GOOEY_PANS
+    g.strip_mute[3] = True
+    g.span_rendering = span
+    return g
+
+
+def interactive_engine(dev):
+    """(b) ``bench_configs.bench_interactive_pipelined``'s session."""
+    from libgooey_tpu_torch.gooey import GooeyEngine
+    from libgooey_tpu_torch.mixer import chain as chain_mod
+
+    g = GooeyEngine(SR, B, device=dev)
+    gooey_strips(g, swing=0.6)
+    for eid in (chain_mod.EFFECT_SATURATION, chain_mod.EFFECT_DELAY, chain_mod.EFFECT_REVERB):
+        g.set_effect_enabled(eid, True)
+    return g
+
+
+def session_engine(dev, span=True):
+    """(c) the whole session: (b)'s strips at phase 12's 180 BPM (the loops
+    at warp 1.5), the kick's and the tom's strips struck by hand on their
+    first step (a multi-trigger block), the granulator on phase 10's source,
+    triggered, a rack of two slots with a pattern started at beat 0, phase
+    12's four loops in PreservePitch, a chord on the poly, and the global
+    chain saturation -> lowpass -> delay -> plate, then a compressor keyed
+    from strip 0."""
+    from libgooey_tpu_torch.gooey import GooeyEngine
+    from libgooey_tpu_torch.mixer import chain as chain_mod
+    from libgooey_tpu_torch.mixer.loop_channel import PITCH_PRESERVE
+    from libgooey_tpu_torch.mixer.stereo_buffer import StereoSampleBuffer
+
+    g = GooeyEngine(SR, B, device=dev)
+    g.span_rendering = span
+    g.set_bpm(LOOP_MIXER_BPM)
+    gooey_strips(g, swing=0.6)
+    g.trigger_channel(0, 0.9)
+    g.trigger_channel(3, 0.9)
+    g.granulator_load(np.random.RandomState(0).randn(GRAIN_SOURCE).astype(np.float32) * 0.3, SR)
+    g.granulator_set_param("density", 0.6)
+    g.granulator_trigger(0.9)
+    rs = np.random.RandomState(3)
+    g.register_sampler_rack(0, arena_frames=1 << 16)
+    rack = g.racks[0]
+    rack.set_buffer(0, (0.5 * rs.randn(6000)).astype(np.float32), SR)
+    rack.set_buffer(1, (0.5 * rs.randn(9000, 2)).astype(np.float32), 96000.0)
+    for step in range(16):
+        rack.set_step(step, step % 2 == 0, step % 4 // 2, 0.8)
+    rack.schedule_start(0.0)
+    for c, (left, right) in enumerate(loop_buffers()):
+        ch = g.mixer.channels[c]
+        ch.set_buffer(StereoSampleBuffer.from_channels(left, right, SR, LOOP_BPM))
+        ch.pitch_mode = PITCH_PRESERVE
+        ch.set_playing(True)
+    g.perf_chord_on(0, 0, 0, 0, 1, 4, 0.8)
+    for eid in (chain_mod.EFFECT_SATURATION, chain_mod.EFFECT_LOWPASS_FILTER,
+                chain_mod.EFFECT_DELAY, chain_mod.EFFECT_PLATE_REVERB,
+                chain_mod.EFFECT_COMPRESSOR):
+        g.set_effect_enabled(eid, True)
+    g.set_effect_order([chain_mod.EFFECT_SATURATION, chain_mod.EFFECT_LOWPASS_FILTER,
+                        chain_mod.EFFECT_DELAY, chain_mod.EFFECT_PLATE_REVERB,
+                        chain_mod.EFFECT_COMPRESSOR, chain_mod.EFFECT_TILT_FILTER,
+                        chain_mod.EFFECT_WAVESHAPER, chain_mod.EFFECT_FEEDBACK_WAVESHAPER,
+                        chain_mod.EFFECT_REVERB])
+    g.set_effect_param(chain_mod.EFFECT_LOWPASS_FILTER, 0, 6000.0)
+    g.sidechain_strip = 0
+    return g
+
+
+@contextlib.contextmanager
+def strict_span():
+    """Catch the synchronizing CUDA calls inside the span's block loop
+    (``torch.cuda.set_sync_debug_mode("warn")`` around ``_span_render``);
+    yields the list of their Python call sites, innermost last."""
+    import os
+    import traceback
+    import warnings
+
+    import torch
+
+    from libgooey_tpu_torch import gooey
+
+    real, seen = gooey._span_render, []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            seen.append(" > ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                                   for f in traceback.extract_stack()[-7:-1]))
+
+    def watched(*args, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    gooey._span_render = watched
+    try:
+        yield seen
+    finally:
+        gooey._span_render = real
+
+
+def check_syncs(label, syncs):
+    sites = collections.Counter(syncs).most_common(4)
+    check(not syncs, f"{label}: {len(syncs)} synchronizing calls in the span's block loop, "
+          f"most at {sites}")
+
+
+def timed_render(render):
+    """``render()`` with every launch count at 0 and the card synchronised
+    before and after: ``(output, wall s, counts)``."""
+    import torch
+
+    from libgooey_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = render()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, kernels.launch_counts()
+
+
+def per_block(g, n):
+    """``n`` blocks through ``_render_one_block``, enqueued, as one tensor."""
+    import torch
+
+    return torch.cat([g._render_one_block() for _ in range(n)], dim=1)
+
+
+def gooey_line(label, card, wall, n_blocks, counts, out, extra=""):
+    """Print a render's wall ms/block, its real-time factor (audio seconds
+    over wall seconds) and launches a block; check the output.  Returns
+    ``(ms/block, launches a block)``."""
+    out = np.asarray(out)
+    peak = float(np.abs(out).max())
+    check(out.shape == (2, n_blocks * B) and bool(np.isfinite(out).all()),
+          f"{label}: output of shape {out.shape} or not finite")
+    check(peak > 1e-3, f"{label}: output is silent (peak {peak})")
+    ms = wall / n_blocks * 1e3
+    per = {k: c / n_blocks for k, c in counts.items() if c}
+    print(f"{label}: {n_blocks} blocks, {ms:.3f} ms/block, RTF {n_blocks * B / SR / wall:.3f} "
+          f"(audio s / wall s), peak {peak:.4f}{extra} on {card}")
+    print(f"{label} launches per block: {json.dumps(per)}")
+    return ms, per
+
+
+def gooey_compare(label, got, want, what="the plain versions", tol=GOOEY_TOL):
+    err = float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+    print(f"{label}: vs {what}: max err {err:.3e} (tol {tol:g})")
+    check(err <= tol, f"{label}: differs from {what} by {err}")
+
+
+def plain_head(twin, span):
+    """The first ``N_COMPARE_GOOEY`` blocks of ``twin`` (a copy taken before
+    a render) on the plain versions, through the span or block by block."""
+    with plain_versions():
+        if span:
+            return stereo(twin.render(N_COMPARE_GOOEY * B))
+        return per_block(twin, N_COMPARE_GOOEY).cpu().numpy()
+
+
+def gooey_profile(label, card, prof_file, ms, render4):
+    if prof_file is not None:
+        profile_blocks(label, card, prof_file, ms * N_BLOCKS / 1e3, render4)
+
+
+def phase_gooey_submix(dev, card, prof_file=None):
+    """(a) 16 blocks through ``_render_one_block``, then ``render(K * B)``
+    through the span at K = 16 and 64, each against a second engine's
+    per-block path and its first blocks against a copy on the plain
+    versions.  Returns each render's launches a block."""
+    import torch
+
+    label = "gooey (a) sequenced submix"
+    g, ref = submix_engine(dev), submix_engine(dev, span=False)
+    for e in (g, ref):
+        e.render(2 * B)     # first launches, the allocator
+    launches = {}
+    twin = copy.deepcopy(g)
+    out, wall, counts = timed_render(lambda: per_block(g, N_GOOEY_BLOCKS))
+    out = out.cpu().numpy()
+    want = ref.render(N_GOOEY_BLOCKS * B)
+    ms, launches["per-block"] = gooey_line(f"{label}, per-block", card, wall, N_GOOEY_BLOCKS,
+                                           counts, out)
+    gooey_compare(f"{label}, per-block", out, stereo(want), "a second engine's per-block path")
+    gooey_compare(f"{label}, per-block, {N_COMPARE_GOOEY} blocks", out[:, :N_COMPARE_GOOEY * B],
+                  plain_head(twin, False))
+    walls = {"per-block": ms}
+    for K in GOOEY_SPANS:
+        twin = copy.deepcopy(g)
+        with strict_span() as syncs:
+            out, wall, counts = timed_render(lambda: g.render(K * B))
+        check(g.error is None, f"{label}: {g.error}")
+        out = stereo(out)
+        want = stereo(ref.render(K * B))
+        ms, launches[f"span {K}"] = gooey_line(
+            f"{label}, span {K}", card, wall, K, counts, out,
+            f", {len(syncs)} synchronizing calls in the block loop")
+        gooey_compare(f"{label}, span {K}", out, want, "a second engine's per-block path")
+        gooey_compare(f"{label}, span {K}, first {N_COMPARE_GOOEY} blocks",
+                      out[:, :N_COMPARE_GOOEY * B], plain_head(twin, True))
+        check_syncs(f"{label}, span {K}", syncs)
+        walls[K] = ms
+    # traced last: the profiles' blocks advance only this engine
+    gooey_profile(f"{label}, per-block", card, prof_file, walls["per-block"],
+                  lambda: per_block(g, 4))
+    gooey_profile(f"{label}, span", card, prof_file, walls[GOOEY_SPANS[0]],
+                  lambda: g.render(4 * B))
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_gooey_interactive(dev, card, prof_file=None):
+    """(b) 64 blocks enqueued through ``_render_one_block``, one
+    synchronize (three times: the median and the best), the first blocks
+    against a copy on the plain versions; then a depth-1 loop (block N+1
+    enqueued, block N read back) for the worst block."""
+    import torch
+
+    label = "gooey (b) interactive, pipelined"
+    g = interactive_engine(dev)
+    g.render(4 * B)
+    twin = copy.deepcopy(g)
+    walls = []
+    for r in range(3):
+        out, wall, c = timed_render(lambda: per_block(g, N_PIPELINED))
+        walls.append(wall)
+        if r == 0:
+            first, counts = out.cpu().numpy(), c
+    wall = float(np.median(walls))
+    ms, launches = gooey_line(
+        label, card, wall, N_PIPELINED, counts, first,
+        f"; median of 3 (best {min(walls) / N_PIPELINED * 1e3:.3f} ms/block)")
+    gooey_compare(f"{label}, {N_COMPARE_GOOEY} blocks", first[:, :N_COMPARE_GOOEY * B],
+                  plain_head(twin, False))
+    prev = g._render_one_block()
+    worst, lat = 0.0, []
+    for _ in range(N_PIPELINED):
+        t0 = time.perf_counter()
+        nxt = g._render_one_block()
+        prev.cpu()
+        lat.append(time.perf_counter() - t0)
+        prev = nxt
+    torch.cuda.synchronize()
+    worst = max(lat)
+    print(f"{label}, depth 1: worst block {worst * 1e3:.3f} ms, median "
+          f"{float(np.median(lat)) * 1e3:.3f} ms (limit {B / SR * 1e3:.2f} ms) on {card}")
+    gooey_profile(label, card, prof_file, ms, lambda: per_block(g, 4))
+    return {"pipelined": launches}
+
+
+def phase_gooey_session(dev, card, prof_file=None):
+    """(c) the whole session: ``render(64 * B)`` through the span, against a
+    second engine's per-block path and, its first blocks, a copy on the
+    plain versions, every kernel of ``SESSION_PATH`` launched; then 64
+    blocks through ``EngineOutput.fill`` with a prefetch of 4, paced at the
+    card's real-time cadence, with its overrun count.  Returns the span's
+    counts and its launches a block."""
+    import torch
+
+    from libgooey_tpu_torch.engine.output import EngineOutput
+
+    label = "gooey (c) whole session"
+    with wsola_search_on_device(True):
+        g, ref = session_engine(dev), session_engine(dev, span=False)
+        twin = copy.deepcopy(g)
+        # the paths' constant tables reach the card at their first use, once
+        # a process: a copy's short span lands them before the timed one
+        copy.deepcopy(g).render(2 * B)
+        with strict_span() as syncs:
+            out, wall, counts = timed_render(lambda: g.render(N_SESSION * B))
+        check(g.error is None, f"{label}: {g.error}")
+        out = stereo(out)
+        want = stereo(ref.render(N_SESSION * B))
+        check(ref.error is None, f"{label}: {ref.error}")
+        ms, launches = gooey_line(f"{label}, span {N_SESSION}", card, wall, N_SESSION, counts,
+                                  out, f", {len(syncs)} synchronizing calls in the block loop")
+        missing = [n for n in SESSION_PATH if not counts[n]]
+        check(not missing, f"{label}: never launched: {missing}")
+        gooey_compare(f"{label}, span {N_SESSION}", out, want, "a second engine's per-block path")
+        gooey_compare(f"{label}, first {N_COMPARE_GOOEY} blocks", out[:, :N_COMPARE_GOOEY * B],
+                      plain_head(twin, True))
+        check_syncs(label, syncs)
+
+        # the realtime adapter: a prefetch thread renders block by block
+        twin = copy.deepcopy(g)
+        o = EngineOutput(prefetch_blocks=N_PREFETCH)
+        o.initialize(SR)
+        o.create_stream_with_engine(g)
+        o.start()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 120.0:
+            with o._lock:
+                if len(o._queue) >= N_PREFETCH:
+                    break
+            time.sleep(0.005)
+        primed = time.perf_counter() - t0
+        period = B / SR
+        got, late = [], 0
+        t0 = time.perf_counter()
+        for i in range(N_SESSION):
+            buf = np.zeros(B * 2, np.float32)
+            o.fill(buf, 2)
+            got.append(stereo(buf))
+            delay = t0 + (i + 1) * period - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            else:
+                late += 1
+        wall = time.perf_counter() - t0
+        o.stop()
+        torch.cuda.synchronize()
+        overruns = o.overrun_count()
+        filled = np.concatenate(got, axis=1)
+        check(bool(np.isfinite(filled).all()) and float(np.abs(filled).max()) > 1e-3,
+              f"{label}, EngineOutput: the filled audio is silent or not finite")
+        print(f"{label}, EngineOutput.fill: {N_SESSION} callbacks of {B} frames paced at "
+              f"{period * 1e3:.2f} ms, prefetch {N_PREFETCH} (primed in {primed:.3f} s), "
+              f"{wall / N_SESSION * 1e3:.3f} ms/callback, {late} late, overruns {overruns}, "
+              f"silent callbacks {sum(float(np.abs(x).max()) == 0.0 for x in got)} on {card}")
+        with plain_versions():
+            want = np.concatenate([per_block(twin, 1).cpu().numpy()
+                                   for _ in range(N_COMPARE_GOOEY)], axis=1)
+        gooey_compare(f"{label}, EngineOutput, first {N_COMPARE_GOOEY} callbacks",
+                      filled[:, :N_COMPARE_GOOEY * B], want)
+        gooey_profile(f"{label}, span", card, prof_file, ms, lambda: g.render(4 * B))
+    return counts, {"span": launches}
+
+
+def phase_gooey(dev, card, prof_file=None):
+    """Phase 13: ``GooeyEngine`` (22 instrument slots and the poly), (a)-(c).
+    Returns (c)'s span counts, each merged with the largest count a render
+    of (a) and (b) gave per 64 blocks."""
+    launches = phase_gooey_submix(dev, card, prof_file)
+    launches.update(phase_gooey_interactive(dev, card, prof_file))
+    counts, per = phase_gooey_session(dev, card, prof_file)
+    launches.update(per)
+    print(f"gooey launches per block by render: {json.dumps(launches)}")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", help="write a torch.profiler table here")
@@ -3330,24 +3740,32 @@ def main(argv=None) -> int:
     _build.load_library()
     print(f"build: {lib.name} ready in {time.perf_counter() - t0:.2f} s")
 
+    def clocked(phase, *a):
+        t = time.perf_counter()
+        out = phase(*a)
+        print(f"{phase.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
     try:
-        kernels = phase_kernels(dev)
+        kernels = clocked(phase_kernels, dev)
         phase_rng(dev)
         with (open(args.profile, "w") if args.profile else contextlib.nullcontext()) as prof:
-            phase_slice(dev, card, prof)
-            phase_kit(dev, card, prof)
-            phase_bus(dev, card, prof)
-            counts = phase_full_bus(dev, card, prof)
-            counts.update(phase_product(dev, card, prof))
-            phase_engine(dev, card, prof)
-            grain = phase_grain(dev, card, prof)
-            phase_whole_engine(dev, card)
-            phase_whole_kit(dev, card, prof)
-            loops = phase_loops(dev, card, prof)
-            phase_graph(dev, card, loops, prof)
+            clocked(phase_slice, dev, card, prof)
+            clocked(phase_kit, dev, card, prof)
+            clocked(phase_bus, dev, card, prof)
+            counts = clocked(phase_full_bus, dev, card, prof)
+            counts.update(clocked(phase_product, dev, card, prof))
+            clocked(phase_engine, dev, card, prof)
+            grain = clocked(phase_grain, dev, card, prof)
+            clocked(phase_whole_engine, dev, card)
+            clocked(phase_whole_kit, dev, card, prof)
+            loops = clocked(phase_loops, dev, card, prof)
+            clocked(phase_graph, dev, card, loops, prof)
+            gooey = clocked(phase_gooey, dev, card, prof)
         if args.profile:
             print(f"profile written to {args.profile}")
         counts.update((n, grain[n]) for n in ("grain_read_cubic", "sampler_read_linear"))
+        counts.update((n, c) for n, c in gooey.items() if c > counts.get(n, 0))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

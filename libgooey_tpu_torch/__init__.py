@@ -29,9 +29,13 @@ chain, ``mixer/chain.py``), the granulator and sampler racks with their
 hosts (``bench_configs.bench_granulator_sampler_4k``) and the whole
 ``Engine`` of the JAX package (``engine/engine.py``: all eight families,
 LFO routes, poly notes and chords with the host's lane allocator, preset
-blends, the MIDI-out queue, the bounce methods and the source scatter).
-The rest (the mixer graph, ``GooeyEngine``, the loops) is queued in
-ROADMAP.md; an entry point the port lacks raises ``NotImplementedError``.
+blends, the MIDI-out queue, the bounce methods and the source scatter),
+the loop mixer with its streamed WSOLA and the submix graph (``mixer/``),
+and ``GooeyEngine``, the product engine behind the C API (``gooey.py``,
+with its performance recorder, ``performance.py``, and the realtime output
+adapter, ``engine/output.py``).  The rest (the C API surface, the DSL, MIDI
+files) is queued in ROADMAP.md; an entry point the port lacks raises
+``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

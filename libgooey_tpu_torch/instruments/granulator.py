@@ -205,7 +205,8 @@ def apply_events(st: GrainState, events: SpawnEvents, block_start: int) -> Grain
     a steal copies its victim's lane as the events before it left it, and
     starts its release fade at the event's offset.  Unused entries (slot -1)
     are skipped on the host; the state's tensors are not modified in
-    place."""
+    place.  Host values are written by ``fill_`` (a kernel argument; an
+    assignment would be a blocking copy from the host on the card)."""
     ev = {f: np.asarray(getattr(events, f)) for f in SpawnEvents._fields}
     used = [k for k in range(ev["slot"].shape[0]) if ev["slot"][k] >= 0]
     if not used:
@@ -220,14 +221,14 @@ def apply_events(st: GrainState, events: SpawnEvents, block_start: int) -> Grain
         if src >= 0:
             for f in _GRAIN_FIELDS:
                 arrs[f][tgt] = arrs[f][src]
-            arrs["rel_start"][tgt] = start
-            arrs["rel_total"][tgt] = float(ev["rel_total"][k])
+            arrs["rel_start"][tgt].fill_(start)
+            arrs["rel_total"][tgt].fill_(float(ev["rel_total"][k]))
         else:
-            arrs["spawn_sample"][tgt] = start
+            arrs["spawn_sample"][tgt].fill_(start)
             for f in _GRAIN_FIELDS[1:]:
-                arrs[f][tgt] = float(ev[f][k])
-            arrs["rel_start"][tgt] = -1
-            arrs["rel_total"][tgt] = 0.0
+                arrs[f][tgt].fill_(float(ev[f][k]))
+            arrs["rel_start"][tgt].fill_(-1)
+            arrs["rel_total"][tgt].fill_(0.0)
     return st._replace(**arrs)
 
 

@@ -92,7 +92,8 @@ _START_FIELDS = (("start_sample", "offset"), ("base", "base"), ("frames", "frame
 def apply_events(st: SamplerState, events: StartEvents, block_start: int) -> SamplerState:
     """Latch a block's starts in order (sampler.py:97-109); unused entries
     (voice -1) are skipped on the host, and the state's tensors are not
-    modified in place."""
+    modified in place.  Host values are written by ``fill_`` (a kernel
+    argument, not a blocking copy from the host on the card)."""
     ev = {f: np.asarray(getattr(events, f)) for f in StartEvents._fields}
     used = [k for k in range(ev["voice"].shape[0]) if ev["voice"][k] >= 0]
     if not used:
@@ -103,10 +104,10 @@ def apply_events(st: SamplerState, events: StartEvents, block_start: int) -> Sam
         v = int(ev["voice"][k])
         if v >= V:
             raise ValueError(f"sampler event {k}: voice {v} of {V}")
-        arrs["start_sample"][v] = wrap_i32(block_start + int(ev["offset"][k]))
-        arrs["base"][v] = int(ev["base"][k])
+        arrs["start_sample"][v].fill_(wrap_i32(block_start + int(ev["offset"][k])))
+        arrs["base"][v].fill_(int(ev["base"][k]))
         for f, col in _START_FIELDS[2:]:
-            arrs[f][v] = float(ev[col][k])
+            arrs[f][v].fill_(float(ev[col][k]))
     return st._replace(**arrs)
 
 

@@ -13,7 +13,8 @@ need no conversion: they are numpy dicts with the JAX keys (``kick_off``,
 packages take; the granulator's and the sampler's events are NamedTuples
 of numpy arrays with the JAX fields.  The submix graph's and the loop
 mixer's device state (``graph_state_from_numpy``, ``mixer_state_from_numpy``)
-go into a port object with ``load_graph_state`` / ``load_mixer_state``; their
+go into a port object with ``load_graph_state`` / ``load_mixer_state``, and a
+``GooeyEngine``'s (``gooey_state_from_numpy``) with ``load_gooey_state``; their
 host fields are numpy on both sides.
 """
 
@@ -224,6 +225,50 @@ def load_mixer_state(mixer, state: MixerState):
     mixer._gain_banks = list(state.gains)
     for ch, rack in zip(mixer.channels, state.chains):
         ch.chain.states = list(rack)
+
+
+class GooeyState(NamedTuple):
+    """A ``GooeyEngine``'s device state: the engine's state dict (or None
+    before the first render), the granulator, each rack slot's state (None
+    where no rack is registered), each global effect's state in chain
+    order, the master smoother, the submix graph and the strip-peak
+    accumulator.  The loop mixer's goes through ``mixer_state_from_numpy``."""
+
+    engine: Optional[dict]
+    gran: granulator.GrainState
+    racks: list
+    fx: list
+    master: SmootherBank
+    graph: GraphState
+    strip_peak: torch.Tensor
+
+
+def gooey_state_from_numpy(src, device) -> GooeyState:
+    """A JAX ``GooeyEngine`` (or an object with its ``engine._state``,
+    ``gran_state``, ``rack_states``, ``fx`` entries and states, ``master``,
+    ``graph`` and ``_strip_peak_dev``) -> the port's engine state.
+    ``load_gooey_state`` puts it into a port ``GooeyEngine``; the host
+    objects (sequencers, hosts, queues) are the caller's to drive alike."""
+    e_state = src.engine._state
+    return GooeyState(
+        engine=None if e_state is None else engine_state_from_numpy(e_state, device),
+        gran=granulator_state_from_numpy(src.gran_state, device),
+        racks=[None if st is None else sampler_state_from_numpy(st, device)
+               for st in src.rack_states],
+        fx=_rack_from_numpy(src.fx, device),
+        master=smoother_from_numpy(src.master, device),
+        graph=graph_state_from_numpy(src.graph, device),
+        strip_peak=torch.as_tensor(np.array(src._strip_peak_dev, np.float32), device=device))
+
+
+def load_gooey_state(gooey, state: GooeyState):
+    gooey.engine._state = None if state.engine is None else dict(state.engine)
+    gooey.gran_state = state.gran
+    gooey.rack_states = list(state.racks)
+    gooey.fx.states = list(state.fx)
+    gooey.master = state.master
+    load_graph_state(gooey.graph, state.graph)
+    gooey._strip_peak_dev = state.strip_peak
 
 
 def to_numpy(tree):

@@ -174,7 +174,7 @@ def process_entry(effect_id: int, state, x, targets, *, sample_rate: float,
     if effect_id == EFFECT_FEEDBACK_WAVESHAPER:
         if pingpong:
             return fx_fbws.process_bus(state, x, targets, sample_rate=sample_rate)
-        t = torch.as_tensor(np.asarray(targets, np.float32), device=x.device)
+        t = torch.as_tensor(targets, dtype=torch.float32, device=x.device)
         return fx_fbws.process_block(state, x, t[0], t[1], fx_fbws.filter_coeff(t[2], sample_rate),
                                      t[3], sample_rate, feedback_path=True)
     raise KeyError(effect_id)
@@ -251,16 +251,19 @@ class EffectChain:
         return [np.array(e.targets, np.float32) for e in self.entries]
 
     def static_key(self):
-        """Static ``(effect_id, flag)`` pairs; the flag is the delay's
-        ping-pong mode, or the feedback waveshaper's zero-feedback fast path
-        (every factory preset ships feedback 0)."""
-        def flag(e):
-            if e.effect_id == EFFECT_DELAY:
-                return e.pingpong
-            if e.effect_id == EFFECT_FEEDBACK_WAVESHAPER:
-                return float(e.targets[1]) == 0.0
-            return False
-        return tuple((e.effect_id, flag(e)) for e in self.entries)
+        """Static ``(effect_id, flag)`` pairs (``entry_flag``)."""
+        return tuple((e.effect_id, entry_flag(e)) for e in self.entries)
+
+
+def entry_flag(e: Entry) -> bool:
+    """An entry's static flag: the delay's ping-pong mode, or the feedback
+    waveshaper's zero-feedback fast path (every factory preset ships
+    feedback 0)."""
+    if e.effect_id == EFFECT_DELAY:
+        return bool(e.pingpong)
+    if e.effect_id == EFFECT_FEEDBACK_WAVESHAPER:
+        return float(e.targets[1]) == 0.0
+    return False
 
 
 def process_chain(states, x, targets_list, static_key, *, sample_rate: float,

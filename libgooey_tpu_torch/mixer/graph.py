@@ -187,20 +187,25 @@ class MixerGraph:
                 m[t, s] = 1.0
         return m
 
+    def _stage(self):
+        """Build the strip smoothers and upload the routing matrix and the
+        strip targets where a mutator invalidated them."""
+        if self._smooth is None:
+            self._smooth = SmootherBank.init(self._strip_targets(), self.device)
+        if self._routing_dev is None:
+            self._routing_dev = torch.as_tensor(self.routing_matrix(), device=self.device)
+        if self._targets_dev is None:
+            self._targets_dev = torch.as_tensor(self._strip_targets(), device=self.device)
+
     def render(self, source_frames, block_size: int):
         """Mix ``source_frames[SOURCE_CAPACITY, 2, B]`` → ``[2, B]``.
 
         Returns ``(master, per_track_peaks[T])``, device tensors.  Chain
         states live in each track's rack."""
-        if self._smooth is None:
-            self._smooth = SmootherBank.init(self._strip_targets(), self.device)
+        self._stage()
         rack_keys = tuple(t.rack.static_key() for t in self.tracks)
         rack_states = tuple(tuple(t.rack.states) for t in self.tracks)
         rack_targets = tuple(tuple(t.rack.targets_list()) for t in self.tracks)
-        if self._routing_dev is None:
-            self._routing_dev = torch.as_tensor(self.routing_matrix(), device=self.device)
-        if self._targets_dev is None:
-            self._targets_dev = torch.as_tensor(self._strip_targets(), device=self.device)
         bank, new_states, master, peaks = graph_block(
             self._smooth, self._targets_dev, source_frames, self._routing_dev,
             rack_states, rack_targets, coeff=self._coeff, block_size=block_size,

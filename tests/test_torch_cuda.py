@@ -1226,3 +1226,71 @@ def test_streamed_loops_match_plain_versions(dev, monkeypatch):
     want = twin.render_blocks(8)
     assert got.shape == (2, 8 * 512) and float(got.abs().max()) > 1e-3
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def _gooey_session(g):
+    """Four sequenced strips, saturation and delay, a chord on the poly."""
+    from libgooey_tpu_torch.mixer import chain as chain_mod
+
+    for ch in range(4):
+        g.sequencers[ch].set_pattern_string("x.x.x.x.x.x.x.x.")
+        g.sequencers[ch].start()
+    for eid in (chain_mod.EFFECT_SATURATION, chain_mod.EFFECT_DELAY):
+        g.set_effect_enabled(eid, True)
+    g.perf_chord_on(0, 0, 0, 0, 1, 4, 0.8)
+    return g
+
+
+def test_gooey_engine_lands_on_the_card(dev):
+    from libgooey_tpu_torch.gooey import GooeyEngine
+
+    g = GooeyEngine()
+    assert g.device.type == "cuda"
+    assert g.engine.device.type == "cuda" and g.master.current.device.type == "cuda"
+    assert g.gran_state.buffer.device.type == "cuda"
+    g.render(512)
+    assert all(getattr(v.params, "current", v.params).device.type == "cuda"
+               for v in g.engine._state.values() if hasattr(v, "params"))
+
+
+def test_gooey_span_equals_the_per_block_path(dev):
+    """render(16 blocks) through the span against the per-block path of a
+    second engine, on the card, within 1e-4; the span's block loop under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read and no
+    blocking copy inside it)."""
+    from libgooey_tpu_torch import gooey
+    from libgooey_tpu_torch.gooey import GooeyEngine
+
+    ga, gb = _gooey_session(GooeyEngine()), _gooey_session(GooeyEngine())
+    gb.span_rendering = False
+    ga.render(2 * 512)
+    gb.render(2 * 512)
+    real = gooey._span_render
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    gooey._span_render = strict
+    try:
+        a = ga.render(16 * 512)
+    finally:
+        gooey._span_render = real
+    b = gb.render(16 * 512)
+    assert ga.error is None, ga.error
+    assert gb.error is None, gb.error
+    assert np.abs(a).max() > 1e-3
+    assert float(np.abs(a - b).max()) <= 1e-4
+
+
+def test_gooey_bounce_is_float32_interleaved(dev):
+    from libgooey_tpu_torch.gooey import GooeyEngine
+
+    g = _gooey_session(GooeyEngine())
+    inter = g.bounce_to_buffer(3 * 512 + 100)
+    assert isinstance(inter, np.ndarray) and inter.dtype == np.float32
+    assert inter.shape == ((3 * 512 + 100) * 2,)
+    assert np.all(np.isfinite(inter)) and np.abs(inter).max() > 1e-3
