@@ -245,7 +245,23 @@ Phases (any failure exits non-zero):
    s); its first 2 blocks against a copy on the plain versions; (a)'s and
    (c)'s spans against a second engine's per-block path; the span's block
    loop under ``torch.cuda.set_sync_debug_mode("warn")``, no synchronizing
-   call allowed.
+   call allowed;
+14. the C API, ``libgooey_tpu_torch.capi`` (never the JAX package's),
+   driven as a C host drives it (``capi_session``: integer ids only; four
+   strips and the bass on patterns with swing, pans, the snare's filter
+   type, the kick's and the tom's strips struck by hand on their first
+   step, saturation -> delay -> plate and a compressor keyed from strip 0,
+   a rack of two seeded slots with its pattern, the granulator on phase
+   10's source, a chord on the poly): (a) 64 calls of
+   ``engine_render(h, 512)``, each timed as the host sees it (ms per call
+   against the 11.61 ms limit, the median and the worst, RTF, launches a
+   block; every kernel of ``CAPI_PATH`` launched), its first 2 calls
+   against a copy on the plain versions, then one
+   ``engine_render(h, 64 * 512)`` through the span (after two hand strikes
+   of the kick's and the tom's strips) with no synchronizing call in its
+   block loop; (b) ``dsl.build_engine`` of ``tests/test_dsl_capi.py``'s
+   program on the card, 16 blocks against a copy on the plain versions;
+   the seconds each part took.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
@@ -253,7 +269,8 @@ JSON summary (launches from the first full_kit_4096_bus7 render, the
 eight single bus kernels' from its ``fuse_bus=False`` render, the kit
 kernels' from the product render and the two waveshapers' from its
 ``fuse_runs=False`` render, the grain and sampler reads' from phase 10's
-render, each raised to phase 13 (c)'s span count where that is larger;
+render, each raised to phase 13 (c)'s span count and then to phase 14's
+64 calls' count where that is larger;
 ``ms`` the device time per call of each kernel's first phase-3
 case, timed with CUDA events where the profiler traces nothing;
 ``library_ms`` ``mix_bank``'s matmul yardstick at the kit cells' settled
@@ -262,8 +279,8 @@ also writes torch.profiler tables of 4 steady-state blocks of the kick
 slice, the kit, each kit-with-bus render, the product block (fused and
 with ``fuse_runs=False``), phase 9's sidechained ``Engine`` render,
 phase 10's render, phase 11(b)'s render, 4 blocks of phase 12's (c)
-and (e), and 4 blocks of phase 13's (a) per-block and span, (b) and (c)
-to PATH.
+and (e), 4 blocks of phase 13's (a) per-block and span, (b) and (c), and 4 of
+phase 14's calls and of its span to PATH.
 """
 
 from __future__ import annotations
@@ -3718,6 +3735,190 @@ def phase_gooey(dev, card, prof_file=None):
     return counts
 
 
+N_CAPI_CALLS = 64         # 14: engine_render(h, 512) calls, one a host callback
+N_CAPI_SPAN = 64          # 14: blocks of the one engine_render(h, 64 * 512)
+N_DSL_BLOCKS = 16         # 14: blocks of the DSL engine, all against the plain versions
+CAPI_PANS = (0.2, 0.4, 0.6, 0.8)
+#: the kernels the C-API session launches: 13 (c)'s, the granulator's reads
+#: in place of the loops'
+CAPI_PATH = SESSION_PATH
+#: tests/test_dsl_capi.py's program
+DSL_PROGRAM = """
+bpm 130
+master 0.5
+inst kick kick tight
+inst hat hihat2 short
+seq kick x...x...x...x...
+seq hat 9.5.9.5.9.5.9.5. swing=0.2
+lfo 1bar kick.frequency amt=0.4
+fx lowpass 2000 0.3
+fx delay 0.5 0.4 0.25 6000
+"""
+
+
+def capi_session(capi):
+    """Phase 14's session, made as a C host makes it, through the integer
+    ids of ``libgooey_tpu_torch.capi`` alone: the four kit strips and the
+    bass on patterns with swing, pans, the kick's and the tom's strips also
+    struck by hand (their first block has two triggers), the global chain
+    saturation -> delay -> plate and a compressor keyed from strip 0, a rack
+    of two slots from a seeded buffer with its pattern, routed to the Drums
+    track, the granulator on phase 10's source, triggered, and a chord on
+    the poly.  Returns the handle."""
+    h = capi.engine_new(SR)
+    capi.engine_set_bpm(h, LOOP_MIXER_BPM)
+    for ch, bits in enumerate((0x5555, 0x1111, 0x5555, 0x0101, 0x1111)):
+        capi.engine_sequencer_set_instrument_pattern(h, ch, bits)
+        capi.engine_sequencer_set_swing(h, ch, 0.6)
+    for ch, pan in enumerate(CAPI_PANS):
+        check(capi.engine_set_instrument_pan(h, ch, pan) == 1, "capi: a strip pan refused")
+    check(capi.engine_set_snare_param(h, 1, 10, 0.4) == 1, "capi: the snare cutoff refused")
+    check(capi.engine_set_channel_param(h, 1, 12, 1) == 1, "capi: the snare filter type refused")
+    for eid in (2, 1, 9, 3):     # saturation, delay, plate, compressor
+        capi.engine_set_global_effect_enabled(h, eid, 1)
+    check(capi.engine_set_effect_order_list(h, [2, 1, 9, 3, 0, 4, 7, 8, 6]) == 1,
+          "capi: the effect order refused")
+    check(capi.engine_set_global_effect_param(h, 1, 0, 0.02) == 1, "capi: the delay time refused")
+    capi.engine_set_compressor_sidechain(h, 0)
+    rs = np.random.RandomState(3)
+    rack = capi.engine_sampler_register(h)
+    check(rack == 0, f"capi: sampler_register gave {rack}")
+    check(capi.engine_sampler_set_slot_buffer(
+        h, rack, 0, (0.5 * rs.randn(6000)).astype(np.float32), 1, SR) == 1,
+        "capi: rack slot 0 refused")
+    check(capi.engine_sampler_set_slot_buffer(
+        h, rack, 1, (0.5 * rs.randn(9000 * 2)).astype(np.float32), 2, 96000.0) == 1,
+        "capi: rack slot 1 refused")
+    for step in range(16):
+        capi.engine_sampler_set_step(h, rack, step, int(step % 2 == 0), step % 4 // 2, 0.8)
+    capi.engine_mixer_route_source(h, capi.engine_sampler_get_source_id(h, rack), 0)
+    capi.engine_sampler_start_pattern(h, rack, 0.0)
+    noise = np.random.RandomState(0).randn(GRAIN_SOURCE).astype(np.float32) * 0.3
+    check(capi.engine_granulator_set_buffer(h, noise, SR) == 1, "capi: granulator buffer refused")
+    capi.engine_granulator_set_param(h, 4, 0.6)      # density
+    capi.engine_granulator_trigger(h, 0.9)
+    capi.engine_poly_trigger_chord(h, 0, 0, 0, 0, 1, 4, 0.8)
+    for ch in range(5):
+        capi.engine_sequencer_start(h, ch)
+    capi.engine_transport_start(h)
+    capi.engine_trigger_channel_with_velocity(h, 0, 0.9)
+    capi.engine_trigger_channel_with_velocity(h, 3, 0.9)
+    return h
+
+
+def capi_calls(render, n):
+    """``n`` calls of ``render(B)`` (``engine_render(h, B)``, or the
+    ``GooeyEngine.render`` it calls), each timed as a host callback sees it
+    (the call returns the block on the host): ``([2, n * B], each call's
+    wall s)``."""
+    outs, walls = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        outs.append(stereo(render(B)))
+        walls.append(time.perf_counter() - t0)
+    return np.concatenate(outs, axis=1), walls
+
+
+def phase_capi(dev, card, prof_file=None):
+    """Phase 14: the C API (``libgooey_tpu_torch.capi``) driven as a host
+    drives it.  (a) ``capi_session``: 64 calls of ``engine_render(h, 512)``,
+    then one ``engine_render(h, 64 * 512)`` through the span (the kick's and
+    the tom's strips struck twice by hand before it), each with its
+    wall ms/block against the block's real-time limit, its RTF and its
+    launches a block; every kernel of ``CAPI_PATH`` launched by each; the
+    first 2 calls against a copy on the plain versions; the span's block
+    loop with no synchronizing call.  (b) ``dsl.build_engine`` of
+    ``DSL_PROGRAM`` on the card, 16 blocks against a copy on the plain
+    versions.  Returns (a)'s per-call counts."""
+    import torch
+
+    from libgooey_tpu_torch import capi, dsl
+    from libgooey_tpu_torch.ops import kernels
+
+    label = "capi (a) session"
+    limit = B / SR * 1e3
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = round(now - t_part, 1)
+        t_part = now
+
+    h = capi_session(capi)
+    check(capi._e(h).device.type == "cuda", f"{label}: engine_new gave {capi._e(h).device}")
+    # the paths' constant tables reach the card at their first use: a copy's
+    # short render lands them before the timed calls
+    copy.deepcopy(capi._e(h)).render(2 * B)
+    twin = copy.deepcopy(capi._e(h))
+    part("set-up")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out, walls = capi_calls(lambda n: capi.engine_render(h, n), N_CAPI_CALLS)
+    counts = kernels.launch_counts()
+    part("per call")
+    check(capi.engine_has_error(h) == 0, f"{label}: {capi.engine_last_error(h)}")
+    wall = sum(walls)
+    ms, per = gooey_line(
+        f"{label}, per call", card, wall, N_CAPI_CALLS, counts, out,
+        f"; limit {limit:.2f} ms, calls over it {sum(w * 1e3 > limit for w in walls)}, "
+        f"median {float(np.median(walls)) * 1e3:.3f} ms, worst {max(walls) * 1e3:.3f} ms")
+    missing = [n for n in CAPI_PATH if not counts[n]]
+    check(not missing, f"{label}, per call: never launched: {missing}")
+    with plain_versions():
+        want, _ = capi_calls(twin.render, N_COMPARE_GOOEY)
+    part("per call, plain versions")
+    gooey_compare(f"{label}, first {N_COMPARE_GOOEY} calls", out[:, :N_COMPARE_GOOEY * B], want)
+    peaks = capi.engine_get_channel_peaks(h)
+    check(peaks.dtype == np.float32 and float(peaks.max()) > 1e-3,
+          f"{label}: strip peaks {peaks}")
+    print(f"{label}: strip peaks {np.round(peaks, 4).tolist()}, track peaks "
+          f"{[round(capi.engine_mixer_get_track_peak(h, t), 4) for t in range(4)]}")
+
+    # two hand strikes of the kick's and the tom's strips: the span's first
+    # block has two triggers of each, so the span takes their stage path
+    for ch in (0, 0, 3, 3):
+        capi.engine_trigger_channel_with_velocity(h, ch, 0.8)
+    with strict_span() as syncs:
+        span, wall_span, span_counts = timed_render(
+            lambda: capi.engine_render(h, N_CAPI_SPAN * B))
+    check(capi.engine_has_error(h) == 0, f"{label}: {capi.engine_last_error(h)}")
+    check(span.dtype == np.float32 and span.flags["C_CONTIGUOUS"],
+          f"{label}: engine_render gave {span.dtype}")
+    ms_span, per_span = gooey_line(
+        f"{label}, span {N_CAPI_SPAN}", card, wall_span, N_CAPI_SPAN, span_counts,
+        stereo(span), f"; limit {limit:.2f} ms, {len(syncs)} synchronizing calls in the "
+        f"block loop")
+    missing = [n for n in CAPI_PATH if not span_counts[n]]
+    check(not missing, f"{label}, span: never launched: {missing}")
+    check_syncs(f"{label}, span", syncs)
+    part("span")
+
+    label_dsl = "capi (b) dsl.build_engine"
+    eng = dsl.build_engine(DSL_PROGRAM, device=dev)
+    check(eng.device.type == "cuda", f"{label_dsl}: built on {eng.device}")
+    twin_dsl = copy.deepcopy(eng)
+    got, wall_dsl, dsl_counts = timed_render(lambda: eng.render(N_DSL_BLOCKS * B))
+    _, per_dsl = gooey_line(label_dsl, card, wall_dsl, N_DSL_BLOCKS, dsl_counts, got)
+    part("dsl")
+    with plain_versions():
+        want = twin_dsl.render(N_DSL_BLOCKS * B)
+    gooey_compare(f"{label_dsl}, {N_DSL_BLOCKS} blocks", got, want)
+    part("dsl, plain versions")
+    launches = {"per call": per, "span": per_span, "dsl": per_dsl}
+    print(f"capi launches per block by render: {json.dumps(launches)}")
+    gooey_profile(f"{label}, per call", card, prof_file, ms,
+                  lambda: capi_calls(lambda n: capi.engine_render(h, n), 4))
+    gooey_profile(f"{label}, span", card, prof_file, ms_span,
+                  lambda: capi.engine_render(h, 4 * B))
+    capi.engine_free(h)
+    torch.cuda.synchronize()
+    part("profiles")
+    print(f"capi seconds by part: {json.dumps(parts)}")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", help="write a torch.profiler table here")
@@ -3762,10 +3963,12 @@ def main(argv=None) -> int:
             loops = clocked(phase_loops, dev, card, prof)
             clocked(phase_graph, dev, card, loops, prof)
             gooey = clocked(phase_gooey, dev, card, prof)
+            capi_counts = clocked(phase_capi, dev, card, prof)
         if args.profile:
             print(f"profile written to {args.profile}")
         counts.update((n, grain[n]) for n in ("grain_read_cubic", "sampler_read_linear"))
         counts.update((n, c) for n, c in gooey.items() if c > counts.get(n, 0))
+        counts.update((n, c) for n, c in capi_counts.items() if c > counts.get(n, 0))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

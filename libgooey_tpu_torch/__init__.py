@@ -33,9 +33,14 @@ blends, the MIDI-out queue, the bounce methods and the source scatter),
 the loop mixer with its streamed WSOLA and the submix graph (``mixer/``),
 and ``GooeyEngine``, the product engine behind the C API (``gooey.py``,
 with its performance recorder, ``performance.py``, and the realtime output
-adapter, ``engine/output.py``).  The rest (the C API surface, the DSL, MIDI
-files) is queued in ROADMAP.md; an entry point the port lacks raises
-``NotImplementedError``.
+adapter, ``engine/output.py``), and the product API above it: the C API's
+integer-id dispatch (``capi.py``, one engine per handle, on the card unless
+``LIBGOOEY_TPU_TORCH_DEVICE`` asks for the CPU) with the C shim that embeds
+it (``native/``: ``gooey_shim.cpp`` and its build), the program DSL
+(``dsl.py``), MIDI input, files and dispatch (``midi.py``) and the legacy
+8th-note sequencer (``engine/legacy_sequencer.py``).  The rest (the
+visualization and terminal scope, the examples, the device mesh) is queued
+in ROADMAP.md; an entry point the port lacks raises ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

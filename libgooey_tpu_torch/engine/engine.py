@@ -407,6 +407,9 @@ class Engine:
         device,
     ):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Engine: no CUDA device available "
+                               "(pass device='cpu' to run on the CPU)")
         self.sample_rate = float(sample_rate)
         self.block_size = int(block_size)
         self.smooth_coeff = smoothing_coeff(self.sample_rate)

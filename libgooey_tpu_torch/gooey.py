@@ -258,6 +258,8 @@ class GooeyEngine:
         self.limiter_threshold = 1.0
         self.sidechain_strip: Optional[int] = None
         self.master = SmootherBank.init(np.float32(1.0), dev)
+        #: host mirror of the master gain's target (float32, never read back)
+        self._master_target = 1.0
         self.midi_out: List = []
 
         self._smooth_coeff = smoothing_coeff(self.sr)
@@ -847,6 +849,7 @@ class GooeyEngine:
     # --- misc API ------------------------------------------------------------------------------------
 
     def set_master_gain(self, gain: float):
+        self._master_target = float(np.float32(gain))
         self.master = self.master.with_targets(np.float32(gain))
 
     def take_strip_peak(self, strip: int) -> float:

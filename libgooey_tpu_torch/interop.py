@@ -267,6 +267,7 @@ def load_gooey_state(gooey, state: GooeyState):
     gooey.rack_states = list(state.racks)
     gooey.fx.states = list(state.fx)
     gooey.master = state.master
+    gooey._master_target = float(state.master.target.reshape(-1)[0])
     load_graph_state(gooey.graph, state.graph)
     gooey._strip_peak_dev = state.strip_peak
 

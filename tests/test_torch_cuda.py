@@ -1294,3 +1294,52 @@ def test_gooey_bounce_is_float32_interleaved(dev):
     assert isinstance(inter, np.ndarray) and inter.dtype == np.float32
     assert inter.shape == ((3 * 512 + 100) * 2,)
     assert np.all(np.isfinite(inter)) and np.abs(inter).max() > 1e-3
+
+
+def test_capi_session_matches_plain_versions(dev, monkeypatch):
+    """chip_smoke's C-API session (integer ids only) on the card: two calls
+    of ``engine_render(h, 512)`` within 1e-4 of a copy's calls on the plain
+    versions; contiguous float32 interleaved audio."""
+    import copy
+
+    import chip_smoke
+    from libgooey_tpu_torch import capi
+
+    monkeypatch.delenv(capi.DEVICE_ENV, raising=False)
+    h = chip_smoke.capi_session(capi)
+    assert capi._e(h).device.type == "cuda"
+    twin = copy.deepcopy(capi._e(h))
+    got = [capi.engine_render(h, 512) for _ in range(2)]
+    for n in kernels.KERNELS:
+        mod = kernels.module_of(n)
+        monkeypatch.setattr(mod, n, getattr(mod, n + "_plain"))
+    want = [twin.render(512) for _ in range(2)]
+    assert capi.engine_has_error(h) == 0, capi.engine_last_error(h)
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and g.flags["C_CONTIGUOUS"] and g.shape == (1024,)
+        assert float(np.abs(g - w).max()) <= 1e-4
+    assert max(float(np.abs(g).max()) for g in got) > 1e-3
+    capi.engine_free(h)
+
+
+def test_capi_shim_c_smoke_on_the_card(dev):
+    """The port's C shim built on the card's machine and its C smoke test
+    run with no device request: the engine on the card."""
+    import os
+    import subprocess
+
+    from libgooey_tpu_torch.native import build as shim_build
+
+    missing = shim_build.toolchain_missing()
+    if missing is not None:
+        pytest.skip(f"the card's machine lacks {missing}")
+    res = subprocess.run(["python3-config", "--embed", "--ldflags"], capture_output=True)
+    if res.returncode != 0:
+        pytest.skip("the card's python3-config has no --embed")
+    out = shim_build.build()
+    env = {k: v for k, v in os.environ.items() if k != "LIBGOOEY_TPU_TORCH_DEVICE"}
+    proc = subprocess.run([str(out / shim_build.SMOKE_NAME), str(shim_build.REPO)],
+                          env=shim_build.embed_env(env), capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK"), proc.stdout

@@ -47,7 +47,10 @@ def test_port_never_imports_jax():
         "       'libgooey_tpu_torch.mixer.clip_grid', 'libgooey_tpu_torch.mixer.stream',\n"
         "       'libgooey_tpu_torch.mixer.mixer', 'libgooey_tpu_torch.ops.wsola_search',\n"
         "       'libgooey_tpu_torch.ops.wsola_stream', 'libgooey_tpu_torch.gooey',\n"
-        "       'libgooey_tpu_torch.performance', 'libgooey_tpu_torch.engine.output'}\n"
+        "       'libgooey_tpu_torch.performance', 'libgooey_tpu_torch.engine.output',\n"
+        "       'libgooey_tpu_torch.capi', 'libgooey_tpu_torch.dsl', 'libgooey_tpu_torch.midi',\n"
+        "       'libgooey_tpu_torch.engine.legacy_sequencer', 'libgooey_tpu_torch.native',\n"
+        "       'libgooey_tpu_torch.native.build'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
