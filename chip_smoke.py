@@ -261,7 +261,28 @@ Phases (any failure exits non-zero):
    of the kick's and the tom's strips) with no synchronizing call in its
    block loop; (b) ``dsl.build_engine`` of ``tests/test_dsl_capi.py``'s
    program on the card, 16 blocks against a copy on the plain versions;
-   the seconds each part took.
+   the seconds each part took;
+15. ``os_mode`` 1 and 2 and the examples (``phase_os_modes``, alone after
+   ``_build.build(); _build.load_library()``): (a) full_kit_4096_bus7 with
+   the kick, the snare and the bass at ``os_mode`` 2 through
+   ``family_static`` (their drive on ``ops/oversample.process``: no
+   ``fbws_bank`` or ``ws4_bank`` launch, 52 ``affine1_bank`` launches a
+   block, the rows of each printed), 16 blocks timed (wall ms/block, RTF),
+   then at ``os_mode`` 1 (28 a block) for one block; each one's first
+   blocks, with every voice of the three struck at the first sample,
+   against the plain versions within 1e-4; (b) the saturation, the
+   compressor (self-keyed and keyed) and the feedback waveshaper's
+   zero-feedback path on [2, 512] and ``waveshaper.process_bank`` on 512
+   rows, at 1 and 2, each one block against the plain versions, output and
+   state; (c) ``affine1_bank`` at the oversampler's 2,048, 1,024 and 4 rows
+   of 512 (an allpass section's arguments), bit-equal, with its device
+   time, its plain version's, its bound and its launches a block on (a)'s
+   and (b)'s paths; (d) the 29 examples of ``libgooey_tpu_torch.examples``
+   at their JAX ``quick`` lengths (the themed tours at 0.5 s) into a
+   temporary directory, each WAV finite and audible (``loops_and_clips``'
+   clip waits for the next bar, past 0.5 s), the scope's frame drawn, each
+   one's wall seconds, ``antialias_validation``'s 2x and 4x alias
+   reduction (at least 20 dB) beside its ns/sample.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
@@ -270,7 +291,7 @@ eight single bus kernels' from its ``fuse_bus=False`` render, the kit
 kernels' from the product render and the two waveshapers' from its
 ``fuse_runs=False`` render, the grain and sampler reads' from phase 10's
 render, each raised to phase 13 (c)'s span count and then to phase 14's
-64 calls' count where that is larger;
+64 calls' count and to phase 15 (a)'s where that is larger;
 ``ms`` the device time per call of each kernel's first phase-3
 case, timed with CUDA events where the profiler traces nothing;
 ``library_ms`` ``mix_bank``'s matmul yardstick at the kit cells' settled
@@ -3919,6 +3940,314 @@ def phase_capi(dev, card, prof_file=None):
     return counts
 
 
+# --- phase 15: os_mode 1 and 2, and the examples ------------------------------
+
+#: the families with an ``os_mode``: at 2 their drive leaves the 4x kernels
+#: (``fbws_bank``, ``ws4_bank``) for ``ops/oversample.process``, whose
+#: half-band sections run on ``affine1_bank``; at 1 there is no stage
+OS_FAMILIES = ("kick", "snare", "bass")
+N_OS_BLOCKS = 16          # (a): the timed render at os_mode 2
+N_OS_COMPARE = 2          # (a): first blocks against the plain versions
+#: (a): affine1_bank launches a block beyond bus7's 26: at 2 the kick's 8
+#: half-band sections and its DC blocker's 2 scans, the snare's and the
+#: bass's 8 sections each; at 1 the kick's 2 DC scans
+OS_EXTRA_AFFINE = {2: 26, 1: 2}
+#: (c): affine1_bank's row counts on the oversampler's paths
+OS_AFFINE_ROWS = {2048: "the kick's or the snare's 1,024 voices x 2 branches",
+                  1024: "the bass's 512 voices x 2 branches",
+                  4: "a stereo bus effect, [2 branches, 2 channels]"}
+#: (d): the examples, by how main takes a short render
+EXAMPLES_QUICK = ("kick", "snare", "hihat", "hihat2", "tom", "tom2", "bass", "delay", "reverb",
+                  "reverb_lab", "tilt_filter", "lfo_test", "sequencer", "membrane",
+                  "multi_channel_submix", "midi_drums")
+EXAMPLES_SECONDS = ("drums", "bass_sequencer", "chords", "effects_lab", "granular",
+                    "loops_and_clips", "sampler_rack", "performance_record", "dsl_demo")
+EXAMPLES_OTHER = ("bounce", "antialias_validation", "aliasing_plots", "scope")
+EXAMPLE_SECONDS = 0.5
+
+
+def os_kit_inputs(dev, n_blocks, os_mode, struck=False, **kw):
+    """full_kit_4096_bus7 (:func:`bus_inputs` with the whole bus) with the
+    kick, the snare and the bass at ``os_mode``; ``struck``: every voice of
+    those three also struck at the first sample (the comparison's blocks,
+    which the lagged traffic leaves nearly silent)."""
+    state, events, static = bus_inputs(dev, n_blocks, order=FX_ORDER_FULL, **kw)
+    if struck:
+        for kind in OS_FAMILIES:
+            events[kind + "_off"][0] = 0
+            events[kind + "_vel"][0] = 0.9
+    fam = {k: dict(v) for k, v in static["family_static"]}
+    for kind in OS_FAMILIES:
+        fam.setdefault(kind, {})["os_mode"] = os_mode
+    static["family_static"] = tuple((k, tuple(sorted(v.items()))) for k, v in fam.items())
+    return state, events, static
+
+
+def phase_os_kit(dev, card):
+    """Phase 15 (a): full_kit_4096_bus7 with the kick, the snare and the
+    bass at ``os_mode`` 2 (16 blocks timed), then at 1 (one block); each
+    render's first blocks against the plain versions, its launches a block
+    and the rows of each ``affine1_bank`` launch.  Returns the os-2 render's
+    counts and rows."""
+    import torch
+
+    from libgooey_tpu_torch.engine import engine
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import kernels
+
+    path = tuple(n for n in bk.KERNELS if n not in ("fbws_bank", "ws4_bank")) + (
+        "bus_chain", "plate_block")
+    result = None
+    for os_mode, n_blocks in ((2, N_OS_BLOCKS), (1, 1)):
+        label = f"full_kit_4096_bus7, os_mode {os_mode} (kick, snare, bass)"
+        n_cmp = min(N_OS_COMPARE, n_blocks)
+        state, events, static = os_kit_inputs(dev, n_blocks, os_mode)
+        head_state, head = os_kit_inputs(dev, n_cmp, os_mode, struck=True,
+                                         delay_time=COMPARE_DELAY_S, over=COMPARE_FULL)[:2]
+        _, out_k = engine.render_many(head_state, head, **static)   # also the warm-up
+        torch.cuda.synchronize()
+        peak_k = float(out_k.abs().max())
+        check(bool(torch.isfinite(out_k).all()) and peak_k > 1e-3,
+              f"{label}: the comparison's blocks give peak {peak_k}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, out = engine.render_many(state, events, **static)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = float(out.abs().max())
+        check(bool(torch.isfinite(out).all()) and tuple(out.shape) == (n_blocks, 2, B),
+              f"{label}: output {tuple(out.shape)}")
+        missing = [n for n in path if not counts[n]]
+        check(not missing, f"{label}: never launched: {missing}")
+        check(counts["fbws_bank"] == 0 and counts["ws4_bank"] == 0,
+              f"{label}: a family at os_mode {os_mode} took a 4x kernel: {counts}")
+        per_affine = counts["affine1_bank"] / n_blocks
+        check(per_affine == 26 + OS_EXTRA_AFFINE[os_mode],
+              f"{label}: {per_affine} affine1_bank launches a block, not "
+              f"{26 + OS_EXTRA_AFFINE[os_mode]}")
+        rows = launch_rows(lambda: engine.render_many(
+            state, {k: v[:1] for k, v in events.items()}, **static))
+        n_voices = sum(KIT.values())
+        print(f"{label}: {n_voices} voices x {n_blocks} blocks {wall:.4f} s "
+              f"({wall / n_blocks * 1e3:.3f} ms/block), peak {peak:.4f}; aggregate RTF "
+              f"{n_voices * n_blocks * B / SR / wall:.1f} on {card}; affine1_bank "
+              f"{per_affine:g} launches a block, rows of each launch in one block "
+              f"{json.dumps(rows['affine1_bank'])}")
+        print(f"{label} launches per block: "
+              f"{json.dumps({n: c / n_blocks for n, c in counts.items()})}")
+        with plain_versions():
+            _, out_p = engine.render_many(head_state, head, **static)
+        torch.cuda.synchronize()
+        err = max_err(out_k, out_p)
+        print(f"{label}: {n_cmp} blocks (every kick, snare and bass voice struck at the "
+              f"first sample), kernels vs plain versions: max err {err:.3e} (tol "
+              f"{RENDER_TOL:g}), peak {peak_k:.4f}")
+        check(err <= RENDER_TOL, f"{label}: kernel render differs from the plain render by "
+              f"{err}")
+        if result is None:
+            result = counts, rows
+    return result
+
+
+def os_effect_cases(dev):
+    """Phase 15 (b)'s cases: ``(label, run)``, ``run()`` giving ``(state,
+    out)`` of one block from fresh state at ``os_mode`` 1 and 2."""
+    import torch
+
+    from libgooey_tpu_torch.effects import compressor, saturation, waveshaper
+    from libgooey_tpu_torch.effects import feedback_waveshaper as fbws
+    from libgooey_tpu_torch.ops.oversample import OversamplerState
+
+    rs = np.random.RandomState(SEED)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    x = t(rs.uniform(-1.0, 1.0, (2, B)) * 1.2)
+    sc = t(rs.uniform(-1.0, 1.0, (2, B)) * (rs.rand(2, B) > 0.5) * 1.5)
+    drive = t(rs.uniform(2.0, 12.0, (2, B)))
+    bank_x = t(rs.uniform(-0.8, 0.8, (512, B)))
+    bank_drive = t(rs.uniform(1.0, 10.0, (512, B)))
+    comp = (-30.0, 6.0, 2.0, 60.0, 1.0)
+    cases = []
+    for m in (1, 2):
+        cases += [
+            (f"saturation [2, {B}] os {m}", lambda m=m: saturation.process_block(
+                saturation.init_state(SR, 0.6, 0.5, 1.0, device=dev), x, [0.6, 0.5, 1.0],
+                sample_rate=SR, os_mode=m)),
+            (f"compressor [2, {B}] os {m}", lambda m=m: compressor.process_block(
+                compressor.init_state(SR, *comp, device=dev), x, list(comp), sample_rate=SR,
+                os_mode=m)),
+            (f"compressor keyed [2, {B}] os {m}", lambda m=m: compressor.process_block(
+                compressor.init_state(SR, *comp, device=dev), x, list(comp), sample_rate=SR,
+                sidechain=sc, os_mode=m)),
+            (f"feedback_waveshaper [2, {B}] os {m}", lambda m=m: fbws.process_block(
+                fbws.FBShaperState.init((2,), dev), x, drive, 0.0, 0.3, 1.0, SR,
+                feedback_path=False, os_mode=m)),
+            (f"waveshaper.process_bank [512, {B}] os {m}", lambda m=m: waveshaper.process_bank(
+                OversamplerState.init(512, dev), bank_x, bank_drive, m)),
+        ]
+    return cases
+
+
+def phase_os_effects(dev, card):
+    """Phase 15 (b): the effects at ``os_mode`` 1 and 2, each one block with
+    its kernels (its launches counted) and again on the plain versions.
+    Returns the os-2 saturation's ``affine1_bank`` rows."""
+    import torch
+
+    from libgooey_tpu_torch.ops import kernels
+
+    bus_rows = None
+    for label, run in os_effect_cases(dev):
+        run()   # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        st, out = run()
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in kernels.launch_counts().items() if c}
+        with plain_versions():
+            st_p, out_p = run()
+        err = max(max_err(out, out_p), max_err(torch.utils._pytree.tree_leaves(st),
+                                                 torch.utils._pytree.tree_leaves(st_p)))
+        peak = float(out.abs().max())
+        print(f"os effect {label}: launches {json.dumps(counts)}, peak {peak:.4f}, kernels vs "
+              f"plain versions (output and state) max err {err:.3e} (tol {RENDER_TOL:g})")
+        check(bool(torch.isfinite(out).all()) and peak > 1e-3, f"{label}: peak {peak}")
+        check(err <= RENDER_TOL, f"{label}: differs from the plain versions by {err}")
+        need = ["affine1_bank"] if " os 2" in label or "process_bank" not in label else []
+        need += {"compressor": ["env_follower_block"],
+                 "feedback_waveshaper": ["env_follow_bank"]}.get(label.split()[0], [])
+        check(all(counts.get(n, 0) > 0 for n in need), f"{label}: {need} not all launched")
+        if bus_rows is None and label.startswith("saturation") and label.endswith("os 2"):
+            bus_rows = launch_rows(run)["affine1_bank"]
+    return bus_rows
+
+
+def phase_os_affine(dev, card, kit_rows, bus_rows):
+    """Phase 15 (c): ``affine1_bank`` at the oversampler's row counts, an
+    allpass section's arguments (no floor, a constant -a, inputs from the
+    seed), bit-equal to its plain version, with its device time, its plain
+    version's, its bound and its launches a block on (a)'s and (b)'s paths."""
+    import torch
+
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops.oversample import STAGE1
+
+    rs = np.random.RandomState(SEED)
+    for rows, what in OS_AFFINE_ROWS.items():
+        b = torch.full((rows, B), -float(np.float32(STAGE1[0])), device=dev)
+        c = torch.as_tensor(rs.uniform(-1.0, 1.0, (rows, B)).astype(np.float32), device=dev)
+        y0 = torch.as_tensor(rs.uniform(-0.5, 0.5, rows).astype(np.float32), device=dev)
+        args = (None, b, c, y0)
+        got = bk.affine1_bank(*args)
+        want = bk.affine1_bank_plain(*args)
+        same = same_bits(got, want)
+        for _ in range(3):
+            bk.affine1_bank(*args)
+        ms = device_ms(lambda: bk.affine1_bank(*args), 20)
+        if ms is None:
+            ms = event_ms(lambda: bk.affine1_bank(*args), 20)
+        plain_ms = cuda_ms(lambda: bk.affine1_bank_plain(*args), 1)
+        bms, bound_by = bound_ms("affine1_bank", args, {}, got)
+        per_block = (bus_rows if rows == 4 else kit_rows).get(str(rows), 0)
+        print(f"os affine1_bank [{rows}, {B}] ({what}): bit-equal {same}; device "
+              f"{ms * 1e3:.2f} us/call, plain {plain_ms * 1e3:.1f} us/call, bound "
+              f"{bms * 1e3:.4f} us ({bound_by}); {per_block} launches a block on its path "
+              f"on {card}")
+        check(same, f"affine1_bank at {rows} rows: not bit-equal to its plain version")
+
+
+def phase_examples(dev, card):
+    """Phase 15 (d): every port example on the card at its JAX ``quick``
+    length (the themed tours at 0.5 s), writing into a temporary directory;
+    each WAV finite and audible but ``loops_and_clips``' (its clip waits for
+    the next bar, past 0.5 s, as in the JAX example), the scope's frame
+    drawn; each one's wall seconds, and the
+    oversampler validation's alias reduction beside its throughput."""
+    import importlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from libgooey_tpu_torch.io_wav import read_wav
+
+    tmp = tempfile.mkdtemp(prefix="gooey_examples_")
+    walls = {}
+    try:
+        for name in EXAMPLES_QUICK + EXAMPLES_SECONDS + EXAMPLES_OTHER:
+            mod = importlib.import_module(f"libgooey_tpu_torch.examples.{name}")
+            wav = f"{tmp}/{name}.wav"
+            if name in EXAMPLES_QUICK:
+                call = lambda: mod.main(out_path=wav, quick=True)
+            elif name in EXAMPLES_SECONDS:
+                call = lambda: mod.main(seconds=EXAMPLE_SECONDS, out_path=wav)
+            elif name in ("bounce", "antialias_validation"):
+                call = lambda: mod.main(quick=True, out_dir=tmp)
+            elif name == "aliasing_plots":
+                call = lambda: mod.main(csv_path=f"{tmp}/alias.csv", quick=True, wav_path=wav)
+            else:
+                call = lambda: mod.main(out_path=f"{tmp}/scope.txt", quick=True)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                res = call()
+            torch.cuda.synchronize()
+            walls[name] = round(time.perf_counter() - t0, 3)
+            if name == "scope":
+                text = open(res).read()
+                check("┌" in text and "master" in text and "dB" in text,
+                      "scope example: no frame")
+                continue
+            if name == "antialias_validation":
+                a, ns = res["alias_db"], res["ns_per_sample"]
+                print(f"example antialias_validation: alias reduction 2x {a[2]:.2f} dB, 4x "
+                      f"{a[4]:.2f} dB; {ns[1]:.3f} / {ns[2]:.3f} / {ns[4]:.3f} ns/sample at "
+                      f"1x / 2x / 4x on {card}")
+                check(a[2] >= 20.0 and a[4] >= 20.0, f"antialias_validation: {a}")
+            paths = res if name == "bounce" else [
+                f"{tmp}/gooey_oversampled-4x-sweep.wav" if name == "antialias_validation"
+                else wav]
+            for path in paths:
+                audio, sr = read_wav(path)
+                peak = float(np.abs(audio).max())
+                check(np.all(np.isfinite(audio)) and audio.shape[-1] >= 2048,
+                      f"{name} example: {path} {audio.shape}")
+                check(name == "loops_and_clips" or peak > 1e-5,
+                      f"{name} example: silent ({path})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"examples on the card, wall seconds: {json.dumps(walls)}; {sum(walls.values()):.1f} s "
+          f"in all on {card}")
+
+
+def phase_os_modes(dev, card):
+    """Phase 15: (a) the kit at os_mode 2 and 1, (b) the effects at 1 and 2,
+    (c) ``affine1_bank`` at the oversampler's row counts, (d) the examples.
+    Returns (a)'s os-2 counts."""
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = round(now - t_part, 1)
+        t_part = now
+
+    counts, rows = phase_os_kit(dev, card)
+    part("(a) kit")
+    bus_rows = phase_os_effects(dev, card)
+    part("(b) effects")
+    phase_os_affine(dev, card, rows["affine1_bank"], bus_rows)
+    part("(c) affine1_bank")
+    phase_examples(dev, card)
+    part("(d) examples")
+    print(f"os_modes seconds by part: {json.dumps(parts)}")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", help="write a torch.profiler table here")
@@ -3964,11 +4293,13 @@ def main(argv=None) -> int:
             clocked(phase_graph, dev, card, loops, prof)
             gooey = clocked(phase_gooey, dev, card, prof)
             capi_counts = clocked(phase_capi, dev, card, prof)
+            os_counts = clocked(phase_os_modes, dev, card)
         if args.profile:
             print(f"profile written to {args.profile}")
         counts.update((n, grain[n]) for n in ("grain_read_cubic", "sampler_read_linear"))
         counts.update((n, c) for n, c in gooey.items() if c > counts.get(n, 0))
         counts.update((n, c) for n, c in capi_counts.items() if c > counts.get(n, 0))
+        counts.update((n, c) for n, c in os_counts.items() if c > counts.get(n, 0))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -38,9 +38,12 @@ integer-id dispatch (``capi.py``, one engine per handle, on the card unless
 ``LIBGOOEY_TPU_TORCH_DEVICE`` asks for the CPU) with the C shim that embeds
 it (``native/``: ``gooey_shim.cpp`` and its build), the program DSL
 (``dsl.py``), MIDI input, files and dispatch (``midi.py``) and the legacy
-8th-note sequencer (``engine/legacy_sequencer.py``).  The rest (the
-visualization and terminal scope, the examples, the device mesh) is queued
-in ROADMAP.md; an entry point the port lacks raises ``NotImplementedError``.
+8th-note sequencer (``engine/legacy_sequencer.py``), the visualization
+(``visualization.py``: the capture ring, the spectrogram on ``torch.fft``,
+the offscreen scope), the terminal scope (``tui.py``) and the examples
+(``examples/``, each ``python -m libgooey_tpu_torch.examples.<name>``).
+The rest (the device mesh) is queued in ROADMAP.md; an entry point the port
+lacks raises ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"
@@ -51,6 +54,19 @@ __all__ = [
     "DEFAULT_SAMPLE_RATE",
     "DEFAULT_BLOCK_SIZE",
 ]
+
+
+def card_or(device, what: str):
+    """``device`` as a ``torch.device``; ``None`` means the card.  Asking for
+    CUDA where no card is present raises, naming ``what``: the CPU is only
+    taken when the caller asks for it (``device="cpu"``)."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device available (pass device='cpu' to run on "
+                           "the CPU)")
+    return dev
 
 
 def not_ported(what: str) -> NotImplementedError:

@@ -92,8 +92,14 @@ _next_handle = 1
 def engine_new(sample_rate: float) -> int:
     """A new engine on ``$LIBGOOEY_TPU_TORCH_DEVICE`` (default ``cuda``);
     raises with no card unless the variable asks for the CPU."""
+    return _engine_new_on(sample_rate, os.environ.get(DEVICE_ENV) or "cuda")
+
+
+def _engine_new_on(sample_rate: float, device) -> int:
+    """:func:`engine_new` on a named ``device`` (the examples name theirs;
+    the C API's signature stays the JAX package's)."""
     global _next_handle
-    engine = GooeyEngine(sample_rate, device=os.environ.get(DEVICE_ENV) or "cuda")
+    engine = GooeyEngine(sample_rate, device=device)
     h = _next_handle
     _next_handle += 1
     _engines[h] = engine

@@ -24,11 +24,13 @@ Three paths, chosen by the caller as in the JAX package:
   fused stereo path, feedback_waveshaper.py:141-203): the detector in
   ``env_follower_block``, the rest in ``fbws_fast_block``, also two phases
   of a merged run (``prepare``);
+* the zero-feedback path at ``os_mode`` 1 and 2 (feedback_waveshaper.py:
+  251-285): the tanh through ``ops/oversample.process``, the follower in
+  ``env_follow_bank``, the makeup gain in PyTorch, the gated DC blocker and
+  the feedback filter as ``scan.linrec1`` calls;
 * the general feedback loop (``feedback_path=True``), a true per-sample
   nonlinear recurrence at the engine rate, stepped in PyTorch as the JAX
   package steps it in a ``lax.scan`` (no TPU kernel; off the main path).
-
-Other oversampling modes raise.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from libgooey_tpu_torch.effects import freeze as frz
 from libgooey_tpu_torch.ops import bank_kernels, bus_kernels
 from libgooey_tpu_torch.ops import oversample as ovs_mod
 from libgooey_tpu_torch.ops import scan as gscan
+from libgooey_tpu_torch.ops.filters import _shift1
 
 DC_COEFF = 0.995
 ENV_ATTACK_MS = 1.0
@@ -193,6 +196,32 @@ def _general_path(state: FBShaperState, x, drive, feedback, fbc, mix, sample_rat
     return FBShaperState(*st, ovs=state.ovs), torch.stack(outs, dim=-1)
 
 
+def _fast_path_scans(state: FBShaperState, x, drive, feedback, fbc, mix, bypass, att, rel,
+                     os_mode: int):
+    """The zero-feedback block at ``os_mode`` 1 or 2
+    (feedback_waveshaper.py:251-285): bypassed samples neither read nor
+    advance the DC blocker, whose memories are the time-varying linear
+    recurrences ``x1[n] = bypass ? x1[n-1] : in[n]`` and ``y1[n] = bypass ?
+    y1[n-1] : in[n] - x1[n-1] + R*y1[n-1]``."""
+    new_ovs, shaped = ovs_mod.process(state.ovs, torch.tanh, drive * x, os_mode)
+    env_state, env = _env_follow(state.env, x.abs(), att, rel, bypass)
+    compensated = shaped * gain_compensation(env, drive, feedback)
+    x1 = gscan.linrec1(torch.where(bypass, 1.0, 0.0), torch.where(bypass, 0.0, compensated),
+                       state.dc_x1)
+    dc_raw = compensated - _shift1(x1, state.dc_x1)
+    y1 = gscan.linrec1(torch.where(bypass, 1.0, DC_COEFF), torch.where(bypass, 0.0, dc_raw),
+                       state.dc_y1)
+    dc = torch.where(bypass, 0.0, y1)
+    filt = gscan.linrec1(torch.where(bypass, 1.0, 1.0 - fbc),
+                         torch.where(bypass, 0.0, fbc * dc), state.filter_state)
+    filt = torch.where(filt.abs() < 1e-15, 0.0, filt)
+    out = torch.where(bypass, x, x * (1.0 - mix) + dc * mix)
+    return FBShaperState(
+        last_out=filt[..., -1], filter_state=filt[..., -1],
+        dc_x1=x1[..., -1], dc_y1=y1[..., -1], env=env_state,
+        ovs=frz.hold_where(torch.all(bypass, dim=-1), state.ovs, new_ovs)), out
+
+
 def process_block(
     state: FBShaperState,
     x,
@@ -208,7 +237,7 @@ def process_block(
 
     ``drive``/``feedback``/``fb_filter_coeff``/``mix`` broadcast against x
     (per-sample trajectories from smoothed params).  ``feedback_path=False``
-    selects the zero-feedback fast path (4x only) — the caller guarantees
+    selects the zero-feedback fast path — the caller guarantees
     that the feedback parameter is 0; ``feedback_path=True`` the general
     loop.  Returns ``(new_state, out)``."""
 
@@ -221,16 +250,14 @@ def process_block(
     if feedback_path:
         return _general_path(state, x, *(like_x(v) for v in (drive, feedback, fb_filter_coeff,
                                                              mix)), sample_rate)
-    if os_mode != 4:
-        from libgooey_tpu_torch import not_ported
-
-        raise not_ported(f"feedback_waveshaper.process_block(os_mode={os_mode})")
     if x.dim() != 2:
         raise ValueError(f"expected a [V, B] voice bank, got {tuple(x.shape)}")
 
     drive, feedback, fbc, mix = (like_x(v) for v in (drive, feedback, fb_filter_coeff, mix))
     att, rel = env_coeffs(sample_rate)
     bypass = (mix <= 1e-4) | (drive <= 1.0)
+    if os_mode != 4:
+        return _fast_path_scans(state, x, drive, feedback, fbc, mix, bypass, att, rel, os_mode)
 
     env_state, env = _env_follow(state.env, x.abs(), att, rel, bypass)
     comp = gain_compensation(env, drive, feedback)

@@ -17,8 +17,9 @@ A bank of at most ``ops.voice.MAX_FUSED_VOICES`` voices with one trigger
 slot a block takes the kit path (``fused=True``, bass.py:176-201): its
 oscillators, 4x drive and envelopes in the ``kit_sources`` kernel, the swept
 SVF after it in ``svf_bank`` (ops/voice.py).  Kernels on the stage path:
-``affine1_bank`` (phase accumulators), ``ws4_bank`` (overdrive),
-``svf_bank`` (filter).
+``affine1_bank`` (phase accumulators), ``ws4_bank`` (overdrive; at
+``os_mode`` 2 the half-band stages of ``ops/oversample.process`` on
+``affine1_bank`` instead, at 1 none), ``svf_bank`` (filter).
 """
 
 from __future__ import annotations

@@ -19,9 +19,10 @@ snapshot of the most recent trigger at or before it.
 
 ``use_ws_bank`` (common.py:212-226) has no counterpart: on the TPU it sends
 wide banks to the fused ``ws4_bank`` kernel and small ones to the XLA
-oversampler, while the port's snare and bass always take ``ws4_bank``
-through ``effects/waveshaper.process_bank`` (its plain version on the CPU),
-which raises for ``os_mode != 4``.
+oversampler, while the port's snare and bass always go through
+``effects/waveshaper.process_bank``, which takes ``ws4_bank`` at 4x (its
+plain version on the CPU) and ``ops/oversample.process`` at ``os_mode`` 2
+(no oversampling at 1), as the JAX package's XLA branch does.
 """
 
 from __future__ import annotations

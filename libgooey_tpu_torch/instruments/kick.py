@@ -13,7 +13,9 @@ its sources in the ``kit_sources`` kernel, the envelope follower between,
 its 4x drive in ``kit_drive`` (ops/voice.py, ops/voice_kernels.py; the
 TPU's ``pallas_voice.kick_render_fused``).  Every other bank renders the
 stage path below, whose recurrences run in the bank kernels
-(ops/bank_kernels.py); the rest is elementwise math.
+(ops/bank_kernels.py); the rest is elementwise math.  At ``os_mode`` 1 and
+2 the drive runs the feedback waveshaper's scan path (its tanh through
+``ops/oversample.process``) in place of ``fbws_bank``.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ between (``linrec2_bank``), its noise envelopes and 4x overdrive in
 ``kit_drive`` (ops/voice.py; the TPU's ``pallas_voice.snare_render_fused``).
 Every other bank renders the stage path below; its kernels:
 ``triangle_additive_bank`` (tonal), ``linrec2_bank`` (Chamberlin),
-``ws4_bank`` (overdrive).
+``ws4_bank`` (overdrive; at ``os_mode`` 2 the half-band stages of
+``ops/oversample.process`` on ``affine1_bank`` instead, at 1 none).
 """
 
 from __future__ import annotations
@@ -308,7 +309,7 @@ def render_block(
 
     total = tonal_out + noise_out + crack_out
 
-    # --- overdrive: plain tanh waveshaper at 4x, drive = 1 + od*9 (snare.rs:1166)
+    # --- overdrive: plain tanh waveshaper at os_mode x, drive = 1 + od*9 (snare.rs:1166)
     drive = 1.0 + ptraj("overdrive") * 9.0
     ws_ovs_out, shaped = waveshaper.process_bank(state.ovs, total, drive, os_mode)
 

@@ -5,8 +5,8 @@ parameters; the state recursion runs in a bank kernel: ``svf_bank`` for the
 TPT (Simper) state-variable filter, ``linrec2_bank`` (through
 ``scan.linrec2``) for the RBJ biquads, the membrane's five bands and the
 2x-iterated Chamberlin SVF, ``affine1_bank`` (through ``scan.linrec1``) for
-the one-pole structures.  Of the DC blocker, the state is ported (the bus
-saturation's blocker runs inside its kernel); ``dc_block`` has no caller yet.
+the one-pole structures and ``dc_block`` (the bus effects' 4x blockers run
+inside their kernels).
 
 Behavioral references: src/filters/resonant_lowpass.rs and
 state_variable_tpt.rs (Simper SVF: g = tan(pi*fc/sr), r = 1/Q,
@@ -155,6 +155,14 @@ class DCBlockState(NamedTuple):
     def init(shape, device) -> "DCBlockState":
         z = torch.zeros(shape, dtype=torch.float32, device=device)
         return DCBlockState(x1=z, y1=z.clone())
+
+
+def dc_block(state: DCBlockState, x, coeff: float = 0.995):
+    """``y[n] = x[n] - x[n-1] + R*y[n-1]`` (feedback_waveshaper.rs:262-271)
+    through ``scan.linrec1``: one ``affine1_bank`` launch on the card."""
+    x_prev = _shift1(x, state.x1)
+    y = gscan.linrec1(torch.full_like(x, float(np.float32(coeff))), x - x_prev, state.y1)
+    return DCBlockState(x1=x[..., -1], y1=y[..., -1]), y
 
 
 # --- RBJ biquads (Direct Form I) ----------------------------------------------

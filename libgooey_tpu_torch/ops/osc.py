@@ -2,8 +2,8 @@
 
 Each waveform is a pure function of ``(sample_index_since_trigger, freq[n])``
 (src/gen/oscillator.rs:242-255): no phase integration.  The additive
-triangle runs in the ``triangle_additive_bank`` kernel.  Not ported (no
-caller yet): ``ring_mod`` and the naive saw/square/triangle.
+triangle runs in the ``triangle_additive_bank`` kernel.  The naive
+saw/square/triangle are the aliasing A/B references of the examples.
 """
 
 from __future__ import annotations
@@ -20,6 +20,11 @@ TWO_PI = float(2.0 * np.pi)
 def sine(sample_index, freq, sample_rate):
     """``sin(idx * f * 2pi / sr)`` — src/gen/oscillator.rs:41-45."""
     return torch.sin(sample_index * freq * (TWO_PI / sample_rate))
+
+
+def ring_mod(sample_index, freq, mod_freq, sample_rate):
+    """Carrier sine x modulator sine (src/gen/oscillator.rs:181-185)."""
+    return sine(sample_index, freq, sample_rate) * sine(sample_index, mod_freq, sample_rate)
 
 
 def noise(sample_index, seed=rng.DEFAULT_SEED):
@@ -56,6 +61,24 @@ def square_blep(sample_index, freq, sample_rate):
     phase, inc = _phase(sample_index, freq, sample_rate)
     naive = torch.where(phase < 0.5, 1.0, -1.0)
     return naive + poly_blep(phase, inc) - poly_blep(torch.remainder(phase + 0.5, 1.0), inc)
+
+
+def saw_naive(sample_index, freq, sample_rate):
+    """Aliasing saw for A/B comparison (oscillator.rs:169-172)."""
+    phase, _ = _phase(sample_index, freq, sample_rate)
+    return 2.0 * phase - 1.0
+
+
+def square_naive(sample_index, freq, sample_rate):
+    """Aliasing square (oscillator.rs:164-167)."""
+    phase, _ = _phase(sample_index, freq, sample_rate)
+    return torch.where(phase < 0.5, 1.0, -1.0)
+
+
+def triangle_naive(sample_index, freq, sample_rate):
+    """Aliasing /\\ triangle (oscillator.rs:174-179)."""
+    phase, _ = _phase(sample_index, freq, sample_rate)
+    return torch.where(phase < 0.5, 4.0 * phase - 1.0, 3.0 - 4.0 * phase)
 
 
 def triangle_additive(sample_index, freq, sample_rate, max_harmonics: int):

@@ -242,10 +242,13 @@ def test_interop_round_trip():
 
 
 def test_unported_parts_raise_with_a_pointer():
-    """What the port still lacks raises: an oversampling mode other than
-    4x (with a pointer to the ROADMAP), an unknown family or effect, and a
-    kernel on a tensor on neither CUDA nor the CPU.  Every family of the
-    JAX Engine is ported (tests/test_torch_engine_host.py)."""
+    """What the port lacks raises: a state entry it has no module for (with
+    a pointer to the ROADMAP), an oversampling mode other than 1x, 2x and
+    4x (as the JAX package's ``oversample.process`` refuses it), an unknown
+    family or effect, and a kernel on a tensor on neither CUDA nor the CPU.
+    Every family of the JAX Engine is ported
+    (tests/test_torch_engine_host.py), and the kick renders at ``os_mode``
+    2 (tests/test_torch_os_modes.py holds it to the JAX package)."""
     eng = TEngine(SR, B, device="cpu")
     for kind in TFAMILIES:
         eng.add_instrument(kind, kind)
@@ -259,8 +262,13 @@ def test_unported_parts_raise_with_a_pointer():
     idx = torch.empty(2, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         osc.triangle_additive(idx, idx, SR, 16)
-    st = tkick.init_state(2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkick.render_block(st, np.zeros(2, np.int32), np.ones(2, np.float32), 0,
-                           sample_rate=SR, block_size=B, smooth_coeff=smoothing_coeff(SR),
-                           max_harmonics=0, feedback_path=False, os_mode=2)
+        interop.engine_state_from_numpy({"mesh": None}, "cpu")
+    st = tkick.init_state(2, device="cpu")
+    kw = dict(sample_rate=SR, block_size=B, smooth_coeff=smoothing_coeff(SR), max_harmonics=0,
+              feedback_path=False)
+    args = (st, np.zeros(2, np.int32), np.ones(2, np.float32), 0)
+    with pytest.raises(ValueError, match="unsupported oversampling mode"):
+        tkick.render_block(*args, os_mode=3, **kw)
+    _, out = tkick.render_block(*args, os_mode=2, **kw)
+    assert torch.isfinite(out).all() and float(out.abs().max()) > 0.0
