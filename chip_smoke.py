@@ -94,7 +94,7 @@ Phases (any failure exits non-zero):
    inputs from a numpy seed; with each
    kernel's device time per call (torch.profiler; CUDA events behind a
    sleep where the trace holds nothing), its wrapper's wall between CUDA
-   events, its plain version's, its bound (the larger of bytes over 3.35
+   events, its plain version's (the one compared call's), its bound (the larger of bytes over 3.35
    TB/s and operations over 67 TFLOP/s) and, for the recurrences and the
    bus kernels, its chain floor; also the counter hash, bit for bit
    against the CPU;
@@ -282,7 +282,35 @@ Phases (any failure exits non-zero):
    temporary directory, each WAV finite and audible (``loops_and_clips``'
    clip waits for the next bar, past 0.5 s), the scope's frame drawn, each
    one's wall seconds, ``antialias_validation``'s 2x and 4x alias
-   reduction (at least 20 dB) beside its ns/sample.
+   reduction (at least 20 dB) beside its ns/sample;
+16. the sharded render over ``torch.distributed``
+   (``libgooey_tpu_torch.parallel.mesh``; ``phase_mesh``, alone after
+   ``_build.build(); _build.load_library()``): (a) full_kit_4096_bus7 at
+   full width on two gloo ranks (``torch.multiprocessing.spawn``,
+   ``file://`` init in a temporary directory, ``GLOO_SOCKET_IFNAME=lo``
+   unless set) sharing the card, each holding half of every family (512 /
+   512 / 512 / 256 / 256 voices), the seven-effect bus and the limiter
+   replicated after one [3, B] all-reduce of the mix and the mono sum a
+   block, 16 blocks timed (wall ms/block of each rank beside the
+   single-process render's), then 4 more of rank 0 under torch.profiler
+   (the all-reduces' share of its wall, its device ops and its
+   hand-written kernels by name); (b) on the same ranks 4 blocks of the
+   full product scope (an LFO route on kick 768 and the compressor keyed
+   from kick 640, both rank 1's rows, the compressor over the kit's level)
+   and 4 of ``collect_sources`` into four buses, every voice also struck at
+   the first sample; (c) (a)'s 16 blocks on a one-rank NCCL group in this
+   process.  The ranks' outputs equal each other bit for bit, rank 0's lie
+   within 1e-5 of the single-process render of the same inputs and its
+   state gathered to family order within 1e-4 (relative where it exceeds
+   1), the sources' gathered voices and peaks within 1e-5, (c) equals the
+   single-process render bit for bit, and rank 0's launch counts (and
+   (c)'s) show every kernel of the path launched, ``mix_bank``,
+   ``bus_chain`` and ``plate_block`` once a block.  A rank that raises ends
+   the script with its traceback.  To rehearse on the CPU: shrink ``B``,
+   ``KIT`` and the ``N_MESH_*`` counts (the ranks take them from the
+   parent, ``MESH_SIZES``) and let ``check`` pass the launch-count checks
+   (the plain versions count nothing); ``phase_mesh(torch.device("cpu"),
+   ...)`` then runs the ranks and (c) on gloo.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
@@ -1828,8 +1856,10 @@ def phase_kernels(dev):
         kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
         got = as_tuple(kern(*args, **kw))
         torch.cuda.synchronize()
-        want = as_tuple(plain(*args, **kw))
-        torch.cuda.synchronize()
+        # the plain version's one call, timed between CUDA events as it is compared
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(as_tuple(plain(*args, **kw))), 1)
+        want = want[0]
         # NaN and +-inf may agree only where same_bits holds the bits too
         err_of = case_err if name in EXACT else max_err
         rel_of = case_rel_err if name in EXACT else rel_err
@@ -1849,7 +1879,6 @@ def phase_kernels(dev):
         dev_ms = device_ms(lambda: kern(*args, **kw), 20)
         ev_ms = event_ms(lambda: kern(*args, **kw), 20) if dev_ms is None else None
         ms = ev_ms if dev_ms is None else dev_ms
-        plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
         bms, bound_by = bound_ms(name, args, kw, got)
         floor = chain_floor_ms(name, args, clock_hz)
         dev_text = (f"{ev_ms * 1e3:.1f} us (CUDA events behind a sleep: the trace held "
@@ -4248,6 +4277,354 @@ def phase_os_modes(dev, card):
     return counts
 
 
+# --- phase 16: the sharded render over torch.distributed ----------------------------
+
+MESH_RANKS = 2            # (a), (b): gloo ranks sharing cuda:0
+N_MESH_BLOCKS = 16        # (a), (c): blocks of full_kit_4096_bus7
+N_MESH_SCOPE = 4          # (b): blocks of the full product scope, and of the sources
+N_MESH_PROFILE = 4        # (a): blocks of rank 0 under the profiler
+MESH_SOURCES = 4          # (b): the sources' buses
+MESH_TOL = OUT_TOL
+#: the least peak of a phase-16 render: the kit's gains are 1/V, so bus7's
+#: 64 blocks peak near 1.3e-3 (phase 7) and its first 16 lower
+MESH_PEAK = 1e-4
+#: the sizes a rank takes from the parent, so that a rehearsal on the CPU
+#: which shrinks them in the parent shrinks the ranks' too
+MESH_SIZES = ("B", "KIT", "N_MESH_BLOCKS", "N_MESH_SCOPE", "N_MESH_PROFILE")
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_inputs(dev, part):
+    """State, per-block events and statics of phase 16's renders, the same
+    in the parent and in every rank: (a)/(c) full_kit_4096_bus7 as phase 7
+    renders it, (b) with an LFO route on kick 768 and the compressor keyed
+    from kick 640 (both rows of rank 1: the kick's 1,024 voices split 512 /
+    512) and over the kit's level, (b, sources) the kit with
+    ``collect_sources`` into four buses (each voice to one, from the seed);
+    in (b) every voice is also struck at the first sample."""
+    if part == "sources":
+        state, events, static = kit_inputs(dev, N_MESH_SCOPE)
+        nv = sum(KIT.values())
+        pick = np.random.RandomState(SEED).randint(0, MESH_SOURCES, nv)
+        events["source_matrix"] = np.tile(
+            np.eye(MESH_SOURCES, dtype=np.float32)[pick].T, (N_MESH_SCOPE, 1, 1))
+        static = dict(static, collect_sources=True)
+    elif part == "scope":
+        state, events, static = bus_inputs(dev, N_MESH_SCOPE, order=FX_ORDER_FULL,
+                                           over={"compressor": COMPARE_FULL["compressor"]})
+        events.update(lfo_phase=np.tile(np.linspace(0.0, 0.7, 8, dtype=np.float32),
+                                         (N_MESH_SCOPE, 1)),
+                      lfo_inc=np.full((N_MESH_SCOPE, 8), 2.0 / SR, np.float32),
+                      lfo_amount=np.full((N_MESH_SCOPE, 8), 0.9, np.float32),
+                      lfo_offset=np.zeros((N_MESH_SCOPE, 8), np.float32))
+        nk = KIT["kick"]
+        static = dict(static, lfo_routes=((0, "kick", nk * 3 // 4, "frequency", 0.8),),
+                      sidechain_voice=nk // 2 + nk // 8)
+    else:
+        state, events, static = bus_inputs(dev, N_MESH_BLOCKS, order=FX_ORDER_FULL)
+    if part != "bus7":   # every voice also struck at the first sample
+        for kind in KIT:
+            events[kind + "_off"][0], events[kind + "_vel"][0] = 0, 0.8
+    n = len(events["block_start"])
+    return state, [{k: v[i] for k, v in events.items()} for i in range(n)], static
+
+
+def render_single(state, blocks, static):
+    """The single-process render of phase 16's blocks: ``(state, outputs
+    stacked over blocks)``."""
+    import torch
+
+    from libgooey_tpu_torch.engine import engine
+
+    dev = state["pan"].current.device
+    outs = []
+    for ev in [engine._events_to(ev, dev) for ev in blocks]:
+        state, *rest = engine._render_all(state, ev, **static)
+        outs.append(rest)
+    sync(dev)
+    return state, [torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))]
+
+
+def to_cpu(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_cpu(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree
+
+
+def state_err(a: dict, b: dict) -> float:
+    """Worst :func:`case_rel_err` over two engine states' entries."""
+    check(a.keys() == b.keys(), f"state keys differ: {sorted(a)} vs {sorted(b)}")
+    return max(case_rel_err(a[k] if isinstance(a[k], tuple) else (a[k],),
+                            b[k] if isinstance(b[k], tuple) else (b[k],)) for k in a)
+
+
+def mesh_render(mesh, state, blocks, static, timed=False):
+    """One rank's render of ``blocks`` (full state, per-block full events):
+    shard, warm up on the first 2 blocks, then with the launch counts at 0
+    render every block; returns the outputs stacked, the wall seconds (each
+    rank starting together), the counts and the final state gathered in
+    family order, all on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from libgooey_tpu_torch.ops import kernels
+    from libgooey_tpu_torch.parallel import mesh as pmesh
+
+    kinds = static["kinds"]
+    local = pmesh.shard_engine_state(state, blocks[0], kinds, mesh)
+    events = [pmesh.shard_events(ev, kinds, mesh) for ev in blocks]
+    if timed:
+        st = local
+        for ev in events[:2]:
+            st = pmesh.render_all_sharded(st, ev, mesh=mesh, **static)[0]
+    sync(mesh.device)
+    dist.barrier(group=mesh.group)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = []
+    for ev in events:
+        local, *rest = pmesh.render_all_sharded(local, ev, mesh=mesh, **static)
+        outs.append(rest)
+    sync(mesh.device)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = {"outs": [torch.stack([o[i] for o in outs]).cpu() for i in range(len(outs[0]))],
+           "wall": wall, "counts": counts,
+           "state": to_cpu(pmesh.gather_engine_state(local, kinds, mesh))}
+    if static.get("collect_sources"):
+        voices = [pmesh.gather_voices(o[1], o[2], local, kinds, mesh) for o in outs]
+        res["voices"] = torch.stack([v[0] for v in voices]).cpu()
+        res["peaks"] = torch.stack([v[1] for v in voices]).cpu()
+    res["local"], res["events"] = local, events
+    return res
+
+
+def mesh_profile(mesh, res, static):
+    """``N_MESH_PROFILE`` more blocks from ``res``'s final local state, rank 0
+    under torch.profiler (every rank renders them: the sums need all):
+    the wall, the all-reduces' host ms (``Mesh.all_reduce`` traced as one
+    span) and the device kernels' names and counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from libgooey_tpu_torch.ops import kernels
+    from libgooey_tpu_torch.parallel import mesh as pmesh
+
+    real = pmesh.Mesh.all_reduce
+
+    def traced(self, t):
+        with record_function("mesh_all_reduce"):
+            return real(self, t)
+
+    pmesh.Mesh.all_reduce = traced
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if mesh.device.type == "cuda"
+                                     else [])
+    ctx = profile(activities=acts) if mesh.rank == 0 else contextlib.nullcontext()
+    try:
+        st = res["local"]
+        with ctx as prof:
+            t0 = time.perf_counter()
+            for ev in res["events"][:N_MESH_PROFILE]:
+                st = pmesh.render_all_sharded(st, ev, mesh=mesh, **static)[0]
+            sync(mesh.device)
+            wall = time.perf_counter() - t0
+    finally:
+        pmesh.Mesh.all_reduce = real
+    if prof is None:
+        return None
+    table = prof.key_averages()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = [e for e in table if e.key == "mesh_all_reduce" and e.device_type == cpu]
+    reduce_ms = sum(e.cpu_time_total for e in spans) / 1e3
+    n_reduce = sum(e.count for e in spans)
+    # the device's ops, less the spans that annotate its timeline (this one's
+    # and gloo's own)
+    device = [e for e in table if e.device_type == cuda
+              and not e.key.startswith(("mesh_all_reduce", "gloo:"))]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    hand = collections.Counter()
+    for e in device:
+        name = kernel_symbol(e.key)
+        if name.startswith(kernels.KERNELS):
+            hand[name] += e.count
+    return {"wall_ms": wall * 1e3, "reduce_ms": reduce_ms, "n_reduce": n_reduce,
+            "busy_ms": busy_ms, "device_ops": sum(e.count for e in device), "kernels": dict(hand)}
+
+
+def kernel_symbol(key: str) -> str:
+    """A device kernel's bare name from its traced signature."""
+    key = key.replace("(anonymous namespace)::", "")
+    key = key[len("void "):] if key.startswith("void ") else key
+    return key.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def mesh_rank(rank, size, tmp, device, sizes):
+    """One rank of phase 16 (a) and (b): gloo on ``device`` (the parent's
+    card), the parent's ``sizes``, phase 16's renders, its results saved to
+    ``tmp``."""
+    import torch
+    import torch.distributed as dist
+
+    from libgooey_tpu_torch.ops import _build
+    from libgooey_tpu_torch.parallel import mesh as pmesh
+
+    globals().update(sizes)
+    dev = torch.device(device)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init", rank=rank,
+                            world_size=size)
+    try:
+        if dev.type == "cuda":
+            _build.build()          # the parent's build, found by its sources' hash
+            _build.load_library()
+        mesh = pmesh.make_mesh(size, [dev] * size)
+        out = {}
+        for part in ("bus7", "scope", "sources"):
+            state, blocks, static = mesh_inputs(dev, part)
+            res = mesh_render(mesh, state, blocks, static, timed=part == "bus7")
+            if part == "bus7":
+                res["profile"] = mesh_profile(mesh, res, static)
+            del res["local"], res["events"]
+            out[part] = res
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(dev, card):
+    """Phase 16: (a) full_kit_4096_bus7 on two gloo ranks sharing the card,
+    (b) the full product scope and the sources on them, (c) a one-rank NCCL
+    group; each against the single-process render of the same inputs.
+    Returns the printed numbers."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from libgooey_tpu_torch.ops import bank_kernels as bk
+    from libgooey_tpu_torch.ops import kernels
+    from libgooey_tpu_torch.parallel import mesh as pmesh
+
+    # both ranks run on this host: gloo talks over the loopback device
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    single = {}
+    for part in ("bus7", "scope", "sources"):
+        state, blocks, static = mesh_inputs(dev, part)
+        if part == "bus7":
+            render_single(state, blocks[:2], static)    # warm-up
+            t0 = time.perf_counter()
+        single[part] = render_single(state, blocks, static)
+        if part == "bus7":
+            single_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(MESH_RANKS, tmp, str(dev),
+                                  {k: globals()[k] for k in MESH_SIZES}),
+                 nprocs=MESH_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(MESH_RANKS)]
+    nv = sum(KIT.values())
+    path = bk.KERNELS + ("bus_chain", "plate_block")
+    numbers = {}
+    for part in ("bus7", "scope", "sources"):
+        want_state, want = single[part]
+        want = [w.cpu() for w in want]
+        got = ranks[0][part]
+        n = got["outs"][0].shape[0]
+        # the sources' local voices and peaks differ by rank: their sums do not
+        shared = slice(0, 1) if part == "sources" else slice(None)
+        label = f"phase 16 ({'a' if part == 'bus7' else 'b'}) {part}, {MESH_RANKS} gloo ranks"
+        check(all(same_bits(r[part]["outs"][shared], got["outs"][shared]) for r in ranks[1:]),
+              f"{label}: the ranks' outputs differ")
+        errs = [max_err(g, w) for g, w in zip(got["outs"][shared], want[shared])]
+        s_err = state_err(got["state"], to_cpu(want_state))
+        check(all(bool(torch.isfinite(g).all()) for g in got["outs"]),
+              f"{label}: output is not finite")
+        peak = float(want[0].abs().max())
+        check(peak > MESH_PEAK, f"{label}: the render is silent (peak {peak})")
+        extra = ""
+        if part == "sources":
+            _, (_, voices, peaks) = single[part]
+            v_err = max(max_err(got["voices"], voices.cpu()), max_err(got["peaks"], peaks.cpu()))
+            check(v_err <= MESH_TOL, f"{label}: gathered voices or peaks off by {v_err}")
+            extra = f", gathered voices and peaks {v_err:.3e}"
+        if part == "scope":
+            gain = float(got["state"]["fx_compressor"].gain.min())
+            check(gain < 0.99, f"{label}: the sidechained compressor never engaged ({gain})")
+            extra = f", the keyed compressor's gain down to {gain:.4f}"
+        print(f"{label}: {nv} voices x {n} blocks, rank 0 vs the "
+              f"single-process render: outputs {' / '.join(f'{e:.3e}' for e in errs)} (tol "
+              f"{MESH_TOL:g}, peak {peak:.4f}), gathered state {s_err:.3e} (tol {STATE_TOL:g})"
+              f"{extra}; "
+              f"the {MESH_RANKS} ranks' outputs equal bit for bit")
+        check(max(errs) <= MESH_TOL and s_err <= STATE_TOL,
+              f"{label}: off the single-process render (outputs {errs}, state {s_err})")
+        counts = got["counts"]
+        if part == "bus7":
+            check(all(counts[k] > 0 for k in path) and counts["mix_bank"] == n
+                  and counts["bus_chain"] == n and counts["plate_block"] == n,
+                  f"{label}: a kernel of the path never launched on rank 0: {counts}")
+        print(f"{label} rank 0 launches: {json.dumps(counts)}")
+    a = ranks[0]["bus7"]
+    prof = a["profile"]
+    numbers.update(
+        wall_a=a["wall"] / N_MESH_BLOCKS * 1e3, wall_single=single_wall / N_MESH_BLOCKS * 1e3,
+        reduce_share=prof["reduce_ms"] / prof["wall_ms"])
+    print(f"phase 16 (a): {MESH_RANKS} gloo ranks on one card, {N_MESH_BLOCKS} blocks: rank 0 "
+          f"{numbers['wall_a']:.3f} ms/block (rank 1 "
+          f"{ranks[1]['bus7']['wall'] / N_MESH_BLOCKS * 1e3:.3f}), the single-process render "
+          f"{numbers['wall_single']:.3f} ms/block; spawn and both ranks' work {spawn_s:.1f} s; "
+          f"on {card}")
+    print(f"phase 16 (a) rank 0 traced over {N_MESH_PROFILE} blocks: wall "
+          f"{prof['wall_ms'] / N_MESH_PROFILE:.3f} ms/block, all-reduces a block: "
+          f"{prof['n_reduce'] / N_MESH_PROFILE:.0f}, taking {prof['reduce_ms'] / N_MESH_PROFILE:.3f} ms/block of host "
+          f"time, a share of {numbers['reduce_share']:.3f} of the wall; device busy "
+          f"{prof['busy_ms'] / N_MESH_PROFILE:.3f} ms/block in "
+          f"{prof['device_ops'] / N_MESH_PROFILE:.0f} device ops; on {card}")
+    print("phase 16 (a) rank 0's hand-written kernels in the trace, per block: " + json.dumps(
+        {k: c / N_MESH_PROFILE for k, c in sorted(prof["kernels"].items())}))
+
+    # (c) a one-rank NCCL group (gloo in a rehearsal on the CPU): its
+    # all-reduce is the identity
+    state, blocks, static = mesh_inputs(dev, "bus7")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/init", rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh(1, [dev])
+            c = mesh_render(mesh, state, blocks, static, timed=True)
+        finally:
+            dist.destroy_process_group()
+    _, want = single["bus7"]
+    check(same_bits(c["outs"], [w.cpu() for w in want]),
+          "phase 16 (c): the one-rank NCCL render differs from the single-process render")
+    check(all(c["counts"][k] > 0 for k in path) and c["counts"]["mix_bank"] == N_MESH_BLOCKS,
+          f"phase 16 (c): a kernel of the path never launched: {c['counts']}")
+    numbers["wall_c"] = c["wall"] / N_MESH_BLOCKS * 1e3
+    print(f"phase 16 (c): a one-rank NCCL group, {N_MESH_BLOCKS} blocks, "
+          f"{numbers['wall_c']:.3f} ms/block, equal to the single-process render bit for bit; "
+          f"launches {json.dumps(c['counts'])}; on {card}")
+    return numbers
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", help="write a torch.profiler table here")
@@ -4294,6 +4671,7 @@ def main(argv=None) -> int:
             gooey = clocked(phase_gooey, dev, card, prof)
             capi_counts = clocked(phase_capi, dev, card, prof)
             os_counts = clocked(phase_os_modes, dev, card)
+            clocked(phase_mesh, dev, card)
         if args.profile:
             print(f"profile written to {args.profile}")
         counts.update((n, grain[n]) for n in ("grain_read_cubic", "sampler_read_linear"))

@@ -41,9 +41,11 @@ it (``native/``: ``gooey_shim.cpp`` and its build), the program DSL
 8th-note sequencer (``engine/legacy_sequencer.py``), the visualization
 (``visualization.py``: the capture ring, the spectrogram on ``torch.fft``,
 the offscreen scope), the terminal scope (``tui.py``) and the examples
-(``examples/``, each ``python -m libgooey_tpu_torch.examples.<name>``).
-The rest (the device mesh) is queued in ROADMAP.md; an entry point the port
-lacks raises ``NotImplementedError``.
+(``examples/``, each ``python -m libgooey_tpu_torch.examples.<name>``),
+and voice sharding over ``torch.distributed`` (``parallel/mesh.py``: one
+process a rank, the mix summed over the group).  What ROADMAP.md lists as
+TPU-only is not ported; an entry point the port lacks raises
+``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

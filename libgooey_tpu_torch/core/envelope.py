@@ -24,6 +24,21 @@ class ADSR(NamedTuple):
     decay_curve: torch.Tensor
 
 
+def adsr(attack, decay, sustain, release, attack_curve=1.0, decay_curve=1.0, *,
+         device=None) -> ADSR:
+    """An :class:`ADSR` of float32 tensors with the reference's 1 ms minimums
+    (src/envelope.rs:34-38) and the sustain clamped to [0, 1]; on
+    ``device`` (None: a tensor's own device, else the CPU)."""
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+    return ADSR(attack=torch.clamp(f32(attack), min=0.001),
+                decay=torch.clamp(f32(decay), min=0.001),
+                sustain=torch.clamp(f32(sustain), 0.0, 1.0),
+                release=torch.clamp(f32(release), min=0.001),
+                attack_curve=f32(attack_curve), decay_curve=f32(decay_curve))
+
+
 def apply_curve(progress: torch.Tensor, c) -> torch.Tensor:
     """EnvelopeCurve::apply — ``progress ** clamp(c, 0.1, 10)``."""
     if isinstance(c, torch.Tensor):

@@ -1,9 +1,10 @@
 """Max/MSP ``curve~`` exponential interpolation (port of
-libgooey_tpu/core/max_curve.py:19-39).
+libgooey_tpu/core/max_curve.py).
 
 Behavioral reference: src/max_curve.rs:21-48, used by the Max-ported
-instruments (HiHat2, Tom2).  The multi-segment ``segments_value`` is not
-ported (no caller yet).
+instruments (HiHat2, Tom2), and the multi-segment ``MaxCurveEnvelope``
+(src/max_curve.rs:76-180) as a pure function of elapsed time
+(``segments_value``).
 """
 
 from __future__ import annotations
@@ -39,3 +40,30 @@ def max_curve(progress: torch.Tensor, curve: float) -> torch.Tensor:
     if float(c) < 0.0:
         return 1.0 - one_sided(1.0 - p)
     return one_sided(p)
+
+
+def segments_value(elapsed: torch.Tensor, start_value, targets, durations, curves):
+    """A multi-segment curve~ envelope at ``elapsed`` seconds (any shape).
+
+    ``targets``, ``durations`` (seconds) and ``curves`` (Python numbers)
+    hold one entry a segment; targets and durations broadcast against
+    ``elapsed``.  Segment k spans ``[sum(dur[:k]), sum(dur[:k+1]))`` and
+    runs from the previous segment's target; past the last segment the
+    value holds its target (src/max_curve.rs:141-147), and a negative
+    elapsed gives ``start_value``."""
+    dev = elapsed.device
+    value = torch.zeros_like(elapsed) + start_value
+    seg_start_t = torch.zeros_like(elapsed)
+    seg_start_v = value
+    for target, dur, curve in zip(targets, durations, curves):
+        dur = torch.clamp(torch.as_tensor(dur, dtype=torch.float32, device=dev), min=0.0)
+        target = torch.zeros_like(elapsed) + target
+        local = elapsed - seg_start_t
+        prog = torch.where(dur > 0.0, local / torch.clamp(dur, min=1e-30), 1.0)
+        seg_val = seg_start_v + (target - seg_start_v) * max_curve(prog, curve)
+        # inside this segment: its curved value; past it: its target; before
+        # it (elapsed in an earlier segment): the value so far
+        value = torch.where(local < dur, torch.where(local >= 0.0, seg_val, value), target)
+        seg_start_t = seg_start_t + dur
+        seg_start_v = target
+    return torch.where(elapsed < 0.0, torch.zeros_like(elapsed) + start_value, value)

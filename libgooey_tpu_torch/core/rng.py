@@ -1,11 +1,12 @@
-"""Counter-based deterministic noise, and the granulator's host generator
-(port of libgooey_tpu/core/rng.py:33-96).
+"""Counter-based deterministic noise, and the host generators
+(port of libgooey_tpu/core/rng.py).
 
 The device white sources are a stateless integer mix of ``(seed, counter)``
 where the counter is samples-since-trigger.  They must match the JAX package
 bit for bit, on the CPU and on CUDA: one wrong bit changes the kick's click
-and pink layers by O(1).  ``XorShift32`` is plain host Python; its draws
-decide the granulator's spawns, so they too match bit for bit.
+and pink layers by O(1).  ``XorShift32`` and ``XorShift64Star`` are plain host
+Python; the first's draws decide the granulator's spawns, so both match
+bit for bit.
 
 PyTorch's ``uint32`` lacks shifts and wrapping multiplies on some backends,
 so 32-bit unsigned arithmetic is emulated in ``int64`` with ``& 0xFFFFFFFF``.
@@ -113,3 +114,29 @@ class XorShift32:
     def next_f32(self) -> float:
         """Uniform in [0, 1) from the top 24 bits."""
         return (self.next_u32() >> 8) / float(1 << 24)
+
+
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+
+
+class XorShift64Star:
+    """Sequential xorshift64* (the reference's pink-noise source,
+    pink_noise.rs:67-79; libgooey_tpu/core/rng.py:99-118): host Python, the
+    same 64-bit draws bit for bit, wrapped with masks."""
+
+    MULT = 0x2545F4914F6CDD1D
+
+    def __init__(self, seed: int = 0x123456789ABCDEF0):
+        self.state = seed & _MASK64
+
+    def next_u64(self) -> int:
+        x = self.state
+        x ^= x >> 12
+        x = (x ^ (x << 25)) & _MASK64
+        x ^= x >> 27
+        self.state = x
+        return (x * self.MULT) & _MASK64
+
+    def next_white(self) -> float:
+        """White sample in [-1, 1] from the top 24 bits."""
+        return (self.next_u64() >> 40) / float((1 << 24) - 1) * 2.0 - 1.0

@@ -129,3 +129,14 @@ def smooth_advance(bank: SmootherBank, coeff, block: int) -> SmootherBank:
     decayed = (cur - tgt) * torch.pow(q, float(block))
     new_cur = tgt + settle_snap(decayed)
     return SmootherBank(current=new_cur, target=tgt)
+
+
+def smooth_block_traj(current, targets: torch.Tensor, coeff, axis: int = -1) -> torch.Tensor:
+    """Smooth toward a per-sample target trajectory (LFO-modulated params):
+    one one-pole scan from ``current`` along ``axis`` of ``targets``, with
+    no settle snap (a moving target never settles).  The caller keeps the
+    last sample as the new current."""
+    from libgooey_tpu_torch.ops import scan as gscan
+
+    y = gscan.onepole(coeff, targets.movedim(axis, -1), current)
+    return y.movedim(-1, axis)

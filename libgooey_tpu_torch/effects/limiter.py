@@ -1,12 +1,18 @@
-"""The master soft limiter (port of libgooey_tpu/effects/limiter.py:20-26).
-
-``tanh(x/t)*t`` (src/effects/limiter.rs:66-77), pinned last on the bus.
+"""The limiters (port of libgooey_tpu/effects/limiter.py): the hard clamp
+(``BrickWallLimiter``, src/effects/limiter.rs:15-33) and the soft
+``tanh(x/t)*t`` (``SoftLimiter``, limiter.rs:66-77), pinned last on the
+bus.  Both are stateless and per channel.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def brick_wall(x: torch.Tensor, threshold: float = 1.0) -> torch.Tensor:
+    """Hard clamp to ±threshold (limiter.rs:15-33)."""
+    return torch.clamp(x, -threshold, threshold)
 
 
 def soft_limit(x: torch.Tensor, threshold: float = 1.0) -> torch.Tensor:

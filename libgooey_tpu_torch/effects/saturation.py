@@ -66,6 +66,10 @@ def init_state(sample_rate: float, drive=0.3, warmth=0.3, mix=1.0, *,
                            ovs=OversamplerState.init(2, device))
 
 
+#: the JAX module's alias (saturation.py:49) of the oversampler's helper
+repeat_to_rate = ovs_mod.repeat_to_rate
+
+
 def saturate(x, drive, bias):
     """The tube transfer curve (saturation.rs:106-125)."""
     driven = x * drive

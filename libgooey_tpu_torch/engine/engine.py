@@ -149,6 +149,21 @@ def _voice_row(voice_outs, i: int) -> torch.Tensor:
     raise IndexError(i)
 
 
+def _sidechain_tap(voice_outs, i: int, mesh) -> torch.Tensor:
+    """Global voice ``i``'s row on a rank of ``mesh``: the owning rank's
+    local row, zeros on every other, summed over the group (engine.py:476-496;
+    every family holds ``size`` equal slices)."""
+    for out in voice_outs:
+        n_local = out.shape[0]
+        if i < n_local * mesh.size:
+            row = i - mesh.rank * n_local
+            tap = (out[row].clone() if 0 <= row < n_local
+                   else torch.zeros_like(out[0]))
+            return mesh.all_reduce(tap)
+        i -= n_local * mesh.size
+    raise IndexError(i)
+
+
 def _joins_run(name: str, sidechain_voice: int) -> bool:
     return name in MERGEABLE_FX and not (name == "compressor" and sidechain_voice >= 0)
 
@@ -194,14 +209,19 @@ def _on(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, device=dev)
 
 
-def _lfo_overrides(kind, bank: SmootherBank, kind_routes, lfo_trajs, smooth_coeff):
+def _lfo_overrides(kind, bank: SmootherBank, kind_routes, lfo_trajs, smooth_coeff,
+                   mesh=None):
     """``{param: [V, B]}`` trajectories of a family's routed parameters
     (engine.py:266-291): each parameter's targets with the routed slots'
     rows set to the LFO's bipolar target, then one one-pole scan from the
-    bank's current value (one ``affine1_bank`` launch)."""
+    bank's current value (one ``affine1_bank`` launch).  A route's slot is a
+    global row: on a rank of ``mesh`` the local rows start at ``rank · V``
+    (JAX ``_global_rows``, engine.py:188-198)."""
     mod = FAMILIES[kind]
     V, B = bank.target.shape[0], lfo_trajs.shape[-1]
     rows = torch.arange(V, device=bank.target.device)
+    if mesh is not None:
+        rows = rows + mesh.rank * V
     overrides = {}
     for pname in sorted({r[3] for r in kind_routes}):
         idx = mod.PARAM_INDEX[pname]
@@ -230,6 +250,7 @@ def _render_all(
     collect_sources: bool = False,
     fuse_bus: bool = True,
     fused_banks: bool = True,
+    mesh=None,
 ):
     """One block over every instrument bank + mix + master + global bus +
     limiter.
@@ -246,7 +267,13 @@ def _render_all(
     input).  ``fuse_bus=False`` runs every effect through its own kernels,
     even in a run of two or more (the JAX package's
     ``LIBGOOEY_CHAIN_FUSE=off``, mixer/chain.py).  ``fused_banks=False``
-    keeps every bank off the kit path (ops/voice.py).
+    keeps every bank off the kit path (ops/voice.py).  ``mesh`` (a
+    ``parallel.mesh.Mesh``; the JAX package's ``psum_axis``): ``state`` and
+    ``events`` hold this rank's voices of a sharded render
+    (``parallel.mesh.render_all_sharded``), route slots and
+    ``sidechain_voice`` stay global ids, and the mix with the mono sum, the
+    sidechain tap and ``sources`` are summed over the mesh's group, so the
+    master, the bus and the limiter run replicated.
 
     Returns ``(new_state, stereo[2, B], mono[B])``; with ``collect_sources``
     (engine.py:339-354) ``(new_state, sources[S, 2, B], all_voices[V, B],
@@ -274,7 +301,7 @@ def _render_all(
             continue
         kind_routes = [r for r in lfo_routes if r[1] == kind]
         overrides = (_lfo_overrides(kind, state[kind].params, kind_routes, lfo_trajs,
-                                    smooth_coeff) if kind_routes else None)
+                                    smooth_coeff, mesh) if kind_routes else None)
         extra = {}
         if kind == "poly":
             extra["trig_freq"] = events["poly_freq"]
@@ -310,6 +337,8 @@ def _render_all(
         panned = torch.stack([shaped * gl, shaped * gr], dim=1)          # [V, 2, B]
         matrix = _on(events["source_matrix"], dev).to(torch.float32)
         sources = torch.einsum("sv,vcb->scb", matrix, panned)
+        if mesh is not None:
+            sources = mesh.all_reduce(sources.contiguous())              # engine.py:349-350
         voice_peaks = torch.amax(shaped.abs(), dim=-1)                   # [V]
         new_state["pan"] = pan_bank
         new_state["gain"] = gain_bank
@@ -322,6 +351,10 @@ def _render_all(
     suml, sumr, mono_sum = bank_kernels.mix_bank(
         torch.cat(voice_outs, dim=0), pan.current, pan.target, gain.current, gain.target,
         coeff=smooth_coeff)
+    if mesh is not None:
+        # the only cross-voice sums of a sharded render (engine.py:425-430):
+        # one [3, B] all-reduce a block, then everything below is replicated
+        suml, sumr, mono_sum = mesh.all_reduce(torch.stack([suml, sumr, mono_sum]))
     pan_bank = smooth_advance(pan, smooth_coeff, block_size)
     gain_bank = smooth_advance(gain, smooth_coeff, block_size)
     mix = torch.stack([suml, sumr], dim=0)
@@ -350,7 +383,8 @@ def _render_all(
         fx_name = fx_order[i]
         kw = {}
         if fx_name == "compressor" and sidechain_voice >= 0:
-            sc = _voice_row(voice_outs, sidechain_voice)
+            sc = (_voice_row(voice_outs, sidechain_voice) if mesh is None
+                  else _sidechain_tap(voice_outs, sidechain_voice, mesh))
             kw["sidechain"] = torch.stack([sc, sc], dim=0)
         new_state["fx_" + fx_name], bus = FX_MODULES[fx_name].process_block(
             state["fx_" + fx_name], bus, events["fx_" + fx_name], sample_rate=sample_rate,

@@ -17,6 +17,7 @@
 ``[V, K]`` slot arrays with offsets ascending per voice; each sample sees the
 snapshot of the most recent trigger at or before it.
 
+``fm_snap_block`` is the FM "snap" transient as a block function.
 ``use_ws_bank`` (common.py:212-226) has no counterpart: on the TPU it sends
 wide banks to the fused ``ws4_bank`` kernel and small ones to the XLA
 oversampler, while the port's snare and bass always go through
@@ -168,3 +169,28 @@ def phase_mod_env(elapsed, active_mask):
     fall = 1.0 - torch.pow(torch.clamp((elapsed - 0.001) / 0.005, min=0.0), 0.4)
     env = torch.where(elapsed < 0.001, rise, fall)
     return torch.where((elapsed >= 0.0) & (elapsed <= 0.006) & active_mask, env, 0.0)
+
+
+def fm_snap_block(phase0, elapsed, sample_rate, *, attack=0.001, decay=0.008,
+                  carrier_freq=50.0, modulator_freq=500.0, modulation_index=2.0):
+    """FM "snap" transient blip (fm_snap.rs:3-94) as a block function.
+
+    The reference integrates the instantaneous frequency a sample at a
+    time; here it is a cumulative sum over the block (``scan.cumsum_bank``),
+    the phase carried across blocks through ``phase0``.  ``elapsed``
+    ``[..., B]`` is seconds since the trigger; a sample before it or past
+    the envelope is silent and adds no phase.  Returns ``(phase_out, y)``
+    with ``y = sin(phase) * env`` and ``phase_out`` the last phase mod 2π."""
+    from libgooey_tpu_torch.ops import scan as gscan
+
+    t = torch.as_tensor(elapsed, dtype=torch.float32)
+    active = (t >= 0.0) & (t <= attack + decay)
+    env = torch.where(t < attack, torch.clamp(t, min=0.0) / attack,
+                      torch.clamp(torch.exp(-(t - attack) / decay), 0.0, 1.0))
+    env = torch.where(active, env, 0.0)
+    mod = torch.sin(2.0 * np.pi * modulator_freq * t)
+    f_inst = carrier_freq + modulation_index * mod * env
+    dphi = torch.where(active, 2.0 * np.pi * f_inst / sample_rate, 0.0)
+    phase0 = torch.as_tensor(phase0, dtype=torch.float32, device=t.device)
+    phase = phase0[..., None] + gscan.cumsum_bank(dphi)
+    return torch.remainder(phase[..., -1], 2.0 * np.pi), torch.sin(phase) * env

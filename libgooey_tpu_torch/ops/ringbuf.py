@@ -1,6 +1,5 @@
 """Device ring buffers with fractional reads: the delay-line substrate
-(port of ``Ring``, ``write_block``, ``read_frac`` and ``tap_frac`` of
-libgooey_tpu/ops/ringbuf.py:26-123).
+(port of libgooey_tpu/ops/ringbuf.py).
 
 A delay line keeps its audio history in a ring on the device and works per
 block: reads whose lag is at least the block length reference only earlier
@@ -62,6 +61,20 @@ def read_frac(ring: Ring, offsets: torch.Tensor, min_offset: float = 1.0) -> tor
     return a + frac * (b - a)
 
 
+def read_int(ring: Ring, lags) -> torch.Tensor:
+    """Integer-lag read: ``lags[..., C]`` samples ago (pre-write), local
+    sample n relative to ``pos + n``; a buffer with the same number of axes
+    as ``lags`` is read row by row, a ``[L]`` buffer at every index."""
+    L = ring.buf.shape[-1]
+    lags = torch.as_tensor(lags, device=ring.buf.device)
+    C = lags.shape[-1]
+    idx = torch.remainder(ring.pos + torch.arange(C, device=lags.device) - lags.to(torch.int64),
+                          L)
+    if ring.buf.dim() == idx.dim():
+        return torch.gather(ring.buf, -1, idx.expand(ring.buf.shape[:-1] + (C,)))
+    return ring.buf[idx]
+
+
 def tap_frac(ring_after_write: Ring, offsets: torch.Tensor, n_written: int) -> torch.Tensor:
     """Post-write fractional tap: offset 0 is this sample's own write.
 
@@ -70,3 +83,25 @@ def tap_frac(ring_after_write: Ring, offsets: torch.Tensor, n_written: int) -> t
     134-142, slot ``idx - 1 - whole``).  Offsets are clamped to [0, L-2]."""
     before = Ring(buf=ring_after_write.buf, pos=ring_after_write.pos - n_written)
     return read_frac(before, offsets, min_offset=0.0)
+
+
+def affine_allpass_reads(rings, gains, offsets_list, min_offset: float = 1.0):
+    """A series-Schroeder-allpass chain as an affine map of its input chunk.
+
+    Each allpass ``out = g*v + delayed`` with ``v = in - g*delayed`` is
+    affine in ``in`` given its pre-chunk delayed read: ``out = g*in +
+    (1-g^2)*delayed``.  Composed, ``out[n] = (prod g_i)*in[n] + beta[n]``
+    and stage i's input is ``(prod_{j<i} g_j)*in[n] + gamma_i[n]``.
+    Returns ``(alpha, beta, stage_direct, stage_add, delayed)``: enough to
+    rebuild every stage's write ``v_i = in_i - g_i*delayed_i`` once the
+    chunk's input is known (reverb.rs:189-217, plate_reverb.rs:455-462)."""
+    delayed = [read_frac(r, torch.as_tensor(o, device=r.buf.device), min_offset)
+               for r, o in zip(rings, offsets_list)]
+    alpha, beta = 1.0, 0.0
+    stage_direct, stage_add = [], []
+    for g, d in zip(gains, delayed):
+        stage_direct.append(alpha)
+        stage_add.append(beta)
+        beta = g * beta + (1.0 - g * g) * d
+        alpha = alpha * g
+    return alpha, beta, stage_direct, stage_add, delayed

@@ -77,6 +77,26 @@ def onepole(coeff, x, y0) -> torch.Tensor:
     return linrec1(1.0 - coeff, coeff * x, y0)
 
 
+def onepole_const(coeff, x_const, y0, n: int, axis: int = -1) -> torch.Tensor:
+    """Closed form of :func:`onepole` toward an input constant over ``n``
+    samples: ``y[k] = x + (y0 - x) * (1-coeff)^(k+1)``, k = 0..n-1.
+
+    ``x_const`` and ``y0`` are slice-shaped; the result gains a sample axis
+    at ``axis``.  A Python ``coeff`` takes its powers correctly rounded from
+    float64, as XLA's float32 ``power`` gives them (``smoother.pow_table``)."""
+    from libgooey_tpu_torch.core.smoother import _q, pow_table
+
+    x_const = torch.as_tensor(x_const, dtype=torch.float32)
+    y0 = torch.as_tensor(y0, dtype=torch.float32, device=x_const.device)
+    if isinstance(coeff, torch.Tensor):
+        powers = torch.pow(1.0 - coeff.to(torch.float32), torch.arange(
+            1, n + 1, dtype=torch.float32, device=x_const.device))
+    else:
+        powers = pow_table(_q(coeff), n, x_const.device)
+    y = x_const[..., None] + (y0 - x_const)[..., None] * powers
+    return y if axis == -1 else y.movedim(-1, axis)
+
+
 def linrec2(a11, a12, a21, a22, b1, b2, s0):
     """Solve ``s[n] = A[n] s[n-1] + b[n]`` for a 2-vector state along the
     last axis; ``s0 = (s1_0, s2_0)`` slice-shaped.  Returns the post-update
@@ -153,3 +173,41 @@ def asym_smooth(target, down_coeff: float, y0, reset=None) -> torch.Tensor:
     if reset is not None:
         b = torch.where(reset, 0.0, b)
     return maxlin(target, b, k * target, y0)
+
+
+def _tree(fn, *trees):
+    """``fn`` over the tensors of matching tuples, lists and dicts."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        out = [_tree(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
+    return fn(*trees)
+
+
+def nonlinear_scan(step_fn, state, xs, axis: int = -1):
+    """Sequential per-sample loop for a nonlinear recurrence.
+
+    ``step_fn(state, x_slice) -> (state, y_slice)`` on slices without the
+    sample axis (``[V]``-shaped); ``xs`` is a tree (tuples, lists, dicts)
+    of tensors with the sample axis at ``axis``.  B steps in order, each
+    over every voice at once (the JAX package's ``lax.scan``); returns
+    ``(state, ys)`` with ``ys``' sample axis at ``axis``."""
+    xs_t = _tree(lambda v: v.movedim(axis, 0), xs)
+    n = next(iter(_leaves(xs_t))).shape[0]
+    ys = []
+    for i in range(n):
+        state, y = step_fn(state, _tree(lambda v: v[i], xs_t))
+        ys.append(y)
+    return state, _tree(lambda *vs: torch.stack(vs, dim=0).movedim(0, axis), *ys)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _leaves(t)
+    else:
+        yield tree

@@ -51,7 +51,8 @@ def test_port_never_imports_jax():
         "       'libgooey_tpu_torch.capi', 'libgooey_tpu_torch.dsl', 'libgooey_tpu_torch.midi',\n"
         "       'libgooey_tpu_torch.engine.legacy_sequencer', 'libgooey_tpu_torch.native',\n"
         "       'libgooey_tpu_torch.native.build', 'libgooey_tpu_torch.visualization',\n"
-        "       'libgooey_tpu_torch.tui', 'libgooey_tpu_torch.examples'}\n"
+        "       'libgooey_tpu_torch.tui', 'libgooey_tpu_torch.examples',\n"
+        "       'libgooey_tpu_torch.parallel', 'libgooey_tpu_torch.parallel.mesh'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "examples = [m for m in mods if m.startswith('libgooey_tpu_torch.examples.')]\n"
         "assert len(examples) == 29, examples\n"
