@@ -299,18 +299,37 @@ Phases (any failure exits non-zero):
    from kick 640, both rank 1's rows, the compressor over the kit's level)
    and 4 of ``collect_sources`` into four buses, every voice also struck at
    the first sample; (c) (a)'s 16 blocks on a one-rank NCCL group in this
-   process.  The ranks' outputs equal each other bit for bit, rank 0's lie
-   within 1e-5 of the single-process render of the same inputs and its
-   state gathered to family order within 1e-4 (relative where it exceeds
-   1), the sources' gathered voices and peaks within 1e-5, (c) equals the
+   process; (d) phase 11(b)'s eight families at their widths on the two
+   ranks through ``engine._render_all(..., mesh=...)`` (the JAX package's
+   GSPMD render, every bank off the kit path), poly at 86 synths (516
+   lanes; 85 do not halve) placed by synth, the three routes and LFO 3 on
+   synth 60's filter cutoff (rank 1's), a chord on synths 0 and 60 at the
+   first sample and synth 60 released at block 2, 8 blocks timed and
+   compared, then 4 of rank 0 under torch.profiler; (e) phase 10's
+   granulator (4,000 lanes, drive engaged) and sampler (128 voices, arena
+   filled) split by lanes (``shard_rack_state``), each block a steal of a
+   rank-0 lane into a rank-1 release lane (one all-reduce of the victim's
+   fields), a spawn on each rank and a sampler start on each, the lane
+   sums all-reduced, 16 blocks timed and compared, then 4 traced.  The
+   ranks' outputs equal each other bit for bit, rank 0's lie within 1e-5
+   of the single-process render of the same inputs and its state gathered
+   (to family order) within 1e-4 (relative where it exceeds 1), the
+   sources' gathered voices and peaks within 1e-5, (c) equals the
    single-process render bit for bit, and rank 0's launch counts (and
    (c)'s) show every kernel of the path launched, ``mix_bank``,
-   ``bus_chain`` and ``plate_block`` once a block.  A rank that raises ends
+   ``bus_chain`` and ``plate_block`` once a block; in (d) the poly's four
+   ``affine1_bank`` and one ``svf_bank`` a block at its 258 local lanes
+   and its route's scan at its 43 synths (calls by rows, ``last_calls``),
+   in (e) ``grain_read_cubic``, ``sampler_read_linear``,
+   ``ws4_bank`` and ``affine1_bank`` once a block.  A rank that raises ends
    the script with its traceback.  To rehearse on the CPU: shrink ``B``,
-   ``KIT`` and the ``N_MESH_*`` counts (the ranks take them from the
-   parent, ``MESH_SIZES``) and let ``check`` pass the launch-count checks
-   (the plain versions count nothing); ``phase_mesh(torch.device("cpu"),
-   ...)`` then runs the ranks and (c) on gloo.
+   ``KIT``, ``WHOLE_KIT`` with ``MESH_POLY``, ``MESH_POLY_SLOT`` and
+   ``MESH_CHORD``, ``G_LANES``, ``S_VOICES`` and the ``N_MESH_*`` counts
+   (the ranks take them from the parent, ``MESH_SIZES``) and let ``check``
+   pass the launch-count and silence checks (the plain versions count
+   nothing; ~3 min at 8-voice banks, 320 lanes, 3 blocks);
+   ``phase_mesh(torch.device("cpu"), ...)`` then runs the ranks and (c) on
+   gloo.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before holds
 the card's name and power limit, and the one before that the per-kernel
@@ -2803,9 +2822,10 @@ def route_scans():
 @contextlib.contextmanager
 def last_calls(names, rows_of=None):
     """Keep each named wrapper's arguments at its last launch of each row
-    count, ``{(name, rows): (args, kw)}`` (the triangle's sample rate and
-    harmonics as keywords, as ``kernel_cases`` passes them).  ``rows_of(args,
-    kw)``: the key's second part, by default the first argument's rows."""
+    count and its calls of that count, ``{(name, rows): (args, kw, calls)}``
+    (the triangle's sample rate and harmonics as keywords, as
+    ``kernel_cases`` passes them).  ``rows_of(args, kw)``: the key's second
+    part, by default the first argument's rows."""
     from libgooey_tpu_torch.ops import kernels
 
     seen = {}
@@ -2817,7 +2837,7 @@ def last_calls(names, rows_of=None):
                     else rows_of(args, kw))
             if name == "triangle_additive_bank":
                 args, kw = args[:2], dict(sample_rate=args[2], max_harmonics=args[3])
-            seen[(name, rows)] = (args, kw)
+            seen[(name, rows)] = (args, kw, seen.get((name, rows), (0, 0, 0))[2] + 1)
             # the wrapper counts its launch on its module's name for itself,
             # which is this function while recording: carry the count over
             recording.launches = fn.launches
@@ -2981,9 +3001,10 @@ def phase_whole_engine(dev, card):
     check(np.array_equal(buf, again), f"{label}: two bounces from one state differ")
 
 
-def whole_kit_inputs(dev, n_blocks):
-    """State, stacked events and statics of phase 11(b): ``WHOLE_KIT``'s
-    banks at default presets with build_full_kit's sequenced traffic (one
+def whole_kit_inputs(dev, n_blocks, kit=None):
+    """State, stacked events and statics of phase 11(b): ``kit``'s
+    (``WHOLE_KIT`` when None) banks at default presets with
+    build_full_kit's sequenced traffic (one
     ``RandomState(0)`` drawing each bank's lags in family order; the poly
     lanes at MIDI 36-83, never released), LFO 0 at 1/8 and 140 BPM, LFO 1
     at 0.8 Hz and LFO 2 at 4 Hz on ``WHOLE_ROUTES``, and the seven-effect
@@ -2992,12 +3013,13 @@ def whole_kit_inputs(dev, n_blocks):
     from libgooey_tpu_torch.core.smoother import smoothing_coeff
     from libgooey_tpu_torch.engine import engine, lfo
 
+    kit = WHOLE_KIT if kit is None else kit
     state = {kind: engine.FAMILIES[kind].init_state(nv, device=dev)
-             for kind, nv in WHOLE_KIT.items()}
-    state.update(mixer_state(sum(WHOLE_KIT.values()), dev))
+             for kind, nv in kit.items()}
+    state.update(mixer_state(sum(kit.values()), dev))
     rng = np.random.RandomState(0)
     events = {"block_start": (np.arange(n_blocks) * B).astype(np.int32)}
-    for kind, nv in WHOLE_KIT.items():
+    for kind, nv in kit.items():
         lanes = nv * engine._lanes_per_slot(kind)
         events[kind + "_off"], events[kind + "_vel"] = sequenced_events(rng, lanes, n_blocks)
     lanes = events["poly_off"].shape[1]
@@ -3020,10 +3042,10 @@ def whole_kit_inputs(dev, n_blocks):
             np.asarray(engine.FX_DEFAULT_TARGETS[name], np.float32), (n_blocks, 1))
     statics = dict(engine.FAMILY_STATIC, kick=dict(feedback_path=False, max_harmonics=0),
                    snare=dict(max_harmonics=64))
-    static = dict(kinds=tuple(WHOLE_KIT), sample_rate=SR, block_size=B,
+    static = dict(kinds=tuple(kit), sample_rate=SR, block_size=B,
                   smooth_coeff=smoothing_coeff(SR), limiter_threshold=1.0,
                   family_static=tuple((k, tuple(sorted(statics[k].items())))
-                                      for k in WHOLE_KIT if k in statics),
+                                      for k in kit if k in statics),
                   lfo_routes=WHOLE_ROUTES, fx_order=FX_ORDER_FULL)
     return state, events, static
 
@@ -3057,7 +3079,7 @@ def phase_whole_kit(dev, card, prof_file=None):
     with route_scans() as seen, last_calls(NEW_SHAPES) as calls:
         engine.render_many(state, {k: v[:n] for k, v in events.items()}, **static)
     check_route_scans(label, seen, n, ("kick", "hihat", "bass"))
-    for (name, rows), (args, kw) in sorted(calls.items()):
+    for (name, rows), (args, kw, _) in sorted(calls.items()):
         if (name, rows) not in NEW_SHAPES[name]:
             continue
         mod = kernels.module_of(name)
@@ -3315,7 +3337,7 @@ def wsola_read_rows(reads, counts):
     check(set(k[1] for k in reads) == set(WSOLA_READS),
           f"loops: the grain reads ran at {sorted(reads)}, not {sorted(WSOLA_READS)}")
     per_block = counts["grain_read_cubic"] / 3 / LOOP_K
-    for (_name, shape), (args, kw) in sorted(reads.items()):
+    for (_name, shape), (args, kw, _) in sorted(reads.items()):
         got = gk.grain_read_cubic(*args, **kw)
         want = gk.grain_read_cubic_plain(*args, **kw)
         ms = device_ms(lambda: gk.grain_read_cubic(*args, **kw), 20)
@@ -4279,18 +4301,34 @@ def phase_os_modes(dev, card):
 
 # --- phase 16: the sharded render over torch.distributed ----------------------------
 
-MESH_RANKS = 2            # (a), (b): gloo ranks sharing cuda:0
+MESH_RANKS = 2            # gloo ranks sharing cuda:0
 N_MESH_BLOCKS = 16        # (a), (c): blocks of full_kit_4096_bus7
 N_MESH_SCOPE = 4          # (b): blocks of the full product scope, and of the sources
-N_MESH_PROFILE = 4        # (a): blocks of rank 0 under the profiler
+N_MESH_PROFILE = 4        # (a), (d), (e): blocks of rank 0 under the profiler
 MESH_SOURCES = 4          # (b): the sources' buses
+N_MESH_WHOLE = 8          # (d): blocks of the eight-family kit
+N_MESH_RACKS = 16         # (e): blocks of the granulator and the sampler
+#: (d): the poly's synths (85 in phase 11(b) does not halve), and rank 1's
+#: synth that takes the LFO route, half of the chord and the release
+MESH_POLY = 86
+MESH_POLY_SLOT = 60
+MESH_CHORD = {0: (48, 52, 55, 59), MESH_POLY_SLOT: (57, 60, 64)}
+MESH_RELEASE_BLOCK = 2
+#: (d): the poly's affine1_bank launches at its lanes a block (its
+#: oscillators' phases; phase 11(b)'s "poly's 4")
+MESH_POLY_AFFINE = 4
 MESH_TOL = OUT_TOL
 #: the least peak of a phase-16 render: the kit's gains are 1/V, so bus7's
 #: 64 blocks peak near 1.3e-3 (phase 7) and its first 16 lower
 MESH_PEAK = 1e-4
 #: the sizes a rank takes from the parent, so that a rehearsal on the CPU
 #: which shrinks them in the parent shrinks the ranks' too
-MESH_SIZES = ("B", "KIT", "N_MESH_BLOCKS", "N_MESH_SCOPE", "N_MESH_PROFILE")
+MESH_SIZES = ("B", "KIT", "N_MESH_BLOCKS", "N_MESH_SCOPE", "N_MESH_PROFILE", "WHOLE_KIT",
+              "MESH_POLY", "MESH_POLY_SLOT", "MESH_CHORD", "N_MESH_WHOLE", "G_LANES",
+              "S_VOICES", "GRAIN_SOURCE", "ARENA_FRAMES", "N_MESH_RACKS")
+#: phase 16's renders: (a)'s, (b)'s two, (d)'s and (e)'s; the ones timed
+MESH_PARTS = ("bus7", "scope", "sources", "whole", "racks")
+MESH_TIMED = ("bus7", "whole", "racks")
 
 
 def sync(dev):
@@ -4300,6 +4338,65 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
+def mesh_whole_inputs(dev):
+    """(d): phase 11(b)'s eight-family kit with poly at ``MESH_POLY``
+    synths, ``WHOLE_ROUTES`` and LFO 3 on synth ``MESH_POLY_SLOT``'s
+    filter cutoff, a chord struck on synths 0 and ``MESH_POLY_SLOT`` at the
+    first sample and the second released at block ``MESH_RELEASE_BLOCK``,
+    every bank off the kit path (the JAX package's GSPMD render)."""
+    from libgooey_tpu_torch import music
+
+    kit = dict(WHOLE_KIT, poly=MESH_POLY)
+    state, events, static = whole_kit_inputs(dev, N_MESH_WHOLE, kit)
+    for slot, notes in MESH_CHORD.items():
+        for j, note in enumerate(notes):
+            lane = slot * 6 + j
+            # struck once, at the first sample: no sequenced step on the lane
+            events["poly_off"][:, lane], events["poly_vel"][:, lane] = B, 0.0
+            events["poly_off"][0, lane], events["poly_vel"][0, lane] = 0, 0.9
+            events["poly_freq"][0, lane] = music.midi_to_freq(note)
+            if slot == MESH_POLY_SLOT:
+                events["poly_rel"][MESH_RELEASE_BLOCK, lane] = 0
+    route = (3, "poly", MESH_POLY_SLOT, "filter_cutoff", 1.0)
+    return state, events, dict(static, lfo_routes=static["lfo_routes"] + (route,),
+                               fused_banks=False)
+
+
+def mesh_rack_inputs(dev):
+    """(e): phase 10's states as its comparison takes them (``grain_inputs(dev,
+    compare=True)``: the drive engaged, the arena filled) and per block a
+    steal of a main lane of rank 0 into a release-pool lane of rank 1, a
+    spawn reusing the stolen lane, a spawn on rank 1 and a sampler start on
+    a voice of each rank.  Returns ``((grain, sampler), [(spawns, starts,
+    block start)])``."""
+    from libgooey_tpu_torch.instruments import granulator as gran
+    from libgooey_tpu_torch.instruments import sampler as samp
+
+    half, per = G_LANES // 2, gran.TOTAL
+    rs = np.random.RandomState(4)
+    blocks = []
+    for i in range(N_MESH_RACKS):
+        g = gran.SpawnEvents.empty()._asdict()
+        inst = i % (half // per)
+        victim = inst * per + 5
+        for k, (slot, copy_from, off) in enumerate(
+                ((half + gran.MAX_GRAINS + i % gran.RELEASE_POOL, victim, 30), (victim, -1, 30),
+                 (half + inst * per + 10, -1, 200))):
+            g["slot"][k], g["copy_from"][k], g["offset"][k] = slot, copy_from, off
+            if copy_from >= 0:
+                g["rel_total"][k] = 176.0
+            else:
+                g["duration"][k], g["src_pos"][k] = 20000.0, rs.uniform(0, 1 << 14)
+                g["step"][k], g["shape"][k], g["vel"][k] = 1.3, 2.0, 0.8
+        s = samp.StartEvents.empty()._asdict()
+        for k, voice in enumerate((i % (S_VOICES // 2), S_VOICES // 2 + i % (S_VOICES // 2))):
+            s["voice"][k], s["offset"][k] = voice, 100 + 50 * k
+            s["base"][k] = rs.randint(0, ARENA_FRAMES - 30000)
+            s["frames"][k], s["increment"][k], s["velocity"][k] = 30000.0, 1.25, 0.7
+        blocks.append((gran.SpawnEvents(**g), samp.StartEvents(**s), i * B))
+    return grain_inputs(dev, compare=True), blocks
+
+
 def mesh_inputs(dev, part):
     """State, per-block events and statics of phase 16's renders, the same
     in the parent and in every rank: (a)/(c) full_kit_4096_bus7 as phase 7
@@ -4307,7 +4404,10 @@ def mesh_inputs(dev, part):
     from kick 640 (both rows of rank 1: the kick's 1,024 voices split 512 /
     512) and over the kit's level, (b, sources) the kit with
     ``collect_sources`` into four buses (each voice to one, from the seed);
-    in (b) every voice is also struck at the first sample."""
+    in (b) every voice is also struck at the first sample; (d)
+    :func:`mesh_whole_inputs`, (e) :func:`mesh_rack_inputs` (no statics)."""
+    if part == "racks":
+        return mesh_rack_inputs(dev) + ({},)
     if part == "sources":
         state, events, static = kit_inputs(dev, N_MESH_SCOPE)
         nv = sum(KIT.values())
@@ -4326,28 +4426,57 @@ def mesh_inputs(dev, part):
         nk = KIT["kick"]
         static = dict(static, lfo_routes=((0, "kick", nk * 3 // 4, "frequency", 0.8),),
                       sidechain_voice=nk // 2 + nk // 8)
+    elif part == "whole":
+        state, events, static = mesh_whole_inputs(dev)
     else:
         state, events, static = bus_inputs(dev, N_MESH_BLOCKS, order=FX_ORDER_FULL)
-    if part != "bus7":   # every voice also struck at the first sample
+    if part in ("scope", "sources"):   # every voice also struck at the first sample
         for kind in KIT:
             events[kind + "_off"][0], events[kind + "_vel"][0] = 0, 0.8
     n = len(events["block_start"])
     return state, [{k: v[i] for k, v in events.items()} for i in range(n)], static
 
 
-def render_single(state, blocks, static):
+def rack_step(mesh=None):
+    """One block of (e): the granulator, then the sampler, each on
+    ``mesh`` (None: the single process); returns ``((grain, sampler), out
+    [B], out [2, B])``."""
+    from libgooey_tpu_torch.core.smoother import smoothing_coeff
+    from libgooey_tpu_torch.instruments import granulator as gran
+    from libgooey_tpu_torch.instruments import sampler as samp
+
+    coeff = smoothing_coeff(SR)
+
+    def step(states, ev):
+        (gs, ss), (gev, sev, start) = states, ev
+        gs, g = gran.render_block(gs, gev, start, sample_rate=SR, block_size=B,
+                                  smooth_coeff=coeff, mesh=mesh)
+        ss, s = samp.render_block(ss, sev, start, sample_rate=SR, block_size=B, mesh=mesh)
+        return (gs, ss), g, s
+
+    return step
+
+
+def single_step(part, static):
+    """One block of a phase-16 render in this process."""
+    from libgooey_tpu_torch.engine import engine
+
+    if part == "racks":
+        return rack_step()
+    return lambda st, ev: engine._render_all(st, engine._events_to(ev, st["pan"].current.device),
+                                             **static)
+
+
+def render_single(state, blocks, step):
     """The single-process render of phase 16's blocks: ``(state, outputs
     stacked over blocks)``."""
     import torch
 
-    from libgooey_tpu_torch.engine import engine
-
-    dev = state["pan"].current.device
     outs = []
-    for ev in [engine._events_to(ev, dev) for ev in blocks]:
-        state, *rest = engine._render_all(state, ev, **static)
+    for ev in blocks:
+        state, *rest = step(state, ev)
         outs.append(rest)
-    sync(dev)
+    sync(rest[0].device)
     return state, [torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))]
 
 
@@ -4365,59 +4494,73 @@ def to_cpu(tree):
     return tree
 
 
-def state_err(a: dict, b: dict) -> float:
-    """Worst :func:`case_rel_err` over two engine states' entries."""
+def state_err(a, b) -> float:
+    """Worst :func:`case_rel_err` over two engine states' entries, or two
+    tuples of rack states."""
+    if isinstance(a, tuple):
+        return max(case_rel_err(x, y) for x, y in zip(a, b))
     check(a.keys() == b.keys(), f"state keys differ: {sorted(a)} vs {sorted(b)}")
     return max(case_rel_err(a[k] if isinstance(a[k], tuple) else (a[k],),
                             b[k] if isinstance(b[k], tuple) else (b[k],)) for k in a)
 
 
-def mesh_render(mesh, state, blocks, static, timed=False):
-    """One rank's render of ``blocks`` (full state, per-block full events):
-    shard, warm up on the first 2 blocks, then with the launch counts at 0
-    render every block; returns the outputs stacked, the wall seconds (each
-    rank starting together), the counts and the final state gathered in
-    family order, all on the CPU."""
+def mesh_part(mesh, part, state, blocks, static):
+    """One rank's placement, step and gather of a phase-16 render: ``(local
+    state, local events, step, gather)``."""
+    from libgooey_tpu_torch.engine import engine
+    from libgooey_tpu_torch.parallel import mesh as pmesh
+
+    if part == "racks":
+        return (tuple(pmesh.shard_rack_state(x, mesh) for x in state), blocks, rack_step(mesh),
+                lambda local: tuple(pmesh.gather_rack_state(x, mesh) for x in local))
+    kinds = static["kinds"]
+    local = pmesh.shard_engine_state(state, blocks[0], kinds, mesh)
+    events = [pmesh.shard_events(ev, kinds, mesh) for ev in blocks]
+    if part == "whole":        # poly: the JAX package's GSPMD path
+        def step(st, ev):
+            return engine._render_all(st, ev, mesh=mesh, **static)
+    else:
+        def step(st, ev):
+            return pmesh.render_all_sharded(st, ev, mesh=mesh, **static)
+    return local, events, step, lambda st: pmesh.gather_engine_state(st, kinds, mesh)
+
+
+def mesh_render(mesh, part, local, events, step, timed=False):
+    """One rank's render of a part's blocks: warm up on the first 2 blocks
+    (``timed``), then with the launch counts at 0 render every block, each
+    rank starting together; returns the outputs stacked, the wall seconds,
+    the counts, ``affine1_bank``'s and ``svf_bank``'s calls by rows
+    (``last_calls``) and the final local state."""
     import torch
     import torch.distributed as dist
 
     from libgooey_tpu_torch.ops import kernels
-    from libgooey_tpu_torch.parallel import mesh as pmesh
 
-    kinds = static["kinds"]
-    local = pmesh.shard_engine_state(state, blocks[0], kinds, mesh)
-    events = [pmesh.shard_events(ev, kinds, mesh) for ev in blocks]
     if timed:
         st = local
         for ev in events[:2]:
-            st = pmesh.render_all_sharded(st, ev, mesh=mesh, **static)[0]
+            st = step(st, ev)[0]
     sync(mesh.device)
     dist.barrier(group=mesh.group)
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
     outs = []
-    for ev in events:
-        local, *rest = pmesh.render_all_sharded(local, ev, mesh=mesh, **static)
-        outs.append(rest)
-    sync(mesh.device)
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    res = {"outs": [torch.stack([o[i] for o in outs]).cpu() for i in range(len(outs[0]))],
-           "wall": wall, "counts": counts,
-           "state": to_cpu(pmesh.gather_engine_state(local, kinds, mesh))}
-    if static.get("collect_sources"):
-        voices = [pmesh.gather_voices(o[1], o[2], local, kinds, mesh) for o in outs]
-        res["voices"] = torch.stack([v[0] for v in voices]).cpu()
-        res["peaks"] = torch.stack([v[1] for v in voices]).cpu()
-    res["local"], res["events"] = local, events
-    return res
+    with last_calls(("affine1_bank", "svf_bank")) as calls:
+        t0 = time.perf_counter()
+        for ev in events:
+            local, *rest = step(local, ev)
+            outs.append(rest)
+        sync(mesh.device)
+        wall = time.perf_counter() - t0
+    rows = {f"{name}[{n}]": c for (name, n), (_, _, c) in calls.items()}
+    return {"outs": [torch.stack([o[i] for o in outs]).cpu() for i in range(len(outs[0]))],
+            "wall": wall, "counts": kernels.launch_counts(), "rows": rows, "local": local}
 
 
-def mesh_profile(mesh, res, static):
-    """``N_MESH_PROFILE`` more blocks from ``res``'s final local state, rank 0
-    under torch.profiler (every rank renders them: the sums need all):
-    the wall, the all-reduces' host ms (``Mesh.all_reduce`` traced as one
-    span) and the device kernels' names and counts."""
+def mesh_profile(mesh, local, events, step):
+    """``N_MESH_PROFILE`` more blocks from ``local``, rank 0 under
+    torch.profiler (every rank renders them: the sums need all): the wall,
+    the all-reduces' host ms (``Mesh.all_reduce`` traced as one span) and
+    the device kernels' names and counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -4435,11 +4578,10 @@ def mesh_profile(mesh, res, static):
                                      else [])
     ctx = profile(activities=acts) if mesh.rank == 0 else contextlib.nullcontext()
     try:
-        st = res["local"]
         with ctx as prof:
             t0 = time.perf_counter()
-            for ev in res["events"][:N_MESH_PROFILE]:
-                st = pmesh.render_all_sharded(st, ev, mesh=mesh, **static)[0]
+            for ev in events[:N_MESH_PROFILE]:
+                local = step(local, ev)[0]
             sync(mesh.device)
             wall = time.perf_counter() - t0
     finally:
@@ -4473,9 +4615,9 @@ def kernel_symbol(key: str) -> str:
 
 
 def mesh_rank(rank, size, tmp, device, sizes):
-    """One rank of phase 16 (a) and (b): gloo on ``device`` (the parent's
-    card), the parent's ``sizes``, phase 16's renders, its results saved to
-    ``tmp``."""
+    """One rank of phase 16 (a), (b), (d) and (e): gloo on ``device`` (the
+    parent's card), the parent's ``sizes``, phase 16's renders, its results
+    saved to ``tmp``."""
     import torch
     import torch.distributed as dist
 
@@ -4492,23 +4634,73 @@ def mesh_rank(rank, size, tmp, device, sizes):
             _build.load_library()
         mesh = pmesh.make_mesh(size, [dev] * size)
         out = {}
-        for part in ("bus7", "scope", "sources"):
+        for part in MESH_PARTS:
             state, blocks, static = mesh_inputs(dev, part)
-            res = mesh_render(mesh, state, blocks, static, timed=part == "bus7")
-            if part == "bus7":
-                res["profile"] = mesh_profile(mesh, res, static)
-            del res["local"], res["events"]
+            local, events, step, gather = mesh_part(mesh, part, state, blocks, static)
+            res = mesh_render(mesh, part, local, events, step, timed=part in MESH_TIMED)
+            res["state"] = to_cpu(gather(res["local"]))
+            if static.get("collect_sources"):
+                voices = [pmesh.gather_voices(v, p, res["local"], static["kinds"], mesh)
+                          for v, p in zip(res["outs"][1], res["outs"][2])]
+                res["voices"] = torch.stack([v[0] for v in voices]).cpu()
+                res["peaks"] = torch.stack([v[1] for v in voices]).cpu()
+            if part in MESH_TIMED:
+                res["profile"] = mesh_profile(mesh, res["local"], events, step)
+            del res["local"]
             out[part] = res
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
+def mesh_compare(label, got, want, want_state, ranks, part, shared=slice(None)):
+    """Rank 0's outputs and gathered state against the single-process
+    render, the ranks' outputs bit for bit; returns ``(errs, state err,
+    peak)``."""
+    import torch
+
+    check(all(same_bits(r[part]["outs"][shared], got["outs"][shared]) for r in ranks[1:]),
+          f"{label}: the ranks' outputs differ")
+    errs = [max_err(g, w) for g, w in zip(got["outs"][shared], want[shared])]
+    s_err = state_err(got["state"], to_cpu(want_state))
+    check(all(bool(torch.isfinite(g).all()) for g in got["outs"]),
+          f"{label}: output is not finite")
+    peak = float(want[0].abs().max())
+    check(peak > MESH_PEAK, f"{label}: the render is silent (peak {peak})")
+    check(max(errs) <= MESH_TOL and s_err <= STATE_TOL,
+          f"{label}: off the single-process render (outputs {errs}, state {s_err})")
+    return errs, s_err, peak
+
+
+def mesh_walls(label, numbers, key, ranks, part, n, single_wall, card, spawn_s=None):
+    """Print a timed part's walls a block and rank 0's traced block."""
+    prof = ranks[0][part]["profile"]
+    numbers.update({f"wall_{key}": ranks[0][part]["wall"] / n * 1e3,
+                    f"wall_single_{key}": single_wall / n * 1e3,
+                    f"reduce_share_{key}": prof["reduce_ms"] / prof["wall_ms"]})
+    spawned = "" if spawn_s is None else f"; spawn and both ranks' work {spawn_s:.1f} s"
+    print(f"{label}: {MESH_RANKS} gloo ranks on one card, {n} blocks: rank 0 "
+          f"{numbers[f'wall_{key}']:.3f} ms/block (rank 1 "
+          f"{ranks[1][part]['wall'] / n * 1e3:.3f}), the single-process render "
+          f"{numbers[f'wall_single_{key}']:.3f} ms/block{spawned}; on {card}")
+    print(f"{label} rank 0 traced over {N_MESH_PROFILE} blocks: wall "
+          f"{prof['wall_ms'] / N_MESH_PROFILE:.3f} ms/block, all-reduces a block: "
+          f"{prof['n_reduce'] / N_MESH_PROFILE:.2f}, taking "
+          f"{prof['reduce_ms'] / N_MESH_PROFILE:.3f} ms/block of host time, a share of "
+          f"{numbers[f'reduce_share_{key}']:.3f} of the wall; device busy "
+          f"{prof['busy_ms'] / N_MESH_PROFILE:.3f} ms/block in "
+          f"{prof['device_ops'] / N_MESH_PROFILE:.0f} device ops; on {card}")
+    print(f"{label} rank 0's hand-written kernels in the trace, per block: " + json.dumps(
+        {k: c / N_MESH_PROFILE for k, c in sorted(prof["kernels"].items())}))
+
+
 def phase_mesh(dev, card):
     """Phase 16: (a) full_kit_4096_bus7 on two gloo ranks sharing the card,
     (b) the full product scope and the sources on them, (c) a one-rank NCCL
-    group; each against the single-process render of the same inputs.
-    Returns the printed numbers."""
+    group, (d) the eight-family kit with poly (the JAX package's GSPMD
+    render), (e) the granulator and the sampler at phase 10's widths; each
+    against the single-process render of the same inputs.  Returns the
+    printed numbers."""
     import os
     import tempfile
 
@@ -4517,20 +4709,20 @@ def phase_mesh(dev, card):
     import torch.multiprocessing as mp
 
     from libgooey_tpu_torch.ops import bank_kernels as bk
-    from libgooey_tpu_torch.ops import kernels
     from libgooey_tpu_torch.parallel import mesh as pmesh
 
     # both ranks run on this host: gloo talks over the loopback device
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    single = {}
-    for part in ("bus7", "scope", "sources"):
+    single, single_wall = {}, {}
+    for part in MESH_PARTS:
         state, blocks, static = mesh_inputs(dev, part)
-        if part == "bus7":
-            render_single(state, blocks[:2], static)    # warm-up
+        step = single_step(part, static)
+        if part in MESH_TIMED:
+            render_single(state, blocks[:2], step)    # warm-up
             t0 = time.perf_counter()
-        single[part] = render_single(state, blocks, static)
-        if part == "bus7":
-            single_wall = time.perf_counter() - t0
+        single[part] = render_single(state, blocks, step)
+        if part in MESH_TIMED:
+            single_wall[part] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         mp.spawn(mesh_rank, args=(MESH_RANKS, tmp, str(dev),
@@ -4550,14 +4742,7 @@ def phase_mesh(dev, card):
         # the sources' local voices and peaks differ by rank: their sums do not
         shared = slice(0, 1) if part == "sources" else slice(None)
         label = f"phase 16 ({'a' if part == 'bus7' else 'b'}) {part}, {MESH_RANKS} gloo ranks"
-        check(all(same_bits(r[part]["outs"][shared], got["outs"][shared]) for r in ranks[1:]),
-              f"{label}: the ranks' outputs differ")
-        errs = [max_err(g, w) for g, w in zip(got["outs"][shared], want[shared])]
-        s_err = state_err(got["state"], to_cpu(want_state))
-        check(all(bool(torch.isfinite(g).all()) for g in got["outs"]),
-              f"{label}: output is not finite")
-        peak = float(want[0].abs().max())
-        check(peak > MESH_PEAK, f"{label}: the render is silent (peak {peak})")
+        errs, s_err, peak = mesh_compare(label, got, want, want_state, ranks, part, shared)
         extra = ""
         if part == "sources":
             _, (_, voices, peaks) = single[part]
@@ -4573,32 +4758,66 @@ def phase_mesh(dev, card):
               f"{MESH_TOL:g}, peak {peak:.4f}), gathered state {s_err:.3e} (tol {STATE_TOL:g})"
               f"{extra}; "
               f"the {MESH_RANKS} ranks' outputs equal bit for bit")
-        check(max(errs) <= MESH_TOL and s_err <= STATE_TOL,
-              f"{label}: off the single-process render (outputs {errs}, state {s_err})")
         counts = got["counts"]
         if part == "bus7":
             check(all(counts[k] > 0 for k in path) and counts["mix_bank"] == n
                   and counts["bus_chain"] == n and counts["plate_block"] == n,
                   f"{label}: a kernel of the path never launched on rank 0: {counts}")
         print(f"{label} rank 0 launches: {json.dumps(counts)}")
-    a = ranks[0]["bus7"]
-    prof = a["profile"]
-    numbers.update(
-        wall_a=a["wall"] / N_MESH_BLOCKS * 1e3, wall_single=single_wall / N_MESH_BLOCKS * 1e3,
-        reduce_share=prof["reduce_ms"] / prof["wall_ms"])
-    print(f"phase 16 (a): {MESH_RANKS} gloo ranks on one card, {N_MESH_BLOCKS} blocks: rank 0 "
-          f"{numbers['wall_a']:.3f} ms/block (rank 1 "
-          f"{ranks[1]['bus7']['wall'] / N_MESH_BLOCKS * 1e3:.3f}), the single-process render "
-          f"{numbers['wall_single']:.3f} ms/block; spawn and both ranks' work {spawn_s:.1f} s; "
-          f"on {card}")
-    print(f"phase 16 (a) rank 0 traced over {N_MESH_PROFILE} blocks: wall "
-          f"{prof['wall_ms'] / N_MESH_PROFILE:.3f} ms/block, all-reduces a block: "
-          f"{prof['n_reduce'] / N_MESH_PROFILE:.0f}, taking {prof['reduce_ms'] / N_MESH_PROFILE:.3f} ms/block of host "
-          f"time, a share of {numbers['reduce_share']:.3f} of the wall; device busy "
-          f"{prof['busy_ms'] / N_MESH_PROFILE:.3f} ms/block in "
-          f"{prof['device_ops'] / N_MESH_PROFILE:.0f} device ops; on {card}")
-    print("phase 16 (a) rank 0's hand-written kernels in the trace, per block: " + json.dumps(
-        {k: c / N_MESH_PROFILE for k, c in sorted(prof["kernels"].items())}))
+    mesh_walls("phase 16 (a)", numbers, "a", ranks, "bus7", N_MESH_BLOCKS, single_wall["bus7"],
+               card, spawn_s)
+
+    # (d) the eight families with poly, off the kit path (the GSPMD render)
+    label = f"phase 16 (d) whole kit, {MESH_RANKS} gloo ranks"
+    want_state, want = single["whole"]
+    got = ranks[0]["whole"]
+    errs, s_err, peak = mesh_compare(label, got, [w.cpu() for w in want], want_state, ranks,
+                                     "whole")
+    kit = dict(WHOLE_KIT, poly=MESH_POLY)
+    local_lanes = MESH_POLY * 6 // MESH_RANKS
+    counts, rows = got["counts"], got["rows"]
+    n = N_MESH_WHOLE
+    check(all(counts[k] == n for k in ("mix_bank", "bus_chain", "plate_block"))
+          and rows.get(f"affine1_bank[{local_lanes}]", 0) == MESH_POLY_AFFINE * n
+          and rows.get(f"svf_bank[{local_lanes}]", 0) == n
+          and rows.get(f"affine1_bank[{MESH_POLY // MESH_RANKS}]", 0) == n,
+          f"{label}: the poly's lanes' and route's kernels or the mix and bus not as expected "
+          f"on rank 0: "
+          f"{counts}, {rows}")
+    poly = got["state"]["poly"]
+    slot = MESH_POLY_SLOT * 6
+    check(bool((poly.release_sample[slot:slot + len(MESH_CHORD[MESH_POLY_SLOT])]
+                == MESH_RELEASE_BLOCK * B).all()),
+          f"{label}: synth {MESH_POLY_SLOT}'s release did not land on rank 1's lanes")
+    print(f"{label}: {json.dumps(kit)} (poly at {MESH_POLY} synths, "
+          f"{MESH_POLY * 6} lanes: phase 11(b)'s 85 do not halve), {sum(kit.values())} voices "
+          f"in the mix, LFO routes {[r[1:3] for r in WHOLE_ROUTES]} and poly synth "
+          f"{MESH_POLY_SLOT}'s filter cutoff (rank 1's), a chord on synths 0 and "
+          f"{MESH_POLY_SLOT}, synth {MESH_POLY_SLOT} released at block {MESH_RELEASE_BLOCK}; "
+          f"{n} blocks, rank 0 vs the single-process render: outputs "
+          f"{' / '.join(f'{e:.3e}' for e in errs)} (tol {MESH_TOL:g}, peak {peak:.4f}), "
+          f"gathered state {s_err:.3e} (tol {STATE_TOL:g}); the ranks' outputs equal bit for bit")
+    print(f"{label} rank 0 launches: {json.dumps(counts)}; by rows: {json.dumps(rows)}")
+    mesh_walls("phase 16 (d)", numbers, "d", ranks, "whole", n, single_wall["whole"], card)
+
+    # (e) the racks: lanes and voices split, the lane sums all-reduced
+    label = f"phase 16 (e) racks, {MESH_RANKS} gloo ranks"
+    want_state, want = single["racks"]
+    got = ranks[0]["racks"]
+    errs, s_err, peak = mesh_compare(label, got, [w.cpu() for w in want], want_state, ranks,
+                                     "racks")
+    counts, n = got["counts"], N_MESH_RACKS
+    rack = ("grain_read_cubic", "sampler_read_linear", "ws4_bank", "affine1_bank")
+    check(all(counts[k] == n for k in rack),
+          f"{label}: the racks' kernels not once a block on rank 0: {counts}")
+    print(f"{label}: {G_LANES} grain lanes and {S_VOICES} sampler voices "
+          f"({G_LANES // MESH_RANKS} and {S_VOICES // MESH_RANKS} a rank), a steal across "
+          f"ranks, two spawns and two starts a block; {n} blocks, rank 0 vs the single-process "
+          f"render: granulator {errs[0]:.3e}, sampler {errs[1]:.3e} (tol {MESH_TOL:g}, peak "
+          f"{peak:.4f}), gathered state {s_err:.3e} (tol {STATE_TOL:g}); the ranks' outputs "
+          f"equal bit for bit")
+    print(f"{label} rank 0 launches: {json.dumps({k: counts[k] for k in counts if counts[k]})}")
+    mesh_walls("phase 16 (e)", numbers, "e", ranks, "racks", n, single_wall["racks"], card)
 
     # (c) a one-rank NCCL group (gloo in a rehearsal on the CPU): its
     # all-reduce is the identity
@@ -4610,7 +4829,8 @@ def phase_mesh(dev, card):
                                 init_method=f"file://{tmp}/init", rank=0, world_size=1)
         try:
             mesh = pmesh.make_mesh(1, [dev])
-            c = mesh_render(mesh, state, blocks, static, timed=True)
+            local, events, step, _ = mesh_part(mesh, "bus7", state, blocks, static)
+            c = mesh_render(mesh, "bus7", local, events, step, timed=True)
         finally:
             dist.destroy_process_group()
     _, want = single["bus7"]

@@ -200,35 +200,80 @@ def init_state(buffer, buffer_sr: float, config: Optional[GranulatorConfig] = No
     )
 
 
-def apply_events(st: GrainState, events: SpawnEvents, block_start: int) -> GrainState:
+def _event_writes(ev: dict, used, total: int) -> list:
+    """Each used event's write in order, ``(target lane, root, steal?,
+    offset, rel_total)``, ``root`` being where its six ``_GRAIN_FIELDS``
+    come from: ``("spawn", k)`` for spawn k's values, or a lane as the block
+    found it, an int; a steal's copy is followed back through the events
+    before it (a lane written earlier in the block is never a root)."""
+    last, writes = {}, []
+    for k in used:
+        tgt, src = int(ev["slot"][k]), int(ev["copy_from"][k])
+        if tgt >= total or src >= total:
+            raise ValueError(f"granulator event {k}: lane {max(tgt, src)} of {total}")
+        root = last.get(src, src) if src >= 0 else ("spawn", k)
+        last[tgt] = root
+        writes.append((tgt, root, src >= 0, int(ev["offset"][k]), float(ev["rel_total"][k])))
+    return writes
+
+
+def _fetch_lanes(st: GrainState, lanes: list, lo: int, mesh) -> torch.Tensor:
+    """The six ``_GRAIN_FIELDS`` of global ``lanes`` as the block found
+    them, ``[len(lanes), 6]`` float64 on every rank of ``mesh``: the owning
+    rank contributes each row and the others -0.0, whose sum keeps every
+    bit (float64 holds the int32 spawn sample exactly), in one all-reduce."""
+    n = st.spawn_sample.shape[0]
+    buf = torch.full((len(lanes), len(_GRAIN_FIELDS)), -0.0, dtype=torch.float64,
+                     device=st.src_pos.device)
+    for i, lane in enumerate(lanes):
+        if lo <= lane < lo + n:
+            buf[i] = torch.stack([getattr(st, f)[lane - lo].to(torch.float64)
+                                  for f in _GRAIN_FIELDS])
+    return mesh.all_reduce(buf)
+
+
+def apply_events(st: GrainState, events: SpawnEvents, block_start: int, mesh=None) -> GrainState:
     """Apply a block's spawns and steals in order (granulator.py:198-236):
     a steal copies its victim's lane as the events before it left it, and
     starts its release fade at the event's offset.  Unused entries (slot -1)
     are skipped on the host; the state's tensors are not modified in
     place.  Host values are written by ``fill_`` (a kernel argument; an
-    assignment would be a blocking copy from the host on the card)."""
+    assignment would be a blocking copy from the host on the card).
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``), ``st`` holds this rank's
+    contiguous lanes and the events' lane ids are global: the rank applies
+    the events whose target it holds, and a steal whose victim lies on
+    another rank takes the victim's fields through one all-reduce a block
+    (only in blocks that hold such a steal; the host sees which)."""
     ev = {f: np.asarray(getattr(events, f)) for f in SpawnEvents._fields}
     used = [k for k in range(ev["slot"].shape[0]) if ev["slot"][k] >= 0]
     if not used:
         return st
-    lanes = st.spawn_sample.shape[0]
+    n = st.spawn_sample.shape[0]
+    lo, size = (0, 1) if mesh is None else (mesh.rank * n, mesh.size)
+    writes = _event_writes(ev, used, n * size)
+    cross = sorted({root for tgt, root, _, _, _ in writes
+                    if isinstance(root, int) and root // n != tgt // n})
+    fetched = _fetch_lanes(st, cross, lo, mesh) if cross else None
     arrs = {f: getattr(st, f).clone() for f in _GRAIN_FIELDS + ("rel_start", "rel_total")}
-    for k in used:
-        tgt, src = int(ev["slot"][k]), int(ev["copy_from"][k])
-        if tgt >= lanes or src >= lanes:
-            raise ValueError(f"granulator event {k}: lane {max(tgt, src)} of {lanes}")
-        start = wrap_i32(block_start + int(ev["offset"][k]))
-        if src >= 0:
-            for f in _GRAIN_FIELDS:
-                arrs[f][tgt] = arrs[f][src]
-            arrs["rel_start"][tgt].fill_(start)
-            arrs["rel_total"][tgt].fill_(float(ev["rel_total"][k]))
-        else:
-            arrs["spawn_sample"][tgt].fill_(start)
+    for tgt, root, steal, offset, rel_total in writes:
+        if not lo <= tgt < lo + n:
+            continue
+        tgt -= lo
+        if isinstance(root, tuple):
+            k = root[1]
+            arrs["spawn_sample"][tgt].fill_(wrap_i32(block_start + int(ev["offset"][k])))
             for f in _GRAIN_FIELDS[1:]:
                 arrs[f][tgt].fill_(float(ev[f][k]))
-            arrs["rel_start"][tgt].fill_(-1)
-            arrs["rel_total"][tgt].fill_(0.0)
+        elif lo <= root < lo + n:
+            for f in _GRAIN_FIELDS:
+                arrs[f][tgt] = getattr(st, f)[root - lo]
+        else:
+            row = fetched[cross.index(root)]
+            for j, f in enumerate(_GRAIN_FIELDS):
+                arrs[f][tgt] = row[j]
+        arrs["rel_start"][tgt].fill_(wrap_i32(block_start + offset) if steal else -1)
+        arrs["rel_total"][tgt].fill_(rel_total if steal else 0.0)
     return st._replace(**arrs)
 
 
@@ -250,6 +295,7 @@ def render_block(
     block_size: int,
     smooth_coeff: float,
     overrides=None,
+    mesh=None,
 ):
     """Render one block → ``(new_state, out[B])`` (mono instrument).
 
@@ -257,10 +303,16 @@ def render_block(
     ``overrides`` maps a parameter name to its ``[B]`` trajectory (as the
     JAX package's LFO routes pass them).  The JAX package's ``grain_read``
     choice has no counterpart: the read is always ``grain_read_cubic``,
-    whose semantics are the gather path's."""
+    whose semantics are the gather path's.  ``mesh`` (a
+    ``parallel.mesh.Mesh``): ``state`` holds this rank's lanes
+    (``parallel.mesh.shard_rack_state``), events keep global lane ids
+    (:func:`apply_events`), and the lane sums ``raw`` and ``count`` are
+    summed over the group in one ``[2, B]`` all-reduce, so the
+    compensation, the drive and the volume run replicated and every rank
+    returns the same ``out``."""
     B = block_size
     block_start = int(block_start)
-    st = apply_events(state, events, block_start)
+    st = apply_events(state, events, block_start, mesh)
     dev = st.src_pos.device
     n_local = torch.arange(B, dtype=torch.int32, device=dev)
     bs = wrap_i32(block_start)
@@ -290,6 +342,9 @@ def render_block(
 
     # --- 1/sqrt(N) gain compensation, 10 ms one-pole (rs:652-660) ------------
     count = torch.sum(active, dim=0).to(torch.float32)
+    if mesh is not None:
+        # the cross-lane seams (granulator.py:289,292): one [2, B] sum
+        raw, count = mesh.all_reduce(torch.stack([raw, count]))
     comp_target = torch.where(
         count > 0, torch.ones_like(count) / torch.sqrt(torch.clamp(count, min=1.0)), 1.0)
     comp_coeff = smoothing_coeff(sample_rate, 10.0)

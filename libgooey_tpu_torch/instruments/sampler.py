@@ -89,21 +89,28 @@ _START_FIELDS = (("start_sample", "offset"), ("base", "base"), ("frames", "frame
                  ("increment", "increment"), ("velocity", "velocity"))
 
 
-def apply_events(st: SamplerState, events: StartEvents, block_start: int) -> SamplerState:
+def apply_events(st: SamplerState, events: StartEvents, block_start: int,
+                 mesh=None) -> SamplerState:
     """Latch a block's starts in order (sampler.py:97-109); unused entries
     (voice -1) are skipped on the host, and the state's tensors are not
     modified in place.  Host values are written by ``fill_`` (a kernel
-    argument, not a blocking copy from the host on the card)."""
+    argument, not a blocking copy from the host on the card).  With
+    ``mesh``, ``st`` holds this rank's contiguous voices and the events'
+    voice ids are global: the rank latches the starts of its voices."""
     ev = {f: np.asarray(getattr(events, f)) for f in StartEvents._fields}
     used = [k for k in range(ev["voice"].shape[0]) if ev["voice"][k] >= 0]
     if not used:
         return st
     V = st.start_sample.shape[0]
+    lo, size = (0, 1) if mesh is None else (mesh.rank * V, mesh.size)
     arrs = {f: getattr(st, f).clone() for f, _ in _START_FIELDS}
     for k in used:
         v = int(ev["voice"][k])
-        if v >= V:
-            raise ValueError(f"sampler event {k}: voice {v} of {V}")
+        if v >= V * size:
+            raise ValueError(f"sampler event {k}: voice {v} of {V * size}")
+        if not lo <= v < lo + V:
+            continue
+        v -= lo
         arrs["start_sample"][v].fill_(wrap_i32(block_start + int(ev["offset"][k])))
         arrs["base"][v].fill_(int(ev["base"][k]))
         for f, col in _START_FIELDS[2:]:
@@ -118,15 +125,19 @@ def render_block(
     *,
     sample_rate: float,
     block_size: int,
+    mesh=None,
 ):
     """Render one block → ``(new_state, out[2, B])``; ``block_start`` is a
     host integer.  The JAX package's ``voice_read`` choice has no
     counterpart: the read is always ``sampler_read_linear``, whose semantics
-    are the gather path's."""
+    are the gather path's.  ``mesh`` (a ``parallel.mesh.Mesh``): ``state``
+    holds this rank's voices (``parallel.mesh.shard_rack_state``), starts
+    keep global voice ids, and ``out`` is summed over the group in one
+    ``[2, B]`` all-reduce, the same on every rank."""
     del sample_rate
     B = block_size
     block_start = int(block_start)
-    st = apply_events(state, events, block_start)
+    st = apply_events(state, events, block_start, mesh)
     n_local = torch.arange(B, dtype=torch.int32, device=st.arena.device)
     start, inc, vel = st.start_sample, st.increment, st.velocity
 
@@ -147,6 +158,8 @@ def render_block(
     ) * vel[:, None]
     contrib = torch.where(active[..., None], frame * gain[..., None], 0.0)
     out = torch.sum(contrib, dim=0).T                                 # [2, B]
+    if mesh is not None:
+        out = mesh.all_reduce(out.contiguous())          # the voice sum (sampler.py:149)
     return st, out
 
 

@@ -15,22 +15,35 @@ voices:
 * the master, the bus and the limiter run replicated on every rank from
   identical sums.
 
-The JAX package drives every device from one controller (``shard_map``);
-here each rank is a process of its own, as ``torch.distributed`` programs
-are: the caller runs ``init_process_group`` (NCCL for one rank a card, gloo
-for the CPU or for ranks sharing a card), builds a :class:`Mesh` with
-:func:`make_mesh`, places its slice with :func:`shard_engine_state` and
-:func:`shard_events`, and calls :func:`render_all_sharded` every block on
-every rank.  :func:`gather_engine_state` and :func:`gather_voices` put the
-full state and the per-voice outputs back together in family order.
+The JAX package drives every device from one controller; here each rank is
+a process of its own, as ``torch.distributed`` programs are: the caller
+runs ``init_process_group`` (NCCL for one rank a card, gloo for the CPU or
+for ranks sharing a card), builds a :class:`Mesh` with :func:`make_mesh`,
+places its slice with :func:`shard_engine_state` and :func:`shard_events`,
+and renders every block on every rank.  :func:`gather_engine_state` and
+:func:`gather_voices` put the full state and the per-voice outputs back
+together in family order.  The JAX package's two sharded paths map so:
+
+* **shard_map** (:func:`render_all_sharded`): the full product scope,
+  fused banks by default; ``poly`` raises there, as in the JAX package.
+* **GSPMD** (JAX: plain ``jit`` over sharded arrays, any feature incl.
+  poly, ``fused_banks=False``): ``engine._render_all(local_state,
+  local_events, mesh=mesh, fused_banks=False, ...)`` on each rank.  A poly
+  synth's six lanes stay on the rank that holds the synth: its ``[S, P]``
+  parameters and its ``[S·6]`` lanes take the rank's contiguous slots
+  (lane = slot·6 + i), and it adds one row a synth to the mix.
+* The granulator's lanes and the sampler's voices (JAX: GSPMD over the
+  lane axis): :func:`shard_rack_state`, then ``render_block(...,
+  mesh=mesh)`` with the events' global lane ids; a rank applies the events
+  on its lanes, and the lane sums are all-reduced.
+  :func:`gather_rack_state` inverts the placement.
 
 The flat mixer banks (pan, gain) and the ``source_matrix`` columns index
-voices in family order ``[f0 voices..., f1 voices..., ...]``.  A rank
-concatenates its local family slices, so rank r takes the rows
-``[o_f + r·v_f/D, o_f + (r+1)·v_f/D)`` of each family f (offset ``o_f``,
-``v_f`` voices): the JAX package's ``perm`` block for shard r.  ``poly`` is
-not supported here, as in the JAX package's ``shard_map`` path (its slot
-parameters do not share the lane axis).
+voices in family order ``[f0 voices..., f1 voices..., ...]`` (a poly synth
+is one voice there).  A rank concatenates its local family slices, so rank
+r takes the rows ``[o_f + r·v_f/D, o_f + (r+1)·v_f/D)`` of each family f
+(offset ``o_f``, ``v_f`` voices): the JAX package's ``perm`` block for
+shard r.
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from libgooey_tpu_torch.engine.engine import _lanes_per_slot
 
 VOICE_AXIS = "voices"
 
@@ -187,15 +202,22 @@ def shard_voice_tree(tree, mesh: Mesh):
 
 
 def _family_sizes(events: dict, kinds) -> tuple:
-    """Each family's voice count (the leading dim of ``<kind>_off``), in
-    ``kinds`` order."""
-    return tuple(int(np.shape(events[k + "_off"])[0]) for k in kinds)
+    """Each family's voice count in the mix, in ``kinds`` order: the
+    leading dim of ``<kind>_off`` over the family's lanes a slot (a poly
+    synth's six lanes are one voice of the mix)."""
+    return tuple(int(np.shape(events[k + "_off"])[0]) // _lanes_per_slot(k) for k in kinds)
 
 
-def _check_divides(sizes, mesh: Mesh):
+def _check_divides(sizes, mesh: Mesh, what="family voice counts"):
     if any(v % mesh.size for v in sizes):
-        raise ValueError(f"family voice counts {list(sizes)} must divide the mesh size "
-                         f"{mesh.size}")
+        raise ValueError(f"{what} {list(sizes)} must divide the mesh size {mesh.size}")
+
+
+def _family_leaf(n: int, kind: str):
+    """Whether a leaf of family ``kind`` with ``n`` voices (slots) in the
+    mix is per voice: its leading dim is ``n`` or, for poly, ``n`` · 6."""
+    lanes = n * _lanes_per_slot(kind)
+    return lambda x: np.ndim(x) >= 1 and np.shape(x)[0] in (n, lanes)
 
 
 def _voice_rows(sizes, rank: int, size: int) -> np.ndarray:
@@ -212,8 +234,11 @@ def shard_engine_state(state: dict, events: dict, kinds, mesh: Mesh) -> dict:
 
     A family leaf is sliced only when its leading dim is the family's
     voice count (from ``events``), so a packed ``[2, K]`` leaf stays whole;
-    ``pan`` and ``gain`` take the rank's voices in its local order (each
-    family's slice in turn); ``master`` and the effects are replicated."""
+    a poly leaf by its synths (``params``) or its lanes, six a synth, both
+    the rank's contiguous synths; the check that the counts divide the
+    group is on synths.  ``pan`` and ``gain`` take the rank's voices in its
+    local order (each family's slice in turn); ``master`` and the effects
+    are replicated."""
     sizes = _family_sizes(events, kinds)
     _check_divides(sizes, mesh)
     rows, whole = voice_sharding(mesh), replicated(mesh)
@@ -221,10 +246,8 @@ def shard_engine_state(state: dict, events: dict, kinds, mesh: Mesh) -> dict:
     out = {}
     for key, sub in state.items():
         if key in kinds:
-            n = sizes[tuple(kinds).index(key)]
-            out[key] = _tree_map(
-                lambda x, n=n: rows(x) if np.ndim(x) >= 1 and np.shape(x)[0] == n else whole(x),
-                sub)
+            per_voice = _family_leaf(sizes[tuple(kinds).index(key)], key)
+            out[key] = _tree_map(lambda x, p=per_voice: rows(x) if p(x) else whole(x), sub)
         elif key in ("pan", "gain"):
             out[key] = _tree_map(lambda x: _pick(whole(x), mix_idx, 0), sub)
         else:
@@ -239,9 +262,10 @@ def _pick(x: torch.Tensor, idx: np.ndarray, dim: int) -> torch.Tensor:
 def shard_events(events: dict, kinds, mesh: Mesh) -> dict:
     """This rank's events, key by key (not by shape): ``<kind>_off``,
     ``<kind>_vel``, ``poly_freq``, ``poly_rel`` and ``bass_freq`` take
-    their leading-axis rows, ``source_matrix`` the columns of the rank's
-    voices in its local order; ``block_start``, ``lfo_*`` and ``fx_*`` are
-    replicated, so an ``[8]`` ``lfo_phase`` stays whole on 8 ranks."""
+    their leading-axis rows (poly's lanes: the rank's synths),
+    ``source_matrix`` the columns of the rank's voices in its local order;
+    ``block_start``, ``lfo_*`` and ``fx_*`` are replicated, so an ``[8]``
+    ``lfo_phase`` stays whole on 8 ranks."""
     voice_keys = set(_VOICE_EVENT_KEYS)
     for k in kinds:
         voice_keys.update((k + "_off", k + "_vel"))
@@ -264,7 +288,9 @@ def render_all_sharded(state: dict, events: dict, *, mesh: Mesh, **static):
     """One engine block on this rank of ``mesh``, from its local state and
     events (:func:`shard_engine_state`, :func:`shard_events`): the rank's
     voices through ``engine._render_all`` with the mesh as its
-    ``psum_axis``, so every rank returns the same mix.
+    ``psum_axis``, so every rank returns the same mix.  ``poly`` raises,
+    as in the JAX package's ``shard_map`` path: a poly-bearing render
+    calls ``engine._render_all(..., mesh=mesh)`` (the module docstring).
 
     Returns ``(new_local_state, out[2, B], mono[B])``, ``out`` and ``mono``
     equal on every rank; with ``collect_sources``, ``(new_local_state,
@@ -295,23 +321,28 @@ def _gather_rows(x: torch.Tensor, mesh: Mesh, inverse=None) -> torch.Tensor:
     return full if inverse is None else full.index_select(0, inverse.to(full.device))
 
 
+def _local_sizes(local_state: dict, kinds) -> tuple:
+    """Each family's local voice count in the mix: its ``trig_sample``
+    rows (lanes) over its lanes a slot."""
+    return tuple(local_state[k].trig_sample.shape[0] // _lanes_per_slot(k) for k in kinds)
+
+
 def gather_engine_state(local_state: dict, kinds, mesh: Mesh) -> dict:
     """The full engine state from every rank's local state (the inverse of
     :func:`shard_engine_state`), on ``mesh.device``, on every rank.
 
     A family leaf is gathered when its leading dim is the family's local
-    voice count (its ``trig_sample`` rows; every family leaf of the port is
-    voice-led); ``pan`` and ``gain`` go back to family order; every other
-    entry is this rank's (replicated) copy."""
-    local_sizes = tuple(local_state[k].trig_sample.shape[0] for k in kinds)
+    voice count in the mix or, for poly, its local lanes (every family leaf
+    of the port is voice-led); ``pan`` and ``gain`` go back to family
+    order; every other entry is this rank's (replicated) copy."""
+    local_sizes = _local_sizes(local_state, kinds)
     inverse = _inverse_rows(local_sizes, mesh)
     out = {}
     for key, sub in local_state.items():
         if key in kinds:
-            n = local_sizes[tuple(kinds).index(key)]
+            per_voice = _family_leaf(local_sizes[tuple(kinds).index(key)], key)
             out[key] = _tree_map(
-                lambda x, n=n: _gather_rows(x, mesh) if x.dim() >= 1 and x.shape[0] == n
-                else x, sub)
+                lambda x, p=per_voice: _gather_rows(x, mesh) if p(x) else x, sub)
         elif key in ("pan", "gain"):
             out[key] = _tree_map(lambda x: _gather_rows(x, mesh, inverse), sub)
         else:
@@ -323,7 +354,39 @@ def gather_voices(all_voices: torch.Tensor, voice_peaks: torch.Tensor, local_sta
                   kinds, mesh: Mesh):
     """The full ``[V, B]`` voices and ``[V]`` peaks in family order from
     every rank's ``collect_sources`` outputs, on every rank."""
-    local_sizes = tuple(local_state[k].trig_sample.shape[0] for k in kinds)
+    local_sizes = _local_sizes(local_state, kinds)
     inverse = _inverse_rows(local_sizes, mesh)
     return (_gather_rows(all_voices, mesh, inverse),
             _gather_rows(voice_peaks, mesh, inverse))
+
+
+#: the rack fields every rank holds whole: the granulator's source buffer,
+#: parameters, 1/sqrt(N) compensation, buffer rate and drive oversampler,
+#: the sampler's arena; every other field is one row a lane (voice)
+RACK_REPLICATED = ("buffer", "arena", "params", "gain_comp", "buffer_sr", "ovs")
+
+
+def _rack_lanes(state) -> int:
+    """A granulator's or sampler's lane (voice) count: the rows of its
+    first per-lane field."""
+    return getattr(state, next(f for f in state._fields if f not in RACK_REPLICATED)).shape[0]
+
+
+def shard_rack_state(state, mesh: Mesh):
+    """This rank's part of a granulator (``GrainState``) or sampler
+    (``SamplerState``) state: every per-lane field its rows ``[r·n/D,
+    (r+1)·n/D)``, the fields of :data:`RACK_REPLICATED` whole, whatever
+    their shapes (a 4,096-sample buffer is not split).  The lane count must
+    divide the group's size."""
+    _check_divides((_rack_lanes(state),), mesh, "rack lanes")
+    rows, whole = voice_sharding(mesh), replicated(mesh)
+    return type(state)(*(_tree_map(whole if f in RACK_REPLICATED else rows, v)
+                         for f, v in zip(state._fields, state)))
+
+
+def gather_rack_state(local_state, mesh: Mesh):
+    """The full rack state from every rank's part (the inverse of
+    :func:`shard_rack_state`), on every rank: the per-lane fields gathered
+    in rank order, the replicated ones this rank's copy."""
+    return type(local_state)(*(v if f in RACK_REPLICATED else _gather_rows(v, mesh)
+                               for f, v in zip(local_state._fields, local_state)))

@@ -1,14 +1,25 @@
 """The ranks of the port's sharded render for tests/test_torch_mesh.py.
 
 ``run(size, scenarios, tmp)`` starts ``size`` gloo ranks on the CPU (one
-process each, ``file://`` init in ``tmp``) that render every scenario
-through ``parallel.mesh.render_all_sharded`` and returns rank 0's results.
-A scenario is ``{"state": full port state, "events": [block event dicts],
-"static": _render_all's keywords}``; its result holds the blocks' ``out``
-and ``mono`` (or ``sources``, ``voices`` and ``peaks`` with
-``collect_sources``), whether every rank's blocks equal rank 0's bit for
-bit, the final state gathered to family order, and whether gathering the
-first shard gives the full state back bit for bit.
+process each, ``file://`` init in ``tmp``) that render every scenario and
+returns rank 0's results.  A scenario is ``{"state": full port state,
+"events": [block events], "static": keywords}`` and, optionally, its
+``"path"``:
+
+* ``"sharded"`` (the default): ``parallel.mesh.render_all_sharded`` with
+  ``_render_all``'s keywords;
+* ``"engine"``: ``engine._render_all(..., mesh=mesh)`` itself, the path of
+  a poly-bearing render (the JAX package's GSPMD path);
+* ``"granulator"`` / ``"sampler"``: the rack's ``render_block(...,
+  mesh=mesh)`` on ``parallel.mesh.shard_rack_state``'s lanes, block ``i``
+  starting at ``i · block_size``, events (``SpawnEvents`` /
+  ``StartEvents``) with global lane ids; ``static`` holds the keywords.
+
+An engine result holds the blocks' ``out`` and ``mono`` (or ``sources``,
+``voices`` and ``peaks`` with ``collect_sources``), a rack's ``out``;
+whether every rank's blocks equal rank 0's bit for bit, the final state
+gathered (to family order), and whether gathering the first shard gives
+the full state back bit for bit.
 
 This module imports torch and the port only: each rank is a fresh
 interpreter, and none of it needs JAX.
@@ -43,15 +54,41 @@ def _same(a, b) -> bool:
     return a == b
 
 
+def _rack(sc: dict, mesh) -> dict:
+    from libgooey_tpu_torch.instruments import granulator, sampler
+
+    mod = granulator if sc["path"] == "granulator" else sampler
+    full = sc["state"]
+    state = pmesh.shard_rack_state(full, mesh)
+    roundtrip = _same(pmesh.gather_rack_state(state, mesh), full)
+    outs = []
+    for i, ev in enumerate(sc["events"]):
+        state, out = mod.render_block(state, ev, i * sc["static"]["block_size"], mesh=mesh,
+                                      **sc["static"])
+        outs.append(out)
+    out = torch.stack(outs)
+    return {"roundtrip": roundtrip, "state": pmesh.gather_rack_state(state, mesh), "out": out,
+            "ranks_equal": all(_same(out, other) for other in mesh.all_gather(out))}
+
+
+def _render(sc: dict, state, events, mesh):
+    if sc.get("path", "sharded") == "sharded":
+        return pmesh.render_all_sharded(state, events, mesh=mesh, **sc["static"])
+    from libgooey_tpu_torch.engine import engine
+
+    return engine._render_all(state, events, mesh=mesh, **sc["static"])
+
+
 def _scenario(sc: dict, mesh) -> dict:
+    if sc.get("path") in ("granulator", "sampler"):
+        return _rack(sc, mesh)
     kinds = sc["static"]["kinds"]
     full = sc["state"]
     state = pmesh.shard_engine_state(full, sc["events"][0], kinds, mesh)
     roundtrip = _same(pmesh.gather_engine_state(state, kinds, mesh), full)
     blocks = []
     for ev in sc["events"]:
-        got = pmesh.render_all_sharded(state, pmesh.shard_events(ev, kinds, mesh), mesh=mesh,
-                                       **sc["static"])
+        got = _render(sc, state, pmesh.shard_events(ev, kinds, mesh), mesh)
         state = got[0]
         blocks.append(got[1:])
     res = {"roundtrip": roundtrip, "state": pmesh.gather_engine_state(state, kinds, mesh)}
