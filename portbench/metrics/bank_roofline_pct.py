@@ -1,0 +1,9 @@
+"""bank_roofline_pct: the least time of the bank group's work a block
+(``work/bank.json`` at the cell's widths) over the group's device time in
+the trace, in percent."""
+
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.roofline_pct(ctx, "bank")
